@@ -1,10 +1,12 @@
 """apex_tpu_torch: the PyTorch/CUDA port of apex_tpu for NVIDIA Hopper.
 
 A package of its own beside ``apex_tpu`` (the JAX reference, which it
-never imports). It holds GPT serving end to end: the transformer stack,
-the GPT model, ``generate`` and the continuous-batching engine, with the
-TPU package's Pallas kernels on that path rewritten by hand in CUDA C++
-for ``sm_90a`` (``csrc/``, built and loaded by ``_kernels``).
+never imports). It holds GPT serving end to end (the transformer stack,
+the GPT model, ``generate`` and the continuous-batching engine) and the
+single-GPU GPT training step (the loss, loss scaling, the anomaly
+sentinel and fused Adam, built by ``resilience.replay.build_gpt_training``),
+with the TPU package's Pallas kernels on those paths rewritten by hand in
+CUDA C++ for ``sm_90a`` (``csrc/``, built and loaded by ``_kernels``).
 
 Device rule (replacing the JAX package's ``impl=`` switch): a CUDA
 tensor goes to the hand-written kernel or raises; a CPU tensor takes the

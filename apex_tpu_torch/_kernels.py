@@ -31,8 +31,9 @@ from typing import Dict, List, Optional
 import torch
 
 __all__ = [
-    "FLASH_FWD", "KERNELS", "LAYER_NORM_FWD", "Kernel", "build_all",
-    "dtype_code", "launch_counts", "reset_launch_counts", "resolve_device",
+    "ADAM", "FLASH_BWD_DKV", "FLASH_BWD_DQ", "FLASH_FWD", "KERNELS",
+    "LAYER_NORM_BWD", "LAYER_NORM_FWD", "Kernel", "build_all", "dtype_code",
+    "launch_counts", "reset_launch_counts", "resolve_device", "wants_grad",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -56,6 +57,14 @@ def resolve_device(device) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def wants_grad(*tensors) -> bool:
+    """Does a call on these tensors (None allowed) record a gradient? The
+    ops take their autograd Function, whose backward is a kernel, only
+    then; under ``torch.no_grad()`` they launch the forward kernel alone."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def dtype_code(t: torch.Tensor) -> int:
@@ -136,6 +145,7 @@ class Kernel:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 
 LAYER_NORM_FWD = Kernel(
     "layer_norm", "layer_norm_fwd",
@@ -148,8 +158,32 @@ FLASH_FWD = Kernel(
     # window, dtype, stream
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
 )
+LAYER_NORM_BWD = Kernel(
+    "layer_norm", "layer_norm_bwd",
+    # x, w, dy, dx, part, out, rows, hidden, part_blocks, eps, dtype, stream
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+)
+FLASH_BWD_DQ = Kernel(
+    "flash_attention_bwd", "flash_bwd_dq",
+    # q, k, v, do, lse, delta, kpm, dq, bh, sq, sk, d, heads, group, scale,
+    # causal, window, dtype, stream
+    [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _P],
+)
+FLASH_BWD_DKV = Kernel(
+    "flash_attention_bwd", "flash_bwd_dkv",
+    # q, k, v, do, lse, delta, kpm, dk, dv, bh, sq, sk, d, heads, group,
+    # scale, causal, window, dtype, stream
+    [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _P],
+)
+ADAM = Kernel(
+    "adam", "adam_update",
+    # g, p, m, v, bc1, bc2, upd, m_out, v_out, n, -lr, beta1, 1 - beta1,
+    # beta2, 1 - beta2, eps, weight_decay, adam_w, stream
+    [_P] * 9 + [_L] + [_F] * 7 + [_I, _P],
+)
 KERNELS: Dict[str, Kernel] = {
-    k.symbol: k for k in (LAYER_NORM_FWD, FLASH_FWD)
+    k.symbol: k for k in (LAYER_NORM_FWD, LAYER_NORM_BWD, FLASH_FWD,
+                          FLASH_BWD_DQ, FLASH_BWD_DKV, ADAM)
 }
 
 

@@ -1,8 +1,9 @@
-// LayerNorm forward for Hopper (sm_90a).
+// LayerNorm forward and backward for Hopper (sm_90a).
 //
-// Replaces apex_tpu/ops/layer_norm.py:_ln_fwd_kernel (called through
-// _ln_pallas_fwd): y = (x - mean) * rsqrt(var + eps) * w + b per row, with
-// the statistics in fp32 and y in x's dtype.
+// The forward replaces apex_tpu/ops/layer_norm.py:_ln_fwd_kernel (called
+// through _ln_pallas_fwd): y = (x - mean) * rsqrt(var + eps) * w + b per row,
+// with the statistics in fp32 and y in x's dtype. The backward (at the end of
+// this file) replaces _ln_bwd_kernel.
 //
 // What bounds it on the card: bytes. Each element is read once and written
 // once and costs a handful of flops, so the least time is
@@ -118,6 +119,133 @@ int launch(const void* x, const void* w, const void* b, void* y, int rows, int h
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Backward
+//
+// Replaces apex_tpu/ops/layer_norm.py:_ln_bwd_kernel (called through
+// _ln_pallas_bwd). Per row, with the statistics recomputed from the saved x:
+//   xhat = (x - mean) * rstd,  dyw = dy * w,
+//   dx = (dyw - mean(dyw) - xhat * mean(dyw * xhat)) * rstd   (in x's dtype)
+// and over all rows dgamma = sum(dy * xhat), dbeta = sum(dy) in fp32.
+//
+// What bounds it on the card: bytes. It reads x and dy and writes dx, a
+// handful of flops per element, so the least time is
+// 3 * rows * hidden * sizeof(T) over the 3.35 TB/s of HBM.
+//
+// Design. The TPU kernel carries dgamma/dbeta from one grid step to the next;
+// Hopper runs blocks in no order, so the sum over rows takes two kernels and
+// no float atomics (the replay tooling wants bit-stable steps, and atomics
+// would add in a different order on every run):
+// 1. layer_norm_bwd_kernel: a block owns kBwdRows consecutive rows. First one
+//    warp per row reduces mean, rstd, mean(dyw) and mean(dyw * xhat) into
+//    shared memory (warp shuffles, as in the forward). Then the block sweeps
+//    the columns, one thread per column: for each of its rows, in order, it
+//    writes dx and adds dy * xhat and dy into two registers, and at the end
+//    writes the block's partial sums to a (2, blocks, hidden) fp32 scratch
+//    the wrapper allocates. The second read of the block's rows mostly hits
+//    L1/L2 (kBwdRows * hidden * 2 * sizeof(T) bytes).
+// 2. layer_norm_bwd_sum_kernel: per column, sums the blocks' partials in a
+//    fixed order (8 strided groups, then the 8 group sums in order).
+// Every row count and hidden size works; there is no padding.
+
+constexpr int kBwdRows = 32;
+constexpr int kBwdThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+layer_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                      const T* __restrict__ dy, T* __restrict__ dx,
+                      float* __restrict__ part, int rows, int hidden, float eps) {
+  __shared__ float s_mean[kBwdRows], s_rstd[kBwdRows], s_m1[kBwdRows], s_m2[kBwdRows];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long r0 = (long)blockIdx.x * kBwdRows;
+  const int nr = (int)(rows - r0 < kBwdRows ? rows - r0 : kBwdRows);
+
+  for (int r = warp; r < nr; r += kBwdThreads / 32) {
+    const T* xr = x + (r0 + r) * hidden;
+    const T* dyr = dy + (r0 + r) * hidden;
+    const bool vec = (hidden % Vec<T>::N == 0) &&
+                     (reinterpret_cast<uintptr_t>(xr) % 16 == 0);
+    float s = 0.f;
+    for_row(xr, hidden, vec, lane, [&](int, float v) { s += v; });
+    const float mean = warp_sum(s) / hidden;
+    float ss = 0.f;
+    for_row(xr, hidden, vec, lane, [&](int, float v) {
+      const float d = v - mean;
+      ss += d * d;
+    });
+    const float rstd = rsqrtf(warp_sum(ss) / hidden + eps);
+    float a = 0.f, c = 0.f;
+    for_row(xr, hidden, vec, lane, [&](int i, float v) {
+      const float dyw = to_f(dyr[i]) * (w ? w[i] : 1.f);
+      a += dyw;
+      c += dyw * ((v - mean) * rstd);
+    });
+    a = warp_sum(a);
+    c = warp_sum(c);
+    if (lane == 0) {
+      s_mean[r] = mean;
+      s_rstd[r] = rstd;
+      s_m1[r] = a / hidden;
+      s_m2[r] = c / hidden;
+    }
+  }
+  __syncthreads();
+
+  float* part_g = part + (long)blockIdx.x * hidden;
+  float* part_b = part + ((long)gridDim.x + blockIdx.x) * hidden;
+  for (int col = threadIdx.x; col < hidden; col += kBwdThreads) {
+    const float wc = w ? w[col] : 1.f;
+    float g = 0.f, bb = 0.f;
+    for (int r = 0; r < nr; ++r) {
+      const long off = (r0 + r) * hidden + col;
+      const float xhat = (to_f(x[off]) - s_mean[r]) * s_rstd[r];
+      const float d = to_f(dy[off]);
+      dx[off] = from_f<T>((d * wc - s_m1[r] - xhat * s_m2[r]) * s_rstd[r]);
+      g += d * xhat;
+      bb += d;
+    }
+    part_g[col] = g;
+    part_b[col] = bb;
+  }
+}
+
+// out[k][col] = sum over blocks of part[k][block][col], k = 0 (dgamma), 1 (dbeta).
+// A block owns 32 columns; its 8 warps each sum every 8th block's row.
+__global__ void __launch_bounds__(256)
+layer_norm_bwd_sum_kernel(const float* __restrict__ part, int blocks, int hidden,
+                          float* __restrict__ out) {
+  __shared__ float red[8][33];
+  const int lane = threadIdx.x & 31, grp = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + lane;
+  const float* p = part + (long)blockIdx.y * blocks * hidden;
+  float s = 0.f;
+  if (col < hidden)
+    for (int b = grp; b < blocks; b += 8) s += p[(long)b * hidden + col];
+  red[grp][lane] = s;
+  __syncthreads();
+  if (grp == 0 && col < hidden) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) t += red[k][lane];
+    out[(long)blockIdx.y * hidden + col] = t;
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* w, const void* dy, void* dx, float* part,
+               float* out, int rows, int hidden, float eps, cudaStream_t stream) {
+  const int blocks = (rows + kBwdRows - 1) / kBwdRows;
+  layer_norm_bwd_kernel<T><<<blocks, kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const T*>(dy),
+      static_cast<T*>(dx), part, rows, hidden, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((hidden + 31) / 32, 2);
+  layer_norm_bwd_sum_kernel<<<grid, 256, 0, stream>>>(part, blocks, hidden, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. w and b are fp32 (hidden,) or null.
@@ -128,5 +256,24 @@ extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b, void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(x, w, b, y, rows, hidden, eps, s);
   if (dtype == 1) return launch<__nv_bfloat16>(x, w, b, y, rows, hidden, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// x, dy, dx: (rows, hidden) in the dtype's type; w: fp32 (hidden,) or null
+// (then w = 1). part: fp32 scratch of (2, part_blocks, hidden) with
+// part_blocks = ceil(rows / 32); out: fp32 (2, hidden) = (dgamma, dbeta).
+// Returns the cudaError_t of the launches (0 = success).
+extern "C" int layer_norm_bwd(const void* x, const void* w, const void* dy, void* dx,
+                              void* part, void* out, int rows, int hidden, int part_blocks,
+                              float eps, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hidden <= 0 || rows < 0) return (int)cudaErrorInvalidValue;
+  if (part_blocks != (rows + kBwdRows - 1) / kBwdRows) return (int)cudaErrorInvalidValue;
+  if (rows == 0)
+    return (int)cudaMemsetAsync(out, 0, 2 * sizeof(float) * (size_t)hidden, s);
+  float* p = static_cast<float*>(part);
+  float* o = static_cast<float*>(out);
+  if (dtype == 0) return launch_bwd<float>(x, w, dy, dx, p, o, rows, hidden, eps, s);
+  if (dtype == 1) return launch_bwd<__nv_bfloat16>(x, w, dy, dx, p, o, rows, hidden, eps, s);
   return (int)cudaErrorInvalidValue;
 }

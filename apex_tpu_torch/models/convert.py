@@ -1,9 +1,13 @@
-"""Weights from the JAX package's GPT parameter tree.
+"""Weights and training state from the JAX package's trees.
 
 The port's modules carry the flax names and the flax ``(in, out)``
 kernel layout, so a flax ``params`` tree maps onto the port's
 ``state_dict`` by joining each path with dots: nothing is transposed or
 regrouped (the fused QKV kernel is per-head interleaved on both sides).
+The same naming carries the JAX ``fused_adam`` moments (per leaf, or one
+flat buffer already in the shared leaf order) and the loss scaler's
+state, so both frameworks can start from one mid-training state. Inputs
+are trees of numpy arrays (``jax.tree_util.tree_map(np.asarray, ...)``).
 """
 
 from typing import Any, Dict
@@ -11,13 +15,17 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["gpt_params_from_jax"]
+from apex_tpu_torch._kernels import resolve_device
+from apex_tpu_torch.amp.scaler import LossScalerState
+from apex_tpu_torch.optimizers.fused_adam import FusedAdamState
+
+__all__ = ["fused_adam_state_from_jax", "gpt_params_from_jax",
+           "scaler_state_from_jax"]
 
 
 def gpt_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The port's ``GPTModel`` state_dict from a JAX ``GPTModel`` params
-    tree (nested dicts of numpy arrays, e.g. ``variables["params"]``
-    after ``jax.tree_util.tree_map(np.asarray, ...)``)."""
+    tree (nested dicts of numpy arrays, e.g. ``variables["params"]``)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -29,3 +37,38 @@ def gpt_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(params, ())
     return out
+
+
+def _tensor(x, device, dtype=None):
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def fused_adam_state_from_jax(state, device="cuda") -> FusedAdamState:
+    """The port's ``FusedAdamState`` from a JAX ``FusedAdamState`` of
+    either engine: tree moments become dicts keyed like the port's
+    parameters (a leading ``{"params": ...}`` level of a flax variables
+    tree is dropped), flat moments stay one fp32 buffer, whose order the
+    two frameworks share."""
+    dev = resolve_device(device)
+
+    def moments(tree):
+        if isinstance(tree, dict):
+            if set(tree) == {"params"}:
+                tree = tree["params"]
+            return {k: v.to(dev) for k, v in gpt_params_from_jax(tree).items()}
+        return _tensor(tree, dev, torch.float32)
+
+    step, exp_avg, exp_avg_sq = state
+    return FusedAdamState(_tensor(step, dev, torch.int32), moments(exp_avg),
+                          moments(exp_avg_sq))
+
+
+def scaler_state_from_jax(state, device="cuda") -> LossScalerState:
+    """The port's ``LossScalerState`` from a JAX ``LossScalerState``."""
+    dev = resolve_device(device)
+    return LossScalerState(
+        scale=_tensor(state.scale, dev, torch.float32),
+        growth_tracker=_tensor(state.growth_tracker, dev, torch.int32),
+        skipped=_tensor(state.skipped, dev, torch.int32),
+        hysteresis_tracker=_tensor(state.hysteresis_tracker, dev,
+                                   torch.int32))

@@ -2,7 +2,8 @@
 
 Tokens are (batch, seq); hidden states run (seq, batch, hidden) through
 the stack; the output is fp32 logits (batch, seq, vocab) from the tied
-embedding (or an untied ``output_layer``). No loss yet: the port serves.
+embedding (or an untied ``output_layer``), or, given ``labels``, the
+per-token fp32 cross-entropy losses that :func:`gpt_loss_fn` averages.
 
 Weights are random, drawn from a ``torch.Generator`` seeded by ``seed``
 with the JAX package's initializer scales (normal 0.02 for the tables,
@@ -18,6 +19,7 @@ import torch
 from torch import nn
 
 from apex_tpu_torch._kernels import resolve_device
+from apex_tpu_torch.parallel.cross_entropy import vocab_parallel_cross_entropy
 from apex_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
     VocabParallelEmbedding,
@@ -30,7 +32,7 @@ from apex_tpu_torch.transformer.layer import (
     check_supported,
 )
 
-__all__ = ["Embedding", "GPTModel", "gpt2_small_config"]
+__all__ = ["Embedding", "GPTModel", "gpt2_small_config", "gpt_loss_fn"]
 
 
 def gpt2_small_config(**overrides) -> TransformerConfig:
@@ -95,7 +97,6 @@ class GPTModel(nn.Module):
             config, post_layer_norm=True,
             attn_mask_type=AttnMaskType.causal, device=device)
         self.init_weights(seed)
-        self.eval()  # inference only: the port has no dropout or backward
 
     @property
     def device(self) -> torch.device:
@@ -156,8 +157,25 @@ class GPTModel(nn.Module):
         return out.transpose(0, 1)
 
     def forward(self, tokens, position_ids=None, key_padding_mask=None,
-                cache: Optional[KVCache] = None, decode_step: bool = False):
+                cache: Optional[KVCache] = None, decode_step: bool = False,
+                labels=None, loss_mask=None):
         """fp32 logits (b, s, vocab) of (b, s) tokens (see
-        :meth:`hidden_states` for the cache arguments)."""
-        return self.logits(self.hidden_states(
+        :meth:`hidden_states` for the cache arguments); with ``labels``
+        (b, s), the fp32 per-token losses instead, times ``loss_mask``
+        where one is given."""
+        logits = self.logits(self.hidden_states(
             tokens, position_ids, key_padding_mask, cache, decode_step))
+        if labels is None:
+            return logits
+        losses = vocab_parallel_cross_entropy(logits, labels)
+        if loss_mask is not None:
+            losses = losses * loss_mask
+        return losses
+
+
+def gpt_loss_fn(losses, loss_mask=None):
+    """Mean loss over the unmasked tokens."""
+    if loss_mask is None:
+        return losses.mean()
+    m = loss_mask.float()
+    return (losses * m).sum() / torch.clamp_min(m.sum(), 1.0)

@@ -1,4 +1,6 @@
 """Ops with hand-written CUDA kernels and their plain PyTorch versions:
 ``ops.layer_norm`` (``layer_norm``, ``rms_norm``) and ``ops.attention``
-(``flash_attention``, ``causal_mask``, ``window_mask``). The functions are
-not re-exported here, so that ``ops.layer_norm`` stays the module."""
+(``flash_attention``, ``causal_mask``, ``window_mask``), both
+differentiable through their backward kernels; and ``ops.multi_tensor``
+(flat buffers of a parameter collection). The functions are not
+re-exported here, so that ``ops.layer_norm`` stays the module."""

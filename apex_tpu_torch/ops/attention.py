@@ -1,12 +1,21 @@
-"""Flash attention forward (counterpart of apex_tpu/ops/attention.py).
+"""Flash attention (counterpart of apex_tpu/ops/attention.py).
 
 ``flash_attention(q, k, v)`` takes (batch, heads, seq, head_dim) tensors,
 with causal masking, a (b, sk) key-padding mask, a sliding window, GQA
 (k/v with fewer heads) and an explicit scale, like the JAX function.
 Device rule instead of the JAX ``impl=`` switch: on CUDA tensors it
-launches the hand-written kernel (``csrc/flash_attention.cu``), on CPU
-tensors it runs :func:`_attn_ref`. A dense ``mask`` goes to
-:func:`_attn_ref` on either device, as it goes to ``_attn_ref`` in JAX.
+launches the hand-written kernels (``csrc/flash_attention.cu`` forward,
+``csrc/flash_attention_bwd.cu`` dq and dk/dv), on CPU tensors it runs
+their plain versions :func:`_flash_fwd_ref` and :func:`_flash_bwd_ref`.
+A dense ``mask`` goes to :func:`_attn_ref` on either device, as it goes
+to ``_attn_ref`` in JAX, and autograd differentiates it there.
+
+When a gradient is wanted, the kernels run inside :class:`_FlashFn`
+(the JAX ``custom_vjp`` around ``_flash``): the forward saves q, k, v,
+the key-padding mask, o and the fp32 log-sum-exp; the backward computes
+delta = rowsum(dO * o) in plain torch, as ``_flash_bwd`` does outside
+its kernels, then launches the dq and the dk/dv kernel. The mask gets no
+gradient.
 
 The JAX package's ``_attn_blockwise`` has no counterpart: it routes
 around the TPU kernel's K/V residency limit, and the CUDA kernel streams
@@ -62,12 +71,66 @@ def _attn_ref(q, k, v, scale, causal, mask=None, window=None):
     return out.masked_fill(dead, 0)
 
 
-def _flash_kernel(q, k, v, scale, causal, key_padding_mask=None,
-                  window=None):
-    """(o, lse) from the CUDA kernel; o like q, lse fp32 (b, h, sq)."""
+def _keep_mask(sq, sk, causal, window, key_padding_mask, device):
+    """Bool (b or 1, 1, sq, sk), True where a query attends a key."""
+    keep = torch.ones((1, 1, sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        keep = keep & ~causal_mask(sq, sk, device)
+    if window is not None:
+        keep = keep & ~window_mask(sq, sk, window, device)
+    if key_padding_mask is not None:
+        keep = keep & ~key_padding_mask.bool()[:, None, None, :]
+    return keep
+
+
+def _flash_fwd_ref(q, k, v, scale, causal, key_padding_mask=None,
+                   window=None):
+    """Plain (o, lse): o from :func:`_flash_ref`, lse the fp32
+    log-sum-exp of the kept scaled scores, +1e30 on a row whose keys are
+    all masked (the kernel's dead-row sentinel)."""
+    o = _flash_ref(q, k, v, scale, causal, None, key_padding_mask, window)
+    group = q.shape[1] // k.shape[1]
+    s = torch.matmul(q.float(), k.repeat_interleave(group, dim=1).float()
+                     .transpose(-1, -2)) * scale
+    keep = _keep_mask(s.shape[-2], s.shape[-1], causal, window,
+                      key_padding_mask, s.device)
+    lse = torch.logsumexp(s.masked_fill(~keep, -math.inf), dim=-1)
+    return o, lse.masked_fill(~keep.any(dim=-1), -_NEG_INF)
+
+
+def _flash_bwd_ref(q, k, v, do, lse, delta, scale, causal,
+                   key_padding_mask=None, window=None):
+    """Plain (dq, dk, dv), the recompute formulas of the dq and dk/dv
+    kernels with the whole score matrix: p = exp(s * scale - lse) where
+    kept, ds = p * (dp - delta) * scale; p and ds are rounded to q's
+    dtype before the products, as the TPU kernels round them. GQA sums
+    dk and dv over each kv head's query group."""
     b, h, sq, d = q.shape
     h_kv, sk = k.shape[1], k.shape[2]
-    code = _kernels.dtype_code(q)
+    group = h // h_kv
+    kf = k.repeat_interleave(group, dim=1).float()
+    vf = v.repeat_interleave(group, dim=1).float()
+    qf, dof = q.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    keep = _keep_mask(sq, sk, causal, window, key_padding_mask, s.device)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    if group > 1:
+        dk = dk.reshape(b, h_kv, group, sk, d).sum(dim=2)
+        dv = dv.reshape(b, h_kv, group, sk, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_args(q, k, v, key_padding_mask):
+    """Raises on what the CUDA kernels do not take; returns the int32
+    (b, sk) key-padding row or None."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    _kernels.dtype_code(q)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
@@ -78,17 +141,25 @@ def _flash_kernel(q, k, v, scale, causal, key_padding_mask=None,
     if b * h > 65535:
         raise ValueError(f"the flash kernel takes batch*heads <= 65535, "
                          f"got {b * h}")
+    if key_padding_mask is None:
+        return None
+    if tuple(key_padding_mask.shape) != (b, sk):
+        raise ValueError(f"key_padding_mask shape "
+                         f"{tuple(key_padding_mask.shape)} is not "
+                         f"({b}, {sk})")
+    return key_padding_mask.to(device=q.device, dtype=torch.int32).contiguous()
+
+
+def _flash_kernel(q, k, v, scale, causal, key_padding_mask=None,
+                  window=None):
+    """(o, lse) from the CUDA kernel; o like q, lse fp32 (b, h, sq)."""
+    b, h, sq, d = q.shape
+    h_kv, sk = k.shape[1], k.shape[2]
+    kpm = _check_kernel_args(q, k, v, key_padding_mask)
+    code = _kernels.dtype_code(q)
     q3 = q.reshape(b * h, sq, d).contiguous()
     k3 = k.reshape(b * h_kv, sk, d).contiguous()
     v3 = v.reshape(b * h_kv, sk, d).contiguous()
-    kpm = None
-    if key_padding_mask is not None:
-        if tuple(key_padding_mask.shape) != (b, sk):
-            raise ValueError(f"key_padding_mask shape "
-                             f"{tuple(key_padding_mask.shape)} is not "
-                             f"({b}, {sk})")
-        kpm = key_padding_mask.to(device=q.device,
-                                  dtype=torch.int32).contiguous()
     o = torch.empty_like(q3)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     _kernels.FLASH_FWD(
@@ -98,6 +169,54 @@ def _flash_kernel(q, k, v, scale, causal, key_padding_mask=None,
         int(causal), int(window or 0), code,
     )
     return o.reshape(b, h, sq, d), lse.reshape(b, h, sq)
+
+
+def _flash_bwd_kernel(q, k, v, do, lse, delta, scale, causal,
+                      key_padding_mask=None, window=None):
+    """(dq, dk, dv) from the dq and dk/dv CUDA kernels; dk and dv come
+    out already summed over each kv head's query group."""
+    b, h, sq, d = q.shape
+    h_kv, sk = k.shape[1], k.shape[2]
+    kpm = _check_kernel_args(q, k, v, key_padding_mask)
+    code = _kernels.dtype_code(q)
+    q3 = q.reshape(b * h, sq, d).contiguous()
+    k3 = k.reshape(b * h_kv, sk, d).contiguous()
+    v3 = v.reshape(b * h_kv, sk, d).contiguous()
+    do3 = do.to(q.dtype).reshape(b * h, sq, d).contiguous()
+    lse3 = lse.float().reshape(b * h, sq).contiguous()
+    delta3 = delta.float().reshape(b * h, sq).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q3, k3, v3))
+    kpm_ptr = None if kpm is None else kpm.data_ptr()
+    common = (b * h, sq, sk, d, h, h // h_kv, float(scale), int(causal),
+              int(window or 0), code)
+    ins = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+           lse3.data_ptr(), delta3.data_ptr(), kpm_ptr)
+    _kernels.FLASH_BWD_DQ(*ins, dq.data_ptr(), *common)
+    _kernels.FLASH_BWD_DKV(*ins, dk.data_ptr(), dv.data_ptr(), *common)
+    return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
+
+
+class _FlashFn(torch.autograd.Function):
+    """Flash attention whose backward is the dq and dk/dv kernels on the
+    card and :func:`_flash_bwd_ref` on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_padding_mask, scale, causal, window):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        fwd = _flash_kernel if q.is_cuda else _flash_fwd_ref
+        o, lse = fwd(q, k, v, scale, causal, key_padding_mask, window)
+        ctx.save_for_backward(q, k, v, key_padding_mask, o, lse)
+        ctx.cfg = (scale, causal, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kpm, o, lse = ctx.saved_tensors
+        scale, causal, window = ctx.cfg
+        delta = (do.float() * o.float()).sum(dim=-1)  # (b, h, sq) fp32
+        bwd = _flash_bwd_kernel if q.is_cuda else _flash_bwd_ref
+        dq, dk, dv = bwd(q, k, v, do, lse, delta, scale, causal, kpm, window)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = False, scale: float = None,
@@ -121,9 +240,13 @@ def flash_attention(q, k, v, causal: bool = False, scale: float = None,
             raise ValueError(f"window must be >= 1, got {window}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if q.is_cuda and mask is None:
-        return _flash_kernel(q, k, v, scale, causal, key_padding_mask,
-                             window)[0]
+    if mask is None:
+        if _kernels.wants_grad(q, k, v):
+            return _FlashFn.apply(q, k, v, key_padding_mask, scale, causal,
+                                  window)
+        if q.is_cuda:
+            return _flash_kernel(q, k, v, scale, causal, key_padding_mask,
+                                 window)[0]
     return _flash_ref(q, k, v, scale, causal, mask, key_padding_mask, window)
 
 

@@ -3,13 +3,18 @@
 Statistics are fp32, the output keeps the input's dtype, and the
 parameters may have any dtype (the reference's "mixed" variants need no
 separate path). Device rule instead of the JAX ``impl=`` switch: on a
-CUDA tensor ``layer_norm`` launches the hand-written kernel
+CUDA tensor ``layer_norm`` launches the hand-written kernels
 (``csrc/layer_norm.cu``) for any hidden size, and on a CPU tensor it
-runs :func:`_ln_ref`. ``rms_norm`` has no kernel yet (its TPU kernel is
-still to be ported), so on a CUDA tensor it raises.
+runs their plain versions :func:`_ln_ref` and :func:`_ln_bwd_ref`.
+``rms_norm`` has no kernel yet (its TPU kernels are still to be ported),
+so on a CUDA tensor it raises; on the CPU autograd differentiates
+:func:`_rms_ref`.
 
-Forward only: the port has no backward yet, so there is no
-``memory_efficient`` mode.
+When a gradient is wanted, ``layer_norm`` goes through
+:class:`_LayerNormFn`, whose backward is the backward kernel (the JAX
+``custom_vjp`` around ``_ln_pallas``): it recomputes the row statistics
+from the saved x, as the TPU kernel does. There is no
+``memory_efficient`` mode yet.
 """
 
 import torch
@@ -17,6 +22,9 @@ import torch
 from apex_tpu_torch import _kernels
 
 __all__ = ["layer_norm", "rms_norm"]
+
+# rows per block of the backward kernel (kBwdRows in csrc/layer_norm.cu)
+_LN_BWD_ROWS = 32
 
 
 def _ln_ref(x, w, b, eps):
@@ -30,6 +38,22 @@ def _ln_ref(x, w, b, eps):
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype)
+
+
+def _ln_bwd_ref(x2, w, dy2, eps):
+    """Plain PyTorch LayerNorm backward of (rows, hidden) x and dy, the
+    math of the JAX package's ``_ln_bwd_kernel``: the statistics are
+    recomputed from x in fp32; returns dx in x's dtype and the fp32
+    (hidden,) sums dgamma = sum(dy * xhat), dbeta = sum(dy)."""
+    xf, dyf = x2.float(), dy2.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((xf - mean).square().mean(dim=-1, keepdim=True) + eps)
+    xhat = (xf - mean) * rstd
+    dyw = dyf * w.float() if w is not None else dyf
+    m1 = dyw.mean(dim=-1, keepdim=True)
+    m2 = (dyw * xhat).mean(dim=-1, keepdim=True)
+    dx = ((dyw - m1 - xhat * m2) * rstd).to(x2.dtype)
+    return dx, (dyf * xhat).sum(dim=0), dyf.sum(dim=0)
 
 
 def _rms_ref(x, w, eps):
@@ -66,8 +90,56 @@ def _ln_kernel(x, w, b, eps):
     return y
 
 
+def _ln_bwd_kernel(x2, w, dy2, eps):
+    """(dx, dgamma, dbeta) through the CUDA backward kernel; x2 and dy2
+    are (rows, hidden) on the card."""
+    rows, hidden = x2.shape
+    code = _kernels.dtype_code(x2)
+    x2 = x2.contiguous()
+    dy2 = dy2.to(x2.dtype).contiguous()
+    wf = _param(w, hidden, x2.device)
+    dx = torch.empty_like(x2)
+    blocks = -(-rows // _LN_BWD_ROWS)
+    part = torch.empty((2, blocks, hidden), dtype=torch.float32,
+                       device=x2.device)
+    out = torch.empty((2, hidden), dtype=torch.float32, device=x2.device)
+    _kernels.LAYER_NORM_BWD(
+        x2.data_ptr(), None if wf is None else wf.data_ptr(), dy2.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), out.data_ptr(), rows, hidden, blocks,
+        float(eps), code,
+    )
+    return dx, out[0], out[1]
+
+
+class _LayerNormFn(torch.autograd.Function):
+    """LayerNorm whose backward is the backward kernel on the card and
+    :func:`_ln_bwd_ref` on the CPU. Saves x, w and b, not the statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.eps = eps
+        if x.is_cuda:
+            return _ln_kernel(x, weight, bias, eps)
+        return _ln_ref(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b = ctx.saved_tensors
+        hidden = x.shape[-1]
+        bwd = _ln_bwd_kernel if x.is_cuda else _ln_bwd_ref
+        dx, dg, db = bwd(x.reshape(-1, hidden), w, dy.reshape(-1, hidden),
+                         ctx.eps)
+        need_w, need_b = ctx.needs_input_grad[1:3]
+        dw = dg.to(w.dtype) if w is not None and need_w else None
+        dbias = db.to(b.dtype) if b is not None and need_b else None
+        return dx.reshape(x.shape), dw, dbias, None
+
+
 def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
     """LayerNorm over the last dimension (ref: FusedLayerNorm)."""
+    if _kernels.wants_grad(x, weight, bias):
+        return _LayerNormFn.apply(x, weight, bias, eps)
     if x.is_cuda:
         return _ln_kernel(x, weight, bias, eps)
     return _ln_ref(x, weight, bias, eps)

@@ -1,0 +1,214 @@
+"""The GPT training step (counterpart of
+apex_tpu/resilience/replay/targets.py's ``build_gpt_training``).
+
+One home for the single-GPU GPT step, as in the JAX package: the bf16
+GPT model, ``fused_adam``, dynamic loss scaling with ``GradScaler``, the
+anomaly-sentinel gate, the chaos ``poison_loss`` arm and the escalation
+``lr_scale`` input, in the JAX step's order. ``build_gpt_training(cfg)``
+returns a :class:`GPTTraining` with ``init_state``, ``reshape_batch`` and
+``train_step``; ``examples/gpt/pretrain_gpt.py`` drives it.
+
+At tensor- and data-parallel size 1 only: ``zero``, a ``compression``
+other than ``"none"``, ``tp > 1``, ``collect_layer_rms`` and
+``max_devices > 1`` raise ``NotImplementedError``.
+"""
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from apex_tpu_torch._kernels import resolve_device
+from apex_tpu_torch.amp import GradScaler, LossScalerState
+from apex_tpu_torch.models.gpt import GPTModel, gpt_loss_fn
+from apex_tpu_torch.optimizers import FusedAdamState, fused_adam
+from apex_tpu_torch.resilience.chaos import poison_loss
+from apex_tpu_torch.resilience.sentinel import AnomalySentinel, SentinelState
+from apex_tpu_torch.transformer import TransformerConfig
+from apex_tpu_torch.transformer.utils import calc_params_l2_norm
+from apex_tpu_torch.utils.pytree import tree_any_non_finite
+
+__all__ = ["GPTTargetConfig", "GPTTrainState", "GPTTraining",
+           "build_gpt_training", "synthetic_corpus"]
+
+
+def synthetic_corpus(vocab: int, n_tokens: int = 200_000) -> np.ndarray:
+    """The JAX package's deterministic synthetic token stream (a seeded
+    markov-ish walk, so the LM has structure to learn), as an int32
+    array; no file is written."""
+    rng = np.random.RandomState(0)
+    toks = np.cumsum(rng.randint(1, 5, size=(n_tokens,)), dtype=np.int64) % vocab
+    return toks.astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTTargetConfig:
+    """Everything the GPT step depends on; the JAX package's fields and
+    defaults."""
+
+    vocab: int = 512
+    seq_len: int = 128
+    layers: int = 4
+    hidden: int = 256
+    heads: int = 8
+    tp: int = 1
+    sequence_parallel: bool = True
+    micro_batch: int = 4
+    global_batch: int = 16
+    lr: float = 3e-4
+    weight_decay: float = 0.01
+    seed: int = 0
+    zero: bool = False
+    compression: str = "none"
+    compression_block: int = 128
+    spike_z: float = 6.0
+    spike_warmup: int = 10
+    skip_budget: int = 1
+    rollback_budget: int = 2
+    collect_layer_rms: bool = False
+    max_devices: Optional[int] = None
+
+
+@dataclasses.dataclass
+class GPTTrainState:
+    """The state a step carries. ``params`` are the model's own
+    parameters (by name), so updating them updates the model."""
+
+    params: Dict[str, torch.nn.Parameter]
+    opt: FusedAdamState
+    scaler: LossScalerState
+    sentinel: SentinelState
+
+
+@dataclasses.dataclass
+class GPTTraining:
+    """The built pieces :func:`build_gpt_training` returns."""
+
+    cfg: GPTTargetConfig
+    device: torch.device
+    num_micro: int
+    model: GPTModel
+    transformer_config: TransformerConfig
+    opt: Any
+    scaler: GradScaler
+    sentinel: AnomalySentinel
+
+    def init_state(self) -> GPTTrainState:
+        """Re-draws the model's weights from ``cfg.seed`` and returns
+        fresh optimizer, scaler and sentinel states."""
+        self.model.init_weights(self.cfg.seed)
+        params = dict(self.model.named_parameters())
+        return GPTTrainState(params, self.opt.init(params),
+                             self.scaler.init(self.device),
+                             self.sentinel.init(self.device))
+
+    def reshape_batch(self, x, y):
+        """(global_batch, seq) arrays -> (num_micro, micro_batch, seq)."""
+        shape = (self.num_micro, self.cfg.micro_batch, self.cfg.seq_len)
+        return x.reshape(shape), y.reshape(shape)
+
+    def train_step(self, state: GPTTrainState, tokens, labels,
+                   inject_nan=0.0, lr_scale=1.0):
+        """One step: ``(state, loss, verdict, metrics)``.
+
+        ``tokens`` and ``labels`` are (num_micro, micro_batch, seq)
+        integer arrays or tensors. The order is the JAX step's: each
+        microbatch's mean loss, times ``scale / num_micro`` (and poisoned
+        when ``inject_nan``), is backpropagated and the grads accumulate;
+        then unscale with the overflow flag of the scaled grads, the
+        scaler update, ``unscaled = loss / scale``, and the gate
+        ``found_inf | sentinel.is_anomalous_loss(unscaled)``. On a clean
+        step Adam runs and ``p += lr_scale * update``; on a gated step
+        params and Adam state stay as they were. Last the sentinel
+        update, with ``bad_params`` from the post-update params.
+
+        Parameters are updated IN PLACE and ``state`` is updated and
+        returned; after the step each ``p.grad`` holds the scaled grads.
+        The gate costs one host sync per step (the JAX step keeps it on
+        the device with ``vma_cond``), and the loss, verdict and the six
+        quantities of the JAX step's ``metric_spec`` come back in one
+        transfer at the end as plain floats.
+        """
+        dev = self.device
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        labels = torch.as_tensor(labels, device=dev).long()
+        params = state.params
+        scale = state.scaler.scale
+        for p in params.values():
+            p.grad = None
+        micro_losses = []
+        for i in range(self.num_micro):
+            li = gpt_loss_fn(self.model(tokens[i], labels=labels[i]))
+            micro_losses.append(li.detach())
+            poison_loss(li * (scale / self.num_micro), inject_nan).backward()
+
+        with torch.no_grad():
+            loss = poison_loss(
+                self.scaler.scale(state.scaler,
+                                  torch.stack(micro_losses).mean()),
+                inject_nan)
+            grads = {n: p.grad for n, p in params.items()}
+            grads, found_inf = self.scaler.unscale(state.scaler, grads)
+            new_scaler = self.scaler.update(state.scaler, found_inf)
+            unscaled = loss / scale
+            gate = found_inf | self.sentinel.is_anomalous_loss(
+                state.sentinel, unscaled)
+            if not bool(gate):  # the step's one host sync
+                updates, state.opt = self.opt.update(grads, state.opt, params)
+                for n, p in params.items():
+                    p.add_(updates[n] * lr_scale)
+            sent = state.sentinel
+            new_sent, verdict = self.sentinel.update(
+                sent, unscaled, anomaly=gate,
+                bad_params=tree_any_non_finite(params))
+            loss_z = torch.where(
+                sent.count > 0,
+                (unscaled - sent.ema) * torch.rsqrt(sent.var + 1e-12),
+                torch.zeros_like(unscaled))
+            vals = torch.stack([
+                unscaled, calc_params_l2_norm(grads), new_scaler.scale,
+                loss_z, gate.float(), new_sent.anomalies.float(),
+                verdict.float(),
+            ]).tolist()
+        state.scaler, state.sentinel = new_scaler, new_sent
+        metrics = dict(zip(("loss", "grad_norm", "loss_scale", "loss_z",
+                            "skipped", "anomalies"), vals[:6]))
+        return state, vals[0], int(vals[6]), metrics
+
+
+def build_gpt_training(cfg: GPTTargetConfig, device="cuda") -> GPTTraining:
+    """The GPT training step of ``cfg`` on one device (CUDA unless the
+    caller names another), with the JAX package's batch-geometry checks
+    and its model, optimizer, scaler and sentinel settings."""
+    unsupported = [name for name, on in (
+        ("zero", cfg.zero), ("compression", cfg.compression != "none"),
+        ("tp > 1", cfg.tp > 1), ("collect_layer_rms", cfg.collect_layer_rms),
+        ("max_devices > 1", (cfg.max_devices or 1) > 1)) if on]
+    if unsupported:
+        raise NotImplementedError(
+            f"not ported to apex_tpu_torch yet: {', '.join(unsupported)}")
+    dev = resolve_device(device)
+    dp = 1
+    num_micro = cfg.global_batch // (cfg.micro_batch * dp)
+    assert num_micro >= 1, "global batch too small for micro batch x dp"
+    assert cfg.global_batch % (cfg.micro_batch * dp) == 0, (
+        f"global batch {cfg.global_batch} must divide evenly into "
+        f"micro_batch ({cfg.micro_batch}) x dp ({dp}) microbatches"
+    )
+    tcfg = TransformerConfig(
+        num_layers=cfg.layers, hidden_size=cfg.hidden,
+        num_attention_heads=cfg.heads, vocab_size=cfg.vocab,
+        max_position_embeddings=cfg.seq_len, hidden_dropout=0.0,
+        attention_dropout=0.0, compute_dtype=torch.bfloat16)
+    model = GPTModel(tcfg, device=dev, seed=cfg.seed)
+    return GPTTraining(
+        cfg=cfg, device=dev, num_micro=num_micro, model=model,
+        transformer_config=tcfg,
+        opt=fused_adam(lr=cfg.lr, weight_decay=cfg.weight_decay),
+        scaler=GradScaler(loss_scale="dynamic"),
+        sentinel=AnomalySentinel(z_threshold=cfg.spike_z,
+                                 warmup_steps=cfg.spike_warmup,
+                                 skip_budget=cfg.skip_budget,
+                                 rollback_budget=cfg.rollback_budget),
+    )

@@ -47,10 +47,8 @@ def serve(model, requests, cfg: ServingConfig):
 
 
 def main(argv=None) -> None:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from apex_tpu_torch.models import GPTModel, gpt2_small_config
+    from apex_tpu_torch.utils.profiling import profile_device
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=24)
@@ -65,23 +63,12 @@ def main(argv=None) -> None:
     cfg = serving_config(args.seed)
     serve(model, make_requests(1, mcfg.vocab_size, rs), cfg)  # warm-up
     requests = make_requests(args.requests, mcfg.vocab_size, rs)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng, _, wall = serve(model, requests, cfg)
-    # device-side events only: a CPU op's device time repeats its kernels'
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    rows.sort(key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows)
-    print(json.dumps({
-        "gpu": torch.cuda.get_device_name(0),
-        "requests": args.requests, "tokens_out": eng.stats()["tokens_out"],
-        "wall_ms": wall * 1e3, "device_ms": device_ms,
-        "device_idle_share": 1.0 - device_ms / (wall * 1e3),
-        "top": [{"name": k[:80], "device_ms": ms, "calls": n}
-                for k, ms, n in rows[:15]],
-    }))
+    out = {}
+    report = profile_device(
+        lambda: out.update(eng=serve(model, requests, cfg)[0]))
+    print(json.dumps({"requests": args.requests,
+                      "tokens_out": out["eng"].stats()["tokens_out"],
+                      **report}))
 
 
 if __name__ == "__main__":

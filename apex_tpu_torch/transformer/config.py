@@ -32,8 +32,8 @@ class TransformerConfig:
     # sliding-window attention (mistral-style); causal self-attention only
     attention_window: Optional[int] = None
 
-    # dropout is a training feature; the port runs inference only, so a
-    # module in training mode with a nonzero rate raises
+    # dropout is not ported yet: a module in training mode with a nonzero
+    # rate raises
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
     layernorm_epsilon: float = 1e-5

@@ -7,10 +7,11 @@ per head as ``[q_h | k_h | v_h]`` (the JAX reshape to (s, b, heads,
 parameter tree maps onto ``state_dict`` keys by joining its path with
 dots (models/convert.py).
 
-Only tensor-, sequence- and context-parallel size 1, inference only:
-dropout (in training mode), ``CoreAttention``, MoE, sequence and context
+Only tensor-, sequence- and context-parallel size 1: dropout (a nonzero
+rate in training mode), ``CoreAttention``, MoE, sequence and context
 parallelism and recompute raise ``NotImplementedError`` where a config
-asks for them. Attention always takes the flash path.
+asks for them. Attention always takes the flash path; LayerNorm and
+attention differentiate through their backward kernels.
 
 KV-cache decoding follows ParallelAttention's cache mode at cp = 1: a
 prefill call writes the prompt's K/V into the cache, and a decode step
@@ -239,7 +240,7 @@ class ParallelTransformerLayer(nn.Module):
         cfg = self.config
         if self.training and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0):
             raise NotImplementedError(
-                "dropout is not ported (inference only): call .eval() or set "
+                "dropout is not ported yet: call .eval() or set "
                 "hidden_dropout = attention_dropout = 0")
         dtype = hidden_states.dtype
         rdtype = torch.float32 if cfg.fp32_residual_connection else dtype

@@ -123,3 +123,120 @@ def test_argument_errors():
         flash_attention(q, q, q, window=2)
     with pytest.raises(ValueError, match=">= 1"):
         flash_attention(q, q, q, causal=True, window=0)
+
+
+# -- backward ---------------------------------------------------------------
+# The port differentiates through _FlashFn, whose CPU backward is
+# _flash_bwd_ref (the plain version of the dq and dk/dv kernels: p and ds
+# recomputed from the saved lse), against jax.vjp of the JAX function:
+# the Pallas path (its custom_vjp runs _flash_bwd_dq/_dkv_kernel in
+# interpret mode), or the XLA path where the JAX dispatcher sends the case
+# (causal with sq != sk). Tolerances: fp32 1e-4 (gradients of O(1) summed
+# over up to 96 keys and queries in another order); bf16 5e-2 (p and ds are
+# rounded to bf16 before the products on both sides, but from fp32 values
+# that differ in their last bits, and the grads are rounded to bf16).
+
+GRAD_TOL = 1e-4
+BF16_GRAD_TOL = 5e-2
+
+
+def _grads_both(q, k, v, dtype="fp32", kpm=None, impl="pallas", tol=GRAD_TOL,
+                **kw):
+    import jax
+
+    jd = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    do = np.random.RandomState(99).randn(*q.shape).astype(np.float32)
+    jkpm = None if kpm is None else jnp.asarray(kpm)
+
+    def f(qq, kk, vv):
+        return jax_flash(qq, kk, vv, key_padding_mask=jkpm, impl=impl,
+                         block_q=32, block_k=32, **kw)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(t, jd) for t in (q, k, v)))
+    ref = vjp(jnp.asarray(do, jd))
+    ts = [torch.from_numpy(t).to(td).requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*ts, key_padding_mask=(None if kpm is None
+                                                 else torch.from_numpy(kpm)),
+                          **kw)
+    assert type(out.grad_fn).__name__ == "_FlashFnBackward"
+    out.backward(torch.from_numpy(do).to(td))
+    for t, r in zip(ts, ref):
+        assert t.grad.dtype == td and t.grad.shape == t.shape
+        np.testing.assert_allclose(t.grad.float().numpy(),
+                                   np.asarray(r.astype(jnp.float32)),
+                                   atol=tol, rtol=tol)
+    return ts
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_matches_pallas(causal):
+    _grads_both(*_qkv(2, 3, 3, 64, 64, 32, seed=11), causal=causal)
+
+
+@pytest.mark.parametrize("h_kv", [1, 2])
+def test_backward_gqa_matches_pallas(h_kv):
+    _grads_both(*_qkv(2, 4, h_kv, 64, 64, 32, seed=12), causal=True)
+
+
+def test_backward_window_matches_pallas():
+    _grads_both(*_qkv(1, 2, 2, 96, 96, 32, seed=13), causal=True, window=20)
+
+
+def test_backward_key_padding_dead_row_matches_pallas():
+    q, k, v = _qkv(3, 2, 2, 64, 64, 32, seed=14)
+    kpm = np.zeros((3, 64), bool)
+    kpm[0, 40:] = True
+    kpm[2, :] = True  # every key padded: no gradient flows through row 2
+    ts = _grads_both(q, k, v, causal=True, kpm=kpm)
+    for t in ts:
+        assert torch.count_nonzero(t.grad[2]) == 0
+
+
+def test_backward_bf16_matches_pallas():
+    _grads_both(*_qkv(1, 2, 2, 64, 64, 32, seed=15), dtype="bf16",
+                tol=BF16_GRAD_TOL, causal=True)
+
+
+def test_backward_causal_rectangular_matches_xla():
+    """sq != sk, bottom-right aligned: the kernels' offset; the JAX
+    dispatcher differentiates its XLA reference here."""
+    _grads_both(*_qkv(1, 2, 2, 16, 48, 32, seed=16), impl="xla", causal=True)
+    _grads_both(*_qkv(1, 2, 2, 16, 48, 32, seed=17), impl="xla", causal=True,
+                window=10)
+
+
+def test_plain_backward_matches_autograd_of_attn_ref():
+    """_flash_fwd_ref's lse and _flash_bwd_ref agree with autograd of the
+    plain forward (GQA, window, a dead row, sq != sk)."""
+    from apex_tpu_torch.ops.attention import (
+        _flash_bwd_ref,
+        _flash_fwd_ref,
+        _flash_ref,
+    )
+
+    q, k, v = (torch.from_numpy(t) for t in _qkv(2, 4, 2, 20, 30, 16,
+                                                   seed=18))
+    kpm = torch.zeros(2, 30, dtype=torch.bool)
+    kpm[1, :] = True
+    do = torch.from_numpy(np.random.RandomState(19).randn(2, 4, 20, 16)
+                          .astype(np.float32))
+    scale = 0.25
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    _flash_ref(*ts, scale, True, None, kpm, 7).backward(do)
+    o, lse = _flash_fwd_ref(q, k, v, scale, True, kpm, 7)
+    assert bool((lse[1] == 1e30).all()) and torch.isfinite(lse[0]).all()
+    delta = (do * o).sum(-1)
+    grads = _flash_bwd_ref(q, k, v, do, lse, delta, scale, True, kpm, 7)
+    for g, t in zip(grads, ts):
+        torch.testing.assert_close(g, t.grad, atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def test_no_grad_and_dense_mask_skip_the_function():
+    q, k, v = (torch.from_numpy(t).requires_grad_(True)
+               for t in _qkv(1, 2, 2, 8, 8, 16, seed=20))
+    with torch.no_grad():
+        assert flash_attention(q, k, v, causal=True).grad_fn is None
+    mask = torch.zeros(1, 1, 8, 8, dtype=torch.bool)
+    out = flash_attention(q, k, v, mask=mask)
+    assert type(out.grad_fn).__name__ != "_FlashFnBackward"

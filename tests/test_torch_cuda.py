@@ -8,7 +8,11 @@ a CPU-only host). On the card, run them without the JAX suite's conftest
 
 Tolerances: fp32 1e-5 (norm) and 2e-5 (attention), the same arithmetic
 summed in another order; bf16 2e-2, one bf16 rounding of the output (and,
-in attention, of P before P.V) at different points.
+in attention, of P before P.V) at different points. Backward kernels:
+fp32 1e-4 (longer sums), bf16 2e-2 on dx/dq/dk/dv (one bf16 rounding of
+the output, and of p and ds before the products); LayerNorm dgamma/dbeta
+1e-3 absolute (fp32 sums over up to 300 rows in another order). The Adam
+kernel rounds every operation as its plain version does: bit-equal.
 """
 
 import math
@@ -17,9 +21,10 @@ import pytest
 import torch
 
 from apex_tpu_torch import _kernels
-from apex_tpu_torch.models import GPTModel, generate
+from apex_tpu_torch.models import GPTModel, generate, gpt_loss_fn
 from apex_tpu_torch.ops import attention as at
 from apex_tpu_torch.ops import layer_norm as ln
+from apex_tpu_torch.optimizers import _fused_kernels as fk
 from apex_tpu_torch.serving import ServingConfig, ServingEngine
 from apex_tpu_torch.transformer import TransformerConfig
 
@@ -102,7 +107,134 @@ def test_engine_goes_through_both_kernels(gen):
     reqs = [eng.submit(p, 8) for p in prompts]
     while not eng.idle:
         eng.tick()
-    assert all(n > 0 for n in _kernels.launch_counts().values())
+    counts = _kernels.launch_counts()
+    # serving runs the forward kernels only
+    assert counts["layer_norm_fwd"] > 0 and counts["flash_fwd"] > 0
     for r in reqs:
         want = generate(model, r.prompt[None], 8)[0, r.prompt_len:]
         assert r.tokens_out == want.tolist()
+
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,hidden", [(1, 768), (300, 768), (77, 1000)])
+def test_layer_norm_backward_kernel(gen, dtype, rows, hidden):
+    x = torch.randn(rows, hidden, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(rows, hidden, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(hidden, generator=gen, device="cuda")
+    before = _kernels.LAYER_NORM_BWD.launches
+    dx, dg, db = ln._ln_bwd_kernel(x, w, dy, 1e-5)
+    assert _kernels.LAYER_NORM_BWD.launches == before + 1
+    rdx, rdg, rdb = ln._ln_bwd_ref(x, w, dy, 1e-5)
+    torch.testing.assert_close(dx.float(), rdx.float(), atol=BWD_TOL[dtype],
+                               rtol=BWD_TOL[dtype])
+    torch.testing.assert_close(dg, rdg, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(db, rdb, atol=1e-3, rtol=1e-4)
+    again = ln._ln_bwd_kernel(x, w, dy, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dx, dg, db)))
+    # no affine weight: w = 1
+    dx, dg, db = ln._ln_bwd_kernel(x, None, dy, 1e-5)
+    rdx, rdg, rdb = ln._ln_bwd_ref(x, None, dy, 1e-5)
+    torch.testing.assert_close(dx.float(), rdx.float(), atol=BWD_TOL[dtype],
+                               rtol=BWD_TOL[dtype])
+    torch.testing.assert_close(dg, rdg, atol=1e-3, rtol=1e-4)
+
+
+def test_layer_norm_autograd_on_the_card(gen):
+    x = torch.randn(5, 64, generator=gen, device="cuda", requires_grad=True)
+    w = torch.randn(64, generator=gen, device="cuda", requires_grad=True)
+    b = torch.zeros(64, device="cuda", requires_grad=True)
+    ln.layer_norm(x, w, b).square().sum().backward()
+    xc, wc, bc = (t.detach().cpu().requires_grad_(True) for t in (x, w, b))
+    ln.layer_norm(xc, wc, bc).square().sum().backward()
+    for t, c in ((x, xc), (w, wc), (b, bc)):
+        torch.testing.assert_close(t.grad.cpu(), c.grad, atol=1e-4,
+                                   rtol=1e-4)
+
+
+BWD_CASES = dict(
+    CASES, rect=dict(b=1, h=4, h_kv=4, sq=77, sk=200, causal=True),
+    ragged=dict(b=2, h=2, h_kv=2, sq=100, sk=100, causal=False),
+    hd32=dict(b=1, h=4, h_kv=2, sq=70, sk=70, causal=True, d=32),
+    hd128=dict(b=1, h=4, h_kv=1, sq=130, sk=130, causal=True, d=128,
+               window=40))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_backward_kernels(gen, dtype, case):
+    c = BWD_CASES[case]
+    d = c.get("d", 64)
+    q = torch.randn(c["b"], c["h"], c["sq"], d, generator=gen, device="cuda")
+    k, v = (torch.randn(c["b"], c["h_kv"], c["sk"], d, generator=gen,
+                        device="cuda") for _ in range(2))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    kpm = None
+    if c.get("kpm"):
+        kpm = torch.zeros(c["b"], c["sk"], dtype=torch.bool, device="cuda")
+        kpm[0] = True  # a dead row
+        kpm[1, c["sk"] // 2:] = True
+    scale = 1 / math.sqrt(d)
+    args = (scale, c["causal"], kpm, c.get("window"))
+    o, lse = at._flash_kernel(q, k, v, *args)
+    delta = (do.float() * o.float()).sum(-1)
+    before = _kernels.FLASH_BWD_DQ.launches, _kernels.FLASH_BWD_DKV.launches
+    got = at._flash_bwd_kernel(q, k, v, do, lse, delta, *args)
+    assert (_kernels.FLASH_BWD_DQ.launches, _kernels.FLASH_BWD_DKV.launches) \
+        == (before[0] + 1, before[1] + 1)
+    ref = at._flash_bwd_ref(q, k, v, do, lse, delta, *args)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        torch.testing.assert_close(g.float(), r.float(), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype])
+    if kpm is not None:
+        assert torch.count_nonzero(got[0][0]) == 0
+    again = at._flash_bwd_kernel(q, k, v, do, lse, delta, *args)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("adam_w_mode,weight_decay",
+                         [(True, 0.01), (False, 0.01), (True, 0.0)])
+@pytest.mark.parametrize("n", [1 << 20, 1000003])
+def test_adam_kernel_bit_equal(gen, adam_w_mode, weight_decay, n):
+    g, p, m = (torch.randn(n, generator=gen, device="cuda") for _ in range(3))
+    v = torch.rand(n, generator=gen, device="cuda")
+    step = torch.tensor(10.0, device="cuda")
+    bc1, bc2 = 1.0 - 0.9 ** step, 1.0 - 0.999 ** step
+    kw = dict(lr=3e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+              weight_decay=weight_decay, adam_w_mode=adam_w_mode)
+    before = _kernels.ADAM.launches
+    got = fk._adam_kernel(g, p, m, v, bc1, bc2, **kw)
+    assert _kernels.ADAM.launches == before + 1
+    ref = fk._adam_flat_ref(g, p, m, v, bc1, bc2, **kw)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_every_gpt_parameter_gets_a_gradient_on_the_card(gen):
+    cfg = TransformerConfig(num_layers=2, hidden_size=128,
+                            num_attention_heads=2, vocab_size=512,
+                            max_position_embeddings=64, hidden_dropout=0.0,
+                            attention_dropout=0.0,
+                            compute_dtype=torch.float32)
+    model = GPTModel(cfg, seed=0)
+    cpu = GPTModel(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tokens = torch.randint(0, 512, (2, 64), generator=gen, device="cuda")
+    labels = torch.randint(0, 512, (2, 64), generator=gen, device="cuda")
+    _kernels.reset_launch_counts()
+    loss = gpt_loss_fn(model(tokens, labels=labels))
+    loss.backward()
+    counts = _kernels.launch_counts()
+    for name in ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                 "flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts[name] > 0, name
+    gpt_loss_fn(cpu(tokens.cpu(), labels=labels.cpu())).backward()
+    named = dict(cpu.named_parameters())
+    for name, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        torch.testing.assert_close(p.grad.cpu(), named[name].grad,
+                                   atol=1e-5, rtol=1e-3)

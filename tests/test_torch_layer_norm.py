@@ -82,3 +82,80 @@ def test_rms_norm_matches_pallas(rows, hidden):
     out = rms_norm(torch.from_numpy(x), torch.from_numpy(w), eps=1e-5)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=FP32_TOL,
                                rtol=FP32_TOL)
+
+
+# -- backward ---------------------------------------------------------------
+# The port's layer_norm differentiates through _LayerNormFn, whose CPU
+# backward is _ln_bwd_ref (the plain version of the backward kernel),
+# against jax.vjp of the Pallas path (its custom_vjp runs _ln_bwd_kernel in
+# interpret mode). Tolerances: fp32 1e-5 for dx and 1e-4 for dgamma/dbeta
+# (sums over the rows in another order); bf16 x: dx 2e-2 (one bf16 rounding
+# of dx), dgamma/dbeta 1e-4 (both sides upcast the same bf16 x and dy and
+# sum in fp32).
+
+def _ln_grads_jax(x, w, b, dy):
+    import jax
+
+    def f(xx, ww, bb):
+        return jax_layer_norm(xx, ww, bb, eps=1e-5, impl="pallas")
+
+    _, vjp = jax.vjp(f, x, jnp.asarray(w), jnp.asarray(b))
+    return [np.asarray(g.astype(jnp.float32)) for g in vjp(dy)]
+
+
+def _ln_grads_port(x, w, b, dy):
+    xt = x.clone().requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    bt = torch.from_numpy(b).requires_grad_(True)
+    layer_norm(xt, wt, bt, eps=1e-5).backward(dy)
+    return [t.grad.float().numpy() for t in (xt, wt, bt)]
+
+
+@pytest.mark.parametrize("rows,hidden", [(1, 128), (13, 256), (40, 384)])
+def test_layer_norm_backward_matches_pallas(rows, hidden):
+    x, w, b = _inputs(rows, hidden, seed=5)
+    dy = np.random.RandomState(6).randn(rows, hidden).astype(np.float32)
+    ref = _ln_grads_jax(jnp.asarray(x), w, b, jnp.asarray(dy))
+    out = _ln_grads_port(torch.from_numpy(x), w, b, torch.from_numpy(dy))
+    for o, r, tol in zip(out, ref, (FP32_TOL, 1e-4, 1e-4)):
+        np.testing.assert_allclose(o, r, atol=tol, rtol=tol)
+
+
+def test_layer_norm_backward_bf16_x_fp32_params_matches_pallas():
+    x, w, b = _inputs(24, 256, seed=7)
+    dy = np.random.RandomState(8).randn(24, 256).astype(np.float32)
+    ref = _ln_grads_jax(jnp.asarray(x, jnp.bfloat16), w, b,
+                        jnp.asarray(dy, jnp.bfloat16))
+    out = _ln_grads_port(torch.from_numpy(x).bfloat16(), w, b,
+                         torch.from_numpy(dy).bfloat16())
+    for o, r, tol in zip(out, ref, (BF16_TOL, 1e-4, 1e-4)):
+        np.testing.assert_allclose(o, r, atol=tol, rtol=tol)
+
+
+def test_ln_bwd_ref_matches_autograd_of_ln_ref():
+    """The plain backward agrees with autograd of the plain forward, also
+    on a hidden size the JAX kernel does not take and with no affine."""
+    from apex_tpu_torch.ops.layer_norm import _ln_bwd_ref, _ln_ref
+
+    x, w, _ = _inputs(9, 100, seed=9)
+    dy = torch.from_numpy(np.random.RandomState(10).randn(9, 100)
+                          .astype(np.float32))
+    for wt in (torch.from_numpy(w), None):
+        xt = torch.from_numpy(x).requires_grad_(True)
+        ww = None if wt is None else wt.clone().requires_grad_(True)
+        _ln_ref(xt, ww, None, 1e-5).backward(dy)
+        dx, dg, db = _ln_bwd_ref(torch.from_numpy(x), wt, dy, 1e-5)
+        torch.testing.assert_close(dx, xt.grad, atol=FP32_TOL, rtol=FP32_TOL)
+        if ww is not None:
+            torch.testing.assert_close(dg, ww.grad, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(db, dy.sum(0))
+
+
+def test_layer_norm_without_grad_skips_the_function():
+    x, w, b = _inputs(4, 128)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    with torch.no_grad():
+        out = layer_norm(torch.from_numpy(x), wt, torch.from_numpy(b))
+    assert out.grad_fn is None
+    out = layer_norm(torch.from_numpy(x), wt, torch.from_numpy(b))
+    assert type(out.grad_fn).__name__ == "_LayerNormFnBackward"

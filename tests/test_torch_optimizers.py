@@ -1,0 +1,203 @@
+"""apex_tpu_torch's Adam kernel plain version, fused_adam and flat buffers
+against the JAX package.
+
+The same numpy inputs, made from a seed, go through the JAX functions
+(``adam_flat`` with ``impl="pallas"``, the Pallas kernel in interpret
+mode; ``fused_adam``'s optax transform) and through the port on CPU
+tensors, which runs the plain version of the CUDA kernel. Both write the
+same fp32 operations in the same order, but XLA's CPU compiler contracts
+``b1 * m + (1 - b1) * g`` into a fused multiply-add, so the moments are
+held element for element to MOMENT_ATOL, a few ulp of their O(1) terms;
+the updates (also through ``beta ** step`` from two libraries' pow) to
+1e-6 relative.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu.ops.multi_tensor import flatten_pytree as jax_flatten
+from apex_tpu.optimizers import fused_adam as jax_fused_adam
+from apex_tpu.optimizers._fused_kernels import adam_flat as jax_adam_flat
+from apex_tpu_torch.models.convert import (
+    fused_adam_state_from_jax,
+    gpt_params_from_jax,
+)
+from apex_tpu_torch.ops.multi_tensor import (
+    CHUNK_SIZE,
+    flatten_pytree,
+    unflatten_pytree,
+)
+from apex_tpu_torch.optimizers import FusedAdam, adam_flat, fused_adam
+from apex_tpu_torch.utils.pytree import tree_any_non_finite, tree_leaves
+
+UPD_TOL = 1e-6  # relative; pow and the division chain may differ by an ulp
+MOMENT_ATOL = 2e-7  # absolute: one fp32 ulp of terms up to ~2
+UPD_ATOL = 1e-9  # absolute: 1e-6 of lr, for updates of moments near 0
+HYPER = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8)
+
+
+def _buffers(n, seed=0):
+    rs = np.random.RandomState(seed)
+    g = rs.randn(n).astype(np.float32)
+    p = rs.randn(n).astype(np.float32)
+    m = (rs.randn(n) * 0.1).astype(np.float32)
+    v = (rs.rand(n) * 0.01).astype(np.float32)
+    return g, p, m, v
+
+
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+@pytest.mark.parametrize("step", [1, 10])
+def test_adam_flat_matches_pallas(adam_w_mode, step):
+    g, p, m, v = _buffers(CHUNK_SIZE, seed=step)
+    bc1 = np.float32(1 - 0.9 ** step)
+    bc2 = np.float32(1 - 0.999 ** step)
+    kw = dict(HYPER, weight_decay=0.01, adam_w_mode=adam_w_mode)
+    ref = jax_adam_flat(*(jnp.asarray(t) for t in (g, p, m, v)),
+                        jnp.asarray(bc1), jnp.asarray(bc2), impl="pallas",
+                        **kw)
+    out = adam_flat(*(torch.from_numpy(t) for t in (g, p, m, v)),
+                    torch.tensor(bc1), torch.tensor(bc2), **kw)
+    upd, m_out, v_out = (np.asarray(r) for r in ref)
+    np.testing.assert_allclose(out[1].numpy(), m_out, atol=MOMENT_ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(out[2].numpy(), v_out, atol=MOMENT_ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(out[0].numpy(), upd, rtol=UPD_TOL,
+                               atol=UPD_ATOL)
+
+
+def test_adam_flat_takes_any_length_and_leaves_p_alone():
+    g, p, m, v = (torch.from_numpy(t) for t in _buffers(1001, seed=3))
+    p0 = p.clone()
+    one = torch.tensor(1.0)
+    upd, m2, v2 = adam_flat(g, p, m, v, one, one, weight_decay=0.0,
+                            adam_w_mode=True, **HYPER)
+    assert upd.shape == m2.shape == v2.shape == (1001,)
+    assert torch.equal(p, p0)
+
+
+def _params(seed=0):
+    """A nested tree whose sorted order differs from insertion order."""
+    rs = np.random.RandomState(seed)
+    tree = {
+        "transformer": {
+            "layer_2": {"kernel": rs.randn(4, 6), "bias": rs.randn(6)},
+            "layer_10": {"kernel": rs.randn(6, 4), "bias": rs.randn(4)},
+        },
+        "embedding": {"word": rs.randn(9, 4)},
+    }
+    return jax.tree_util.tree_map(lambda a: a.astype(np.float32), tree)
+
+
+def _grads(step):
+    return jax.tree_util.tree_map(
+        lambda a: (a * (step + 1) * 0.3).astype(np.float32), _params(seed=7))
+
+
+def test_flatten_order_matches_jax_leaf_order():
+    tree = _params()
+    ref, spec = jax_flatten(jax.tree_util.tree_map(jnp.asarray, tree))
+    flat, fspec = flatten_pytree(gpt_params_from_jax(tree))
+    assert flat.shape == (spec.padded_total,) == (CHUNK_SIZE,)
+    assert fspec.total == spec.total
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(ref))
+    assert fspec.names.index("transformer.layer_10.bias") < \
+        fspec.names.index("transformer.layer_2.bias")
+    back = unflatten_pytree(flat, fspec)
+    for name, t in gpt_params_from_jax(tree).items():
+        assert torch.equal(back[name], t)
+
+
+def _run_both(fuse, adam_w_mode, steps=3):
+    """(jax updates, jax state, port updates, port state) per step."""
+    kw = dict(lr=1e-2, weight_decay=0.05, adam_w_mode=adam_w_mode, fuse=fuse)
+    jopt, topt = jax_fused_adam(**kw), fused_adam(**kw)
+    jp = jax.tree_util.tree_map(jnp.asarray, _params())
+    tp = gpt_params_from_jax(_params())
+    js, ts = jopt.init(jp), topt.init(tp)
+    out = []
+    for step in range(steps):
+        jg = jax.tree_util.tree_map(jnp.asarray, _grads(step))
+        ju, js = jopt.update(jg, js, jp)
+        tu, ts = topt.update(gpt_params_from_jax(_grads(step)), ts, tp)
+        jp = jax.tree_util.tree_map(lambda a, b: a + b, jp, ju)
+        tp = {n: tp[n] + tu[n] for n in tp}
+        out.append((ju, js, jp, tu, ts, tp))
+    return out
+
+
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+@pytest.mark.parametrize("fuse", ["tree", "flat"])
+def test_fused_adam_matches_jax_over_three_steps(fuse, adam_w_mode):
+    for ju, js, jp, tu, ts, tp in _run_both(fuse, adam_w_mode):
+        ref_u = gpt_params_from_jax(jax.tree_util.tree_map(np.asarray, ju))
+        ref_p = gpt_params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+        for n in tp:
+            np.testing.assert_allclose(tu[n].numpy(), ref_u[n].numpy(),
+                                       rtol=UPD_TOL, atol=UPD_ATOL)
+            np.testing.assert_allclose(tp[n].numpy(), ref_p[n].numpy(),
+                                       rtol=UPD_TOL, atol=1e-8)
+        assert int(ts.step) == int(js.step)
+        if fuse == "flat":
+            # the moments' flat buffers, element for element
+            assert ts.exp_avg.shape == js.exp_avg.shape
+            for t, r in ((ts.exp_avg, js.exp_avg),
+                         (ts.exp_avg_sq, js.exp_avg_sq)):
+                np.testing.assert_allclose(t.numpy(), np.asarray(r),
+                                           atol=MOMENT_ATOL, rtol=0)
+        else:
+            ref_m = gpt_params_from_jax(
+                jax.tree_util.tree_map(np.asarray, js.exp_avg))
+            for n in tp:
+                np.testing.assert_allclose(ts.exp_avg[n].numpy(),
+                                           ref_m[n].numpy(),
+                                           atol=MOMENT_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("fuse", ["tree", "flat"])
+def test_state_from_jax_continues_like_jax(fuse):
+    """Both frameworks take one more step from the JAX state of step 2."""
+    ju, js, jp, *_ = _run_both(fuse, True, steps=2)[-1]
+    ts = fused_adam_state_from_jax(
+        jax.tree_util.tree_map(np.asarray, js), device="cpu")
+    tp = gpt_params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    kw = dict(lr=1e-2, weight_decay=0.05, fuse=fuse)
+    ju2, js2 = jax_fused_adam(**kw).update(
+        jax.tree_util.tree_map(jnp.asarray, _grads(2)), js, jp)
+    tu2, ts2 = fused_adam(**kw).update(gpt_params_from_jax(_grads(2)), ts, tp)
+    ref = gpt_params_from_jax(jax.tree_util.tree_map(np.asarray, ju2))
+    for n in tp:
+        np.testing.assert_allclose(tu2[n].numpy(), ref[n].numpy(),
+                                   rtol=UPD_TOL, atol=UPD_ATOL)
+    assert int(ts2.step) == 3
+
+
+def test_bias_correction_off_and_amsgrad_refused():
+    kw = dict(lr=1e-2, bias_correction=False)
+    jopt, topt = jax_fused_adam(**kw), fused_adam(**kw)
+    jp = jax.tree_util.tree_map(jnp.asarray, _params())
+    tp = gpt_params_from_jax(_params())
+    ju, _ = jopt.update(jax.tree_util.tree_map(jnp.asarray, _grads(0)),
+                        jopt.init(jp), jp)
+    tu, _ = topt.update(gpt_params_from_jax(_grads(0)), topt.init(tp), tp)
+    ref = gpt_params_from_jax(jax.tree_util.tree_map(np.asarray, ju))
+    for n in tp:
+        np.testing.assert_allclose(tu[n].numpy(), ref[n].numpy(),
+                                   rtol=UPD_TOL, atol=UPD_ATOL)
+    with pytest.raises(RuntimeError, match="AMSGrad"):
+        FusedAdam(amsgrad=True)
+    with pytest.raises(ValueError, match="tree|flat"):
+        fused_adam(fuse="chunked")
+
+
+def test_tree_any_non_finite_and_leaf_order():
+    tree = {"b": torch.ones(3), "a": {"x": torch.zeros(2),
+                                      "i": torch.arange(3)}}
+    assert [t.shape[0] for t in tree_leaves(tree)] == [3, 2, 3]
+    assert not bool(tree_any_non_finite(tree))
+    tree["b"][1] = float("inf")
+    assert bool(tree_any_non_finite(tree))
+    assert not bool(tree_any_non_finite({}))
