@@ -5,8 +5,12 @@ never imports). It holds GPT serving end to end (the transformer stack,
 the GPT model, ``generate`` and the continuous-batching engine) and the
 single-GPU GPT training step (the loss, loss scaling, the anomaly
 sentinel and fused Adam, built by ``resilience.replay.build_gpt_training``),
-with the TPU package's Pallas kernels on those paths rewritten by hand in
-CUDA C++ for ``sm_90a`` (``csrc/``, built and loaded by ``_kernels``).
+and the Llama family on the same model (rope, RMSNorm, GQA, SwiGLU; the
+transformers import in ``models.hf_import``), served by the engine and
+fine-tuned by ``examples.llama.finetune_llama`` through ZeRO-2 Adam at a
+data-parallel world of one. All nine Pallas kernels of the TPU package
+are rewritten by hand in CUDA C++ for ``sm_90a`` (``csrc/``, built and
+loaded by ``_kernels``).
 
 Device rule (replacing the JAX package's ``impl=`` switch): a CUDA
 tensor goes to the hand-written kernel or raises; a CPU tensor takes the

@@ -32,8 +32,9 @@ import torch
 
 __all__ = [
     "ADAM", "FLASH_BWD_DKV", "FLASH_BWD_DQ", "FLASH_FWD", "KERNELS",
-    "LAYER_NORM_BWD", "LAYER_NORM_FWD", "Kernel", "build_all", "dtype_code",
-    "launch_counts", "reset_launch_counts", "resolve_device", "wants_grad",
+    "LAYER_NORM_BWD", "LAYER_NORM_FWD", "RMS_NORM_BWD", "RMS_NORM_FWD",
+    "SUMSQ_FLAT", "Kernel", "build_all", "dtype_code", "launch_counts",
+    "reset_launch_counts", "resolve_device", "wants_grad",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -181,9 +182,25 @@ ADAM = Kernel(
     # beta2, 1 - beta2, eps, weight_decay, adam_w, stream
     [_P] * 9 + [_L] + [_F] * 7 + [_I, _P],
 )
+RMS_NORM_FWD = Kernel(
+    "layer_norm", "rms_norm_fwd",
+    # x, w, y, rows, hidden, eps, dtype, stream
+    [_P, _P, _P, _I, _I, _F, _I, _P],
+)
+RMS_NORM_BWD = Kernel(
+    "layer_norm", "rms_norm_bwd",
+    # x, w, dy, dx, part, out, rows, hidden, part_blocks, eps, dtype, stream
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+)
+SUMSQ_FLAT = Kernel(
+    "l2norm", "sumsq_flat",
+    # x, n, part, part_blocks, out, stream
+    [_P, _L, _P, _I, _P, _P],
+)
 KERNELS: Dict[str, Kernel] = {
-    k.symbol: k for k in (LAYER_NORM_FWD, LAYER_NORM_BWD, FLASH_FWD,
-                          FLASH_BWD_DQ, FLASH_BWD_DKV, ADAM)
+    k.symbol: k for k in (LAYER_NORM_FWD, LAYER_NORM_BWD, RMS_NORM_FWD,
+                          RMS_NORM_BWD, FLASH_FWD, FLASH_BWD_DQ,
+                          FLASH_BWD_DKV, ADAM, SUMSQ_FLAT)
 }
 
 

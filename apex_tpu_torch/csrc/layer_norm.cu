@@ -1,9 +1,13 @@
-// LayerNorm forward and backward for Hopper (sm_90a).
+// LayerNorm and RMSNorm, forward and backward, for Hopper (sm_90a).
 //
 // The forward replaces apex_tpu/ops/layer_norm.py:_ln_fwd_kernel (called
 // through _ln_pallas_fwd): y = (x - mean) * rsqrt(var + eps) * w + b per row,
-// with the statistics in fp32 and y in x's dtype. The backward (at the end of
-// this file) replaces _ln_bwd_kernel.
+// with the statistics in fp32 and y in x's dtype. The backward (below)
+// replaces _ln_bwd_kernel.
+//
+// RMSNorm is the same kernels with kRms set, which drops the mean (and, in
+// the backward, mean(dyw) and dbeta). Its forward replaces _rms_fwd_kernel:
+// y = x * rsqrt(mean(x^2) + eps) * w; its backward replaces _rms_bwd_kernel.
 //
 // What bounds it on the card: bytes. Each element is read once and written
 // once and costs a handful of flops, so the least time is
@@ -63,11 +67,12 @@ __device__ __forceinline__ void for_row(const T* __restrict__ x, int hidden, boo
   }
 }
 
-template <typename T>
+// b is null when kRms is set.
+template <typename T, bool kRms>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-layer_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ b, T* __restrict__ y, int rows,
-                      int hidden, float eps) {
+norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ b, T* __restrict__ y, int rows, int hidden,
+                float eps) {
   constexpr int N = Vec<T>::N;
   const int lane = threadIdx.x & 31;
   const long row = (long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -77,9 +82,12 @@ layer_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const bool vec = (hidden % N == 0) &&
                    ((reinterpret_cast<uintptr_t>(xr) | reinterpret_cast<uintptr_t>(yr)) % 16 == 0);
 
-  float s = 0.f;
-  for_row(xr, hidden, vec, lane, [&](int, float v) { s += v; });
-  const float mean = warp_sum(s) / hidden;
+  float mean = 0.f;
+  if constexpr (!kRms) {
+    float s = 0.f;
+    for_row(xr, hidden, vec, lane, [&](int, float v) { s += v; });
+    mean = warp_sum(s) / hidden;
+  }
   float ss = 0.f;
   for_row(xr, hidden, vec, lane, [&](int, float v) {
     const float d = v - mean;
@@ -109,11 +117,11 @@ layer_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <typename T>
+template <typename T, bool kRms>
 int launch(const void* x, const void* w, const void* b, void* y, int rows, int hidden,
            float eps, cudaStream_t stream) {
   const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  layer_norm_fwd_kernel<T><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+  norm_fwd_kernel<T, kRms><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(b), static_cast<T*>(y), rows, hidden, eps);
   return (int)cudaGetLastError();
@@ -126,7 +134,8 @@ int launch(const void* x, const void* w, const void* b, void* y, int rows, int h
 // _ln_pallas_bwd). Per row, with the statistics recomputed from the saved x:
 //   xhat = (x - mean) * rstd,  dyw = dy * w,
 //   dx = (dyw - mean(dyw) - xhat * mean(dyw * xhat)) * rstd   (in x's dtype)
-// and over all rows dgamma = sum(dy * xhat), dbeta = sum(dy) in fp32.
+// and over all rows dgamma = sum(dy * xhat), dbeta = sum(dy) in fp32. With
+// kRms (_rms_bwd_kernel) mean and mean(dyw) are 0 and there is no dbeta.
 //
 // What bounds it on the card: bytes. It reads x and dy and writes dx, a
 // handful of flops per element, so the least time is
@@ -136,26 +145,27 @@ int launch(const void* x, const void* w, const void* b, void* y, int rows, int h
 // Hopper runs blocks in no order, so the sum over rows takes two kernels and
 // no float atomics (the replay tooling wants bit-stable steps, and atomics
 // would add in a different order on every run):
-// 1. layer_norm_bwd_kernel: a block owns kBwdRows consecutive rows. First one
-//    warp per row reduces mean, rstd, mean(dyw) and mean(dyw * xhat) into
-//    shared memory (warp shuffles, as in the forward). Then the block sweeps
-//    the columns, one thread per column: for each of its rows, in order, it
-//    writes dx and adds dy * xhat and dy into two registers, and at the end
+// 1. norm_bwd_kernel: a block owns kBwdRows consecutive rows. First one warp
+//    per row reduces mean, rstd, mean(dyw) and mean(dyw * xhat) into shared
+//    memory (warp shuffles, as in the forward). Then the block sweeps the
+//    columns, one thread per column: for each of its rows, in order, it
+//    writes dx and adds dy * xhat (and dy) into registers, and at the end
 //    writes the block's partial sums to a (2, blocks, hidden) fp32 scratch
-//    the wrapper allocates. The second read of the block's rows mostly hits
-//    L1/L2 (kBwdRows * hidden * 2 * sizeof(T) bytes).
-// 2. layer_norm_bwd_sum_kernel: per column, sums the blocks' partials in a
-//    fixed order (8 strided groups, then the 8 group sums in order).
+//    ((blocks, hidden) with kRms) the wrapper allocates. The second read of
+//    the block's rows mostly hits L1/L2 (kBwdRows * hidden * 2 * sizeof(T)
+//    bytes).
+// 2. norm_bwd_sum_kernel: per column, sums the blocks' partials in a fixed
+//    order (8 strided groups, then the 8 group sums in order).
 // Every row count and hidden size works; there is no padding.
 
 constexpr int kBwdRows = 32;
 constexpr int kBwdThreads = 256;
 
-template <typename T>
+template <typename T, bool kRms>
 __global__ void __launch_bounds__(kBwdThreads)
-layer_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                      const T* __restrict__ dy, T* __restrict__ dx,
-                      float* __restrict__ part, int rows, int hidden, float eps) {
+norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part,
+                int rows, int hidden, float eps) {
   __shared__ float s_mean[kBwdRows], s_rstd[kBwdRows], s_m1[kBwdRows], s_m2[kBwdRows];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long r0 = (long)blockIdx.x * kBwdRows;
@@ -166,9 +176,12 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     const T* dyr = dy + (r0 + r) * hidden;
     const bool vec = (hidden % Vec<T>::N == 0) &&
                      (reinterpret_cast<uintptr_t>(xr) % 16 == 0);
-    float s = 0.f;
-    for_row(xr, hidden, vec, lane, [&](int, float v) { s += v; });
-    const float mean = warp_sum(s) / hidden;
+    float mean = 0.f;
+    if constexpr (!kRms) {
+      float s = 0.f;
+      for_row(xr, hidden, vec, lane, [&](int, float v) { s += v; });
+      mean = warp_sum(s) / hidden;
+    }
     float ss = 0.f;
     for_row(xr, hidden, vec, lane, [&](int, float v) {
       const float d = v - mean;
@@ -178,10 +191,10 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     float a = 0.f, c = 0.f;
     for_row(xr, hidden, vec, lane, [&](int i, float v) {
       const float dyw = to_f(dyr[i]) * (w ? w[i] : 1.f);
-      a += dyw;
+      if constexpr (!kRms) a += dyw;
       c += dyw * ((v - mean) * rstd);
     });
-    a = warp_sum(a);
+    if constexpr (!kRms) a = warp_sum(a);
     c = warp_sum(c);
     if (lane == 0) {
       s_mean[r] = mean;
@@ -193,7 +206,7 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   __syncthreads();
 
   float* part_g = part + (long)blockIdx.x * hidden;
-  float* part_b = part + ((long)gridDim.x + blockIdx.x) * hidden;
+  float* part_b = part + ((long)gridDim.x + blockIdx.x) * hidden;  // LayerNorm only
   for (int col = threadIdx.x; col < hidden; col += kBwdThreads) {
     const float wc = w ? w[col] : 1.f;
     float g = 0.f, bb = 0.f;
@@ -203,18 +216,18 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
       const float d = to_f(dy[off]);
       dx[off] = from_f<T>((d * wc - s_m1[r] - xhat * s_m2[r]) * s_rstd[r]);
       g += d * xhat;
-      bb += d;
+      if constexpr (!kRms) bb += d;
     }
     part_g[col] = g;
-    part_b[col] = bb;
+    if constexpr (!kRms) part_b[col] = bb;
   }
 }
 
 // out[k][col] = sum over blocks of part[k][block][col], k = 0 (dgamma), 1 (dbeta).
 // A block owns 32 columns; its 8 warps each sum every 8th block's row.
 __global__ void __launch_bounds__(256)
-layer_norm_bwd_sum_kernel(const float* __restrict__ part, int blocks, int hidden,
-                          float* __restrict__ out) {
+norm_bwd_sum_kernel(const float* __restrict__ part, int blocks, int hidden,
+                    float* __restrict__ out) {
   __shared__ float red[8][33];
   const int lane = threadIdx.x & 31, grp = threadIdx.x >> 5;
   const int col = blockIdx.x * 32 + lane;
@@ -232,17 +245,17 @@ layer_norm_bwd_sum_kernel(const float* __restrict__ part, int blocks, int hidden
   }
 }
 
-template <typename T>
+template <typename T, bool kRms>
 int launch_bwd(const void* x, const void* w, const void* dy, void* dx, float* part,
                float* out, int rows, int hidden, float eps, cudaStream_t stream) {
   const int blocks = (rows + kBwdRows - 1) / kBwdRows;
-  layer_norm_bwd_kernel<T><<<blocks, kBwdThreads, 0, stream>>>(
+  norm_bwd_kernel<T, kRms><<<blocks, kBwdThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const T*>(dy),
       static_cast<T*>(dx), part, rows, hidden, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((hidden + 31) / 32, 2);
-  layer_norm_bwd_sum_kernel<<<grid, 256, 0, stream>>>(part, blocks, hidden, out);
+  const dim3 grid((hidden + 31) / 32, kRms ? 1 : 2);
+  norm_bwd_sum_kernel<<<grid, 256, 0, stream>>>(part, blocks, hidden, out);
   return (int)cudaGetLastError();
 }
 
@@ -254,8 +267,8 @@ extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b, void*
                               int rows, int hidden, float eps, int dtype, void* stream) {
   if (rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, b, y, rows, hidden, eps, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, b, y, rows, hidden, eps, s);
+  if (dtype == 0) return launch<float, false>(x, w, b, y, rows, hidden, eps, s);
+  if (dtype == 1) return launch<__nv_bfloat16, false>(x, w, b, y, rows, hidden, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -273,7 +286,39 @@ extern "C" int layer_norm_bwd(const void* x, const void* w, const void* dy, void
     return (int)cudaMemsetAsync(out, 0, 2 * sizeof(float) * (size_t)hidden, s);
   float* p = static_cast<float*>(part);
   float* o = static_cast<float*>(out);
-  if (dtype == 0) return launch_bwd<float>(x, w, dy, dx, p, o, rows, hidden, eps, s);
-  if (dtype == 1) return launch_bwd<__nv_bfloat16>(x, w, dy, dx, p, o, rows, hidden, eps, s);
+  if (dtype == 0) return launch_bwd<float, false>(x, w, dy, dx, p, o, rows, hidden, eps, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16, false>(x, w, dy, dx, p, o, rows, hidden, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype: 0 = float32, 1 = bfloat16. w is fp32 (hidden,) or null (w = 1).
+// Returns the cudaError_t of the launch (0 = success).
+extern "C" int rms_norm_fwd(const void* x, const void* w, void* y, int rows, int hidden,
+                            float eps, int dtype, void* stream) {
+  if (rows == 0) return 0;
+  if (hidden <= 0 || rows < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float, true>(x, w, nullptr, y, rows, hidden, eps, s);
+  if (dtype == 1) return launch<__nv_bfloat16, true>(x, w, nullptr, y, rows, hidden, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// x, dy, dx: (rows, hidden) in the dtype's type; w: fp32 (hidden,) or null
+// (then w = 1). part: fp32 scratch of (part_blocks, hidden) with
+// part_blocks = ceil(rows / 32); out: fp32 (hidden,) = dgamma.
+// Returns the cudaError_t of the launches (0 = success).
+extern "C" int rms_norm_bwd(const void* x, const void* w, const void* dy, void* dx,
+                            void* part, void* out, int rows, int hidden, int part_blocks,
+                            float eps, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hidden <= 0 || rows < 0) return (int)cudaErrorInvalidValue;
+  if (part_blocks != (rows + kBwdRows - 1) / kBwdRows) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * (size_t)hidden, s);
+  float* p = static_cast<float*>(part);
+  float* o = static_cast<float*>(out);
+  if (dtype == 0) return launch_bwd<float, true>(x, w, dy, dx, p, o, rows, hidden, eps, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16, true>(x, w, dy, dx, p, o, rows, hidden, eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
-"""The GPT model, its loss, its decoding loop and conversion of JAX
-weights and training state."""
+"""The GPT model (and the Llama family on it), its loss, its decoding
+loop, conversion of JAX weights and training state, and the import of
+transformers Llama weights."""
 
 from apex_tpu_torch.models.convert import (
     fused_adam_state_from_jax,
@@ -12,10 +13,20 @@ from apex_tpu_torch.models.gpt import (
     GPTModel,
     gpt2_small_config,
     gpt_loss_fn,
+    tinyllama_1_1b_config,
+)
+from apex_tpu_torch.models.hf_import import (
+    config_from_hf_llama,
+    llama_from_hf,
+    mistral_from_hf,
+    params_from_hf_llama,
+    params_to_hf_llama,
 )
 
 __all__ = [
-    "Embedding", "GPTModel", "fused_adam_state_from_jax", "generate",
-    "gpt2_small_config", "gpt_loss_fn", "gpt_params_from_jax",
-    "sample_next_token", "scaler_state_from_jax",
+    "Embedding", "GPTModel", "config_from_hf_llama",
+    "fused_adam_state_from_jax", "generate", "gpt2_small_config",
+    "gpt_loss_fn", "gpt_params_from_jax", "llama_from_hf", "mistral_from_hf",
+    "params_from_hf_llama", "params_to_hf_llama", "sample_next_token",
+    "scaler_state_from_jax", "tinyllama_1_1b_config",
 ]

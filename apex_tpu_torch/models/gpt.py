@@ -9,7 +9,17 @@ Weights are random, drawn from a ``torch.Generator`` seeded by ``seed``
 with the JAX package's initializer scales (normal 0.02 for the tables,
 lecun scale 1/sqrt(fan_in) for the kernels, ones and zeros for the
 norms and biases), or are loaded from a JAX tree with
-``models.convert.gpt_params_from_jax``.
+``models.convert.gpt_params_from_jax`` or from a transformers Llama with
+``models.hf_import``.
+
+A model with rotary positions (the Llama family) keeps fp32 cos and sin
+tables of :func:`~apex_tpu_torch.transformer.layer.rotary_embedding_for`'s
+angles on its device, computed once on the CPU for
+``max_position_embeddings`` positions (the JAX model's cache-length
+table). Each call gathers the rows of its tokens' positions: ``[0, s)``
+for a prefill or a training call, each row's cache position for a
+decode step. A position past the table fails at the gather, the bound
+that ``generate`` and the engine check before they run a model.
 """
 
 import math
@@ -30,9 +40,11 @@ from apex_tpu_torch.transformer.layer import (
     KVCache,
     ParallelTransformer,
     check_supported,
+    rotary_embedding_for,
 )
 
-__all__ = ["Embedding", "GPTModel", "gpt2_small_config", "gpt_loss_fn"]
+__all__ = ["Embedding", "GPTModel", "gpt2_small_config", "gpt_loss_fn",
+           "tinyllama_1_1b_config"]
 
 
 def gpt2_small_config(**overrides) -> TransformerConfig:
@@ -47,6 +59,29 @@ def gpt2_small_config(**overrides) -> TransformerConfig:
         layernorm_epsilon=1e-5, hidden_dropout=0.0, attention_dropout=0.0,
         activation="gelu", position_embedding_type="learned",
         share_embeddings_and_output_weights=True,
+    )
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def tinyllama_1_1b_config(**overrides) -> TransformerConfig:
+    """TinyLlama-1.1B (``TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T``,
+    a Llama-2 architecture) at full width, as the JAX package's
+    ``config_from_hf_llama`` maps its published config.json: 22 layers,
+    hidden 2048, 32 heads over 4 KV heads (head_dim 64), SwiGLU FFN 5632,
+    vocab 32000, 2048 positions, RMSNorm eps 1e-5, rotate-half RoPE with
+    base 10000, bias-free linears, untied fp32 head, no dropout:
+    1,100,048,384 parameters in 157 tensors. Params fp32, compute bf16
+    unless overridden."""
+    kw = dict(
+        num_layers=22, hidden_size=2048, num_attention_heads=32,
+        num_query_groups=4, ffn_hidden_size=5632, vocab_size=32000,
+        max_position_embeddings=2048, layernorm_epsilon=1e-5,
+        hidden_dropout=0.0, attention_dropout=0.0, normalization="rmsnorm",
+        activation="swiglu", add_bias_linear=False,
+        position_embedding_type="rope", rotary_base=10000.0,
+        share_embeddings_and_output_weights=False,
+        apply_query_key_layer_scaling=False,
     )
     kw.update(overrides)
     return TransformerConfig(**kw)
@@ -96,6 +131,16 @@ class GPTModel(nn.Module):
         self.transformer = ParallelTransformer(
             config, post_layer_norm=True,
             attn_mask_type=AttnMaskType.causal, device=device)
+        self.rope_cos = self.rope_sin = None
+        if config.position_embedding_type == "rope":
+            if config.max_position_embeddings < 1:
+                raise ValueError("a rope model needs max_position_embeddings"
+                                 ", the length of its cos/sin table")
+            f, _ = rotary_embedding_for(  # on the CPU
+                config, config.max_position_embeddings)
+            f = f[:, 0, 0, :]
+            self.rope_cos = torch.cos(f).to(device)
+            self.rope_sin = torch.sin(f).to(device)
         self.init_weights(seed)
 
     @property
@@ -117,6 +162,11 @@ class GPTModel(nn.Module):
                 continue
             p.copy_(torch.randn(p.shape, generator=gen, device=p.device,
                                 dtype=torch.float32) * std)
+
+    def _rotary(self, positions):
+        """(cos, sin), each (s, b, 1, rot_dim), for (b, s) positions."""
+        return tuple(t[positions].transpose(0, 1)[:, :, None, :]
+                     for t in (self.rope_cos, self.rope_sin))
 
     def new_cache(self, batch: int, slots: int) -> KVCache:
         """An empty KV cache for ``batch`` rows of ``slots`` positions."""
@@ -140,7 +190,13 @@ class GPTModel(nn.Module):
             if position_ids is None:
                 position_ids = cache.index[:, None]
         h = self.embedding(tokens, position_ids)
-        h = self.transformer(h, key_padding_mask, cache, decode_step)
+        rotary = None
+        if self.rope_cos is not None:
+            if position_ids is None:
+                position_ids = torch.arange(tokens.shape[1],
+                                            device=tokens.device)[None, :]
+            rotary = self._rotary(position_ids)
+        h = self.transformer(h, key_padding_mask, cache, decode_step, rotary)
         if cache is not None:
             if decode_step:
                 cache.index += 1

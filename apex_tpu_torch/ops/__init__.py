@@ -1,6 +1,7 @@
 """Ops with hand-written CUDA kernels and their plain PyTorch versions:
 ``ops.layer_norm`` (``layer_norm``, ``rms_norm``) and ``ops.attention``
 (``flash_attention``, ``causal_mask``, ``window_mask``), both
-differentiable through their backward kernels; and ``ops.multi_tensor``
-(flat buffers of a parameter collection). The functions are not
+differentiable through their backward kernels; ``ops.rope`` (rotary
+positions, plain PyTorch, as XLA fuses them in the JAX package); and
+``ops.multi_tensor`` (flat buffers of a parameter collection). The functions are not
 re-exported here, so that ``ops.layer_norm`` stays the module."""

@@ -10,8 +10,15 @@ dots (models/convert.py).
 Only tensor-, sequence- and context-parallel size 1: dropout (a nonzero
 rate in training mode), ``CoreAttention``, MoE, sequence and context
 parallelism and recompute raise ``NotImplementedError`` where a config
-asks for them. Attention always takes the flash path; LayerNorm and
-attention differentiate through their backward kernels.
+asks for them. Attention always takes the flash path; LayerNorm, RMSNorm
+and attention differentiate through their backward kernels.
+
+Rotary positions (``position_embedding_type="rope"``): the model hands
+every attention layer the cos and sin rows of its tokens' positions,
+(s, b or 1, 1, rot_dim), which rotate q and k after the projection
+split and before the heads move forward, as in JAX. A prefill or
+training call takes positions ``[0, s)``; a decode step takes each
+row's own position.
 
 KV-cache decoding follows ParallelAttention's cache mode at cp = 1: a
 prefill call writes the prompt's K/V into the cache, and a decode step
@@ -30,6 +37,10 @@ from torch import nn
 
 from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.layer_norm import layer_norm, rms_norm
+from apex_tpu_torch.ops.rope import (
+    apply_rotary_pos_emb_cached,
+    rope_frequencies,
+)
 from apex_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -40,6 +51,7 @@ from apex_tpu_torch.transformer.enums import AttnMaskType
 __all__ = [
     "KVCache", "Norm", "ParallelAttention", "ParallelMLP",
     "ParallelTransformer", "ParallelTransformerLayer",
+    "rotary_embedding_for",
 ]
 
 
@@ -54,11 +66,19 @@ def check_supported(cfg: TransformerConfig) -> None:
         missing.append("MoE")
     if cfg.recompute_granularity is not None:
         missing.append("recompute")
-    if cfg.position_embedding_type == "rope":
-        missing.append("rope positions")
     if missing:
         raise NotImplementedError(
             f"not ported to apex_tpu_torch yet: {', '.join(missing)}")
+
+
+def rotary_embedding_for(config: TransformerConfig, seq_len: int,
+                         dtype=torch.float32):
+    """(q_freqs, k_freqs), the (seq_len, 1, 1, rot_dim) angles of the
+    rotary path, with ``rot_dim = int(kv_channels * rotary_percent)``."""
+    rot_dim = int(config.kv_channels * config.rotary_percent)
+    f = rope_frequencies(rot_dim, seq_len, base=config.rotary_base,
+                         dtype=dtype)
+    return f, f
 
 
 class KVCache:
@@ -176,7 +196,10 @@ class ParallelAttention(nn.Module):
         self.dense = RowParallelLinear(heads * hn, h, **kw)
 
     def forward(self, hidden_states, key_padding_mask=None,
-                cache: Optional[KVCache] = None, decode_step: bool = False):
+                cache: Optional[KVCache] = None, decode_step: bool = False,
+                rotary=None):
+        """``rotary``: the (cos, sin) rows of the tokens' positions, each
+        (s, b or 1, 1, rot_dim), or None for no rotary positions."""
         cfg = self.config
         s, b, _ = hidden_states.shape
         heads, hn = cfg.num_attention_heads, cfg.kv_channels
@@ -187,6 +210,9 @@ class ParallelAttention(nn.Module):
         else:
             qkv = self.query_key_value(hidden_states).reshape(s, b, heads, 3 * hn)
             q, k, v = qkv.split(hn, dim=-1)  # per-head [q | k | v]
+        if rotary is not None:
+            q = apply_rotary_pos_emb_cached(q, *rotary)
+            k = apply_rotary_pos_emb_cached(k, *rotary)
         # (s, b, np, hn) -> (b, np, s, hn)
         qb, kb, vb = (t.permute(1, 2, 0, 3) for t in (q, k, v))
 
@@ -236,7 +262,7 @@ class ParallelTransformerLayer(nn.Module):
         self.mlp = ParallelMLP(config, device)
 
     def forward(self, hidden_states, key_padding_mask=None, cache=None,
-                decode_step: bool = False):
+                decode_step: bool = False, rotary=None):
         cfg = self.config
         if self.training and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0):
             raise NotImplementedError(
@@ -247,7 +273,8 @@ class ParallelTransformerLayer(nn.Module):
         post_ln = cfg.apply_residual_connection_post_layernorm
 
         ln_out = self.input_layernorm(hidden_states)
-        attn_out = self.self_attention(ln_out, key_padding_mask, cache, decode_step)
+        attn_out = self.self_attention(ln_out, key_padding_mask, cache,
+                                       decode_step, rotary)
         residual = ln_out if post_ln else hidden_states
         h = (residual.to(rdtype) + attn_out.to(rdtype)).to(dtype)
 
@@ -271,10 +298,10 @@ class ParallelTransformer(nn.Module):
         self.final_layernorm = Norm(config, device) if post_layer_norm else None
 
     def forward(self, hidden_states, key_padding_mask=None, cache=None,
-                decode_step: bool = False):
+                decode_step: bool = False, rotary=None):
         for i in range(self.num_layers):
             hidden_states = getattr(self, f"layer_{i}")(
-                hidden_states, key_padding_mask, cache, decode_step)
+                hidden_states, key_padding_mask, cache, decode_step, rotary)
         if self.final_layernorm is not None:
             hidden_states = self.final_layernorm(hidden_states)
         return hidden_states

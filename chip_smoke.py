@@ -11,12 +11,18 @@ swallowed:
    (one process per source, all at once) and prints the seconds;
 3. kernel parity: each kernel against its plain PyTorch version on the
    card, in fp32 and bf16 where it takes bf16, at the main paths' shapes
-   and the edge cases (ragged lengths, a fully padded row, GQA, a sliding
-   window, causal with sq != sk; Adam over GPT-2 small's 124,439,808
-   parameters and a ragged length, both decay modes, steps 1 and 10);
-   prints each case's error and tolerance, and checks that a second call
-   on the same inputs is bit-equal; then times each kernel, its plain
-   version and the one PyTorch call that computes the same function;
+   and the edge cases (ragged lengths, a fully padded row, GQA 12/4 and
+   Llama's 32/4, a sliding window, causal with sq != sk; flash forward and
+   backward at Llama training's (4,32,2048,64) over (4,4,2048,64) and
+   forward at a 1536-token Llama prefill, in bf16; Adam over GPT-2
+   small's 124,439,808 parameters and a ragged length, both decay modes,
+   steps 1 and 10; RMSNorm forward and backward at rows {1, 1000, 8192}
+   x hidden {2048, 1000}, with and without weight; the sum of squares at
+   1, 1,000,003 and TinyLlama's 1,100,048,384 elements, also against an
+   fp64 sum); prints each case's error and tolerance, and checks that a
+   second call on the same inputs is bit-equal; then times each kernel,
+   its plain version and the one PyTorch call that computes the same
+   function (the timed flash outputs held to the same tolerances);
 4. serving: GPT-2 small at full width (12 x 768, vocab 50257, 1024
    positions, seeded random weights, params fp32, compute bf16) behind
    the continuous-batching engine answers 24 requests; the launch counts
@@ -33,8 +39,31 @@ swallowed:
    the card agree with the CPU, 3 bf16 training steps give the CPU's
    verdicts, loss scales and losses, and an ``inject_nan`` step is
    skipped with params and Adam state bit-unchanged and the scale halved;
-6. prints the ``kernels`` line, then as the last line
+6. Llama serving: TinyLlama-1.1B at full width and depth (22 x 2048, 32
+   heads over 4 KV heads, SwiGLU 5632, vocab 32000, RoPE, RMSNorm, untied
+   fp32 head; seeded random weights, params fp32, compute bf16) behind an
+   8-lane engine (16-token blocks, ``max_seq_len`` 2048) answers 24
+   greedy requests (prompts of 32-1536 tokens, 32-64 new tokens each);
+   all 24 must complete and the RMSNorm and flash forward kernels must
+   run. Then, in fp32, every decode step of two lanes at different
+   positions gives the logits of a full forward of the same prefix, and
+   the logits of a 32-token input on the card agree with the plain path
+   on the CPU;
+7. Llama fine-tuning: the fine-tuning example's loop
+   (``examples/llama/finetune_llama.LlamaFinetune``) on TinyLlama-1.1B at
+   full width and depth, bf16 compute, batch 4 x 2048, lr 1e-3, clip 1.0,
+   through ``distributed_fused_adam`` at a data-parallel world of one:
+   after one warm-up step all 157 parameters hold a finite gradient; in
+   5 measured steps the loss falls, the sum-of-squares kernel computes the
+   clip factor once per step, and the RMSNorm and flash kernels run;
+8. prints the ``kernels`` line (all nine kernels; ``launches`` is the
+   count of the kernel's first path below that runs it, and
+   ``launches_by_path`` has every path's), then as the last line
    ``{"ok": true, "device": {...}}``.
+
+The paths, each driven with the counts set to 0 just before it and read
+just after: ``serving`` and ``training`` (GPT-2 small), ``llama_serving``
+and ``llama_finetune`` (TinyLlama-1.1B).
 """
 
 import json
@@ -78,10 +107,32 @@ TOL = {
     ("flash_bwd_dkv", torch.bfloat16): (2e-2, 2e-2),
     # every operation explicitly rounded as the plain version rounds it
     ("adam_update", torch.float32): (0.0, 0.0),
+    # RMSNorm as LayerNorm: the same fp32 arithmetic in another order, or
+    # one bf16 rounding of the output
+    ("rms_norm_fwd", torch.float32): (1e-5, 1e-5),
+    ("rms_norm_fwd", torch.bfloat16): (1e-2, 1e-2),
+    ("rms_norm_bwd", torch.float32): (1e-4, 1e-4),
+    ("rms_norm_bwd", torch.bfloat16): (2e-2, 2e-2),
+    # dgamma: fp32 sums over up to 8192 rows in another order
+    ("rms_norm_bwd dgamma", torch.float32): (2e-3, 1e-4),
+    ("rms_norm_bwd dgamma", torch.bfloat16): (2e-3, 1e-4),
+    # fp32 partial sums of about a thousand terms per thread, then a tree,
+    # against torch.sum's cascade: relative
+    ("sumsq_flat", torch.float32): (0.0, 1e-5),
 }
 N_GPT2_SMALL = 124_439_808  # parameters of GPT-2 small (tied head)
-# the kernels of each path, in the order of the kernels line
-FORWARD_KERNELS = ("layer_norm_fwd", "flash_fwd")
+N_TINYLLAMA = 1_100_048_384  # parameters of TinyLlama-1.1B (untied head)
+# the kernels each path must launch; a kernel's "launches" in the kernels
+# line is the count of the first path here that runs it
+PATH_KERNELS = {
+    "serving": ("layer_norm_fwd", "flash_fwd"),
+    "training": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                 "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
+    "llama_serving": ("rms_norm_fwd", "flash_fwd"),
+    "llama_finetune": ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd",
+                       "flash_bwd_dq", "flash_bwd_dkv", "sumsq_flat"),
+}
+FORWARD_KERNELS = PATH_KERNELS["serving"]
 KERNEL_META = {  # name: (source, TPU kernel it replaces)
     "layer_norm_fwd": ("apex_tpu_torch/csrc/layer_norm.cu",
                        "apex_tpu/ops/layer_norm.py:81"),
@@ -95,6 +146,12 @@ KERNEL_META = {  # name: (source, TPU kernel it replaces)
                       "apex_tpu/ops/attention.py:289"),
     "adam_update": ("apex_tpu_torch/csrc/adam.cu",
                     "apex_tpu/optimizers/_fused_kernels.py:33"),
+    "rms_norm_fwd": ("apex_tpu_torch/csrc/layer_norm.cu",
+                     "apex_tpu/ops/layer_norm.py:115"),
+    "rms_norm_bwd": ("apex_tpu_torch/csrc/layer_norm.cu",
+                     "apex_tpu/ops/layer_norm.py:121"),
+    "sumsq_flat": ("apex_tpu_torch/csrc/l2norm.cu",
+                   "apex_tpu/optimizers/_fused_kernels.py:121"),
 }
 
 
@@ -146,6 +203,7 @@ def check(name, dtype, case, out, ref, errors, tol_key=None):
                              f"outside tolerance, max_abs_err {mx}")
     errors.setdefault(name, {})[dtype] = max(
         errors.get(name, {}).get(dtype, 0.0), mx)
+    return mx
 
 
 # -- kernel parity ---------------------------------------------------------
@@ -200,10 +258,22 @@ def flash_cases(gen):
                decode_kpm(8, 1024, gen), None)
         q, k, v = attn_inputs(2, 12, 4, 300, 300, 64, dtype, gen)
         yield "GQA 12q/4kv causal (2,12,300,64)", q, k, v, True, None, None
+        q, k, v = attn_inputs(1, 32, 4, 600, 600, 64, dtype, gen)
+        yield "GQA 32q/4kv causal (1,32,600,64)", q, k, v, True, None, None
+        q, k, v = attn_inputs(8, 32, 4, 1, 2048, 64, dtype, gen)
+        yield ("GQA 32q/4kv decode (8,32,1,64) sk=2048 key-padding", q, k,
+               v, False, decode_kpm(8, 2048, gen), None)
         q, k, v = attn_inputs(1, 12, 12, 1024, 1024, 64, dtype, gen)
         yield "window=256 causal (1,12,1024,64)", q, k, v, True, None, 256
         q, k, v = attn_inputs(1, 12, 12, 77, 200, 64, dtype, gen)
         yield "causal sq!=sk (1,12,77,64) sk=200", q, k, v, True, None, None
+        if dtype == torch.bfloat16:  # the Llama paths' shapes, in their dtype
+            q, k, v = attn_inputs(1, 32, 4, 1536, 1536, 64, dtype, gen)
+            yield ("Llama prefill GQA 32q/4kv causal (1,32,1536,64)", q, k, v,
+                   True, None, None)
+            q, k, v = attn_inputs(4, 32, 4, 2048, 2048, 64, dtype, gen)
+            yield ("Llama training GQA 32q/4kv causal (4,32,2048,64)", q, k,
+                   v, True, None, None)
     return cases
 
 
@@ -268,6 +338,8 @@ def flash_bwd_cases(gen):
         yield "non-causal (2,12,512,64)", q, k, v, False, None, None
         q, k, v = attn_inputs(2, 12, 4, 300, 300, 64, dtype, gen)
         yield "GQA 12q/4kv causal (2,12,300,64)", q, k, v, True, None, None
+        q, k, v = attn_inputs(1, 32, 4, 600, 600, 64, dtype, gen)
+        yield "GQA 32q/4kv causal (1,32,600,64)", q, k, v, True, None, None
         q, k, v = attn_inputs(1, 12, 12, 1024, 1024, 64, dtype, gen)
         yield "window=256 causal (1,12,1024,64)", q, k, v, True, None, 256
         q, k, v = attn_inputs(4, 12, 12, 256, 256, 64, dtype, gen)
@@ -277,6 +349,10 @@ def flash_bwd_cases(gen):
         yield "ragged s=100 causal (2,12,100,64)", q, k, v, True, None, None
         q, k, v = attn_inputs(1, 12, 12, 77, 200, 64, dtype, gen)
         yield "causal sq!=sk (1,12,77,64) sk=200", q, k, v, True, None, None
+        if dtype == torch.bfloat16:  # the Llama training shape, in its dtype
+            q, k, v = attn_inputs(4, 32, 4, 2048, 2048, 64, dtype, gen)
+            yield ("Llama training GQA 32q/4kv causal (4,32,2048,64)", q, k,
+                   v, True, None, None)
     return cases
 
 
@@ -345,6 +421,75 @@ def adam_parity(errors):
                 del got, ref
 
 
+def rms_parity(errors):
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows in (1, 1000, 8192):
+            for hidden in (2048, 1000):
+                for weighted in (True, False):
+                    x, w, _ = ln_inputs(rows, hidden, dtype, gen)
+                    w = w if weighted else None
+                    dy = torch.randn(rows, hidden, generator=gen,
+                                     device="cuda").to(dtype)
+                    case = (f"rows={rows} hidden={hidden} "
+                            f"{'weight' if weighted else 'no weight'}")
+                    out = ln.rms_norm(x, w, 1e-5)
+                    torch.cuda.synchronize()
+                    if out.dtype != dtype or out.shape != x.shape:
+                        raise AssertionError("rms_norm_fwd: wrong dtype/shape")
+                    check("rms_norm_fwd", dtype, case, out,
+                          ln._rms_ref(x, w, 1e-5), errors)
+                    same_twice("rms_norm_fwd", case, (out,),
+                               (ln.rms_norm(x, w, 1e-5),))
+                    got = ln._rms_bwd_kernel(x, w, dy, 1e-5)
+                    torch.cuda.synchronize()
+                    ref = ln._rms_bwd_ref(x, w, dy, 1e-5)
+                    if got[0].dtype != dtype or got[0].shape != x.shape:
+                        raise AssertionError("rms_norm_bwd: wrong dtype/shape")
+                    check("rms_norm_bwd", dtype, case + " dx", got[0], ref[0],
+                          errors)
+                    check("rms_norm_bwd", dtype, case + " dgamma", got[1],
+                          ref[1], errors, tol_key="rms_norm_bwd dgamma")
+                    same_twice("rms_norm_bwd", case, got,
+                               ln._rms_bwd_kernel(x, w, dy, 1e-5))
+
+
+def fp64_sumsq(x):
+    """The sum of squares in fp64, a chunk at a time (x may be 4.4 GB)."""
+    return sum(float((c.double() ** 2).sum()) for c in x.split(1 << 26))
+
+
+def sumsq_parity(errors):
+    from apex_tpu_torch.optimizers import _fused_kernels as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    for n in (1, 1_000_003, N_TINYLLAMA):
+        x = torch.randn(n, generator=gen, device="cuda")
+        # the aligned buffer (float4 loads) and an unaligned view of it
+        # (the scalar loop)
+        for case, t in ((f"n={n}", x), (f"n={n - 1} unaligned view", x[1:])):
+            if t.numel() == 0:
+                continue
+            got = fk.sumsq_flat(t)
+            torch.cuda.synchronize()
+            if got.dtype != torch.float32 or got.shape != ():
+                raise AssertionError("sumsq_flat: wrong dtype/shape")
+            check("sumsq_flat", torch.float32, case, got,
+                  fk._sumsq_flat_ref(t), errors)
+            exact = fp64_sumsq(t)
+            rel = abs(float(got) - exact) / exact
+            log(f"parity sumsq_flat {case} against fp64: relative error "
+                f"{rel:.3e} (tol 1e-5)")
+            if rel > 1e-5:
+                raise AssertionError(f"sumsq_flat {case}: relative error "
+                                     f"{rel} against the fp64 sum")
+            same_twice("sumsq_flat", case, (got,), (fk.sumsq_flat(t),))
+        del x
+    torch.cuda.empty_cache()
+
+
 # -- kernel timing ---------------------------------------------------------
 
 def bound(bytes_moved, flops, peak_flops):
@@ -376,7 +521,7 @@ def time_layer_norm(rows, hidden):
     }
 
 
-def time_flash(label, q, k, v, causal, kpm):
+def time_flash(label, q, k, v, causal, kpm, errors):
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import attention as at
@@ -401,14 +546,15 @@ def time_flash(label, q, k, v, causal, kpm):
     attn_mask = None if kpm is None else ~kpm[:, None, None, :]
     return {
         "shape": label,
-        "max_abs_err": float((out.float() - ref.float()).abs().max()),
+        "max_abs_err": check("flash_fwd", q.dtype, label, out, ref, errors),
         "ms": time_ms(lambda: at.flash_attention(
             q, k, v, causal=causal, key_padding_mask=kpm)),
         "plain_ms": time_ms(lambda: at._flash_ref(
             q, k, v, scale, causal, None, kpm)),
         "bound_ms": b_ms, "bound_by": by,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=attn_mask, is_causal=causal, scale=scale)),
+            q, k, v, attn_mask=attn_mask, is_causal=causal, scale=scale,
+            enable_gqa=h != k.shape[1])),
     }
 
 
@@ -440,16 +586,16 @@ def time_layer_norm_bwd(rows, hidden):
     }
 
 
-def time_flash_bwd(gen):
-    """dq and dk/dv at the training shape, (8, 12, 1024, 64) bf16 causal.
-    The plain version and the library call compute the whole backward
-    (dq, dk and dv) and stand in both rows."""
+def time_flash_bwd(gen, b, h, h_kv, s, errors):
+    """dq and dk/dv at a training shape, (b, h, s, 64) queries over h_kv
+    key/value heads, bf16 causal. The plain version and the library call
+    compute the whole backward (dq, dk and dv) and stand in both rows."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import attention as at
 
-    b, h, s, d = 8, 12, 1024, 64
-    q, k, v = attn_inputs(b, h, h, s, s, d, torch.bfloat16, gen)
+    d = 64
+    q, k, v = attn_inputs(b, h, h_kv, s, s, d, torch.bfloat16, gen)
     do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
     scale = 1.0 / math.sqrt(d)
     o, lse = at._flash_kernel(q, k, v, scale, True)
@@ -463,7 +609,8 @@ def time_flash_bwd(gen):
 
     def sdpa():
         return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                              scale=scale)
+                                              scale=scale,
+                                              enable_gqa=h != h_kv)
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(), (qs, ks, vs), do)
@@ -471,15 +618,23 @@ def time_flash_bwd(gen):
     with torch.no_grad():
         fwd_ms = time_ms(sdpa)
     library_ms = time_ms(sdpa_fwd_bwd) - fwd_ms
-    tensor = b * h * s * d * 2  # bytes of one bf16 (b, h, s, d) tensor
+    q_t = b * h * s * d * 2  # bytes of one bf16 (b, h, s, d) tensor
+    kv_t = b * h_kv * s * d * 2  # bytes of one bf16 (b, h_kv, s, d) tensor
     rows = b * h * s * 4  # bytes of one fp32 (b, h, s) row vector
-    dq_bound = bound(5 * tensor + 2 * rows, 3 * 2 * pairs * d, BF16_FLOPS)
-    dkv_bound = bound(6 * tensor + 2 * rows, 4 * 2 * pairs * d, BF16_FLOPS)
-    label = f"q,k,v,dO ({b},{h},{s},{d}) bf16 causal"
+    # dq: reads q, k, v, dO, lse, delta, writes dq; dk/dv: reads the same,
+    # writes dk and dv
+    dq_bound = bound(3 * q_t + 2 * kv_t + 2 * rows, 3 * 2 * pairs * d,
+                     BF16_FLOPS)
+    dkv_bound = bound(2 * q_t + 4 * kv_t + 2 * rows, 4 * 2 * pairs * d,
+                      BF16_FLOPS)
+    label = (f"q,dO ({b},{h},{s},{d}) k,v ({b},{h_kv},{s},{d}) bf16 causal"
+             if h != h_kv else f"q,k,v,dO ({b},{h},{s},{d}) bf16 causal")
     out = []
-    for idx, bnd in (([0], dq_bound), ([1, 2], dkv_bound)):
-        err = max(float((got[i].float() - ref[i].float()).abs().max())
-                  for i in idx)
+    for name, parts, bnd in (("flash_bwd_dq", ((0, "dq"),), dq_bound),
+                             ("flash_bwd_dkv", ((1, "dk"), (2, "dv")),
+                              dkv_bound)):
+        err = max(check(name, q.dtype, f"{label} {part}", got[i], ref[i],
+                        errors) for i, part in parts)
         out.append({"shape": label, "max_abs_err": err,
                     "bound_ms": bnd[0], "bound_by": bnd[1],
                     "plain_ms": plain_ms, "library_ms": library_ms})
@@ -539,23 +694,105 @@ def time_adam(n):
     }
 
 
-def kernel_timings():
+def time_rms_norm(rows, hidden):
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    x, w, _ = ln_inputs(rows, hidden, torch.bfloat16, gen)
+    wl = w.to(x.dtype)
+    # reads x and w, writes y; x^2, the sum, x * rstd * w per element
+    b_ms, by = bound(2 * rows * hidden * x.element_size() + hidden * 4,
+                     4 * rows * hidden, FP32_FLOPS)
+    err = float((ln.rms_norm(x, w).float()
+                 - ln._rms_ref(x, w, 1e-5).float()).abs().max())
+    return {
+        "shape": f"x ({rows},{hidden}) bf16",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ln.rms_norm(x, w)),
+        "plain_ms": time_ms(lambda: ln._rms_ref(x, w, 1e-5)),
+        "bound_ms": b_ms, "bound_by": by,
+        "library_ms": time_ms(lambda: F.rms_norm(x, (hidden,), wl, 1e-5)),
+    }
+
+
+def time_rms_norm_bwd(rows, hidden):
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    x, w, _ = ln_inputs(rows, hidden, torch.bfloat16, gen)
+    dy = torch.randn(rows, hidden, generator=gen, device="cuda").bfloat16()
+    # reads x and dy, writes dx (bf16); reads w, writes dgamma
+    b_ms, by = bound(3 * rows * hidden * 2 + 2 * hidden * 4,
+                     10 * rows * hidden, FP32_FLOPS)
+    got = ln._rms_bwd_kernel(x, w, dy, 1e-5)
+    ref = ln._rms_bwd_ref(x, w, dy, 1e-5)
+    xl = x.detach().requires_grad_(True)
+    wl = w.bfloat16().requires_grad_(True)
+    yl = F.rms_norm(xl, (hidden,), wl, 1e-5)
+    return {
+        "shape": f"x, dy ({rows},{hidden}) bf16",
+        "max_abs_err": float((got[0].float() - ref[0].float()).abs().max()),
+        "ms": time_ms(lambda: ln._rms_bwd_kernel(x, w, dy, 1e-5)),
+        "plain_ms": time_ms(lambda: ln._rms_bwd_ref(x, w, dy, 1e-5)),
+        "bound_ms": b_ms, "bound_by": by,
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            yl, (xl, wl), dy, retain_graph=True)),
+    }
+
+
+def time_sumsq(n):
+    from apex_tpu_torch.optimizers import _fused_kernels as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    x = torch.randn(n, generator=gen, device="cuda")
+    # reads x once; a multiply and an add per element
+    b_ms, by = bound(4 * n, 2 * n, FP32_FLOPS)
+    out = {
+        "shape": f"x ({n},) fp32",
+        "max_abs_err": float((fk.sumsq_flat(x) - fk._sumsq_flat_ref(x)).abs()),
+        "ms": time_ms(lambda: fk.sumsq_flat(x), iters=20),
+        "plain_ms": time_ms(lambda: fk._sumsq_flat_ref(x), iters=10),
+        "bound_ms": b_ms, "bound_by": by,
+        "library_ms": time_ms(lambda: torch.linalg.vector_norm(x) ** 2,
+                              iters=20),
+    }
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_timings(errors):
+    """Times every kernel at its path's shapes; the flash shapes' outputs
+    are held to the flash tolerances too."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     out = {"layer_norm_fwd": [time_layer_norm(768, 768),
                               time_layer_norm(8, 768)]}
     q, k, v = attn_inputs(1, 12, 12, 768, 768, 64, torch.bfloat16, gen)
     prefill = time_flash("prefill causal q,k,v (1,12,768,64) bf16",
-                         q, k, v, True, None)
+                         q, k, v, True, None, errors)
     q, k, v = attn_inputs(8, 12, 12, 1, 1024, 64, torch.bfloat16, gen)
     lens = torch.tensor([32, 100, 300, 500, 700, 800, 900, 1024],
                         device="cuda")
     kpm = torch.arange(1024, device="cuda")[None, :] >= lens[:, None]
     decode = time_flash("decode q (8,12,1,64) k,v (8,12,1024,64) bf16 "
-                        "key-padding", q, k, v, False, kpm)
+                        "key-padding", q, k, v, False, kpm, errors)
     out["flash_fwd"] = [prefill, decode]
+    q, k, v = attn_inputs(1, 32, 4, 1024, 1024, 64, torch.bfloat16, gen)
+    out["flash_fwd"].append(time_flash(
+        "Llama prefill causal q (1,32,1024,64) k,v (1,4,1024,64) bf16",
+        q, k, v, True, None, errors))
     out["layer_norm_bwd"] = [time_layer_norm_bwd(8192, 768)]
-    out["flash_bwd_dq"], out["flash_bwd_dkv"] = time_flash_bwd(gen)
+    dq, dkv = time_flash_bwd(gen, 8, 12, 12, 1024, errors)
+    ldq, ldkv = time_flash_bwd(gen, 4, 32, 4, 2048, errors)
+    out["flash_bwd_dq"], out["flash_bwd_dkv"] = dq + ldq, dkv + ldkv
     out["adam_update"] = [time_adam(N_GPT2_SMALL)]
+    out["rms_norm_fwd"] = [time_rms_norm(8192, 2048), time_rms_norm(8, 2048)]
+    out["rms_norm_bwd"] = [time_rms_norm_bwd(8192, 2048)]
+    out["sumsq_flat"] = [time_sumsq(N_TINYLLAMA)]
     for name, rows in out.items():
         for r in rows:
             log(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -711,7 +948,7 @@ def training_phase(smi):
         raise AssertionError(f"verdicts: {[r['verdict'] for r in steps]}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    for name in KERNEL_META:
+    for name in PATH_KERNELS["training"]:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"training run")
@@ -830,6 +1067,223 @@ def training_card_vs_plain():
         f" loss scale {scale} -> {metrics['loss_scale']}")
 
 
+# -- Llama -------------------------------------------------------------------
+
+LLAMA_ENGINE = dict(lanes=8, block_size=16, max_seq_len=2048,
+                    num_blocks=8 * 128, max_queue_depth=32)
+LLAMA_DECODE_ATOL = 2e-3  # fp32 decode step vs full forward, |logits| ~ 1
+
+
+def llama_requests(n, vocab, rs):
+    """``n`` (prompt, max_new_tokens): prompts of 32-1536 random tokens,
+    32-64 new tokens each."""
+    return [(rs.randint(0, vocab, size=int(rs.randint(32, 1537))),
+             int(rs.randint(32, 65))) for _ in range(n)]
+
+
+class DecodeRecorder:
+    """Stands in for the model behind an engine and keeps, for each
+    decode step, every lane's prefix (prompt and tokens so far) and the
+    logits the step gave it."""
+
+    def __init__(self, model):
+        self.model, self.engine, self.steps = model, None, []
+        self._decoding = False
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def hidden_states(self, tokens, cache=None, decode_step=False):
+        self._decoding = decode_step
+        return self.model.hidden_states(tokens, cache=cache,
+                                        decode_step=decode_step)
+
+    def logits(self, h):
+        out = self.model.logits(h)
+        if self._decoding:  # the engine's lanes, in the batch's order
+            active = self.engine._active
+            self.steps.append([
+                (np.concatenate([active[lane].prompt,
+                                 active[lane].tokens_out]), out[i, 0].cpu())
+                for i, lane in enumerate(sorted(active))])
+        return out
+
+
+def llama_serving_phase(smi):
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.models import GPTModel, tinyllama_1_1b_config
+    from apex_tpu_torch.serving import ServingConfig, ServingEngine
+    from apex_tpu_torch.serving.profile import serve
+
+    mcfg = tinyllama_1_1b_config()
+    model = GPTModel(mcfg, device="cuda", seed=SEED)
+    cfg = ServingConfig(**LLAMA_ENGINE, seed=SEED)
+    requests = llama_requests(24, mcfg.vocab_size, np.random.RandomState(SEED))
+    warm = np.random.RandomState(SEED + 1)
+    serve(model, [(warm.randint(0, mcfg.vocab_size, 64), 4)], cfg)
+
+    _kernels.reset_launch_counts()
+    eng, reqs, wall = serve(model, requests, cfg)
+    launches = _kernels.launch_counts()
+    stats = eng.stats()
+    done = stats["terminal"].get("completed", 0)
+    if done != len(reqs):
+        raise AssertionError(f"only {done} of {len(reqs)} Llama requests "
+                             f"completed: {stats['terminal']} "
+                             f"{stats['reasons']}")
+    for r in reqs:
+        if len(r.tokens_out) != r.max_new_tokens or not all(
+                0 <= t < mcfg.vocab_size for t in r.tokens_out):
+            raise AssertionError(f"Llama request {r.rid}: bad tokens")
+    for name in PATH_KERNELS["llama_serving"]:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"Llama serving run")
+    serving = {
+        "model": "TinyLlama-1.1B 22x2048 GQA 32/4 vocab 32000 (random "
+                 "weights, bf16 compute, fp32 params)",
+        "requests": len(reqs), "completed": done,
+        "prompt_tokens": int(sum(r.prompt_len for r in reqs)),
+        "tokens_out": stats["tokens_out"],
+        "wall_s": wall, "tokens_per_s": stats["tokens_out"] / wall,
+        "ttft_p50_ms": stats["ttft_p50_s"] * 1e3,
+        "ttft_p99_ms": stats["ttft_p99_s"] * 1e3,
+        "per_token_p50_ms": stats["per_token_p50_s"] * 1e3,
+        "ticks": stats["ticks"], "kv_pool_peak_blocks":
+            stats["kv_pool_peak_blocks"], "launches": launches, "gpu": smi,
+    }
+    log("llama serving " + json.dumps(serving))
+    del model, eng
+    torch.cuda.empty_cache()
+
+    # fp32, the same weights (same seed, same fp32 params): each decode step
+    # of two lanes at different positions against a full forward of the
+    # lane's prefix; a rope table gathered at the wrong positions fails here
+    f32 = tinyllama_1_1b_config(compute_dtype=torch.float32)
+    gpu32 = GPTModel(f32, device="cuda", seed=SEED)
+    rec = DecodeRecorder(gpu32)
+    eng32 = ServingEngine(rec, cfg, device="cuda")
+    rec.engine = eng32
+    rs = np.random.RandomState(SEED + 2)
+    for length in (300, 1100):
+        eng32.submit(rs.randint(0, mcfg.vocab_size, length), 6)
+    while not eng32.idle:
+        eng32.tick()
+    two_lanes = [step for step in rec.steps if len(step) == 2]
+    if not two_lanes or any(len(a) == len(b) for (a, _), (b, _) in two_lanes):
+        raise AssertionError("no decode step with two lanes at different "
+                             "positions")
+    derr = 0.0
+    with torch.no_grad():
+        for step in rec.steps:
+            for prefix, got in step:
+                want = gpu32(torch.as_tensor(prefix[None], device="cuda"))
+                derr = max(derr, float((got - want[0, -1].cpu()).abs().max()))
+    log(f"llama fp32 decode vs full forward: {len(rec.steps)} steps, "
+        f"{len(two_lanes)} with two lanes at positions "
+        f"{[len(p) - 1 for p, _ in two_lanes[0]]}: max_abs_err {derr:.3e} "
+        f"(atol {LLAMA_DECODE_ATOL})")
+    if derr > LLAMA_DECODE_ATOL:
+        raise AssertionError(f"decode logits differ from the full forward "
+                             f"by {derr}")
+
+    # fp32 logits of a 32-token input: the kernels on the card against the
+    # plain path on the CPU, at full width and depth
+    t0 = time.perf_counter()
+    cpu32 = GPTModel(f32, device="cpu", seed=SEED)
+    cpu32.load_state_dict({k: v.cpu() for k, v in gpu32.state_dict().items()})
+    tokens = torch.as_tensor(rs.randint(0, mcfg.vocab_size, (1, 32)))
+    with torch.no_grad():
+        lg = gpu32(tokens.cuda()).cpu()
+        lc = cpu32(tokens)
+    if lg.shape != (1, 32, mcfg.vocab_size) or not torch.isfinite(lg).all():
+        raise AssertionError("Llama logits: wrong shape or non-finite")
+    lerr = float((lg - lc).abs().max())
+    log(f"llama logits card vs cpu plain (fp32, 1x32 tokens): max_abs_err="
+        f"{lerr:.3e} (atol 2e-3), {time.perf_counter() - t0:.1f} s")
+    if lerr > 2e-3:
+        raise AssertionError(f"Llama logits disagree with the plain path: "
+                             f"{lerr}")
+    del gpu32, cpu32, eng32, rec
+    torch.cuda.empty_cache()
+    return launches, serving
+
+
+LLAMA_STEPS = 5
+
+
+def llama_finetune_phase(smi):
+    """The fine-tuning example's loop on TinyLlama-1.1B: one warm-up step,
+    then LLAMA_STEPS measured steps."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.examples.llama.finetune_llama import LlamaFinetune
+    from apex_tpu_torch.models import GPTModel, tinyllama_1_1b_config
+
+    batch, seq_len = 4, 2048
+    model = GPTModel(tinyllama_1_1b_config(), device="cuda", seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    if (n_tensors, n_params) != (157, N_TINYLLAMA):
+        raise AssertionError(f"{n_tensors} parameters of {n_params} elements")
+    run = LlamaFinetune(model, batch, seq_len, lr=1e-3, clip=1.0, seed=SEED)
+    loss0, bad = run.step(check_grads=True)  # warm-up
+    torch.cuda.synchronize()
+    if bad or not math.isfinite(loss0):
+        raise AssertionError(f"warm-up step: loss {loss0}, no finite "
+                             f"gradient for {bad}")
+    log(f"llama warm-up: loss {loss0:.4f}; all 157 parameters got a finite "
+        f"gradient")
+
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    steps, t_all = [], 0.0
+    for i in range(1, LLAMA_STEPS + 1):
+        t0 = time.perf_counter()
+        loss, _ = run.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        t_all += ms
+        steps.append(dict(step=i, loss=loss, step_ms=ms))
+        log(f"llama step {i} loss {loss:.4f} step_ms {ms:.2f}")
+    launches = _kernels.launch_counts()
+    losses = [r["loss"] for r in steps]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite Llama loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the Llama loss did not fall: {losses}")
+    if launches["sumsq_flat"] != LLAMA_STEPS:
+        raise AssertionError(f"the clip ran sumsq_flat "
+                             f"{launches['sumsq_flat']} times in "
+                             f"{LLAMA_STEPS} steps")
+    for name in PATH_KERNELS["llama_finetune"]:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"Llama fine-tuning run")
+    tokens = LLAMA_STEPS * batch * seq_len
+    finetune = {
+        "model": "TinyLlama-1.1B 22x2048 GQA 32/4 vocab 32000 (random "
+                 "weights, bf16 compute, fp32 params), ZeRO-2 Adam at dp=1",
+        "batch": batch, "seq_len": seq_len, "steps": LLAMA_STEPS,
+        "lr": 1e-3, "clip": 1.0,
+        "tokens_per_s": tokens / (t_all / 1e3),
+        "step_ms_mean": t_all / LLAMA_STEPS,
+        "step_ms_min": min(r["step_ms"] for r in steps),
+        "warmup_loss": loss0, "first_loss": losses[0],
+        "last_loss": losses[-1], "losses": losses,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+        "launches_per_step": {k: n / LLAMA_STEPS for k, n in launches.items()},
+        "gpu": smi,
+    }
+    log(f"llama fine-tuning: {finetune['tokens_per_s']:.1f} tokens/s over "
+        f"{LLAMA_STEPS} steps of {batch} x {seq_len} tokens, peak "
+        f"{finetune['peak_mem_gb']:.2f} GB")
+    log("llama finetune " + json.dumps(finetune))
+    del run, model
+    torch.cuda.empty_cache()
+    return launches, finetune
+
+
 def main():
     smi = device_phase()
 
@@ -843,21 +1297,29 @@ def main():
     ln_bwd_parity(errors)
     flash_bwd_parity(errors)
     adam_parity(errors)
-    timings = kernel_timings()
+    rms_parity(errors)
+    sumsq_parity(errors)
+    timings = kernel_timings(errors)
 
-    serve_launches, _ = serving_phase(smi)
-    train_launches, _ = training_phase(smi)
+    paths = {}
+    paths["serving"], _ = serving_phase(smi)
+    paths["training"], _ = training_phase(smi)
     training_card_vs_plain()
+    paths["llama_serving"], _ = llama_serving_phase(smi)
+    paths["llama_finetune"], _ = llama_finetune_phase(smi)
+    for name, counts in paths.items():
+        log(f"launches {name}: " + json.dumps(
+            {k: counts[k] for k in PATH_KERNELS[name]}))
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         main_shape, *others = timings[name]
-        path = serve_launches if name in FORWARD_KERNELS else train_launches
+        main_path = next(p for p, ks in PATH_KERNELS.items() if name in ks)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": path[name],
-            "launches_by_path": {"serving": serve_launches[name],
-                                 "training": train_launches[name]},
+            "replaces": replaces, "launches": paths[main_path][name],
+            "main_path": main_path,
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
             **main_shape,
             "max_abs_err_parity": {str(d)[6:]: e
                                    for d, e in errors[name].items()},

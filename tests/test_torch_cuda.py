@@ -13,6 +13,10 @@ fp32 1e-4 (longer sums), bf16 2e-2 on dx/dq/dk/dv (one bf16 rounding of
 the output, and of p and ds before the products); LayerNorm dgamma/dbeta
 1e-3 absolute (fp32 sums over up to 300 rows in another order). The Adam
 kernel rounds every operation as its plain version does: bit-equal.
+RMSNorm as LayerNorm (dgamma over up to 1000 rows: 1e-3 absolute). The
+sum of squares against an fp64 sum on the card: 1e-5 relative (fp32
+partial sums of a few thousand terms each). Every kernel's repeat call
+on the same inputs is bit-equal (fixed summation orders, no atomics).
 """
 
 import math
@@ -21,7 +25,12 @@ import pytest
 import torch
 
 from apex_tpu_torch import _kernels
-from apex_tpu_torch.models import GPTModel, generate, gpt_loss_fn
+from apex_tpu_torch.models import (
+    GPTModel,
+    generate,
+    gpt_loss_fn,
+    tinyllama_1_1b_config,
+)
 from apex_tpu_torch.ops import attention as at
 from apex_tpu_torch.ops import layer_norm as ln
 from apex_tpu_torch.optimizers import _fused_kernels as fk
@@ -230,6 +239,83 @@ def test_every_gpt_parameter_gets_a_gradient_on_the_card(gen):
     loss.backward()
     counts = _kernels.launch_counts()
     for name in ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                 "flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts[name] > 0, name
+    gpt_loss_fn(cpu(tokens.cpu(), labels=labels.cpu())).backward()
+    named = dict(cpu.named_parameters())
+    for name, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        torch.testing.assert_close(p.grad.cpu(), named[name].grad,
+                                   atol=1e-5, rtol=1e-3)
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,hidden", [(1, 2048), (300, 2048), (77, 1000)])
+def test_rms_norm_kernels(gen, dtype, rows, hidden, weighted):
+    x = torch.randn(rows, hidden, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(rows, hidden, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(hidden, generator=gen, device="cuda") if weighted else None
+    before = _kernels.RMS_NORM_FWD.launches, _kernels.RMS_NORM_BWD.launches
+    out = ln.rms_norm(x, w)
+    dx, dg = ln._rms_bwd_kernel(x, w, dy, 1e-5)
+    assert (_kernels.RMS_NORM_FWD.launches, _kernels.RMS_NORM_BWD.launches) \
+        == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out.float(), ln._rms_ref(x, w, 1e-5).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    rdx, rdg = ln._rms_bwd_ref(x, w, dy, 1e-5)
+    torch.testing.assert_close(dx.float(), rdx.float(), atol=BWD_TOL[dtype],
+                               rtol=BWD_TOL[dtype])
+    torch.testing.assert_close(dg, rdg, atol=1e-3, rtol=1e-4)
+    assert torch.equal(ln.rms_norm(x, w), out)
+    again = ln._rms_bwd_kernel(x, w, dy, 1e-5)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dg)
+
+
+def test_rms_norm_autograd_on_the_card(gen):
+    x = torch.randn(5, 64, generator=gen, device="cuda", requires_grad=True)
+    w = torch.randn(64, generator=gen, device="cuda", requires_grad=True)
+    ln.rms_norm(x, w).square().sum().backward()
+    xc, wc = (t.detach().cpu().requires_grad_(True) for t in (x, w))
+    ln.rms_norm(xc, wc).square().sum().backward()
+    for t, c in ((x, xc), (w, wc)):
+        torch.testing.assert_close(t.grad.cpu(), c.grad, atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1_000_003, 1 << 24])
+def test_sumsq_kernel(gen, n):
+    x = torch.randn(n, generator=gen, device="cuda")
+    before = _kernels.SUMSQ_FLAT.launches
+    got = fk.sumsq_flat(x)
+    assert _kernels.SUMSQ_FLAT.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == ()
+    ref = (x.double() ** 2).sum()
+    assert abs(float(got) - float(ref)) <= 1e-5 * float(ref)
+    torch.testing.assert_close(got, fk._sumsq_flat_ref(x), atol=0, rtol=1e-5)
+    assert torch.equal(fk.sumsq_flat(x), got)
+    # an unaligned view takes the scalar path
+    assert abs(float(fk.sumsq_flat(x[1:])) - float(ref - x[0].double() ** 2)) \
+        <= 1e-5 * float(ref) + 1e-6
+
+
+def test_llama_layer_goes_through_the_kernels(gen):
+    """A small Llama on the card against the same weights on the CPU:
+    logits and every gradient, with RMSNorm, rope and GQA on the path."""
+    cfg = tinyllama_1_1b_config(num_layers=2, hidden_size=256,
+                                num_attention_heads=8, num_query_groups=2,
+                                ffn_hidden_size=320, vocab_size=512,
+                                max_position_embeddings=64,
+                                compute_dtype=torch.float32)
+    model = GPTModel(cfg, seed=0)
+    cpu = GPTModel(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tokens = torch.randint(0, 512, (2, 64), generator=gen, device="cuda")
+    labels = torch.roll(tokens, -1, dims=1)
+    _kernels.reset_launch_counts()
+    gpt_loss_fn(model(tokens, labels=labels)).backward()
+    counts = _kernels.launch_counts()
+    for name in ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd",
                  "flash_bwd_dq", "flash_bwd_dkv"):
         assert counts[name] > 0, name
     gpt_loss_fn(cpu(tokens.cpu(), labels=labels.cpu())).backward()

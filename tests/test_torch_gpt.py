@@ -153,8 +153,9 @@ def test_sample_next_token_greedy_rows_take_argmax():
 
 
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError, match="rope"):
-        GPTModel(TransformerConfig(position_embedding_type="rope", **SMALL),
+    # rope is ported (tests/test_torch_llama.py); recompute is not
+    with pytest.raises(NotImplementedError, match="recompute"):
+        GPTModel(TransformerConfig(recompute_granularity="full", **SMALL),
                  device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         GPTModel(TransformerConfig(num_moe_experts=2, **SMALL), device="cpu")

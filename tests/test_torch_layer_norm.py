@@ -159,3 +159,75 @@ def test_layer_norm_without_grad_skips_the_function():
     assert out.grad_fn is None
     out = layer_norm(torch.from_numpy(x), wt, torch.from_numpy(b))
     assert type(out.grad_fn).__name__ == "_LayerNormFnBackward"
+
+
+# -- RMSNorm forward and backward -------------------------------------------
+# The port's rms_norm differentiates through _RMSNormFn, whose CPU backward
+# is _rms_bwd_ref (the plain version of the RMSNorm backward kernel),
+# against jax.vjp of rms_norm(impl="pallas"): with a weight its custom_vjp
+# runs _rms_fwd_kernel and _rms_bwd_kernel in interpret mode; without one
+# the JAX function takes _rms_ref and autodiff. Tolerances as for
+# LayerNorm: fp32 1e-5 (y, dx) and 1e-4 (dgamma, a sum over the rows in
+# another order); bf16 x: y and dx 2e-2 (one bf16 rounding), dgamma 1e-4.
+
+def _rms_both(x_np, w_np, dy_np, dtype):
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jw = None if w_np is None else jnp.asarray(w_np)
+
+    def f(xx, ww):
+        return jax_rms_norm(xx, ww, eps=1e-5, impl="pallas")
+
+    import jax
+
+    y_ref, vjp = jax.vjp(f, jnp.asarray(x_np, jd), jw)
+    grads_ref = vjp(jnp.asarray(dy_np, jd))
+    xt = torch.from_numpy(x_np).to(dtype).requires_grad_(True)
+    wt = None if w_np is None else torch.from_numpy(w_np).requires_grad_(True)
+    y = rms_norm(xt, wt, eps=1e-5)
+    y.backward(torch.from_numpy(dy_np).to(dtype))
+    ref = [y_ref, grads_ref[0]] + ([] if w_np is None else [grads_ref[1]])
+    out = [y, xt.grad] + ([] if w_np is None else [wt.grad])
+    return ([np.asarray(r.astype(jnp.float32)) for r in ref],
+            [o.detach().float().numpy() for o in out])
+
+
+@pytest.mark.parametrize("weighted", [True, False], ids=["w", "no_w"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,hidden", [(1, 128), (13, 256), (40, 384)])
+def test_rms_norm_forward_backward_matches_pallas(rows, hidden, dtype,
+                                                  weighted):
+    x, w, _ = _inputs(rows, hidden, seed=11)
+    dy = np.random.RandomState(12).randn(rows, hidden).astype(np.float32)
+    ref, out = _rms_both(x, w if weighted else None, dy, dtype)
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    for o, r, t in zip(out, ref, (tol, tol, 1e-4)):
+        np.testing.assert_allclose(o, r, atol=t, rtol=t)
+
+
+def test_rms_bwd_ref_matches_autograd_of_rms_ref():
+    """The plain backward agrees with autograd of the plain forward, on a
+    hidden size the JAX kernel does not take, with and without weight."""
+    from apex_tpu_torch.ops.layer_norm import _rms_bwd_ref, _rms_ref
+
+    x, w, _ = _inputs(9, 100, seed=13)
+    dy = torch.from_numpy(np.random.RandomState(14).randn(9, 100)
+                          .astype(np.float32))
+    for wt in (torch.from_numpy(w), None):
+        xt = torch.from_numpy(x).requires_grad_(True)
+        ww = None if wt is None else wt.clone().requires_grad_(True)
+        _rms_ref(xt, ww, 1e-5).backward(dy)
+        dx, dg = _rms_bwd_ref(torch.from_numpy(x), wt, dy, 1e-5)
+        torch.testing.assert_close(dx, xt.grad, atol=FP32_TOL, rtol=FP32_TOL)
+        if ww is not None:
+            torch.testing.assert_close(dg, ww.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_rms_norm_without_grad_skips_the_function():
+    x, w, _ = _inputs(4, 128)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    with torch.no_grad():
+        out = rms_norm(torch.from_numpy(x), wt)
+    assert out.grad_fn is None
+    out = rms_norm(torch.from_numpy(x), wt)
+    assert type(out.grad_fn).__name__ == "_RMSNormFnBackward"

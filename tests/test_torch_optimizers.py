@@ -201,3 +201,118 @@ def test_tree_any_non_finite_and_leaf_order():
     tree["b"][1] = float("inf")
     assert bool(tree_any_non_finite(tree))
     assert not bool(tree_any_non_finite({}))
+
+
+# -- the sum of squares and ZeRO-2 Adam at a data-parallel world of one ------
+# sumsq_flat against the JAX function with impl="pallas" (its Pallas kernel in
+# interpret mode, over a zero-padded chunk grid): 1e-6 relative, fp32 sums of
+# up to ~2e5 terms in another order. distributed_fused_adam against the JAX
+# one inside shard_map on a one-device "dp" mesh, 3 steps with the clip
+# active on every step: the same fp32 operations, the moments held as
+# fused_adam's are. The clip factor comes from two sums in another order
+# and XLA contracts the moments' updates into FMAs, so the master and the
+# params, entries up to ~2.5 summed with updates of 1e-2, are held to
+# MASTER_ATOL, two fp32 ulps of 2 (1e-6 relative alone fails where such a
+# sum cancels to near 0).
+
+MASTER_ATOL = 5e-7
+
+@pytest.mark.parametrize("n", [1, 1023, 3 * CHUNK_SIZE + 7])
+def test_sumsq_and_l2norm_flat_match_pallas(n):
+    from apex_tpu.optimizers._fused_kernels import l2norm_flat as jax_l2norm
+    from apex_tpu.optimizers._fused_kernels import sumsq_flat as jax_sumsq
+    from apex_tpu_torch.optimizers import l2norm_flat, sumsq_flat
+
+    x = np.random.RandomState(n).randn(n).astype(np.float32)
+    ref = float(jax_sumsq(jnp.asarray(x), impl="pallas"))
+    got = sumsq_flat(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_allclose(float(got), ref, rtol=1e-6)
+    np.testing.assert_allclose(float(l2norm_flat(torch.from_numpy(x))),
+                               float(jax_l2norm(jnp.asarray(x),
+                                                impl="pallas")), rtol=1e-6)
+    # another dtype is read as fp32, as the JAX function casts it
+    xb = torch.from_numpy(x).bfloat16()
+    np.testing.assert_allclose(float(sumsq_flat(xb)),
+                               float((xb.double() ** 2).sum()), rtol=1e-6)
+
+
+def _dfa_run_jax(kw, steps=3):
+    """JAX distributed_fused_adam at dp = 1: (params, state) per step."""
+    import functools
+
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    from apex_tpu.compat import shard_map
+    from apex_tpu.optimizers import distributed_fused_adam as jax_dfa
+
+    mesh = Mesh(np.array(jax.devices()[:1]), ("dp",))
+    opt = jax_dfa(axis_size=1, **kw)
+
+    @jax.jit
+    @functools.partial(shard_map, mesh=mesh, in_specs=(P(), P()),
+                       out_specs=P(), check_vma=False)
+    def run(params, grads_seq):
+        state = opt.init(params)
+        out = []
+        for i in range(steps):
+            g = jax.tree_util.tree_map(lambda a: a[i], grads_seq)
+            upd, state = opt.update(g, state, params)
+            params = jax.tree_util.tree_map(lambda a, b: a + b, params, upd)
+            out.append((params, state))
+        return out
+
+    seq = jax.tree_util.tree_map(lambda *a: jnp.stack(a),
+                                 *[_grads(i) for i in range(steps)])
+    return run(jax.tree_util.tree_map(jnp.asarray, _params()), seq)
+
+
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_distributed_fused_adam_matches_jax_at_dp1(adam_w_mode):
+    from apex_tpu_torch.optimizers import distributed_fused_adam
+
+    # _grads' global norms are ~8-25, so max_grad_norm 1.0 clips every step
+    kw = dict(lr=1e-2, weight_decay=0.05, adam_w_mode=adam_w_mode,
+              max_grad_norm=1.0)
+    ref = _dfa_run_jax(kw)
+    opt = distributed_fused_adam(**kw)
+    tp = gpt_params_from_jax(_params())
+    ts = opt.init(tp)
+    for step, (jp, js) in enumerate(ref):
+        tu, ts = opt.update(gpt_params_from_jax(_grads(step)), ts, tp)
+        tp = {n: tp[n] + tu[n] for n in tp}
+        want = gpt_params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+        for n in tp:
+            np.testing.assert_allclose(tp[n].numpy(), want[n].numpy(),
+                                       rtol=UPD_TOL, atol=MASTER_ATOL,
+                                       err_msg=n)
+        assert int(ts.step) == int(js.step) == step + 1
+        assert ts.master_shard.shape == js.master_shard.shape
+        np.testing.assert_allclose(ts.master_shard.numpy(),
+                                   np.asarray(js.master_shard),
+                                   atol=MASTER_ATOL, rtol=UPD_TOL)
+        for t, r in ((ts.exp_avg, js.exp_avg), (ts.exp_avg_sq, js.exp_avg_sq)):
+            np.testing.assert_allclose(t.numpy(), np.asarray(r),
+                                       atol=MOMENT_ATOL, rtol=UPD_TOL)
+
+
+def test_distributed_fused_adam_refuses_what_is_not_ported():
+    from apex_tpu_torch.optimizers import (
+        DistributedFusedAdam,
+        distributed_fused_adam,
+    )
+
+    with pytest.raises(NotImplementedError, match="world of one"):
+        distributed_fused_adam(axis_size=2)
+    with pytest.raises(NotImplementedError, match="compress"):
+        distributed_fused_adam(compression=object())
+    with pytest.raises(NotImplementedError, match="remainders"):
+        DistributedFusedAdam(store_param_remainders=True)
+    # the bucketed gather is bit-identical at a world of one
+    a, b = (distributed_fused_adam(lr=1e-2, param_gather_buckets=k)
+            for k in (None, 4))
+    tp = gpt_params_from_jax(_params())
+    ua, _ = a.update(gpt_params_from_jax(_grads(0)), a.init(tp), tp)
+    ub, _ = b.update(gpt_params_from_jax(_grads(0)), b.init(tp), tp)
+    assert all(torch.equal(ua[n], ub[n]) for n in tp)
