@@ -4,10 +4,12 @@ Each source ``csrc/<name>.cu`` exposes a plain C function that launches
 its kernel on the stream it is given and returns the launch's
 ``cudaError_t``. It is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library under ``build/apex_tpu_torch/`` at the repository root,
-named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. The build runs at the first
-launch (or at :func:`build_all`, which starts one ``nvcc`` per source in
-parallel); nothing here touches CUDA when the module is imported.
+named by a hash of the source, every shared header ``csrc/*.cuh`` (the
+sources include them from ``csrc/``) and the flags, so an edited source
+or header is rebuilt and an unchanged one is reused. The build runs at
+the first launch (or at :func:`build_all`, which starts one ``nvcc`` per
+source in parallel); nothing here touches CUDA when the module is
+imported.
 
 Every launch goes through :class:`Kernel`, which raises on a nonzero
 ``cudaError_t`` and counts the launch in ``Kernel.launches``, a plain
@@ -86,10 +88,11 @@ def _nvcc() -> str:
 
 
 def _library_path(source: str) -> Path:
-    digest = hashlib.sha256(
-        (_CSRC / f"{source}.cu").read_bytes() + " ".join(_FLAGS).encode()
-    ).hexdigest()[:16]
-    return _BUILD / f"lib{source}-{digest}.so"
+    h = hashlib.sha256((_CSRC / f"{source}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    return _BUILD / f"lib{source}-{h.hexdigest()[:16]}.so"
 
 
 def _start_build(source: str) -> Optional[subprocess.Popen]:
@@ -99,7 +102,8 @@ def _start_build(source: str) -> Optional[subprocess.Popen]:
         return None
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), str(_CSRC / f"{source}.cu")]
+    cmd = [_nvcc(), *_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+           str(_CSRC / f"{source}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.out, proc.tmp = out, tmp  # type: ignore[attr-defined]
@@ -172,9 +176,9 @@ FLASH_BWD_DQ = Kernel(
 )
 FLASH_BWD_DKV = Kernel(
     "flash_attention_bwd", "flash_bwd_dkv",
-    # q, k, v, do, lse, delta, kpm, dk, dv, bh, sq, sk, d, heads, group,
-    # scale, causal, window, dtype, stream
-    [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _P],
+    # q, k, v, do, lse, delta, kpm, dk, dv, work, bh, sq, sk, d, heads,
+    # group, splits, scale, causal, window, dtype, stream
+    [_P] * 10 + [_I] * 7 + [_F, _I, _I, _I, _P],
 )
 ADAM = Kernel(
     "adam", "adam_update",

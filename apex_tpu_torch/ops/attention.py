@@ -171,6 +171,32 @@ def _flash_kernel(q, k, v, scale, causal, key_padding_mask=None,
     return o.reshape(b, h, sq, d), lse.reshape(b, h, sq)
 
 
+# The bf16 dk/dv kernel's blocks each own 64 keys of one kv head and loop
+# over its query heads. Under a causal mask the first keys' blocks run
+# longest, and with few blocks the card waits on them at the end; so the
+# group is split over more blocks until there are at least
+# _MIN_DKV_BLOCKS (about two waves of four blocks on the H100's 132 SMs).
+# Each split writes fp32 partials of dk and dv that the kernel's last
+# pass sums in split order: a fixed order, so repeated calls stay
+# bit-equal.
+_MIN_DKV_BLOCKS = 1024
+
+
+def _dkv_splits(q, k) -> int:
+    """The number of blocks that share one GQA group in the dk/dv kernel:
+    the smallest divisor of the group that gives _MIN_DKV_BLOCKS blocks,
+    or the whole group; 1 for fp32, whose scalar kernel does not split."""
+    b, h, _, _ = q.shape
+    h_kv, sk = k.shape[1], k.shape[2]
+    group = h // h_kv
+    if q.dtype != torch.bfloat16:
+        return 1
+    blocks = b * h_kv * -(-sk // 64)
+    return next(s for s in range(1, group + 1)
+                if group % s == 0 and (blocks * s >= _MIN_DKV_BLOCKS
+                                       or s == group))
+
+
 def _flash_bwd_kernel(q, k, v, do, lse, delta, scale, causal,
                       key_padding_mask=None, window=None):
     """(dq, dk, dv) from the dq and dk/dv CUDA kernels; dk and dv come
@@ -186,13 +212,19 @@ def _flash_bwd_kernel(q, k, v, do, lse, delta, scale, causal,
     lse3 = lse.float().reshape(b * h, sq).contiguous()
     delta3 = delta.float().reshape(b * h, sq).contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q3, k3, v3))
+    splits = _dkv_splits(q, k)
+    # fp32 partials of dk and dv, one pair per split
+    work = (torch.empty(2 * splits * k3.numel(), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     kpm_ptr = None if kpm is None else kpm.data_ptr()
-    common = (b * h, sq, sk, d, h, h // h_kv, float(scale), int(causal),
-              int(window or 0), code)
+    shape = (b * h, sq, sk, d, h, h // h_kv)
+    tail = (float(scale), int(causal), int(window or 0), code)
     ins = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
            lse3.data_ptr(), delta3.data_ptr(), kpm_ptr)
-    _kernels.FLASH_BWD_DQ(*ins, dq.data_ptr(), *common)
-    _kernels.FLASH_BWD_DKV(*ins, dk.data_ptr(), dv.data_ptr(), *common)
+    _kernels.FLASH_BWD_DQ(*ins, dq.data_ptr(), *shape, *tail)
+    _kernels.FLASH_BWD_DKV(*ins, dk.data_ptr(), dv.data_ptr(),
+                           None if work is None else work.data_ptr(), *shape,
+                           splits, *tail)
     return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
 
 

@@ -13,7 +13,8 @@ swallowed:
    card, in fp32 and bf16 where it takes bf16, at the main paths' shapes
    and the edge cases (ragged lengths, a fully padded row, GQA 12/4 and
    Llama's 32/4, a sliding window, causal with sq != sk; flash forward and
-   backward at Llama training's (4,32,2048,64) over (4,4,2048,64) and
+   backward at Llama training's (4,32,2048,64) over (4,4,2048,64), the
+   backward at head_dim 128 and 80 in bf16, and
    forward at a 1536-token Llama prefill, in bf16; Adam over GPT-2
    small's 124,439,808 parameters and a ragged length, both decay modes,
    steps 1 and 10; RMSNorm forward and backward at rows {1, 1000, 8192}
@@ -22,7 +23,9 @@ swallowed:
    fp64 sum); prints each case's error and tolerance, and checks that a
    second call on the same inputs is bit-equal; then times each kernel,
    its plain version and the one PyTorch call that computes the same
-   function (the timed flash outputs held to the same tolerances);
+   function (the timed flash outputs held to the same tolerances; the
+   flash backward kernels and the library's backward in turns over three
+   rounds, medians, with each kernel's share of its operation bound);
 4. serving: GPT-2 small at full width (12 x 768, vocab 50257, 1024
    positions, seeded random weights, params fp32, compute bf16) behind
    the continuous-batching engine answers 24 requests; the launch counts
@@ -68,6 +71,7 @@ and ``llama_finetune`` (TinyLlama-1.1B).
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -353,6 +357,13 @@ def flash_bwd_cases(gen):
             q, k, v = attn_inputs(4, 32, 4, 2048, 2048, 64, dtype, gen)
             yield ("Llama training GQA 32q/4kv causal (4,32,2048,64)", q, k,
                    v, True, None, None)
+            # the tensor-core kernels' wider instantiation: d = 128, and
+            # d = 80 zero-padded to it (five 16-wide steps)
+            q, k, v = attn_inputs(2, 16, 2, 512, 512, 128, dtype, gen)
+            yield "GQA 16q/2kv causal d=128 (2,16,512,128)", q, k, v, True, \
+                None, None
+            q, k, v = attn_inputs(2, 12, 12, 300, 300, 80, dtype, gen)
+            yield "causal d=80 (2,12,300,80)", q, k, v, True, None, None
     return cases
 
 
@@ -586,10 +597,16 @@ def time_layer_norm_bwd(rows, hidden):
     }
 
 
+FLASH_BWD_ROUNDS = 3
+
+
 def time_flash_bwd(gen, b, h, h_kv, s, errors):
     """dq and dk/dv at a training shape, (b, h, s, 64) queries over h_kv
     key/value heads, bf16 causal. The plain version and the library call
-    compute the whole backward (dq, dk and dv) and stand in both rows."""
+    compute the whole backward (dq, dk and dv) and stand in both rows.
+    The two kernels and the library's forward and forward+backward are
+    timed in turns, FLASH_BWD_ROUNDS rounds, and each keeps its median, so
+    that the kernels and the library are compared within one run."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import attention as at
@@ -615,9 +632,20 @@ def time_flash_bwd(gen, b, h, h_kv, s, errors):
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(), (qs, ks, vs), do)
 
-    with torch.no_grad():
-        fwd_ms = time_ms(sdpa)
-    library_ms = time_ms(sdpa_fwd_bwd) - fwd_ms
+    def sdpa_fwd():
+        with torch.no_grad():
+            sdpa()
+
+    dq_fn, dkv_fn = flash_bwd_launchers(*args)
+    rounds = {"dq": [], "dkv": [], "library": []}
+    for _ in range(FLASH_BWD_ROUNDS):
+        rounds["dq"].append(time_ms(dq_fn))
+        rounds["dkv"].append(time_ms(dkv_fn))
+        fwd_ms = time_ms(sdpa_fwd)
+        rounds["library"].append(time_ms(sdpa_fwd_bwd) - fwd_ms)
+    log(f"time flash backward rounds (b={b} h={h} h_kv={h_kv} s={s}): "
+        + json.dumps(rounds))
+    med = {name: statistics.median(ms) for name, ms in rounds.items()}
     q_t = b * h * s * d * 2  # bytes of one bf16 (b, h, s, d) tensor
     kv_t = b * h_kv * s * d * 2  # bytes of one bf16 (b, h_kv, s, d) tensor
     rows = b * h * s * 4  # bytes of one fp32 (b, h, s) row vector
@@ -635,32 +663,37 @@ def time_flash_bwd(gen, b, h, h_kv, s, errors):
                               dkv_bound)):
         err = max(check(name, q.dtype, f"{label} {part}", got[i], ref[i],
                         errors) for i, part in parts)
-        out.append({"shape": label, "max_abs_err": err,
+        ms = med[name[len("flash_bwd_"):]]
+        out.append({"shape": label, "max_abs_err": err, "ms": ms,
                     "bound_ms": bnd[0], "bound_by": bnd[1],
-                    "plain_ms": plain_ms, "library_ms": library_ms})
-    out[0]["ms"], out[1]["ms"] = time_flash_bwd_kernels(*args)
+                    "bound_share": bnd[0] / ms, "plain_ms": plain_ms,
+                    "library_ms": med["library"]})
     return [out[0]], [out[1]]
 
 
-def time_flash_bwd_kernels(q, k, v, do, lse, delta, scale, causal):
-    """Device ms of the dq and of the dk/dv kernel alone at these inputs
-    (the wrapper's reshapes done once, outside the timed launches)."""
+def flash_bwd_launchers(q, k, v, do, lse, delta, scale, causal):
+    """Closures that launch the dq and the dk/dv kernel alone at these
+    inputs (the wrapper's reshapes done once, outside the timed
+    launches)."""
     from apex_tpu_torch import _kernels
+    from apex_tpu_torch.ops import attention as at
 
     b, h, sq, d = q.shape
     h_kv, sk = k.shape[1], k.shape[2]
     q3, do3 = (t.reshape(b * h, sq, d).contiguous() for t in (q, do))
     k3, v3 = (t.reshape(b * h_kv, sk, d).contiguous() for t in (k, v))
     dq, dk, dv = (torch.empty_like(t) for t in (q3, k3, v3))
+    splits = at._dkv_splits(q, k)
+    work = torch.empty(2 * splits * k3.numel(), device="cuda")
     lse, delta = lse.contiguous(), delta.contiguous()
     ins = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), None)
-    common = (b * h, sq, sk, d, h, h // h_kv, float(scale), int(causal), 0,
-              _kernels.dtype_code(q))
-    return (time_ms(lambda: _kernels.FLASH_BWD_DQ(*ins, dq.data_ptr(),
-                                                  *common)),
-            time_ms(lambda: _kernels.FLASH_BWD_DKV(
-                *ins, dk.data_ptr(), dv.data_ptr(), *common)))
+    shape = (b * h, sq, sk, d, h, h // h_kv)
+    tail = (float(scale), int(causal), 0, _kernels.dtype_code(q))
+    return (lambda: _kernels.FLASH_BWD_DQ(*ins, dq.data_ptr(), *shape, *tail),
+            lambda: _kernels.FLASH_BWD_DKV(*ins, dk.data_ptr(), dv.data_ptr(),
+                                           work.data_ptr(), *shape, splits,
+                                           *tail))
 
 
 def time_adam(n):
@@ -795,9 +828,11 @@ def kernel_timings(errors):
     out["sumsq_flat"] = [time_sumsq(N_TINYLLAMA)]
     for name, rows in out.items():
         for r in rows:
+            share = (f", {100 * r['bound_share']:.1f}% of bound"
+                     if "bound_share" in r else "")
             log(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){share}")
     return out
 
 

@@ -198,6 +198,24 @@ def test_backward_bf16_matches_pallas():
                 tol=BF16_GRAD_TOL, causal=True)
 
 
+# The contract the bf16 tensor-core kernels are held to on the card (their
+# plain version, _flash_bwd_ref, against the Pallas kernels here): a GQA
+# group of 4, and head_dim 80, which the CUDA kernels zero-pad to 128.
+@pytest.mark.parametrize("h,h_kv,d,dtype,window", [
+    (8, 2, 32, "fp32", None),
+    (8, 2, 32, "bf16", None),
+    (8, 2, 64, "fp32", 24),
+    (2, 2, 80, "fp32", None),
+    (2, 2, 80, "bf16", None),
+    (4, 1, 80, "fp32", 24),
+])
+def test_backward_gqa_and_padded_head_dim_match_pallas(h, h_kv, d, dtype,
+                                                       window):
+    q, k, v = _qkv(1, h, h_kv, 64, 64, d, seed=21 + d + h)
+    _grads_both(q, k, v, dtype=dtype, causal=True, window=window,
+                tol=BF16_GRAD_TOL if dtype == "bf16" else GRAD_TOL)
+
+
 def test_backward_causal_rectangular_matches_xla():
     """sq != sk, bottom-right aligned: the kernels' offset; the JAX
     dispatcher differentiates its XLA reference here."""
@@ -240,3 +258,21 @@ def test_no_grad_and_dense_mask_skip_the_function():
     mask = torch.zeros(1, 1, 8, 8, dtype=torch.bool)
     out = flash_attention(q, k, v, mask=mask)
     assert type(out.grad_fn).__name__ != "_FlashFnBackward"
+
+
+@pytest.mark.parametrize("b,h,h_kv,sk,dtype,want", [
+    (4, 32, 4, 2048, torch.bfloat16, 2),   # Llama training: 512 blocks
+    (8, 12, 12, 1024, torch.bfloat16, 1),  # GPT-2: no group to split
+    (1, 16, 2, 200, torch.bfloat16, 8),    # few blocks: one head a block
+    (2, 12, 4, 300, torch.bfloat16, 3),
+    (4, 32, 4, 2048, torch.float32, 1),    # the scalar fp32 kernel
+])
+def test_dkv_kernel_splits_the_gqa_group(b, h, h_kv, sk, dtype, want):
+    """The dk/dv kernel's split of a GQA group over blocks: a divisor of
+    the group, chosen from the shape alone (so a repeat call sums the same
+    fp32 partials in the same order)."""
+    from apex_tpu_torch.ops.attention import _dkv_splits
+
+    q = torch.empty(b, h, sk, 64, dtype=dtype, device="meta")
+    k = torch.empty(b, h_kv, sk, 64, dtype=dtype, device="meta")
+    assert _dkv_splits(q, k) == want

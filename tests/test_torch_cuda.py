@@ -168,7 +168,13 @@ BWD_CASES = dict(
     ragged=dict(b=2, h=2, h_kv=2, sq=100, sk=100, causal=False),
     hd32=dict(b=1, h=4, h_kv=2, sq=70, sk=70, causal=True, d=32),
     hd128=dict(b=1, h=4, h_kv=1, sq=130, sk=130, causal=True, d=128,
-               window=40))
+               window=40),
+    # the bf16 kernels' fragment paths: a GQA group of 8 at a ragged
+    # length, d = 80 (zero-padded to 128, five 16-wide steps) and d = 36
+    # (not a multiple of 8: element-wise loads instead of cp.async)
+    gqa8_ragged=dict(b=1, h=16, h_kv=2, sq=200, sk=200, causal=True),
+    hd80=dict(b=2, h=4, h_kv=2, sq=150, sk=150, causal=True, d=80),
+    hd36=dict(b=1, h=2, h_kv=1, sq=90, sk=90, causal=False, d=36))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
