@@ -159,9 +159,9 @@ LAYER_NORM_FWD = Kernel(
 )
 FLASH_FWD = Kernel(
     "flash_attention", "flash_fwd",
-    # q, k, v, kpm, o, lse, bh, sq, sk, d, heads, group, scale, causal,
-    # window, dtype, stream
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    # q, k, v, kpm, o, lse, bh, sq, sk, d, heads, group, splits, scale,
+    # causal, window, dtype, stream
+    [_P] * 6 + [_I] * 7 + [_F, _I, _I, _I, _P],
 )
 LAYER_NORM_BWD = Kernel(
     "layer_norm", "layer_norm_bwd",

@@ -84,41 +84,8 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace flash_mma;
 
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 128;
-constexpr int kB = 64;       // query rows and keys per tile
 constexpr int RP = kB / 16;  // rows per thread (scalar kernels)
 constexpr int CP = kB / 8;   // tile columns per thread (scalar kernels)
-
-__device__ __forceinline__ long long lmin(long long a, long long b) { return a < b ? a : b; }
-__device__ __forceinline__ long long lmax(long long a, long long b) { return a > b ? a : b; }
-
-// Does query row `row` (of sq) attend key `col` (of sk)? key_ok covers the
-// key-padding row and the sk edge.
-__device__ __forceinline__ bool attends(int row, int col, bool key_ok, int sq, int offs,
-                                        int causal, int window) {
-  bool keep = key_ok && row < sq;
-  if (causal) {
-    const int pos = row + offs;
-    keep = keep && col <= pos;
-    if (window > 0) keep = keep && col > pos - window;
-  }
-  return keep;
-}
-
-// The 64-key tiles [first, last) that query rows [q0, q0 + 64) can see.
-__device__ __forceinline__ void key_band(int q0, int sq, int sk, long long offs, int causal,
-                                         int window, int& first, int& last) {
-  long long k_lo = 0, k_hi = sk;
-  if (causal) {
-    const long long last_row = lmin(q0 + kB, sq) - 1;
-    k_hi = lmax(0, lmin(sk, last_row + offs + 1));
-    if (window > 0) k_lo = lmax(0, q0 + offs - window + 1);
-  }
-  first = (int)(k_lo / kB);
-  last = (int)((k_hi + kB - 1) / kB);
-}
 
 // The 64-query tiles [first, last) that can see a key of [k0, k0 + 64)
 // (_q_band in the JAX package).
@@ -142,28 +109,6 @@ template <int DMAX> struct MmaSmem {
   // 64 delta values
   static constexpr size_t bytes = 6 * TILE * sizeof(bf16) + 4 * kB * sizeof(float);
 };
-
-// Rows [row0, row0 + 64) of a (nrows, d) bf16 matrix into a tile of row
-// stride DMAX + 8, zero past either edge: 16-byte cp.async when vec, else
-// element by element.
-template <int DMAX>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* __restrict__ src,
-                                               long long row0, long long nrows, int d, bool vec) {
-  constexpr int LD = DMAX + 8, CH = DMAX / 8;
-  if (vec) {
-    for (int e = threadIdx.x; e < kB * CH; e += kThreads) {
-      const int r = e / CH, c = (e % CH) * 8;
-      const bool in = row0 + r < nrows && c < d;
-      cp_async16(dst + r * LD + c, in ? src + (row0 + r) * d + c : src, in);
-    }
-  } else {
-    for (int e = threadIdx.x; e < kB * DMAX; e += kThreads) {
-      const int r = e / DMAX, c = e % DMAX;
-      dst[r * LD + c] =
-          (row0 + r < nrows && c < d) ? src[(row0 + r) * d + c] : __float2bfloat16(0.f);
-    }
-  }
-}
 
 // lse and delta of query rows [row0, row0 + 64) of one head (base = its
 // first row) into dst[0..64) and dst[64..128), zero past sq.
@@ -774,16 +719,6 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---- launch -----------------------------------------------------------------
-
-// Raises the dynamic shared-memory limit of `kernel` once per instantiation.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
-  if (done) return cudaSuccess;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) done = true;
-  return err;
-}
 
 struct Args {
   const void *q, *k, *v, *dO;

@@ -2,6 +2,8 @@
 // copies into shared memory, ldmatrix loads of 8 x 8 bf16 matrices, and
 // mma.sync m16n8k16 with bf16 operands and fp32 accumulators. All are
 // sm_80 instructions and valid under -gencode arch=compute_90a,code=sm_90a.
+// Below them, the tile loader and mask rules that the flash forward
+// (flash_attention.cu) and backward (flash_attention_bwd.cu) share.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 // - A (16 x 16, row-major), four registers of two bf16 each: a0 = (g, 2t..2t+1),
@@ -14,6 +16,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace flash_mma {
@@ -106,6 +109,78 @@ __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const __nv_bfloat16*
                                           int c0, int lane) {
   ldmatrix_x4_trans(b,
                     tile + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c0 + (lane >> 4) * 8);
+}
+
+// ---- shared by the flash forward and backward kernels ------------------------
+
+constexpr float kNegInf = -1e30f;  // a masked score (the TPU kernels' _NEG_INF)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kThreads = 128;  // 4 warps a block
+constexpr int kB = 64;         // rows (queries or keys) of a tile
+
+__device__ __forceinline__ long long lmin(long long a, long long b) { return a < b ? a : b; }
+__device__ __forceinline__ long long lmax(long long a, long long b) { return a > b ? a : b; }
+
+// Does query row `row` (of sq) attend key `col` (of sk)? key_ok covers the
+// key-padding row and the sk edge. Causal and the window are bottom-right
+// aligned: row r sits at key position r + offs, offs = sk - sq.
+__device__ __forceinline__ bool attends(int row, int col, bool key_ok, int sq, int offs,
+                                        int causal, int window) {
+  bool keep = key_ok && row < sq;
+  if (causal) {
+    const int pos = row + offs;
+    keep = keep && col <= pos;
+    if (window > 0) keep = keep && col > pos - window;
+  }
+  return keep;
+}
+
+// The 64-key tiles [first, last) that query rows [q0, q0 + rows) can see.
+__device__ __forceinline__ void key_band(int q0, int sq, int sk, long long offs, int causal,
+                                         int window, int& first, int& last, int rows = kB) {
+  long long k_lo = 0, k_hi = sk;
+  if (causal) {
+    const long long last_row = lmin(q0 + rows, sq) - 1;
+    k_hi = lmax(0, lmin(sk, last_row + offs + 1));
+    if (window > 0) k_lo = lmax(0, q0 + offs - window + 1);
+  }
+  first = (int)(k_lo / kB);
+  last = (int)((k_hi + kB - 1) / kB);
+}
+
+// Rows [row0, row0 + 64) of a (nrows, d) bf16 matrix into a tile of row
+// stride DMAX + 8 (16 bytes of padding, so that ldmatrix reads no bank
+// twice), zero past either edge: 16-byte cp.async when vec, else element
+// by element. All THREADS threads of the block take part.
+template <int DMAX, int THREADS = kThreads>
+__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* __restrict__ src,
+                                               long long row0, long long nrows, int d, bool vec) {
+  constexpr int LD = DMAX + 8, CH = DMAX / 8;
+  if (vec) {
+    for (int e = threadIdx.x; e < kB * CH; e += THREADS) {
+      const int r = e / CH, c = (e % CH) * 8;
+      const bool in = row0 + r < nrows && c < d;
+      cp_async16(dst + r * LD + c, in ? src + (row0 + r) * d + c : src, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kB * DMAX; e += THREADS) {
+      const int r = e / DMAX, c = e % DMAX;
+      dst[r * LD + c] =
+          (row0 + r < nrows && c < d) ? src[(row0 + r) * d + c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// Raises the dynamic shared-memory limit of `kernel` once per instantiation.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
+  if (done) return cudaSuccess;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) done = true;
+  return err;
 }
 
 }  // namespace flash_mma

@@ -13,6 +13,10 @@
 // once and costs a handful of flops, so the least time is
 // 2 * rows * hidden * sizeof(T) over the 3.35 TB/s of HBM.
 //
+// RMSNorm's forward takes rms_fwd_row_kernel (below) wherever the row fits
+// a warp's registers: it reads each row from HBM once, where the loop here
+// reads it twice.
+//
 // Design: one warp per row, eight rows per 256-thread block, so a row's
 // reductions are warp shuffles with no shared memory and no __syncthreads.
 // Loads and stores are 16-byte vectors when the row is 16-byte aligned (any
@@ -114,6 +118,63 @@ norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     }
   } else {
     for (int i = lane; i < hidden; i += 32) yr[i] = norm(i, to_f(xr[i]));
+  }
+}
+
+// RMSNorm forward with the row held in registers (rms_norm_fwd when hidden
+// is a multiple of 8 bf16 or 4 fp32 elements, the pointers are 16-byte
+// aligned and the row fits NV 16-byte vectors a lane). A warp owns a row:
+// every lane issues all its loads (NV uint4, lane + 32j) before the sum of
+// squares, reduces it by shuffles, and normalises from the registers, so
+// the row is read from HBM once; w comes as float4. At hidden 2048 bf16 that
+// is 8 uint4 a lane.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+rms_fwd_row_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y,
+                   int rows, int hidden, float eps) {
+  constexpr int N = Vec<T>::N;
+  const int lane = threadIdx.x & 31;
+  const long row = (long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int nvec = hidden / N;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + row * hidden);
+  uint4 r[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+    if (lane + 32 * j < nvec) r[j] = xv[lane + 32 * j];
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+    if (lane + 32 * j < nvec) {
+      const T* e = reinterpret_cast<const T*>(&r[j]);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const float v = to_f(e[i]);
+        ss += v * v;
+      }
+    }
+  const float rstd = rsqrtf(warp_sum(ss) / hidden + eps);
+  uint4* yv = reinterpret_cast<uint4*>(y + row * hidden);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int i = lane + 32 * j;
+    if (i >= nvec) continue;
+    float wv[N];
+#pragma unroll
+    for (int c = 0; c < N / 4; ++c) {
+      const float4 f = w ? reinterpret_cast<const float4*>(w)[i * (N / 4) + c]
+                         : make_float4(1.f, 1.f, 1.f, 1.f);
+      wv[4 * c] = f.x;
+      wv[4 * c + 1] = f.y;
+      wv[4 * c + 2] = f.z;
+      wv[4 * c + 3] = f.w;
+    }
+    const T* e = reinterpret_cast<const T*>(&r[j]);
+    uint4 out;
+    T* ov = reinterpret_cast<T*>(&out);
+#pragma unroll
+    for (int c = 0; c < N; ++c) ov[c] = from_f<T>(to_f(e[c]) * rstd * wv[c]);
+    yv[i] = out;
   }
 }
 
@@ -259,6 +320,36 @@ int launch_bwd(const void* x, const void* w, const void* dy, void* dx, float* pa
   return (int)cudaGetLastError();
 }
 
+// The RMSNorm forward: the register-resident row where the shape allows,
+// else the loop of norm_fwd_kernel (hidden not a multiple of the vector, an
+// unaligned pointer, or more than kMaxRowVecs vectors a lane).
+constexpr int kMaxRowVecs = 16;  // 64 registers a lane: hidden <= 4096 bf16
+
+template <typename T, int NV>
+int launch_row(const void* x, const void* w, void* y, int rows, int hidden, float eps,
+               cudaStream_t stream) {
+  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  rms_fwd_row_kernel<T, NV><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<T*>(y), rows, hidden,
+      eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_rms(const void* x, const void* w, void* y, int rows, int hidden, float eps,
+               cudaStream_t s) {
+  constexpr int N = Vec<T>::N;
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int per_lane = (hidden / N + 31) / 32;
+  if (hidden % N != 0 || !aligned(x) || !aligned(y) || !aligned(w) || per_lane > kMaxRowVecs)
+    return launch<T, true>(x, w, nullptr, y, rows, hidden, eps, s);
+  if (per_lane <= 1) return launch_row<T, 1>(x, w, y, rows, hidden, eps, s);
+  if (per_lane <= 2) return launch_row<T, 2>(x, w, y, rows, hidden, eps, s);
+  if (per_lane <= 4) return launch_row<T, 4>(x, w, y, rows, hidden, eps, s);
+  if (per_lane <= 8) return launch_row<T, 8>(x, w, y, rows, hidden, eps, s);
+  return launch_row<T, kMaxRowVecs>(x, w, y, rows, hidden, eps, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. w and b are fp32 (hidden,) or null.
@@ -299,8 +390,8 @@ extern "C" int rms_norm_fwd(const void* x, const void* w, void* y, int rows, int
   if (rows == 0) return 0;
   if (hidden <= 0 || rows < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, true>(x, w, nullptr, y, rows, hidden, eps, s);
-  if (dtype == 1) return launch<__nv_bfloat16, true>(x, w, nullptr, y, rows, hidden, eps, s);
+  if (dtype == 0) return launch_rms<float>(x, w, y, rows, hidden, eps, s);
+  if (dtype == 1) return launch_rms<__nv_bfloat16>(x, w, y, rows, hidden, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -5,8 +5,10 @@ with causal masking, a (b, sk) key-padding mask, a sliding window, GQA
 (k/v with fewer heads) and an explicit scale, like the JAX function.
 Device rule instead of the JAX ``impl=`` switch: on CUDA tensors it
 launches the hand-written kernels (``csrc/flash_attention.cu`` forward,
-``csrc/flash_attention_bwd.cu`` dq and dk/dv), on CPU tensors it runs
-their plain versions :func:`_flash_fwd_ref` and :func:`_flash_bwd_ref`.
+with a split-KV decode kernel for sq = 1 whose split count
+:func:`_decode_splits` picks, ``csrc/flash_attention_bwd.cu`` dq and
+dk/dv), on CPU tensors it runs their plain versions
+:func:`_flash_fwd_ref` and :func:`_flash_bwd_ref`.
 A dense ``mask`` goes to :func:`_attn_ref` on either device, as it goes
 to ``_attn_ref`` in JAX, and autograd differentiates it there.
 
@@ -150,6 +152,75 @@ def _check_kernel_args(q, k, v, key_padding_mask):
     return key_padding_mask.to(device=q.device, dtype=torch.int32).contiguous()
 
 
+# The bf16 decode kernel (sq = 1) gives each (batch, kv head) pair a block
+# whose rows are the pair's query heads (16 a block), so each K/V tile is
+# read once for the whole GQA group. At small batch those blocks are too few
+# to fill the card, so the pair's 64-key tiles are split over more blocks
+# until there are at least _MIN_DECODE_BLOCKS (three on each of the H100's
+# 132 SMs: the fastest of 264, 396 and 528 at the GPT-2 and Llama serving
+# shapes, PERF.md), at most _MAX_DECODE_SPLITS (the portable cluster size:
+# a pair's splits run as one cluster, whose blocks merge their partials
+# from each other's shared memory in split order, so repeated calls stay
+# bit-equal).
+_MIN_DECODE_BLOCKS = 396
+_MAX_DECODE_SPLITS = 8
+
+
+def _decode_splits(q, k) -> int:
+    """The number of blocks that share one (batch, kv head) pair's keys in
+    the decode kernel, from the shapes alone; 1 outside bf16 decode (sq = 1),
+    which the prefill and fp32 kernels serve."""
+    b, h, sq, _ = q.shape
+    h_kv, sk = k.shape[1], k.shape[2]
+    if q.dtype != torch.bfloat16 or sq != 1 or sk == 0:
+        return 1
+    blocks = b * h_kv * -(-(h // h_kv) // 16)
+    tiles = -(-sk // 64)
+    want = min(-(-_MIN_DECODE_BLOCKS // blocks), _MAX_DECODE_SPLITS, tiles)
+    per = -(-tiles // want)  # tiles a split holds
+    return -(-tiles // per)
+
+
+def _flash_decode_split_ref(q, k, v, scale, causal, key_padding_mask=None,
+                            window=None, splits=1):
+    """Plain (o, lse) of a decode step (sq = 1) computed as the split
+    kernel computes it: each split's 64-key tiles give partials (the row max
+    m, the row sum l, the unnormalised o) over the keys the masks keep, and
+    the splits merge in split order. A split with no kept key adds nothing;
+    a row with none anywhere is o = 0, lse = +1e30."""
+    b, h, sq, d = q.shape
+    h_kv, sk = k.shape[1], k.shape[2]
+    group = h // h_kv
+    s = torch.matmul(q.float(), k.repeat_interleave(group, dim=1).float()
+                     .transpose(-1, -2)) * scale  # (b, h, 1, sk)
+    keep = _keep_mask(sq, sk, causal, window, key_padding_mask, s.device)
+    keep = keep.expand(b, h, sq, sk)
+    vf = v.repeat_interleave(group, dim=1).float()
+    tiles = -(-sk // 64)
+    per = -(-tiles // splits) * 64  # keys a split holds, as in the kernel
+    m = torch.full((b, h, sq, 1), _NEG_INF, device=s.device)
+    l = torch.zeros((b, h, sq, 1), device=s.device)
+    acc = torch.zeros((b, h, sq, d), device=s.device)
+    for lo in range(0, sk, per):
+        ks = keep[..., lo:lo + per]
+        live = ks.any(dim=-1, keepdim=True)
+        ss = s[..., lo:lo + per].masked_fill(~ks, -math.inf)
+        ms = torch.where(live, ss.amax(dim=-1, keepdim=True), _NEG_INF)
+        p = torch.exp(ss - ms).masked_fill(~ks, 0.0)
+        ls = p.sum(dim=-1, keepdim=True)
+        os = torch.matmul(p.to(v.dtype).float(), vf[..., lo:lo + per, :])
+        m_new = torch.maximum(m, ms)
+        a_old = torch.where(m > _NEG_INF * 0.5, torch.exp(m - m_new), 0.0)
+        a_new = torch.where(live, torch.exp(ms - m_new), 0.0)
+        l = l * a_old + ls * a_new
+        acc = acc * a_old + os * a_new
+        m = m_new
+    dead = m <= _NEG_INF * 0.5
+    o = torch.where(dead, 0.0, acc / l.clamp_min(1e-30)).to(q.dtype)
+    lse = torch.where(dead, -_NEG_INF, m + torch.log(l.clamp_min(1e-30)))
+    return o, lse[..., 0]
+
+
 def _flash_kernel(q, k, v, scale, causal, key_padding_mask=None,
                   window=None):
     """(o, lse) from the CUDA kernel; o like q, lse fp32 (b, h, sq)."""
@@ -165,8 +236,8 @@ def _flash_kernel(q, k, v, scale, causal, key_padding_mask=None,
     _kernels.FLASH_FWD(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
         None if kpm is None else kpm.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b * h, sq, sk, d, h, h // h_kv, float(scale),
-        int(causal), int(window or 0), code,
+        lse.data_ptr(), b * h, sq, sk, d, h, h // h_kv, _decode_splits(q, k),
+        float(scale), int(causal), int(window or 0), code,
     )
     return o.reshape(b, h, sq, d), lse.reshape(b, h, sq)
 

@@ -12,20 +12,25 @@ swallowed:
 3. kernel parity: each kernel against its plain PyTorch version on the
    card, in fp32 and bf16 where it takes bf16, at the main paths' shapes
    and the edge cases (ragged lengths, a fully padded row, GQA 12/4 and
-   Llama's 32/4, a sliding window, causal with sq != sk; flash forward and
-   backward at Llama training's (4,32,2048,64) over (4,4,2048,64), the
-   backward at head_dim 128 and 80 in bf16, and
-   forward at a 1536-token Llama prefill, in bf16; Adam over GPT-2
+   Llama's 32/4, a sliding window, causal and window with sq != sk; flash
+   forward and backward at Llama training's (4,32,2048,64) over
+   (4,4,2048,64) and at head_dim 128 and 80, the forward at a 1536-token
+   Llama prefill in bf16, its lse in both dtypes, and the split decode:
+   Llama's 32/4 over 8 splits with a dead and a full lane, sk = 1000, a
+   window at sq = 1; Adam over GPT-2
    small's 124,439,808 parameters and a ragged length, both decay modes,
    steps 1 and 10; RMSNorm forward and backward at rows {1, 1000, 8192}
-   x hidden {2048, 1000}, with and without weight; the sum of squares at
+   x hidden {2048, 1000}, with and without weight, and the forward's
+   routes at hidden 4096, 5120 and an unaligned input; the sum of squares at
    1, 1,000,003 and TinyLlama's 1,100,048,384 elements, also against an
    fp64 sum); prints each case's error and tolerance, and checks that a
    second call on the same inputs is bit-equal; then times each kernel,
    its plain version and the one PyTorch call that computes the same
    function (the timed flash outputs held to the same tolerances; the
-   flash backward kernels and the library's backward in turns over three
-   rounds, medians, with each kernel's share of its operation bound);
+   flash and RMSNorm forward and the flash backward kernels and their
+   library calls in turns over three rounds, medians, with each kernel's
+   share of its bound; the decode-shape rows also as CUDA graphs of the
+   kernel alone and of the library call);
 4. serving: GPT-2 small at full width (12 x 768, vocab 50257, 1024
    positions, seeded random weights, params fp32, compute bf16) behind
    the continuous-batching engine answers 24 requests; the launch counts
@@ -96,6 +101,10 @@ TOL = {
     # bf16: the kernel rounds the unnormalised P of its running max to
     # bf16, the plain version the normalised softmax (attention.py:155)
     ("flash_fwd", torch.bfloat16): (2e-2, 2e-2),
+    # lse: fp32 statistics of the same scores summed in another order (and,
+    # in bf16, exp by ex2.approx); the backward reads it as exp(s - lse)
+    ("flash_fwd lse", torch.float32): (2e-5, 1e-4),
+    ("flash_fwd lse", torch.bfloat16): (1e-4, 1e-4),
     # dx: the same fp32 arithmetic in another order / one bf16 rounding
     ("layer_norm_bwd", torch.float32): (1e-4, 1e-4),
     ("layer_norm_bwd", torch.bfloat16): (2e-2, 2e-2),
@@ -192,6 +201,41 @@ def time_ms(fn, iters: int = 50) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def graph_ms(fn, iters: int = 50) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed: the kernels' own time, without the host's launch
+    cost that ``time_ms`` includes where a call is short."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def in_turns(fns, rounds: int = 3, iters: int = 50):
+    """``time_ms`` of each of ``fns`` (name: callable), taken in turns over
+    ``rounds`` rounds; the median of each, and every round's times."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(time_ms(fn, iters))
+    return {name: statistics.median(ms) for name, ms in times.items()}, times
+
+
 def check(name, dtype, case, out, ref, errors, tol_key=None):
     atol, rtol = TOL[(tol_key or name, dtype)]
     out, ref = out.float(), ref.float()
@@ -265,12 +309,31 @@ def flash_cases(gen):
         q, k, v = attn_inputs(1, 32, 4, 600, 600, 64, dtype, gen)
         yield "GQA 32q/4kv causal (1,32,600,64)", q, k, v, True, None, None
         q, k, v = attn_inputs(8, 32, 4, 1, 2048, 64, dtype, gen)
-        yield ("GQA 32q/4kv decode (8,32,1,64) sk=2048 key-padding", q, k,
-               v, False, decode_kpm(8, 2048, gen), None)
+        yield ("GQA 32q/4kv decode (8,32,1,64) sk=2048 key-padding, a dead "
+               "and a full lane", q, k, v, False, decode_kpm(8, 2048, gen),
+               None)
         q, k, v = attn_inputs(1, 12, 12, 1024, 1024, 64, dtype, gen)
         yield "window=256 causal (1,12,1024,64)", q, k, v, True, None, 256
         q, k, v = attn_inputs(1, 12, 12, 77, 200, 64, dtype, gen)
         yield "causal sq!=sk (1,12,77,64) sk=200", q, k, v, True, None, None
+        q, k, v = attn_inputs(1, 12, 4, 77, 300, 64, dtype, gen)
+        yield ("window=100 causal sq!=sk GQA 12q/4kv (1,12,77,64) sk=300", q,
+               k, v, True, None, 100)
+        # decode with sk a multiple of neither 64 nor the split (16 splits
+        # of one tile), and decode under a sliding window
+        q, k, v = attn_inputs(4, 32, 4, 1, 1000, 64, dtype, gen)
+        yield ("GQA 32q/4kv decode (4,32,1,64) sk=1000 key-padding", q, k, v,
+               False, decode_kpm(4, 1000, gen), None)
+        q, k, v = attn_inputs(3, 8, 2, 1, 700, 64, dtype, gen)
+        yield ("GQA 8q/2kv decode (3,8,1,64) sk=700 window=130 key-padding",
+               q, k, v, True, decode_kpm(3, 700, gen), 130)
+        # the tensor-core kernels' wider instantiation: d = 128, and d = 80
+        # zero-padded to it (five 16-wide steps)
+        q, k, v = attn_inputs(2, 16, 2, 512, 512, 128, dtype, gen)
+        yield "GQA 16q/2kv causal d=128 (2,16,512,128)", q, k, v, True, None, \
+            None
+        q, k, v = attn_inputs(2, 12, 12, 300, 300, 80, dtype, gen)
+        yield "causal d=80 (2,12,300,80)", q, k, v, True, None, None
         if dtype == torch.bfloat16:  # the Llama paths' shapes, in their dtype
             q, k, v = attn_inputs(1, 32, 4, 1536, 1536, 64, dtype, gen)
             yield ("Llama prefill GQA 32q/4kv causal (1,32,1536,64)", q, k, v,
@@ -293,11 +356,20 @@ def flash_parity(errors):
             torch.cuda.synchronize()
             if out.dtype != dtype or out.shape != q.shape:
                 raise AssertionError("flash_fwd: wrong dtype/shape")
-            ref = at._flash_ref(q, k, v, scale, causal, None, kpm, window)
+            splits = at._decode_splits(q, k)
+            if splits > 1:
+                label += f", {splits} splits"
+            ref, rl = at._flash_fwd_ref(q, k, v, scale, causal, kpm, window)
             check("flash_fwd", dtype, label, out, ref, errors)
-            if dtype == torch.float32:
-                rl = at._flash_fwd_ref(q, k, v, scale, causal, kpm, window)[1]
-                check("flash_fwd", dtype, label + " lse", lse, rl, errors)
+            check("flash_fwd", dtype, label + " lse", lse, rl, errors,
+                  tol_key="flash_fwd lse")
+            if kpm is not None and bool(kpm[0].all()):
+                if torch.count_nonzero(out[0]) != 0 or not bool(
+                        (lse[0] == 1e30).all()):
+                    raise AssertionError(f"flash_fwd {label}: the dead lane "
+                                         f"is not o = 0, lse = +1e30")
+            same_twice("flash_fwd", label, (out, lse), at._flash_kernel(
+                q, k, v, scale, causal, kpm, window))
 
 
 def same_twice(name, case, first, second):
@@ -465,6 +537,18 @@ def rms_parity(errors):
                           ref[1], errors, tol_key="rms_norm_bwd dgamma")
                     same_twice("rms_norm_bwd", case, got,
                                ln._rms_bwd_kernel(x, w, dy, 1e-5))
+        # the forward's routes: the register-resident row at its widest
+        # (hidden 4096 bf16: 16 vectors a lane), and the loop for a row
+        # beyond the register budget and for an unaligned input
+        for rows, hidden in ((77, 4096), (77, 5120)):
+            x, w, _ = ln_inputs(rows, hidden, dtype, gen)
+            check("rms_norm_fwd", dtype, f"rows={rows} hidden={hidden}",
+                  ln.rms_norm(x, w, 1e-5), ln._rms_ref(x, w, 1e-5), errors)
+        buf, _, _ = ln_inputs(1, 300 * 2048 + 1, dtype, gen)
+        x = buf[0, 1:].view(300, 2048)  # 2 or 4 bytes off a 16-byte line
+        w = torch.randn(2048, generator=gen, device="cuda")
+        check("rms_norm_fwd", dtype, "rows=300 hidden=2048 unaligned view",
+              ln.rms_norm(x, w, 1e-5), ln._rms_ref(x, w, 1e-5), errors)
 
 
 def fp64_sumsq(x):
@@ -509,7 +593,7 @@ def bound(bytes_moved, flops, peak_flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_layer_norm(rows, hidden):
+def time_layer_norm(rows, hidden, graph=False):
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import layer_norm as ln
@@ -522,7 +606,7 @@ def time_layer_norm(rows, hidden):
                      8 * rows * hidden, FP32_FLOPS)
     err = float((ln.layer_norm(x, w, b) .float()
                  - ln._ln_ref(x, w, b, 1e-5).float()).abs().max())
-    return {
+    out = {
         "shape": f"x ({rows},{hidden}) bf16",
         "max_abs_err": err,
         "ms": time_ms(lambda: ln.layer_norm(x, w, b)),
@@ -530,9 +614,46 @@ def time_layer_norm(rows, hidden):
         "bound_ms": b_ms, "bound_by": by,
         "library_ms": time_ms(lambda: F.layer_norm(x, (hidden,), wl, bl)),
     }
+    if graph:
+        out["graph_ms"] = graph_ms(lambda: ln.layer_norm(x, w, b))
+        out["library_graph_ms"] = graph_ms(
+            lambda: F.layer_norm(x, (hidden,), wl, bl))
+    return out
 
 
-def time_flash(label, q, k, v, causal, kpm, errors):
+def flash_fwd_launcher(q, k, v, kpm, scale, causal, window=None):
+    """A closure that launches the forward kernel alone at these inputs (the
+    wrapper's checks, reshapes and allocations done once, outside it)."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.ops import attention as at
+
+    b, h, sq, d = q.shape
+    h_kv, sk = k.shape[1], k.shape[2]
+    kpm32 = at._check_kernel_args(q, k, v, kpm)
+    q3 = q.reshape(b * h, sq, d).contiguous()
+    k3, v3 = (t.reshape(b * h_kv, sk, d).contiguous() for t in (k, v))
+    o = torch.empty_like(q3)
+    lse = torch.empty((b * h, sq), dtype=torch.float32, device="cuda")
+    splits = at._decode_splits(q, k)
+
+    def launch():
+        _kernels.FLASH_FWD(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+            None if kpm32 is None else kpm32.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b * h, sq, sk, d, h, h // h_kv, splits,
+            float(scale), int(causal), int(window or 0),
+            _kernels.dtype_code(q))
+    return launch
+
+
+FLASH_FWD_ROUNDS = 3
+
+
+def time_flash(label, q, k, v, causal, kpm, errors, graph=False):
+    """The forward at one shape: the kernel (through ``flash_attention``)
+    and the library call timed in turns, FLASH_FWD_ROUNDS rounds, medians;
+    with ``graph``, both a second way, as CUDA graphs of the kernel alone
+    and of the library call."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import attention as at
@@ -554,19 +675,32 @@ def time_flash(label, q, k, v, causal, kpm, errors):
                      4 * pairs * d, BF16_FLOPS)
     out = at.flash_attention(q, k, v, causal=causal, key_padding_mask=kpm)
     ref = at._flash_ref(q, k, v, scale, causal, None, kpm)
+    err = check("flash_fwd", q.dtype, label, out, ref, errors)
+    del out, ref
     attn_mask = None if kpm is None else ~kpm[:, None, None, :]
-    return {
-        "shape": label,
-        "max_abs_err": check("flash_fwd", q.dtype, label, out, ref, errors),
-        "ms": time_ms(lambda: at.flash_attention(
-            q, k, v, causal=causal, key_padding_mask=kpm)),
-        "plain_ms": time_ms(lambda: at._flash_ref(
-            q, k, v, scale, causal, None, kpm)),
-        "bound_ms": b_ms, "bound_by": by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+
+    def library():
+        return F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, is_causal=causal, scale=scale,
-            enable_gqa=h != k.shape[1])),
+            enable_gqa=h != k.shape[1])
+
+    med, rounds = in_turns({
+        "kernel": lambda: at.flash_attention(q, k, v, causal=causal,
+                                             key_padding_mask=kpm),
+        "library": library}, FLASH_FWD_ROUNDS)
+    row = {
+        "shape": label, "max_abs_err": err, "ms": med["kernel"],
+        "plain_ms": time_ms(lambda: at._flash_ref(
+            q, k, v, scale, causal, None, kpm), iters=10),
+        "bound_ms": b_ms, "bound_by": by, "bound_share": b_ms / med["kernel"],
+        "library_ms": med["library"], "rounds": rounds,
     }
+    if graph:
+        row["graph_ms"] = graph_ms(flash_fwd_launcher(q, k, v, kpm, scale,
+                                                      causal))
+        row["library_graph_ms"] = graph_ms(library)
+        row["graph_bound_share"] = b_ms / row["graph_ms"]
+    return row
 
 
 def time_layer_norm_bwd(rows, hidden):
@@ -727,9 +861,13 @@ def time_adam(n):
     }
 
 
-def time_rms_norm(rows, hidden):
+def time_rms_norm(rows, hidden, graph=False):
+    """The forward at one shape: the kernel (through ``rms_norm``) and the
+    library call timed in turns over three rounds, medians; with ``graph``,
+    both also as CUDA graphs."""
     import torch.nn.functional as F
 
+    from apex_tpu_torch import _kernels
     from apex_tpu_torch.ops import layer_norm as ln
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
@@ -740,14 +878,25 @@ def time_rms_norm(rows, hidden):
                      4 * rows * hidden, FP32_FLOPS)
     err = float((ln.rms_norm(x, w).float()
                  - ln._rms_ref(x, w, 1e-5).float()).abs().max())
-    return {
+    med, rounds = in_turns({
+        "kernel": lambda: ln.rms_norm(x, w),
+        "library": lambda: F.rms_norm(x, (hidden,), wl, 1e-5)})
+    row = {
         "shape": f"x ({rows},{hidden}) bf16",
-        "max_abs_err": err,
-        "ms": time_ms(lambda: ln.rms_norm(x, w)),
+        "max_abs_err": err, "ms": med["kernel"],
         "plain_ms": time_ms(lambda: ln._rms_ref(x, w, 1e-5)),
-        "bound_ms": b_ms, "bound_by": by,
-        "library_ms": time_ms(lambda: F.rms_norm(x, (hidden,), wl, 1e-5)),
+        "bound_ms": b_ms, "bound_by": by, "bound_share": b_ms / med["kernel"],
+        "library_ms": med["library"], "rounds": rounds,
     }
+    if graph:
+        y = torch.empty_like(x)
+        row["graph_ms"] = graph_ms(lambda: _kernels.RMS_NORM_FWD(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, hidden, 1e-5,
+            _kernels.dtype_code(x)))
+        row["library_graph_ms"] = graph_ms(
+            lambda: F.rms_norm(x, (hidden,), wl, 1e-5))
+        row["graph_bound_share"] = b_ms / row["graph_ms"]
+    return row
 
 
 def time_rms_norm_bwd(rows, hidden):
@@ -803,7 +952,7 @@ def kernel_timings(errors):
     are held to the flash tolerances too."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     out = {"layer_norm_fwd": [time_layer_norm(768, 768),
-                              time_layer_norm(8, 768)]}
+                              time_layer_norm(8, 768, graph=True)]}
     q, k, v = attn_inputs(1, 12, 12, 768, 768, 64, torch.bfloat16, gen)
     prefill = time_flash("prefill causal q,k,v (1,12,768,64) bf16",
                          q, k, v, True, None, errors)
@@ -812,28 +961,61 @@ def kernel_timings(errors):
                         device="cuda")
     kpm = torch.arange(1024, device="cuda")[None, :] >= lens[:, None]
     decode = time_flash("decode q (8,12,1,64) k,v (8,12,1024,64) bf16 "
-                        "key-padding", q, k, v, False, kpm, errors)
+                        "key-padding", q, k, v, False, kpm, errors,
+                        graph=True)
     out["flash_fwd"] = [prefill, decode]
     q, k, v = attn_inputs(1, 32, 4, 1024, 1024, 64, torch.bfloat16, gen)
     out["flash_fwd"].append(time_flash(
         "Llama prefill causal q (1,32,1024,64) k,v (1,4,1024,64) bf16",
         q, k, v, True, None, errors))
+    # the training shapes, where the fine-tuning and GPT-2 steps spend the
+    # forward's time, and the Llama engine's decode step (lanes at cache
+    # lengths of the serving run's spread, in a 2048-key cache)
+    q, k, v = attn_inputs(4, 32, 4, 2048, 2048, 64, torch.bfloat16, gen)
+    out["flash_fwd"].append(time_flash(
+        "Llama training causal q (4,32,2048,64) k,v (4,4,2048,64) bf16",
+        q, k, v, True, None, errors))
+    q, k, v = attn_inputs(8, 12, 12, 1024, 1024, 64, torch.bfloat16, gen)
+    out["flash_fwd"].append(time_flash(
+        "GPT-2 training causal q,k,v (8,12,1024,64) bf16", q, k, v, True,
+        None, errors))
+    del q, k, v
+    q, k, v = attn_inputs(8, 32, 4, 1, 2048, 64, torch.bfloat16, gen)
+    lens = torch.tensor([64, 300, 500, 800, 1000, 1200, 1500, 1600],
+                        device="cuda")
+    kpm = torch.arange(2048, device="cuda")[None, :] >= lens[:, None]
+    out["flash_fwd"].append(time_flash(
+        "Llama decode q (8,32,1,64) k,v (8,4,2048,64) bf16 key-padding",
+        q, k, v, False, kpm, errors, graph=True))
     out["layer_norm_bwd"] = [time_layer_norm_bwd(8192, 768)]
     dq, dkv = time_flash_bwd(gen, 8, 12, 12, 1024, errors)
     ldq, ldkv = time_flash_bwd(gen, 4, 32, 4, 2048, errors)
     out["flash_bwd_dq"], out["flash_bwd_dkv"] = dq + ldq, dkv + ldkv
     out["adam_update"] = [time_adam(N_GPT2_SMALL)]
-    out["rms_norm_fwd"] = [time_rms_norm(8192, 2048), time_rms_norm(8, 2048)]
+    out["rms_norm_fwd"] = [time_rms_norm(8192, 2048),
+                           time_rms_norm(8, 2048, graph=True)]
     out["rms_norm_bwd"] = [time_rms_norm_bwd(8192, 2048)]
     out["sumsq_flat"] = [time_sumsq(N_TINYLLAMA)]
     for name, rows in out.items():
         for r in rows:
             share = (f", {100 * r['bound_share']:.1f}% of bound"
                      if "bound_share" in r else "")
+            graphed = (f"; as CUDA graphs: kernel {r['graph_ms']:.4f} ms"
+                       f"{share_of(r, 'graph_bound_share')}, library "
+                       f"{r['library_graph_ms']:.4f} ms"
+                       if "graph_ms" in r else "")
             log(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){share}")
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){share}"
+                f"{graphed}")
+            if "rounds" in r:
+                log(f"time {name} {r['shape']} rounds: "
+                    + json.dumps(r["rounds"]))
     return out
+
+
+def share_of(row, key):
+    return f" ({100 * row[key]:.1f}% of bound)" if key in row else ""
 
 
 # -- serving ---------------------------------------------------------------

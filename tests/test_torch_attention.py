@@ -276,3 +276,77 @@ def test_dkv_kernel_splits_the_gqa_group(b, h, h_kv, sk, dtype, want):
     q = torch.empty(b, h, sk, 64, dtype=dtype, device="meta")
     k = torch.empty(b, h_kv, sk, 64, dtype=dtype, device="meta")
     assert _dkv_splits(q, k) == want
+
+
+# -- the split decode (sq = 1, bf16 on the card) ------------------------------
+# The decode kernel splits each (batch, kv head) pair's keys over up to 8
+# blocks, by a rule of the shapes alone, and merges their partials (row max,
+# row sum, unnormalised o) in split order. _flash_decode_split_ref is the
+# plain version of that merge; on the CPU it is held to _flash_fwd_ref (the
+# kernel's contract, o and lse) and to the JAX function at the decode shape.
+# Tolerances: fp32 1e-5 (the same sums in another order); bf16 2e-2 (P is
+# rounded to bf16 relative to each split's max instead of the row's).
+
+@pytest.mark.parametrize("b,h,h_kv,sk,dtype,want", [
+    (8, 12, 12, 1024, torch.bfloat16, 4),  # GPT-2 serving: 96 pairs
+    (8, 32, 4, 2048, torch.bfloat16, 8),   # Llama serving: 32 pairs, capped
+    (64, 12, 12, 1024, torch.bfloat16, 1),  # 768 blocks fill the card
+    (8, 12, 12, 1000, torch.bfloat16, 4),  # ragged sk: 16 tiles, the last short
+    (8, 12, 12, 100, torch.bfloat16, 2),   # two tiles, one each
+    (3, 8, 2, 700, torch.bfloat16, 6),     # 11 tiles over 2-tile splits
+    (8, 12, 12, 1024, torch.float32, 1),   # the scalar fp32 kernel
+])
+def test_decode_splits_from_the_shape(b, h, h_kv, sk, dtype, want):
+    from apex_tpu_torch.ops.attention import _decode_splits
+
+    q = torch.empty(b, h, 1, 64, dtype=dtype, device="meta")
+    k = torch.empty(b, h_kv, sk, 64, dtype=dtype, device="meta")
+    got = _decode_splits(q, k)
+    assert got == want
+    tiles = -(-sk // 64)
+    per = -(-tiles // got)
+    assert -(-tiles // per) == got  # no split without a tile
+    # prefill (sq > 1) never splits
+    assert _decode_splits(torch.empty(b, h, 2, 64, dtype=dtype,
+                                      device="meta"), k) == 1
+
+
+def _decode_inputs(b, h, h_kv, sk, d, seed):
+    q, k, v = (torch.from_numpy(t) for t in _qkv(b, h, h_kv, 1, sk, d, seed))
+    kpm = torch.zeros(b, sk, dtype=torch.bool)
+    kpm[0] = True                  # a dead lane
+    kpm[1 % b, 40:] = True         # keys in the first split only
+    return q, k, v, kpm
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("window", [None, 100])
+def test_split_decode_merge_matches_plain_forward(splits, window):
+    from apex_tpu_torch.ops.attention import (
+        _flash_decode_split_ref,
+        _flash_fwd_ref,
+    )
+
+    q, k, v, kpm = _decode_inputs(3, 8, 2, 700, 32, seed=30)
+    causal = window is not None
+    o, lse = _flash_decode_split_ref(q, k, v, 0.2, causal, kpm, window,
+                                     splits)
+    ro, rl = _flash_fwd_ref(q, k, v, 0.2, causal, kpm, window)
+    torch.testing.assert_close(o, ro, atol=FP32_TOL, rtol=FP32_TOL)
+    torch.testing.assert_close(lse, rl, atol=FP32_TOL, rtol=FP32_TOL)
+    assert torch.count_nonzero(o[0]) == 0 and bool((lse[0] == 1e30).all())
+
+
+def test_split_decode_merge_matches_pallas_bf16():
+    from apex_tpu_torch.ops.attention import _flash_decode_split_ref
+
+    q, k, v, kpm = _decode_inputs(2, 8, 2, 320, 32, seed=31)
+    ref = jax_flash(*(jnp.asarray(t.numpy(), jnp.bfloat16) for t in (q, k, v)),
+                    key_padding_mask=jnp.asarray(kpm.numpy()), impl="pallas",
+                    block_q=1, block_k=32)
+    o, _ = _flash_decode_split_ref(*(t.bfloat16() for t in (q, k, v)),
+                                   32 ** -0.5, False, kpm, None, 5)
+    assert o.dtype == torch.bfloat16
+    np.testing.assert_allclose(o.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=BF16_TOL, rtol=BF16_TOL)

@@ -8,7 +8,8 @@ a CPU-only host). On the card, run them without the JAX suite's conftest
 
 Tolerances: fp32 1e-5 (norm) and 2e-5 (attention), the same arithmetic
 summed in another order; bf16 2e-2, one bf16 rounding of the output (and,
-in attention, of P before P.V) at different points. Backward kernels:
+in attention, of P before P.V) at different points; the forward's lse
+1e-4 (fp32 sums of the same scores in another order). Backward kernels:
 fp32 1e-4 (longer sums), bf16 2e-2 on dx/dq/dk/dv (one bf16 rounding of
 the output, and of p and ds before the products); LayerNorm dgamma/dbeta
 1e-3 absolute (fp32 sums over up to 300 rows in another order). The Adam
@@ -71,6 +72,29 @@ CASES = {
                        window=50),
     "decode": dict(b=8, h=12, h_kv=12, sq=1, sk=300, causal=False,
                    kpm=True),
+    # the bf16 decode kernel: Llama's GQA 32/4 split over 8 blocks (with a
+    # dead and a full lane), sk a multiple of neither 64 nor the split, and
+    # a sliding window at sq = 1
+    "decode_gqa_split": dict(b=8, h=32, h_kv=4, sq=1, sk=2048, causal=False,
+                             kpm=True, splits=8),
+    "decode_ragged": dict(b=4, h=32, h_kv=4, sq=1, sk=1000, causal=False,
+                          kpm=True, splits=8),
+    "decode_window": dict(b=3, h=8, h_kv=2, sq=1, sk=700, causal=True,
+                          window=130, kpm=True, splits=6),
+    # a group of 32 query heads: two 16-row blocks a (batch, kv head) pair
+    "decode_group32": dict(b=2, h=32, h_kv=1, sq=1, sk=500, causal=False,
+                           kpm=True, splits=8),
+    # d = 36, not a multiple of 8: element-wise loads instead of cp.async
+    "prefill_hd36": dict(b=1, h=4, h_kv=2, sq=150, sk=150, causal=True,
+                         d=36),
+    # the prefill kernel's wider instantiation (d = 80 zero-padded to 128)
+    # and the window with causal at sq != sk
+    "prefill_hd80": dict(b=2, h=12, h_kv=12, sq=300, sk=300, causal=True,
+                         d=80),
+    "prefill_hd128": dict(b=2, h=16, h_kv=2, sq=200, sk=200, causal=True,
+                          d=128),
+    "window_rect": dict(b=1, h=4, h_kv=2, sq=77, sk=300, causal=True,
+                        window=100),
 }
 
 
@@ -78,8 +102,9 @@ CASES = {
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_flash_kernel(gen, dtype, case):
     c = CASES[case]
-    q = torch.randn(c["b"], c["h"], c["sq"], 64, generator=gen, device="cuda")
-    k, v = (torch.randn(c["b"], c["h_kv"], c["sk"], 64, generator=gen,
+    d = c.get("d", 64)
+    q = torch.randn(c["b"], c["h"], c["sq"], d, generator=gen, device="cuda")
+    k, v = (torch.randn(c["b"], c["h_kv"], c["sk"], d, generator=gen,
                         device="cuda") for _ in range(2))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     kpm = None
@@ -87,18 +112,29 @@ def test_flash_kernel(gen, dtype, case):
         lens = torch.randint(1, c["sk"] + 1, (c["b"],), generator=gen,
                              device="cuda")
         lens[0] = 0  # a dead row
+        lens[1] = c["sk"]  # a full lane
         kpm = torch.arange(c["sk"], device="cuda")[None] >= lens[:, None]
-    scale = 1 / math.sqrt(64)
+    if dtype == torch.bfloat16 and "splits" in c:
+        assert at._decode_splits(q, k) == c["splits"]
+    scale = 1 / math.sqrt(d)
+    before = _kernels.FLASH_FWD.launches
     out, lse = at._flash_kernel(q, k, v, scale, c["causal"], kpm,
                                 c.get("window"))
-    ref = at._flash_ref(q, k, v, scale, c["causal"], None, kpm,
-                        c.get("window"))
+    assert _kernels.FLASH_FWD.launches == before + 1
+    ref, ref_lse = at._flash_fwd_ref(q, k, v, scale, c["causal"], kpm,
+                                     c.get("window"))
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+    # lse in natural-log units, as the backward reads it (fp32 sums of the
+    # same scores in another order, exp by ex2.approx in bf16)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
     if kpm is not None:
         assert torch.count_nonzero(out[0]) == 0
         assert bool((lse[0] == 1e30).all())
     assert torch.isfinite(lse[1:]).all()
+    again = at._flash_kernel(q, k, v, scale, c["causal"], kpm,
+                             c.get("window"))
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
 
 
 def test_engine_goes_through_both_kernels(gen):
@@ -255,9 +291,13 @@ def test_every_gpt_parameter_gets_a_gradient_on_the_card(gen):
                                    atol=1e-5, rtol=1e-3)
 
 
+# hidden 2048 and 4096 take the forward's register-resident row (8 and 16
+# vectors a lane), 1000 and 5120 its loop (not a multiple of the vector;
+# beyond the register budget)
 @pytest.mark.parametrize("weighted", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,hidden", [(1, 2048), (300, 2048), (77, 1000)])
+@pytest.mark.parametrize("rows,hidden", [(1, 2048), (300, 2048), (77, 1000),
+                                         (8, 4096), (5, 5120)])
 def test_rms_norm_kernels(gen, dtype, rows, hidden, weighted):
     x = torch.randn(rows, hidden, generator=gen, device="cuda").to(dtype)
     dy = torch.randn(rows, hidden, generator=gen, device="cuda").to(dtype)
@@ -276,6 +316,17 @@ def test_rms_norm_kernels(gen, dtype, rows, hidden, weighted):
     assert torch.equal(ln.rms_norm(x, w), out)
     again = ln._rms_bwd_kernel(x, w, dy, 1e-5)
     assert torch.equal(again[0], dx) and torch.equal(again[1], dg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_forward_unaligned_input(gen, dtype):
+    """An input 2 or 4 bytes off a 16-byte line takes the forward's loop."""
+    buf = torch.randn(300 * 2048 + 1, generator=gen, device="cuda").to(dtype)
+    x = buf[1:].view(300, 2048)
+    w = torch.randn(2048, generator=gen, device="cuda")
+    torch.testing.assert_close(ln.rms_norm(x, w).float(),
+                               ln._rms_ref(x, w, 1e-5).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
 
 
 def test_rms_norm_autograd_on_the_card(gen):

@@ -32,6 +32,18 @@ def test_the_flash_backward_includes_a_shared_header():
     assert (_kernels._CSRC / "flash_mma.cuh").exists()
 
 
+def test_the_flash_forward_includes_the_shared_header():
+    """The forward's tensor-core kernels use the backward's helpers
+    (cp.async, ldmatrix, mma.sync, the tile loader and the mask rules) from
+    flash_mma.cuh, not copies of them."""
+    text = (_kernels._CSRC / "flash_attention.cu").read_text()
+    assert '#include "flash_mma.cuh"' in text
+    header = (_kernels._CSRC / "flash_mma.cuh").read_text()
+    for helper in ("load_tile_bf16", "key_band", "attends", "allow_smem"):
+        assert helper in header
+        assert f"void {helper}(" not in text and f"int {helper}(" not in text
+
+
 def test_library_path_is_stable(csrc):
     first = _kernels._library_path(SOURCE)
     assert first == _kernels._library_path(SOURCE)

@@ -84,6 +84,30 @@ def test_rms_norm_matches_pallas(rows, hidden):
                                rtol=FP32_TOL)
 
 
+# The RMSNorm forward kernel holds a row in registers where hidden is a
+# multiple of the 16-byte vector and fits the register budget (Llama's 2048,
+# at a prefill's rows and a decode step's 8 or 1), and keeps its loop
+# otherwise (1000). Its plain version is held to the JAX function at those
+# shapes, under no_grad as the engine calls it.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,hidden", [(1, 2048), (8, 2048), (5, 1000)])
+def test_rms_norm_forward_at_the_kernel_routes_matches_jax(rows, hidden,
+                                                          dtype):
+    x, w, _ = _inputs(rows, hidden, seed=15)
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    ref = jax_rms_norm(jnp.asarray(x, jd), jnp.asarray(w), eps=1e-5,
+                       impl="pallas")
+    with torch.no_grad():
+        out = rms_norm(torch.from_numpy(x).to(dtype), torch.from_numpy(w),
+                       eps=1e-5)
+    assert out.dtype == dtype and out.shape == x.shape
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+
+
 # -- backward ---------------------------------------------------------------
 # The port's layer_norm differentiates through _LayerNormFn, whose CPU
 # backward is _ln_bwd_ref (the plain version of the backward kernel),
