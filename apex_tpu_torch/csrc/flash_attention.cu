@@ -38,10 +38,14 @@
 // their shared K/V tiles are read from L2. The kernel is bound by latency
 // rather than by the tensor cores (PERF.md, PR 5), so registers are capped
 // at 128 a thread for 16 warps an SM, and the product loops are
-// straight-line code: head_dim 64 and 128 have their own instantiations
-// with a compile-time step count; another head_dim from 32 to 128 is
-// zero-padded to the 64 or 128 instantiation and only the 16-wide steps
-// that hold data are computed. A head_dim that is not a
+// straight-line code: head_dim 64, 128 and 256 have their own
+// instantiations with a compile-time step count; another head_dim up to
+// 256 is zero-padded to the next of them and only the 16-wide steps
+// that hold data are computed. At d = 256 a warp's fp32 accumulator alone
+// is 128 registers a thread, so Q does not sit in registers there: it
+// keeps a tile of shared memory of its own, and each 16-wide step reads
+// its A fragment by ldmatrix; K and V take two stages, one 4-warp block
+// an SM (165 KB). A head_dim that is not a
 // multiple of 8, or an input that is not 16-byte aligned, is loaded element
 // by element instead of by cp.async.
 //
@@ -66,7 +70,9 @@
 // or global scratch is needed (a second kernel over fp32 partials in
 // global memory cost about a third of the step). A state whose keys
 // were all masked (a dead warp or split) adds nothing; a row with no kept
-// key anywhere writes o = 0 and lse = +1e30.
+// key anywhere writes o = 0 and lse = +1e30. At d = 256 the same design
+// keeps Q in registers beside the accumulator (253-255 registers, no
+// spills) with 132 KB of K/V stages: one block an SM.
 //
 // fp32, the parity dtype (the card-against-CPU checks and fp32 serving):
 // the first version's scalar FMA kernel, flash_fwd_kernel. TF32 tensor
@@ -196,14 +202,19 @@ template <int DMAX> struct FwdSmem {
 // goes, though 4 fill a short prefill's grid better; 4 at d = 128). NS:
 // K/V stages in flight (3; 4 was no faster); Q is read into registers at
 // the first tile, so it lands in the last stage's slot. Two blocks an SM cap the registers
-// at 128 a thread at d <= 64: 16 warps an SM.
+// at 128 a thread at d <= 64: 16 warps an SM. QREG: Q in registers (up to
+// d = 128); at d = 256 it stays in a tile of its own after two K/V stages,
+// and one block an SM leaves a thread 255 registers.
 template <int DMAX> struct Prefill {
   static constexpr int WARPS = DMAX <= 64 ? 8 : 4;
-  static constexpr int NS = 3;
+  static constexpr bool QREG = DMAX <= 128;
+  static constexpr int NS = QREG ? 3 : 2;
+  static constexpr int BLOCKS = QREG ? 2 : 1;  // blocks an SM, for __launch_bounds__
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int BQ = 16 * WARPS;  // query rows a block owns
-  static constexpr size_t bytes = NS * 2 * FwdSmem<DMAX>::TILE * sizeof(bf16);
-  static_assert(NS >= 3 && BQ <= 2 * kB, "Q must fit the last stage's K and V tiles");
+  static constexpr size_t bytes = (NS * 2 + (QREG ? 0 : 1)) * FwdSmem<DMAX>::TILE * sizeof(bf16);
+  static_assert(QREG ? NS >= 3 && BQ <= 2 * kB : BQ <= kB,
+                "Q must fit the last stage's K and V tiles, or its own tile");
 };
 
 // KD: the 16-wide head_dim steps that hold data when d fills DMAX (a
@@ -211,17 +222,19 @@ template <int DMAX> struct Prefill {
 // cost a quarter of the kernel's time, PERF.md), or 0 for a zero-padded
 // head_dim, whose steps are counted at run time.
 template <int DMAX, int KD>
-__global__ void __launch_bounds__(Prefill<DMAX>::THREADS, 2)
+__global__ void __launch_bounds__(Prefill<DMAX>::THREADS, Prefill<DMAX>::BLOCKS)
 flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
               const int* __restrict__ kpm, bf16* __restrict__ o, float* __restrict__ lse, int sq,
               int sk, int d, int heads, int group, float scale, int causal, int window, int vec) {
   using Sm = FwdSmem<DMAX>;
   constexpr int LD = Sm::LD, KS = DMAX / 16;  // 16-wide steps over head_dim
   constexpr int BQ = Prefill<DMAX>::BQ, NS = Prefill<DMAX>::NS, TH = Prefill<DMAX>::THREADS;
+  constexpr bool QREG = Prefill<DMAX>::QREG;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // stage s: K at s * 2 * TILE, V after it; Q in the last stage at first
+  // (QREG), else in its own tile after the stages
   bf16* sKV = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sQ = sKV + (NS - 1) * 2 * Sm::TILE;
+  bf16* sQ = sKV + (QREG ? NS - 1 : NS) * 2 * Sm::TILE;
 
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the longest causal tiles first
@@ -266,7 +279,7 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
   for (int it = 0; it < n_iter; ++it) {
     cp_async_wait<NS - 2>();  // tile it has landed
     __syncthreads();          // and every warp is done with tile it - 1
-    if (it == 0) {
+    if (QREG && it == 0) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) load_a<LD>(qf[kk], sQ, qw - q0, kk * 16, lane);
       __syncthreads();  // Q's slot is free for tile NS - 1
@@ -292,12 +305,15 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       if (kk < kd) {
+        uint32_t qs[4];
+        if constexpr (!QREG) load_a<LD>(qs, sQ, qw - q0, kk * 16, lane);
+        const uint32_t(&qa)[4] = QREG ? qf[kk] : qs;
 #pragma unroll
         for (int nb = 0; nb < 4; ++nb) {
           uint32_t b[4];
           load_b_nk<LD>(b, tK, nb * 16, kk * 16, lane);
-          mma_bf16(sc[2 * nb], qf[kk], b[0], b[1]);
-          mma_bf16(sc[2 * nb + 1], qf[kk], b[2], b[3]);
+          mma_bf16(sc[2 * nb], qa, b[0], b[1]);
+          mma_bf16(sc[2 * nb + 1], qa, b[2], b[3]);
         }
       }
     }
@@ -608,9 +624,9 @@ flash_decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 //
 // A block of 128 threads owns BQ query rows (64, or 16 when sq <= 16 so that
 // a decode step does not pay for 63 masked rows) and streams K/V through
-// shared memory in fp32 tiles of 64 keys. Thread (tr, tc) holds BQ/16 rows
-// and key/output columns tc + 8j; each row's 8 threads sit in one warp, so
-// row max and row sum are three shuffles.
+// shared memory in fp32 tiles of 64 keys (Smem<64, 256>: 209 KB). Thread
+// (tr, tc) holds BQ/16 rows and key/output columns tc + 8j; each row's 8
+// threads sit in one warp, so row max and row sum are three shuffles.
 
 constexpr int kBK = 64;
 
@@ -653,8 +669,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* sP = sV + kBK * DMAX;
 
   const int t = threadIdx.x, tr = t >> 3, tc = t & 7;
-  const int q0 = blockIdx.x * BQ;
-  const long long bh = blockIdx.y;
+  const int q0 = blockIdx.y * BQ;
+  const long long bh = blockIdx.x;  // on x, which holds 2^31 - 1 blocks
   const long long kvh = bh / group;
   const long long offs = (long long)sk - sq;
   const T* qb = q + bh * sq * d;
@@ -804,16 +820,18 @@ int launch_scalar(const Args& a, cudaStream_t stream) {
   const size_t smem = Smem<BQ, DMAX>::bytes;
   cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.sq + BQ - 1) / BQ, a.bh);
+  const dim3 grid(a.bh, (a.sq + BQ - 1) / BQ);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   kernel<<<grid, kThreads, smem, stream>>>(ptr<float>(a.q), ptr<float>(a.k), ptr<float>(a.v),
                                            a.kpm, static_cast<float*>(a.o), a.lse, a.sq, a.sk,
                                            a.d, a.heads, a.group, a.scale, a.causal, a.window);
   return (int)cudaGetLastError();
 }
 
+template <int BQ>
 int launch_fp32(const Args& a, cudaStream_t s) {
-  if (a.sq <= 16) return a.d <= 64 ? launch_scalar<16, 64>(a, s) : launch_scalar<16, 128>(a, s);
-  return a.d <= 64 ? launch_scalar<64, 64>(a, s) : launch_scalar<64, 128>(a, s);
+  if (a.d <= 64) return launch_scalar<BQ, 64>(a, s);
+  return a.d <= 128 ? launch_scalar<BQ, 128>(a, s) : launch_scalar<BQ, 256>(a, s);
 }
 
 // may the bf16 kernels load q, k and v by 16-byte cp.async?
@@ -833,6 +851,7 @@ int launch_prefill(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   constexpr int BQ = Prefill<DMAX>::BQ;
   const dim3 grid(a.bh, (a.sq + BQ - 1) / BQ);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   kernel<<<grid, Prefill<DMAX>::THREADS, smem, stream>>>(
       ptr<bf16>(a.q), ptr<bf16>(a.k), ptr<bf16>(a.v), a.kpm, static_cast<bf16*>(a.o), a.lse,
       a.sq, a.sk, a.d, a.heads, a.group, a.scale, a.causal, a.window, vectorised(a));
@@ -872,6 +891,8 @@ int launch_decode(const Args& a, int splits, cudaStream_t stream) {
 
 // q: (bh, sq, d); k, v: (bh / group, sk, d); kpm: int32 (bh / heads, sk) or
 // null; o: (bh, sq, d) in q's dtype; lse: fp32 (bh, sq). All contiguous.
+// 1 <= d <= 256; bh rides the grid's x dimension (any int), the query
+// tiles its y (at most 65535 of them).
 // dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor cores; sq = 1
 // takes the decode kernel). window <= 0 means no window (the window applies
 // only with causal). `splits` > 1 only for bf16 at sq = 1: the 64-key tiles
@@ -882,7 +903,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
                          void* lse, int bh, int sq, int sk, int d, int heads, int group,
                          int splits, float scale, int causal, int window, int dtype,
                          void* stream) {
-  if (d < 1 || d > 128 || bh < 0 || bh > 65535 || group < 1 || heads < 1 || bh % group != 0 ||
+  if (d < 1 || d > 256 || bh < 0 || group < 1 || heads < 1 || bh % group != 0 ||
       sq < 0 || sk < 0 || splits < 1 || splits > kMaxSplits ||
       (splits > 1 && (dtype != 1 || sq != 1)))
     return (int)cudaErrorInvalidValue;
@@ -890,15 +911,20 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
   const Args a{q, k, v, static_cast<const int*>(kpm), o, static_cast<float*>(lse), bh, sq, sk, d,
                heads, group, scale, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fp32(a, s);
+  if (dtype == 0) return sq <= 16 ? launch_fp32<16>(a, s) : launch_fp32<64>(a, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  // head_dim 64 and 128 fill their instantiation; others are zero-padded
+  // head_dim 64, 128 and 256 fill their instantiation; others are
+  // zero-padded to the next one
   if (sq == 1) {
     if (d == 64) return launch_decode<64, 4>(a, splits, s);
     if (d == 128) return launch_decode<128, 8>(a, splits, s);
-    return d < 64 ? launch_decode<64, 0>(a, splits, s) : launch_decode<128, 0>(a, splits, s);
+    if (d == 256) return launch_decode<256, 16>(a, splits, s);
+    if (d < 64) return launch_decode<64, 0>(a, splits, s);
+    return d < 128 ? launch_decode<128, 0>(a, splits, s) : launch_decode<256, 0>(a, splits, s);
   }
   if (d == 64) return launch_prefill<64, 4>(a, s);
   if (d == 128) return launch_prefill<128, 8>(a, s);
-  return d < 64 ? launch_prefill<64, 0>(a, s) : launch_prefill<128, 0>(a, s);
+  if (d == 256) return launch_prefill<256, 16>(a, s);
+  if (d < 64) return launch_prefill<64, 0>(a, s);
+  return d < 128 ? launch_prefill<128, 0>(a, s) : launch_prefill<256, 0>(a, s);
 }

@@ -53,11 +53,17 @@
 // Masks are tested per fragment element from the lane's (query, key), and
 // only in the 16 x 16 chunks that cross an edge of the band, of sq or sk,
 // or that have key padding; 64-row tiles and a warp's chunks outside the
-// band are skipped. exp is ex2.approx. head_dim is zero-padded up to 64 or
-// 128, and only the 16-wide steps that hold data are computed, so d = 32,
-// 80 and 128 all work; a head_dim that is not a multiple of 8, or an
-// input that is not 16-byte aligned, is loaded element by element instead
-// of by cp.async.
+// band are skipped. exp is ex2.approx. head_dim is zero-padded up to 64,
+// 128 or 256, and only the 16-wide steps that hold data are computed, so
+// d = 32, 80, 160 and 256 all work; a head_dim that is not a multiple of
+// 8, or an input that is not 16-byte aligned, is loaded element by element
+// instead of by cp.async.
+// At d = 256 the register file sets the shape (MmaSmem<256> is 199 KB, one
+// block an SM): dk/dv's two accumulators would be 256 registers a thread,
+// so the block's outputs are 128 of the head_dim columns (Dkv::DC), two
+// blocks share a key tile, and each computes S^T and dP^T over the whole
+// head_dim for its half (the FlashAttention-2 route); dq reads its Q and dO
+// fragments from shared memory at each step instead of holding them.
 // Sizing (d <= 64): 2 resident and 2 x 2 streamed tiles of 64 x 72 bf16 and
 // 1 KB of lse/delta rows, 56 KB of shared memory a block. Latency limits
 // the rate more than issue does, so the registers are capped at 128 a
@@ -67,9 +73,10 @@
 //
 // fp32, the parity dtype (the card-against-CPU checks and fp32 decode):
 // the first version's scalar FMA kernels on fp32 tiles in shared memory,
-// 128 threads, thread (tr, tc) = (t / 8, t % 8) owning 4 rows and the
-// columns tc + 8j. TF32 tensor cores would keep about 3 decimal digits and
-// break the 1e-4 tolerance those checks hold.
+// 128 threads, thread (tr, tc) = (t / 8, t % 8) owning BR / 16 rows and the
+// columns tc + 8j, over tiles of BR = 64 rows (32 at d = 256, whose four
+// 64-row fp32 tiles would not fit 227 KB). TF32 tensor cores would keep
+// about 3 decimal digits and break the 1e-4 tolerance those checks hold.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,9 +90,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using namespace flash_mma;
-
-constexpr int RP = kB / 16;  // rows per thread (scalar kernels)
-constexpr int CP = kB / 8;   // tile columns per thread (scalar kernels)
 
 // The 64-query tiles [first, last) that can see a key of [k0, k0 + 64)
 // (_q_band in the JAX package).
@@ -131,6 +135,13 @@ __device__ __forceinline__ void grad_probs(float s, float dp, float l, float dl,
   ds = p * (dp - dl) * scale;
 }
 
+// The dk/dv kernel's outputs: DC head_dim columns of dk and dv a block
+// (all of them up to d = 128), so NC blocks share a key tile.
+template <int DMAX> struct Dkv {
+  static constexpr int DC = DMAX < 128 ? DMAX : 128;
+  static constexpr int NC = DMAX / DC;
+};
+
 // at least 4 blocks an SM at d <= 64 (128 registers a thread), 2 at d <= 128
 template <int DMAX>
 __global__ void __launch_bounds__(kThreads, DMAX <= 64 ? 4 : 2)
@@ -142,6 +153,7 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   float scale, int causal, int window, int vec) {
   using Sm = MmaSmem<DMAX>;
   constexpr int LD = Sm::LD, KS = DMAX / 16;  // 16-wide steps over head_dim
+  constexpr int NC = Dkv<DMAX>::NC, KC = Dkv<DMAX>::DC / 16;  // KC: the outputs' steps
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
   bf16* sV = sK + Sm::TILE;
@@ -152,7 +164,8 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int kw = (threadIdx.x >> 5) * 16;  // the warp's first key in the tile
   const int k0 = blockIdx.z * kB;
-  const long long kvr = blockIdx.x;  // (batch, kv head) row of k and v
+  const long long kvr = blockIdx.x / NC;  // (batch, kv head) row of k and v
+  const int c0 = (int)(blockIdx.x % NC) * KC;  // the block's first output step
   const int offs = sk - sq;
   const int* kpm_row = kpm ? kpm + (kvr * group / heads) * sk : nullptr;
   const int kd = (d + 15) / 16;
@@ -184,9 +197,9 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool ok_b = key_b < sk && (kpm_row == nullptr || kpm_row[key_b] == 0);
   const bool warp_live = k0 + kw < sk;
 
-  float acc_k[2 * KS][4], acc_v[2 * KS][4];  // 8-column tiles over head_dim
+  float acc_k[2 * KC][4], acc_v[2 * KC][4];  // 8-column tiles over the outputs
 #pragma unroll
-  for (int n = 0; n < 2 * KS; ++n)
+  for (int n = 0; n < 2 * KC; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
@@ -258,13 +271,13 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         probs(std::false_type{});
       // dV += P^T.dO, dK += dS^T.Q over the chunk's 16 queries
 #pragma unroll
-      for (int np = 0; np < KS; ++np) {
-        if (np < kd) {
+      for (int np = 0; np < KC; ++np) {
+        if (c0 + np < kd) {
           uint32_t b[4];
-          load_b_kn<LD>(b, tdO, c * 16, np * 16, lane);
+          load_b_kn<LD>(b, tdO, c * 16, (c0 + np) * 16, lane);
           mma_bf16(acc_v[2 * np], pa, b[0], b[1]);
           mma_bf16(acc_v[2 * np + 1], pa, b[2], b[3]);
-          load_b_kn<LD>(b, tQ, c * 16, np * 16, lane);
+          load_b_kn<LD>(b, tQ, c * 16, (c0 + np) * 16, lane);
           mma_bf16(acc_k[2 * np], dsa, b[0], b[1]);
           mma_bf16(acc_k[2 * np + 1], dsa, b[2], b[3]);
         }
@@ -275,18 +288,18 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<0>();  // nothing left in flight (a block with no tile in its band)
 
 #pragma unroll
-  for (int n = 0; n < 2 * KS; ++n)
+  for (int n = 0; n < 2 * KC; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = e < 2 ? key_a : key_b;
-      const int col = n * 8 + 2 * t + (e & 1);
+      const int col = c0 * 16 + n * 8 + 2 * t + (e & 1);
       if (key < sk && col < d) {
         const long long i = (kvr * sk + key) * d + col;
         if (part == nullptr) {
           dk[i] = __float2bfloat16(acc_k[n][e]);
           dv[i] = __float2bfloat16(acc_v[n][e]);
         } else {  // fp32 partials of split y: part[2y] for dk, part[2y + 1] for dv
-          const long long n_out = (long long)gridDim.x * sk * d;
+          const long long n_out = (long long)(gridDim.x / NC) * sk * d;
           part[2 * blockIdx.y * n_out + i] = acc_k[n][e];
           part[(2 * blockIdx.y + 1) * n_out + i] = acc_v[n][e];
         }
@@ -304,6 +317,7 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int heads, int group, float scale, int causal, int window, int vec) {
   using Sm = MmaSmem<DMAX>;
   constexpr int LD = Sm::LD, KS = DMAX / 16;
+  constexpr bool QREG = DMAX <= 128;  // Q and dO fragments in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sdO = sQ + Sm::TILE;
@@ -357,7 +371,7 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (it == 0) {
+    if (QREG && it == 0) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         load_a<LD>(qf[kk], sQ, qw - q0, kk * 16, lane);
@@ -378,13 +392,19 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         if (kk < kd) {
-          uint32_t b[4];
+          uint32_t b[4], qs[4], os[4];
+          if constexpr (!QREG) {
+            load_a<LD>(qs, sQ, qw - q0, kk * 16, lane);
+            load_a<LD>(os, sdO, qw - q0, kk * 16, lane);
+          }
+          const uint32_t(&qa)[4] = QREG ? qf[kk] : qs;
+          const uint32_t(&oa)[4] = QREG ? of[kk] : os;
           load_b_nk<LD>(b, tK, c * 16, kk * 16, lane);
-          mma_bf16(sc[0], qf[kk], b[0], b[1]);
-          mma_bf16(sc[1], qf[kk], b[2], b[3]);
+          mma_bf16(sc[0], qa, b[0], b[1]);
+          mma_bf16(sc[1], qa, b[2], b[3]);
           load_b_nk<LD>(b, tV, c * 16, kk * 16, lane);
-          mma_bf16(dp[0], of[kk], b[0], b[1]);
-          mma_bf16(dp[1], of[kk], b[2], b[3]);
+          mma_bf16(dp[0], oa, b[0], b[1]);
+          mma_bf16(dp[1], oa, b[2], b[3]);
         }
       }
       // dS in registers, rounded to bf16: the A operand below (pairs
@@ -458,21 +478,27 @@ __global__ void sum_splits(const float* __restrict__ part, bf16* __restrict__ dk
 
 // ---- fp32: scalar FMAs ------------------------------------------------------
 
-template <int DMAX> struct Smem {
-  static constexpr int S = DMAX + 1;  // row stride of a (64, head_dim) tile
-  static constexpr int PS = kB + 1;   // row stride of a (64, 64) tile
+// The scalar kernels' tiles: BR rows of queries or keys (32 at d = 256,
+// where four fp32 tiles of 64 rows would pass 227 KB); thread (tr, tc)
+// owns tile rows tr * RP.. and tile columns tc + 8j.
+template <int DMAX> struct Scalar {
+  static constexpr int BR = DMAX <= 128 ? kB : kB / 2;
+  static constexpr int RP = BR / 16;  // rows per thread
+  static constexpr int CP = BR / 8;   // tile columns per thread
+  static constexpr int S = DMAX + 1;  // row stride of a (BR, head_dim) tile
+  static constexpr int PS = BR + 1;   // row stride of a (BR, BR) tile
   // dq: Q, dO, K, V tiles, dS, lse, delta
-  static constexpr size_t dq_bytes = (4 * kB * S + kB * PS + 2 * kB) * sizeof(float);
+  static constexpr size_t dq_bytes = (4 * BR * S + BR * PS + 2 * BR) * sizeof(float);
   // dk/dv: K, V, Q, dO tiles, P, dS, lse, delta
-  static constexpr size_t dkv_bytes = (4 * kB * S + 2 * kB * PS + 2 * kB) * sizeof(float);
+  static constexpr size_t dkv_bytes = (4 * BR * S + 2 * BR * PS + 2 * BR) * sizeof(float);
 };
 
-// dst[r][c] = src[row0 + r][c] for the 64 rows of a tile (zero past the
+// dst[r][c] = src[row0 + r][c] for the BR rows of a tile (zero past the
 // edges), src rows of d elements.
 template <int DMAX>
 __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
                                           long long row0, long long nrows, int d) {
-  for (int e = threadIdx.x; e < kB * DMAX; e += kThreads) {
+  for (int e = threadIdx.x; e < Scalar<DMAX>::BR * DMAX; e += kThreads) {
     const int r = e / DMAX, c = e % DMAX;
     dst[r * (DMAX + 1) + c] = (row0 + r < nrows && c < d) ? src[(row0 + r) * d + c] : 0.f;
   }
@@ -481,8 +507,8 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
 // out[i][j] = sum over dd of A[tr*RP + i][dd] * B[tc + 8j][dd]
 template <int DMAX>
 __device__ __forceinline__ void tile_dot(const float* A, const float* B, int d, int tr, int tc,
-                                         float (&out)[RP][CP]) {
-  constexpr int S = DMAX + 1;
+                                         float (&out)[Scalar<DMAX>::RP][Scalar<DMAX>::CP]) {
+  constexpr int S = DMAX + 1, RP = Scalar<DMAX>::RP, CP = Scalar<DMAX>::CP;
 #pragma unroll
   for (int i = 0; i < RP; ++i)
 #pragma unroll
@@ -507,32 +533,33 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const int* __restrict__ kpm, float* __restrict__ dq, int sq, int sk, int d,
                     int heads, int group, float scale, int causal, int window) {
-  constexpr int S = DMAX + 1, PS = kB + 1, DP = DMAX / 8;
+  using Sc = Scalar<DMAX>;
+  constexpr int BR = Sc::BR, RP = Sc::RP, CP = Sc::CP, S = Sc::S, PS = Sc::PS, DP = DMAX / 8;
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sdO = sQ + kB * S;
-  float* sK = sdO + kB * S;
-  float* sV = sK + kB * S;
-  float* sDS = sV + kB * S;
-  float* sL = sDS + kB * PS;
-  float* sD = sL + kB;
+  float* sdO = sQ + BR * S;
+  float* sK = sdO + BR * S;
+  float* sV = sK + BR * S;
+  float* sDS = sV + BR * S;
+  float* sL = sDS + BR * PS;
+  float* sD = sL + BR;
 
   const int t = threadIdx.x, tr = t >> 3, tc = t & 7;
-  const int q0 = blockIdx.x * kB;
-  const long long bh = blockIdx.y, kvh = bh / group;
+  const int q0 = blockIdx.y * BR;
+  const long long bh = blockIdx.x, kvh = bh / group;  // x holds 2^31 - 1 blocks
   const long long offs = (long long)sk - sq;
   const int* kpm_row = kpm ? kpm + (bh / heads) * sk : nullptr;
 
   load_tile<DMAX>(sQ, q + bh * sq * d, q0, sq, d);
   load_tile<DMAX>(sdO, dO + bh * sq * d, q0, sq, d);
-  for (int r = t; r < kB; r += kThreads) {
+  for (int r = t; r < BR; r += kThreads) {
     const bool in = q0 + r < sq;
     sL[r] = in ? lse[bh * sq + q0 + r] : -kNegInf;
     sD[r] = in ? delta[bh * sq + q0 + r] : 0.f;
   }
 
   int t_lo, t_hi;
-  key_band(q0, sq, sk, offs, causal, window, t_lo, t_hi);
+  key_band(q0, sq, sk, offs, causal, window, t_lo, t_hi, BR);
 
   float acc[RP][DP];
 #pragma unroll
@@ -540,8 +567,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DP; ++c) acc[i][c] = 0.f;
 
-  for (int kt = t_lo; kt < t_hi; ++kt) {
-    const int k0 = kt * kB;
+  // the band's 64-key tiles, BR keys at a time
+  for (int k0 = t_lo * kB; k0 < t_hi * kB && k0 < sk; k0 += BR) {
     __syncthreads();  // the previous tile's sK/sV/sDS are no longer read
     load_tile<DMAX>(sK, k + kvh * sk * d, k0, sk, d);
     load_tile<DMAX>(sV, v + kvh * sk * d, k0, sk, d);
@@ -572,7 +599,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    const int kmax = min(kB, sk - k0);
+    const int kmax = min(BR, sk - k0);
     for (int kk = 0; kk < kmax; ++kk) {
       float a[RP], b[DP];
 #pragma unroll
@@ -607,20 +634,21 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const int* __restrict__ kpm, float* __restrict__ dk, float* __restrict__ dv,
                      int sq, int sk, int d, int heads, int group, float scale, int causal,
                      int window) {
-  constexpr int S = DMAX + 1, PS = kB + 1, DP = DMAX / 8;
+  using Sc = Scalar<DMAX>;
+  constexpr int BR = Sc::BR, RP = Sc::RP, CP = Sc::CP, S = Sc::S, PS = Sc::PS, DP = DMAX / 8;
   extern __shared__ float smem[];
   float* sK = smem;
-  float* sV = sK + kB * S;
-  float* sQ = sV + kB * S;
-  float* sdO = sQ + kB * S;
-  float* sP = sdO + kB * S;
-  float* sDS = sP + kB * PS;
-  float* sL = sDS + kB * PS;
-  float* sD = sL + kB;
+  float* sV = sK + BR * S;
+  float* sQ = sV + BR * S;
+  float* sdO = sQ + BR * S;
+  float* sP = sdO + BR * S;
+  float* sDS = sP + BR * PS;
+  float* sL = sDS + BR * PS;
+  float* sD = sL + BR;
 
   const int t = threadIdx.x, tr = t >> 3, tc = t & 7;
-  const int k0 = blockIdx.x * kB;
-  const long long kvr = blockIdx.y;  // (batch, kv head) row of k and v
+  const int k0 = blockIdx.y * BR;
+  const long long kvr = blockIdx.x;  // (batch, kv head) row of k and v
   const long long offs = (long long)sk - sq;
   const int* kpm_row = kpm ? kpm + (kvr * group / heads) * sk : nullptr;
 
@@ -633,6 +661,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     key_ok[j] = col < sk && (kpm_row == nullptr || kpm_row[col] == 0);
   }
 
+  // the 64-query tiles that see a key of [k0, k0 + 64), BR queries at a time
   int t_lo, t_hi;
   query_band(k0, sq, offs, causal, window, t_lo, t_hi);
 
@@ -644,12 +673,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int g = 0; g < group; ++g) {
     const long long bh = kvr * group + g;
-    for (int qt = t_lo; qt < t_hi; ++qt) {
-      const int q0 = qt * kB;
+    for (int q0 = t_lo * kB; q0 < t_hi * kB && q0 < sq; q0 += BR) {
       __syncthreads();  // the previous tile's sQ/sdO/sP/sDS are no longer read
       load_tile<DMAX>(sQ, q + bh * sq * d, q0, sq, d);
       load_tile<DMAX>(sdO, dO + bh * sq * d, q0, sq, d);
-      for (int r = t; r < kB; r += kThreads) {
+      for (int r = t; r < BR; r += kThreads) {
         const bool in = q0 + r < sq;
         sL[r] = in ? lse[bh * sq + q0 + r] : -kNegInf;
         sD[r] = in ? delta[bh * sq + q0 + r] : 0.f;
@@ -677,7 +705,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
 
       // accumulate with rows = keys tr*RP + i, columns = head dims tc + 8c
-      const int qmax = min(kB, sq - q0);
+      const int qmax = min(BR, sq - q0);
       for (int qq = 0; qq < qmax; ++qq) {
         float pk[RP], dsk[RP], o[DP], qv[DP];
 #pragma unroll
@@ -745,6 +773,7 @@ int launch_dq_mma(const Args& a, void* dq, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.bh, (a.sq + kB - 1) / kB);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   kernel<<<grid, kThreads, smem, stream>>>(
       ptr<bf16>(a.q), ptr<bf16>(a.k), ptr<bf16>(a.v), ptr<bf16>(a.dO), a.lse, a.delta, a.kpm,
       static_cast<bf16*>(dq), a.sq, a.sk, a.d, a.heads, a.group, a.scale, a.causal, a.window,
@@ -753,8 +782,9 @@ int launch_dq_mma(const Args& a, void* dq, cudaStream_t stream) {
 }
 
 // The grid's slow dimension is the key tile, so the first (under a causal
-// mask, the longest) tiles start first; with splits > 1, sum_splits
-// then adds the partials.
+// mask, the longest) tiles start first; a (batch, kv head) row's NC
+// column blocks are neighbours along x. With splits > 1, sum_splits then
+// adds the partials.
 template <int DMAX>
 int launch_dkv_mma(const Args& a, void* dk, void* dv, float* work, int splits,
                    cudaStream_t stream) {
@@ -763,7 +793,9 @@ int launch_dkv_mma(const Args& a, void* dk, void* dv, float* work, int splits,
   const size_t smem = MmaSmem<DMAX>::bytes;
   cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.bh / a.group, splits, (a.sk + kB - 1) / kB);
+  const long long rows = (long long)(a.bh / a.group) * Dkv<DMAX>::NC;
+  const dim3 grid((unsigned)rows, splits, (a.sk + kB - 1) / kB);
+  if (rows > 0x7fffffffLL || grid.z > 65535) return (int)cudaErrorInvalidValue;
   kernel<<<grid, kThreads, smem, stream>>>(
       ptr<bf16>(a.q), ptr<bf16>(a.k), ptr<bf16>(a.v), ptr<bf16>(a.dO), a.lse, a.delta, a.kpm,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), splits > 1 ? work : nullptr, a.sq, a.sk,
@@ -782,10 +814,12 @@ template <int DMAX>
 int launch_dq(const Args& a, void* dq, cudaStream_t stream) {
   static bool done = false;
   auto kernel = flash_bwd_dq_kernel<DMAX>;
-  const size_t smem = Smem<DMAX>::dq_bytes;
+  const size_t smem = Scalar<DMAX>::dq_bytes;
   cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.sq + kB - 1) / kB, a.bh);
+  constexpr int BR = Scalar<DMAX>::BR;
+  const dim3 grid(a.bh, (a.sq + BR - 1) / BR);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   kernel<<<grid, kThreads, smem, stream>>>(
       ptr<float>(a.q), ptr<float>(a.k), ptr<float>(a.v), ptr<float>(a.dO), a.lse, a.delta, a.kpm,
       static_cast<float*>(dq), a.sq, a.sk, a.d, a.heads, a.group, a.scale, a.causal, a.window);
@@ -796,10 +830,12 @@ template <int DMAX>
 int launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
   static bool done = false;
   auto kernel = flash_bwd_dkv_kernel<DMAX>;
-  const size_t smem = Smem<DMAX>::dkv_bytes;
+  const size_t smem = Scalar<DMAX>::dkv_bytes;
   cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.sk + kB - 1) / kB, a.bh / a.group);
+  constexpr int BR = Scalar<DMAX>::BR;
+  const dim3 grid(a.bh / a.group, (a.sk + BR - 1) / BR);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   kernel<<<grid, kThreads, smem, stream>>>(
       ptr<float>(a.q), ptr<float>(a.k), ptr<float>(a.v), ptr<float>(a.dO), a.lse, a.delta, a.kpm,
       static_cast<float*>(dk), static_cast<float*>(dv), a.sq, a.sk, a.d, a.heads, a.group,
@@ -808,7 +844,7 @@ int launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
 }
 
 bool bad_args(const Args& a) {
-  return a.d < 1 || a.d > 128 || a.bh > 65535 || a.group < 1 || a.heads < 1 ||
+  return a.d < 1 || a.d > 256 || a.bh < 0 || a.group < 1 || a.heads < 1 ||
          a.bh % a.group != 0 || a.sq < 0 || a.sk < 0;
 }
 
@@ -823,9 +859,11 @@ Args make_args(const void* q, const void* k, const void* v, const void* dO, cons
 
 // q, dO, dq: (bh, sq, d); k, v: (bh / group, sk, d), all in the dtype's type;
 // lse, delta: fp32 (bh, sq); kpm: int32 (bh / heads, sk) or null. All
-// contiguous. dtype: 0 = float32 (scalar kernels), 1 = bfloat16 (tensor
-// cores). window <= 0 means none (it applies only with causal). Returns the
-// cudaError_t of the launch.
+// contiguous. 1 <= d <= 256; bh rides the grids' x dimension (any int),
+// the query and key tiles y and z (at most 65535 of them). dtype: 0 =
+// float32 (scalar kernels), 1 = bfloat16 (tensor cores). window <= 0 means
+// none (it applies only with causal). Returns the cudaError_t of the
+// launch.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                             const void* lse, const void* delta, const void* kpm, void* dq,
                             int bh, int sq, int sk, int d, int heads, int group, float scale,
@@ -835,8 +873,14 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   if (bad_args(a)) return (int)cudaErrorInvalidValue;
   if (bh == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return d <= 64 ? launch_dq<64>(a, dq, s) : launch_dq<128>(a, dq, s);
-  if (dtype == 1) return d <= 64 ? launch_dq_mma<64>(a, dq, s) : launch_dq_mma<128>(a, dq, s);
+  if (dtype == 0) {
+    if (d <= 64) return launch_dq<64>(a, dq, s);
+    return d <= 128 ? launch_dq<128>(a, dq, s) : launch_dq<256>(a, dq, s);
+  }
+  if (dtype == 1) {
+    if (d <= 64) return launch_dq_mma<64>(a, dq, s);
+    return d <= 128 ? launch_dq_mma<128>(a, dq, s) : launch_dq_mma<256>(a, dq, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -858,10 +902,14 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   if (bh == 0 || sk == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(work);
-  if (dtype == 0)
-    return d <= 64 ? launch_dkv<64>(a, dk, dv, s) : launch_dkv<128>(a, dk, dv, s);
-  if (dtype == 1)
-    return d <= 64 ? launch_dkv_mma<64>(a, dk, dv, w, splits, s)
-                   : launch_dkv_mma<128>(a, dk, dv, w, splits, s);
+  if (dtype == 0) {
+    if (d <= 64) return launch_dkv<64>(a, dk, dv, s);
+    return d <= 128 ? launch_dkv<128>(a, dk, dv, s) : launch_dkv<256>(a, dk, dv, s);
+  }
+  if (dtype == 1) {
+    if (d <= 64) return launch_dkv_mma<64>(a, dk, dv, w, splits, s);
+    return d <= 128 ? launch_dkv_mma<128>(a, dk, dv, w, splits, s)
+                    : launch_dkv_mma<256>(a, dk, dv, w, splits, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

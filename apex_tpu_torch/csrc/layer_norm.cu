@@ -13,9 +13,9 @@
 // once and costs a handful of flops, so the least time is
 // 2 * rows * hidden * sizeof(T) over the 3.35 TB/s of HBM.
 //
-// RMSNorm's forward takes rms_fwd_row_kernel (below) wherever the row fits
-// a warp's registers: it reads each row from HBM once, where the loop here
-// reads it twice.
+// Both forwards take norm_fwd_row_kernel (below) wherever the row fits a
+// warp's registers: it reads each row from HBM once, where the loop here
+// reads it two (RMSNorm) or three (LayerNorm) times.
 //
 // Design: one warp per row, eight rows per 256-thread block, so a row's
 // reductions are warp shuffles with no shared memory and no __syncthreads.
@@ -25,7 +25,9 @@
 // hidden % 128 fallback, 8-row padding and VMEM block budget do not apply.
 // Mean and variance are two passes (sum, then sum of squared deviations),
 // as _ln_ref computes them; the second and third reads of a row hit L1,
-// since a warp's row (at most a few KB) is still resident.
+// since a warp's row (at most a few KB) is still resident. The loop and the
+// row kernel share their arithmetic (the per-lane order of the sums, fmaf
+// for the squares, and affine below), so their outputs are bit-equal.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,6 +49,31 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// y of one element from its normalised value o = (x - mean) * rstd: times w
+// where hw, plus b where hb, one FMA when both. The explicit intrinsics fix
+// the rounding, so that no kernel's output depends on what the compiler
+// contracts.
+__device__ __forceinline__ float affine(float o, float w, float b, bool hw, bool hb) {
+  if (hw && hb) return fmaf(o, w, b);
+  if (hw) return __fmul_rn(o, w);
+  return hb ? __fadd_rn(o, b) : o;
+}
+
+// v[0..N) = p[i * N ..], as N / 4 float4 loads (p 16-byte aligned), or 1
+// where p is null.
+template <int N>
+__device__ __forceinline__ void load_f4(float (&v)[N], const float* __restrict__ p, int i) {
+#pragma unroll
+  for (int c = 0; c < N / 4; ++c) {
+    const float4 f = p ? reinterpret_cast<const float4*>(p)[i * (N / 4) + c]
+                       : make_float4(1.f, 1.f, 1.f, 1.f);
+    v[4 * c] = f.x;
+    v[4 * c + 1] = f.y;
+    v[4 * c + 2] = f.z;
+    v[4 * c + 3] = f.w;
+  }
 }
 
 // Elements of T per 16-byte vector.
@@ -95,15 +122,13 @@ norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   float ss = 0.f;
   for_row(xr, hidden, vec, lane, [&](int, float v) {
     const float d = v - mean;
-    ss += d * d;
+    ss = fmaf(d, d, ss);
   });
   const float rstd = rsqrtf(warp_sum(ss) / hidden + eps);
 
   auto norm = [&](int i, float v) {
-    float o = (v - mean) * rstd;
-    if (w) o *= w[i];
-    if (b) o += b[i];
-    return from_f<T>(o);
+    return from_f<T>(affine(__fmul_rn(v - mean, rstd), w ? w[i] : 1.f, b ? b[i] : 0.f,
+                            w != nullptr, b != nullptr));
   };
   if (vec) {
     const uint4* xv = reinterpret_cast<const uint4*>(xr);
@@ -121,17 +146,20 @@ norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// RMSNorm forward with the row held in registers (rms_norm_fwd when hidden
-// is a multiple of 8 bf16 or 4 fp32 elements, the pointers are 16-byte
-// aligned and the row fits NV 16-byte vectors a lane). A warp owns a row:
-// every lane issues all its loads (NV uint4, lane + 32j) before the sum of
-// squares, reduces it by shuffles, and normalises from the registers, so
-// the row is read from HBM once; w comes as float4. At hidden 2048 bf16 that
-// is 8 uint4 a lane.
-template <typename T, int NV>
+// LayerNorm and RMSNorm forward with the row held in registers (where
+// hidden is a multiple of 8 bf16 or 4 fp32 elements, every pointer is
+// 16-byte aligned and the row fits NV 16-byte vectors a lane). A warp owns a
+// row: every lane issues all its loads (NV uint4, lane + 32j) before the
+// first reduction, so the row is read from HBM once; the mean (LayerNorm
+// only), then the sum of squared deviations, come from the registers by
+// shuffles, in norm_fwd_kernel's per-lane order, and w and b come as
+// float4, so y is bit-equal to norm_fwd_kernel's. At hidden 2048 bf16 that
+// is 8 uint4 a lane; at 768, 3. b is null when kRms is set.
+template <typename T, int NV, bool kRms>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-rms_fwd_row_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y,
-                   int rows, int hidden, float eps) {
+norm_fwd_row_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ b, T* __restrict__ y, int rows, int hidden,
+                    float eps) {
   constexpr int N = Vec<T>::N;
   const int lane = threadIdx.x & 31;
   const long row = (long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -142,15 +170,27 @@ rms_fwd_row_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __re
 #pragma unroll
   for (int j = 0; j < NV; ++j)
     if (lane + 32 * j < nvec) r[j] = xv[lane + 32 * j];
+  float mean = 0.f;
+  if constexpr (!kRms) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (lane + 32 * j < nvec) {
+        const T* e = reinterpret_cast<const T*>(&r[j]);
+#pragma unroll
+        for (int c = 0; c < N; ++c) s += to_f(e[c]);
+      }
+    mean = warp_sum(s) / hidden;
+  }
   float ss = 0.f;
 #pragma unroll
   for (int j = 0; j < NV; ++j)
     if (lane + 32 * j < nvec) {
       const T* e = reinterpret_cast<const T*>(&r[j]);
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const float v = to_f(e[i]);
-        ss += v * v;
+      for (int c = 0; c < N; ++c) {
+        const float d = to_f(e[c]) - mean;
+        ss = fmaf(d, d, ss);
       }
     }
   const float rstd = rsqrtf(warp_sum(ss) / hidden + eps);
@@ -159,21 +199,16 @@ rms_fwd_row_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __re
   for (int j = 0; j < NV; ++j) {
     const int i = lane + 32 * j;
     if (i >= nvec) continue;
-    float wv[N];
-#pragma unroll
-    for (int c = 0; c < N / 4; ++c) {
-      const float4 f = w ? reinterpret_cast<const float4*>(w)[i * (N / 4) + c]
-                         : make_float4(1.f, 1.f, 1.f, 1.f);
-      wv[4 * c] = f.x;
-      wv[4 * c + 1] = f.y;
-      wv[4 * c + 2] = f.z;
-      wv[4 * c + 3] = f.w;
-    }
+    float wv[N], bv[N];
+    load_f4(wv, w, i);
+    if constexpr (!kRms) load_f4(bv, b, i);
     const T* e = reinterpret_cast<const T*>(&r[j]);
     uint4 out;
     T* ov = reinterpret_cast<T*>(&out);
 #pragma unroll
-    for (int c = 0; c < N; ++c) ov[c] = from_f<T>(to_f(e[c]) * rstd * wv[c]);
+    for (int c = 0; c < N; ++c)
+      ov[c] = from_f<T>(affine(__fmul_rn(to_f(e[c]) - mean, rstd), wv[c], kRms ? 0.f : bv[c],
+                               w != nullptr, !kRms && b != nullptr));
     yv[i] = out;
   }
 }
@@ -217,7 +252,11 @@ int launch(const void* x, const void* w, const void* b, void* y, int rows, int h
 //    bytes).
 // 2. norm_bwd_sum_kernel: per column, sums the blocks' partials in a fixed
 //    order (8 strided groups, then the 8 group sums in order).
-// Every row count and hidden size works; there is no padding.
+// Every row count and hidden size works; there is no padding. The RMSNorm
+// backward takes rms_bwd_row_kernel (below) in place of step 1 wherever the
+// rows fit a warp's registers: it reads x and dy from HBM once, where
+// norm_bwd_kernel reads x twice and both again for its column sweep, which
+// at 32 rows of 2048 bf16 (256 KB) no longer fits L1.
 
 constexpr int kBwdRows = 32;
 constexpr int kBwdThreads = 256;
@@ -306,6 +345,122 @@ norm_bwd_sum_kernel(const float* __restrict__ part, int blocks, int hidden,
   }
 }
 
+// RMSNorm backward with its rows held in registers (rms_norm_bwd where
+// hidden is a multiple of the vector, every pointer is 16-byte aligned and
+// a row fits NV <= kMaxBwdRowVecs vectors a lane). A block of kRowBwdWarps
+// warps owns kBwdRows consecutive rows, as norm_bwd_kernel's blocks do, and
+// each warp kBwdRows / kRowBwdWarps of them, in order. For a row, every lane
+// issues all its loads of x and dy (NV uint4 each, lane + 32j) before the
+// first shuffle, reduces sum(x^2), then sum(dyw * xhat) from the registers
+// (norm_bwd_kernel's per-lane order and rounding), and writes dx as 16-byte
+// vectors: x and dy are read once and dx written once. Each lane adds
+// dy * xhat for its own columns into fp32 registers over its warp's rows;
+// the warps' sums then meet in shared memory, column-major, and are added in
+// warp order into the block's (hidden,) partial, which norm_bwd_sum_kernel
+// sums over the blocks. No atomics: a repeat call is bit-equal. At hidden
+// 2048 bf16, x and dy are 32 + 32 registers a lane and the sums 64.
+constexpr int kRowBwdWarps = 4;
+constexpr int kMaxBwdRowVecs = 8;
+
+template <typename T, int NV>
+__global__ void __launch_bounds__(kRowBwdWarps * 32)
+rms_bwd_row_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                   const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part,
+                   int rows, int hidden, float eps) {
+  constexpr int N = Vec<T>::N, RW = kBwdRows / kRowBwdWarps, COLS = 32 * NV * N;
+  __shared__ __align__(16) float red[kRowBwdWarps * COLS];  // each warp's column sums
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nvec = hidden / N;
+  const long r0 = (long)blockIdx.x * kBwdRows + warp * RW;
+  float g[NV][N];  // dgamma of the lane's columns over the warp's rows
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int c = 0; c < N; ++c) g[j][c] = 0.f;
+
+  for (int r = 0; r < RW && r0 + r < rows; ++r) {
+    const long off = (r0 + r) * hidden;
+    const uint4* xv = reinterpret_cast<const uint4*>(x + off);
+    const uint4* dv = reinterpret_cast<const uint4*>(dy + off);
+    uint4 xr[NV], dr[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (lane + 32 * j < nvec) {
+        xr[j] = xv[lane + 32 * j];
+        dr[j] = dv[lane + 32 * j];
+      }
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (lane + 32 * j < nvec) {
+        const T* e = reinterpret_cast<const T*>(&xr[j]);
+#pragma unroll
+        for (int c = 0; c < N; ++c) ss = fmaf(to_f(e[c]), to_f(e[c]), ss);
+      }
+    const float rstd = rsqrtf(warp_sum(ss) / hidden + eps);
+    float cs = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (lane + 32 * j < nvec) {
+        float wv[N];
+        load_f4(wv, w, lane + 32 * j);
+        const T* e = reinterpret_cast<const T*>(&xr[j]);
+        const T* de = reinterpret_cast<const T*>(&dr[j]);
+#pragma unroll
+        for (int c = 0; c < N; ++c) {
+          const float xh = __fmul_rn(to_f(e[c]), rstd), d = to_f(de[c]);
+          cs = fmaf(w ? __fmul_rn(d, wv[c]) : d, xh, cs);
+          g[j][c] = fmaf(d, xh, g[j][c]);
+        }
+      }
+    const float m2 = warp_sum(cs) / hidden;
+    uint4* ov = reinterpret_cast<uint4*>(dx + off);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int i = lane + 32 * j;
+      if (i >= nvec) continue;
+      float wv[N];
+      load_f4(wv, w, i);
+      const T* e = reinterpret_cast<const T*>(&xr[j]);
+      const T* de = reinterpret_cast<const T*>(&dr[j]);
+      uint4 out;
+      T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const float xh = __fmul_rn(to_f(e[c]), rstd), d = to_f(de[c]);
+        o[c] = from_f<T>(__fmul_rn(fmaf(-xh, m2, w ? __fmul_rn(d, wv[c]) : d), rstd));
+      }
+      ov[i] = out;
+    }
+  }
+
+  float* mine = red + warp * COLS;
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int c = 0; c < N / 4; ++c)
+      reinterpret_cast<float4*>(mine)[(lane + 32 * j) * (N / 4) + c] =
+          make_float4(g[j][4 * c], g[j][4 * c + 1], g[j][4 * c + 2], g[j][4 * c + 3]);
+  __syncthreads();
+  float* pb = part + (long)blockIdx.x * hidden;
+  for (int col = threadIdx.x; col < hidden; col += kRowBwdWarps * 32) {
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < kRowBwdWarps; ++k) sum += red[k * COLS + col];
+    pb[col] = sum;
+  }
+}
+
+// The fixed-order sums of the `sums` (blocks, hidden) partials, once the
+// kernel that wrote them has launched.
+int launch_sum(float* part, float* out, int blocks, int hidden, int sums, cudaStream_t stream) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  norm_bwd_sum_kernel<<<dim3((hidden + 31) / 32, sums), 256, 0, stream>>>(part, blocks, hidden,
+                                                                        out);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool kRms>
 int launch_bwd(const void* x, const void* w, const void* dy, void* dx, float* part,
                float* out, int rows, int hidden, float eps, cudaStream_t stream) {
@@ -313,41 +468,66 @@ int launch_bwd(const void* x, const void* w, const void* dy, void* dx, float* pa
   norm_bwd_kernel<T, kRms><<<blocks, kBwdThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const T*>(dy),
       static_cast<T*>(dx), part, rows, hidden, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((hidden + 31) / 32, kRms ? 1 : 2);
-  norm_bwd_sum_kernel<<<grid, 256, 0, stream>>>(part, blocks, hidden, out);
-  return (int)cudaGetLastError();
+  return launch_sum(part, out, blocks, hidden, kRms ? 1 : 2, stream);
 }
 
-// The RMSNorm forward: the register-resident row where the shape allows,
-// else the loop of norm_fwd_kernel (hidden not a multiple of the vector, an
+template <typename T, int NV>
+int launch_rms_bwd_row(const void* x, const void* w, const void* dy, void* dx, float* part,
+                       float* out, int rows, int hidden, float eps, cudaStream_t stream) {
+  const int blocks = (rows + kBwdRows - 1) / kBwdRows;
+  rms_bwd_row_kernel<T, NV><<<blocks, kRowBwdWarps * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const T*>(dy),
+      static_cast<T*>(dx), part, rows, hidden, eps);
+  return launch_sum(part, out, blocks, hidden, 1, stream);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The RMSNorm backward: the register-resident rows where the shape allows,
+// else norm_bwd_kernel (hidden not a multiple of the vector, an unaligned
+// pointer, or more than kMaxBwdRowVecs vectors a lane).
+template <typename T>
+int launch_rms_bwd(const void* x, const void* w, const void* dy, void* dx, float* part,
+                   float* out, int rows, int hidden, float eps, cudaStream_t s) {
+  constexpr int N = Vec<T>::N;
+  const int per_lane = (hidden / N + 31) / 32;
+  if (hidden % N != 0 || !aligned16(x) || !aligned16(w) || !aligned16(dy) || !aligned16(dx) ||
+      per_lane > kMaxBwdRowVecs)
+    return launch_bwd<T, true>(x, w, dy, dx, part, out, rows, hidden, eps, s);
+  if (per_lane <= 1) return launch_rms_bwd_row<T, 1>(x, w, dy, dx, part, out, rows, hidden, eps, s);
+  if (per_lane <= 2) return launch_rms_bwd_row<T, 2>(x, w, dy, dx, part, out, rows, hidden, eps, s);
+  if (per_lane <= 4) return launch_rms_bwd_row<T, 4>(x, w, dy, dx, part, out, rows, hidden, eps, s);
+  return launch_rms_bwd_row<T, 8>(x, w, dy, dx, part, out, rows, hidden, eps, s);
+}
+
+// The forwards: the register-resident row where the shape allows, else
+// the loop of norm_fwd_kernel (hidden not a multiple of the vector, an
 // unaligned pointer, or more than kMaxRowVecs vectors a lane).
 constexpr int kMaxRowVecs = 16;  // 64 registers a lane: hidden <= 4096 bf16
 
-template <typename T, int NV>
-int launch_row(const void* x, const void* w, void* y, int rows, int hidden, float eps,
-               cudaStream_t stream) {
+template <typename T, int NV, bool kRms>
+int launch_row(const void* x, const void* w, const void* b, void* y, int rows, int hidden,
+               float eps, cudaStream_t stream) {
   const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  rms_fwd_row_kernel<T, NV><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<T*>(y), rows, hidden,
-      eps);
+  norm_fwd_row_kernel<T, NV, kRms><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
+      static_cast<T*>(y), rows, hidden, eps);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_rms(const void* x, const void* w, void* y, int rows, int hidden, float eps,
-               cudaStream_t s) {
+template <typename T, bool kRms>
+int launch_fwd(const void* x, const void* w, const void* b, void* y, int rows, int hidden,
+               float eps, cudaStream_t s) {
   constexpr int N = Vec<T>::N;
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const int per_lane = (hidden / N + 31) / 32;
-  if (hidden % N != 0 || !aligned(x) || !aligned(y) || !aligned(w) || per_lane > kMaxRowVecs)
-    return launch<T, true>(x, w, nullptr, y, rows, hidden, eps, s);
-  if (per_lane <= 1) return launch_row<T, 1>(x, w, y, rows, hidden, eps, s);
-  if (per_lane <= 2) return launch_row<T, 2>(x, w, y, rows, hidden, eps, s);
-  if (per_lane <= 4) return launch_row<T, 4>(x, w, y, rows, hidden, eps, s);
-  if (per_lane <= 8) return launch_row<T, 8>(x, w, y, rows, hidden, eps, s);
-  return launch_row<T, kMaxRowVecs>(x, w, y, rows, hidden, eps, s);
+  if (hidden % N != 0 || !aligned16(x) || !aligned16(y) || !aligned16(w) || !aligned16(b) ||
+      per_lane > kMaxRowVecs)
+    return launch<T, kRms>(x, w, b, y, rows, hidden, eps, s);
+  if (per_lane <= 1) return launch_row<T, 1, kRms>(x, w, b, y, rows, hidden, eps, s);
+  if (per_lane <= 2) return launch_row<T, 2, kRms>(x, w, b, y, rows, hidden, eps, s);
+  if (per_lane <= 4) return launch_row<T, 4, kRms>(x, w, b, y, rows, hidden, eps, s);
+  if (per_lane <= 8) return launch_row<T, 8, kRms>(x, w, b, y, rows, hidden, eps, s);
+  return launch_row<T, kMaxRowVecs, kRms>(x, w, b, y, rows, hidden, eps, s);
 }
 
 }  // namespace
@@ -358,8 +538,24 @@ extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b, void*
                               int rows, int hidden, float eps, int dtype, void* stream) {
   if (rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, false>(x, w, b, y, rows, hidden, eps, s);
-  if (dtype == 1) return launch<__nv_bfloat16, false>(x, w, b, y, rows, hidden, eps, s);
+  if (dtype == 0) return launch_fwd<float, false>(x, w, b, y, rows, hidden, eps, s);
+  if (dtype == 1) return launch_fwd<__nv_bfloat16, false>(x, w, b, y, rows, hidden, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The forwards' loop (norm_fwd_kernel) on any input, where layer_norm_fwd
+// and rms_norm_fwd would take the register-resident row: the card checks
+// hold the row bit-equal to it. rms: 0 = LayerNorm, 1 = RMSNorm (b unused).
+extern "C" int norm_fwd_loop(const void* x, const void* w, const void* b, void* y, int rows,
+                             int hidden, float eps, int rms, int dtype, void* stream) {
+  if (rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return rms ? launch<float, true>(x, w, nullptr, y, rows, hidden, eps, s)
+               : launch<float, false>(x, w, b, y, rows, hidden, eps, s);
+  if (dtype == 1)
+    return rms ? launch<__nv_bfloat16, true>(x, w, nullptr, y, rows, hidden, eps, s)
+               : launch<__nv_bfloat16, false>(x, w, b, y, rows, hidden, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -390,8 +586,8 @@ extern "C" int rms_norm_fwd(const void* x, const void* w, void* y, int rows, int
   if (rows == 0) return 0;
   if (hidden <= 0 || rows < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_rms<float>(x, w, y, rows, hidden, eps, s);
-  if (dtype == 1) return launch_rms<__nv_bfloat16>(x, w, y, rows, hidden, eps, s);
+  if (dtype == 0) return launch_fwd<float, true>(x, w, nullptr, y, rows, hidden, eps, s);
+  if (dtype == 1) return launch_fwd<__nv_bfloat16, true>(x, w, nullptr, y, rows, hidden, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -408,8 +604,8 @@ extern "C" int rms_norm_bwd(const void* x, const void* w, const void* dy, void* 
   if (rows == 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * (size_t)hidden, s);
   float* p = static_cast<float*>(part);
   float* o = static_cast<float*>(out);
-  if (dtype == 0) return launch_bwd<float, true>(x, w, dy, dx, p, o, rows, hidden, eps, s);
+  if (dtype == 0) return launch_rms_bwd<float>(x, w, dy, dx, p, o, rows, hidden, eps, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16, true>(x, w, dy, dx, p, o, rows, hidden, eps, s);
+    return launch_rms_bwd<__nv_bfloat16>(x, w, dy, dx, p, o, rows, hidden, eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -127,6 +127,14 @@ def _flash_bwd_ref(q, k, v, do, lse, delta, scale, causal,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# What the CUDA kernels take: head_dim up to 256 (GPT-2 and BERT use 64,
+# Llama and Mistral 128, and no family that models/hf_import.py reads goes
+# beyond 256), and up to 65535 tiles of 32 queries or keys on the grid's y
+# and z dimensions; batch * heads rides x, which holds 2^31 - 1 blocks.
+_MAX_HEAD_DIM = 256
+_MAX_SEQ = 65535 * 32
+
+
 def _check_kernel_args(q, k, v, key_padding_mask):
     """Raises on what the CUDA kernels do not take; returns the int32
     (b, sk) key-padding row or None."""
@@ -138,11 +146,12 @@ def _check_kernel_args(q, k, v, key_padding_mask):
                         f"{v.dtype}")
     if not (k.is_cuda and v.is_cuda):
         raise ValueError("q, k and v must all be CUDA tensors")
-    if d > 128:
-        raise ValueError(f"the flash kernel takes head_dim <= 128, got {d}")
-    if b * h > 65535:
-        raise ValueError(f"the flash kernel takes batch*heads <= 65535, "
-                         f"got {b * h}")
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"the flash kernel takes head_dim <= "
+                         f"{_MAX_HEAD_DIM}, got {d}")
+    if max(sq, sk) > _MAX_SEQ:
+        raise ValueError(f"the flash kernel takes at most {_MAX_SEQ} queries "
+                         f"and keys, got sq={sq}, sk={sk}")
     if key_padding_mask is None:
         return None
     if tuple(key_padding_mask.shape) != (b, sk):

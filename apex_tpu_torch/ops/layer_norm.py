@@ -104,6 +104,24 @@ def _ln_kernel(x, w, b, eps):
     return y
 
 
+def _norm_fwd_loop(x, w, b, eps, rms=False):
+    """LayerNorm (or, with ``rms``, RMSNorm: b unused) through the
+    forward's loop kernel whatever the shape, where ``layer_norm`` and
+    ``rms_norm`` take the register-resident row when they can: the card
+    checks hold the row bit-equal to it."""
+    hidden = x.shape[-1]
+    x2 = x.contiguous()
+    wf, bf = _param(w, hidden, x.device), _param(b, hidden, x.device)
+    y = torch.empty_like(x2)
+    _kernels.NORM_FWD_LOOP(
+        x2.data_ptr(), None if wf is None else wf.data_ptr(),
+        None if bf is None or rms else bf.data_ptr(), y.data_ptr(),
+        x2.numel() // hidden if hidden else 0, hidden, float(eps), int(rms),
+        _kernels.dtype_code(x),
+    )
+    return y
+
+
 def _ln_bwd_kernel(x2, w, dy2, eps):
     """(dx, dgamma, dbeta) through the CUDA backward kernel; x2 and dy2
     are (rows, hidden) on the card."""

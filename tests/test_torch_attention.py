@@ -93,6 +93,20 @@ def test_bf16_matches_pallas():
           causal=True)
 
 
+# The CUDA kernels' widest instantiation: head_dim 256, and 160 zero-padded
+# to it (ten 16-wide steps), with GQA and causal cases, in both dtypes.
+@pytest.mark.parametrize("h,h_kv,d,dtype,causal", [
+    (4, 2, 160, "fp32", True),
+    (2, 2, 160, "bf16", False),
+    (4, 1, 256, "fp32", True),
+    (4, 2, 256, "bf16", True),
+    (2, 2, 256, "fp32", False),
+])
+def test_wide_head_dim_matches_pallas(h, h_kv, d, dtype, causal):
+    _both(*_qkv(1, h, h_kv, 64, 64, d, seed=40 + d + h), dtype=dtype,
+          tol=BF16_TOL if dtype == "bf16" else FP32_TOL, causal=causal)
+
+
 def test_causal_rectangular_and_dense_mask_match_reference():
     """sq != sk causal (bottom-right aligned) and a dense mask: the JAX
     dispatcher sends both to its XLA reference."""
@@ -200,7 +214,8 @@ def test_backward_bf16_matches_pallas():
 
 # The contract the bf16 tensor-core kernels are held to on the card (their
 # plain version, _flash_bwd_ref, against the Pallas kernels here): a GQA
-# group of 4, and head_dim 80, which the CUDA kernels zero-pad to 128.
+# group of 4, head_dim 80, which the CUDA kernels zero-pad to 128, and
+# head_dim 256 and 160 (zero-padded to 256).
 @pytest.mark.parametrize("h,h_kv,d,dtype,window", [
     (8, 2, 32, "fp32", None),
     (8, 2, 32, "bf16", None),
@@ -208,6 +223,10 @@ def test_backward_bf16_matches_pallas():
     (2, 2, 80, "fp32", None),
     (2, 2, 80, "bf16", None),
     (4, 1, 80, "fp32", 24),
+    (4, 2, 160, "fp32", None),
+    (4, 2, 160, "bf16", 24),
+    (4, 1, 256, "fp32", 24),
+    (4, 2, 256, "bf16", None),
 ])
 def test_backward_gqa_and_padded_head_dim_match_pallas(h, h_kv, d, dtype,
                                                        window):

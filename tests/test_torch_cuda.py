@@ -52,8 +52,13 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+# GPT-2's serving and training shapes take the register-resident row (3
+# vectors a lane at 768 bf16); 770 is not a multiple of the 16-byte vector
+# and takes the loop.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,hidden", [(1, 768), (300, 768), (77, 1000)])
+@pytest.mark.parametrize("rows,hidden", [(1, 768), (300, 768), (77, 1000),
+                                         (8, 768), (768, 768), (8192, 768),
+                                         (77, 770)])
 def test_layer_norm_kernel(gen, dtype, rows, hidden):
     x = torch.randn(rows, hidden, generator=gen, device="cuda").to(dtype)
     w = torch.randn(hidden, generator=gen, device="cuda")
@@ -64,6 +69,35 @@ def test_layer_norm_kernel(gen, dtype, rows, hidden):
     ref = ln._ln_ref(x, w, b, 1e-5)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+def _unaligned(x):
+    """The same values as ``x``, in a view 2 or 4 bytes off a 16-byte line,
+    which the norm kernels take through their loop."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+# The forwards' two routes compute the same arithmetic in the same order:
+# the register-resident row is bit-equal to the loop kernel on the same
+# input, with and without the affine parameters.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rms,rows,hidden", [
+    (False, 8192, 768), (False, 768, 768), (False, 8, 768), (False, 5, 4096),
+    (True, 300, 2048), (True, 8, 2048), (True, 5, 4096)])
+def test_norm_forward_row_is_bit_equal_to_the_loop(gen, dtype, rms, rows,
+                                                   hidden):
+    x = (torch.randn(rows, hidden, generator=gen, device="cuda") * 3 + 1) \
+        .to(dtype)
+    w = torch.randn(hidden, generator=gen, device="cuda")
+    b = torch.randn(hidden, generator=gen, device="cuda")
+    for wt, bt in ((w, b), (w, None), (None, b), (None, None)):
+        if rms and bt is not None:
+            continue
+        row = ln.rms_norm(x, wt) if rms else ln.layer_norm(x, wt, bt)
+        assert torch.equal(row, ln._norm_fwd_loop(x, wt, bt, 1e-5, rms))
 
 
 CASES = {
@@ -95,6 +129,23 @@ CASES = {
                           d=128),
     "window_rect": dict(b=1, h=4, h_kv=2, sq=77, sk=300, causal=True,
                         window=100),
+    # the widest instantiation, d = 256, and d = 160 zero-padded to it: a
+    # GQA prefill, a windowed one, the split decode (8 splits) and the
+    # unsplit one (800 blocks fill the card)
+    "prefill_hd256": dict(b=2, h=8, h_kv=2, sq=200, sk=200, causal=True,
+                          d=256),
+    "prefill_hd160": dict(b=1, h=4, h_kv=4, sq=150, sk=150, causal=True,
+                          window=60, d=160),
+    "decode_hd256_split": dict(b=4, h=8, h_kv=8, sq=1, sk=1000,
+                               causal=False, kpm=True, splits=8, d=256),
+    "decode_hd160": dict(b=400, h=2, h_kv=2, sq=1, sk=300, causal=False,
+                         kpm=True, splits=1, d=160),
+    # batch * heads past the grid's y limit of 65535
+    "bh65600": dict(b=4100, h=16, h_kv=16, sq=20, sk=20, causal=True),
+    "bh65600_hd256": dict(b=4100, h=16, h_kv=4, sq=9, sk=9, causal=False,
+                          d=256),
+    "decode_bh65600": dict(b=4100, h=16, h_kv=4, sq=1, sk=40, causal=False,
+                           kpm=True, splits=1),
 }
 
 
@@ -210,7 +261,11 @@ BWD_CASES = dict(
     # (not a multiple of 8: element-wise loads instead of cp.async)
     gqa8_ragged=dict(b=1, h=16, h_kv=2, sq=200, sk=200, causal=True),
     hd80=dict(b=2, h=4, h_kv=2, sq=150, sk=150, causal=True, d=80),
-    hd36=dict(b=1, h=2, h_kv=1, sq=90, sk=90, causal=False, d=36))
+    hd36=dict(b=1, h=2, h_kv=1, sq=90, sk=90, causal=False, d=36),
+    # d = 256 with a window over sq != sk, and d = 160 (zero-padded to 256)
+    hd256_rect=dict(b=1, h=4, h_kv=2, sq=77, sk=200, causal=True, d=256,
+                    window=60),
+    hd160=dict(b=2, h=2, h_kv=1, sq=100, sk=100, causal=False, d=160))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -291,13 +346,16 @@ def test_every_gpt_parameter_gets_a_gradient_on_the_card(gen):
                                    atol=1e-5, rtol=1e-3)
 
 
-# hidden 2048 and 4096 take the forward's register-resident row (8 and 16
-# vectors a lane), 1000 and 5120 its loop (not a multiple of the vector;
-# beyond the register budget)
+# hidden 1000, 2048 and 4096 take the forward's register-resident row (4,
+# 8 and 16 vectors a lane in bf16), 770 and 5120 its loop (not a multiple of
+# the vector; beyond the register budget). The backward's rows take up to
+# 8 vectors a lane: 1000 and 2048 (TinyLlama's, at its fine-tuning rows)
+# take them, 770, 4096 and 5120 its loop.
 @pytest.mark.parametrize("weighted", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,hidden", [(1, 2048), (300, 2048), (77, 1000),
-                                         (8, 4096), (5, 5120)])
+                                         (8, 4096), (5, 5120), (8192, 2048),
+                                         (77, 770)])
 def test_rms_norm_kernels(gen, dtype, rows, hidden, weighted):
     x = torch.randn(rows, hidden, generator=gen, device="cuda").to(dtype)
     dy = torch.randn(rows, hidden, generator=gen, device="cuda").to(dtype)
@@ -327,6 +385,36 @@ def test_rms_norm_forward_unaligned_input(gen, dtype):
     torch.testing.assert_close(ln.rms_norm(x, w).float(),
                                ln._rms_ref(x, w, 1e-5).float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_forward_unaligned_input(gen, dtype):
+    """An input 2 or 4 bytes off a 16-byte line takes the forward's loop."""
+    x = (torch.randn(300, 768, generator=gen, device="cuda") * 3 + 1).to(dtype)
+    w = torch.randn(768, generator=gen, device="cuda")
+    b = torch.randn(768, generator=gen, device="cuda")
+    xu = _unaligned(x)
+    torch.testing.assert_close(ln.layer_norm(xu, w, b).float(),
+                               ln._ln_ref(x, w, b, 1e-5).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_backward_unaligned_input(gen, dtype):
+    """Unaligned x or dy take the backward's loop; it agrees with the
+    plain version and with the register-resident rows on aligned copies."""
+    x = torch.randn(300, 2048, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(300, 2048, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(2048, generator=gen, device="cuda")
+    rdx, rdg = ln._rms_bwd_ref(x, w, dy, 1e-5)
+    row = ln._rms_bwd_kernel(x, w, dy, 1e-5)
+    for xs, dys in ((_unaligned(x), dy), (x, _unaligned(dy))):
+        dx, dg = ln._rms_bwd_kernel(xs, w, dys, 1e-5)
+        torch.testing.assert_close(dx.float(), rdx.float(),
+                                   atol=BWD_TOL[dtype], rtol=BWD_TOL[dtype])
+        torch.testing.assert_close(dg, rdg, atol=1e-3, rtol=1e-4)
+        torch.testing.assert_close(dx.float(), row[0].float(),
+                                   atol=BWD_TOL[dtype], rtol=BWD_TOL[dtype])
 
 
 def test_rms_norm_autograd_on_the_card(gen):

@@ -30,8 +30,13 @@ def _inputs(rows, hidden, seed=0):
     return x, w, b
 
 
+# (8, 768), (768, 768) and (8192, 768) are the GPT-2 serving and training
+# shapes at which the card tests hold the CUDA forward (its
+# register-resident row) to this plain version; 770 is not a multiple of
+# the kernel's 16-byte vector, so it takes the kernel's loop.
 @pytest.mark.parametrize("rows,hidden", [(1, 128), (13, 256), (64, 768),
-                                         (5, 100)])
+                                         (5, 100), (8, 768), (768, 768),
+                                         (8192, 768), (77, 770)])
 def test_layer_norm_matches_pallas(rows, hidden):
     x, w, b = _inputs(rows, hidden)
     ref = jax_layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
@@ -215,10 +220,14 @@ def _rms_both(x_np, w_np, dy_np, dtype):
             [o.detach().float().numpy() for o in out])
 
 
+# (8192, 2048) is the TinyLlama fine-tuning shape at which the card tests
+# hold the CUDA backward (its register-resident rows) to this plain
+# version; 770 is not a multiple of the kernel's vector (its loop).
 @pytest.mark.parametrize("weighted", [True, False], ids=["w", "no_w"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("rows,hidden", [(1, 128), (13, 256), (40, 384)])
+@pytest.mark.parametrize("rows,hidden", [(1, 128), (13, 256), (40, 384),
+                                         (8192, 2048), (77, 770)])
 def test_rms_norm_forward_backward_matches_pallas(rows, hidden, dtype,
                                                   weighted):
     x, w, _ = _inputs(rows, hidden, seed=11)
