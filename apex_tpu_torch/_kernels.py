@@ -34,10 +34,10 @@ import torch
 
 __all__ = [
     "ADAM", "FLASH_BWD_DKV", "FLASH_BWD_DQ", "FLASH_FWD", "KERNELS",
-    "LAYER_NORM_BWD", "LAYER_NORM_FWD", "NORM_FWD_LOOP", "RMS_NORM_BWD",
-    "RMS_NORM_FWD",
-    "SUMSQ_FLAT", "Kernel", "build_all", "dtype_code", "launch_counts",
-    "reset_launch_counts", "resolve_device", "wants_grad",
+    "LAYER_NORM_BWD", "LAYER_NORM_BWD_LOOP", "LAYER_NORM_FWD",
+    "NORM_FWD_LOOP", "RMS_NORM_BWD", "RMS_NORM_FWD", "SUMSQ_FLAT", "Kernel",
+    "build_all", "dtype_code", "launch_counts", "reset_launch_counts",
+    "resolve_device", "wants_grad",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -202,13 +202,15 @@ SUMSQ_FLAT = Kernel(
     # x, n, part, part_blocks, out, stream
     [_P, _L, _P, _I, _P, _P],
 )
-# The forwards' loop kernel on any input (not a path's kernel: the card
-# checks compare the register-resident row with it).
+# The norms' loop kernels on any input (not a path's kernels: the card
+# checks and timings compare the register-resident rows with them).
 NORM_FWD_LOOP = Kernel(
     "layer_norm", "norm_fwd_loop",
     # x, w, b, y, rows, hidden, eps, rms, dtype, stream
     [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
 )
+LAYER_NORM_BWD_LOOP = Kernel(
+    "layer_norm", "layer_norm_bwd_loop", LAYER_NORM_BWD.argtypes)
 KERNELS: Dict[str, Kernel] = {
     k.symbol: k for k in (LAYER_NORM_FWD, LAYER_NORM_BWD, RMS_NORM_FWD,
                           RMS_NORM_BWD, FLASH_FWD, FLASH_BWD_DQ,

@@ -253,10 +253,12 @@ int launch(const void* x, const void* w, const void* b, void* y, int rows, int h
 // 2. norm_bwd_sum_kernel: per column, sums the blocks' partials in a fixed
 //    order (8 strided groups, then the 8 group sums in order).
 // Every row count and hidden size works; there is no padding. The RMSNorm
-// backward takes rms_bwd_row_kernel (below) in place of step 1 wherever the
-// rows fit a warp's registers: it reads x and dy from HBM once, where
-// norm_bwd_kernel reads x twice and both again for its column sweep, which
-// at 32 rows of 2048 bf16 (256 KB) no longer fits L1.
+// and LayerNorm backwards take rms_bwd_row_kernel and ln_bwd_row_kernel
+// (below) in place of step 1 wherever the rows fit a warp's registers: they
+// read x and dy from HBM once, where norm_bwd_kernel reads x three times
+// with scalar loads of dy, then both again for its column sweep, whose
+// strided loads use 2 or 4 bytes of each line they fetch and whose 32 rows
+// of 2048 bf16 (256 KB) no longer fit L1.
 
 constexpr int kBwdRows = 32;
 constexpr int kBwdThreads = 256;
@@ -451,6 +453,162 @@ rms_bwd_row_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// LayerNorm backward with its rows held in registers (layer_norm_bwd where
+// hidden is a multiple of the vector, every pointer is 16-byte aligned and
+// a row fits NV <= kMaxLnBwdRowVecs vectors a lane): #4's design with
+// LayerNorm's mean and dbeta. A block of W warps (below) owns kBwdRows
+// consecutive rows (the partial layout of norm_bwd_kernel), each warp
+// kBwdRows / W of them, in order. For a row, every lane issues
+// all its loads of x and dy (NV uint4 each, lane + 32j) before the first
+// shuffle; the mean, then the sum of squared deviations (two passes, as
+// _ln_ref), then sum(dyw) and sum(dyw * xhat) (their shuffles interleaved)
+// come from the registers, and dx is written once as 16-byte vectors. Each
+// lane adds dy * xhat and dy for its own columns into fp32 registers over
+// its warp's rows; the warps' sums then meet in shared memory (W * 32 * NV
+// * N floats, reused for dgamma, then dbeta) and are
+// added in warp order into the block's two (hidden,) partials, which
+// norm_bwd_sum_kernel sums over the blocks. No atomics: a repeat call is
+// bit-equal.
+//
+// Occupancy. At GPT-2's (8192, 768) bf16 there are 256 blocks for 132 SMs,
+// and blocks run two an SM. Where x, dy and the two sums fit in
+// 8 * NV + 2 * NV * N <= 96 registers a lane (72 at NV = 3, 768 bf16), a
+// block has eight warps of four rows each under a cap of 128 registers a
+// thread: one wave, 16 warps an SM, each with its whole row's loads in
+// flight. Wider rows take four warps of eight rows (8 warps an SM, up to
+// 255 registers a thread), which at 1600 and 2048 bf16 ran 11% and 6%
+// faster than eight warps at one block an SM. Every NV up to
+// kMaxLnBwdRowVecs compiles with no spills (nvcc -Xptxas -v).
+constexpr int kMaxLnBwdRowVecs = 8;
+
+template <typename T, int NV>
+struct LnBwdRow {
+  static constexpr int kRegs = 8 * NV + 2 * NV * Vec<T>::N;
+  static constexpr int kWarps = kRegs <= 96 ? 8 : 4;
+  static constexpr int kCols = 32 * NV * Vec<T>::N;  // a warp's columns
+};
+
+// Every warp's NV x N column sums c into red, then into the block's
+// (hidden,) partial out, each column the sum over the warps in order.
+template <typename T, int NV>
+__device__ __forceinline__ void block_col_sum(float* red, const float (&c)[NV][Vec<T>::N],
+                                              float* __restrict__ out, int hidden) {
+  constexpr int N = Vec<T>::N, COLS = LnBwdRow<T, NV>::kCols, W = LnBwdRow<T, NV>::kWarps;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4* mine = reinterpret_cast<float4*>(red + warp * COLS);
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q)
+      mine[(lane + 32 * j) * (N / 4) + q] =
+          make_float4(c[j][4 * q], c[j][4 * q + 1], c[j][4 * q + 2], c[j][4 * q + 3]);
+  __syncthreads();
+  for (int col = threadIdx.x; col < hidden; col += W * 32) {
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < W; ++k) sum += red[k * COLS + col];
+    out[col] = sum;
+  }
+  __syncthreads();  // red is written again by the next call
+}
+
+template <typename T, int NV>
+__global__ void __launch_bounds__(LnBwdRow<T, NV>::kWarps * 32, 2)
+ln_bwd_row_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                  const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part,
+                  int rows, int hidden, float eps) {
+  constexpr int N = Vec<T>::N, W = LnBwdRow<T, NV>::kWarps, RW = kBwdRows / W;
+  __shared__ __align__(16) float red[W * LnBwdRow<T, NV>::kCols];  // <= 32 KB
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nvec = hidden / N;
+  const long r0 = (long)blockIdx.x * kBwdRows + warp * RW;
+  float g[NV][N], bs[NV][N];  // dgamma, dbeta of the lane's columns over the warp's rows
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int c = 0; c < N; ++c) g[j][c] = bs[j][c] = 0.f;
+
+  for (int r = 0; r < RW && r0 + r < rows; ++r) {
+    const long off = (r0 + r) * hidden;
+    const uint4* xv = reinterpret_cast<const uint4*>(x + off);
+    const uint4* dv = reinterpret_cast<const uint4*>(dy + off);
+    uint4 xr[NV], dr[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (lane + 32 * j < nvec) {
+        xr[j] = xv[lane + 32 * j];
+        dr[j] = dv[lane + 32 * j];
+      }
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (lane + 32 * j < nvec) {
+        const T* e = reinterpret_cast<const T*>(&xr[j]);
+#pragma unroll
+        for (int c = 0; c < N; ++c) s += to_f(e[c]);
+      }
+    const float mean = warp_sum(s) / hidden;
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (lane + 32 * j < nvec) {
+        const T* e = reinterpret_cast<const T*>(&xr[j]);
+#pragma unroll
+        for (int c = 0; c < N; ++c) {
+          const float d = to_f(e[c]) - mean;
+          ss = fmaf(d, d, ss);
+        }
+      }
+    const float rstd = rsqrtf(warp_sum(ss) / hidden + eps);
+    float a = 0.f, cs = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (lane + 32 * j < nvec) {
+        float wv[N];
+        load_f4(wv, w, lane + 32 * j);
+        const T* e = reinterpret_cast<const T*>(&xr[j]);
+        const T* de = reinterpret_cast<const T*>(&dr[j]);
+#pragma unroll
+        for (int c = 0; c < N; ++c) {
+          const float xh = __fmul_rn(to_f(e[c]) - mean, rstd), d = to_f(de[c]);
+          const float dyw = w ? __fmul_rn(d, wv[c]) : d;
+          a += dyw;
+          cs = fmaf(dyw, xh, cs);
+          g[j][c] = fmaf(d, xh, g[j][c]);
+          bs[j][c] += d;
+        }
+      }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, o);
+      cs += __shfl_xor_sync(0xffffffffu, cs, o);
+    }
+    const float m1 = a / hidden, m2 = cs / hidden;
+    uint4* ov = reinterpret_cast<uint4*>(dx + off);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int i = lane + 32 * j;
+      if (i >= nvec) continue;
+      float wv[N];
+      load_f4(wv, w, i);
+      const T* e = reinterpret_cast<const T*>(&xr[j]);
+      const T* de = reinterpret_cast<const T*>(&dr[j]);
+      uint4 out;
+      T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const float xh = __fmul_rn(to_f(e[c]) - mean, rstd), d = to_f(de[c]);
+        const float dyw = w ? __fmul_rn(d, wv[c]) : d;
+        o[c] = from_f<T>(__fmul_rn(fmaf(-xh, m2, dyw - m1), rstd));
+      }
+      ov[i] = out;
+    }
+  }
+
+  block_col_sum<T, NV>(red, g, part + (long)blockIdx.x * hidden, hidden);
+  block_col_sum<T, NV>(red, bs, part + ((long)gridDim.x + blockIdx.x) * hidden, hidden);
+}
+
 // The fixed-order sums of the `sums` (blocks, hidden) partials, once the
 // kernel that wrote them has launched.
 int launch_sum(float* part, float* out, int blocks, int hidden, int sums, cudaStream_t stream) {
@@ -481,7 +639,44 @@ int launch_rms_bwd_row(const void* x, const void* w, const void* dy, void* dx, f
   return launch_sum(part, out, blocks, hidden, 1, stream);
 }
 
+template <typename T, int NV>
+int launch_ln_bwd_row(const void* x, const void* w, const void* dy, void* dx, float* part,
+                      float* out, int rows, int hidden, float eps, cudaStream_t stream) {
+  const int blocks = (rows + kBwdRows - 1) / kBwdRows;
+  ln_bwd_row_kernel<T, NV><<<blocks, LnBwdRow<T, NV>::kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const T*>(dy),
+      static_cast<T*>(dx), part, rows, hidden, eps);
+  return launch_sum(part, out, blocks, hidden, 2, stream);
+}
+
+// ln_bwd_row_kernel at the least NV >= per_lane (per_lane <= kMaxLnBwdRowVecs).
+template <typename T, int NV = 1>
+int launch_ln_bwd_rows(int per_lane, const void* x, const void* w, const void* dy, void* dx,
+                       float* part, float* out, int rows, int hidden, float eps,
+                       cudaStream_t s) {
+  if constexpr (NV < kMaxLnBwdRowVecs) {
+    if (per_lane > NV)
+      return launch_ln_bwd_rows<T, NV + 1>(per_lane, x, w, dy, dx, part, out, rows, hidden,
+                                           eps, s);
+  }
+  return launch_ln_bwd_row<T, NV>(x, w, dy, dx, part, out, rows, hidden, eps, s);
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The LayerNorm backward: the register-resident rows where the shape
+// allows, else norm_bwd_kernel (hidden not a multiple of the vector, an
+// unaligned pointer, or more than kMaxLnBwdRowVecs vectors a lane).
+template <typename T>
+int launch_ln_bwd(const void* x, const void* w, const void* dy, void* dx, float* part,
+                  float* out, int rows, int hidden, float eps, cudaStream_t s) {
+  constexpr int N = Vec<T>::N;
+  const int per_lane = (hidden / N + 31) / 32;
+  if (hidden % N != 0 || !aligned16(x) || !aligned16(w) || !aligned16(dy) || !aligned16(dx) ||
+      per_lane > kMaxLnBwdRowVecs)
+    return launch_bwd<T, false>(x, w, dy, dx, part, out, rows, hidden, eps, s);
+  return launch_ln_bwd_rows<T>(per_lane, x, w, dy, dx, part, out, rows, hidden, eps, s);
+}
 
 // The RMSNorm backward: the register-resident rows where the shape allows,
 // else norm_bwd_kernel (hidden not a multiple of the vector, an unaligned
@@ -562,10 +757,11 @@ extern "C" int norm_fwd_loop(const void* x, const void* w, const void* b, void* 
 // x, dy, dx: (rows, hidden) in the dtype's type; w: fp32 (hidden,) or null
 // (then w = 1). part: fp32 scratch of (2, part_blocks, hidden) with
 // part_blocks = ceil(rows / 32); out: fp32 (2, hidden) = (dgamma, dbeta).
-// Returns the cudaError_t of the launches (0 = success).
-extern "C" int layer_norm_bwd(const void* x, const void* w, const void* dy, void* dx,
-                              void* part, void* out, int rows, int hidden, int part_blocks,
-                              float eps, int dtype, void* stream) {
+// Returns the cudaError_t of the launches (0 = success). With `loop` set,
+// the loop (norm_bwd_kernel) runs whatever the shape.
+static int ln_bwd(const void* x, const void* w, const void* dy, void* dx, void* part,
+                  void* out, int rows, int hidden, int part_blocks, float eps, int dtype,
+                  bool loop, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hidden <= 0 || rows < 0) return (int)cudaErrorInvalidValue;
   if (part_blocks != (rows + kBwdRows - 1) / kBwdRows) return (int)cudaErrorInvalidValue;
@@ -573,10 +769,28 @@ extern "C" int layer_norm_bwd(const void* x, const void* w, const void* dy, void
     return (int)cudaMemsetAsync(out, 0, 2 * sizeof(float) * (size_t)hidden, s);
   float* p = static_cast<float*>(part);
   float* o = static_cast<float*>(out);
-  if (dtype == 0) return launch_bwd<float, false>(x, w, dy, dx, p, o, rows, hidden, eps, s);
+  if (dtype == 0)
+    return loop ? launch_bwd<float, false>(x, w, dy, dx, p, o, rows, hidden, eps, s)
+                : launch_ln_bwd<float>(x, w, dy, dx, p, o, rows, hidden, eps, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16, false>(x, w, dy, dx, p, o, rows, hidden, eps, s);
+    return loop ? launch_bwd<__nv_bfloat16, false>(x, w, dy, dx, p, o, rows, hidden, eps, s)
+                : launch_ln_bwd<__nv_bfloat16>(x, w, dy, dx, p, o, rows, hidden, eps, s);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int layer_norm_bwd(const void* x, const void* w, const void* dy, void* dx,
+                              void* part, void* out, int rows, int hidden, int part_blocks,
+                              float eps, int dtype, void* stream) {
+  return ln_bwd(x, w, dy, dx, part, out, rows, hidden, part_blocks, eps, dtype, false, stream);
+}
+
+// layer_norm_bwd through the loop on any input, where layer_norm_bwd would
+// take the register-resident rows: the card checks and timings compare the
+// two.
+extern "C" int layer_norm_bwd_loop(const void* x, const void* w, const void* dy, void* dx,
+                                   void* part, void* out, int rows, int hidden,
+                                   int part_blocks, float eps, int dtype, void* stream) {
+  return ln_bwd(x, w, dy, dx, part, out, rows, hidden, part_blocks, eps, dtype, true, stream);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. w is fp32 (hidden,) or null (w = 1).

@@ -1,10 +1,11 @@
 """The GPT model (and the Llama family on it), its loss, its decoding
-loop, conversion of JAX weights and training state, and the import of
-transformers Llama weights."""
+loop, the ResNet family, conversion of JAX weights and training state,
+and the import of transformers Llama weights."""
 
 from apex_tpu_torch.models.convert import (
     fused_adam_state_from_jax,
     gpt_params_from_jax,
+    resnet_params_from_jax,
     scaler_state_from_jax,
 )
 from apex_tpu_torch.models.generate import generate, sample_next_token
@@ -22,11 +23,21 @@ from apex_tpu_torch.models.hf_import import (
     params_from_hf_llama,
     params_to_hf_llama,
 )
+from apex_tpu_torch.models.resnet import (
+    ResNet,
+    ResNet18,
+    ResNet34,
+    ResNet50,
+    ResNet101,
+    ResNet152,
+    cross_entropy_loss,
+)
 
 __all__ = [
-    "Embedding", "GPTModel", "config_from_hf_llama",
+    "Embedding", "GPTModel", "ResNet", "ResNet18", "ResNet34", "ResNet50",
+    "ResNet101", "ResNet152", "config_from_hf_llama", "cross_entropy_loss",
     "fused_adam_state_from_jax", "generate", "gpt2_small_config",
     "gpt_loss_fn", "gpt_params_from_jax", "llama_from_hf", "mistral_from_hf",
-    "params_from_hf_llama", "params_to_hf_llama", "sample_next_token",
-    "scaler_state_from_jax", "tinyllama_1_1b_config",
+    "params_from_hf_llama", "params_to_hf_llama", "resnet_params_from_jax",
+    "sample_next_token", "scaler_state_from_jax", "tinyllama_1_1b_config",
 ]

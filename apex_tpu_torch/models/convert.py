@@ -1,9 +1,13 @@
 """Weights and training state from the JAX package's trees.
 
-The port's modules carry the flax names and the flax ``(in, out)``
+The port's GPT modules carry the flax names and the flax ``(in, out)``
 kernel layout, so a flax ``params`` tree maps onto the port's
 ``state_dict`` by joining each path with dots: nothing is transposed or
 regrouped (the fused QKV kernel is per-head interleaved on both sides).
+The ResNet's modules carry the flax names too, with torch's layouts: a
+convolution's HWIO kernel becomes an OIHW ``weight``, the head's (in,
+out) kernel a transposed one, and ``batch_stats`` become the BatchNorm
+buffers.
 The same naming carries the JAX ``fused_adam`` moments (per leaf, or one
 flat buffer already in the shared leaf order) and the loss scaler's
 state, so both frameworks can start from one mid-training state. Inputs
@@ -20,12 +24,13 @@ from apex_tpu_torch.amp.scaler import LossScalerState
 from apex_tpu_torch.optimizers.fused_adam import FusedAdamState
 
 __all__ = ["fused_adam_state_from_jax", "gpt_params_from_jax",
-           "scaler_state_from_jax"]
+           "resnet_params_from_jax", "scaler_state_from_jax"]
 
 
 def gpt_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The port's ``GPTModel`` state_dict from a JAX ``GPTModel`` params
-    tree (nested dicts of numpy arrays, e.g. ``variables["params"]``)."""
+    tree (nested dicts of numpy arrays, e.g. ``variables["params"]``); any
+    tree, keyed by its paths joined with dots."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -36,6 +41,21 @@ def gpt_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             out[".".join(path)] = torch.from_numpy(np.array(node))
 
     walk(params, ())
+    return out
+
+
+def resnet_params_from_jax(params: Dict[str, Any],
+                           batch_stats: Dict[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """The port's ``ResNet`` state_dict from a JAX ``ResNet``'s
+    ``params`` and ``batch_stats`` trees (nested dicts of numpy arrays)."""
+    out = gpt_params_from_jax(batch_stats)
+    for key, v in gpt_params_from_jax(params).items():
+        scope, dot, leaf = key.rpartition(".")
+        if leaf == "kernel":  # HWIO -> OIHW; the head's (in, out) -> (out, in)
+            v = v.permute(3, 2, 0, 1) if v.ndim == 4 else v.t()
+            key = scope + dot + "weight"
+        out[key] = v.contiguous()
     return out
 
 

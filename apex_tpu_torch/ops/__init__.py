@@ -2,6 +2,8 @@
 ``ops.layer_norm`` (``layer_norm``, ``rms_norm``) and ``ops.attention``
 (``flash_attention``, ``causal_mask``, ``window_mask``), both
 differentiable through their backward kernels; ``ops.rope`` (rotary
-positions, plain PyTorch, as XLA fuses them in the JAX package); and
-``ops.multi_tensor`` (flat buffers of a parameter collection). The functions are not
+positions, plain PyTorch, as XLA fuses them in the JAX package);
+``ops.xentropy`` (softmax cross-entropy with label smoothing, plain
+PyTorch); and ``ops.multi_tensor`` (flat buffers of a parameter
+collection). The functions are not
 re-exported here, so that ``ops.layer_norm`` stays the module."""

@@ -122,9 +122,11 @@ def _norm_fwd_loop(x, w, b, eps, rms=False):
     return y
 
 
-def _ln_bwd_kernel(x2, w, dy2, eps):
+def _ln_bwd_kernel(x2, w, dy2, eps, loop=False):
     """(dx, dgamma, dbeta) through the CUDA backward kernel; x2 and dy2
-    are (rows, hidden) on the card."""
+    are (rows, hidden) on the card. With ``loop``, through the loop kernel
+    whatever the shape, where the kernel takes the register-resident rows
+    when it can: the card checks compare the two."""
     rows, hidden = x2.shape
     code = _kernels.dtype_code(x2)
     x2 = x2.contiguous()
@@ -135,7 +137,8 @@ def _ln_bwd_kernel(x2, w, dy2, eps):
     part = torch.empty((2, blocks, hidden), dtype=torch.float32,
                        device=x2.device)
     out = torch.empty((2, hidden), dtype=torch.float32, device=x2.device)
-    _kernels.LAYER_NORM_BWD(
+    kernel = _kernels.LAYER_NORM_BWD_LOOP if loop else _kernels.LAYER_NORM_BWD
+    kernel(
         x2.data_ptr(), None if wf is None else wf.data_ptr(), dy2.data_ptr(),
         dx.data_ptr(), part.data_ptr(), out.data_ptr(), rows, hidden, blocks,
         float(eps), code,

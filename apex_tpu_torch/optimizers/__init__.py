@@ -1,6 +1,6 @@
-"""Optimizers: fused Adam on the hand-written Adam kernel, and ZeRO-2
-Adam at a data-parallel world of one, which clips with the hand-written
-sum-of-squares kernel."""
+"""Optimizers: fused Adam on the hand-written Adam kernel, ZeRO-2 Adam
+at a data-parallel world of one, which clips with the hand-written
+sum-of-squares kernel, and fused momentum SGD (plain torch)."""
 
 from apex_tpu_torch.optimizers._fused_kernels import (
     adam_flat,
@@ -18,8 +18,15 @@ from apex_tpu_torch.optimizers.fused_adam import (
     FusedAdamState,
     fused_adam,
 )
+from apex_tpu_torch.optimizers.fused_sgd import (
+    FusedSGD,
+    FusedSGDState,
+    SGDTransform,
+    fused_sgd,
+)
 
 __all__ = ["AdamTransform", "DistributedFusedAdam",
            "DistributedFusedAdamState", "FusedAdam", "FusedAdamState",
-           "adam_flat", "distributed_fused_adam", "fused_adam", "l2norm_flat",
+           "FusedSGD", "FusedSGDState", "SGDTransform", "adam_flat",
+           "distributed_fused_adam", "fused_adam", "fused_sgd", "l2norm_flat",
            "sumsq_flat"]

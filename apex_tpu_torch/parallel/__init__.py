@@ -1,11 +1,14 @@
-"""Tensor-parallel layers at tp = 1."""
+"""Tensor-parallel layers at tp = 1, and BatchNorm's statistics as
+moments at a data-parallel world of one."""
 
 from apex_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
 )
+from apex_tpu_torch.parallel.sync_batch_norm import SyncBatchNorm
 
 __all__ = [
-    "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
+    "ColumnParallelLinear", "RowParallelLinear", "SyncBatchNorm",
+    "VocabParallelEmbedding",
 ]

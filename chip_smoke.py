@@ -20,7 +20,10 @@ swallowed:
    window at sq = 1; flash forward (prefill, split and unsplit decode) and
    backward at head_dim 256 and 160 and at batch x heads = 65,600, in both
    dtypes; LayerNorm forward at GPT-2's (8192, 768), (768, 768) and (8,
-   768), at hidden 770 and on an unaligned input (the loop); Adam over
+   768), at hidden 770 and on an unaligned input (the loop); LayerNorm
+   backward at rows {1, 1000, 8192} x hidden {768, 1000, 1024, 1600, 1001},
+   without weight, and on an unaligned input, against the plain version
+   and against the loop kernel on the same inputs; Adam over
    GPT-2 small's 124,439,808 parameters and a ragged length, both decay
    modes, steps 1 and 10; RMSNorm forward and backward at rows {1, 1000,
    8192} x hidden {2048, 1000, 770}, with and without weight, the forward's
@@ -36,7 +39,9 @@ swallowed:
    flash, LayerNorm and RMSNorm forward, the RMSNorm backward and the flash
    backward kernels and their library calls in turns over three rounds,
    medians, with each kernel's share of its bound; the decode-shape rows
-   also as CUDA graphs of the kernel alone and of the library call);
+   and the LayerNorm backward also as CUDA graphs of the kernel alone and
+   of the library call, and the LayerNorm backward's loop kernel both ways
+   beside it);
 4. serving: GPT-2 small at full width (12 x 768, vocab 50257, 1024
    positions, seeded random weights, params fp32, compute bf16) behind
    the continuous-batching engine answers 24 requests; the launch counts
@@ -70,14 +75,21 @@ swallowed:
    after one warm-up step all 157 parameters hold a finite gradient; in
    5 measured steps the loss falls, the sum-of-squares kernel computes the
    clip factor once per step, and the RMSNorm and flash kernels run;
-8. prints the ``kernels`` line (all nine kernels; ``launches`` is the
+8. ResNet-50: ``apex_tpu_torch.bench``, the twin of ``bench.py``, at its
+   size (224^2, batch 256, seeded random images and weights): O2 (bf16
+   compute, fp32 parameters), then O0 (fp32, TF32 off), each 3 warm-up and
+   10 timed steps of loss, backward and ``fused_sgd``; finite losses that
+   fall in each mode; then a small fp32 ResNet's loss, every gradient and
+   its new batch statistics on the card against the CPU;
+9. prints the ``kernels`` line (all nine kernels; ``launches`` is the
    count of the kernel's first path below that runs it, and
    ``launches_by_path`` has every path's), then as the last line
    ``{"ok": true, "device": {...}}``.
 
 The paths, each driven with the counts set to 0 just before it and read
 just after: ``serving`` and ``training`` (GPT-2 small), ``llama_serving``
-and ``llama_finetune`` (TinyLlama-1.1B).
+and ``llama_finetune`` (TinyLlama-1.1B), and ``resnet`` (ResNet-50, which
+runs none of the nine kernels).
 """
 
 import hashlib
@@ -151,6 +163,9 @@ PATH_KERNELS = {
     "llama_serving": ("rms_norm_fwd", "flash_fwd"),
     "llama_finetune": ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd",
                        "flash_bwd_dq", "flash_bwd_dkv", "sumsq_flat"),
+    # bench.py's ResNet-50 step: the JAX package runs it on no Pallas
+    # kernel, so the port's runs on none of its own either
+    "resnet": (),
 }
 FORWARD_KERNELS = PATH_KERNELS["serving"]
 KERNEL_META = {  # name: (source, TPU kernel it replaces)
@@ -424,29 +439,51 @@ def same_twice(name, case, first, second):
 
 
 def ln_bwd_parity(errors):
+    """The LayerNorm backward against its plain version and against the
+    loop kernel on the same inputs: at GPT-2's hidden 768 (3 vectors a lane
+    in bf16), 1000, BERT-large's 1024 and GPT-2 XL's 1600 (7 vectors a lane
+    in bf16, 13 in fp32: the loop), where the register-resident rows take
+    the aligned shapes, and at the loop's own shapes (hidden 1001, not a
+    multiple of the vector; an unaligned view); with and without w. Every
+    case's repeat call is bit-equal."""
     from apex_tpu_torch.ops import layer_norm as ln
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def one(dtype, case, x, w, dy):
+        got = ln._ln_bwd_kernel(x, w, dy, 1e-5)
+        torch.cuda.synchronize()
+        if got[0].dtype != dtype or got[0].shape != x.shape:
+            raise AssertionError("layer_norm_bwd: wrong dtype/shape")
+        for against, ref in (("", ln._ln_bwd_ref(x, w, dy, 1e-5)),
+                             (" vs loop", ln._ln_bwd_kernel(x, w, dy, 1e-5,
+                                                            loop=True))):
+            check("layer_norm_bwd", dtype, f"{case} dx{against}", got[0],
+                  ref[0], errors)
+            for part, g, r in (("dgamma", got[1], ref[1]),
+                               ("dbeta", got[2], ref[2])):
+                check("layer_norm_bwd", dtype, f"{case} {part}{against}", g,
+                      r, errors, tol_key="layer_norm_bwd dgamma/dbeta")
+        same_twice("layer_norm_bwd", case, got,
+                   ln._ln_bwd_kernel(x, w, dy, 1e-5))
+
+    def grads(rows, hidden, dtype):
+        return torch.randn(rows, hidden, generator=gen,
+                           device="cuda").to(dtype)
+
     for dtype in (torch.float32, torch.bfloat16):
         for rows in (1, 1000, 8192):
-            for hidden in (768, 1000):
+            for hidden in (768, 1000, 1024, 1600, 1001):
                 x, w, _ = ln_inputs(rows, hidden, dtype, gen)
-                dy = torch.randn(rows, hidden, generator=gen,
-                                 device="cuda").to(dtype)
-                got = ln._ln_bwd_kernel(x, w, dy, 1e-5)
-                torch.cuda.synchronize()
-                ref = ln._ln_bwd_ref(x, w, dy, 1e-5)
-                case = f"rows={rows} hidden={hidden}"
-                if got[0].dtype != dtype or got[0].shape != x.shape:
-                    raise AssertionError("layer_norm_bwd: wrong dtype/shape")
-                check("layer_norm_bwd", dtype, case + " dx", got[0], ref[0],
-                      errors)
-                for part, g, r in (("dgamma", got[1], ref[1]),
-                                   ("dbeta", got[2], ref[2])):
-                    check("layer_norm_bwd", dtype, f"{case} {part}", g, r,
-                          errors, tol_key="layer_norm_bwd dgamma/dbeta")
-                same_twice("layer_norm_bwd", case, got,
-                           ln._ln_bwd_kernel(x, w, dy, 1e-5))
+                one(dtype, f"rows={rows} hidden={hidden}", x, w,
+                    grads(rows, hidden, dtype))
+        x, _, _ = ln_inputs(1000, 768, dtype, gen)
+        one(dtype, "rows=1000 hidden=768 no weight", x, None,
+            grads(1000, 768, dtype))
+        # the loop, for an input 2 or 4 bytes off a 16-byte line
+        buf, w, _ = ln_inputs(1, 300 * 768 + 1, dtype, gen)
+        one(dtype, "rows=300 hidden=768 unaligned view",
+            buf[0, 1:].view(300, 768), w[:768], grads(300, 768, dtype))
 
 
 def flash_bwd_cases(gen):
@@ -837,8 +874,14 @@ def time_flash(label, q, k, v, causal, kpm, errors, graph=False):
 
 
 def time_layer_norm_bwd(rows, hidden):
+    """The backward at one shape: the kernel (through the wrapper), the
+    loop kernel on the same inputs and the library's backward timed in
+    turns over three rounds, medians; then the kernel's and the loop's
+    launches alone and the library's backward kernel
+    (``aten.native_layer_norm_backward``) as CUDA graphs."""
     import torch.nn.functional as F
 
+    from apex_tpu_torch import _kernels
     from apex_tpu_torch.ops import layer_norm as ln
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
@@ -853,15 +896,43 @@ def time_layer_norm_bwd(rows, hidden):
     wl = w.bfloat16().requires_grad_(True)
     bl = b.bfloat16().requires_grad_(True)
     yl = F.layer_norm(xl, (hidden,), wl, bl)
-    return {
+    med, rounds = in_turns({
+        "kernel": lambda: ln._ln_bwd_kernel(x, w, dy, 1e-5),
+        "loop": lambda: ln._ln_bwd_kernel(x, w, dy, 1e-5, loop=True),
+        "library": lambda: torch.autograd.grad(
+            yl, (xl, wl, bl), dy, retain_graph=True)})
+    dx = torch.empty_like(x)
+    blocks = -(-rows // ln._LN_BWD_ROWS)
+    part = torch.empty((2, blocks, hidden), dtype=torch.float32,
+                       device="cuda")
+    out = torch.empty((2, hidden), dtype=torch.float32, device="cuda")
+
+    def launch(kernel):
+        return lambda: kernel(
+            x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            part.data_ptr(), out.data_ptr(), rows, hidden, blocks, 1e-5,
+            _kernels.dtype_code(x))
+
+    wd, bd = wl.detach(), bl.detach()
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [hidden], wd, bd,
+                                                     1e-5)
+    row = {
         "shape": f"x, dy ({rows},{hidden}) bf16",
         "max_abs_err": float((got[0].float() - ref[0].float()).abs().max()),
-        "ms": time_ms(lambda: ln._ln_bwd_kernel(x, w, dy, 1e-5)),
+        "ms": med["kernel"], "loop_ms": med["loop"],
         "plain_ms": time_ms(lambda: ln._ln_bwd_ref(x, w, dy, 1e-5)),
-        "bound_ms": b_ms, "bound_by": by,
-        "library_ms": time_ms(lambda: torch.autograd.grad(
-            yl, (xl, wl, bl), dy, retain_graph=True)),
+        "bound_ms": b_ms, "bound_by": by, "bound_share": b_ms / med["kernel"],
+        "library_ms": med["library"], "rounds": rounds,
+        "graph_ms": graph_ms(launch(_kernels.LAYER_NORM_BWD)),
+        "loop_graph_ms": graph_ms(launch(_kernels.LAYER_NORM_BWD_LOOP)),
+        "library_graph_ms": graph_ms(
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [hidden], mean, rstd, wd, bd, [True, True, True])),
     }
+    row["graph_bound_share"] = b_ms / row["graph_ms"]
+    log(f"time layer_norm_bwd {row['shape']} loop kernel: {row['loop_ms']:.4f}"
+        f" ms in turns, {row['loop_graph_ms']:.4f} ms as a graph")
+    return row
 
 
 FLASH_BWD_ROUNDS = 3
@@ -1134,7 +1205,10 @@ def kernel_timings(errors):
         "d=256 training causal q (4,8,2048,256) k,v (4,1,2048,256) bf16",
         q, k, v, True, None, errors))
     del q, k, v
-    out["layer_norm_bwd"] = [time_layer_norm_bwd(8192, 768)]
+    # GPT-2 training's rows (eight warps a block), and GPT-2 XL's width
+    # (four warps a block)
+    out["layer_norm_bwd"] = [time_layer_norm_bwd(8192, 768),
+                             time_layer_norm_bwd(8192, 1600)]
     dq, dkv = time_flash_bwd(gen, 8, 12, 12, 1024, errors)
     ldq, ldkv = time_flash_bwd(gen, 4, 32, 4, 2048, errors)
     wdq, wdkv = time_flash_bwd(gen, 4, 8, 1, 2048, errors, d=256)
@@ -1650,6 +1724,85 @@ def llama_finetune_phase(smi):
     return launches, finetune
 
 
+# -- ResNet-50 ----------------------------------------------------------------
+
+# bench.py's headline step at its size (ResNet-50, 224^2, batch 256)
+RESNET = dict(model_name="resnet50", image_size=224, batch=256, warmup=3,
+              steps=10)
+
+
+def resnet_phase(smi):
+    """The twin of bench.py (``apex_tpu_torch.bench``) at full width: O2,
+    then O0 with TF32 off, each 3 warm-up and 10 timed steps on one fixed
+    batch; finite losses that fall over each mode's steps. Then the small
+    fp32 ResNet's step, card against CPU."""
+    from apex_tpu_torch import _kernels, bench
+
+    _kernels.reset_launch_counts()
+    rec = bench.run(device="cuda", seed=SEED, **RESNET)
+    launches = _kernels.launch_counts()
+    for mode in ("O2", "O0"):
+        losses = rec[mode]["losses"]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"ResNet-50 {mode}: the loss did not fall: "
+                                 f"{losses}")
+        log(f"resnet50 {mode}: {rec[mode]['imgs_per_s']:.1f} images/s, "
+            f"{rec[mode]['step_ms']:.2f} ms a step, peak "
+            f"{rec[mode]['peak_mem_gb']:.2f} GB, losses {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}")
+    log(f"resnet50 O2/O0: {rec['o2_over_o0']:.3f} ({smi})")
+    log("resnet " + json.dumps(rec))
+    resnet_card_vs_plain()
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def resnet_card_vs_plain():
+    """A small fp32 ResNet (a BasicBlock stage and a strided one, 8
+    filters, 32^2 images, batch 4): loss, every gradient and the updated
+    batch_stats of a training forward on the card against the CPU, at
+    atol 1e-4 and rtol 1e-3 (cuDNN's and oneDNN's fp32 convolutions, TF32
+    off, sum in another order through the BatchNorms' batch statistics)."""
+    from apex_tpu_torch.models import resnet
+
+    def model(device):
+        return resnet.ResNet([1, 2], resnet.BasicBlock, num_classes=10,
+                             num_filters=8, device=device, seed=SEED)
+
+    gpu, cpu = model("cuda"), model("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    with torch.no_grad():  # a zero-init scale would zero its branch's grads
+        for m in (gpu, cpu):
+            for name, p in m.named_parameters():
+                if name.endswith("scale"):
+                    p.fill_(0.7)
+    rs = np.random.RandomState(SEED + 16)
+    x = torch.as_tensor(rs.randn(4, 32, 32, 3).astype(np.float32))
+    labels = torch.as_tensor(rs.randint(0, 10, (4,)))
+    lg = resnet.cross_entropy_loss(gpu(x.cuda(), train=True), labels.cuda())
+    lg.backward()
+    lc = resnet.cross_entropy_loss(cpu(x, train=True), labels)
+    lc.backward()
+    worst = abs(lg.item() - lc.item())
+    if worst > 1e-4 + 1e-3 * abs(lc.item()):
+        raise AssertionError(f"ResNet loss differs by {worst}")
+    named = dict(cpu.named_parameters())
+    buffers = dict(cpu.named_buffers())
+    pairs = [(n, p.grad, named[n].grad) for n, p in gpu.named_parameters()]
+    pairs += [(n, b, buffers[n]) for n, b in gpu.named_buffers()]
+    for name, got, ref in pairs:
+        if got is None or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: nothing finite on the card")
+        err = (got.cpu() - ref).abs()
+        if bool((err > 1e-4 + 1e-3 * ref.abs()).any()):
+            raise AssertionError(f"ResNet {name}: card differs by "
+                                 f"{float(err.max())}")
+        worst = max(worst, float(err.max()))
+    log(f"small ResNet fp32 card vs cpu: loss, {len(named)} gradients and "
+        f"{len(buffers)} batch statistics, max abs err {worst:.3e} (atol "
+        f"1e-4, rtol 1e-3)")
+
+
 def main():
     smi = device_phase()
 
@@ -1674,6 +1827,7 @@ def main():
     training_card_vs_plain()
     paths["llama_serving"], _ = llama_serving_phase(smi)
     paths["llama_finetune"], _ = llama_finetune_phase(smi)
+    paths["resnet"], _ = resnet_phase(smi)
     for name, counts in paths.items():
         log(f"launches {name}: " + json.dumps(
             {k: counts[k] for k in PATH_KERNELS[name]}))

@@ -238,6 +238,41 @@ def test_layer_norm_backward_kernel(gen, dtype, rows, hidden):
     torch.testing.assert_close(dg, rdg, atol=1e-3, rtol=1e-4)
 
 
+# The register-resident rows take hidden 768 (GPT-2: 3 vectors a lane in
+# bf16), 1024 (BERT-large), 1600 (GPT-2 XL; 13 vectors a lane in fp32, so
+# there the loop) and 2048; 1001 (not a multiple of the vector) and an
+# unaligned view take the loop. Both against the plain version, and the
+# rows against the loop kernel on the same inputs; dgamma and dbeta over
+# up to 8192 rows to chip_smoke.py's 2e-3 absolute.
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,hidden", [(8192, 768), (1000, 1024), (77, 1600),
+                                         (1, 2048), (300, 1001),
+                                         (300, "unaligned")])
+def test_layer_norm_backward_rows_and_loop(gen, dtype, rows, hidden,
+                                           weighted):
+    if hidden == "unaligned":  # 2 or 4 bytes off a 16-byte line
+        hidden = 768
+        x = torch.randn(rows * hidden + 1, generator=gen,
+                        device="cuda").to(dtype)[1:].view(rows, hidden)
+    else:
+        x = torch.randn(rows, hidden, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(rows, hidden, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(hidden, generator=gen, device="cuda") if weighted \
+        else None
+    before = _kernels.LAYER_NORM_BWD.launches
+    got = ln._ln_bwd_kernel(x, w, dy, 1e-5)
+    loop = ln._ln_bwd_kernel(x, w, dy, 1e-5, loop=True)
+    assert _kernels.LAYER_NORM_BWD.launches == before + 1
+    for want in (ln._ln_bwd_ref(x, w, dy, 1e-5), loop):
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   atol=BWD_TOL[dtype], rtol=BWD_TOL[dtype])
+        for g, r in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, r, atol=2e-3, rtol=1e-4)
+    again = ln._ln_bwd_kernel(x, w, dy, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
 def test_layer_norm_autograd_on_the_card(gen):
     x = torch.randn(5, 64, generator=gen, device="cuda", requires_grad=True)
     w = torch.randn(64, generator=gen, device="cuda", requires_grad=True)

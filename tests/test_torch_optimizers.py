@@ -316,3 +316,67 @@ def test_distributed_fused_adam_refuses_what_is_not_ported():
     ua, _ = a.update(gpt_params_from_jax(_grads(0)), a.init(tp), tp)
     ub, _ = b.update(gpt_params_from_jax(_grads(0)), b.init(tp), tp)
     assert all(torch.equal(ua[n], ub[n]) for n in tp)
+
+
+# fused_sgd: bench.py's settings, Nesterov, dampening, and no momentum.
+# Each op is one fp32 rounding on both sides, but XLA may contract
+# ``momentum * b + (1 - dampening) * g`` into an FMA: SGD_TOL, a few ulp.
+SGD_TOL = dict(rtol=1e-6, atol=1e-7)
+SGD_CASES = {
+    "bench": dict(lr=0.1, momentum=0.9, weight_decay=1e-4),
+    "nesterov": dict(lr=0.05, momentum=0.9, weight_decay=1e-3,
+                     nesterov=True),
+    "dampening": dict(lr=0.1, momentum=0.8, dampening=0.3),
+    "no_momentum": dict(lr=0.1, weight_decay=1e-2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SGD_CASES))
+def test_fused_sgd_matches_jax_over_three_steps(case):
+    """The updates and momentum buffers of 3 steps, the first of which
+    bootstraps the buffer with the gradient itself."""
+    import optax
+
+    from apex_tpu.optimizers import fused_sgd as jax_fused_sgd
+    from apex_tpu_torch.optimizers import FusedSGD, fused_sgd
+
+    kw = SGD_CASES[case]
+    rs = np.random.RandomState(11)
+    shapes = {"a": (7, 5), "b": (13,), "c": (2, 3, 4)}
+    jp = {n: jnp.asarray(rs.randn(*s).astype(np.float32))
+          for n, s in shapes.items()}
+    tp = {n: torch.from_numpy(np.array(v)) for n, v in jp.items()}
+    jopt, opt = jax_fused_sgd(**kw), fused_sgd(**kw)
+    js, ts = jopt.init(jp), FusedSGD(**kw).init(tp)
+    for step in range(3):
+        g = {n: rs.randn(*s).astype(np.float32) for n, s in shapes.items()}
+        jupd, js = jopt.update({n: jnp.asarray(v) for n, v in g.items()}, js,
+                               jp)
+        upd, ts = opt.update({n: torch.from_numpy(v) for n, v in g.items()},
+                             ts, tp)
+        for n in shapes:
+            np.testing.assert_allclose(upd[n].numpy(), np.asarray(jupd[n]),
+                                       err_msg=n, **SGD_TOL)
+            np.testing.assert_allclose(ts.momentum_buffer[n].numpy(),
+                                       np.asarray(js.momentum_buffer[n]),
+                                       err_msg=n, **SGD_TOL)
+            if step == 0 and kw.get("momentum"):  # the bootstrap: buf = g
+                want = g[n] + kw.get("weight_decay", 0.0) * tp[n].numpy()
+                np.testing.assert_allclose(ts.momentum_buffer[n].numpy(),
+                                           want, **SGD_TOL)
+        jp = optax.apply_updates(jp, jupd)
+        tp = {n: tp[n] + upd[n] for n in tp}
+        assert int(ts.step) == int(js.step) == step + 1
+
+
+def test_fused_sgd_checks_its_arguments():
+    from apex_tpu_torch.optimizers import fused_sgd
+
+    with pytest.raises(ValueError, match="Nesterov"):
+        fused_sgd(momentum=0.0, nesterov=True)
+    with pytest.raises(ValueError, match="Nesterov"):
+        fused_sgd(momentum=0.9, dampening=0.1, nesterov=True)
+    opt = fused_sgd(momentum=0.9)
+    p = {"w": torch.ones(3)}
+    with pytest.raises(ValueError, match="requires params"):
+        opt.update(p, opt.init(p))
