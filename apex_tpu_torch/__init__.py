@@ -8,7 +8,10 @@ sentinel and fused Adam, built by ``resilience.replay.build_gpt_training``),
 and the Llama family on the same model (rope, RMSNorm, GQA, SwiGLU; the
 transformers import in ``models.hf_import``), served by the engine and
 fine-tuned by ``examples.llama.finetune_llama`` through ZeRO-2 Adam at a
-data-parallel world of one. All nine Pallas kernels of the TPU package
+data-parallel world of one; BERT (``models.bert``), served by its
+eval-mode forward and pre-trained by
+``transformer.testing.standalone_bert``, with dropout, the unfused
+``CoreAttention`` and the scaled-softmax family. All nine Pallas kernels of the TPU package
 are rewritten by hand in CUDA C++ for ``sm_90a`` (``csrc/``, built and
 loaded by ``_kernels``).
 

@@ -1,8 +1,14 @@
 """The GPT model (and the Llama family on it), its loss, its decoding
-loop, the ResNet family, conversion of JAX weights and training state,
-and the import of transformers Llama weights."""
+loop, BERT, the ResNet family, conversion of JAX weights and training
+state, and the import of transformers Llama weights."""
 
+from apex_tpu_torch.models.bert import (
+    BertModel,
+    Pooler,
+    bert_extended_attention_mask,
+)
 from apex_tpu_torch.models.convert import (
+    bert_params_from_jax,
     fused_adam_state_from_jax,
     gpt_params_from_jax,
     resnet_params_from_jax,
@@ -14,6 +20,7 @@ from apex_tpu_torch.models.gpt import (
     GPTModel,
     gpt2_small_config,
     gpt_loss_fn,
+    megatron_bert_345m_config,
     tinyllama_1_1b_config,
 )
 from apex_tpu_torch.models.hf_import import (
@@ -34,10 +41,12 @@ from apex_tpu_torch.models.resnet import (
 )
 
 __all__ = [
-    "Embedding", "GPTModel", "ResNet", "ResNet18", "ResNet34", "ResNet50",
-    "ResNet101", "ResNet152", "config_from_hf_llama", "cross_entropy_loss",
+    "BertModel", "Embedding", "GPTModel", "Pooler", "ResNet", "ResNet18",
+    "ResNet34", "ResNet50", "ResNet101", "ResNet152", "bert_extended_attention_mask",
+    "bert_params_from_jax", "config_from_hf_llama", "cross_entropy_loss",
     "fused_adam_state_from_jax", "generate", "gpt2_small_config",
-    "gpt_loss_fn", "gpt_params_from_jax", "llama_from_hf", "mistral_from_hf",
+    "gpt_loss_fn", "gpt_params_from_jax", "llama_from_hf",
+    "megatron_bert_345m_config", "mistral_from_hf",
     "params_from_hf_llama", "params_to_hf_llama", "resnet_params_from_jax",
     "sample_next_token", "scaler_state_from_jax", "tinyllama_1_1b_config",
 ]

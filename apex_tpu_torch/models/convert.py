@@ -1,9 +1,10 @@
 """Weights and training state from the JAX package's trees.
 
-The port's GPT modules carry the flax names and the flax ``(in, out)``
-kernel layout, so a flax ``params`` tree maps onto the port's
-``state_dict`` by joining each path with dots: nothing is transposed or
-regrouped (the fused QKV kernel is per-head interleaved on both sides).
+The port's GPT and BERT modules carry the flax names and the flax
+``(in, out)`` kernel layout, so a flax ``params`` tree maps onto the
+port's ``state_dict`` by joining each path with dots: nothing is
+transposed or regrouped (the fused QKV kernel is per-head interleaved on
+both sides).
 The ResNet's modules carry the flax names too, with torch's layouts: a
 convolution's HWIO kernel becomes an OIHW ``weight``, the head's (in,
 out) kernel a transposed one, and ``batch_stats`` become the BatchNorm
@@ -23,8 +24,9 @@ from apex_tpu_torch._kernels import resolve_device
 from apex_tpu_torch.amp.scaler import LossScalerState
 from apex_tpu_torch.optimizers.fused_adam import FusedAdamState
 
-__all__ = ["fused_adam_state_from_jax", "gpt_params_from_jax",
-           "resnet_params_from_jax", "scaler_state_from_jax"]
+__all__ = ["bert_params_from_jax", "fused_adam_state_from_jax",
+           "gpt_params_from_jax", "resnet_params_from_jax",
+           "scaler_state_from_jax"]
 
 
 def gpt_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -42,6 +44,13 @@ def gpt_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(params, ())
     return out
+
+
+def bert_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's ``BertModel`` state_dict from a JAX ``BertModel`` params
+    tree: the same path join as :func:`gpt_params_from_jax` (the LM head's
+    norm parameters are direct parameters of the model on both sides)."""
+    return gpt_params_from_jax(params)
 
 
 def resnet_params_from_jax(params: Dict[str, Any],

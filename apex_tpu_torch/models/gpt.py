@@ -39,12 +39,14 @@ from apex_tpu_torch.transformer.enums import AttnMaskType
 from apex_tpu_torch.transformer.layer import (
     KVCache,
     ParallelTransformer,
+    ShardAwareDropout,
     check_supported,
     rotary_embedding_for,
+    seed_dropout,
 )
 
 __all__ = ["Embedding", "GPTModel", "gpt2_small_config", "gpt_loss_fn",
-           "tinyllama_1_1b_config"]
+           "megatron_bert_345m_config", "tinyllama_1_1b_config"]
 
 
 def gpt2_small_config(**overrides) -> TransformerConfig:
@@ -87,12 +89,34 @@ def tinyllama_1_1b_config(**overrides) -> TransformerConfig:
     return TransformerConfig(**kw)
 
 
-class Embedding(nn.Module):
-    """Word + learned-position embeddings, cast to the compute dtype."""
+def megatron_bert_345m_config(**overrides) -> TransformerConfig:
+    """Megatron BERT-345M at full width, the configuration of NVIDIA
+    Megatron-LM's ``examples/pretrain_bert.sh``: 24 layers, hidden 1024,
+    16 heads (head_dim 64), FFN 4096, 512 positions, bert-large-uncased's
+    vocabulary of 30522 padded to a multiple of 128 (30592), LayerNorm
+    eps 1e-5, tanh-GELU, biased linears, tied embeddings, hidden and
+    attention dropout 0.1. With two tokentypes and the binary head,
+    ``BertModel`` holds 336,267,266 parameters in 301 tensors. Params
+    fp32, compute bf16 unless overridden."""
+    kw = dict(
+        num_layers=24, hidden_size=1024, num_attention_heads=16,
+        ffn_hidden_size=4096, vocab_size=30592, max_position_embeddings=512,
+        layernorm_epsilon=1e-5, hidden_dropout=0.1, attention_dropout=0.1,
+        activation="gelu", position_embedding_type="learned",
+        share_embeddings_and_output_weights=True,
+    )
+    kw.update(overrides)
+    return TransformerConfig(**kw)
 
-    def __init__(self, config: TransformerConfig, device=None):
+
+class Embedding(nn.Module):
+    """Word + learned-position (+ tokentype) embeddings, cast to the
+    compute dtype, then hidden dropout in training."""
+
+    def __init__(self, config: TransformerConfig, num_tokentypes: int = 0,
+                 device=None):
         super().__init__()
-        self.config = config
+        self.config, self.num_tokentypes = config, num_tokentypes
         self.word_embeddings = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size, config.params_dtype, device)
         self.position_embeddings = None
@@ -100,15 +124,55 @@ class Embedding(nn.Module):
             self.position_embeddings = nn.Parameter(torch.empty(
                 config.max_position_embeddings, config.hidden_size,
                 dtype=config.params_dtype, device=device))
+        self.tokentype_embeddings = None
+        if num_tokentypes > 0:
+            self.tokentype_embeddings = nn.Parameter(torch.empty(
+                num_tokentypes, config.hidden_size,
+                dtype=config.params_dtype, device=device))
+        self.dropout = ShardAwareDropout(config.hidden_dropout)
 
-    def forward(self, tokens, position_ids=None):
+    def forward(self, tokens, position_ids=None, tokentype_ids=None):
         h = self.word_embeddings(tokens)  # (b, s, h)
         if self.position_embeddings is not None:
             if position_ids is None:
                 position_ids = torch.arange(tokens.shape[1],
                                             device=tokens.device)[None, :]
             h = h + self.position_embeddings[position_ids]
-        return h.transpose(0, 1).to(self.config.compute_dtype)  # (s, b, h)
+        if tokentype_ids is not None:
+            if self.num_tokentypes <= 0:
+                raise ValueError(
+                    "tokentype_ids passed but num_tokentypes == 0 "
+                    "(ref: Megatron Embedding raises on this mismatch)")
+            h = h + self.tokentype_embeddings[tokentype_ids]
+        elif self.num_tokentypes > 0:
+            raise ValueError(
+                "num_tokentypes > 0 but no tokentype_ids passed: the "
+                "tokentype table would silently train as dead weight")
+        h = h.transpose(0, 1).to(self.config.compute_dtype)  # (s, b, h)
+        return self.dropout(h)
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, seed: int) -> None:
+    """Draws ``model``'s parameters, in ``named_parameters`` order, from a
+    generator on their device seeded by ``seed``: normal 0.02 for the
+    tables and the untied head, normal 1/sqrt(fan_in) for the kernels,
+    ones for the norm scales and zeros for the biases."""
+    params = list(model.named_parameters())
+    gen = torch.Generator(device=params[0][1].device).manual_seed(seed)
+    for name, p in params:
+        leaf = name.rsplit(".", 1)[-1]
+        if (leaf in ("embedding", "position_embeddings",
+                     "tokentype_embeddings")
+                or name.startswith("output_layer.")):
+            std = 0.02
+        elif leaf == "kernel":
+            std = 1.0 / math.sqrt(p.shape[0])
+        else:  # norm scales are ones, biases zeros
+            p.fill_(1.0 if leaf.endswith("scale") else 0.0)
+            continue
+        p.copy_(torch.randn(p.shape, generator=gen, device=p.device,
+                            dtype=torch.float32) * std)
 
 
 class GPTModel(nn.Module):
@@ -121,7 +185,7 @@ class GPTModel(nn.Module):
         check_supported(config)
         device = resolve_device(device)
         self.config = config
-        self.embedding = Embedding(config, device)
+        self.embedding = Embedding(config, device=device)
         self.output_layer = None
         if not config.share_embeddings_and_output_weights:
             self.output_layer = ColumnParallelLinear(
@@ -142,26 +206,14 @@ class GPTModel(nn.Module):
             self.rope_cos = torch.cos(f).to(device)
             self.rope_sin = torch.sin(f).to(device)
         self.init_weights(seed)
+        seed_dropout(self, seed, device)
 
     @property
     def device(self) -> torch.device:
         return self.embedding.word_embeddings.embedding.device
 
-    @torch.no_grad()
     def init_weights(self, seed: int) -> None:
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if (leaf in ("embedding", "position_embeddings")
-                    or name.startswith("output_layer.")):
-                std = 0.02
-            elif leaf == "kernel":
-                std = 1.0 / math.sqrt(p.shape[0])
-            else:  # norm scales are ones, biases zeros
-                p.fill_(1.0 if leaf == "scale" else 0.0)
-                continue
-            p.copy_(torch.randn(p.shape, generator=gen, device=p.device,
-                                dtype=torch.float32) * std)
+        init_params(self, seed)
 
     def _rotary(self, positions):
         """(cos, sin), each (s, b, 1, rot_dim), for (b, s) positions."""

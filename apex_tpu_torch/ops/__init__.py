@@ -4,6 +4,8 @@
 differentiable through their backward kernels; ``ops.rope`` (rotary
 positions, plain PyTorch, as XLA fuses them in the JAX package);
 ``ops.xentropy`` (softmax cross-entropy with label smoothing, plain
-PyTorch); and ``ops.multi_tensor`` (flat buffers of a parameter
-collection). The functions are not
+PyTorch); ``ops.softmax`` (the scaled, masked softmax family that
+BERT's unfused attention runs, plain PyTorch in fp32); and
+``ops.multi_tensor`` (flat buffers of a parameter collection). The
+functions are not
 re-exported here, so that ``ops.layer_norm`` stays the module."""

@@ -1,5 +1,7 @@
-"""Tensor-parallel layers at tp = 1, and BatchNorm's statistics as
-moments at a data-parallel world of one."""
+"""Tensor-parallel layers at tp = 1, BatchNorm's statistics as moments
+at a data-parallel world of one, the parallel RNG seeds
+(``parallel.random``) and the no-pipelining schedule
+(``parallel.pipeline``)."""
 
 from apex_tpu_torch.parallel.layers import (
     ColumnParallelLinear,

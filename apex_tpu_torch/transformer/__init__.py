@@ -8,16 +8,20 @@ from apex_tpu_torch.transformer.enums import (
     ModelType,
 )
 from apex_tpu_torch.transformer.layer import (
+    CoreAttention,
     KVCache,
     Norm,
     ParallelAttention,
     ParallelMLP,
     ParallelTransformer,
     ParallelTransformerLayer,
+    ShardAwareDropout,
+    seed_dropout,
 )
 
 __all__ = [
-    "AttnMaskType", "AttnType", "KVCache", "LayerType", "ModelType", "Norm",
-    "ParallelAttention", "ParallelMLP", "ParallelTransformer",
-    "ParallelTransformerLayer", "TransformerConfig",
+    "AttnMaskType", "AttnType", "CoreAttention", "KVCache", "LayerType",
+    "ModelType", "Norm", "ParallelAttention", "ParallelMLP",
+    "ParallelTransformer", "ParallelTransformerLayer", "ShardAwareDropout",
+    "TransformerConfig", "seed_dropout",
 ]

@@ -32,8 +32,8 @@ class TransformerConfig:
     # sliding-window attention (mistral-style); causal self-attention only
     attention_window: Optional[int] = None
 
-    # dropout is not ported yet: a module in training mode with a nonzero
-    # rate raises
+    # dropout runs in training mode only (transformer/layer.py); attention
+    # dropout takes the unfused CoreAttention path
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
     layernorm_epsilon: float = 1e-5
@@ -42,8 +42,8 @@ class TransformerConfig:
     activation: str = "gelu"  # "gelu" | "geglu" | "relu" | "swiglu"
     apply_residual_connection_post_layernorm: bool = False
     fp32_residual_connection: bool = False
-    # cancels exactly in the fp32 softmax, so attention ignores it (as the
-    # JAX flash path does)
+    # cancels in the fp32 softmax: the flash path ignores it (as the JAX
+    # flash path does), CoreAttention moves num_layers into its softmax scale
     apply_query_key_layer_scaling: bool = False
 
     position_embedding_type: str = "learned"  # "learned" | "rope" | "none"

@@ -7,11 +7,25 @@ per head as ``[q_h | k_h | v_h]`` (the JAX reshape to (s, b, heads,
 parameter tree maps onto ``state_dict`` keys by joining its path with
 dots (models/convert.py).
 
-Only tensor-, sequence- and context-parallel size 1: dropout (a nonzero
-rate in training mode), ``CoreAttention``, MoE, sequence and context
-parallelism and recompute raise ``NotImplementedError`` where a config
-asks for them. Attention always takes the flash path; LayerNorm, RMSNorm
-and attention differentiate through their backward kernels.
+Only tensor-, sequence- and context-parallel size 1: MoE, sequence and
+context parallelism and recompute raise ``NotImplementedError`` where a
+config asks for them. LayerNorm, RMSNorm and flash attention
+differentiate through their backward kernels.
+
+Attention dispatch is the JAX package's: the flash kernel when there is
+no dense ``attention_mask`` and no attention dropout in training (a
+(b, s) key-padding row goes to the kernel as it is); otherwise the
+unfused :class:`CoreAttention` (fp32 scores, the scaled-softmax family of
+``ops.softmax``, attention dropout on the fp32 probabilities), with the
+key-padding row folded into the dense mask, GQA's K/V repeated per query
+head and a sliding window's lower edge folded in.
+
+Dropout (``ShardAwareDropout``) runs in training mode only, in JAX's
+order: the embedding's, then in each layer the attention probabilities'
+(``CoreAttention``), after attention and after the MLP. Its masks come
+from ``torch.Generator`` objects the modules are handed
+(:func:`seed_dropout`, with ``parallel.random``'s seeds), never from the
+global RNG; one mask draw, :func:`keep_mask`, serves every module.
 
 Rotary positions (``position_embedding_type="rope"``): the model hands
 every attention layer the cos and sin rows of its tokens' positions,
@@ -29,29 +43,40 @@ out, so each row of the cache carries its own position
 (:attr:`KVCache.index`).
 """
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from apex_tpu_torch.ops.attention import flash_attention
+from apex_tpu_torch.ops.attention import (
+    causal_mask,
+    flash_attention,
+    window_mask,
+)
 from apex_tpu_torch.ops.layer_norm import layer_norm, rms_norm
 from apex_tpu_torch.ops.rope import (
     apply_rotary_pos_emb_cached,
     rope_frequencies,
 )
+from apex_tpu_torch.ops.softmax import fused_scale_mask_softmax
 from apex_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
+)
+from apex_tpu_torch.parallel.random import (
+    data_parallel_generator,
+    model_parallel_generator,
+    shard_aware_generator,
 )
 from apex_tpu_torch.transformer.config import TransformerConfig
 from apex_tpu_torch.transformer.enums import AttnMaskType
 
 __all__ = [
-    "KVCache", "Norm", "ParallelAttention", "ParallelMLP",
-    "ParallelTransformer", "ParallelTransformerLayer",
-    "rotary_embedding_for",
+    "CoreAttention", "KVCache", "Norm", "ParallelAttention", "ParallelMLP",
+    "ParallelTransformer", "ParallelTransformerLayer", "ShardAwareDropout",
+    "keep_mask", "rotary_embedding_for", "seed_dropout",
 ]
 
 
@@ -168,9 +193,94 @@ class ParallelMLP(nn.Module):
         return self.dense_4h_to_h(h)
 
 
+def keep_mask(generator: torch.Generator, keep_prob: float, shape,
+              device) -> torch.Tensor:
+    """The dropout mask: bool, True with probability ``keep_prob``
+    (``uniform < keep_prob``, as ``jax.random.bernoulli`` draws it)."""
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+
+class ShardAwareDropout(nn.Module):
+    """Dropout in training mode at a nonzero rate (else the identity):
+    ``where(keep, x / (1 - rate), 0)`` in x's dtype, the divisor rounded to
+    that dtype as JAX rounds its weak-typed scalar. ``model_parallel`` marks a region whose shards hold different
+    slices (tp-sharded heads), which draws from the model-parallel
+    generator. ``generator`` is handed in (:func:`seed_dropout`); a draw
+    without one raises."""
+
+    def __init__(self, rate: float, axis_names=(),
+                 model_parallel: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rate, self.axis_names = rate, tuple(axis_names)
+        self.model_parallel = model_parallel
+        self.generator = generator
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise ValueError("ShardAwareDropout has no generator: hand it "
+                             "one (transformer.layer.seed_dropout)")
+        gen = shard_aware_generator(self.generator, self.axis_names)
+        keep = keep_mask(gen, 1.0 - self.rate, x.shape, x.device)
+        scale = torch.tensor(1.0 - self.rate, dtype=x.dtype, device=x.device)
+        return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
+def seed_dropout(module: nn.Module, seed: int, device) -> None:
+    """Hands every ShardAwareDropout under ``module`` its generator: the
+    data-parallel one of ``seed``, or, for a model-parallel region, the
+    model-parallel one of tp rank 0 (``parallel.random``)."""
+    dp = data_parallel_generator(seed, device)
+    mp = model_parallel_generator(seed, 0, device)
+    for m in module.modules():
+        if isinstance(m, ShardAwareDropout):
+            m.generator = mp if m.model_parallel else dp
+
+
+class CoreAttention(nn.Module):
+    """Unfused attention for a dense mask or attention dropout: fp32
+    scores of q and k times ``1 / sqrt(kv_channels)`` (with the layer
+    scaling coefficient ``num_layers`` moved into the softmax's scale when
+    ``apply_query_key_layer_scaling``), ``fused_scale_mask_softmax``
+    (a padding mask is folded into the causal one), attention dropout on
+    the fp32 probabilities in training, and the product with v at fp32
+    accumulation, cast to q's dtype. q, k, v: (b, np, s, hn)."""
+
+    def __init__(self, config: TransformerConfig,
+                 attn_mask_type: AttnMaskType = AttnMaskType.causal):
+        super().__init__()
+        self.config, self.attn_mask_type = config, attn_mask_type
+        # heads are tp-sharded: the masks differ per tp rank
+        self.attention_dropout = ShardAwareDropout(
+            config.attention_dropout, axis_names=("tp",),
+            model_parallel=True)
+
+    def forward(self, q, k, v, attention_mask=None):
+        cfg = self.config
+        norm = 1.0 / math.sqrt(cfg.kv_channels)
+        scale, softmax_scale = norm, 1.0
+        if cfg.apply_query_key_layer_scaling:
+            coeff = max(1, cfg.num_layers)
+            scale, softmax_scale = norm / coeff, coeff
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        causal = self.attn_mask_type == AttnMaskType.causal
+        if causal and attention_mask is not None:
+            future = causal_mask(s.shape[-2], s.shape[-1], s.device)
+            attention_mask = torch.logical_or(attention_mask, future)
+            causal = False
+        probs = fused_scale_mask_softmax(s, attention_mask,
+                                         scale=softmax_scale, causal=causal)
+        probs = self.attention_dropout(probs)  # identity in eval or at 0
+        ctx = torch.matmul(probs.to(q.dtype).float(), v.float())
+        return ctx.to(q.dtype)
+
+
 class ParallelAttention(nn.Module):
-    """Self-attention (MHA or GQA) over the flash kernel, with KV-cache
-    prefill and decode."""
+    """Self-attention (MHA or GQA) over the flash kernel or
+    :class:`CoreAttention`, with KV-cache prefill and decode."""
 
     def __init__(self, config: TransformerConfig, layer_number: int = 0,
                  attn_mask_type: AttnMaskType = AttnMaskType.causal,
@@ -194,12 +304,16 @@ class ParallelAttention(nn.Module):
         else:
             self.query_key_value = ColumnParallelLinear(h, 3 * heads * hn, **kw)
         self.dense = RowParallelLinear(heads * hn, h, **kw)
+        self.core_attention = CoreAttention(config, attn_mask_type)
 
     def forward(self, hidden_states, key_padding_mask=None,
                 cache: Optional[KVCache] = None, decode_step: bool = False,
-                rotary=None):
+                rotary=None, attention_mask=None):
         """``rotary``: the (cos, sin) rows of the tokens' positions, each
-        (s, b or 1, 1, rot_dim), or None for no rotary positions."""
+        (s, b or 1, 1, rot_dim), or None for no rotary positions.
+        ``key_padding_mask``: (b, s) bool, True = padded-out key.
+        ``attention_mask``: bool broadcastable to (b, np, sq, sk), True =
+        masked out; it takes the unfused path."""
         cfg = self.config
         s, b, _ = hidden_states.shape
         heads, hn = cfg.num_attention_heads, cfg.kv_channels
@@ -218,8 +332,18 @@ class ParallelAttention(nn.Module):
 
         causal = self.attn_mask_type == AttnMaskType.causal
         window = cfg.attention_window if causal else None
-        if cache is not None and key_padding_mask is not None:
+        if cache is not None and (key_padding_mask is not None
+                                  or attention_mask is not None):
             raise NotImplementedError("KV-cache decode computes its own masks")
+        use_flash = attention_mask is None and (
+            cfg.attention_dropout == 0.0 or not self.training)
+        if key_padding_mask is not None and not use_flash:
+            # fold the (b, sk) padding row into the dense mask for the
+            # unfused path (True = masked out)
+            kp = key_padding_mask.bool()[:, None, None, :]
+            attention_mask = (kp if attention_mask is None
+                              else torch.logical_or(attention_mask, kp))
+            key_padding_mask = None
         if decode_step:
             if cache is None:
                 raise ValueError("decode_step needs the cache a prefill filled")
@@ -238,16 +362,32 @@ class ParallelAttention(nn.Module):
         else:
             if cache is not None:
                 cache.prefill(self.layer_number, kb, vb)
-            ctx = flash_attention(qb, kb, vb, causal=causal,
-                                  key_padding_mask=key_padding_mask,
-                                  window=window)
+            if use_flash:
+                ctx = flash_attention(qb, kb, vb, causal=causal,
+                                      key_padding_mask=key_padding_mask,
+                                      window=window)
+            else:
+                if kb.shape[1] != qb.shape[1]:  # GQA through the unfused path
+                    rep = qb.shape[1] // kb.shape[1]
+                    kb = kb.repeat_interleave(rep, dim=1)
+                    vb = vb.repeat_interleave(rep, dim=1)
+                if window is not None:
+                    # the band's lower edge; the causal upper edge stays
+                    # with CoreAttention's own mask handling
+                    below = window_mask(qb.shape[2], kb.shape[2], window,
+                                        qb.device)[None, None]
+                    attention_mask = (
+                        below if attention_mask is None
+                        else torch.logical_or(attention_mask, below))
+                ctx = self.core_attention(qb, kb, vb, attention_mask)
         # (b, np, s, hn) -> (s, b, np * hn)
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, heads * hn)
         return self.dense(ctx)
 
 
 class ParallelTransformerLayer(nn.Module):
-    """Pre-LN block: LN -> attention -> residual -> LN -> MLP -> residual."""
+    """Pre-LN block: LN -> attention -> (dropout) residual -> LN -> MLP ->
+    (dropout) residual."""
 
     def __init__(self, config: TransformerConfig, layer_number: int = 0,
                  attn_mask_type: AttnMaskType = AttnMaskType.causal,
@@ -260,27 +400,31 @@ class ParallelTransformerLayer(nn.Module):
             config, layer_number, attn_mask_type, device)
         self.post_attention_layernorm = Norm(config, device)
         self.mlp = ParallelMLP(config, device)
+        self.hidden_dropout = ShardAwareDropout(config.hidden_dropout)
 
     def forward(self, hidden_states, key_padding_mask=None, cache=None,
-                decode_step: bool = False, rotary=None):
+                decode_step: bool = False, rotary=None, attention_mask=None):
         cfg = self.config
-        if self.training and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0):
-            raise NotImplementedError(
-                "dropout is not ported yet: call .eval() or set "
-                "hidden_dropout = attention_dropout = 0")
         dtype = hidden_states.dtype
         rdtype = torch.float32 if cfg.fp32_residual_connection else dtype
         post_ln = cfg.apply_residual_connection_post_layernorm
 
         ln_out = self.input_layernorm(hidden_states)
         attn_out = self.self_attention(ln_out, key_padding_mask, cache,
-                                       decode_step, rotary)
+                                       decode_step, rotary, attention_mask)
         residual = ln_out if post_ln else hidden_states
+        # the module is the identity in eval or at rate 0: no call on the
+        # decode path's per-layer host time
+        drop = self.training and cfg.hidden_dropout > 0.0
+        if drop:
+            attn_out = self.hidden_dropout(attn_out)
         h = (residual.to(rdtype) + attn_out.to(rdtype)).to(dtype)
 
         ln2 = self.post_attention_layernorm(h)
         mlp_out = self.mlp(ln2)
         residual = ln2 if post_ln else h
+        if drop:
+            mlp_out = self.hidden_dropout(mlp_out)
         return (residual.to(rdtype) + mlp_out.to(rdtype)).to(dtype)
 
 
@@ -298,10 +442,11 @@ class ParallelTransformer(nn.Module):
         self.final_layernorm = Norm(config, device) if post_layer_norm else None
 
     def forward(self, hidden_states, key_padding_mask=None, cache=None,
-                decode_step: bool = False, rotary=None):
+                decode_step: bool = False, rotary=None, attention_mask=None):
         for i in range(self.num_layers):
             hidden_states = getattr(self, f"layer_{i}")(
-                hidden_states, key_padding_mask, cache, decode_step, rotary)
+                hidden_states, key_padding_mask, cache, decode_step, rotary,
+                attention_mask)
         if self.final_layernorm is not None:
             hidden_states = self.final_layernorm(hidden_states)
         return hidden_states

@@ -10,8 +10,9 @@ __all__ = ["profile_device"]
 def profile_device(fn, top: int = 15) -> dict:
     """Runs ``fn()`` under ``torch.profiler`` (CPU and CUDA activities)
     and returns the wall time, the device time summed over kernels, the
-    device's idle share of the wall time and the ``top`` kernels by
-    device time. ``fn`` should end in ``torch.cuda.synchronize()``."""
+    device's idle share of the wall time, the ``top`` kernels by device
+    time and the ``top`` host operations by their own (self) CPU time.
+    ``fn`` should end in ``torch.cuda.synchronize()``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -25,6 +26,9 @@ def profile_device(fn, top: int = 15) -> dict:
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     return {
         "gpu": torch.cuda.get_device_name(0),
@@ -32,4 +36,6 @@ def profile_device(fn, top: int = 15) -> dict:
         "device_idle_share": 1.0 - device_ms / (wall * 1e3),
         "top": [{"name": k[:80], "device_ms": ms, "calls": n}
                 for k, ms, n in rows[:top]],
+        "host_top": [{"name": k[:80], "self_cpu_ms": ms, "calls": n}
+                     for k, ms, n in host[:top]],
     }

@@ -19,10 +19,16 @@ swallowed:
    Llama's 32/4 over 8 splits with a dead and a full lane, sk = 1000, a
    window at sq = 1; flash forward (prefill, split and unsplit decode) and
    backward at head_dim 256 and 160 and at batch x heads = 65,600, in both
-   dtypes; LayerNorm forward at GPT-2's (8192, 768), (768, 768) and (8,
-   768), at hidden 770 and on an unaligned input (the loop); LayerNorm
-   backward at rows {1, 1000, 8192} x hidden {768, 1000, 1024, 1600, 1001},
-   without weight, and on an unaligned input, against the plain version
+   dtypes; flash forward and backward at BERT-345M's non-causal
+   (4,16,512,64), without and with key padding of lengths 512/400/137/1
+   (a row that keeps one key), in both dtypes, and the forward at BERT
+   serving's (32,16,512,64) with the serving batch's own 32 lengths;
+   LayerNorm forward at GPT-2's (8192, 768), (768, 768) and (8, 768), at
+   BERT's (2048, 1024) and serving's (16384, 1024), at hidden
+   770 and on an unaligned input (the loop); LayerNorm backward at rows
+   {1, 1000, 8192} x hidden {768, 1000, 1024, 1600, 1001} and at (2048,
+   1024), without weight, and on an unaligned input, against the plain
+   version
    and against the loop kernel on the same inputs; Adam over
    GPT-2 small's 124,439,808 parameters and a ragged length, both decay
    modes, steps 1 and 10; RMSNorm forward and backward at rows {1, 1000,
@@ -38,7 +44,11 @@ swallowed:
    same function (the timed flash outputs held to the same tolerances; the
    flash, LayerNorm and RMSNorm forward, the RMSNorm backward and the flash
    backward kernels and their library calls in turns over three rounds,
-   medians, with each kernel's share of its bound; the decode-shape rows
+   medians, with each kernel's share of its bound; BERT's rows: flash
+   forward and backward at (4,16,512,64) non-causal with and without key
+   padding, the forward at serving's (32,16,512,64) with its lengths,
+   LayerNorm forward at (2048, 1024) and (16384, 1024) and backward at
+   (2048, 1024), in bf16 and fp32; the decode-shape rows
    and the LayerNorm backward also as CUDA graphs of the kernel alone and
    of the library call, and the LayerNorm backward's loop kernel both ways
    beside it);
@@ -81,17 +91,40 @@ swallowed:
    10 timed steps of loss, backward and ``fused_sgd``; finite losses that
    fall in each mode; then a small fp32 ResNet's loss, every gradient and
    its new batch statistics on the card against the CPU;
-9. prints the ``kernels`` line (all nine kernels; ``launches`` is the
+9. BERT serving: Megatron BERT-345M at full width and depth (24 x 1024,
+   16 heads, FFN 4096, vocab 30592, 512 positions, two tokentypes, the
+   binary head; seeded random weights, params fp32, compute bf16) in eval
+   mode over 32 sequences of lengths 64-512 (``numpy.RandomState(0)``)
+   padded to 512, with ``attention_mask`` and ``tokentype_ids``: one
+   warm-up and 5 timed passes (sequences/s and real tokens/s); finite MLM
+   and NSP logits, the LayerNorm and flash forward kernels run, changing
+   the padded tokens leaves the kept positions' logits bit-equal, and a
+   short padded fp32 batch's logits on the card agree with the CPU;
+10. BERT pre-training: the standalone BERT (``standalone_bert``, the body
+   of ``run_bert``) at Megatron BERT-345M (micro batch 4, global batch 8,
+   seq 512, lr 1e-4, bf16): one warm-up step (the loss within 1.0 of ln
+   30592, every one of the 301 parameters a finite gradient) and 5
+   measured steps (tokens/s, step ms); six kernels run; then one step
+   (as one serving pass before it) under ``torch.profiler``: device time,
+   idle share and the top kernels;
+11. BERT dropout: BERT-345M in training mode with 0.1 hidden and
+   attention dropout (the CoreAttention path) on one fixed padded 4 x 512
+   batch, 8 ``fused_adam`` steps at lr 1e-4: the loss falls, no flash
+   kernel runs, the LayerNorm and Adam kernels do; then the dropout's kept
+   share and scale on the card and two models of one seed bit-equal;
+12. prints the ``kernels`` line (all nine kernels; ``launches`` is the
    count of the kernel's first path below that runs it, and
    ``launches_by_path`` has every path's), then as the last line
    ``{"ok": true, "device": {...}}``.
 
 The paths, each driven with the counts set to 0 just before it and read
 just after: ``serving`` and ``training`` (GPT-2 small), ``llama_serving``
-and ``llama_finetune`` (TinyLlama-1.1B), and ``resnet`` (ResNet-50, which
-runs none of the nine kernels).
+and ``llama_finetune`` (TinyLlama-1.1B), ``resnet`` (ResNet-50, which
+runs none of the nine kernels), and ``bert_serving``, ``bert_pretrain``
+and ``bert_dropout`` (Megatron BERT-345M).
 """
 
+import gc
 import hashlib
 import json
 import math
@@ -166,6 +199,11 @@ PATH_KERNELS = {
     # bench.py's ResNet-50 step: the JAX package runs it on no Pallas
     # kernel, so the port's runs on none of its own either
     "resnet": (),
+    "bert_serving": ("layer_norm_fwd", "flash_fwd"),
+    "bert_pretrain": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                      "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
+    # attention dropout takes CoreAttention: no flash kernel (checked)
+    "bert_dropout": ("layer_norm_fwd", "layer_norm_bwd", "adam_update"),
 }
 FORWARD_KERNELS = PATH_KERNELS["serving"]
 KERNEL_META = {  # name: (source, TPU kernel it replaces)
@@ -292,7 +330,8 @@ def ln_parity(errors):
     for dtype in (torch.float32, torch.bfloat16):
         for rows, hidden in ((1, 768), (8, 768), (768, 768), (1000, 768),
                              (8192, 768), (1, 1000), (1000, 1000),
-                             (8192, 1000), (77, 770), (8192, 770)):
+                             (8192, 1000), (77, 770), (8192, 770),
+                             (2048, 1024), (16384, 1024)):
             x, w, b = ln_inputs(rows, hidden, dtype, gen)
             out = ln.layer_norm(x, w, b, 1e-5)
             torch.cuda.synchronize()
@@ -376,6 +415,10 @@ def flash_cases(gen):
         q, k, v = attn_inputs(4100, 16, 4, 1, 40, 64, dtype, gen)
         yield ("b*h=65600 decode GQA 16q/4kv (4100,16,1,64) sk=40 "
                "key-padding", q, k, v, False, decode_kpm(4100, 40, gen), None)
+        yield from bert_flash_cases(dtype, gen)
+        q, k, v = attn_inputs(32, 16, 16, 512, 512, 64, dtype, gen)
+        yield (BERT_SERVING_FLASH, q, k, v, False,
+               lens_kpm(bert_serving_draw()[1].tolist(), 512), None)
         if dtype == torch.bfloat16:  # the Llama paths' shapes, in their dtype
             q, k, v = attn_inputs(1, 32, 4, 1536, 1536, 64, dtype, gen)
             yield ("Llama prefill GQA 32q/4kv causal (1,32,1536,64)", q, k, v,
@@ -384,6 +427,30 @@ def flash_cases(gen):
             yield ("Llama training GQA 32q/4kv causal (4,32,2048,64)", q, k,
                    v, True, None, None)
     return cases
+
+
+# BERT-345M's padded batch in the kernel-parity cases: the last row keeps
+# one key of 512
+BERT_LENS = (512, 400, 137, 1)
+
+
+def lens_kpm(lens, sk):
+    """(len(lens), sk) key-padding mask of these lengths (True = padded)."""
+    lens = torch.tensor(lens, device="cuda")
+    return torch.arange(sk, device="cuda")[None, :] >= lens[:, None]
+
+
+BERT_SERVING_FLASH = ("BERT serving non-causal (32,16,512,64) key-padding, "
+                      "the serving batch's 32 lengths")
+
+
+def bert_flash_cases(dtype, gen):
+    """BERT-345M's attention: non-causal (4,16,512,64), without and with a
+    key-padding row (one row keeps a single key)."""
+    q, k, v = attn_inputs(4, 16, 16, 512, 512, 64, dtype, gen)
+    yield "BERT non-causal (4,16,512,64)", q, k, v, False, None, None
+    yield ("BERT non-causal (4,16,512,64) key-padding, lengths "
+           "512/400/137/1", q, k, v, False, lens_kpm(BERT_LENS, 512), None)
 
 
 def wide_flash_cases(dtype, gen):
@@ -477,6 +544,9 @@ def ln_bwd_parity(errors):
                 x, w, _ = ln_inputs(rows, hidden, dtype, gen)
                 one(dtype, f"rows={rows} hidden={hidden}", x, w,
                     grads(rows, hidden, dtype))
+        # BERT-345M's rows: 4 x 512 tokens of hidden 1024
+        x, w, _ = ln_inputs(2048, 1024, dtype, gen)
+        one(dtype, "rows=2048 hidden=1024", x, w, grads(2048, 1024, dtype))
         x, _, _ = ln_inputs(1000, 768, dtype, gen)
         one(dtype, "rows=1000 hidden=768 no weight", x, None,
             grads(1000, 768, dtype))
@@ -508,6 +578,7 @@ def flash_bwd_cases(gen):
         q, k, v = attn_inputs(1, 12, 12, 77, 200, 64, dtype, gen)
         yield "causal sq!=sk (1,12,77,64) sk=200", q, k, v, True, None, None
         yield from wide_flash_cases(dtype, gen)
+        yield from bert_flash_cases(dtype, gen)
         if dtype == torch.bfloat16:  # the Llama training shape, in its dtype
             q, k, v = attn_inputs(4, 32, 4, 2048, 2048, 64, dtype, gen)
             yield ("Llama training GQA 32q/4kv causal (4,32,2048,64)", q, k,
@@ -546,8 +617,9 @@ def flash_bwd_parity(errors):
                   errors)
             check("flash_bwd_dkv", dtype, label + " dv", got[2], ref[2],
                   errors)
-            if kpm is not None and torch.count_nonzero(got[0][0]) != 0:
-                raise AssertionError("flash backward: the dead row has a "
+            if kpm is not None and torch.count_nonzero(
+                    got[0][kpm.all(dim=1)]) != 0:
+                raise AssertionError("flash backward: a dead row has a "
                                      "nonzero dq")
             same_twice("flash backward", label, got, at._flash_bwd_kernel(
                 q, k, v, do, lse, delta, *args))
@@ -753,7 +825,7 @@ def bound(bytes_moved, flops, peak_flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_layer_norm(rows, hidden, graph=False):
+def time_layer_norm(rows, hidden, graph=False, dtype=torch.bfloat16):
     """The forward at one shape: the kernel (through ``layer_norm``) and the
     library call timed in turns over three rounds, medians; with ``graph``,
     both also as CUDA graphs."""
@@ -763,7 +835,7 @@ def time_layer_norm(rows, hidden, graph=False):
     from apex_tpu_torch.ops import layer_norm as ln
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    x, w, b = ln_inputs(rows, hidden, torch.bfloat16, gen)
+    x, w, b = ln_inputs(rows, hidden, dtype, gen)
     wl, bl = w.to(x.dtype), b.to(x.dtype)
     esize = x.element_size()
     b_ms, by = bound(2 * rows * hidden * esize + 2 * hidden * 4,
@@ -774,7 +846,7 @@ def time_layer_norm(rows, hidden, graph=False):
         "kernel": lambda: ln.layer_norm(x, w, b),
         "library": lambda: F.layer_norm(x, (hidden,), wl, bl)})
     out = {
-        "shape": f"x ({rows},{hidden}) bf16",
+        "shape": f"x ({rows},{hidden}) {str(dtype)[6:]}",
         "max_abs_err": err, "ms": med["kernel"],
         "plain_ms": time_ms(lambda: ln._ln_ref(x, w, b, 1e-5)),
         "bound_ms": b_ms, "bound_by": by, "bound_share": b_ms / med["kernel"],
@@ -873,7 +945,7 @@ def time_flash(label, q, k, v, causal, kpm, errors, graph=False):
     return row
 
 
-def time_layer_norm_bwd(rows, hidden):
+def time_layer_norm_bwd(rows, hidden, dtype=torch.bfloat16):
     """The backward at one shape: the kernel (through the wrapper), the
     loop kernel on the same inputs and the library's backward timed in
     turns over three rounds, medians; then the kernel's and the loop's
@@ -885,16 +957,16 @@ def time_layer_norm_bwd(rows, hidden):
     from apex_tpu_torch.ops import layer_norm as ln
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    x, w, b = ln_inputs(rows, hidden, torch.bfloat16, gen)
-    dy = torch.randn(rows, hidden, generator=gen, device="cuda").bfloat16()
-    # reads x and dy, writes dx (bf16); reads w, writes dgamma and dbeta
-    b_ms, by = bound(3 * rows * hidden * 2 + 3 * hidden * 4,
+    x, w, b = ln_inputs(rows, hidden, dtype, gen)
+    dy = torch.randn(rows, hidden, generator=gen, device="cuda").to(dtype)
+    # reads x and dy, writes dx; reads w, writes dgamma and dbeta (fp32)
+    b_ms, by = bound(3 * rows * hidden * x.element_size() + 3 * hidden * 4,
                      12 * rows * hidden, FP32_FLOPS)
     got = ln._ln_bwd_kernel(x, w, dy, 1e-5)
     ref = ln._ln_bwd_ref(x, w, dy, 1e-5)
     xl = x.detach().requires_grad_(True)
-    wl = w.bfloat16().requires_grad_(True)
-    bl = b.bfloat16().requires_grad_(True)
+    wl = w.to(dtype).requires_grad_(True)
+    bl = b.to(dtype).requires_grad_(True)
     yl = F.layer_norm(xl, (hidden,), wl, bl)
     med, rounds = in_turns({
         "kernel": lambda: ln._ln_bwd_kernel(x, w, dy, 1e-5),
@@ -917,7 +989,7 @@ def time_layer_norm_bwd(rows, hidden):
     _, mean, rstd = torch.ops.aten.native_layer_norm(x, [hidden], wd, bd,
                                                      1e-5)
     row = {
-        "shape": f"x, dy ({rows},{hidden}) bf16",
+        "shape": f"x, dy ({rows},{hidden}) {str(dtype)[6:]}",
         "max_abs_err": float((got[0].float() - ref[0].float()).abs().max()),
         "ms": med["kernel"], "loop_ms": med["loop"],
         "plain_ms": time_ms(lambda: ln._ln_bwd_ref(x, w, dy, 1e-5)),
@@ -938,9 +1010,10 @@ def time_layer_norm_bwd(rows, hidden):
 FLASH_BWD_ROUNDS = 3
 
 
-def time_flash_bwd(gen, b, h, h_kv, s, errors, d=64):
+def time_flash_bwd(gen, b, h, h_kv, s, errors, d=64, causal=True, kpm=None):
     """dq and dk/dv at a training shape, (b, h, s, d) queries over h_kv
-    key/value heads, bf16 causal. The plain version and the library call
+    key/value heads, bf16, causal or not, with or without a key-padding
+    row. The plain version and the library call
     compute the whole backward (dq, dk and dv) and stand in both rows.
     The two kernels and the library's forward and forward+backward are
     timed in turns, FLASH_BWD_ROUNDS rounds, and each keeps its median, so
@@ -952,18 +1025,21 @@ def time_flash_bwd(gen, b, h, h_kv, s, errors, d=64):
     q, k, v = attn_inputs(b, h, h_kv, s, s, d, torch.bfloat16, gen)
     do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
     scale = 1.0 / math.sqrt(d)
-    o, lse = at._flash_kernel(q, k, v, scale, True)
+    o, lse = at._flash_kernel(q, k, v, scale, causal, kpm)
     delta = (do.float() * o.float()).sum(-1)
-    args = (q, k, v, do, lse, delta, scale, True)
-    pairs = b * h * s * (s + 1) // 2  # (query, key) pairs the mask keeps
+    args = (q, k, v, do, lse, delta, scale, causal, kpm)
+    # the (query, key) pairs the masks keep
+    keep = at._keep_mask(s, s, causal, None, kpm, "cuda").expand(b, 1, s, s)
+    pairs = int(keep.sum()) * h
     got = at._flash_bwd_kernel(*args)
     ref = at._flash_bwd_ref(*args)
     plain_ms = time_ms(lambda: at._flash_bwd_ref(*args), iters=10)
     qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    attn_mask = None if kpm is None else ~kpm[:, None, None, :]
 
     def sdpa():
-        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                              scale=scale,
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn_mask,
+                                              is_causal=causal, scale=scale,
                                               enable_gqa=h != h_kv)
 
     def sdpa_fwd_bwd():
@@ -992,8 +1068,11 @@ def time_flash_bwd(gen, b, h, h_kv, s, errors, d=64):
                      BF16_FLOPS)
     dkv_bound = bound(2 * q_t + 4 * kv_t + 2 * rows, 4 * 2 * pairs * d,
                       BF16_FLOPS)
-    label = (f"q,dO ({b},{h},{s},{d}) k,v ({b},{h_kv},{s},{d}) bf16 causal"
-             if h != h_kv else f"q,k,v,dO ({b},{h},{s},{d}) bf16 causal")
+    label = (f"q,dO ({b},{h},{s},{d}) k,v ({b},{h_kv},{s},{d}) bf16"
+             if h != h_kv else f"q,k,v,dO ({b},{h},{s},{d}) bf16")
+    label += " causal" if causal else " non-causal"
+    if kpm is not None:
+        label += " key-padding"
     out = []
     for name, parts, bnd in (("flash_bwd_dq", ((0, "dq"),), dq_bound),
                              ("flash_bwd_dkv", ((1, "dk"), (2, "dv")),
@@ -1008,9 +1087,9 @@ def time_flash_bwd(gen, b, h, h_kv, s, errors, d=64):
     return [out[0]], [out[1]]
 
 
-def flash_bwd_launchers(q, k, v, do, lse, delta, scale, causal):
+def flash_bwd_launchers(q, k, v, do, lse, delta, scale, causal, kpm=None):
     """Closures that launch the dq and the dk/dv kernel alone at these
-    inputs (the wrapper's reshapes done once, outside the timed
+    inputs (the wrapper's checks and reshapes done once, outside the timed
     launches)."""
     from apex_tpu_torch import _kernels
     from apex_tpu_torch.ops import attention as at
@@ -1023,8 +1102,10 @@ def flash_bwd_launchers(q, k, v, do, lse, delta, scale, causal):
     splits = at._dkv_splits(q, k)
     work = torch.empty(2 * splits * k3.numel(), device="cuda")
     lse, delta = lse.contiguous(), delta.contiguous()
+    kpm32 = at._check_kernel_args(q, k, v, kpm)
     ins = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
-           lse.data_ptr(), delta.data_ptr(), None)
+           lse.data_ptr(), delta.data_ptr(),
+           None if kpm32 is None else kpm32.data_ptr())
     shape = (b * h, sq, sk, d, h, h // h_kv)
     tail = (float(scale), int(causal), 0, _kernels.dtype_code(q))
     return (lambda: _kernels.FLASH_BWD_DQ(*ins, dq.data_ptr(), *shape, *tail),
@@ -1205,15 +1286,38 @@ def kernel_timings(errors):
         "d=256 training causal q (4,8,2048,256) k,v (4,1,2048,256) bf16",
         q, k, v, True, None, errors))
     del q, k, v
+    # BERT-345M's pre-training and serving attention, non-causal
+    q, k, v = attn_inputs(4, 16, 16, 512, 512, 64, torch.bfloat16, gen)
+    bert_kpm = lens_kpm(BERT_LENS, 512)
+    for kpm in (None, bert_kpm):
+        out["flash_fwd"].append(time_flash(
+            "BERT non-causal q,k,v (4,16,512,64) bf16"
+            + (" key-padding 512/400/137/1" if kpm is not None else ""),
+            q, k, v, False, kpm, errors))
+    q, k, v = attn_inputs(32, 16, 16, 512, 512, 64, torch.bfloat16, gen)
+    out["flash_fwd"].append(time_flash(
+        BERT_SERVING_FLASH + " bf16", q, k, v, False,
+        lens_kpm(bert_serving_draw()[1].tolist(), 512), errors))
+    del q, k, v
+    # BERT-345M's rows, bf16 and the LM head's fp32: pre-training's 4 x 512
+    # tokens of 1024 and serving's 32 x 512
+    out["layer_norm_fwd"] += [time_layer_norm(rows, 1024, dtype=dtype)
+                              for rows in (2048, 16384)
+                              for dtype in (torch.bfloat16, torch.float32)]
     # GPT-2 training's rows (eight warps a block), and GPT-2 XL's width
     # (four warps a block)
     out["layer_norm_bwd"] = [time_layer_norm_bwd(8192, 768),
-                             time_layer_norm_bwd(8192, 1600)]
+                             time_layer_norm_bwd(8192, 1600),
+                             time_layer_norm_bwd(2048, 1024),
+                             time_layer_norm_bwd(2048, 1024, torch.float32)]
     dq, dkv = time_flash_bwd(gen, 8, 12, 12, 1024, errors)
     ldq, ldkv = time_flash_bwd(gen, 4, 32, 4, 2048, errors)
     wdq, wdkv = time_flash_bwd(gen, 4, 8, 1, 2048, errors, d=256)
-    out["flash_bwd_dq"] = dq + ldq + wdq
-    out["flash_bwd_dkv"] = dkv + ldkv + wdkv
+    bdq, bdkv = time_flash_bwd(gen, 4, 16, 16, 512, errors, causal=False)
+    pdq, pdkv = time_flash_bwd(gen, 4, 16, 16, 512, errors, causal=False,
+                               kpm=bert_kpm)
+    out["flash_bwd_dq"] = dq + ldq + wdq + bdq + pdq
+    out["flash_bwd_dkv"] = dkv + ldkv + wdkv + bdkv + pdkv
     out["adam_update"] = [time_adam(N_GPT2_SMALL)]
     out["rms_norm_fwd"] = [time_rms_norm(8192, 2048),
                            time_rms_norm(8, 2048, graph=True)]
@@ -1645,6 +1749,7 @@ def llama_serving_phase(smi):
         raise AssertionError(f"Llama logits disagree with the plain path: "
                              f"{lerr}")
     del gpu32, cpu32, eng32, rec
+    gc.collect()  # the recorder and its engine refer to each other
     torch.cuda.empty_cache()
     return launches, serving
 
@@ -1803,6 +1908,357 @@ def resnet_card_vs_plain():
         f"1e-4, rtol 1e-3)")
 
 
+# -- BERT --------------------------------------------------------------------
+
+def log_profile(label, fn):
+    """Logs one call of ``fn`` under ``torch.profiler``: wall and device
+    ms, the device's idle share, the 12 kernels with the most device time
+    and the 12 host operations with the most self CPU time (after the
+    path's launch counts were read)."""
+    from apex_tpu_torch.utils.profiling import profile_device
+
+    torch.cuda.synchronize()
+    rep = profile_device(lambda: (fn(), torch.cuda.synchronize()), top=12)
+    log(f"profile {label}: wall {rep['wall_ms']:.2f} ms, device "
+        f"{rep['device_ms']:.2f} ms, idle {100 * rep['device_idle_share']:.1f}"
+        f"% " + json.dumps(rep["top"]))
+    log(f"profile {label} host: " + json.dumps(rep["host_top"]))
+
+
+BERT_SERVING = dict(batch=32, seq_len=512, min_len=64, passes=5)
+
+
+def bert_serving_draw():
+    """The serving batch's RandomState and its first draw, the 32 lengths
+    (the kernel-parity cases take the same lengths)."""
+    c = BERT_SERVING
+    rs = np.random.RandomState(SEED)
+    return rs, rs.randint(c["min_len"], c["seq_len"] + 1, c["batch"])
+
+
+def bert_batch(n, seq_len, lengths, vocab, rs):
+    """Tokens, attention_mask (1 = keep) and tokentype_ids (segment 1 from
+    half of each length) of ``n`` sequences of these lengths padded to
+    ``seq_len``, on the card."""
+    tokens = rs.randint(0, vocab, (n, seq_len))
+    pos = np.arange(seq_len)[None, :]
+    lens = np.asarray(lengths)[:, None]
+    mask = (pos < lens).astype(np.int64)
+    types = ((pos >= lens // 2) & (pos < lens)).astype(np.int64)
+    tokens = tokens * mask
+    return tuple(torch.as_tensor(x).cuda() for x in (tokens, mask, types))
+
+
+def bert_serving_phase(smi):
+    """BERT-345M's eval-mode forward over a padded batch: one warm-up pass,
+    then timed passes; the padding check and card against CPU."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.models import BertModel, megatron_bert_345m_config
+
+    c = BERT_SERVING
+    cfg = megatron_bert_345m_config()
+    model = BertModel(cfg, device="cuda", seed=SEED).eval()
+    rs, lengths = bert_serving_draw()
+    tokens, mask, types = bert_batch(c["batch"], c["seq_len"], lengths,
+                                     cfg.vocab_size, rs)
+    with torch.no_grad():
+        model(tokens, mask, types)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(c["passes"]):
+            logits, nsp = model(tokens, mask, types)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _kernels.launch_counts()
+    if logits.shape != (c["batch"], c["seq_len"], cfg.vocab_size) or \
+            nsp.shape != (c["batch"], 2):
+        raise AssertionError("BERT logits: wrong shape")
+    if not (torch.isfinite(logits).all() and torch.isfinite(nsp).all()):
+        raise AssertionError("BERT logits: non-finite")
+    for name in PATH_KERNELS["bert_serving"]:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"BERT serving run")
+    real = int(lengths.sum())
+    serving = {
+        "model": "Megatron BERT-345M 24x1024 vocab 30592 (random weights, "
+                 "bf16 compute, fp32 params), eval-mode forward",
+        "batch": c["batch"], "seq_len": c["seq_len"], "passes": c["passes"],
+        "real_tokens": real, "wall_s": wall,
+        "sequences_per_s": c["passes"] * c["batch"] / wall,
+        "real_tokens_per_s": c["passes"] * real / wall,
+        "pass_ms": wall / c["passes"] * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+        "launches_per_pass": {k: n / c["passes"]
+                              for k, n in launches.items()},
+        "gpu": smi,
+    }
+    log(f"bert serving: {serving['sequences_per_s']:.1f} sequences/s, "
+        f"{serving['real_tokens_per_s']:.1f} real tokens/s "
+        f"({serving['pass_ms']:.2f} ms a pass of {c['batch']} x "
+        f"{c['seq_len']})")
+    log("bert serving " + json.dumps(serving))
+    with torch.no_grad():
+        log_profile("bert serving pass", lambda: model(tokens, mask, types))
+
+    # the padded tokens do not reach the kept positions: bit-equal
+    other = torch.where(mask.bool(), tokens, (tokens + 7) % cfg.vocab_size)
+    with torch.no_grad():
+        logits2, nsp2 = model(other, mask, types)
+    keep = mask.bool()
+    if not (torch.equal(logits[keep], logits2[keep])
+            and torch.equal(nsp, nsp2)):
+        raise AssertionError("BERT: changing the padded tokens changed the "
+                             "kept positions' logits")
+    log("bert serving: changing the padded tokens leaves the kept positions'"
+        " logits bit-equal")
+    del logits, logits2, model
+    torch.cuda.empty_cache()
+    bert_card_vs_plain()
+    return launches, serving
+
+
+def bert_card_vs_plain():
+    """A short padded fp32 batch through BERT-345M at full width: logits
+    and NSP logits on the card against the plain path on the CPU, atol
+    2e-3 (24 layers of fp32 arithmetic summed in another order)."""
+    from apex_tpu_torch.models import BertModel, megatron_bert_345m_config
+
+    f32 = megatron_bert_345m_config(compute_dtype=torch.float32)
+    gpu = BertModel(f32, device="cuda", seed=SEED).eval()
+    cpu = BertModel(f32, device="cpu", seed=SEED + 1).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rs = np.random.RandomState(SEED + 20)
+    tokens, mask, types = bert_batch(2, 64, [64, 40], f32.vocab_size, rs)
+    with torch.no_grad():
+        lg, ng = (t.cpu() for t in gpu(tokens, mask, types))
+        lc, nc = cpu(tokens.cpu(), mask.cpu(), types.cpu())
+    err = max(float((lg - lc).abs().max()), float((ng - nc).abs().max()))
+    log(f"bert logits card vs cpu plain (fp32, 2x64 tokens, lengths 64/40): "
+        f"max_abs_err={err:.3e} (atol 2e-3)")
+    if not torch.isfinite(lg).all() or err > 2e-3:
+        raise AssertionError(f"BERT logits disagree with the plain path: "
+                             f"{err}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+BERT_PRETRAIN_ARGV = (
+    "--num-layers 24 --hidden-size 1024 --num-attention-heads 16 "
+    "--seq-length 512 --max-position-embeddings 512 --micro-batch-size 4 "
+    "--global-batch-size 8 --lr 1e-4 --bf16 --train-iters 7").split()
+BERT_VOCAB = 30592  # bert-large-uncased's 30522, padded to a multiple of 128
+
+
+def bert_pretrain_phase(smi):
+    """The standalone BERT (``standalone_bert``, the body of ``run_bert``)
+    at Megatron BERT-345M: one warm-up step, 5 measured steps, then one
+    step under ``torch.profiler``."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.transformer.testing import parse_args
+    from apex_tpu_torch.transformer.testing.standalone_bert import (
+        BertPretraining,
+    )
+
+    args = parse_args(args=BERT_PRETRAIN_ARGV)
+    args.padded_vocab_size = BERT_VOCAB
+    run = BertPretraining(args, device="cuda")
+    n_params = sum(p.numel() for p in run.model.parameters())
+    n_tensors = len(list(run.model.parameters()))
+    if (n_tensors, n_params) != (301, 336_267_266):
+        raise AssertionError(f"{n_tensors} parameters of {n_params} elements")
+    loss0, grads = run.step(0)  # warm-up
+    loss0 = float(loss0)
+    bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
+    if bad or not math.isfinite(loss0):
+        raise AssertionError(f"warm-up step: loss {loss0}, no finite "
+                             f"gradient for {bad}")
+    if abs(loss0 - math.log(BERT_VOCAB)) > 1.0:
+        raise AssertionError(f"the first loss {loss0} is not within 1.0 of "
+                             f"ln {BERT_VOCAB}")
+    log(f"bert pretrain warm-up: loss {loss0:.4f} (ln {BERT_VOCAB} = "
+        f"{math.log(BERT_VOCAB):.4f}); all 301 parameters got a finite "
+        f"gradient")
+    del grads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    steps, t_all = [], 0.0
+    for i in range(1, run.steps - 1):  # the last batch is profiled
+        t0 = time.perf_counter()
+        loss, _ = run.step(i)
+        loss = float(loss)
+        ms = (time.perf_counter() - t0) * 1e3
+        t_all += ms
+        steps.append(dict(step=i, loss=loss, step_ms=ms))
+        log(f"bert step {i} loss {loss:.4f} step_ms {ms:.2f}")
+    launches = _kernels.launch_counts()
+    losses = [r["loss"] for r in steps]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite BERT loss: {losses}")
+    for name in PATH_KERNELS["bert_pretrain"]:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"BERT pre-training run")
+    n = len(steps)
+    tokens = n * args.global_batch_size * args.seq_length
+    pretrain = {
+        "model": "Megatron BERT-345M 24x1024 vocab 30592 (random weights, "
+                 "bf16 compute, fp32 params), standalone_bert",
+        "micro_batch": args.micro_batch_size,
+        "global_batch": args.global_batch_size, "seq_len": args.seq_length,
+        "lr": args.lr, "steps": n,
+        "tokens_per_s": tokens / (t_all / 1e3),
+        "step_ms_mean": t_all / n,
+        "step_ms_min": min(r["step_ms"] for r in steps),
+        "warmup_loss": loss0, "losses": losses,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+        "launches_per_step": {k: c / n for k, c in launches.items()},
+        "gpu": smi,
+    }
+    log(f"bert pretrain: {pretrain['tokens_per_s']:.1f} tokens/s over {n} "
+        f"steps of {args.global_batch_size} x {args.seq_length} tokens, "
+        f"{pretrain['step_ms_mean']:.2f} ms a step, peak "
+        f"{pretrain['peak_mem_gb']:.2f} GB")
+    log("bert pretrain " + json.dumps(pretrain))
+    log_profile("bert pretrain step", lambda: run.step(run.steps - 1))
+    del run
+    torch.cuda.empty_cache()
+    return launches, pretrain
+
+
+BERT_DROPOUT = dict(batch=4, seq_len=512, steps=8, lr=1e-4)
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def bert_dropout_phase(smi):
+    """BERT-345M in training mode with Megatron's 0.1 hidden and attention
+    dropout (the CoreAttention path) on one fixed padded batch, through
+    ``fused_adam``; then the dropout's statistics on the card."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.models import BertModel, megatron_bert_345m_config
+    from apex_tpu_torch.optimizers import fused_adam
+
+    c = BERT_DROPOUT
+    cfg = megatron_bert_345m_config()
+    model = BertModel(cfg, device="cuda", seed=SEED)
+    rs = np.random.RandomState(SEED + 30)
+    lengths = rs.randint(64, c["seq_len"] + 1, c["batch"])
+    tokens, mask, types = bert_batch(c["batch"], c["seq_len"], lengths,
+                                     cfg.vocab_size, rs)
+    labels = torch.as_tensor(rs.randint(0, cfg.vocab_size, tokens.shape),
+                             device="cuda")
+    keep = mask.float()
+    params = dict(model.named_parameters())
+    opt = fused_adam(lr=c["lr"], weight_decay=0.01)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    losses, t_all = [], 0.0
+    for i in range(c["steps"]):
+        t0 = time.perf_counter()
+        lm, nsp = model(tokens, mask, types, lm_labels=labels)
+        loss = (lm * keep).sum() / keep.sum()
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()), allow_unused=True)))
+        grads = {n: torch.zeros_like(p) if grads[n] is None else grads[n]
+                 for n, p in params.items()}
+        updates, state = opt.update(grads, state, params)
+        with torch.no_grad():
+            for n, p in params.items():
+                p.add_(updates[n])
+        losses.append(float(loss))
+        ms = (time.perf_counter() - t0) * 1e3
+        t_all += ms
+        log(f"bert dropout step {i} loss {losses[-1]:.4f} step_ms {ms:.2f}")
+    launches = _kernels.launch_counts()
+    if not torch.isfinite(nsp).all():
+        raise AssertionError("BERT dropout: non-finite NSP logits")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite BERT dropout loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the BERT dropout loss did not fall: {losses}")
+    for name in PATH_KERNELS["bert_dropout"]:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"BERT dropout run")
+    ran = {name: launches[name] for name in FLASH_KERNELS if launches[name]}
+    if ran:
+        raise AssertionError(f"the flash kernels ran on the CoreAttention "
+                             f"path: {ran}")
+    tokens_n = c["steps"] * c["batch"] * c["seq_len"]
+    dropout = {
+        "model": "Megatron BERT-345M 24x1024 vocab 30592, hidden and "
+                 "attention dropout 0.1 (CoreAttention), bf16 compute",
+        "batch": c["batch"], "seq_len": c["seq_len"], "steps": c["steps"],
+        "lr": c["lr"], "losses": losses,
+        "tokens_per_s": tokens_n / (t_all / 1e3),
+        "step_ms_mean": t_all / c["steps"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "gpu": smi,
+    }
+    log(f"bert dropout: losses {losses[0]:.4f} -> {losses[-1]:.4f} over "
+        f"{c['steps']} steps, {dropout['step_ms_mean']:.2f} ms a step, peak "
+        f"{dropout['peak_mem_gb']:.2f} GB; flash launches 0")
+    log("bert dropout " + json.dumps(dropout))
+    del model, params, state, grads, updates
+    torch.cuda.empty_cache()
+    dropout_statistics()
+    return launches, dropout
+
+
+def dropout_statistics():
+    """A small BERT's dropout modules on the card: the kept share of 2^24
+    elements within 4 sigma of 0.9, every kept element x / bf16(0.9) (its
+    mean 1/0.9 to bf16's rounding of the divisor), and the model's train
+    forward bit-equal for two models of one seed."""
+    from apex_tpu_torch.models import BertModel
+    from apex_tpu_torch.transformer import TransformerConfig
+
+    cfg = TransformerConfig(num_layers=2, hidden_size=64,
+                            num_attention_heads=4, vocab_size=128,
+                            max_position_embeddings=64)
+    model = BertModel(cfg, device="cuda", seed=SEED + 40)
+    n, rate = 1 << 24, cfg.hidden_dropout
+    out = model.embedding.dropout(torch.ones(n, dtype=torch.bfloat16,
+                                             device="cuda"))
+    kept = out != 0
+    share = float(kept.float().mean())
+    sigma = math.sqrt(rate * (1 - rate) / n)
+    scale = float(out[kept].double().mean())
+    want = float(torch.ones((), dtype=torch.bfloat16)
+                 / torch.tensor(1 - rate, dtype=torch.bfloat16))
+    log(f"dropout on the card: kept share {share:.6f} (0.9 +- 4 sigma = "
+        f"{4 * sigma:.2e}), kept scale mean {scale:.6f} (1/0.9 = "
+        f"{1 / 0.9:.6f}; x / bf16(0.9) = {want:.6f})")
+    if abs(share - (1 - rate)) > 4 * sigma:
+        raise AssertionError(f"kept share {share} outside 4 sigma of 0.9")
+    if not bool((out[kept] == want).all()) or \
+            abs(scale - 1 / (1 - rate)) > 2 ** -7:
+        raise AssertionError(f"kept scale {scale} is not 1/0.9")
+    rs = np.random.RandomState(SEED + 41)
+    tokens, mask, types = bert_batch(2, 64, [64, 30], 128, rs)
+    one, twin = (BertModel(cfg, device="cuda", seed=SEED + 42)
+                 for _ in range(2))
+    a, b = one(tokens, mask, types), twin(tokens, mask, types)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("two models of one seed drew different masks")
+    log("dropout on the card: two models of one seed give bit-equal train "
+        "forwards")
+
+
+def log_memory(after):
+    """What stays allocated on the card after a phase: a later phase's
+    peak memory counts it."""
+    log(f"memory after {after}: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        f"allocated")
+
+
 def main():
     smi = device_phase()
 
@@ -1811,23 +2267,34 @@ def main():
     log(f"build: {_kernels.build_all():.1f} s")
 
     errors = {}
-    ln_parity(errors)
-    flash_parity(errors)
-    ln_bwd_parity(errors)
-    flash_bwd_parity(errors)
-    adam_parity(errors)
-    rms_parity(errors)
+    for check_fn in (ln_parity, flash_parity, ln_bwd_parity, flash_bwd_parity,
+                     adam_parity, rms_parity):
+        check_fn(errors)
+        log_memory(check_fn.__name__)
     norm_routes()
     sumsq_parity(errors)
+    log_memory("sumsq_parity")
     timings = kernel_timings(errors)
+    log_memory("kernel_timings")
 
     paths = {}
     paths["serving"], _ = serving_phase(smi)
+    log_memory("serving")
     paths["training"], _ = training_phase(smi)
     training_card_vs_plain()
+    log_memory("training")
     paths["llama_serving"], _ = llama_serving_phase(smi)
+    log_memory("llama_serving")
     paths["llama_finetune"], _ = llama_finetune_phase(smi)
+    log_memory("llama_finetune")
     paths["resnet"], _ = resnet_phase(smi)
+    log_memory("resnet")
+    paths["bert_serving"], _ = bert_serving_phase(smi)
+    log_memory("bert_serving")
+    paths["bert_pretrain"], _ = bert_pretrain_phase(smi)
+    log_memory("bert_pretrain")
+    paths["bert_dropout"], _ = bert_dropout_phase(smi)
+    log_memory("bert_dropout")
     for name, counts in paths.items():
         log(f"launches {name}: " + json.dumps(
             {k: counts[k] for k in PATH_KERNELS[name]}))

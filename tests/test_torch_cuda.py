@@ -22,11 +22,13 @@ on the same inputs is bit-equal (fixed summation orders, no atomics).
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
 from apex_tpu_torch import _kernels
 from apex_tpu_torch.models import (
+    BertModel,
     GPTModel,
     generate,
     gpt_loss_fn,
@@ -58,7 +60,8 @@ def gen():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,hidden", [(1, 768), (300, 768), (77, 1000),
                                          (8, 768), (768, 768), (8192, 768),
-                                         (77, 770)])
+                                         (77, 770), (2048, 1024),
+                                         (16384, 1024)])
 def test_layer_norm_kernel(gen, dtype, rows, hidden):
     x = torch.randn(rows, hidden, generator=gen, device="cuda").to(dtype)
     w = torch.randn(hidden, generator=gen, device="cuda")
@@ -146,7 +149,23 @@ CASES = {
                           d=256),
     "decode_bh65600": dict(b=4100, h=16, h_kv=4, sq=1, sk=40, causal=False,
                            kpm=True, splits=1),
+    # BERT-345M's attention: non-causal (4,16,512,64), without and with a
+    # key-padding row whose last row keeps a single key
+    "bert": dict(b=4, h=16, h_kv=16, sq=512, sk=512, causal=False),
+    "bert_kpm": dict(b=4, h=16, h_kv=16, sq=512, sk=512, causal=False,
+                     kpm_lens=(512, 400, 137, 1)),
+    # BERT-345M serving's batch: 32 rows of lengths 64-512 drawn by
+    # RandomState(0), as chip_smoke.py's bert_serving draws them
+    "bert_serving": dict(b=32, h=16, h_kv=16, sq=512, sk=512, causal=False,
+                         kpm_lens=tuple(int(n) for n in np.random.RandomState(
+                             0).randint(64, 513, 32))),
 }
+
+
+def _lens_kpm(c):
+    """The (b, sk) key-padding mask of a case's ``kpm_lens``."""
+    lens = torch.tensor(c["kpm_lens"], device="cuda")
+    return torch.arange(c["sk"], device="cuda")[None] >= lens[:, None]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -158,7 +177,7 @@ def test_flash_kernel(gen, dtype, case):
     k, v = (torch.randn(c["b"], c["h_kv"], c["sk"], d, generator=gen,
                         device="cuda") for _ in range(2))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    kpm = None
+    kpm = _lens_kpm(c) if "kpm_lens" in c else None
     if c.get("kpm"):
         lens = torch.randint(1, c["sk"] + 1, (c["b"],), generator=gen,
                              device="cuda")
@@ -179,7 +198,7 @@ def test_flash_kernel(gen, dtype, case):
     # lse in natural-log units, as the backward reads it (fp32 sums of the
     # same scores in another order, exp by ex2.approx in bf16)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
-    if kpm is not None:
+    if c.get("kpm"):
         assert torch.count_nonzero(out[0]) == 0
         assert bool((lse[0] == 1e30).all())
     assert torch.isfinite(lse[1:]).all()
@@ -248,7 +267,7 @@ def test_layer_norm_backward_kernel(gen, dtype, rows, hidden):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,hidden", [(8192, 768), (1000, 1024), (77, 1600),
                                          (1, 2048), (300, 1001),
-                                         (300, "unaligned")])
+                                         (300, "unaligned"), (2048, 1024)])
 def test_layer_norm_backward_rows_and_loop(gen, dtype, rows, hidden,
                                            weighted):
     if hidden == "unaligned":  # 2 or 4 bytes off a 16-byte line
@@ -313,7 +332,7 @@ def test_flash_backward_kernels(gen, dtype, case):
                         device="cuda") for _ in range(2))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-    kpm = None
+    kpm = _lens_kpm(c) if "kpm_lens" in c else None
     if c.get("kpm"):
         kpm = torch.zeros(c["b"], c["sk"], dtype=torch.bool, device="cuda")
         kpm[0] = True  # a dead row
@@ -331,7 +350,7 @@ def test_flash_backward_kernels(gen, dtype, case):
         assert g.dtype == dtype and g.shape == r.shape
         torch.testing.assert_close(g.float(), r.float(), atol=BWD_TOL[dtype],
                                    rtol=BWD_TOL[dtype])
-    if kpm is not None:
+    if c.get("kpm"):
         assert torch.count_nonzero(got[0][0]) == 0
     again = at._flash_bwd_kernel(q, k, v, do, lse, delta, *args)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
@@ -504,3 +523,72 @@ def test_llama_layer_goes_through_the_kernels(gen):
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
         torch.testing.assert_close(p.grad.cpu(), named[name].grad,
                                    atol=1e-5, rtol=1e-3)
+
+
+def _bert_inputs(gen, vocab=512, b=2, s=64):
+    """Tokens, attention_mask (lengths s and s - 24) and tokentype_ids."""
+    tokens = torch.randint(0, vocab, (b, s), generator=gen, device="cuda")
+    lens = torch.tensor([s, s - 24], device="cuda")[:, None]
+    pos = torch.arange(s, device="cuda")[None]
+    mask = (pos < lens).long()
+    types = ((pos >= lens // 2) & (pos < lens)).long()
+    labels = torch.randint(0, vocab, (b, s), generator=gen, device="cuda")
+    return tokens, mask, types, labels
+
+
+BERT_SMALL = dict(num_layers=2, hidden_size=256, num_attention_heads=4,
+                  vocab_size=512, max_position_embeddings=64,
+                  compute_dtype=torch.float32)
+
+
+def test_bert_goes_through_the_kernels(gen):
+    """A small padded BERT on the card against the same weights on the
+    CPU: logits, NSP logits, losses and every gradient, through the
+    LayerNorm and flash kernels (key padding, non-causal)."""
+    cfg = TransformerConfig(hidden_dropout=0.0, attention_dropout=0.0,
+                            **BERT_SMALL)
+    model = BertModel(cfg, seed=0)
+    cpu = BertModel(cfg, device="cpu", seed=1)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tokens, mask, types, labels = _bert_inputs(gen)
+    _kernels.reset_launch_counts()
+    losses, nsp = model(tokens, mask, types, lm_labels=labels)
+    ((losses * mask).sum() / mask.sum() + nsp.sum()).backward()
+    counts = _kernels.launch_counts()
+    for name in ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                 "flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts[name] > 0, name
+    lc, nc = cpu(tokens.cpu(), mask.cpu(), types.cpu(), lm_labels=labels.cpu())
+    ((lc * mask.cpu()).sum() / mask.sum().cpu() + nc.sum()).backward()
+    torch.testing.assert_close(losses.detach().cpu(), lc.detach(), atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(nsp.detach().cpu(), nc.detach(), atol=1e-4,
+                               rtol=1e-4)
+    named = dict(cpu.named_parameters())
+    for name, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        torch.testing.assert_close(p.grad.cpu(), named[name].grad,
+                                   atol=1e-5, rtol=1e-3)
+
+
+def test_bert_dropout_takes_core_attention_on_the_card(gen):
+    """Train mode with attention dropout: the dense extended mask through
+    CoreAttention, no flash launch; one seed gives bit-equal forwards; the
+    kept share of 2^22 elements within 4 sigma of 0.9."""
+    cfg = TransformerConfig(**BERT_SMALL)
+    a, b = BertModel(cfg, seed=3), BertModel(cfg, seed=3)
+    tokens, mask, types, labels = _bert_inputs(gen)
+    _kernels.reset_launch_counts()
+    la, na = a(tokens, mask, types, lm_labels=labels)
+    la.mean().backward()
+    counts = _kernels.launch_counts()
+    assert counts["flash_fwd"] == counts["flash_bwd_dq"] == 0
+    assert counts["layer_norm_fwd"] > 0 and counts["layer_norm_bwd"] > 0
+    lb, nb = b(tokens, mask, types, lm_labels=labels)
+    assert torch.equal(la, lb) and torch.equal(na, nb)
+    assert torch.isfinite(la).all()
+    n = 1 << 22
+    kept = a.embedding.dropout(torch.ones(n, device="cuda")) != 0
+    sigma = math.sqrt(0.1 * 0.9 / n)
+    assert abs(kept.float().mean().item() - 0.9) < 4 * sigma
+
