@@ -11,7 +11,11 @@ fine-tuned by ``examples.llama.finetune_llama`` through ZeRO-2 Adam at a
 data-parallel world of one; BERT (``models.bert``), served by its
 eval-mode forward and pre-trained by
 ``transformer.testing.standalone_bert``, with dropout, the unfused
-``CoreAttention`` and the scaled-softmax family. All nine Pallas kernels of the TPU package
+``CoreAttention`` and the scaled-softmax family; and tensor, sequence
+and data parallelism over ``torch.distributed`` (``parallel``: process
+groups laid out as the JAX mesh, the tensor- and sequence-parallel
+regions and layers, DDP, ZeRO-2 Adam at dp > 1, SyncBatchNorm), which
+the GPT step runs at tp x dp. All nine Pallas kernels of the TPU package
 are rewritten by hand in CUDA C++ for ``sm_90a`` (``csrc/``, built and
 loaded by ``_kernels``).
 

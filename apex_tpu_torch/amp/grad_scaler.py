@@ -1,10 +1,12 @@
 """Model-parallel-aware grad scaler (counterpart of
-apex_tpu/amp/grad_scaler.py) at model-parallel size 1.
+apex_tpu/amp/grad_scaler.py).
 
-The JAX GradScaler sums the overflow flag over the model-parallel mesh
-axes so that every rank skips or steps together. The port runs on one
-device with no process group, so the sync is the identity; the axes are
-accepted and kept, as in JAX, for the multi-GPU slice.
+The overflow flag of one rank's gradients is summed over the process
+groups of ``model_parallel_axes`` (``parallel_state``), so that every rank
+of them skips or steps together: ``("tp", "pp")`` by default, and with
+``"dp"`` under ZeRO, where each data-parallel rank unscales its own
+partial gradients (``resilience/replay/targets.py``). Without a process
+group the flag is the rank's own.
 """
 
 from typing import Sequence
@@ -12,13 +14,14 @@ from typing import Sequence
 import torch
 
 from apex_tpu_torch.amp.scaler import LossScaler, LossScalerState
+from apex_tpu_torch.parallel import parallel_state as ps
 
 __all__ = ["GradScaler"]
 
 
 class GradScaler(LossScaler):
-    """LossScaler whose found_inf would be synced over model-parallel
-    axes; at size 1 there is nothing to sync."""
+    """LossScaler whose found_inf is summed over the model-parallel
+    axes."""
 
     def __init__(self, *args,
                  model_parallel_axes: Sequence[str] = ("tp", "pp"), **kw):
@@ -26,7 +29,10 @@ class GradScaler(LossScaler):
         self.model_parallel_axes = tuple(model_parallel_axes)
 
     def sync_found_inf(self, found_inf) -> torch.Tensor:
-        return torch.as_tensor(found_inf).bool()
+        f = torch.as_tensor(found_inf).float()
+        for axis in self.model_parallel_axes:
+            f = ps.all_reduce(f, ps.get_group(axis))
+        return f > 0
 
     def unscale(self, state: LossScalerState, grads):
         grads, found_inf = super().unscale(state, grads)

@@ -11,6 +11,7 @@ from apex_tpu_torch.models.convert import (
     bert_params_from_jax,
     fused_adam_state_from_jax,
     gpt_params_from_jax,
+    gpt_tp_params_from_jax,
     resnet_params_from_jax,
     scaler_state_from_jax,
 )
@@ -45,7 +46,8 @@ __all__ = [
     "ResNet34", "ResNet50", "ResNet101", "ResNet152", "bert_extended_attention_mask",
     "bert_params_from_jax", "config_from_hf_llama", "cross_entropy_loss",
     "fused_adam_state_from_jax", "generate", "gpt2_small_config",
-    "gpt_loss_fn", "gpt_params_from_jax", "llama_from_hf",
+    "gpt_loss_fn", "gpt_params_from_jax", "gpt_tp_params_from_jax",
+    "llama_from_hf",
     "megatron_bert_345m_config", "mistral_from_hf",
     "params_from_hf_llama", "params_to_hf_llama", "resnet_params_from_jax",
     "sample_next_token", "scaler_state_from_jax", "tinyllama_1_1b_config",

@@ -34,6 +34,7 @@ from torch import nn
 from apex_tpu_torch._kernels import resolve_device
 from apex_tpu_torch.models.gpt import Embedding, init_params
 from apex_tpu_torch.ops.layer_norm import layer_norm
+from apex_tpu_torch.parallel import parallel_state as ps
 from apex_tpu_torch.parallel.cross_entropy import vocab_parallel_cross_entropy
 from apex_tpu_torch.parallel.layers import ColumnParallelLinear
 from apex_tpu_torch.transformer.config import TransformerConfig
@@ -93,6 +94,8 @@ class BertModel(nn.Module):
                  post_process: bool = True, device="cuda", seed: int = 0):
         super().__init__()
         check_supported(config)
+        if ps.get_tensor_model_parallel_world_size() > 1:
+            raise NotImplementedError("BERT at tp > 1 is not ported yet")
         device = resolve_device(device)
         self.config, self.num_tokentypes = config, num_tokentypes
         self.add_binary_head = add_binary_head

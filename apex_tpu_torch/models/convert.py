@@ -25,8 +25,8 @@ from apex_tpu_torch.amp.scaler import LossScalerState
 from apex_tpu_torch.optimizers.fused_adam import FusedAdamState
 
 __all__ = ["bert_params_from_jax", "fused_adam_state_from_jax",
-           "gpt_params_from_jax", "resnet_params_from_jax",
-           "scaler_state_from_jax"]
+           "gpt_params_from_jax", "gpt_tp_params_from_jax",
+           "resnet_params_from_jax", "scaler_state_from_jax"]
 
 
 def gpt_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -44,6 +44,28 @@ def gpt_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(params, ())
     return out
+
+
+def gpt_tp_params_from_jax(params: Dict[str, Any], rank: int
+                           ) -> Dict[str, torch.Tensor]:
+    """Port rank ``rank``'s ``GPTModel`` state_dict from a JAX params tree
+    built inside ``shard_map`` at tp > 1 with ``out_specs=P()`` and
+    ``check_vma=False`` (the JAX ``GPTTraining.init_state``): each device
+    holds its own shards under a sharding that claims replication, so a
+    plain ``np.asarray`` reads device 0's. Each leaf is read from the
+    buffer of device ``rank`` (its ``addressable_shards`` by device id),
+    the device that mesh position ``rank`` holds on the CPU mesh, as port
+    rank ``rank`` does (``parallel.parallel_state``)."""
+    def shard(leaf):
+        shards = sorted(leaf.addressable_shards, key=lambda s: s.device.id)
+        return np.asarray(shards[rank].data)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return shard(node)
+
+    return gpt_params_from_jax(walk(params))
 
 
 def bert_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -5,12 +5,20 @@ the stack; the output is fp32 logits (batch, seq, vocab) from the tied
 embedding (or an untied ``output_layer``), or, given ``labels``, the
 per-token fp32 cross-entropy losses that :func:`gpt_loss_fn` averages.
 
-Weights are random, drawn from a ``torch.Generator`` seeded by ``seed``
+Weights are random, drawn from ``torch.Generator``s seeded by ``seed``
 with the JAX package's initializer scales (normal 0.02 for the tables,
 lecun scale 1/sqrt(fan_in) for the kernels, ones and zeros for the
 norms and biases), or are loaded from a JAX tree with
-``models.convert.gpt_params_from_jax`` or from a transformers Llama with
+``models.convert.gpt_params_from_jax`` (``gpt_tp_params_from_jax`` for
+one tp rank's shards) or from a transformers Llama with
 ``models.hf_import``.
+
+At tensor-parallel size tp > 1 (``parallel_state``) the vocabulary, the
+heads and the FFN are split over tp; the logits are the rank's vocab
+shard, and the loss is tp-replicated after the vocab-parallel cross
+entropy's reductions. Under sequence parallelism the embedding's output
+is split along the sequence and gathered again before the head. Serving
+(the KV cache) is at tp = 1 only.
 
 A model with rotary positions (the Llama family) keeps fp32 cos and sin
 tables of :func:`~apex_tpu_torch.transformer.layer.rotary_embedding_for`'s
@@ -29,10 +37,19 @@ import torch
 from torch import nn
 
 from apex_tpu_torch._kernels import resolve_device
+from apex_tpu_torch.parallel import parallel_state as ps
 from apex_tpu_torch.parallel.cross_entropy import vocab_parallel_cross_entropy
 from apex_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
     VocabParallelEmbedding,
+)
+from apex_tpu_torch.parallel.mappings import (
+    gather_from_sequence_parallel_region,
+    scatter_to_sequence_parallel_region,
+)
+from apex_tpu_torch.parallel.random import (
+    data_parallel_generator,
+    model_parallel_generator,
 )
 from apex_tpu_torch.transformer.config import TransformerConfig
 from apex_tpu_torch.transformer.enums import AttnMaskType
@@ -43,6 +60,7 @@ from apex_tpu_torch.transformer.layer import (
     check_supported,
     rotary_embedding_for,
     seed_dropout,
+    sequence_parallel,
 )
 
 __all__ = ["Embedding", "GPTModel", "gpt2_small_config", "gpt_loss_fn",
@@ -111,7 +129,8 @@ def megatron_bert_345m_config(**overrides) -> TransformerConfig:
 
 class Embedding(nn.Module):
     """Word + learned-position (+ tokentype) embeddings, cast to the
-    compute dtype, then hidden dropout in training."""
+    compute dtype, then hidden dropout in training; under sequence
+    parallelism, this rank's slice of the sequence."""
 
     def __init__(self, config: TransformerConfig, num_tokentypes: int = 0,
                  device=None):
@@ -149,18 +168,28 @@ class Embedding(nn.Module):
                 "num_tokentypes > 0 but no tokentype_ids passed: the "
                 "tokentype table would silently train as dead weight")
         h = h.transpose(0, 1).to(self.config.compute_dtype)  # (s, b, h)
-        return self.dropout(h)
+        h = self.dropout(h)
+        if sequence_parallel(self.config):
+            h = scatter_to_sequence_parallel_region(h)
+        return h
 
 
 @torch.no_grad()
 def init_params(model: nn.Module, seed: int) -> None:
-    """Draws ``model``'s parameters, in ``named_parameters`` order, from a
-    generator on their device seeded by ``seed``: normal 0.02 for the
-    tables and the untied head, normal 1/sqrt(fan_in) for the kernels,
-    ones for the norm scales and zeros for the biases."""
+    """Draws ``model``'s parameters, in ``named_parameters`` order, on
+    their device: normal 0.02 for the tables and the untied head, normal
+    1/sqrt(fan_in) of the local shape for the kernels (JAX's initializers
+    see the shard), ones for the norm scales and zeros for the biases.
+    Tp-sharded parameters (``tensor_model_parallel``) draw from this tp
+    rank's model-parallel generator, the others from the data-parallel
+    one of ``seed``, the same on every rank (``parallel.random``)."""
     params = list(model.named_parameters())
-    gen = torch.Generator(device=params[0][1].device).manual_seed(seed)
+    device = params[0][1].device
+    shared = data_parallel_generator(seed, device)
+    own = model_parallel_generator(
+        seed, ps.get_tensor_model_parallel_rank(), device)
     for name, p in params:
+        gen = own if getattr(p, "tensor_model_parallel", False) else shared
         leaf = name.rsplit(".", 1)[-1]
         if (leaf in ("embedding", "position_embeddings",
                      "tokentype_embeddings")
@@ -188,10 +217,13 @@ class GPTModel(nn.Module):
         self.embedding = Embedding(config, device=device)
         self.output_layer = None
         if not config.share_embeddings_and_output_weights:
+            # its own sequence gather under sequence parallelism, whose
+            # backward reduce-scatters
             self.output_layer = ColumnParallelLinear(
                 config.hidden_size, config.vocab_size, use_bias=False,
                 params_dtype=config.params_dtype,
-                output_dtype=torch.float32, device=device)
+                output_dtype=torch.float32, device=device,
+                sequence_parallel_enabled=config.sequence_parallel)
         self.transformer = ParallelTransformer(
             config, post_layer_norm=True,
             attn_mask_type=AttnMaskType.causal, device=device)
@@ -222,6 +254,8 @@ class GPTModel(nn.Module):
 
     def new_cache(self, batch: int, slots: int) -> KVCache:
         """An empty KV cache for ``batch`` rows of ``slots`` positions."""
+        if ps.get_tensor_model_parallel_world_size() > 1:
+            raise NotImplementedError("serving at tp > 1 is not ported yet")
         cfg = self.config
         return KVCache(
             cfg.num_layers, batch,
@@ -257,12 +291,17 @@ class GPTModel(nn.Module):
         return h
 
     def logits(self, h):
-        """fp32 logits (b, s, vocab) of (s, b, h) hidden states."""
-        if self.output_layer is None:
-            out = self.embedding.word_embeddings.attend(h)
-        else:
-            out = self.output_layer(h)
-        return out.transpose(0, 1)
+        """fp32 logits (b, s, vocab / tp) of (s, b, h) hidden states (this
+        rank's sequence slice under sequence parallelism)."""
+        if self.output_layer is not None:
+            return self.output_layer(h).transpose(0, 1)
+        sp = sequence_parallel(self.config)
+        if sp:
+            # the gather's backward reduce-scatters the partial gradients
+            # of the vocab shards, so attend takes no copy-to region
+            h = gather_from_sequence_parallel_region(h)
+        return self.embedding.word_embeddings.attend(
+            h, parallel_input=sp).transpose(0, 1)
 
     def forward(self, tokens, position_ids=None, key_padding_mask=None,
                 cache: Optional[KVCache] = None, decode_step: bool = False,

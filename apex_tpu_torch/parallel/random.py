@@ -5,13 +5,20 @@ gives explicit ``torch.Generator`` objects, which the dropout modules are
 handed (``transformer.layer.seed_dropout``), so no mask comes from a
 hidden global RNG:
 
-- model-parallel regions (attention dropout on tp-sharded heads) draw
-  from ``seed + 2718 + tp_rank`` (:func:`model_parallel_seed`);
-- data-parallel regions (hidden and embedding dropout) draw from
-  ``seed``, the same on every tp rank;
-- :func:`shard_aware_generator` folds the rank of each named axis in;
-  the port runs at a world of one, where no axis is bound, so it hands
-  the generator back unchanged.
+- model-parallel regions (attention dropout on tp-sharded heads, and
+  the initialisation of tp-sharded weights, the JAX ``tp_rank_init``'s
+  ``fold_in(2718)`` and then the tp rank) draw from ``seed + 2718 +
+  tp_rank`` (:func:`model_parallel_seed`);
+- data-parallel regions (hidden and embedding dropout, replicated
+  weights) draw from ``seed``, the same on every tp rank;
+- :func:`shard_aware_generator` folds the rank of each named axis in; the
+  tp rank is already in the model-parallel generator's seed, and the
+  other axes (cp) are not ported, so it hands the generator back
+  unchanged.
+
+Torch's generators give other numbers than ``jax.random`` from the same
+seed, so no draw is bit-equal to JAX's; the parity tests load JAX's
+weights instead.
 
 ``checkpoint`` and ``checkpoint_distributed`` come with recompute.
 """
@@ -49,7 +56,8 @@ def data_parallel_generator(seed: int, device="cpu") -> torch.Generator:
 def shard_aware_generator(generator: torch.Generator,
                           axis_names: Sequence[str] = ()) -> torch.Generator:
     """``generator`` with the rank of every bound axis of ``axis_names``
-    folded in. At a world of one no axis is bound, so this is the
-    identity (the JAX function skips unbound axes the same way)."""
+    folded in: the identity, since the tp rank is folded in when the
+    model-parallel generator is seeded and no other axis is ported (the
+    JAX function skips unbound axes the same way)."""
     del axis_names
     return generator

@@ -1,13 +1,15 @@
-"""BatchNorm with its statistics as count-weighted moments (counterpart of
-apex_tpu/parallel/sync_batch_norm.py's ``SyncBatchNorm``), at a
-data-parallel world of one.
+"""BatchNorm with its statistics synchronized over a process group
+(counterpart of apex_tpu/parallel/sync_batch_norm.py's ``SyncBatchNorm``
+and ``convert_syncbn_model``; ref: apex.parallel.SyncBatchNorm).
 
-The batch statistics are the triple (n, sum x, sum x^2) in fp32, then
-``mean = sum x / n`` and ``var = sum x^2 / n - mean^2``: the moments that a
-data-parallel group adds up (the JAX module's ``psum`` over its mesh
-axes), kept explicit so that the all-reduce drops in between the two
-steps. So the statistics are plain torch ops, not ``F.batch_norm``, which
-hides them. A process group of more than one rank raises for now.
+The batch statistics are the triple (n, sum x, sum x^2) in fp32, summed
+over ``process_group`` by one all-reduce (the JAX module's ``psum`` over
+its mesh axes; exact for unequal per-rank batches), then ``mean = sum x
+/ n`` and ``var = sum x^2 / n - mean^2``. The all-reduce is an autograd
+Function whose backward all-reduces the moments' gradients, so each
+rank's backward of its own loss gives its input the gradient of the sum
+of the ranks' losses, as torch's SyncBatchNorm does. So the statistics
+are plain torch ops, not ``F.batch_norm``, which hides them.
 
 Channels are dim 1, as in ``torch.nn.BatchNorm2d``: an NHWC array is a
 channels-last NCHW tensor, so the JAX module's last axis is this module's
@@ -19,7 +21,23 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["SyncBatchNorm"]
+from apex_tpu_torch.parallel import parallel_state as ps
+
+__all__ = ["SyncBatchNorm", "convert_syncbn_model"]
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over ``group`` forward; the same sum of the gradients
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return ps.all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ps.all_reduce(g, ctx.group), None
 
 
 class SyncBatchNorm(nn.Module):
@@ -28,7 +46,8 @@ class SyncBatchNorm(nn.Module):
     variance is the unbiased ``var * n / max(n - 1, 1)``. The output is
     computed in fp32 and cast to ``dtype`` (x's dtype when None); the
     parameters ``scale`` and ``bias`` and the buffers ``mean`` and ``var``
-    are fp32 (the flax names)."""
+    are fp32 (the flax names). ``process_group``: the group whose
+    moments are summed (None: this rank's alone)."""
 
     def __init__(self, features: int,
                  use_running_average: Optional[bool] = None,
@@ -37,12 +56,7 @@ class SyncBatchNorm(nn.Module):
                  dtype: Optional[torch.dtype] = None, scale_init: float = 1.0,
                  process_group=None, device=None):
         super().__init__()
-        if process_group is not None and \
-                torch.distributed.get_world_size(process_group) > 1:
-            raise NotImplementedError(
-                "SyncBatchNorm over more than one rank is not ported yet; "
-                "the batch moments (n, sum x, sum x^2) are what it will "
-                "all-reduce")
+        self.process_group = process_group
         self.use_running_average = use_running_average
         self.momentum, self.epsilon, self.dtype = momentum, epsilon, dtype
         f32 = dict(dtype=torch.float32, device=device)
@@ -66,17 +80,82 @@ class SyncBatchNorm(nn.Module):
             mean, var = self.mean, self.var
         else:
             dims = [d for d in range(x.ndim) if d != 1]
-            n = x.numel() // x.shape[1]
+            c = x.shape[1]
+            n = xf.new_full((1,), x.numel() // c)
             s1, s2 = xf.sum(dims), xf.square().sum(dims)
+            if self.process_group is not None:
+                n, s1, s2 = _AllReduceSum.apply(
+                    torch.cat([n, s1, s2]), self.process_group
+                ).split([1, c, c])
+            n = n[0]
             mean = s1 / n
             var = s2 / n - mean.square()
             with torch.no_grad():
                 m = self.momentum
                 self.mean.mul_(1.0 - m).add_(m * mean)
-                self.var.mul_(1.0 - m).add_(m * (var * n / max(n - 1, 1)))
+                self.var.mul_(1.0 - m).add_(
+                    m * (var * n / torch.clamp_min(n - 1.0, 1.0)))
         y = (xf - mean.view(shape)) * torch.rsqrt(var + self.epsilon).view(shape)
         if self.scale is not None:
             y = y * self.scale.view(shape)
         if self.bias is not None:
             y = y + self.bias.view(shape)
         return y.to(self.dtype or x.dtype)
+
+
+class _TorchBatchNorm(SyncBatchNorm):
+    """A converted torch BatchNorm: unless the call says otherwise, batch
+    statistics in training mode and the running ones in eval mode, as
+    torch's module chooses them."""
+
+    def forward(self, x, use_running_average=None):
+        if use_running_average is None and self.use_running_average is None:
+            use_running_average = not self.training
+        return super().forward(x, use_running_average)
+
+
+@torch.no_grad()
+def convert_syncbn_model(module: nn.Module, process_group=None) -> nn.Module:
+    """Module surgery (ref: apex.parallel.convert_syncbn_model,
+    parallel/__init__.py:21): every ``torch.nn`` BatchNorm under ``module``
+    becomes a :class:`SyncBatchNorm` over ``process_group`` (None:
+    ``parallel_state``'s data-parallel group) with its hyperparameters,
+    affine parameters and running statistics (torch's momentum is
+    already this module's convention), choosing batch or running
+    statistics by the training flag as torch's does; every
+    ``SyncBatchNorm`` is
+    re-pointed at the group. Returns the converted module (a new one
+    when ``module`` itself is a BatchNorm)."""
+    if process_group is None:
+        process_group = ps.get_data_parallel_group()
+    if isinstance(module, SyncBatchNorm):
+        module.process_group = process_group
+        return module
+    if isinstance(module, nn.modules.batchnorm._BatchNorm):
+        if module.momentum is None:
+            raise NotImplementedError(
+                "convert_syncbn_model: a cumulative moving average "
+                "(momentum=None) has no SyncBatchNorm counterpart")
+        ref = module.weight if module.weight is not None else \
+            module.running_mean
+        out = _TorchBatchNorm(
+            module.num_features,
+            use_running_average=None if module.track_running_stats
+            else False,
+            momentum=module.momentum, epsilon=module.eps,
+            use_scale=module.affine, use_bias=module.affine,
+            process_group=process_group,
+            device=None if ref is None else ref.device)
+        if module.affine:
+            out.scale.copy_(module.weight)
+            out.bias.copy_(module.bias)
+        if module.running_mean is not None:
+            out.mean.copy_(module.running_mean)
+            out.var.copy_(module.running_var)
+        out.train(module.training)
+        return out
+    for name, child in module.named_children():
+        new = convert_syncbn_model(child, process_group)
+        if new is not child:
+            setattr(module, name, new)
+    return module

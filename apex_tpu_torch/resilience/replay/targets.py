@@ -1,20 +1,27 @@
 """The GPT training step (counterpart of
 apex_tpu/resilience/replay/targets.py's ``build_gpt_training``).
 
-One home for the single-GPU GPT step, as in the JAX package: the bf16
-GPT model, ``fused_adam``, dynamic loss scaling with ``GradScaler``, the
-anomaly-sentinel gate, the chaos ``poison_loss`` arm and the escalation
-``lr_scale`` input, in the JAX step's order. ``build_gpt_training(cfg)``
-returns a :class:`GPTTraining` with ``init_state``, ``reshape_batch`` and
-``train_step``; ``examples/gpt/pretrain_gpt.py`` drives it.
+One home for the GPT step, as in the JAX package: the bf16 GPT model,
+``fused_adam`` behind the data-parallel gradient all-reduce, or ZeRO-2's
+``distributed_fused_adam`` (``zero``), dynamic loss scaling with
+``GradScaler``, the anomaly-sentinel gate, the chaos ``poison_loss`` arm
+and the escalation ``lr_scale`` input, in the JAX step's order.
+``build_gpt_training(cfg)`` returns a :class:`GPTTraining` with
+``init_state``, ``reshape_batch`` and ``train_step``;
+``examples/gpt/pretrain_gpt.py`` drives it.
 
-At tensor- and data-parallel size 1 only: ``zero``, a ``compression``
-other than ``"none"``, ``tp > 1``, ``collect_layer_rms`` and
-``max_devices > 1`` raise ``NotImplementedError``.
+Each process is one rank: tensor-parallel size ``tp`` (with sequence
+parallelism under ``sequence_parallel``), and data-parallel size the
+world's size over tp (``parallel_state`` over the initialized
+``torch.distributed`` world; a world of one without it). Every rank takes
+the whole ``(num_micro, micro_batch * dp, seq)`` batch and trains on its
+columns ``[d * micro_batch, (d + 1) * micro_batch)``, the JAX step's
+``P(None, "dp")``. A ``compression`` other than ``"none"`` and
+``collect_layer_rms`` raise ``NotImplementedError``.
 """
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -22,7 +29,14 @@ import torch
 from apex_tpu_torch._kernels import resolve_device
 from apex_tpu_torch.amp import GradScaler, LossScalerState
 from apex_tpu_torch.models.gpt import GPTModel, gpt_loss_fn
-from apex_tpu_torch.optimizers import FusedAdamState, fused_adam
+from apex_tpu_torch.optimizers import (
+    DistributedFusedAdamState,
+    FusedAdamState,
+    distributed_fused_adam,
+    fused_adam,
+)
+from apex_tpu_torch.parallel import parallel_state as ps
+from apex_tpu_torch.parallel.ddp import all_reduce_gradients
 from apex_tpu_torch.resilience.chaos import poison_loss
 from apex_tpu_torch.resilience.sentinel import AnomalySentinel, SentinelState
 from apex_tpu_torch.transformer import TransformerConfig
@@ -30,7 +44,7 @@ from apex_tpu_torch.transformer.utils import calc_params_l2_norm
 from apex_tpu_torch.utils.pytree import tree_any_non_finite
 
 __all__ = ["GPTTargetConfig", "GPTTrainState", "GPTTraining",
-           "build_gpt_training", "synthetic_corpus"]
+           "build_gpt_training", "synthetic_corpus", "tp_duplicated"]
 
 
 def synthetic_corpus(vocab: int, n_tokens: int = 200_000) -> np.ndarray:
@@ -76,7 +90,7 @@ class GPTTrainState:
     parameters (by name), so updating them updates the model."""
 
     params: Dict[str, torch.nn.Parameter]
-    opt: FusedAdamState
+    opt: Union[FusedAdamState, DistributedFusedAdamState]
     scaler: LossScalerState
     sentinel: SentinelState
 
@@ -87,6 +101,7 @@ class GPTTraining:
 
     cfg: GPTTargetConfig
     device: torch.device
+    dp: int
     num_micro: int
     model: GPTModel
     transformer_config: TransformerConfig
@@ -104,35 +119,46 @@ class GPTTraining:
                              self.sentinel.init(self.device))
 
     def reshape_batch(self, x, y):
-        """(global_batch, seq) arrays -> (num_micro, micro_batch, seq)."""
-        shape = (self.num_micro, self.cfg.micro_batch, self.cfg.seq_len)
+        """(global_batch, seq) arrays -> the step's (num_micro,
+        micro_batch * dp, seq) layout."""
+        shape = (self.num_micro, self.cfg.micro_batch * self.dp,
+                 self.cfg.seq_len)
         return x.reshape(shape), y.reshape(shape)
 
     def train_step(self, state: GPTTrainState, tokens, labels,
                    inject_nan=0.0, lr_scale=1.0):
         """One step: ``(state, loss, verdict, metrics)``.
 
-        ``tokens`` and ``labels`` are (num_micro, micro_batch, seq)
-        integer arrays or tensors. The order is the JAX step's: each
+        ``tokens`` and ``labels`` are (num_micro, micro_batch * dp, seq)
+        integer arrays or tensors, the same on every rank; this rank
+        takes its dp columns. The order is the JAX step's: each
         microbatch's mean loss, times ``scale / num_micro`` (and poisoned
         when ``inject_nan``), is backpropagated and the grads accumulate;
-        then unscale with the overflow flag of the scaled grads, the
-        scaler update, ``unscaled = loss / scale``, and the gate
-        ``found_inf | sentinel.is_anomalous_loss(unscaled)``. On a clean
-        step Adam runs and ``p += lr_scale * update``; on a gated step
-        params and Adam state stay as they were. Last the sentinel
-        update, with ``bad_params`` from the post-update params.
+        without ZeRO they are averaged over dp (ZeRO's reduce-scatter in
+        the optimizer takes each rank's own); then unscale with the
+        overflow flag of the scaled grads, summed over tp and pp (and dp
+        under ZeRO, so that no rank steps while another skips), the
+        scaler update, ``unscaled`` = the dp mean of ``loss / scale``
+        (tp-replicated already), and the gate ``found_inf |
+        sentinel.is_anomalous_loss(unscaled)``, the same on every rank.
+        On a clean step Adam runs and ``p += lr_scale * update``; on a
+        gated step params and Adam state stay as they were. Last the
+        sentinel update, with ``bad_params`` from the post-update params.
+        ``grad_norm`` is the tp-aware norm of the unscaled grads the
+        optimizer takes.
 
         Parameters are updated IN PLACE and ``state`` is updated and
-        returned; after the step each ``p.grad`` holds the scaled grads.
-        The gate costs one host sync per step (the JAX step keeps it on
-        the device with ``vma_cond``), and the loss, verdict and the six
-        quantities of the JAX step's ``metric_spec`` come back in one
+        returned; after the step each ``p.grad`` holds this rank's scaled
+        grads. The gate costs one host sync per step (the JAX step keeps
+        it on the device with ``vma_cond``), and the loss, verdict and the
+        six quantities of the JAX step's ``metric_spec`` come back in one
         transfer at the end as plain floats.
         """
         dev = self.device
-        tokens = torch.as_tensor(tokens, device=dev).long()
-        labels = torch.as_tensor(labels, device=dev).long()
+        cols = slice(ps.get_data_parallel_rank() * self.cfg.micro_batch,
+                     (ps.get_data_parallel_rank() + 1) * self.cfg.micro_batch)
+        tokens = torch.as_tensor(tokens)[:, cols].to(dev).long()
+        labels = torch.as_tensor(labels)[:, cols].to(dev).long()
         params = state.params
         scale = state.scaler.scale
         for p in params.values():
@@ -149,9 +175,12 @@ class GPTTraining:
                                   torch.stack(micro_losses).mean()),
                 inject_nan)
             grads = {n: p.grad for n, p in params.items()}
+            if not self.cfg.zero:
+                grads = all_reduce_gradients(grads)
             grads, found_inf = self.scaler.unscale(state.scaler, grads)
             new_scaler = self.scaler.update(state.scaler, found_inf)
-            unscaled = loss / scale
+            unscaled = ps.all_reduce(loss / scale,
+                                     ps.get_data_parallel_group()) / self.dp
             gate = found_inf | self.sentinel.is_anomalous_loss(
                 state.sentinel, unscaled)
             if not bool(gate):  # the step's one host sync
@@ -166,8 +195,11 @@ class GPTTraining:
                 sent.count > 0,
                 (unscaled - sent.ema) * torch.rsqrt(sent.var + 1e-12),
                 torch.zeros_like(unscaled))
+            grad_norm = calc_params_l2_norm(
+                grads, tp_duplicate_predicate=tp_duplicated,
+                group=ps.get_tensor_model_parallel_group())
             vals = torch.stack([
-                unscaled, calc_params_l2_norm(grads), new_scaler.scale,
+                unscaled, grad_norm, new_scaler.scale,
                 loss_z, gate.float(), new_sent.anomalies.float(),
                 verdict.float(),
             ]).tolist()
@@ -177,19 +209,36 @@ class GPTTraining:
         return state, vals[0], int(vals[6]), metrics
 
 
+def tp_duplicated(path: str) -> bool:
+    """Tp-replicated parameters, counted once in the tp-aware grad norm:
+    norms, the position table and row-parallel biases (the JAX step's
+    predicate, on ``/``-joined paths)."""
+    return ("layernorm" in path or "position_embeddings" in path
+            or path.endswith("dense/bias")
+            or path.endswith("dense_4h_to_h/bias"))
+
+
 def build_gpt_training(cfg: GPTTargetConfig, device="cuda") -> GPTTraining:
-    """The GPT training step of ``cfg`` on one device (CUDA unless the
-    caller names another), with the JAX package's batch-geometry checks
-    and its model, optimizer, scaler and sentinel settings."""
+    """The GPT training step of ``cfg`` on this rank's device (CUDA unless
+    the caller names another), with the JAX package's batch-geometry
+    checks and its model, optimizer, scaler and sentinel settings.
+    Initializes ``parallel_state`` for ``cfg.tp`` over the initialized
+    world (process-global, as in JAX); ``max_devices``, where set, must
+    be the world's size."""
     unsupported = [name for name, on in (
-        ("zero", cfg.zero), ("compression", cfg.compression != "none"),
-        ("tp > 1", cfg.tp > 1), ("collect_layer_rms", cfg.collect_layer_rms),
-        ("max_devices > 1", (cfg.max_devices or 1) > 1)) if on]
+        ("compression", cfg.compression != "none"),
+        ("collect_layer_rms", cfg.collect_layer_rms)) if on]
     if unsupported:
         raise NotImplementedError(
             f"not ported to apex_tpu_torch yet: {', '.join(unsupported)}")
     dev = resolve_device(device)
-    dp = 1
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized() else 1)
+    if cfg.max_devices is not None and cfg.max_devices != world:
+        raise ValueError(f"max_devices={cfg.max_devices}, but the world "
+                         f"has {world} process(es), one a device")
+    ps.initialize_model_parallel(tensor_model_parallel_size=cfg.tp)
+    dp = ps.get_data_parallel_world_size()
     num_micro = cfg.global_batch // (cfg.micro_batch * dp)
     assert num_micro >= 1, "global batch too small for micro batch x dp"
     assert cfg.global_batch % (cfg.micro_batch * dp) == 0, (
@@ -200,13 +249,24 @@ def build_gpt_training(cfg: GPTTargetConfig, device="cuda") -> GPTTraining:
         num_layers=cfg.layers, hidden_size=cfg.hidden,
         num_attention_heads=cfg.heads, vocab_size=cfg.vocab,
         max_position_embeddings=cfg.seq_len, hidden_dropout=0.0,
-        attention_dropout=0.0, compute_dtype=torch.bfloat16)
+        attention_dropout=0.0,
+        sequence_parallel=cfg.sequence_parallel and cfg.tp > 1,
+        compute_dtype=torch.bfloat16)
     model = GPTModel(tcfg, device=dev, seed=cfg.seed)
+    if cfg.zero:
+        # its reduce-scatter is the dp gradient sync (average_grads
+        # completes the mean)
+        opt = distributed_fused_adam(lr=cfg.lr, weight_decay=cfg.weight_decay,
+                                     axis_name="dp", average_grads=True)
+    else:
+        opt = fused_adam(lr=cfg.lr, weight_decay=cfg.weight_decay)
     return GPTTraining(
-        cfg=cfg, device=dev, num_micro=num_micro, model=model,
-        transformer_config=tcfg,
-        opt=fused_adam(lr=cfg.lr, weight_decay=cfg.weight_decay),
-        scaler=GradScaler(loss_scale="dynamic"),
+        cfg=cfg, device=dev, dp=dp, num_micro=num_micro, model=model,
+        transformer_config=tcfg, opt=opt,
+        # under ZeRO each rank's grads are its own until the optimizer's
+        # reduce-scatter: the overflow flag joins the dp consensus too
+        scaler=GradScaler(loss_scale="dynamic", model_parallel_axes=(
+            ("tp", "pp", "dp") if cfg.zero else ("tp", "pp"))),
         sentinel=AnomalySentinel(z_threshold=cfg.spike_z,
                                  warmup_steps=cfg.spike_warmup,
                                  skip_budget=cfg.skip_budget,

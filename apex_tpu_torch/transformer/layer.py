@@ -7,7 +7,14 @@ per head as ``[q_h | k_h | v_h]`` (the JAX reshape to (s, b, heads,
 parameter tree maps onto ``state_dict`` keys by joining its path with
 dots (models/convert.py).
 
-Only tensor-, sequence- and context-parallel size 1: MoE, sequence and
+Tensor parallelism takes ``parallel_state``'s tp size: attention runs
+``heads / tp`` local heads (and ``groups / tp`` KV groups under GQA), each
+rank's column of the fused QKV kernel holding its heads' per-head ``[q |
+k | v]``, and the MLP ``ffn / tp`` columns. Under sequence parallelism
+(``sequence_parallel`` at tp > 1) the hidden states between the column
+and row products are split along the sequence; each norm then sees only
+its rank's rows, so its weight and bias pass the copy-to region, which
+all-reduces their gradients over tp (the JAX ``Norm``'s rule). MoE,
 context parallelism and recompute raise ``NotImplementedError`` where a
 config asks for them. LayerNorm, RMSNorm and flash attention
 differentiate through their backward kernels.
@@ -61,9 +68,13 @@ from apex_tpu_torch.ops.rope import (
     rope_frequencies,
 )
 from apex_tpu_torch.ops.softmax import fused_scale_mask_softmax
+from apex_tpu_torch.parallel import parallel_state as ps
 from apex_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
+)
+from apex_tpu_torch.parallel.mappings import (
+    copy_to_tensor_model_parallel_region,
 )
 from apex_tpu_torch.parallel.random import (
     data_parallel_generator,
@@ -83,8 +94,6 @@ __all__ = [
 def check_supported(cfg: TransformerConfig) -> None:
     """Refuses configs that ask for what the port does not have yet."""
     missing = []
-    if cfg.sequence_parallel:
-        missing.append("sequence_parallel")
     if cfg.context_parallel_mode is not None:
         missing.append("context parallelism")
     if cfg.num_moe_experts is not None:
@@ -142,23 +151,38 @@ class KVCache:
         return kl, vl
 
 
+def sequence_parallel(config: TransformerConfig) -> bool:
+    """Is the sequence split over tp? (``sequence_parallel`` at tp > 1)"""
+    return (config.sequence_parallel
+            and ps.get_tensor_model_parallel_world_size() > 1)
+
+
 class Norm(nn.Module):
-    """LayerNorm/RMSNorm with fp32 parameters applied in fp32."""
+    """LayerNorm/RMSNorm with fp32 parameters applied in fp32. Under
+    sequence parallelism the parameters pass the copy-to region: this
+    rank's rows give a partial gradient, which the tp ranks sum."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
         self.config = config
+        self.sequence_parallel = sequence_parallel(config)
         h, dt = config.hidden_size, config.params_dtype
         self.scale = nn.Parameter(torch.ones(h, dtype=dt, device=device))
         self.bias = None
         if config.normalization != "rmsnorm":
             self.bias = nn.Parameter(torch.zeros(h, dtype=dt, device=device))
 
+    def _param(self, p):
+        if self.sequence_parallel:
+            p = copy_to_tensor_model_parallel_region(p)
+        return p.float()
+
     def forward(self, x):
         eps = self.config.layernorm_epsilon
         if self.bias is None:
-            return rms_norm(x, self.scale.float(), eps=eps)
-        return layer_norm(x, self.scale.float(), self.bias.float(), eps=eps)
+            return rms_norm(x, self._param(self.scale), eps=eps)
+        return layer_norm(x, self._param(self.scale), self._param(self.bias),
+                          eps=eps)
 
 
 def _activate(h, activation: str):
@@ -183,7 +207,8 @@ class ParallelMLP(nn.Module):
         gated = config.activation in ("geglu", "swiglu")
         width = config.ffn_hidden_size * (2 if gated else 1)
         kw = dict(use_bias=config.add_bias_linear,
-                  params_dtype=config.params_dtype, device=device)
+                  params_dtype=config.params_dtype, device=device,
+                  sequence_parallel_enabled=config.sequence_parallel)
         self.dense_h_to_4h = ColumnParallelLinear(config.hidden_size, width, **kw)
         self.dense_4h_to_h = RowParallelLinear(
             config.ffn_hidden_size, config.hidden_size, **kw)
@@ -232,9 +257,10 @@ class ShardAwareDropout(nn.Module):
 def seed_dropout(module: nn.Module, seed: int, device) -> None:
     """Hands every ShardAwareDropout under ``module`` its generator: the
     data-parallel one of ``seed``, or, for a model-parallel region, the
-    model-parallel one of tp rank 0 (``parallel.random``)."""
+    model-parallel one of this tp rank (``parallel.random``)."""
     dp = data_parallel_generator(seed, device)
-    mp = model_parallel_generator(seed, 0, device)
+    mp = model_parallel_generator(
+        seed, ps.get_tensor_model_parallel_rank(), device)
     for m in module.modules():
         if isinstance(m, ShardAwareDropout):
             m.generator = mp if m.model_parallel else dp
@@ -290,12 +316,16 @@ class ParallelAttention(nn.Module):
         self.attn_mask_type = attn_mask_type
         heads, hn = config.num_attention_heads, config.kv_channels
         groups = config.num_query_groups or heads
-        if heads % groups:
+        tp = ps.get_tensor_model_parallel_world_size()
+        if heads % groups or groups % tp:
             raise ValueError(f"num_query_groups ({groups}) must divide "
-                             f"num_attention_heads ({heads})")
+                             f"num_attention_heads ({heads}) and be "
+                             f"divisible by tp ({tp})")
         self.groups = groups
+        self.heads_local, self.groups_local = heads // tp, groups // tp
         kw = dict(use_bias=config.add_bias_linear,
-                  params_dtype=config.params_dtype, device=device)
+                  params_dtype=config.params_dtype, device=device,
+                  sequence_parallel_enabled=config.sequence_parallel)
         h = config.hidden_size
         if groups != heads:
             # separate Q and fused-KV projections (llama convention)
@@ -315,15 +345,22 @@ class ParallelAttention(nn.Module):
         ``attention_mask``: bool broadcastable to (b, np, sq, sk), True =
         masked out; it takes the unfused path."""
         cfg = self.config
-        s, b, _ = hidden_states.shape
-        heads, hn = cfg.num_attention_heads, cfg.kv_channels
-        if self.groups != heads:
-            q = self.query(hidden_states).reshape(s, b, heads, hn)
-            kv = self.key_value(hidden_states).reshape(s, b, self.groups, 2 * hn)
+        b = hidden_states.shape[1]
+        heads, hn = self.heads_local, cfg.kv_channels
+        # s is the whole sequence: under sequence parallelism the column
+        # products have gathered it
+        if self.groups != cfg.num_attention_heads:
+            q = self.query(hidden_states)
+            s = q.shape[0]
+            q = q.reshape(s, b, heads, hn)
+            kv = self.key_value(hidden_states).reshape(
+                s, b, self.groups_local, 2 * hn)
             k, v = kv.split(hn, dim=-1)
         else:
-            qkv = self.query_key_value(hidden_states).reshape(s, b, heads, 3 * hn)
-            q, k, v = qkv.split(hn, dim=-1)  # per-head [q | k | v]
+            qkv = self.query_key_value(hidden_states)
+            s = qkv.shape[0]
+            # this rank's heads, each [q | k | v]
+            q, k, v = qkv.reshape(s, b, heads, 3 * hn).split(hn, dim=-1)
         if rotary is not None:
             q = apply_rotary_pos_emb_cached(q, *rotary)
             k = apply_rotary_pos_emb_cached(k, *rotary)

@@ -23,11 +23,14 @@ swallowed:
    (4,16,512,64), without and with key padding of lengths 512/400/137/1
    (a row that keeps one key), in both dtypes, and the forward at BERT
    serving's (32,16,512,64) with the serving batch's own 32 lengths;
+   flash forward and backward at GPT-2's heads at tp = 2, causal
+   (4,6,1024,64), in both dtypes;
    LayerNorm forward at GPT-2's (8192, 768), (768, 768) and (8, 768), at
-   BERT's (2048, 1024) and serving's (16384, 1024), at hidden
-   770 and on an unaligned input (the loop); LayerNorm backward at rows
-   {1, 1000, 8192} x hidden {768, 1000, 1024, 1600, 1001} and at (2048,
-   1024), without weight, and on an unaligned input, against the plain
+   BERT's (2048, 1024) and serving's (16384, 1024), GPT-2's rows at tp
+   = 2 under sequence parallelism (2048, 768), at hidden 770 and on an
+   unaligned input (the loop); LayerNorm backward at rows {1, 1000, 8192}
+   x hidden {768, 1000, 1024, 1600, 1001} and at (2048, 1024) and (2048,
+   768), without weight, and on an unaligned input, against the plain
    version
    and against the loop kernel on the same inputs; Adam over
    GPT-2 small's 124,439,808 parameters and a ragged length, both decay
@@ -37,7 +40,8 @@ swallowed:
    loop on an unaligned input; the norm forwards' register-resident row
    bit-equal to their loop, and the RMSNorm forward's output bit-equal to
    digests recorded from its earlier build (GOLDEN_RMS_FWD); the sum of
-   squares at 1, 1,000,003 and TinyLlama's 1,100,048,384 elements, also
+   squares at 1, 1,000,003, one ZeRO shard of GPT-2 small at tp = 2 x
+   dp = 2 (31,358,976) and TinyLlama's 1,100,048,384 elements, also
    against an fp64 sum); prints each case's error and tolerance, and checks
    that a second call on the same inputs is bit-equal; then times each
    kernel, its plain version and the one PyTorch call that computes the
@@ -112,7 +116,22 @@ swallowed:
    batch, 8 ``fused_adam`` steps at lr 1e-4: the loss falls, no flash
    kernel runs, the LayerNorm and Adam kernels do; then the dropout's kept
    share and scale on the card and two models of one seed bit-equal;
-12. prints the ``kernels`` line (all nine kernels; ``launches`` is the
+12. GPT-2 small at tp = 2 x dp = 2 with sequence parallelism (full
+   width, vocab 50257 padded to 50304 so that it divides by tp, seed 0):
+   the GPT example under ``torch.distributed.run``, 4 ranks on this one
+   card over gloo (NCCL refuses two ranks on one card; gloo moves each
+   collective's CUDA tensors through pinned host memory, every kernel
+   and product still runs on the card), micro batch 4, global 16, seq
+   1024: (a) ZeRO-2, 1 + 3 steps, (b) DDP and ``fused_adam``, 1 + 2
+   steps; per-step loss, verdict and tokens/s, every rank's peak memory,
+   the first loss within 0.5 of ln 50304 and every verdict OK, and rank
+   0's launch counts (#1, #2, #5, #6, #7 grow, and #8 under DDP); then (c)
+   the same 4 ranks at 2 layers and seq 256 on the card's kernels and on
+   the CPU's plain versions from the same weights: 3 bf16 ZeRO steps
+   within the training tolerances, 2 fp32 steps of the model, the dp
+   all-reduce and ``fused_adam`` to 1e-4; and (d) one step of GPT-2
+   small in a NCCL world of one;
+13. prints the ``kernels`` line (all nine kernels; ``launches`` is the
    count of the kernel's first path below that runs it, and
    ``launches_by_path`` has every path's), then as the last line
    ``{"ok": true, "device": {...}}``.
@@ -120,8 +139,10 @@ swallowed:
 The paths, each driven with the counts set to 0 just before it and read
 just after: ``serving`` and ``training`` (GPT-2 small), ``llama_serving``
 and ``llama_finetune`` (TinyLlama-1.1B), ``resnet`` (ResNet-50, which
-runs none of the nine kernels), and ``bert_serving``, ``bert_pretrain``
-and ``bert_dropout`` (Megatron BERT-345M).
+runs none of the nine kernels), ``bert_serving``, ``bert_pretrain`` and
+``bert_dropout`` (Megatron BERT-345M), and ``gpt_parallel`` and
+``gpt_parallel_ddp`` (GPT-2 small at tp = 2 x dp = 2; each run's ranks
+start at 0 and rank 0 reports its counts).
 """
 
 import gc
@@ -187,6 +208,11 @@ TOL = {
 }
 N_GPT2_SMALL = 124_439_808  # parameters of GPT-2 small (tied head)
 N_TINYLLAMA = 1_100_048_384  # parameters of TinyLlama-1.1B (untied head)
+# GPT-2 small at tp = 2 (vocab 50304): a rank holds 62,659,584 parameters
+# (half the table, 19,316,736; positions 786,432; 12 layers of 3,546,240;
+# the final norm 1,536), flattened and padded to 957 chunks of 65,536 =
+# 62,717,952, and each of dp = 2 ranks keeps half: one ZeRO shard
+ZERO_SHARD_TP2 = 31_358_976
 # the kernels each path must launch; a kernel's "launches" in the kernels
 # line is the count of the first path here that runs it
 PATH_KERNELS = {
@@ -204,6 +230,12 @@ PATH_KERNELS = {
                       "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
     # attention dropout takes CoreAttention: no flash kernel (checked)
     "bert_dropout": ("layer_norm_fwd", "layer_norm_bwd", "adam_update"),
+    # GPT-2 small at tp = 2 x dp = 2 with sequence parallelism, counted on
+    # rank 0: under ZeRO Adam runs in plain ops, under DDP on #8
+    "gpt_parallel": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                     "flash_bwd_dq", "flash_bwd_dkv"),
+    "gpt_parallel_ddp": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                         "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
 }
 FORWARD_KERNELS = PATH_KERNELS["serving"]
 KERNEL_META = {  # name: (source, TPU kernel it replaces)
@@ -331,7 +363,7 @@ def ln_parity(errors):
         for rows, hidden in ((1, 768), (8, 768), (768, 768), (1000, 768),
                              (8192, 768), (1, 1000), (1000, 1000),
                              (8192, 1000), (77, 770), (8192, 770),
-                             (2048, 1024), (16384, 1024)):
+                             (2048, 1024), (16384, 1024), (2048, 768)):
             x, w, b = ln_inputs(rows, hidden, dtype, gen)
             out = ln.layer_norm(x, w, b, 1e-5)
             torch.cuda.synchronize()
@@ -416,6 +448,7 @@ def flash_cases(gen):
         yield ("b*h=65600 decode GQA 16q/4kv (4100,16,1,64) sk=40 "
                "key-padding", q, k, v, False, decode_kpm(4100, 40, gen), None)
         yield from bert_flash_cases(dtype, gen)
+        yield from gpt_tp2_flash_cases(dtype, gen)
         q, k, v = attn_inputs(32, 16, 16, 512, 512, 64, dtype, gen)
         yield (BERT_SERVING_FLASH, q, k, v, False,
                lens_kpm(bert_serving_draw()[1].tolist(), 512), None)
@@ -451,6 +484,15 @@ def bert_flash_cases(dtype, gen):
     yield "BERT non-causal (4,16,512,64)", q, k, v, False, None, None
     yield ("BERT non-causal (4,16,512,64) key-padding, lengths "
            "512/400/137/1", q, k, v, False, lens_kpm(BERT_LENS, 512), None)
+
+
+# GPT-2 small's attention at tp = 2: 6 of its 12 heads a rank, micro batch 4
+GPT_TP2_FLASH = "GPT-2 tp=2 training causal (4,6,1024,64)"
+
+
+def gpt_tp2_flash_cases(dtype, gen):
+    q, k, v = attn_inputs(4, 6, 6, 1024, 1024, 64, dtype, gen)
+    yield GPT_TP2_FLASH, q, k, v, True, None, None
 
 
 def wide_flash_cases(dtype, gen):
@@ -544,9 +586,12 @@ def ln_bwd_parity(errors):
                 x, w, _ = ln_inputs(rows, hidden, dtype, gen)
                 one(dtype, f"rows={rows} hidden={hidden}", x, w,
                     grads(rows, hidden, dtype))
-        # BERT-345M's rows: 4 x 512 tokens of hidden 1024
-        x, w, _ = ln_inputs(2048, 1024, dtype, gen)
-        one(dtype, "rows=2048 hidden=1024", x, w, grads(2048, 1024, dtype))
+        # BERT-345M's rows: 4 x 512 tokens of hidden 1024; GPT-2's under
+        # sequence parallelism at tp = 2: 4 x 1024 / 2 tokens of 768
+        for rows, hidden in ((2048, 1024), (2048, 768)):
+            x, w, _ = ln_inputs(rows, hidden, dtype, gen)
+            one(dtype, f"rows={rows} hidden={hidden}", x, w,
+                grads(rows, hidden, dtype))
         x, _, _ = ln_inputs(1000, 768, dtype, gen)
         one(dtype, "rows=1000 hidden=768 no weight", x, None,
             grads(1000, 768, dtype))
@@ -579,6 +624,7 @@ def flash_bwd_cases(gen):
         yield "causal sq!=sk (1,12,77,64) sk=200", q, k, v, True, None, None
         yield from wide_flash_cases(dtype, gen)
         yield from bert_flash_cases(dtype, gen)
+        yield from gpt_tp2_flash_cases(dtype, gen)
         if dtype == torch.bfloat16:  # the Llama training shape, in its dtype
             q, k, v = attn_inputs(4, 32, 4, 2048, 2048, 64, dtype, gen)
             yield ("Llama training GQA 32q/4kv causal (4,32,2048,64)", q, k,
@@ -792,7 +838,7 @@ def sumsq_parity(errors):
     from apex_tpu_torch.optimizers import _fused_kernels as fk
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    for n in (1, 1_000_003, N_TINYLLAMA):
+    for n in (1, 1_000_003, ZERO_SHARD_TP2, N_TINYLLAMA):
         x = torch.randn(n, generator=gen, device="cuda")
         # the aligned buffer (float4 loads) and an unaligned view of it
         # (the scalar loop)
@@ -1271,6 +1317,10 @@ def kernel_timings(errors):
     out["flash_fwd"].append(time_flash(
         "GPT-2 training causal q,k,v (8,12,1024,64) bf16", q, k, v, True,
         None, errors))
+    q, k, v = attn_inputs(4, 6, 6, 1024, 1024, 64, torch.bfloat16, gen)
+    out["flash_fwd"].append(time_flash(
+        "GPT-2 tp=2 training causal q,k,v (4,6,1024,64) bf16", q, k, v,
+        True, None, errors))
     del q, k, v
     q, k, v = attn_inputs(8, 32, 4, 1, 2048, 64, torch.bfloat16, gen)
     lens = torch.tensor([64, 300, 500, 800, 1000, 1200, 1500, 1600],
@@ -1304,25 +1354,29 @@ def kernel_timings(errors):
     out["layer_norm_fwd"] += [time_layer_norm(rows, 1024, dtype=dtype)
                               for rows in (2048, 16384)
                               for dtype in (torch.bfloat16, torch.float32)]
+    # GPT-2's rows under sequence parallelism at tp = 2
+    out["layer_norm_fwd"].append(time_layer_norm(2048, 768))
     # GPT-2 training's rows (eight warps a block), and GPT-2 XL's width
     # (four warps a block)
     out["layer_norm_bwd"] = [time_layer_norm_bwd(8192, 768),
                              time_layer_norm_bwd(8192, 1600),
                              time_layer_norm_bwd(2048, 1024),
-                             time_layer_norm_bwd(2048, 1024, torch.float32)]
+                             time_layer_norm_bwd(2048, 1024, torch.float32),
+                             time_layer_norm_bwd(2048, 768)]
     dq, dkv = time_flash_bwd(gen, 8, 12, 12, 1024, errors)
     ldq, ldkv = time_flash_bwd(gen, 4, 32, 4, 2048, errors)
     wdq, wdkv = time_flash_bwd(gen, 4, 8, 1, 2048, errors, d=256)
     bdq, bdkv = time_flash_bwd(gen, 4, 16, 16, 512, errors, causal=False)
     pdq, pdkv = time_flash_bwd(gen, 4, 16, 16, 512, errors, causal=False,
                                kpm=bert_kpm)
-    out["flash_bwd_dq"] = dq + ldq + wdq + bdq + pdq
-    out["flash_bwd_dkv"] = dkv + ldkv + wdkv + bdkv + pdkv
+    tdq, tdkv = time_flash_bwd(gen, 4, 6, 6, 1024, errors)  # GPT-2, tp = 2
+    out["flash_bwd_dq"] = dq + ldq + wdq + bdq + pdq + tdq
+    out["flash_bwd_dkv"] = dkv + ldkv + wdkv + bdkv + pdkv + tdkv
     out["adam_update"] = [time_adam(N_GPT2_SMALL)]
     out["rms_norm_fwd"] = [time_rms_norm(8192, 2048),
                            time_rms_norm(8, 2048, graph=True)]
     out["rms_norm_bwd"] = [time_rms_norm_bwd(8192, 2048)]
-    out["sumsq_flat"] = [time_sumsq(N_TINYLLAMA)]
+    out["sumsq_flat"] = [time_sumsq(N_TINYLLAMA), time_sumsq(ZERO_SHARD_TP2)]
     for name, rows in out.items():
         for r in rows:
             share = (f", {100 * r['bound_share']:.1f}% of bound"
@@ -2252,6 +2306,260 @@ def dropout_statistics():
         "forwards")
 
 
+# -- GPT-2 small at tp = 2 x dp = 2 ------------------------------------------
+
+# 50257 does not divide by tp = 2 (the JAX VocabParallelEmbedding refuses
+# it too): the table is padded to a multiple of 128, as Megatron-LM's
+# --make-vocab-size-divisible-by 128 pads GPT-2's vocabulary
+GPT_PARALLEL_VOCAB = 50304
+GPT_PARALLEL_ARGV = (
+    "--vocab", str(GPT_PARALLEL_VOCAB), "--seq-len", "1024", "--layers",
+    "12", "--hidden", "768", "--heads", "12", "--micro-batch", "4",
+    "--global-batch", "16", "--tp", "2", "--seed", str(SEED),
+    "--dist-backend", "gloo")
+GPT_PARALLEL_RANKS = 4
+# NCCL refuses two ranks on one card, so the 4 ranks share it over gloo,
+# which moves the CUDA tensors of each collective through host memory
+GLOO_TRANSPORT = ("gloo: 4 ranks on one card; each collective's CUDA "
+                  "tensors staged through host memory")
+
+
+def run_gpt_example(extra, steps):
+    """The GPT example under ``torch.distributed.run``: 4 ranks of GPT-2
+    small at tp = 2 x dp = 2 with sequence parallelism on this card.
+    Returns its step records, rank 0's closing JSON and the wall time."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(GPT_PARALLEL_RANKS), "-m",
+           "apex_tpu_torch.examples.gpt.pretrain_gpt", *GPT_PARALLEL_ARGV,
+           "--steps", str(steps), *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[2:])} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-6000:]}")
+    records, summary = [], None
+    for line in proc.stdout.splitlines():
+        if line.startswith("step "):
+            f = line.split()
+            records.append(dict(step=int(f[1]), loss=float(f[3]),
+                                grad_norm=float(f[5]),
+                                loss_scale=float(f[7]),
+                                tokens_per_s=float(f[9]),
+                                step_ms=float(f[11]), verdict=f[13]))
+        elif line.startswith("{"):
+            summary = json.loads(line)
+    if len(records) != steps or summary is None:
+        raise AssertionError(f"the example printed {len(records)} steps of "
+                             f"{steps}:\n{proc.stdout[-3000:]}")
+    return records, summary, wall
+
+
+def gpt_parallel_phase(smi):
+    """(a) ZeRO, (b) DDP through the example at full width; (c) card
+    against plain at small depth; (d) one NCCL step at a world of one."""
+    torch.cuda.empty_cache()
+    paths, report = {}, {"transport": GLOO_TRANSPORT, "gpu": smi}
+    for name, extra, steps, kernels in (
+            ("gpt_parallel", ("--zero",), 4, PATH_KERNELS["gpt_parallel"]),
+            ("gpt_parallel_ddp", (), 3, PATH_KERNELS["gpt_parallel_ddp"])):
+        records, summary, wall = run_gpt_example(extra, steps)
+        for r in records:
+            log(f"{name} step {r['step']} loss {r['loss']:.4f} grad_norm "
+                f"{r['grad_norm']:.4f} verdict {r['verdict']} tokens_per_s "
+                f"{r['tokens_per_s']:.1f} step_ms {r['step_ms']:.2f} "
+                f"({GLOO_TRANSPORT})")
+        losses = [r["loss"] for r in records]
+        if not all(math.isfinite(x) for x in losses) or any(
+                r["verdict"] != "ok" for r in records):
+            raise AssertionError(f"{name}: {records}")
+        first = losses[0] - math.log(GPT_PARALLEL_VOCAB)
+        if abs(first) > 0.5:
+            raise AssertionError(f"{name}: first loss {losses[0]} is not "
+                                 f"near ln {GPT_PARALLEL_VOCAB}")
+        if (summary["world"], summary["tp"], summary["dp"],
+                summary["sequence_parallel"]) != (4, 2, 2, True):
+            raise AssertionError(f"{name}: layout {summary}")
+        counts = summary["launch_counts_rank0"]
+        missing = [k for k in kernels if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{name}: {missing} not launched on rank 0")
+        if "--zero" in extra and (counts["adam_update"] != 0 or
+                                  summary["zero_shard_len"] != ZERO_SHARD_TP2):
+            raise AssertionError(f"{name}: Adam kernel launched or shard "
+                                 f"{summary['zero_shard_len']}")
+        paths[name] = counts
+        measured = records[1:]
+        report[name] = {
+            "model": f"gpt2-small 12x768 vocab {GPT_PARALLEL_VOCAB} (random "
+                     "weights, bf16 compute, fp32 params), tp=2 dp=2 sp",
+            "steps": len(measured), "micro_batch": 4, "global_batch": 16,
+            "seq_len": 1024, "first_loss": losses[0],
+            "tokens_per_s_mean": statistics.mean(
+                r["tokens_per_s"] for r in measured),
+            "step_ms_mean": statistics.mean(r["step_ms"] for r in measured),
+            "peak_mem_gb_by_rank": summary["peak_mem_gb_by_rank"],
+            "launches_rank0": counts,
+            "launches_per_step_rank0": {k: n / steps
+                                        for k, n in counts.items()},
+            "staged_per_step_rank0": {
+                k: n / steps for k, n in
+                summary["staged_through_host_rank0"].items()},
+            "wall_s": wall}
+        log(f"{name} " + json.dumps(report[name]))
+    report["card_vs_plain"] = gpt_parallel_card_vs_plain()
+    report["nccl_world_of_one"] = nccl_world_of_one()
+    return paths, report
+
+
+CARD_VS_PLAIN = dict(vocab=GPT_PARALLEL_VOCAB, seq_len=256, layers=2,
+                     hidden=768, heads=12, tp=2, micro_batch=2,
+                     global_batch=4, seed=SEED, zero=True)
+
+
+def gpt_parallel_card_vs_plain(target=CARD_VS_PLAIN, device="cuda"):
+    """The same 4 ranks and seed, 2 layers of GPT-2 small's width at seq
+    256: ZeRO training in bf16 (3 steps) and an fp32 loop of the model,
+    the data-parallel all-reduce and fused_adam (2 steps), on the card's
+    kernels and on the CPU's plain versions over gloo."""
+    from apex_tpu_torch.data import LMDataset
+    from apex_tpu_torch.resilience.replay import synthetic_corpus
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        spawn,
+    )
+    from apex_tpu_torch.transformer.testing.parallel_workers import (
+        card_vs_plain_worker,
+    )
+
+    seq = target["seq_len"]
+    lm = LMDataset(synthetic_corpus(target["vocab"], 20_000), seq)
+    batches = [tuple(a.reshape(1, 4, seq) for a in lm.batch(range(4 * i,
+                                                                4 * i + 4)))
+               + (0.0,) for i in range(3)]
+    t0 = time.perf_counter()
+    ranks = spawn(card_vs_plain_worker, GPT_PARALLEL_RANKS,
+                  args=(target, batches, 2, device), timeout=600.0)
+    wall = time.perf_counter() - t0
+    lr = 3e-4
+    worst = {"bf16_loss": 0.0, "bf16_param": 0.0, "fp32_loss": 0.0,
+             "fp32_param": 0.0, "fp32_param_abs": 0.0, "fp32_k_bias": 0.0}
+    for r, out in enumerate(ranks):
+        card, cpu = out["bf16"]["card"], out["bf16"]["plain"]
+        # bf16: test_torch_training.py's tolerances
+        for sg, sc in zip(card["steps"], cpu["steps"]):
+            if (sg["verdict"], sg["loss_scale"]) != (sc["verdict"],
+                                                     sc["loss_scale"]):
+                raise AssertionError(f"rank {r}: {sg} vs {sc}")
+            rel = abs(sg["loss"] - sc["loss"]) / abs(sc["loss"])
+            worst["bf16_loss"] = max(worst["bf16_loss"], rel)
+            if rel > 2e-3:
+                raise AssertionError(f"rank {r} bf16 loss {sg} vs {sc}")
+        for n, want in cpu["params"].items():
+            err = float(np.abs(card["params"][n] - want).max())
+            worst["bf16_param"] = max(worst["bf16_param"], err)
+            if err > 2e-3:
+                raise AssertionError(f"rank {r} bf16 {n}: {err}")
+        # fp32: each tensor to 1e-4 relative in norm. Not element by
+        # element: Adam's first steps move an element by about lr whatever
+        # its gradient's size, so an element whose gradient nearly cancels
+        # (a few of the position table's 786,432 in a first run) moves
+        # either way on the two sides. The key bias's gradient is 0 in
+        # exact arithmetic (the softmax is invariant to it), so all of it
+        # moves on rounding noise: held to 2 lr a step, element by element
+        card, cpu = out["fp32"]["card"], out["fp32"]["plain"]
+        for lg, lc in zip(card["losses"], cpu["losses"]):
+            rel = abs(lg - lc) / abs(lc)
+            worst["fp32_loss"] = max(worst["fp32_loss"], rel)
+            if rel > 1e-4:
+                raise AssertionError(f"rank {r} fp32 losses {card['losses']}"
+                                     f" vs {cpu['losses']}")
+        for n, want in cpu["params"].items():
+            got = card["params"][n]
+            if n.endswith("query_key_value.bias"):
+                hn = target["hidden"] // target["heads"]
+                k = np.zeros(want.shape, bool).reshape(-1, 3, hn)
+                k[:, 1] = True
+                k = k.reshape(want.shape)
+                kerr = float(np.abs(got - want)[k].max())
+                worst["fp32_k_bias"] = max(worst["fp32_k_bias"], kerr)
+                if kerr > 2 * lr * len(card["losses"]):
+                    raise AssertionError(f"rank {r} {n} key bias: {kerr}")
+                got, want = got[~k], want[~k]
+            rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+            worst["fp32_param"] = max(worst["fp32_param"], rel)
+            worst["fp32_param_abs"] = max(worst["fp32_param_abs"], float(
+                np.abs(got - want).max()))
+            if rel > 1e-4:
+                raise AssertionError(f"rank {r} fp32 {n}: relative error "
+                                     f"{rel} in norm")
+        missing = [k for k in PATH_KERNELS["gpt_parallel"]
+                   if out["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"rank {r}: {missing} not launched")
+    result = {"ranks": len(ranks), "wall_s": wall, **worst,
+              "losses_bf16_card_rank0": [
+                  x["loss"] for x in ranks[0]["bf16"]["card"]["steps"]]}
+    log("gpt_parallel card vs plain (2 x 768, seq 256, 4 ranks, bf16 "
+        "ZeRO steps to 2e-3, fp32 loop to 1e-4 relative in norm): "
+        + json.dumps(result))
+    return result
+
+
+def nccl_world_of_one():
+    """One step of GPT-2 small (tp = dp = 1, vocab 50304) in a NCCL world
+    of one: the gradient, loss and overflow-flag all-reduces run through
+    NCCL on the card."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from apex_tpu_torch.data import LMDataset
+    from apex_tpu_torch.parallel import parallel_state as ps
+    from apex_tpu_torch.resilience import VERDICT_OK
+    from apex_tpu_torch.resilience.replay import (
+        GPTTargetConfig,
+        build_gpt_training,
+        synthetic_corpus,
+    )
+    from apex_tpu_torch.transformer.testing.commons import (
+        initialize_distributed,
+    )
+
+    cfg = GPTTargetConfig(vocab=GPT_PARALLEL_VOCAB, seq_len=1024, layers=12,
+                          hidden=768, heads=12, micro_batch=8,
+                          global_batch=16, seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed("nccl", init_method=f"file://{tmp}/store",
+                               world_size=1, rank=0)
+        try:
+            backend = dist.get_backend()
+            tr = build_gpt_training(cfg, device="cuda")
+            state = tr.init_state()
+            lm = LMDataset(synthetic_corpus(cfg.vocab), cfg.seq_len)
+            x, y = tr.reshape_batch(*lm.batch(range(cfg.global_batch)))
+            t0 = time.perf_counter()
+            state, loss, verdict, metrics = tr.train_step(state, x, y)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            groups = (ps.get_tensor_model_parallel_group(),
+                      ps.get_data_parallel_group())
+            if backend != "nccl" or any(
+                    dist.get_backend(g) != "nccl" for g in groups):
+                raise AssertionError(f"backend {backend}")
+        finally:
+            ps.destroy_model_parallel()
+            dist.destroy_process_group()
+    if verdict != VERDICT_OK or not math.isfinite(loss):
+        raise AssertionError(f"NCCL step: verdict {verdict}, loss {loss}")
+    result = {"backend": backend, "loss": loss,
+              "grad_norm": metrics["grad_norm"], "step_ms": ms}
+    log("gpt_parallel NCCL world of one: " + json.dumps(result))
+    del tr, state
+    torch.cuda.empty_cache()
+    return result
+
+
 def log_memory(after):
     """What stays allocated on the card after a phase: a later phase's
     peak memory counts it."""
@@ -2295,6 +2603,9 @@ def main():
     log_memory("bert_pretrain")
     paths["bert_dropout"], _ = bert_dropout_phase(smi)
     log_memory("bert_dropout")
+    parallel, _ = gpt_parallel_phase(smi)
+    paths.update(parallel)
+    log_memory("gpt_parallel")
     for name, counts in paths.items():
         log(f"launches {name}: " + json.dumps(
             {k: counts[k] for k in PATH_KERNELS[name]}))

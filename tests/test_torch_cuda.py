@@ -18,6 +18,8 @@ RMSNorm as LayerNorm (dgamma over up to 1000 rows: 1e-3 absolute). The
 sum of squares against an fp64 sum on the card: 1e-5 relative (fp32
 partial sums of a few thousand terms each). Every kernel's repeat call
 on the same inputs is bit-equal (fixed summation orders, no atomics).
+The collectives of CUDA tensors under gloo, staged through host memory,
+equal the same collectives of host tensors bit for bit.
 """
 
 import math
@@ -592,3 +594,24 @@ def test_bert_dropout_takes_core_attention_on_the_card(gen):
     sigma = math.sqrt(0.1 * 0.9 / n)
     assert abs(kept.float().mean().item() - 0.9) < 4 * sigma
 
+
+
+def test_gloo_collectives_of_cuda_tensors_go_through_host_memory(gen):
+    """Two ranks on this card over gloo: every ``parallel_state``
+    collective of a CUDA tensor equals the same collective of the tensor
+    on the CPU, and each was staged once: 5 collectives moving 1,008
+    bytes between the card and the host (two 96-byte in-place
+    all-reduces and a broadcast, both ways; the gather's 96 in and 192
+    out; the reduce-scatter's 96 in and 48 out)."""
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        spawn,
+    )
+    from apex_tpu_torch.transformer.testing.parallel_workers import (
+        staged_collectives_worker,
+    )
+
+    for out, staged in spawn(staged_collectives_worker, 2, timeout=120.0):
+        assert len(out["cuda"]) == len(out["cpu"]) == 5
+        for got, want in zip(out["cuda"], out["cpu"]):
+            np.testing.assert_array_equal(got, want)
+        assert staged == {"collectives": 5, "bytes": 1008}

@@ -303,7 +303,9 @@ def test_distributed_fused_adam_refuses_what_is_not_ported():
         distributed_fused_adam,
     )
 
-    with pytest.raises(NotImplementedError, match="world of one"):
+    # an axis_size that is not the data-parallel group's size (here a
+    # world of one: no process group)
+    with pytest.raises(ValueError, match="axis_size 2"):
         distributed_fused_adam(axis_size=2)
     with pytest.raises(NotImplementedError, match="compress"):
         distributed_fused_adam(compression=object())

@@ -301,10 +301,23 @@ def test_training_step_matches_jax(jax_training):
 
 
 def test_training_refuses_what_is_not_ported():
-    for bad in (dict(zero=True), dict(compression="int8"), dict(tp=2),
-                dict(collect_layer_rms=True), dict(max_devices=4)):
+    # tp, zero and max_devices are ported (tests/test_torch_parallel_
+    # training.py); compression, the layer-RMS taps and pipeline and
+    # context parallelism are not
+    from apex_tpu_torch.parallel import parallel_state
+
+    for bad in (dict(compression="int8"), dict(collect_layer_rms=True)):
         with pytest.raises(NotImplementedError):
             build_gpt_training(GPTTargetConfig(**bad), device="cpu")
+    for bad in (dict(pipeline_model_parallel_size=2),
+                dict(context_parallel_size=2)):
+        with pytest.raises(NotImplementedError):
+            parallel_state.initialize_model_parallel(**bad)
+    # tp = 2 and 4 devices need a world of that many processes
+    with pytest.raises(RuntimeError, match="world"):
+        build_gpt_training(GPTTargetConfig(tp=2), device="cpu")
+    with pytest.raises(ValueError, match="max_devices"):
+        build_gpt_training(GPTTargetConfig(max_devices=4), device="cpu")
     with pytest.raises(AssertionError, match="divide evenly"):
         build_gpt_training(GPTTargetConfig(micro_batch=3, global_batch=16),
                            device="cpu")
