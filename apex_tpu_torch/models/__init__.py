@@ -1,5 +1,5 @@
 """The GPT model (and the Llama family on it), its loss, its decoding
-loop, BERT, the ResNet family, conversion of JAX weights and training
+loop, the pipelined GPT's parts (``models.gpt_pipeline``), BERT, the ResNet family, conversion of JAX weights and training
 state, and the import of transformers Llama weights."""
 
 from apex_tpu_torch.models.bert import (
@@ -11,6 +11,7 @@ from apex_tpu_torch.models.convert import (
     bert_params_from_jax,
     fused_adam_state_from_jax,
     gpt_params_from_jax,
+    gpt_pipeline_params_from_jax,
     gpt_tp_params_from_jax,
     resnet_params_from_jax,
     scaler_state_from_jax,
@@ -46,7 +47,8 @@ __all__ = [
     "ResNet34", "ResNet50", "ResNet101", "ResNet152", "bert_extended_attention_mask",
     "bert_params_from_jax", "config_from_hf_llama", "cross_entropy_loss",
     "fused_adam_state_from_jax", "generate", "gpt2_small_config",
-    "gpt_loss_fn", "gpt_params_from_jax", "gpt_tp_params_from_jax",
+    "gpt_loss_fn", "gpt_params_from_jax", "gpt_pipeline_params_from_jax",
+    "gpt_tp_params_from_jax",
     "llama_from_hf",
     "megatron_bert_345m_config", "mistral_from_hf",
     "params_from_hf_llama", "params_to_hf_llama", "resnet_params_from_jax",

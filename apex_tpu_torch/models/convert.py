@@ -25,7 +25,8 @@ from apex_tpu_torch.amp.scaler import LossScalerState
 from apex_tpu_torch.optimizers.fused_adam import FusedAdamState
 
 __all__ = ["bert_params_from_jax", "fused_adam_state_from_jax",
-           "gpt_params_from_jax", "gpt_tp_params_from_jax",
+           "gpt_params_from_jax", "gpt_pipeline_params_from_jax",
+           "gpt_tp_params_from_jax",
            "resnet_params_from_jax", "scaler_state_from_jax"]
 
 
@@ -66,6 +67,41 @@ def gpt_tp_params_from_jax(params: Dict[str, Any], rank: int
         return shard(node)
 
     return gpt_params_from_jax(walk(params))
+
+
+def gpt_pipeline_params_from_jax(params: Dict[str, Any], rank: int,
+                                 tensor_model_parallel_size: int = 1
+                                 ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Port rank ``rank``'s ``{"pre", "stages", "post"}`` (each a dict of
+    dotted names, as ``models.gpt_pipeline``'s functions take them) from
+    the JAX pipelined GPT's params tree, in either form:
+
+    - built inside ``shard_map`` with ``out_specs=P()`` (``run_gpt``):
+      each device holds its own stage (and tp shards) under a sharding
+      that claims replication, so every leaf is read from device
+      ``rank``'s buffer, as :func:`gpt_tp_params_from_jax` reads them;
+    - the stacked host tree of numpy arrays (``tests/test_pipeline_gpt.py``
+      ``init_all``): ``stages`` leaves lead with the pp dim (then V when
+      interleaved), and port rank ``rank`` is pp rank ``rank //
+      tensor_model_parallel_size mod pp``; ``pre`` and ``post`` are
+      replicated."""
+    def read(leaf, stage):
+        if hasattr(leaf, "addressable_shards"):
+            shards = sorted(leaf.addressable_shards,
+                            key=lambda s: s.device.id)
+            return np.asarray(shards[rank].data)
+        leaf = np.asarray(leaf)
+        if stage:
+            leaf = leaf[rank // tensor_model_parallel_size % leaf.shape[0]]
+        return leaf
+
+    def walk(node, stage):
+        if isinstance(node, dict):
+            return {k: walk(v, stage) for k, v in node.items()}
+        return read(node, stage)
+
+    return {part: gpt_params_from_jax(walk(params[part], part == "stages"))
+            for part in ("pre", "stages", "post")}
 
 
 def bert_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

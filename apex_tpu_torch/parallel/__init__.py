@@ -2,8 +2,9 @@
 process groups (``parallel.parallel_state``), the tensor- and
 sequence-parallel regions (``parallel.mappings``) and layers, the
 data-parallel gradient sync (``parallel.ddp``), BatchNorm synchronized
-over a group, the parallel RNG seeds (``parallel.random``) and the
-no-pipelining schedule (``parallel.pipeline``)."""
+over a group, the parallel RNG seeds (``parallel.random``) and pipeline
+parallelism (``parallel.pipeline``: stage edges, micro-batch calculators
+and the schedules)."""
 
 from apex_tpu_torch.parallel.ddp import (
     DistributedDataParallel,

@@ -6,8 +6,17 @@ The JAX package lays every device on one mesh with the axes
 is one rank of a ``torch.distributed`` world, and the axes are process
 groups over the same layout: rank ``r = ((d * pp + p) * cp + c) * tp +
 t``, so port rank ``r`` holds what JAX device ``r`` holds on the CPU mesh
-(``np.asarray(devices).reshape(dp, pp, cp, tp)``). Pipeline and context
-parallelism (pp, cp > 1) are not ported yet and raise.
+(``np.asarray(devices).reshape(dp, pp, cp, tp)``). Context parallelism
+(cp > 1) is not ported yet and raises.
+
+Pipeline stages talk point to point (:func:`p2p`, which the schedules of
+``parallel.pipeline`` drive): sends are posted and waited for later,
+receives block, and each message carries a tag, so two streams between
+the same pair of ranks (activations one way, gradients the other, and
+both on the ring of the interleaved schedule) never cross. Gloo honours
+tags; NCCL matches a pair's messages in the order they were posted, so
+the interleaved schedule refuses it where both streams share a pair (P
+= 2).
 
 The backend is the caller's (``transformer.testing.commons
 .initialize_distributed``): NCCL moves CUDA tensors as they are; gloo
@@ -33,12 +42,18 @@ __all__ = [
     "destroy_model_parallel", "get_data_parallel_group",
     "get_data_parallel_rank", "get_data_parallel_world_size",
     "get_group", "get_model_parallel_world_size",
+    "get_pipeline_model_parallel_group", "get_pipeline_model_parallel_rank",
+    "get_pipeline_model_parallel_split_rank",
     "get_pipeline_model_parallel_world_size",
+    "get_virtual_pipeline_model_parallel_rank",
+    "get_virtual_pipeline_model_parallel_world_size",
     "get_context_parallel_world_size", "get_tensor_model_parallel_group",
     "get_tensor_model_parallel_rank",
     "get_tensor_model_parallel_world_size", "group_size",
-    "initialize_model_parallel", "model_parallel_is_initialized",
-    "STAGED", "reduce_scatter", "staged_through_host",
+    "initialize_model_parallel", "is_pipeline_first_stage",
+    "is_pipeline_last_stage", "model_parallel_is_initialized", "p2p",
+    "set_virtual_pipeline_model_parallel_rank", "STAGED", "reduce_scatter",
+    "staged_through_host", "wait_sends",
 ]
 
 DATA_AXIS, PIPELINE_AXIS, CONTEXT_AXIS, TENSOR_AXIS = "dp", "pp", "cp", "tp"
@@ -60,51 +75,81 @@ class _Axes:
     dp_rank: int
     tp_group: object
     dp_group: object
+    pp: int = 1
+    pp_rank: int = 0
+    pp_group: object = None  # None at pp = 1: no collective
 
 
 _AXES: Optional[_Axes] = None
+# the JAX module's host-side pipeline settings, kept without a world too
+_VIRTUAL_PIPELINE_WORLD_SIZE: Optional[int] = None
+_VIRTUAL_PIPELINE_RANK: Optional[int] = None
+_PIPELINE_SPLIT_RANK: Optional[int] = None
 
 
-def initialize_model_parallel(tensor_model_parallel_size: int = 1,
-                              pipeline_model_parallel_size: int = 1,
-                              context_parallel_size: int = 1) -> None:
-    """Builds the tp and dp groups of the initialized world (ref:
-    parallel_state.py:100). Data-parallel size is what remains after tp,
-    as in JAX. Every rank builds every group, in the same order, as
-    ``torch.distributed.new_group`` requires. Without a process group the
-    world is one process."""
-    global _AXES
-    if pipeline_model_parallel_size != 1 or context_parallel_size != 1:
+def _layout(dp: int, pp: int, tp: int):
+    """The ranks of each tp, dp and pp group, in rank order:
+    ``r = (d * pp + p) * tp + t`` (cp = 1), the order of JAX's
+    ``reshape(dp, pp, cp, tp)``."""
+    def rank(d, p, t):
+        return (d * pp + p) * tp + t
+
+    tp_groups = [[rank(d, p, t) for t in range(tp)]
+                 for d in range(dp) for p in range(pp)]
+    dp_groups = [[rank(d, p, t) for d in range(dp)]
+                 for p in range(pp) for t in range(tp)]
+    pp_groups = [[rank(d, p, t) for p in range(pp)]
+                 for d in range(dp) for t in range(tp)]
+    return tp_groups, dp_groups, pp_groups
+
+
+def initialize_model_parallel(
+        tensor_model_parallel_size: int = 1,
+        pipeline_model_parallel_size: int = 1,
+        virtual_pipeline_model_parallel_size: Optional[int] = None,
+        pipeline_model_parallel_split_rank: Optional[int] = None,
+        context_parallel_size: int = 1) -> None:
+    """Builds the tp, dp and (at pp > 1) pp groups of the initialized
+    world (ref: parallel_state.py:100). Data-parallel size is what
+    remains after tp x pp, as in JAX. Every rank builds every group, in
+    the same order, as ``torch.distributed.new_group`` requires. Without
+    a process group the world is one process. The virtual pipeline size
+    and the split rank are kept for their getters, as in JAX."""
+    global _AXES, _VIRTUAL_PIPELINE_WORLD_SIZE, _VIRTUAL_PIPELINE_RANK
+    global _PIPELINE_SPLIT_RANK
+    if context_parallel_size != 1:
         raise NotImplementedError(
-            "pipeline and context parallelism are not ported yet "
-            f"(pp={pipeline_model_parallel_size}, "
-            f"cp={context_parallel_size})")
-    tp = tensor_model_parallel_size
-    if not dist.is_initialized():
-        if tp != 1:
-            raise RuntimeError(
-                f"tensor_model_parallel_size={tp} needs a torch.distributed "
-                "world of at least that many processes "
-                "(transformer.testing.commons.initialize_distributed)")
-        _AXES = None
-        return
+            "context parallelism is not ported yet "
+            f"(cp={context_parallel_size})")
+    tp, pp = tensor_model_parallel_size, pipeline_model_parallel_size
+    if not dist.is_initialized() and tp * pp != 1:
+        raise RuntimeError(
+            f"tensor ({tp}) x pipeline ({pp}) model-parallel size needs a "
+            "torch.distributed world of at least that many processes "
+            "(transformer.testing.commons.initialize_distributed)")
     destroy_model_parallel()
-    world, rank = dist.get_world_size(), dist.get_rank()
-    if world % tp:
-        raise RuntimeError(f"world size ({world}) is not divisible by tp "
-                           f"({tp}) x pp (1) x cp (1)")
-    dp = world // tp
-    tp_group = dp_group = None
-    for d in range(dp):  # rank = d * tp + t
-        g = dist.new_group([d * tp + t for t in range(tp)])
-        if rank // tp == d:
-            tp_group = g
-    for t in range(tp):
-        g = dist.new_group([d * tp + t for d in range(dp)])
-        if rank % tp == t:
-            dp_group = g
-    _AXES = _Axes(tp=tp, dp=dp, tp_rank=rank % tp, dp_rank=rank // tp,
-                  tp_group=tp_group, dp_group=dp_group)
+    if dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if world % (tp * pp):
+            raise RuntimeError(f"world size ({world}) is not divisible by tp "
+                               f"({tp}) x pp ({pp}) x cp (1)")
+        dp = world // (tp * pp)
+        mine = {}
+        for axis, groups in zip(("tp", "dp", "pp"), _layout(dp, pp, tp)):
+            if axis == "pp" and pp == 1:
+                continue
+            for ranks in groups:
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    mine[axis] = g
+        _AXES = _Axes(tp=tp, dp=dp, tp_rank=rank % tp,
+                      dp_rank=rank // (tp * pp), tp_group=mine["tp"],
+                      dp_group=mine["dp"], pp=pp,
+                      pp_rank=rank // tp % pp, pp_group=mine.get("pp"))
+    _VIRTUAL_PIPELINE_WORLD_SIZE = virtual_pipeline_model_parallel_size
+    _VIRTUAL_PIPELINE_RANK = (0 if virtual_pipeline_model_parallel_size
+                              else None)
+    _PIPELINE_SPLIT_RANK = pipeline_model_parallel_split_rank
 
 
 def model_parallel_is_initialized() -> bool:
@@ -114,11 +159,16 @@ def model_parallel_is_initialized() -> bool:
 def destroy_model_parallel() -> None:
     """Destroys the groups (ref: parallel_state.py:761); the default
     group stays, for its owner to destroy."""
-    global _AXES
+    global _AXES, _VIRTUAL_PIPELINE_WORLD_SIZE, _VIRTUAL_PIPELINE_RANK
+    global _PIPELINE_SPLIT_RANK
     axes, _AXES = _AXES, None
+    _VIRTUAL_PIPELINE_WORLD_SIZE = _VIRTUAL_PIPELINE_RANK = None
+    _PIPELINE_SPLIT_RANK = None
     if axes is not None and dist.is_initialized():
-        for g in {id(axes.tp_group): axes.tp_group,
-                  id(axes.dp_group): axes.dp_group}.values():
+        wait_sends()  # no group goes down under a message in flight
+        for g in {id(g): g for g in (axes.tp_group, axes.dp_group,
+                                     axes.pp_group) if g is not None
+                  }.values():
             dist.destroy_process_group(g)
 
 
@@ -147,7 +197,52 @@ def get_data_parallel_group():
 
 
 def get_pipeline_model_parallel_world_size() -> int:
-    return 1
+    return 1 if _AXES is None else _AXES.pp
+
+
+def get_pipeline_model_parallel_rank() -> int:
+    return 0 if _AXES is None else _AXES.pp_rank
+
+
+def get_pipeline_model_parallel_group():
+    """The pp group; None at pp = 1 (no collective)."""
+    return None if _AXES is None else _AXES.pp_group
+
+
+def get_virtual_pipeline_model_parallel_world_size() -> Optional[int]:
+    return _VIRTUAL_PIPELINE_WORLD_SIZE
+
+
+def get_virtual_pipeline_model_parallel_rank() -> Optional[int]:
+    return _VIRTUAL_PIPELINE_RANK
+
+
+def set_virtual_pipeline_model_parallel_rank(rank: int) -> None:
+    global _VIRTUAL_PIPELINE_RANK
+    _VIRTUAL_PIPELINE_RANK = rank
+
+
+def get_pipeline_model_parallel_split_rank() -> Optional[int]:
+    return _PIPELINE_SPLIT_RANK
+
+
+def is_pipeline_first_stage(ignore_virtual: bool = False) -> bool:
+    """(ref: parallel_state.py:649) Under virtual pp, only model chunk 0
+    of pp rank 0."""
+    if (not ignore_virtual and _VIRTUAL_PIPELINE_WORLD_SIZE is not None
+            and _VIRTUAL_PIPELINE_RANK != 0):
+        return False
+    return get_pipeline_model_parallel_rank() == 0
+
+
+def is_pipeline_last_stage(ignore_virtual: bool = False) -> bool:
+    """(ref: parallel_state.py:660) Under virtual pp, only the last model
+    chunk of the last pp rank."""
+    if (not ignore_virtual and _VIRTUAL_PIPELINE_WORLD_SIZE is not None
+            and _VIRTUAL_PIPELINE_RANK != _VIRTUAL_PIPELINE_WORLD_SIZE - 1):
+        return False
+    return (get_pipeline_model_parallel_rank()
+            == get_pipeline_model_parallel_world_size() - 1)
 
 
 def get_context_parallel_world_size() -> int:
@@ -160,13 +255,16 @@ def get_model_parallel_world_size() -> int:
 
 
 def get_group(axis: str):
-    """The process group of a mesh axis name: ``"tp"`` or ``"dp"``; None
-    for the size-one ``"pp"`` and ``"cp"`` (no collective)."""
+    """The process group of a mesh axis name: ``"tp"``, ``"dp"`` or
+    ``"pp"``; None for ``"pp"`` at pp = 1 and for the size-one ``"cp"``
+    (no collective)."""
     if axis == TENSOR_AXIS:
         return get_tensor_model_parallel_group()
     if axis == DATA_AXIS:
         return get_data_parallel_group()
-    if axis in (PIPELINE_AXIS, CONTEXT_AXIS):
+    if axis == PIPELINE_AXIS:
+        return get_pipeline_model_parallel_group()
+    if axis == CONTEXT_AXIS:
         return None
     raise ValueError(f"unknown mesh axis {axis!r}; expected one of "
                      f"{AXIS_ORDER}")
@@ -179,10 +277,11 @@ def group_size(group) -> int:
 
 # -- collectives -----------------------------------------------------------
 
-# what staged_through_host has moved in this process: the collectives it
-# staged and the bytes it copied between the card and the host (both
-# directions); a run reads them to size gloo's transport
-STAGED = {"collectives": 0, "bytes": 0}
+# what staged_through_host and p2p have moved in this process: the
+# collectives staged and the bytes they copied between the card and the
+# host (both directions), and likewise the point-to-point sends and
+# receives; a run reads them to size gloo's transport
+STAGED = {"collectives": 0, "bytes": 0, "p2p": 0, "p2p_bytes": 0}
 
 
 def staged_through_host(group, collective: Callable, out: torch.Tensor,
@@ -259,3 +358,64 @@ def broadcast(x: torch.Tensor, group, src_index: int = 0) -> torch.Tensor:
     src = dist.get_global_rank(group, src_index)
     return staged_through_host(
         group, lambda o: dist.broadcast(o, src=src, group=group), x)
+
+
+# -- point to point ----------------------------------------------------------
+
+# sends posted and not yet waited for, with the host buffers they read
+_PENDING_SENDS: list = []
+
+
+def _staged(group) -> bool:
+    return dist.get_backend(group) == "gloo"
+
+
+def p2p(group, sends=(), recvs=()) -> list:
+    """Posts every send, then every receive, of one step between ranks of
+    ``group`` and returns the received tensors in ``recvs``' order.
+
+    ``sends``: ``(tensor, dst, tag)``; ``recvs``: ``(like, src, tag)``,
+    a tensor whose shape, dtype and device the message has (the receiver
+    knows them in advance, as Megatron's ``tensor_shape``). ``dst`` and
+    ``src`` are indices in the group. A send is waited for only by a
+    later :func:`wait_sends` (the schedules call it when they end, and
+    ``destroy_model_parallel`` before it takes a group down), so a rank
+    blocks only on the data it receives; the receives are waited for
+    here. Gloo takes host tensors only: a CUDA tensor is copied into
+    a pinned host buffer before its send, and a CUDA receive lands in one
+    and is copied to the card; each counts in ``STAGED``."""
+    staged = _staged(group)
+    for t, dst, tag in sends:
+        t = t.detach().contiguous()
+        if staged and t.is_cuda:
+            t = torch.empty(t.shape, dtype=t.dtype,
+                            pin_memory=True).copy_(t)
+            STAGED["p2p"] += 1
+            STAGED["p2p_bytes"] += t.nbytes
+        work = dist.isend(t, dist.get_global_rank(group, dst), group=group,
+                          tag=tag)
+        _PENDING_SENDS.append((work, t))
+    posted = []
+    for like, src, tag in recvs:
+        buf = (torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+               if staged and like.is_cuda
+               else torch.empty_like(like, memory_format=torch.contiguous_format))
+        work = dist.irecv(buf, dist.get_global_rank(group, src), group=group,
+                          tag=tag)
+        posted.append((work, buf, like))
+    out = []
+    for work, buf, like in posted:
+        work.wait()
+        if buf.device != like.device:
+            STAGED["p2p"] += 1
+            STAGED["p2p_bytes"] += buf.nbytes
+            buf = buf.to(like.device)
+        out.append(buf)
+    return out
+
+
+def wait_sends() -> None:
+    """Waits for every send :func:`p2p` has posted in this process."""
+    while _PENDING_SENDS:
+        work, _ = _PENDING_SENDS.pop(0)
+        work.wait()

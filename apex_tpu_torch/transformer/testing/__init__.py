@@ -1,5 +1,6 @@
 """Megatron-style testing harness: the argument system, the global args,
-and the standalone BERT pre-training entry point (``standalone_bert``)."""
+and the standalone BERT and pipelined GPT pre-training entry points
+(``standalone_bert``, ``standalone_gpt``)."""
 
 from apex_tpu_torch.transformer.testing.arguments import (
     parse_args,

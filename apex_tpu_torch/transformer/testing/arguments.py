@@ -1,19 +1,21 @@
-"""Megatron-style arguments for the standalone BERT (counterpart of
-apex_tpu/transformer/testing/arguments.py).
+"""Megatron-style arguments for the standalone BERT and GPT (counterpart
+of apex_tpu/transformer/testing/arguments.py).
 
 Only the flags the port reads: those of ``transformer_config_from_args``
-and of ``standalone_bert``'s model, data and optimizer, with the
-reference's names and defaults, so the same launch line works on both
-for what the port supports. Any other flag of the reference is unknown
+and of ``standalone_bert``'s and ``standalone_gpt``'s model, data,
+optimizer and process groups, with the reference's names and defaults,
+so the same launch line works on both for what the port supports. Any other flag of the reference is unknown
 here and fails the parse (``ignore_unknown_args`` passes it by), so no
 run accepts a knob it would not honour. What differs:
 - ``params_dtype`` is a torch dtype (``--fp16``/``--bf16`` map as in the
   reference); ``transformer_config_from_args`` makes it the compute
   dtype, and parameters stay fp32;
-- the port runs in one process. ``world_size`` is ``WORLD_SIZE`` when it
-  is set, else the model-parallel size the flags ask for, so a tensor or
-  pipeline size the port lacks reaches the entry point's refusal
-  (``standalone_bert.run_bert``) instead of being clamped away.
+- ``world_size`` is ``WORLD_SIZE`` when it is set (one process a rank
+  under ``torch.distributed.run``, which ``standalone_gpt.run_gpt``
+  trains over at tp x pp x dp), else the model-parallel size the flags
+  ask for, so a size that an entry point refuses (``standalone_bert``
+  runs at dp = tp = pp = 1) reaches its refusal instead of being clamped
+  away; ``standalone_gpt``'s launcher adds ``--distributed-backend``.
 """
 
 import argparse
@@ -62,6 +64,7 @@ def parse_args(extra_args_provider=None, defaults={}, override_args={},
     # distributed
     add("--tensor-model-parallel-size", type=int, default=1)
     add("--pipeline-model-parallel-size", type=int, default=1)
+    add("--num-layers-per-virtual-pipeline-stage", type=int, default=None)
     add("--sequence-parallel", action="store_true")
 
     if extra_args_provider is not None:
@@ -114,6 +117,22 @@ def validate_args(args, override_args={}):
         f"({args.pipeline_model_parallel_size}) parallel sizes"
     )
     args.data_parallel_size = args.world_size // model_parallel_size
+
+    # virtual pipeline (ref :152-162)
+    if args.num_layers_per_virtual_pipeline_stage is not None:
+        assert args.pipeline_model_parallel_size > 2, (
+            "pipeline-model-parallel size should be greater than 2 with "
+            "interleaved schedule"
+        )
+        assert (
+            args.num_layers % args.num_layers_per_virtual_pipeline_stage == 0
+        ), ("number of layers is not divisible by number of layers per "
+            "virtual pipeline stage")
+        args.virtual_pipeline_model_parallel_size = (
+            args.num_layers // args.pipeline_model_parallel_size
+        ) // args.num_layers_per_virtual_pipeline_stage
+    else:
+        args.virtual_pipeline_model_parallel_size = None
 
     # batch sizes (ref :143-151)
     assert args.micro_batch_size is not None

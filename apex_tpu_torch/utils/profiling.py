@@ -10,8 +10,9 @@ __all__ = ["profile_device"]
 def profile_device(fn, top: int = 15) -> dict:
     """Runs ``fn()`` under ``torch.profiler`` (CPU and CUDA activities)
     and returns the wall time, the device time summed over kernels, the
-    device's idle share of the wall time, the ``top`` kernels by device
-    time and the ``top`` host operations by their own (self) CPU time.
+    device's idle share of the wall time, the ``top`` kernels (and
+    copies) by device time and the ``top`` host operations by their own
+    (self) CPU time.
     ``fn`` should end in ``torch.cuda.synchronize()``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -22,9 +23,12 @@ def profile_device(fn, top: int = 15) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side events only: a CPU op's device time repeats its kernels'
+    # device-side events only: a CPU op's device time repeats its kernels'.
+    # Gloo's point-to-point records come filed under the device too, with
+    # a send's whole wait for its receiver as their time: not device work
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("gloo:")]
     rows.sort(key=lambda r: -r[1])
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
                    for e in prof.key_averages()

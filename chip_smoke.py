@@ -131,7 +131,22 @@ swallowed:
    within the training tolerances, 2 fp32 steps of the model, the dp
    all-reduce and ``fused_adam`` to 1e-4; and (d) one step of GPT-2
    small in a NCCL world of one;
-13. prints the ``kernels`` line (all nine kernels; ``launches`` is the
+13. GPT-2 small pipelined, 4 ranks on this card over gloo (each p2p
+   message staged through pinned host memory), vocab 50304, micro batch
+   4, M = 4, seq 1024, bf16, random weights from seed 0: (a)
+   ``standalone_gpt`` under ``torch.distributed.run`` at pp = 2 x tp = 2
+   with sequence parallelism (1F1B), 1 + 3 steps, and (b) the interleaved
+   schedule at pp = 4 with V = 3 chunks of one layer
+   (``forward_backward_with_pre_post(num_model_chunks=3)``) from a
+   spawned world, 1 + 2 steps: finite losses, the first within 0.5 of ln
+   50304, the layout, and #1, #2, #5, #6, #7 and #8 launched on the first
+   and the last stage; per-step ms and tokens/s, every rank's peak memory
+   and the p2p messages and bytes staged a step; then (c) the same 4
+   ranks at pp = 2 x tp = 2 with SP, 4 layers at seq 256, on the card's
+   kernels and on the CPU's plain versions from the same weights: 3 bf16
+   steps (losses 2e-3 relative, parameters 2e-3 absolute) and 2 fp32
+   steps (losses 1e-5 relative, each tensor 1e-4 relative in norm);
+14. prints the ``kernels`` line (all nine kernels; ``launches`` is the
    count of the kernel's first path below that runs it, and
    ``launches_by_path`` has every path's), then as the last line
    ``{"ok": true, "device": {...}}``.
@@ -140,9 +155,12 @@ The paths, each driven with the counts set to 0 just before it and read
 just after: ``serving`` and ``training`` (GPT-2 small), ``llama_serving``
 and ``llama_finetune`` (TinyLlama-1.1B), ``resnet`` (ResNet-50, which
 runs none of the nine kernels), ``bert_serving``, ``bert_pretrain`` and
-``bert_dropout`` (Megatron BERT-345M), and ``gpt_parallel`` and
+``bert_dropout`` (Megatron BERT-345M), ``gpt_parallel`` and
 ``gpt_parallel_ddp`` (GPT-2 small at tp = 2 x dp = 2; each run's ranks
-start at 0 and rank 0 reports its counts).
+start at 0 and rank 0 reports its counts), and ``gpt_pipeline`` and
+``gpt_pipeline_interleaved`` (GPT-2 small pipelined; each run's counts
+start at 0 after its build, and rank 0, a first-stage rank, reports
+them, its last-stage rank's checked beside them).
 """
 
 import gc
@@ -236,6 +254,14 @@ PATH_KERNELS = {
                      "flash_bwd_dq", "flash_bwd_dkv"),
     "gpt_parallel_ddp": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
                          "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
+    # GPT-2 small pipelined (standalone_gpt): pp = 2 x tp = 2 with SP
+    # (1F1B), and pp = 4 with V = 3 chunks (interleaved); counted on the
+    # first stage, and checked on the last
+    "gpt_pipeline": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                     "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
+    "gpt_pipeline_interleaved": ("layer_norm_fwd", "layer_norm_bwd",
+                                 "flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv", "adam_update"),
 }
 FORWARD_KERNELS = PATH_KERNELS["serving"]
 KERNEL_META = {  # name: (source, TPU kernel it replaces)
@@ -363,7 +389,8 @@ def ln_parity(errors):
         for rows, hidden in ((1, 768), (8, 768), (768, 768), (1000, 768),
                              (8192, 768), (1, 1000), (1000, 1000),
                              (8192, 1000), (77, 770), (8192, 770),
-                             (2048, 1024), (16384, 1024), (2048, 768)):
+                             (2048, 1024), (16384, 1024), (2048, 768),
+                             (4096, 768)):
             x, w, b = ln_inputs(rows, hidden, dtype, gen)
             out = ln.layer_norm(x, w, b, 1e-5)
             torch.cuda.synchronize()
@@ -448,7 +475,7 @@ def flash_cases(gen):
         yield ("b*h=65600 decode GQA 16q/4kv (4100,16,1,64) sk=40 "
                "key-padding", q, k, v, False, decode_kpm(4100, 40, gen), None)
         yield from bert_flash_cases(dtype, gen)
-        yield from gpt_tp2_flash_cases(dtype, gen)
+        yield from gpt_training_flash_cases(dtype, gen)
         q, k, v = attn_inputs(32, 16, 16, 512, 512, 64, dtype, gen)
         yield (BERT_SERVING_FLASH, q, k, v, False,
                lens_kpm(bert_serving_draw()[1].tolist(), 512), None)
@@ -488,11 +515,15 @@ def bert_flash_cases(dtype, gen):
 
 # GPT-2 small's attention at tp = 2: 6 of its 12 heads a rank, micro batch 4
 GPT_TP2_FLASH = "GPT-2 tp=2 training causal (4,6,1024,64)"
+# and at tp = 1 (the interleaved pipeline): all 12 heads, micro batch 4
+GPT_TP1_MB4_FLASH = "GPT-2 tp=1 micro batch 4 training causal (4,12,1024,64)"
 
 
-def gpt_tp2_flash_cases(dtype, gen):
+def gpt_training_flash_cases(dtype, gen):
     q, k, v = attn_inputs(4, 6, 6, 1024, 1024, 64, dtype, gen)
     yield GPT_TP2_FLASH, q, k, v, True, None, None
+    q, k, v = attn_inputs(4, 12, 12, 1024, 1024, 64, dtype, gen)
+    yield GPT_TP1_MB4_FLASH, q, k, v, True, None, None
 
 
 def wide_flash_cases(dtype, gen):
@@ -587,8 +618,9 @@ def ln_bwd_parity(errors):
                 one(dtype, f"rows={rows} hidden={hidden}", x, w,
                     grads(rows, hidden, dtype))
         # BERT-345M's rows: 4 x 512 tokens of hidden 1024; GPT-2's under
-        # sequence parallelism at tp = 2: 4 x 1024 / 2 tokens of 768
-        for rows, hidden in ((2048, 1024), (2048, 768)):
+        # sequence parallelism at tp = 2: 4 x 1024 / 2 tokens of 768, and
+        # at tp = 1 (the interleaved pipeline): 4 x 1024 tokens
+        for rows, hidden in ((2048, 1024), (2048, 768), (4096, 768)):
             x, w, _ = ln_inputs(rows, hidden, dtype, gen)
             one(dtype, f"rows={rows} hidden={hidden}", x, w,
                 grads(rows, hidden, dtype))
@@ -624,7 +656,7 @@ def flash_bwd_cases(gen):
         yield "causal sq!=sk (1,12,77,64) sk=200", q, k, v, True, None, None
         yield from wide_flash_cases(dtype, gen)
         yield from bert_flash_cases(dtype, gen)
-        yield from gpt_tp2_flash_cases(dtype, gen)
+        yield from gpt_training_flash_cases(dtype, gen)
         if dtype == torch.bfloat16:  # the Llama training shape, in its dtype
             q, k, v = attn_inputs(4, 32, 4, 2048, 2048, 64, dtype, gen)
             yield ("Llama training GQA 32q/4kv causal (4,32,2048,64)", q, k,
@@ -2460,39 +2492,10 @@ def gpt_parallel_card_vs_plain(target=CARD_VS_PLAIN, device="cuda"):
             worst["bf16_param"] = max(worst["bf16_param"], err)
             if err > 2e-3:
                 raise AssertionError(f"rank {r} bf16 {n}: {err}")
-        # fp32: each tensor to 1e-4 relative in norm. Not element by
-        # element: Adam's first steps move an element by about lr whatever
-        # its gradient's size, so an element whose gradient nearly cancels
-        # (a few of the position table's 786,432 in a first run) moves
-        # either way on the two sides. The key bias's gradient is 0 in
-        # exact arithmetic (the softmax is invariant to it), so all of it
-        # moves on rounding noise: held to 2 lr a step, element by element
         card, cpu = out["fp32"]["card"], out["fp32"]["plain"]
-        for lg, lc in zip(card["losses"], cpu["losses"]):
-            rel = abs(lg - lc) / abs(lc)
-            worst["fp32_loss"] = max(worst["fp32_loss"], rel)
-            if rel > 1e-4:
-                raise AssertionError(f"rank {r} fp32 losses {card['losses']}"
-                                     f" vs {cpu['losses']}")
-        for n, want in cpu["params"].items():
-            got = card["params"][n]
-            if n.endswith("query_key_value.bias"):
-                hn = target["hidden"] // target["heads"]
-                k = np.zeros(want.shape, bool).reshape(-1, 3, hn)
-                k[:, 1] = True
-                k = k.reshape(want.shape)
-                kerr = float(np.abs(got - want)[k].max())
-                worst["fp32_k_bias"] = max(worst["fp32_k_bias"], kerr)
-                if kerr > 2 * lr * len(card["losses"]):
-                    raise AssertionError(f"rank {r} {n} key bias: {kerr}")
-                got, want = got[~k], want[~k]
-            rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
-            worst["fp32_param"] = max(worst["fp32_param"], rel)
-            worst["fp32_param_abs"] = max(worst["fp32_param_abs"], float(
-                np.abs(got - want).max()))
-            if rel > 1e-4:
-                raise AssertionError(f"rank {r} fp32 {n}: relative error "
-                                     f"{rel} in norm")
+        hold_fp32_to_plain(r, card["losses"], cpu["losses"], card["params"],
+                           cpu["params"], target["hidden"] // target["heads"],
+                           lr, worst)
         missing = [k for k in PATH_KERNELS["gpt_parallel"]
                    if out["launches"][k] == 0]
         if missing:
@@ -2504,6 +2507,55 @@ def gpt_parallel_card_vs_plain(target=CARD_VS_PLAIN, device="cuda"):
         "ZeRO steps to 2e-3, fp32 loop to 1e-4 relative in norm): "
         + json.dumps(result))
     return result
+
+
+def hold_fp32_to_plain(r, card_losses, cpu_losses, card_params, cpu_params,
+                       head_dim, lr, worst, loss_rtol=1e-4, zero_init=()):
+    """fp32 training on the card against the CPU's plain versions: losses
+    ``loss_rtol`` relative and each tensor 1e-4 relative in norm. Not
+    element by element: Adam's first steps move an element by about lr
+    whatever its gradient's size, so an element whose gradient nearly
+    cancels (a few of the position table's 786,432 in a first run) moves
+    either way on the two sides. The key bias's gradient is 0 in exact
+    arithmetic (the softmax is invariant to it), so all of it moves on
+    rounding noise: held to 2 lr a step, element by element. A tensor
+    named in ``zero_init`` starts at zero, so its whole value is Adam's
+    updates, where such an element weighs most: held to 1e-2 relative in
+    norm (its gradients are held beside this). ``worst`` gathers the
+    largest errors."""
+    for lg, lc in zip(card_losses, cpu_losses):
+        rel = abs(lg - lc) / abs(lc)
+        worst["fp32_loss"] = max(worst["fp32_loss"], rel)
+        if rel > loss_rtol:
+            raise AssertionError(f"rank {r} fp32 losses {card_losses}"
+                                 f" vs {cpu_losses}")
+    for n, want in cpu_params.items():
+        got = card_params[n]
+        if n.endswith("query_key_value.bias"):
+            k = np.zeros(want.shape, bool).reshape(
+                want.shape[:-1] + (-1, 3, head_dim))
+            k[..., 1, :] = True
+            k = k.reshape(want.shape)
+            kerr = float(np.abs(got - want)[k].max())
+            worst["fp32_k_bias"] = max(worst["fp32_k_bias"], kerr)
+            if kerr > 2 * lr * len(card_losses):
+                raise AssertionError(f"rank {r} {n} key bias: {kerr}")
+            got, want = got[~k], want[~k]
+        rel = float(np.linalg.norm(got - want)
+                    / max(np.linalg.norm(want), 1e-30))
+        if n in zero_init:
+            worst["fp32_zero_init"] = max(worst.get("fp32_zero_init", 0.0),
+                                          rel)
+            if rel > 1e-2:
+                raise AssertionError(f"rank {r} fp32 {n} (zero at init): "
+                                     f"relative error {rel} in norm")
+            continue
+        worst["fp32_param"] = max(worst["fp32_param"], rel)
+        worst["fp32_param_abs"] = max(worst["fp32_param_abs"], float(
+            np.abs(got - want).max()))
+        if rel > 1e-4:
+            raise AssertionError(f"rank {r} fp32 {n}: relative error "
+                                 f"{rel} in norm")
 
 
 def nccl_world_of_one():
@@ -2560,6 +2612,198 @@ def nccl_world_of_one():
     return result
 
 
+# -- GPT-2 small pipelined: pp = 2 x tp = 2, and interleaved at pp = 4 -------
+
+GPT_PIPELINE_ARGV = (
+    "--num-layers", "12", "--hidden-size", "768", "--num-attention-heads",
+    "12", "--seq-length", "1024", "--max-position-embeddings", "1024",
+    "--make-vocab-size-divisible-by", str(GPT_PARALLEL_VOCAB), "--bf16",
+    "--micro-batch-size", "4", "--global-batch-size", "16", "--seed",
+    str(SEED))
+GPT_PIPELINE_1F1B = ("--pipeline-model-parallel-size", "2",
+                     "--tensor-model-parallel-size", "2",
+                     "--sequence-parallel", "--train-iters", "4",
+                     "--distributed-backend", "gloo")
+# 12 layers = pp 4 x V 3 chunks x 1 layer
+GPT_PIPELINE_INTERLEAVED = ("--pipeline-model-parallel-size", "4",
+                            "--num-layers-per-virtual-pipeline-stage", "1",
+                            "--train-iters", "3")
+PIPELINE_CARD_VS_PLAIN_ARGV = (
+    "--num-layers", "4", "--hidden-size", "768", "--num-attention-heads",
+    "12", "--seq-length", "256", "--max-position-embeddings", "256",
+    "--make-vocab-size-divisible-by", str(GPT_PARALLEL_VOCAB),
+    "--pipeline-model-parallel-size", "2", "--tensor-model-parallel-size",
+    "2", "--sequence-parallel", "--micro-batch-size", "2",
+    "--global-batch-size", "4", "--train-iters", "3", "--lr", "3e-4",
+    "--seed", str(SEED))
+
+
+def run_standalone_gpt(extra):
+    """``standalone_gpt`` under ``torch.distributed.run``, 4 ranks on this
+    card over gloo: its per-step losses, rank 0's closing JSON and the
+    wall time."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(GPT_PARALLEL_RANKS), "-m",
+           "apex_tpu_torch.transformer.testing.standalone_gpt",
+           *GPT_PIPELINE_ARGV, *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[2:])} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-6000:]}")
+    losses, summary = [], None
+    for line in proc.stdout.splitlines():
+        if line.startswith("iteration"):
+            losses.append(float(line.split()[-1]))
+        elif line.startswith("{"):
+            summary = json.loads(line)
+    if summary is None or len(losses) != summary["steps"]:
+        raise AssertionError(f"standalone_gpt printed {len(losses)} steps:"
+                             f"\n{proc.stdout[-3000:]}")
+    return losses, summary, wall
+
+
+def check_pipeline_run(name, summary, layout, kernels):
+    """Finite losses, the first within 0.5 of what a random head gives
+    (ln(vocab) + 768 HEAD_STD^2 / 2: the head is drawn at JAX's std, see
+    ``models.gpt_pipeline.HEAD_STD``), the (tp, pp, dp, V, SP) layout,
+    and each of ``kernels`` launched on the first and the last stage."""
+    from apex_tpu_torch.models.gpt_pipeline import HEAD_STD
+
+    losses = summary["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: losses {losses}")
+    expected = math.log(GPT_PARALLEL_VOCAB) + 768 * HEAD_STD ** 2 / 2
+    if abs(losses[0] - expected) > 0.5:
+        raise AssertionError(f"{name}: first loss {losses[0]} is not near "
+                             f"ln {GPT_PARALLEL_VOCAB} + 768 x "
+                             f"{HEAD_STD}^2 / 2 = {expected}")
+    got = (summary["tp"], summary["pp"], summary["dp"],
+           summary["num_model_chunks"], summary["sequence_parallel"])
+    if got != layout:
+        raise AssertionError(f"{name}: layout {got}, not {layout}")
+    for stage in ("first", "last"):
+        counts = summary[f"launch_counts_{stage}_stage"]
+        missing = [k for k in kernels if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{name}: {missing} not launched on the "
+                                 f"{stage} stage")
+
+
+def gpt_pipeline_phase(smi):
+    """(a) ``standalone_gpt`` at GPT-2 small's full width, pp = 2 x tp = 2
+    with SP, 1F1B, 1 + 3 steps; (b) the interleaved schedule at pp = 4, V
+    = 3 from a spawned world, 1 + 2 steps; (c) card against plain at 4
+    layers and seq 256."""
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        spawn,
+    )
+    from apex_tpu_torch.transformer.testing.pipeline_workers import (
+        interleaved_worker,
+    )
+
+    torch.cuda.empty_cache()
+    paths, report = {}, {"transport": GLOO_TRANSPORT, "gpu": smi}
+    _, summary, wall = run_standalone_gpt(GPT_PIPELINE_1F1B)
+    t0 = time.perf_counter()
+    inter = spawn(interleaved_worker, GPT_PARALLEL_RANKS, args=(
+        GPT_PIPELINE_ARGV + GPT_PIPELINE_INTERLEAVED, "cuda"),
+        timeout=600.0)[0]
+    runs = (("gpt_pipeline", summary, (2, 2, 1, 1, True), wall),
+            ("gpt_pipeline_interleaved", inter, (1, 4, 1, 3, False),
+             time.perf_counter() - t0))
+    for name, out, layout, wall in runs:
+        check_pipeline_run(name, out, layout, PATH_KERNELS[name])
+        steps = out["steps"]
+        paths[name] = out["launch_counts_first_stage"]
+        report[name] = {
+            "model": f"gpt2-small 12x768 vocab {GPT_PARALLEL_VOCAB} (random "
+                     "weights, bf16 compute, fp32 params), "
+                     f"tp={out['tp']} pp={out['pp']} dp={out['dp']} "
+                     f"V={out['num_model_chunks']}"
+                     + (" sp" if out["sequence_parallel"] else ""),
+            "num_micro": out["num_micro"], "micro_batch": 4,
+            "seq_len": 1024, "steps": steps, "losses": out["losses"],
+            "step_ms": out["step_ms"],
+            "step_ms_mean_after_first": out["step_ms_mean_after_first"],
+            "tokens_per_s": out["tokens_per_s"],
+            "peak_mem_gb_by_rank": out["peak_mem_gb_by_rank"],
+            "launches_per_step_first_stage": {
+                k: n / steps for k, n in
+                out["launch_counts_first_stage"].items()},
+            "launches_per_step_last_stage": {
+                k: n / steps for k, n in
+                out["launch_counts_last_stage"].items()},
+            "staged_per_step_rank0": {
+                k: n / steps for k, n in out["staged_rank0"].items()},
+            "wall_s": wall}
+        log(f"{name} ({GLOO_TRANSPORT}; tokens/s compared with nothing) "
+            + json.dumps(report[name]))
+    report["card_vs_plain"] = gpt_pipeline_card_vs_plain()
+    return paths, report
+
+
+def gpt_pipeline_card_vs_plain(device="cuda"):
+    """The same 4 ranks at pp = 2 x tp = 2 with SP, 4 layers of GPT-2
+    small's width at seq 256, from one seed: 3 bf16 steps within
+    ``gpt_parallel_card_vs_plain``'s bounds (losses 2e-3 relative,
+    parameters 2e-3 absolute), and 2 fp32 steps (losses 1e-5 relative,
+    every step's gradients and the final tensors 1e-4 relative in norm;
+    the tensors that start at zero 1e-2 and the key bias 2 lr a step
+    element by element, ``hold_fp32_to_plain``)."""
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        spawn,
+    )
+    from apex_tpu_torch.transformer.testing.pipeline_workers import (
+        card_vs_plain_worker,
+    )
+
+    t0 = time.perf_counter()
+    ranks = spawn(card_vs_plain_worker, GPT_PARALLEL_RANKS,
+                  args=(PIPELINE_CARD_VS_PLAIN_ARGV, 2, device),
+                  timeout=600.0)
+    wall = time.perf_counter() - t0
+    lr = 3e-4
+    worst = {"bf16_loss": 0.0, "bf16_param": 0.0, "fp32_loss": 0.0,
+             "fp32_param": 0.0, "fp32_param_abs": 0.0, "fp32_k_bias": 0.0}
+    for r, out in enumerate(ranks):
+        card, cpu = out["bf16"]["card"], out["bf16"]["plain"]
+        for lg, lc in zip(card["losses"], cpu["losses"]):
+            rel = abs(lg - lc) / abs(lc)
+            worst["bf16_loss"] = max(worst["bf16_loss"], rel)
+            if rel > 2e-3:
+                raise AssertionError(f"rank {r} bf16 losses "
+                                     f"{card['losses']} vs {cpu['losses']}")
+        for n, want in cpu["params"].items():
+            err = float(np.abs(card["params"][n] - want).max())
+            worst["bf16_param"] = max(worst["bf16_param"], err)
+            if err > 2e-3:
+                raise AssertionError(f"rank {r} bf16 {n}: {err}")
+        card, cpu = out["fp32"]["card"], out["fp32"]["plain"]
+        for i, rels in enumerate(out["fp32"]["grad_rel"]):
+            for n, rel in rels.items():
+                worst["fp32_grad"] = max(worst.get("fp32_grad", 0.0), rel)
+                if rel > 1e-4:
+                    raise AssertionError(f"rank {r} fp32 step {i} gradient "
+                                         f"{n}: relative error {rel} in norm")
+        hold_fp32_to_plain(r, card["losses"], cpu["losses"], card["params"],
+                           cpu["params"], 768 // 12, lr, worst,
+                           loss_rtol=1e-5, zero_init=out["zero_init"])
+        missing = [k for k in PATH_KERNELS["gpt_pipeline"]
+                   if out["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"rank {r}: {missing} not launched")
+    result = {"ranks": len(ranks), "wall_s": wall, **worst,
+              "losses_bf16_card_rank0": ranks[0]["bf16"]["card"]["losses"]}
+    log("gpt_pipeline card vs plain (4 x 768, seq 256, pp 2 x tp 2 sp, bf16 "
+        "to 2e-3, fp32 losses to 1e-5, every step's gradients and the "
+        "tensors to 1e-4 relative in norm, those zero at init to 1e-2): "
+        + json.dumps(result))
+    return result
+
+
 def log_memory(after):
     """What stays allocated on the card after a phase: a later phase's
     peak memory counts it."""
@@ -2606,6 +2850,9 @@ def main():
     parallel, _ = gpt_parallel_phase(smi)
     paths.update(parallel)
     log_memory("gpt_parallel")
+    pipeline, _ = gpt_pipeline_phase(smi)
+    paths.update(pipeline)
+    log_memory("gpt_pipeline")
     for name, counts in paths.items():
         log(f"launches {name}: " + json.dumps(
             {k: counts[k] for k in PATH_KERNELS[name]}))

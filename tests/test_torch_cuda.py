@@ -18,8 +18,9 @@ RMSNorm as LayerNorm (dgamma over up to 1000 rows: 1e-3 absolute). The
 sum of squares against an fp64 sum on the card: 1e-5 relative (fp32
 partial sums of a few thousand terms each). Every kernel's repeat call
 on the same inputs is bit-equal (fixed summation orders, no atomics).
-The collectives of CUDA tensors under gloo, staged through host memory,
-equal the same collectives of host tensors bit for bit.
+The collectives and the point-to-point messages of CUDA tensors under
+gloo, staged through host memory, equal the same operations on host
+tensors bit for bit.
 """
 
 import math
@@ -614,4 +615,27 @@ def test_gloo_collectives_of_cuda_tensors_go_through_host_memory(gen):
         assert len(out["cuda"]) == len(out["cpu"]) == 5
         for got, want in zip(out["cuda"], out["cpu"]):
             np.testing.assert_array_equal(got, want)
-        assert staged == {"collectives": 5, "bytes": 1008}
+        assert staged == {"collectives": 5, "bytes": 1008, "p2p": 0,
+                          "p2p_bytes": 0}
+
+
+def test_gloo_p2p_of_cuda_tensors_goes_through_host_memory(gen):
+    """Two ranks on this card over gloo, each sending an fp32 (3, 5) and
+    a bf16 (4,) tensor to the other under two tags and receiving the
+    other's: ``parallel_state.p2p`` of CUDA tensors gives the same values
+    as of host tensors, on the card, and each rank stages its 2 sends and
+    2 receives once (60 + 8 bytes each way: 136 bytes)."""
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        spawn,
+    )
+    from apex_tpu_torch.transformer.testing.pipeline_workers import (
+        staged_p2p_worker,
+    )
+
+    for out, staged in spawn(staged_p2p_worker, 2, timeout=120.0):
+        assert out["cuda"][2:] == ["cuda", "cuda"]
+        assert out["cpu"][2:] == ["cpu", "cpu"]
+        for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+            np.testing.assert_array_equal(got, want)
+        assert staged == {"collectives": 0, "bytes": 0, "p2p": 4,
+                          "p2p_bytes": 136}
