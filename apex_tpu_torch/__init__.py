@@ -15,7 +15,11 @@ eval-mode forward and pre-trained by
 and data parallelism over ``torch.distributed`` (``parallel``: process
 groups laid out as the JAX mesh, the tensor- and sequence-parallel
 regions and layers, DDP, ZeRO-2 Adam at dp > 1, SyncBatchNorm), which
-the GPT step runs at tp x dp. All nine Pallas kernels of the TPU package
+the GPT step runs at tp x dp, pipeline parallelism (``parallel.pipeline``:
+1F1B, interleaved and zero-bubble schedules) and context parallelism
+(``parallel.ring_attention``: ring and Ulysses attention and decode over
+a sharded cache, ``examples.long_context.train_ring_cp``). All nine
+Pallas kernels of the TPU package
 are rewritten by hand in CUDA C++ for ``sm_90a`` (``csrc/``, built and
 loaded by ``_kernels``).
 

@@ -20,6 +20,14 @@ entropy's reductions. Under sequence parallelism the embedding's output
 is split along the sequence and gathered again before the head. Serving
 (the KV cache) is at tp = 1 only.
 
+Under context parallelism (a ``context_parallel_mode`` at cp > 1) the
+tokens are this rank's contiguous chunk of each sequence: the default
+positions are offset by cp rank x chunk length (learned and rotary
+positions alike), the embedding's dropout folds the cp rank in, and the
+losses are the chunk's. A cached prefill writes the rank's chunk and
+sets every row's position to chunk x cp; decode steps then run the
+same token on every rank (``transformer.layer``'s CP slot map).
+
 A model with rotary positions (the Llama family) keeps fp32 cos and sin
 tables of :func:`~apex_tpu_torch.transformer.layer.rotary_embedding_for`'s
 angles on its device, computed once on the CPU for
@@ -58,13 +66,15 @@ from apex_tpu_torch.transformer.layer import (
     ParallelTransformer,
     ShardAwareDropout,
     check_supported,
+    context_parallel_size,
     rotary_embedding_for,
     seed_dropout,
     sequence_parallel,
 )
 
-__all__ = ["Embedding", "GPTModel", "gpt2_small_config", "gpt_loss_fn",
-           "megatron_bert_345m_config", "tinyllama_1_1b_config"]
+__all__ = ["Embedding", "GPTModel", "default_positions", "gpt2_small_config",
+           "gpt_loss_fn", "megatron_bert_345m_config",
+           "tinyllama_1_1b_config"]
 
 
 def gpt2_small_config(**overrides) -> TransformerConfig:
@@ -127,10 +137,20 @@ def megatron_bert_345m_config(**overrides) -> TransformerConfig:
     return TransformerConfig(**kw)
 
 
+def default_positions(config: TransformerConfig, seq: int, device):
+    """(1, seq) positions of a call without position ids: ``[0, seq)``,
+    offset by cp rank x ``seq`` under context parallelism (JAX
+    ``gpt.py:89-98``)."""
+    pos = torch.arange(seq, device=device)[None, :]
+    if context_parallel_size(config) > 1:
+        pos = pos + ps.get_context_parallel_rank() * seq
+    return pos
+
+
 class Embedding(nn.Module):
     """Word + learned-position (+ tokentype) embeddings, cast to the
-    compute dtype, then hidden dropout in training; under sequence
-    parallelism, this rank's slice of the sequence."""
+    compute dtype, then hidden dropout in training (its masks differ over
+    cp); under sequence parallelism, this rank's slice of the sequence."""
 
     def __init__(self, config: TransformerConfig, num_tokentypes: int = 0,
                  device=None):
@@ -148,14 +168,17 @@ class Embedding(nn.Module):
             self.tokentype_embeddings = nn.Parameter(torch.empty(
                 num_tokentypes, config.hidden_size,
                 dtype=config.params_dtype, device=device))
-        self.dropout = ShardAwareDropout(config.hidden_dropout)
+        self.dropout = ShardAwareDropout(
+            config.hidden_dropout,
+            axis_names=((config.context_axis,)
+                        if config.context_parallel_mode else ()))
 
     def forward(self, tokens, position_ids=None, tokentype_ids=None):
         h = self.word_embeddings(tokens)  # (b, s, h)
         if self.position_embeddings is not None:
             if position_ids is None:
-                position_ids = torch.arange(tokens.shape[1],
-                                            device=tokens.device)[None, :]
+                position_ids = default_positions(
+                    self.config, tokens.shape[1], tokens.device)
             h = h + self.position_embeddings[position_ids]
         if tokentype_ids is not None:
             if self.num_tokentypes <= 0:
@@ -253,7 +276,8 @@ class GPTModel(nn.Module):
                      for t in (self.rope_cos, self.rope_sin))
 
     def new_cache(self, batch: int, slots: int) -> KVCache:
-        """An empty KV cache for ``batch`` rows of ``slots`` positions."""
+        """An empty KV cache for ``batch`` rows of ``slots`` positions (a
+        cp rank's slots at cp > 1: JAX's cache length / cp)."""
         if ps.get_tensor_model_parallel_world_size() > 1:
             raise NotImplementedError("serving at tp > 1 is not ported yet")
         cfg = self.config
@@ -267,27 +291,40 @@ class GPTModel(nn.Module):
                       decode_step: bool = False):
         """The final-LN hidden states (s, b, h) in the compute dtype.
         With ``cache``: a prefill writes the prompt's K/V and sets the
-        cache's positions to the prompt length; ``decode_step`` runs one
-        token per row at the cache's per-row positions (the default
-        position ids) and advances them by one."""
+        cache's positions to the prompt length (the rank's chunk x cp
+        under context parallelism); ``decode_step`` runs one token per row
+        at the cache's per-row positions (the default position ids) and
+        advances them by one. At cp > 1 every row must sit at one
+        position, which the first step after a prefill checks."""
+        cp = context_parallel_size(self.config)
         if decode_step:
             if cache is None:
                 raise ValueError("decode_step needs the cache a prefill filled")
+            if cp > 1 and not cache.rows_checked:
+                # once after each prefill: the steps advance every row
+                if bool((cache.index != cache.index[0]).any()):
+                    raise ValueError(
+                        "a decode step at cp > 1 takes one position for "
+                        "every row (JAX's cache index is one number); rows "
+                        f"sit at {cache.index.tolist()}")
+                cache.rows_checked = True
             if position_ids is None:
                 position_ids = cache.index[:, None]
         h = self.embedding(tokens, position_ids)
         rotary = None
         if self.rope_cos is not None:
             if position_ids is None:
-                position_ids = torch.arange(tokens.shape[1],
-                                            device=tokens.device)[None, :]
+                position_ids = default_positions(
+                    self.config, tokens.shape[1], tokens.device)
             rotary = self._rotary(position_ids)
         h = self.transformer(h, key_padding_mask, cache, decode_step, rotary)
         if cache is not None:
             if decode_step:
                 cache.index += 1
             else:
-                cache.index.fill_(tokens.shape[1])
+                cache.index.fill_(tokens.shape[1] * cp)
+                cache.prompt_local = tokens.shape[1] if cp > 1 else None
+                cache.rows_checked = False
         return h
 
     def logits(self, h):

@@ -6,8 +6,9 @@ The JAX package lays every device on one mesh with the axes
 is one rank of a ``torch.distributed`` world, and the axes are process
 groups over the same layout: rank ``r = ((d * pp + p) * cp + c) * tp +
 t``, so port rank ``r`` holds what JAX device ``r`` holds on the CPU mesh
-(``np.asarray(devices).reshape(dp, pp, cp, tp)``). Context parallelism
-(cp > 1) is not ported yet and raises.
+(``np.asarray(devices).reshape(dp, pp, cp, tp)``). The cp group holds
+the ranks that share a sequence, each with its chunk of it
+(``parallel.ring_attention``).
 
 Pipeline stages talk point to point (:func:`p2p`, which the schedules of
 ``parallel.pipeline`` drive): sends are posted and waited for later,
@@ -23,9 +24,10 @@ The backend is the caller's (``transformer.testing.commons
 moves CUDA tensors through host memory (:func:`staged_through_host`).
 Every collective of the port goes through this module's helpers
 (:func:`all_reduce`, :func:`all_gather`, :func:`reduce_scatter`,
-:func:`broadcast`), which return their input unchanged where there is no
-process group. A group of size one still runs its collective, so a world
-of one under NCCL runs the NCCL calls it would run at scale.
+:func:`broadcast`, :func:`all_to_all`), which return their input
+unchanged where there is no process group. A group of size one still
+runs its collective, so a world of one under NCCL runs the NCCL calls it
+would run at scale.
 
 Without ``initialize_model_parallel`` (or without a process group) every
 getter answers for a world of one, as the JAX package's do with no mesh.
@@ -38,8 +40,9 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
-    "AXIS_ORDER", "all_gather", "all_reduce", "broadcast",
-    "destroy_model_parallel", "get_data_parallel_group",
+    "AXIS_ORDER", "all_gather", "all_reduce", "all_to_all", "broadcast",
+    "destroy_model_parallel", "get_context_parallel_group",
+    "get_context_parallel_rank", "get_data_parallel_group",
     "get_data_parallel_rank", "get_data_parallel_world_size",
     "get_group", "get_model_parallel_world_size",
     "get_pipeline_model_parallel_group", "get_pipeline_model_parallel_rank",
@@ -78,6 +81,9 @@ class _Axes:
     pp: int = 1
     pp_rank: int = 0
     pp_group: object = None  # None at pp = 1: no collective
+    cp: int = 1
+    cp_rank: int = 0
+    cp_group: object = None  # None at cp = 1: no collective
 
 
 _AXES: Optional[_Axes] = None
@@ -87,20 +93,23 @@ _VIRTUAL_PIPELINE_RANK: Optional[int] = None
 _PIPELINE_SPLIT_RANK: Optional[int] = None
 
 
-def _layout(dp: int, pp: int, tp: int):
-    """The ranks of each tp, dp and pp group, in rank order:
-    ``r = (d * pp + p) * tp + t`` (cp = 1), the order of JAX's
+def _layout(dp: int, pp: int, cp: int, tp: int):
+    """The ranks of each tp, dp, pp and cp group, in rank order:
+    ``r = ((d * pp + p) * cp + c) * tp + t``, the order of JAX's
     ``reshape(dp, pp, cp, tp)``."""
-    def rank(d, p, t):
-        return (d * pp + p) * tp + t
+    def rank(d, p, c, t):
+        return ((d * pp + p) * cp + c) * tp + t
 
-    tp_groups = [[rank(d, p, t) for t in range(tp)]
-                 for d in range(dp) for p in range(pp)]
-    dp_groups = [[rank(d, p, t) for d in range(dp)]
-                 for p in range(pp) for t in range(tp)]
-    pp_groups = [[rank(d, p, t) for p in range(pp)]
-                 for d in range(dp) for t in range(tp)]
-    return tp_groups, dp_groups, pp_groups
+    grid = [(d, p, c) for d in range(dp) for p in range(pp)
+            for c in range(cp)]
+    tp_groups = [[rank(d, p, c, t) for t in range(tp)] for d, p, c in grid]
+    dp_groups = [[rank(d, p, c, t) for d in range(dp)]
+                 for p in range(pp) for c in range(cp) for t in range(tp)]
+    pp_groups = [[rank(d, p, c, t) for p in range(pp)]
+                 for d in range(dp) for c in range(cp) for t in range(tp)]
+    cp_groups = [[rank(d, p, c, t) for c in range(cp)]
+                 for d in range(dp) for p in range(pp) for t in range(tp)]
+    return tp_groups, dp_groups, pp_groups, cp_groups
 
 
 def initialize_model_parallel(
@@ -109,43 +118,44 @@ def initialize_model_parallel(
         virtual_pipeline_model_parallel_size: Optional[int] = None,
         pipeline_model_parallel_split_rank: Optional[int] = None,
         context_parallel_size: int = 1) -> None:
-    """Builds the tp, dp and (at pp > 1) pp groups of the initialized
-    world (ref: parallel_state.py:100). Data-parallel size is what
-    remains after tp x pp, as in JAX. Every rank builds every group, in
-    the same order, as ``torch.distributed.new_group`` requires. Without
-    a process group the world is one process. The virtual pipeline size
-    and the split rank are kept for their getters, as in JAX."""
+    """Builds the tp, dp, (at pp > 1) pp and (at cp > 1) cp groups of the
+    initialized world (ref: parallel_state.py:100). Data-parallel size is
+    what remains after tp x pp x cp, as in JAX. Every rank builds every
+    group, in the same order, as ``torch.distributed.new_group``
+    requires. Without a process group the world is one process. The
+    virtual pipeline size and the split rank are kept for their getters,
+    as in JAX."""
     global _AXES, _VIRTUAL_PIPELINE_WORLD_SIZE, _VIRTUAL_PIPELINE_RANK
     global _PIPELINE_SPLIT_RANK
-    if context_parallel_size != 1:
-        raise NotImplementedError(
-            "context parallelism is not ported yet "
-            f"(cp={context_parallel_size})")
     tp, pp = tensor_model_parallel_size, pipeline_model_parallel_size
-    if not dist.is_initialized() and tp * pp != 1:
+    cp = context_parallel_size
+    if not dist.is_initialized() and tp * pp * cp != 1:
         raise RuntimeError(
-            f"tensor ({tp}) x pipeline ({pp}) model-parallel size needs a "
-            "torch.distributed world of at least that many processes "
-            "(transformer.testing.commons.initialize_distributed)")
+            f"tensor ({tp}) x pipeline ({pp}) x context ({cp}) parallel "
+            "size needs a torch.distributed world of at least that many "
+            "processes (transformer.testing.commons.initialize_distributed)")
     destroy_model_parallel()
     if dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
-        if world % (tp * pp):
+        if world % (tp * pp * cp):
             raise RuntimeError(f"world size ({world}) is not divisible by tp "
-                               f"({tp}) x pp ({pp}) x cp (1)")
-        dp = world // (tp * pp)
+                               f"({tp}) x pp ({pp}) x cp ({cp})")
+        dp = world // (tp * pp * cp)
         mine = {}
-        for axis, groups in zip(("tp", "dp", "pp"), _layout(dp, pp, tp)):
-            if axis == "pp" and pp == 1:
+        for axis, groups in zip(("tp", "dp", "pp", "cp"),
+                                _layout(dp, pp, cp, tp)):
+            if (axis == "pp" and pp == 1) or (axis == "cp" and cp == 1):
                 continue
             for ranks in groups:
                 g = dist.new_group(ranks)
                 if rank in ranks:
                     mine[axis] = g
         _AXES = _Axes(tp=tp, dp=dp, tp_rank=rank % tp,
-                      dp_rank=rank // (tp * pp), tp_group=mine["tp"],
+                      dp_rank=rank // (tp * pp * cp), tp_group=mine["tp"],
                       dp_group=mine["dp"], pp=pp,
-                      pp_rank=rank // tp % pp, pp_group=mine.get("pp"))
+                      pp_rank=rank // (tp * cp) % pp,
+                      pp_group=mine.get("pp"), cp=cp,
+                      cp_rank=rank // tp % cp, cp_group=mine.get("cp"))
     _VIRTUAL_PIPELINE_WORLD_SIZE = virtual_pipeline_model_parallel_size
     _VIRTUAL_PIPELINE_RANK = (0 if virtual_pipeline_model_parallel_size
                               else None)
@@ -167,7 +177,8 @@ def destroy_model_parallel() -> None:
     if axes is not None and dist.is_initialized():
         wait_sends()  # no group goes down under a message in flight
         for g in {id(g): g for g in (axes.tp_group, axes.dp_group,
-                                     axes.pp_group) if g is not None
+                                     axes.pp_group, axes.cp_group)
+                  if g is not None
                   }.values():
             dist.destroy_process_group(g)
 
@@ -246,7 +257,16 @@ def is_pipeline_last_stage(ignore_virtual: bool = False) -> bool:
 
 
 def get_context_parallel_world_size() -> int:
-    return 1
+    return 1 if _AXES is None else _AXES.cp
+
+
+def get_context_parallel_rank() -> int:
+    return 0 if _AXES is None else _AXES.cp_rank
+
+
+def get_context_parallel_group():
+    """The cp group; None at cp = 1 (no collective)."""
+    return None if _AXES is None else _AXES.cp_group
 
 
 def get_model_parallel_world_size() -> int:
@@ -255,9 +275,9 @@ def get_model_parallel_world_size() -> int:
 
 
 def get_group(axis: str):
-    """The process group of a mesh axis name: ``"tp"``, ``"dp"`` or
-    ``"pp"``; None for ``"pp"`` at pp = 1 and for the size-one ``"cp"``
-    (no collective)."""
+    """The process group of a mesh axis name: ``"tp"``, ``"dp"``, ``"pp"``
+    or ``"cp"``; None for ``"pp"`` at pp = 1 and ``"cp"`` at cp = 1 (no
+    collective)."""
     if axis == TENSOR_AXIS:
         return get_tensor_model_parallel_group()
     if axis == DATA_AXIS:
@@ -265,7 +285,7 @@ def get_group(axis: str):
     if axis == PIPELINE_AXIS:
         return get_pipeline_model_parallel_group()
     if axis == CONTEXT_AXIS:
-        return None
+        return get_context_parallel_group()
     raise ValueError(f"unknown mesh axis {axis!r}; expected one of "
                      f"{AXIS_ORDER}")
 
@@ -348,6 +368,24 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     staged_through_host(
         group, lambda o, i: _REDUCE_SCATTER(o, i, group=group), out, xt)
     return out.movedim(0, dim)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``all_to_all_single``: ``x``'s dim 0, cut into one equal chunk per
+    rank of ``group``, sends chunk j to the group's j-th rank; returns the
+    chunks this rank received, in rank order along dim 0."""
+    if group is None:
+        return x
+    n = group_size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 ({x.shape[0]}) does not divide by the "
+                         f"group's {n} ranks")
+    xt = x.contiguous()
+    out = torch.empty_like(xt)
+    staged_through_host(
+        group, lambda o, i: dist.all_to_all_single(o, i, group=group), out,
+        xt)
+    return out
 
 
 def broadcast(x: torch.Tensor, group, src_index: int = 0) -> torch.Tensor:

@@ -2,9 +2,8 @@
 apex_tpu/parallel/pipeline/; ref: apex/transformer/pipeline_parallel):
 the stage edges (``p2p``), the micro-batch calculators
 (``microbatches``), the schedules (``schedules``: no pipelining, 1F1B,
-interleaved, the embedding-and-head wrapper, the dispatcher and
-``build_model``) and their cost model (``algebra``). The zero-bubble
-B/W split is not ported yet."""
+interleaved, zero bubble, the embedding-and-head wrappers, the
+dispatcher and ``build_model``) and their cost model (``algebra``)."""
 
 from apex_tpu_torch.parallel.pipeline.algebra import (
     SCHEDULES,
@@ -43,6 +42,8 @@ from apex_tpu_torch.parallel.pipeline.schedules import (
     forward_backward_pipelining_with_interleaving,
     forward_backward_pipelining_without_interleaving,
     forward_backward_with_pre_post,
+    forward_backward_zero_bubble,
+    forward_backward_zero_bubble_with_pre_post,
     get_forward_backward_func,
     pipeline_forward,
     pipeline_forward_interleaved,
@@ -71,6 +72,8 @@ __all__ = [
     "forward_backward_pipelining_without_interleaving",
     "forward_backward_pipelining_with_interleaving",
     "forward_backward_with_pre_post",
+    "forward_backward_zero_bubble",
+    "forward_backward_zero_bubble_with_pre_post",
     "get_forward_backward_func",
     "pipeline_forward",
     "pipeline_forward_interleaved",

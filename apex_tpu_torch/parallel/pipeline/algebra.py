@@ -14,8 +14,8 @@ a stage.
 - ``1f1b``: span ``3 (M + P - 1)``, bubble ``(P - 1) / (M + P - 1)``;
 - ``interleaved``: span ``3 (V M + P - 1)``, bubble
   ``(P - 1) / (V M + P - 1)``, the 1F1B bubble shrunk by 1/V (M % P == 0);
-- ``zero_bubble``: the B/W split (not ported as a schedule yet), F and B
-  on the critical path and W deferred into the ``2 (P - 1)`` bubble
+- ``zero_bubble``: the B/W split (``forward_backward_zero_bubble``), F
+  and B on the critical path and W deferred into the ``2 (P - 1)`` bubble
   slots: bubble ``max(0, 2 (P - 1) - M)`` units, zero at
   ``M >= 2 (P - 1)``.
 
@@ -141,6 +141,10 @@ def zero_bubble_cost(
 
     span = 2(M+P-1) + max(0, M - 2(P-1)); bubble = max(0, 2(P-1) - M).
     Zero bubble at M >= 2(P-1); always < 1F1B's (P-1)/(M+P-1).
+
+    W is charged one unit, the weight-gradient GEMMs alone. The port's W
+    (``torch.autograd.grad`` over the parameters) also repeats B's
+    activation backward, so this model undercounts its work.
     """
     P, M, V = num_stages, num_microbatches, num_model_chunks
     _validate(P, M, V)

@@ -24,7 +24,22 @@ their own tags):
   them when M = P). It requires ``M % P == 0``, as JAX does. At P = 2
   with V > 1 both streams run between one ordered pair of ranks, in
   messages of one shape: only gloo, which honours their tags, keeps
-  them apart, so any other backend raises there.
+  them apart, so any other backend raises there;
+- **zero bubble** (``forward_backward_zero_bubble``, JAX's B/W split):
+  the forward runs JAX's T = M + P - 1 clock ticks (stage r runs
+  micro-batch t - r at tick t, nothing on a bubble tick) and keeps every
+  micro-batch's input and autograd graph; the backward runs the clock
+  reversed (reverse tick q replays tick T - 1 - q, so a stage takes the
+  micro-batches last to first). Each tick's cotangent is the last
+  stage's loss seed or the gradient received from downstream. B, the
+  input's gradient (``torch.autograd.grad(y, x, dy, retain_graph=
+  True)``), is sent upstream at once; W, the parameters' gradient
+  (``torch.autograd.grad(y, params, dy)``), runs after that send, while
+  the message travels, and is summed. Each W call walks the stage's
+  graph again, activation gradients included: the split costs one more
+  backward pass through the activations. A bubble tick adds nothing,
+  JAX's exact zeros. Every micro-batch's activations stay on the stage
+  until its backward, as the JAX scan's stash does.
 
 A stage's input is a received tensor made a leaf with ``requires_grad``;
 its backward is ``torch.autograd.backward(output, grad_tensors=
@@ -61,8 +76,10 @@ __all__ = [
     "build_model", "forward_backward_no_pipelining",
     "forward_backward_pipelining_with_interleaving",
     "forward_backward_pipelining_without_interleaving",
-    "forward_backward_with_pre_post", "get_forward_backward_func",
-    "pipeline_forward", "pipeline_forward_interleaved", "schedule_order",
+    "forward_backward_with_pre_post", "forward_backward_zero_bubble",
+    "forward_backward_zero_bubble_with_pre_post",
+    "get_forward_backward_func", "pipeline_forward",
+    "pipeline_forward_interleaved", "schedule_order",
 ]
 
 Tensors = Dict[str, torch.Tensor]
@@ -446,14 +463,187 @@ def forward_backward_with_pre_post(
     return loss, per, grads
 
 
+# -- zero bubble (the B/W split) ----------------------------------------------
+
+def _grad_or_zeros(outputs, inputs, grad_outputs, retain_graph=False):
+    """``torch.autograd.grad`` with zeros for an input the outputs do not
+    reach; ``[]`` for no inputs."""
+    if not inputs:
+        return []
+    got = torch.autograd.grad(outputs, inputs, grad_outputs,
+                              retain_graph=retain_graph, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g
+            for t, g in zip(inputs, got)]
+
+
+def _accumulate(acc, grads):
+    """``acc + grads`` elementwise over two lists (``grads`` when ``acc``
+    is None)."""
+    return grads if acc is None or not grads else torch._foreach_add(
+        acc, grads)
+
+
+def _zb_run(stage_fn: Callable, params: Any,
+            first_input: Callable[[int], torch.Tensor],
+            loss_fn: Callable[[Any, int], torch.Tensor], like: Any,
+            num_micro: int, axis_name: str, leaves: Sequence[torch.Tensor],
+            head: Sequence[torch.Tensor] = (), keep_dx: bool = False):
+    """This stage's zero-bubble pass (module docstring). ``first_input(m)``
+    is stage 0's input of micro-batch m; ``loss_fn(y, m)`` the last
+    stage's loss of its output. Returns ``(losses, grads, head_grads,
+    dxs)``: the last stage's per-micro-batch losses, the gradients of the
+    mean loss for ``leaves`` and (on the last stage, zeros elsewhere)
+    ``head``, and with ``keep_dx`` stage 0's input gradient by
+    micro-batch."""
+    group = ps.get_group(axis_name)
+    P = ps.group_size(group)
+    r = 0 if group is None else dist.get_rank(group)
+    M, T = num_micro, num_micro + P - 1
+    last = r == P - 1
+    wanted = [t for t in leaves if t.requires_grad]
+    head_wanted = [t for t in head if t.requires_grad]
+    stash, losses, seeds, dxs = {}, {}, {}, {}
+    acc = head_acc = None
+    for t in range(T):
+        u = t - r  # the micro-batch of this stage's tick t
+        if not 0 <= u < M:
+            continue  # a bubble tick
+        if r == 0:
+            x = first_input(u)
+        else:
+            x = ps.p2p(group, (), [(like, r - 1, FORWARD_TAG)])[0]
+            x.requires_grad_(True)
+        y = stage_fn(params, x)
+        if not last:
+            ps.p2p(group, [(y, r + 1, FORWARD_TAG)])
+        stash[u] = (x, y)
+    if last:
+        # the loss seeds d(mean loss)/dy, one micro-batch at a time
+        for u in range(M):
+            y = stash[u][1].detach().requires_grad_(True)
+            loss = loss_fn(y, u)
+            losses[u] = loss.detach().float()
+            dy, *dh = _grad_or_zeros(loss / M, [y] + head_wanted, None)
+            seeds[u] = dy
+            head_acc = _accumulate(head_acc, dh)
+    for q in range(T):
+        u = T - 1 - q - r  # reverse tick q replays forward tick T-1-q
+        if not 0 <= u < M:
+            continue
+        x, y = stash.pop(u)
+        dy = (seeds.pop(u) if last
+              else ps.p2p(group, (), [(y, r + 1, BACKWARD_TAG)])[0])
+        if r > 0 or keep_dx:
+            # B: the input's gradient, sent upstream at once
+            (dx,) = _grad_or_zeros(y, [x], dy, retain_graph=True)
+            if r > 0:
+                ps.p2p(group, [(dx, r - 1, BACKWARD_TAG)])
+            else:
+                dxs[u] = dx
+        # W: the parameters' gradient, while the edge is in flight
+        acc = _accumulate(acc, _grad_or_zeros(y, wanted, dy))
+    ps.wait_sends()
+    it = iter(acc if acc is not None else [])
+    grads = [next(it) if t.requires_grad else torch.zeros_like(t)
+             for t in leaves]
+    it = iter(head_acc if head_acc is not None else [])
+    head_grads = [next(it) if t.requires_grad and last
+                  else torch.zeros_like(t) for t in head]
+    return losses, grads, head_grads, dxs
+
+
+def forward_backward_zero_bubble(
+        stage_fn: Callable[[Any, Any], Any],
+        loss_fn: Callable[[Any, Any], torch.Tensor], params: Any,
+        microbatches: Any, targets: Any, *, axis_name: str = "pp",
+        remat: bool = True, tick_block_remat: int = 0,
+        grad_sync_fn: Optional[Callable[[Any], Any]] = None):
+    """The zero-bubble schedule (module docstring): the signature and the
+    gradients of :func:`forward_backward_pipelining_without_interleaving`,
+    its backward split into B and W. ``algebra.zero_bubble_cost(P, M)``
+    counts its ticks. W repeats B's walk through the activations (module
+    docstring), so a step costs more than 1F1B's: one more activation
+    backward a micro-batch, with its kernels and SP collectives. Returns
+    ``(loss, per_microbatch_losses, grads)``."""
+    del remat, tick_block_remat
+    num_micro = _leading_dim(microbatches)
+    leaves = _leaves(params)
+    losses, grads, _, _ = _zb_run(
+        stage_fn, params, lambda m: microbatches[m],
+        lambda y, m: loss_fn(y, _micro(targets, m)), microbatches[0],
+        num_micro, axis_name, leaves)
+    grads = _rebuild(params, iter(grads))
+    loss, per = _publish_losses(losses, num_micro, axis_name,
+                                _device(params))
+    if grad_sync_fn is not None:
+        grads = grad_sync_fn(grads)
+    return loss, per, grads
+
+
+def forward_backward_zero_bubble_with_pre_post(
+        pre_fn: Callable[[Any, Any], Any], stage_fn: Callable[[Any, Any], Any],
+        post_loss_fn: Callable[[Any, Any, Any], torch.Tensor],
+        params: Dict[str, Any], inputs: Any, targets: Any, *,
+        axis_name: str = "pp", remat: bool = True, tick_block_remat: int = 0,
+        grad_sync_fn: Optional[Callable[[Any], Any]] = None,
+        tensor_shape: Sequence[int], dtype: torch.dtype):
+    """:func:`forward_backward_with_pre_post` with the zero-bubble
+    backward: ``pre`` on stage 0, the stages, ``post`` and the loss on the
+    last stage, gradients equal to 1F1B's. The last stage's seeds come
+    from the head's loss, and stage 0's input gradient of micro-batch m
+    (reverse tick (M-1-m) + (P-1)) is the embedding output's cotangent,
+    which ``pre``'s backward takes once the pass ends. The pre and post
+    gradients are summed over pp. ``tensor_shape`` and ``dtype`` are
+    those of the hidden states between stages. Like
+    :func:`forward_backward_zero_bubble` it costs more than 1F1B: W
+    repeats B's activation backward."""
+    del remat, tick_block_remat
+    num_micro = _leading_dim(inputs)
+    device = _device(params["stages"])
+    like = torch.empty(tuple(tensor_shape), dtype=dtype, device=device)
+    embedded = {}
+
+    def first_input(m):
+        embedded[m] = pre_fn(params["pre"], _micro(inputs, m))
+        return embedded[m].detach().requires_grad_(True)
+
+    losses, stage_grads, post_grads, dxs = _zb_run(
+        stage_fn, params["stages"], first_input,
+        lambda y, m: post_loss_fn(params["post"], y, _micro(targets, m)),
+        like, num_micro, axis_name, _leaves(params["stages"]),
+        head=_leaves(params["post"]), keep_dx=True)
+    pre_leaves = _leaves(params["pre"])
+    pre_wanted = [t for t in pre_leaves if t.requires_grad]
+    acc = None
+    for m in sorted(dxs):  # stage 0 only
+        acc = _accumulate(acc, _grad_or_zeros(embedded.pop(m), pre_wanted,
+                                              dxs[m]))
+    it = iter(acc if acc is not None else [])
+    pre_grads = [next(it) if t.requires_grad and acc is not None
+                 else torch.zeros_like(t) for t in pre_leaves]
+    grads = {
+        "pre": _combine_replicated_grads(
+            _rebuild(params["pre"], iter(pre_grads)), axis_name),
+        "stages": _rebuild(params["stages"], iter(stage_grads)),
+        "post": _combine_replicated_grads(
+            _rebuild(params["post"], iter(post_grads)), axis_name),
+    }
+    loss, per = _publish_losses(losses, num_micro, axis_name, device)
+    if grad_sync_fn is not None:
+        grads = grad_sync_fn(grads)
+    return loss, per, grads
+
+
 def get_forward_backward_func(
         virtual_pipeline_model_parallel_size: Optional[int],
         pipeline_model_parallel_size: int,
         zero_bubble: bool = False) -> Callable:
     """Schedule dispatcher (ref: schedules/__init__.py:22): interleaved iff
-    virtual pp is set, 1F1B iff pp > 1, else plain gradient accumulation,
-    with the JAX function's errors. The zero-bubble B/W split is not
-    ported yet: ``zero_bubble=True`` at pp > 1 raises."""
+    virtual pp is set, 1F1B iff pp > 1 (the zero-bubble B/W split with
+    ``zero_bubble``), else plain gradient accumulation, with the JAX
+    function's errors (virtual pp has no zero-bubble variant). The
+    zero-bubble function's W pass repeats B's activation backward, so it
+    is slower than 1F1B, not faster (:func:`forward_backward_zero_bubble`)."""
     if virtual_pipeline_model_parallel_size is not None:
         if pipeline_model_parallel_size <= 1:
             raise ValueError(
@@ -468,9 +658,7 @@ def get_forward_backward_func(
             num_model_chunks=virtual_pipeline_model_parallel_size)
     if pipeline_model_parallel_size > 1:
         if zero_bubble:
-            raise NotImplementedError(
-                "the zero-bubble schedule (the B/W split, "
-                "forward_backward_zero_bubble) is not ported yet")
+            return forward_backward_zero_bubble
         return forward_backward_pipelining_without_interleaving
     return forward_backward_no_pipelining
 

@@ -11,10 +11,10 @@ hidden global RNG:
   tp_rank`` (:func:`model_parallel_seed`);
 - data-parallel regions (hidden and embedding dropout, replicated
   weights) draw from ``seed``, the same on every tp rank;
-- :func:`shard_aware_generator` folds the rank of each named axis in; the
-  tp rank is already in the model-parallel generator's seed, and the
-  other axes (cp) are not ported, so it hands the generator back
-  unchanged.
+- :func:`shard_aware_generator` folds the rank of each named axis in:
+  the tp rank is already in the model-parallel generator's seed, and the
+  cp rank (the ranks hold different chunks of one sequence) goes into a
+  generator of its own, seeded from one draw of the shared generator.
 
 Torch's generators give other numbers than ``jax.random`` from the same
 seed, so no draw is bit-equal to JAX's; the parity tests load JAX's
@@ -26,6 +26,8 @@ weights instead.
 from typing import Sequence
 
 import torch
+
+from apex_tpu_torch.parallel import parallel_state as ps
 
 __all__ = ["data_parallel_generator", "model_parallel_generator",
            "model_parallel_seed", "shard_aware_generator"]
@@ -56,8 +58,19 @@ def data_parallel_generator(seed: int, device="cpu") -> torch.Generator:
 def shard_aware_generator(generator: torch.Generator,
                           axis_names: Sequence[str] = ()) -> torch.Generator:
     """``generator`` with the rank of every bound axis of ``axis_names``
-    folded in: the identity, since the tp rank is folded in when the
-    model-parallel generator is seeded and no other axis is ported (the
-    JAX function skips unbound axes the same way)."""
-    del axis_names
-    return generator
+    folded in. The tp rank is folded in when the model-parallel generator
+    is seeded. For ``"cp"`` at cp > 1: one 48-bit draw from ``generator``
+    (the same draw on every cp rank, which keeps their shared generators
+    in step) and the cp rank seed a new generator on its device, so each
+    rank's mask differs, as JAX's ``fold_in`` of the axis index makes it.
+    An axis of size one, or none named, hands ``generator`` back (the JAX
+    function skips unbound axes the same way). The fold costs a draw and a
+    host read, so a caller folds once and draws from the result
+    (``transformer.layer.ShardAwareDropout`` does)."""
+    cp = ps.get_context_parallel_world_size()
+    if "cp" not in axis_names or cp == 1:
+        return generator
+    draw = int(torch.randint(0, 2 ** 48, (1,), generator=generator,
+                             device=generator.device))
+    return _generator(draw * cp + ps.get_context_parallel_rank(),
+                      generator.device)

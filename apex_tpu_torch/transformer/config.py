@@ -1,13 +1,15 @@
 """Transformer configuration (counterpart of apex_tpu/transformer/config.py).
 
 The same frozen dataclass and field names as the JAX package, with torch
-dtypes: parameters live in fp32 and compute runs in bf16 by default. The
-mesh-axis names and the ``attention_impl`` switch have no counterpart:
-the port runs on one device, and the device of the tensors picks kernel
-or plain code (``apex_tpu_torch._kernels``). Fields for features the
-port does not have yet stay, so that a config that asks for one is
-refused with ``NotImplementedError`` where the model is built
-(transformer/layer.py), not silently ignored.
+dtypes: parameters live in fp32 and compute runs in bf16 by default. Of
+the mesh-axis names, ``context_axis`` is kept (the name of the group
+that ring and Ulysses attention run over, ``parallel_state.get_group``);
+the tp group is always ``"tp"``. The ``attention_impl`` switch has no
+counterpart: the device of the tensors picks kernel or plain code
+(``apex_tpu_torch._kernels``). Fields for features the port does not
+have yet stay, so that a config that asks for one is refused with
+``NotImplementedError`` where the model is built (transformer/layer.py),
+not silently ignored.
 """
 
 import dataclasses
@@ -50,9 +52,11 @@ class TransformerConfig:
     rotary_percent: float = 1.0
     rotary_base: float = 10000.0
 
-    # not ported yet: any value other than the default raises
     sequence_parallel: bool = False
+    # "ring" | "ulysses": attention over the cp group at cp > 1
     context_parallel_mode: Optional[str] = None
+    context_axis: str = "cp"
+    # not ported yet: any value other than the default raises
     num_moe_experts: Optional[int] = None
     recompute_granularity: Optional[str] = None
 

@@ -14,10 +14,18 @@ k | v]``, and the MLP ``ffn / tp`` columns. Under sequence parallelism
 (``sequence_parallel`` at tp > 1) the hidden states between the column
 and row products are split along the sequence; each norm then sees only
 its rank's rows, so its weight and bias pass the copy-to region, which
-all-reduces their gradients over tp (the JAX ``Norm``'s rule). MoE,
-context parallelism and recompute raise ``NotImplementedError`` where a
-config asks for them. LayerNorm, RMSNorm and flash attention
-differentiate through their backward kernels.
+all-reduces their gradients over tp (the JAX ``Norm``'s rule). MoE and
+recompute raise ``NotImplementedError`` where a config asks for them.
+LayerNorm, RMSNorm and flash attention differentiate through their
+backward kernels.
+
+Context parallelism (``context_parallel_mode`` "ring" or "ulysses" at a
+cp size above one, :func:`context_parallel_size`): each rank holds a
+contiguous chunk of every sequence, and attention runs over the cp group
+through ``parallel.ring_attention``'s ``ring_attention`` or
+``ulysses_attention``, the window passed only when causal; a dense mask
+or attention dropout in training raises JAX's ``NotImplementedError``.
+The key-padding mask is the rank's chunk of the global one.
 
 Attention dispatch is the JAX package's: the flash kernel when there is
 no dense ``attention_mask`` and no attention dropout in training (a
@@ -41,13 +49,18 @@ split and before the heads move forward, as in JAX. A prefill or
 training call takes positions ``[0, s)``; a decode step takes each
 row's own position.
 
-KV-cache decoding follows ParallelAttention's cache mode at cp = 1: a
-prefill call writes the prompt's K/V into the cache, and a decode step
-writes one new token per row at that row's own position and attends to
-the cache with the unwritten tail padded out. The JAX engine ``vmap``s a
-single-sequence decode over lanes; here the batch dimension is written
-out, so each row of the cache carries its own position
-(:attr:`KVCache.index`).
+KV-cache decoding follows ParallelAttention's cache mode: a prefill call
+writes the prompt's K/V into the cache, and a decode step writes one new
+token per row at that row's own position and attends to the cache with
+the unwritten tail padded out. The JAX engine ``vmap``s a single-sequence
+decode over lanes; here the batch dimension is written out, so each row
+of the cache carries its own position (:attr:`KVCache.index`). At cp > 1
+each rank caches only the positions it computed, JAX's slot map: its
+contiguous prompt chunk in slots ``[0, p)``, then decode token t on rank
+``t % cp`` (:meth:`KVCache.append_cp`); each step merges the ranks'
+partial softmax statistics through ``cp_decode_attention``. JAX's cache
+index is one number, so at cp > 1 every row must sit at the same
+position (``models.gpt`` checks it once a step).
 """
 
 import math
@@ -76,6 +89,11 @@ from apex_tpu_torch.parallel.layers import (
 from apex_tpu_torch.parallel.mappings import (
     copy_to_tensor_model_parallel_region,
 )
+from apex_tpu_torch.parallel.ring_attention import (
+    cp_decode_attention,
+    ring_attention,
+    ulysses_attention,
+)
 from apex_tpu_torch.parallel.random import (
     data_parallel_generator,
     model_parallel_generator,
@@ -87,15 +105,14 @@ from apex_tpu_torch.transformer.enums import AttnMaskType
 __all__ = [
     "CoreAttention", "KVCache", "Norm", "ParallelAttention", "ParallelMLP",
     "ParallelTransformer", "ParallelTransformerLayer", "ShardAwareDropout",
-    "keep_mask", "rotary_embedding_for", "seed_dropout",
+    "context_parallel_size", "keep_mask", "rotary_embedding_for",
+    "seed_dropout",
 ]
 
 
 def check_supported(cfg: TransformerConfig) -> None:
     """Refuses configs that ask for what the port does not have yet."""
     missing = []
-    if cfg.context_parallel_mode is not None:
-        missing.append("context parallelism")
     if cfg.num_moe_experts is not None:
         missing.append("MoE")
     if cfg.recompute_granularity is not None:
@@ -103,6 +120,26 @@ def check_supported(cfg: TransformerConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"not ported to apex_tpu_torch yet: {', '.join(missing)}")
+
+
+def context_parallel_size(config: TransformerConfig) -> int:
+    """The cp size attention runs over: the cp group's size when the
+    config names a ``context_parallel_mode``, else 1 (as in JAX, a config
+    without a mode attends to its own rows only)."""
+    if config.context_parallel_mode is None:
+        return 1
+    return ps.get_context_parallel_world_size()
+
+
+def _hidden_dropout_axes(config: TransformerConfig) -> tuple:
+    """Axes over which hidden-state dropout masks must differ: tp when the
+    sequence is SP-sharded, cp when context-parallel."""
+    axes = ()
+    if config.sequence_parallel:
+        axes += ("tp",)
+    if config.context_parallel_mode is not None:
+        axes += (config.context_axis,)
+    return axes
 
 
 def rotary_embedding_for(config: TransformerConfig, seq_len: int,
@@ -132,6 +169,12 @@ class KVCache:
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros(shape, dtype=dtype, device=device)
         self.index = torch.zeros(batch, dtype=torch.long, device=device)
+        # at cp > 1: the prompt positions this rank holds (JAX's
+        # prompt_len_local), set by a prefill
+        self.prompt_local: Optional[int] = None
+        # at cp > 1: whether the rows' positions were found equal since
+        # the last prefill (decode steps advance them together)
+        self.rows_checked = False
 
     def prefill(self, layer: int, k, v) -> None:
         s = k.shape[2]
@@ -149,6 +192,26 @@ class KVCache:
         kl[rows, :, self.index] = k[:, :, 0]
         vl[rows, :, self.index] = v[:, :, 0]
         return kl, vl
+
+    def append_cp(self, layer: int, k, v, rank: int, cp: int):
+        """The decode step at cp > 1 (every row at position ``index[0]``):
+        token t = index - p cp of the decode, p the prompt positions a rank
+        holds, lands on rank ``t % cp`` in slot ``p + t // cp``. Returns
+        the layer's K and V and each slot's global position (slot j < p:
+        ``rank p + j``; else ``p cp + (j - p) cp + rank``)."""
+        p = self.prompt_local
+        if p is None:
+            raise ValueError("a decode step at cp > 1 needs a prefill at "
+                             "cp > 1 first")
+        t = self.index[0] - p * cp
+        slot = p + torch.div(t, cp, rounding_mode="floor")
+        here = (t % cp) == rank
+        kl, vl = self.k[layer], self.v[layer]
+        kl[:, :, slot] = torch.where(here, k[:, :, 0], kl[:, :, slot])
+        vl[:, :, slot] = torch.where(here, v[:, :, 0], vl[:, :, slot])
+        j = torch.arange(kl.shape[2], device=kl.device)
+        gpos = torch.where(j < p, rank * p + j, p * cp + (j - p) * cp + rank)
+        return kl, vl, gpos
 
 
 def sequence_parallel(config: TransformerConfig) -> bool:
@@ -231,7 +294,10 @@ class ShardAwareDropout(nn.Module):
     that dtype as JAX rounds its weak-typed scalar. ``model_parallel`` marks a region whose shards hold different
     slices (tp-sharded heads), which draws from the model-parallel
     generator. ``generator`` is handed in (:func:`seed_dropout`); a draw
-    without one raises."""
+    without one raises. With ``"cp"`` named at cp > 1 the module folds its
+    cp rank in once, at its first draw after ``generator`` or the cp
+    group changes (:func:`shard_aware_generator`: one draw of the shared
+    generator and one host read), and draws from that generator after."""
 
     def __init__(self, rate: float, axis_names=(),
                  model_parallel: bool = False,
@@ -240,6 +306,16 @@ class ShardAwareDropout(nn.Module):
         self.rate, self.axis_names = rate, tuple(axis_names)
         self.model_parallel = model_parallel
         self.generator = generator
+        self._folded = None  # ((generator, cp, cp rank), folded generator)
+
+    def _draw_generator(self) -> torch.Generator:
+        key = (ps.get_context_parallel_world_size(),
+               ps.get_context_parallel_rank())
+        if (self._folded is None or self._folded[0][0] is not self.generator
+                or self._folded[0][1:] != key):
+            self._folded = ((self.generator,) + key, shard_aware_generator(
+                self.generator, self.axis_names))
+        return self._folded[1]
 
     def forward(self, x):
         if not self.training or self.rate == 0.0:
@@ -247,8 +323,8 @@ class ShardAwareDropout(nn.Module):
         if self.generator is None:
             raise ValueError("ShardAwareDropout has no generator: hand it "
                              "one (transformer.layer.seed_dropout)")
-        gen = shard_aware_generator(self.generator, self.axis_names)
-        keep = keep_mask(gen, 1.0 - self.rate, x.shape, x.device)
+        keep = keep_mask(self._draw_generator(), 1.0 - self.rate, x.shape,
+                         x.device)
         scale = torch.tensor(1.0 - self.rate, dtype=x.dtype, device=x.device)
         return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
@@ -369,6 +445,7 @@ class ParallelAttention(nn.Module):
 
         causal = self.attn_mask_type == AttnMaskType.causal
         window = cfg.attention_window if causal else None
+        cp = context_parallel_size(cfg)
         if cache is not None and (key_padding_mask is not None
                                   or attention_mask is not None):
             raise NotImplementedError("KV-cache decode computes its own masks")
@@ -388,18 +465,42 @@ class ParallelAttention(nn.Module):
                 raise NotImplementedError(
                     "decode_step appends one token at a time; use a prefill "
                     "call for multi-token blocks")
-            keys, values = cache.append(self.layer_number, kb, vb)
-            j = torch.arange(keys.shape[2], device=keys.device)[None, :]
+            if cp > 1:
+                keys, values, gpos = cache.append_cp(
+                    self.layer_number, kb, vb,
+                    ps.get_context_parallel_rank(), cp)
+                gpos = gpos[None, :]
+            else:
+                keys, values = cache.append(self.layer_number, kb, vb)
+                gpos = torch.arange(keys.shape[2], device=keys.device)[None]
             idx = cache.index[:, None]
-            padded = j > idx  # the unwritten future
+            padded = gpos > idx  # the unwritten future
             if cfg.attention_window is not None:
-                padded = padded | (j <= idx - cfg.attention_window)
-            ctx = flash_attention(qb, keys, values, causal=False,
-                                  key_padding_mask=padded)
+                padded = padded | (gpos <= idx - cfg.attention_window)
+            if cp > 1:
+                ctx = cp_decode_attention(
+                    qb, keys, values, padded.expand(b, -1),
+                    axis_name=cfg.context_axis)
+            else:
+                ctx = flash_attention(qb, keys, values, causal=False,
+                                      key_padding_mask=padded)
         else:
             if cache is not None:
                 cache.prefill(self.layer_number, kb, vb)
-            if use_flash:
+            if cp > 1:
+                if not use_flash:
+                    raise NotImplementedError(
+                        "context parallelism requires the flash path: no "
+                        "dense attention_mask and no attention dropout "
+                        "(like the reference's fused paths); GQA and "
+                        "key-padding masks are supported")
+                attend = (ring_attention
+                          if cfg.context_parallel_mode == "ring"
+                          else ulysses_attention)
+                ctx = attend(qb, kb, vb, axis_name=cfg.context_axis,
+                             causal=causal, window=window,
+                             key_padding_mask=key_padding_mask)
+            elif use_flash:
                 ctx = flash_attention(qb, kb, vb, causal=causal,
                                       key_padding_mask=key_padding_mask,
                                       window=window)
@@ -437,7 +538,8 @@ class ParallelTransformerLayer(nn.Module):
             config, layer_number, attn_mask_type, device)
         self.post_attention_layernorm = Norm(config, device)
         self.mlp = ParallelMLP(config, device)
-        self.hidden_dropout = ShardAwareDropout(config.hidden_dropout)
+        self.hidden_dropout = ShardAwareDropout(
+            config.hidden_dropout, axis_names=_hidden_dropout_axes(config))
 
     def forward(self, hidden_states, key_padding_mask=None, cache=None,
                 decode_step: bool = False, rotary=None, attention_mask=None):

@@ -44,21 +44,31 @@ def toy_loss(y, t):
 def groups_worker(rank: int, world_size: int, layouts: Sequence):
     """For each (dp, pp, tp) of ``layouts``: this rank's tp, dp and pp
     groups as lists of ranks, its ranks on the three axes, the first and
-    last stage flags, and ``get_group("pp")``'s ranks."""
+    last stage flags, and ``get_group("pp")``'s ranks. A layout (dp, pp,
+    cp, tp) adds the cp group, and its ranks and sizes are given in that
+    order."""
     out = {}
-    for dp, pp, tp in layouts:
-        ps.initialize_model_parallel(tp, pp)
+    for layout in layouts:
+        with_cp = len(layout) == 4
+        dp, pp, cp, tp = layout if with_cp else (layout[0], layout[1], 1,
+                                                 layout[2])
+        ps.initialize_model_parallel(tp, pp, context_parallel_size=cp)
+        axes = ("tp", "dp", "pp") + (("cp",) if with_cp else ())
         groups = {a: dist.get_process_group_ranks(ps.get_group(a))
                   if ps.get_group(a) is not None else [rank]
-                  for a in ("tp", "dp", "pp")}
-        out[(dp, pp, tp)] = dict(
-            groups=groups,
-            ranks=(ps.get_data_parallel_rank(),
-                   ps.get_pipeline_model_parallel_rank(),
-                   ps.get_tensor_model_parallel_rank()),
-            sizes=(ps.get_data_parallel_world_size(),
-                   ps.get_pipeline_model_parallel_world_size(),
-                   ps.get_tensor_model_parallel_world_size()),
+                  for a in axes}
+        ranks = (ps.get_data_parallel_rank(),
+                 ps.get_pipeline_model_parallel_rank(),
+                 ps.get_tensor_model_parallel_rank())
+        sizes = (ps.get_data_parallel_world_size(),
+                 ps.get_pipeline_model_parallel_world_size(),
+                 ps.get_tensor_model_parallel_world_size())
+        if with_cp:
+            ranks = ranks[:2] + (ps.get_context_parallel_rank(),) + ranks[2:]
+            sizes = sizes[:2] + (ps.get_context_parallel_world_size(),) \
+                + sizes[2:]
+        out[layout] = dict(
+            groups=groups, ranks=ranks, sizes=sizes,
             first=ps.is_pipeline_first_stage(),
             last=ps.is_pipeline_last_stage(),
             pp_group_is_group=ps.get_group("pp")
@@ -212,11 +222,12 @@ def _args(argv: Sequence[str], world_size: int):
 
 
 def interleaved_worker(rank: int, world_size: int, argv: Sequence[str],
-                       device: str = "cuda"):
+                       device: str = "cuda", zero_bubble: bool = False):
     """``GPTPipelineTraining`` with as many model chunks as ``argv``'s
     virtual pipeline size (``forward_backward_with_pre_post(
-    num_model_chunks=V)``) trained on ``device`` by ``standalone_gpt
-    .train``: its closing fields (the same on every rank)."""
+    num_model_chunks=V)``), or with ``zero_bubble`` through the B/W split,
+    trained on ``device`` by ``standalone_gpt.train``: its closing fields
+    (the same on every rank)."""
     from apex_tpu_torch.transformer.testing.standalone_gpt import (
         GPTPipelineTraining,
         train,
@@ -224,7 +235,8 @@ def interleaved_worker(rank: int, world_size: int, argv: Sequence[str],
 
     args = _args(argv, world_size)
     run = GPTPipelineTraining(
-        args, device, num_model_chunks=args.virtual_pipeline_model_parallel_size)
+        args, device, zero_bubble=zero_bubble,
+        num_model_chunks=args.virtual_pipeline_model_parallel_size or 1)
     _, summary = train(run, log=lambda *a: None)
     ps.destroy_model_parallel()
     return summary

@@ -53,7 +53,10 @@ from apex_tpu_torch.models.gpt_pipeline import build_gpt_pipeline
 from apex_tpu_torch.optimizers import fused_adam
 from apex_tpu_torch.parallel import parallel_state as ps
 from apex_tpu_torch.parallel.ddp import all_reduce_gradients
-from apex_tpu_torch.parallel.pipeline import forward_backward_with_pre_post
+from apex_tpu_torch.parallel.pipeline import (
+    forward_backward_with_pre_post,
+    forward_backward_zero_bubble_with_pre_post,
+)
 from apex_tpu_torch.transformer.config import TransformerConfig
 from apex_tpu_torch.transformer.layer import sequence_parallel
 from apex_tpu_torch.transformer.testing import global_vars
@@ -94,11 +97,17 @@ class GPTPipelineTraining:
     chunks of ``num_layers / (pp V)`` layers a rank, their parameters
     stacked on a leading V dim (JAX's ``run_gpt`` passes no chunks; this
     is the ``forward_backward_with_pre_post(num_model_chunks=V)`` route).
+    ``zero_bubble`` trains through ``forward_backward_zero_bubble_with_
+    pre_post`` (the B/W split) instead of 1F1B.
     The weights are drawn from ``--seed`` as ``GPTModel``'s are, chunk v
     of pp rank p (global stage ``v pp + p``) from its own seed, and the
     head at JAX's std (``build_gpt_pipeline``'s ``init_post``)."""
 
-    def __init__(self, args, device="cuda", num_model_chunks: int = 1):
+    def __init__(self, args, device="cuda", num_model_chunks: int = 1,
+                 zero_bubble: bool = False):
+        if zero_bubble and num_model_chunks > 1:
+            raise ValueError("zero_bubble has no interleaved variant")
+        self.zero_bubble = zero_bubble
         self.device = device = resolve_device(device)
         self.tp = tp = args.tensor_model_parallel_size
         self.pp = pp = args.pipeline_model_parallel_size
@@ -174,12 +183,17 @@ class GPTPipelineTraining:
         sequence parallelism, dp mean), and with ``return_grads`` the
         step's synced gradients by flat name too."""
         parts, cfg = self.parts, self.config
-        loss, _, grads = forward_backward_with_pre_post(
+        kw = dict(axis_name="pp",
+                  grad_sync_fn=self._sync if self.dp > 1 else None,
+                  tensor_shape=self.tensor_shape, dtype=cfg.compute_dtype)
+        if self.zero_bubble:
+            schedule = forward_backward_zero_bubble_with_pre_post
+        else:
+            schedule = forward_backward_with_pre_post
+            kw["num_model_chunks"] = self.num_model_chunks
+        loss, _, grads = schedule(
             parts.pre_fn, parts.stage_fn, parts.post_loss_fn, self.params,
-            self.tokens[i], self.labels[i], axis_name="pp",
-            num_model_chunks=self.num_model_chunks,
-            grad_sync_fn=self._sync if self.dp > 1 else None,
-            tensor_shape=self.tensor_shape, dtype=cfg.compute_dtype)
+            self.tokens[i], self.labels[i], **kw)
         flat = _flat(self.params)
         updates, self.opt_state = self.opt.update(_flat(grads),
                                                   self.opt_state, flat)
@@ -235,6 +249,8 @@ def train(run: GPTPipelineTraining, log=print, profile_steps: int = 0):
     summary = {
         "world": len(ranks), "tp": run.tp, "pp": run.pp, "dp": run.dp,
         "virtual": run.virtual, "num_model_chunks": run.num_model_chunks,
+        "schedule": ("zero_bubble" if run.zero_bubble else "interleaved"
+                     if run.num_model_chunks > 1 else "1f1b"),
         "num_micro": run.num_micro,
         "sequence_parallel": sequence_parallel(run.config),
         "backend": dist.get_backend() if dist.is_initialized() else None,

@@ -24,7 +24,9 @@ swallowed:
    (a row that keeps one key), in both dtypes, and the forward at BERT
    serving's (32,16,512,64) with the serving batch's own 32 lengths;
    flash forward and backward at GPT-2's heads at tp = 2, causal
-   (4,6,1024,64), in both dtypes;
+   (4,6,1024,64), in both dtypes, and at TinyLlama's under Ulysses at cp
+   = 4, causal GQA (4,8,2048,64) over (4,1,2048,64) with the CP batch's
+   key padding, in both dtypes;
    LayerNorm forward at GPT-2's (8192, 768), (768, 768) and (8, 768), at
    BERT's (2048, 1024) and serving's (16384, 1024), GPT-2's rows at tp
    = 2 under sequence parallelism (2048, 768), at hidden 770 and on an
@@ -34,8 +36,9 @@ swallowed:
    version
    and against the loop kernel on the same inputs; Adam over
    GPT-2 small's 124,439,808 parameters and a ragged length, both decay
-   modes, steps 1 and 10; RMSNorm forward and backward at rows {1, 1000,
-   8192} x hidden {2048, 1000, 770}, with and without weight, the forward's
+   modes, steps 1 and 10; RMSNorm forward and backward at rows {1, 4, 1000,
+   1024, 2048, 8192} x hidden {2048, 1000, 770}, with and without weight, the
+   forward's
    routes at hidden 4096, 5120 and an unaligned input, and the backward's
    loop on an unaligned input; the norm forwards' register-resident row
    bit-equal to their loop, and the RMSNorm forward's output bit-equal to
@@ -146,7 +149,31 @@ swallowed:
    kernels and on the CPU's plain versions from the same weights: 3 bf16
    steps (losses 2e-3 relative, parameters 2e-3 absolute) and 2 fp32
    steps (losses 1e-5 relative, each tensor 1e-4 relative in norm);
-14. prints the ``kernels`` line (all nine kernels; ``launches`` is the
+14. GPT-2 small pipelined at pp = 2 x tp = 2 with SP through the
+   zero-bubble B/W split (``GPTPipelineTraining(zero_bubble=True)``, the
+   1F1B run's settings) from a spawned world, 1 + 2 steps: the checks of
+   13 (a), per-step ms, tokens/s, peak memory and staged p2p beside
+   ``algebra``'s zero-bubble and 1F1B costs at (2, 4); then zero bubble
+   against 1F1B from the same weights at 4 layers, seq 256, fp32, 2
+   steps: losses 1e-5 relative, every gradient 1e-4 relative in norm;
+15. context parallelism: TinyLlama-1.1B at full width, 22 layers cut to 4,
+   cp = 4 on 4 ranks of this card over gloo (ring messages, all-to-alls
+   and gradient sums staged through pinned host memory), batch 4 x 2048
+   tokens (512 a rank) of ragged documents of 1024-2048 tokens, bf16:
+   ``train_ring_cp``'s step through ring attention and through Ulysses,
+   1 + 3 steps each: finite losses, the first within 0.5 of ln 32000 +
+   2048 x 0.02^2 / 2, every rank's parameters the same after each step
+   (digests), step ms, tokens/s, every rank's peak memory and what was
+   staged a step, and one more step profiled on the last rank, whose
+   causal ring work is the most (the ring chunk updates' share); then
+   one step of each at cp = 4 against one model at
+   cp = 1 from the same weights and batch (fp32: per-token losses rtol
+   2e-4 atol 2e-5, every gradient 1e-4 relative in norm; bf16: the mean
+   loss 2e-3 relative); then fp32 KV-cache decode over cp = 4 (1024
+   prompt tokens prefilled, 16 teacher-forced steps, which run #3 alone:
+   the prefill's ring and ``cp_decode_attention`` are plain, as JAX's)
+   against the cp = 1 uncached forward, rtol 2e-4, atol 2e-4;
+16. prints the ``kernels`` line (all nine kernels; ``launches`` is the
    count of the kernel's first path below that runs it, and
    ``launches_by_path`` has every path's), then as the last line
    ``{"ok": true, "device": {...}}``.
@@ -160,7 +187,11 @@ runs none of the nine kernels), ``bert_serving``, ``bert_pretrain`` and
 start at 0 and rank 0 reports its counts), and ``gpt_pipeline`` and
 ``gpt_pipeline_interleaved`` (GPT-2 small pipelined; each run's counts
 start at 0 after its build, and rank 0, a first-stage rank, reports
-them, its last-stage rank's checked beside them).
+them, its last-stage rank's checked beside them), ``gpt_pipeline_zero_
+bubble`` (likewise), and ``llama_cp_ring``, ``llama_cp_ulysses`` and
+``llama_cp_decode`` (TinyLlama at cp = 4; each job's counts start at 0
+when its model is built and are read before any cp = 1 reference runs,
+and rank 0 reports them).
 """
 
 import gc
@@ -262,6 +293,20 @@ PATH_KERNELS = {
     "gpt_pipeline_interleaved": ("layer_norm_fwd", "layer_norm_bwd",
                                  "flash_fwd", "flash_bwd_dq",
                                  "flash_bwd_dkv", "adam_update"),
+    # the same at pp = 2 x tp = 2 through the zero-bubble B/W split
+    "gpt_pipeline_zero_bubble": ("layer_norm_fwd", "layer_norm_bwd",
+                                 "flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv", "adam_update"),
+    # TinyLlama-1.1B at cp = 4, counted on rank 0: the ring's chunk update
+    # is plain torch (JAX's is jnp); Ulysses runs the flash kernels on the
+    # cp-gathered sequence with the heads split over cp
+    "llama_cp_ring": ("rms_norm_fwd", "rms_norm_bwd", "adam_update"),
+    "llama_cp_ulysses": ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd",
+                         "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
+    # prefill over cp (the ring) and decode through cp_decode_attention,
+    # both plain as JAX's: #3 alone; the counts are read before the cp = 1
+    # reference forward runs
+    "llama_cp_decode": ("rms_norm_fwd",),
 }
 FORWARD_KERNELS = PATH_KERNELS["serving"]
 KERNEL_META = {  # name: (source, TPU kernel it replaces)
@@ -476,6 +521,7 @@ def flash_cases(gen):
                "key-padding", q, k, v, False, decode_kpm(4100, 40, gen), None)
         yield from bert_flash_cases(dtype, gen)
         yield from gpt_training_flash_cases(dtype, gen)
+        yield ulysses_flash_case(dtype, gen)
         q, k, v = attn_inputs(32, 16, 16, 512, 512, 64, dtype, gen)
         yield (BERT_SERVING_FLASH, q, k, v, False,
                lens_kpm(bert_serving_draw()[1].tolist(), 512), None)
@@ -524,6 +570,18 @@ def gpt_training_flash_cases(dtype, gen):
     yield GPT_TP2_FLASH, q, k, v, True, None, None
     q, k, v = attn_inputs(4, 12, 12, 1024, 1024, 64, dtype, gen)
     yield GPT_TP1_MB4_FLASH, q, k, v, True, None, None
+
+
+# TinyLlama's attention under Ulysses at cp = 4: 32 / 4 query heads over
+# 4 / 4 KV heads a rank, the cp-gathered 2048 tokens, the CP batch's ragged
+# documents as key padding
+ULYSSES_FLASH = ("Ulysses cp=4 GQA 8q/1kv causal (4,8,2048,64) key-padding, "
+                 "the CP batch's lengths")
+
+
+def ulysses_flash_case(dtype, gen):
+    q, k, v = attn_inputs(4, 8, 1, 2048, 2048, 64, dtype, gen)
+    return ULYSSES_FLASH, q, k, v, True, cp_kpm(), None
 
 
 def wide_flash_cases(dtype, gen):
@@ -657,6 +715,7 @@ def flash_bwd_cases(gen):
         yield from wide_flash_cases(dtype, gen)
         yield from bert_flash_cases(dtype, gen)
         yield from gpt_training_flash_cases(dtype, gen)
+        yield ulysses_flash_case(dtype, gen)
         if dtype == torch.bfloat16:  # the Llama training shape, in its dtype
             q, k, v = attn_inputs(4, 32, 4, 2048, 2048, 64, dtype, gen)
             yield ("Llama training GQA 32q/4kv causal (4,32,2048,64)", q, k,
@@ -742,7 +801,10 @@ def rms_parity(errors):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     for dtype in (torch.float32, torch.bfloat16):
-        for rows in (1, 1000, 8192):
+        # TinyLlama at cp = 4: 2048 rows, a cp rank's 4 x 512 tokens in
+        # training; 1024 (the decode prefill's 4 x 256) and 4 (a decode
+        # step)
+        for rows in (1, 4, 1000, 1024, 2048, 8192):
             for hidden in (2048, 1000, 770):
                 for weighted in (True, False):
                     x, w, _ = ln_inputs(rows, hidden, dtype, gen)
@@ -1380,6 +1442,9 @@ def kernel_timings(errors):
     out["flash_fwd"].append(time_flash(
         BERT_SERVING_FLASH + " bf16", q, k, v, False,
         lens_kpm(bert_serving_draw()[1].tolist(), 512), errors))
+    q, k, v = attn_inputs(4, 8, 1, 2048, 2048, 64, torch.bfloat16, gen)
+    out["flash_fwd"].append(time_flash(ULYSSES_FLASH + " bf16", q, k, v,
+                                       True, cp_kpm(), errors))
     del q, k, v
     # BERT-345M's rows, bf16 and the LM head's fp32: pre-training's 4 x 512
     # tokens of 1024 and serving's 32 x 512
@@ -1402,12 +1467,16 @@ def kernel_timings(errors):
     pdq, pdkv = time_flash_bwd(gen, 4, 16, 16, 512, errors, causal=False,
                                kpm=bert_kpm)
     tdq, tdkv = time_flash_bwd(gen, 4, 6, 6, 1024, errors)  # GPT-2, tp = 2
-    out["flash_bwd_dq"] = dq + ldq + wdq + bdq + pdq + tdq
-    out["flash_bwd_dkv"] = dkv + ldkv + wdkv + bdkv + pdkv + tdkv
+    udq, udkv = time_flash_bwd(gen, 4, 8, 1, 2048, errors,  # Ulysses cp = 4
+                               kpm=cp_kpm())
+    out["flash_bwd_dq"] = dq + ldq + wdq + bdq + pdq + tdq + udq
+    out["flash_bwd_dkv"] = dkv + ldkv + wdkv + bdkv + pdkv + tdkv + udkv
     out["adam_update"] = [time_adam(N_GPT2_SMALL)]
     out["rms_norm_fwd"] = [time_rms_norm(8192, 2048),
-                           time_rms_norm(8, 2048, graph=True)]
-    out["rms_norm_bwd"] = [time_rms_norm_bwd(8192, 2048)]
+                           time_rms_norm(8, 2048, graph=True),
+                           time_rms_norm(2048, 2048)]  # a cp rank's rows
+    out["rms_norm_bwd"] = [time_rms_norm_bwd(8192, 2048),
+                           time_rms_norm_bwd(2048, 2048)]
     out["sumsq_flat"] = [time_sumsq(N_TINYLLAMA), time_sumsq(ZERO_SHARD_TP2)]
     for name, rows in out.items():
         for r in rows:
@@ -2804,6 +2873,246 @@ def gpt_pipeline_card_vs_plain(device="cuda"):
     return result
 
 
+# -- the zero-bubble schedule ------------------------------------------------
+
+# GPT-2 small at pp = 2 x tp = 2 with SP through the B/W split: the 1F1B
+# run's settings (GPT_PIPELINE_1F1B), 1 + 2 steps
+GPT_PIPELINE_ZERO_BUBBLE = ("--pipeline-model-parallel-size", "2",
+                            "--tensor-model-parallel-size", "2",
+                            "--sequence-parallel", "--train-iters", "3")
+# zero bubble against 1F1B: 4 layers at seq 256 in fp32, 2 steps
+ZERO_BUBBLE_VS_1F1B_ARGV = PIPELINE_CARD_VS_PLAIN_ARGV + ("--train-iters",
+                                                           "2")
+
+
+def gpt_pipeline_zero_bubble_phase(smi):
+    """(a) ``GPTPipelineTraining(zero_bubble=True)`` at GPT-2 small's full
+    width, pp = 2 x tp = 2 with SP, 1 + 2 steps from a spawned world; (b)
+    zero bubble against 1F1B from the same weights at 4 layers, seq 256,
+    fp32."""
+    from apex_tpu_torch.parallel.pipeline import algebra
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        spawn,
+    )
+    from apex_tpu_torch.transformer.testing.cp_workers import (
+        zero_bubble_vs_1f1b_worker,
+    )
+    from apex_tpu_torch.transformer.testing.pipeline_workers import (
+        interleaved_worker,
+    )
+
+    torch.cuda.empty_cache()
+    name = "gpt_pipeline_zero_bubble"
+    t0 = time.perf_counter()
+    out = spawn(interleaved_worker, GPT_PARALLEL_RANKS, args=(
+        GPT_PIPELINE_ARGV + GPT_PIPELINE_ZERO_BUBBLE, "cuda", True),
+        timeout=600.0)[0]
+    wall = time.perf_counter() - t0
+    if out["schedule"] != "zero_bubble":
+        raise AssertionError(f"{name}: ran {out['schedule']}")
+    check_pipeline_run(name, out, (2, 2, 1, 1, True), PATH_KERNELS[name])
+    steps = out["steps"]
+    cost = {s: {**vars(c), "bubble_fraction": c.bubble_fraction}
+            for s, c in (("zero_bubble", algebra.zero_bubble_cost(2, 4)),
+                         ("1f1b", algebra.one_f_one_b_cost(2, 4)))}
+    report = {
+        "transport": GLOO_TRANSPORT, "gpu": smi,
+        "model": f"gpt2-small 12x768 vocab {GPT_PARALLEL_VOCAB} (random "
+                 "weights, bf16 compute, fp32 params), tp=2 pp=2 dp=1 sp, "
+                 "zero bubble",
+        "num_micro": out["num_micro"], "micro_batch": 4, "seq_len": 1024,
+        "steps": steps, "losses": out["losses"], "step_ms": out["step_ms"],
+        "step_ms_mean_after_first": out["step_ms_mean_after_first"],
+        "tokens_per_s": out["tokens_per_s"],
+        "peak_mem_gb_by_rank": out["peak_mem_gb_by_rank"],
+        "launches_per_step_first_stage": {
+            k: n / steps for k, n in out["launch_counts_first_stage"].items()},
+        "launches_per_step_last_stage": {
+            k: n / steps for k, n in out["launch_counts_last_stage"].items()},
+        "staged_per_step_rank0": {
+            k: n / steps for k, n in out["staged_rank0"].items()},
+        "algebra": cost, "wall_s": wall}
+    log(f"{name} ({GLOO_TRANSPORT}; tokens/s compared with nothing) "
+        + json.dumps(report))
+    t0 = time.perf_counter()
+    ranks = spawn(zero_bubble_vs_1f1b_worker, GPT_PARALLEL_RANKS,
+                  args=(ZERO_BUBBLE_VS_1F1B_ARGV, "cuda"), timeout=600.0)
+    worst_loss = worst_grad = 0.0
+    for r, res in enumerate(ranks):
+        for a, b in zip(res["zero_bubble"], res["1f1b"]):
+            worst_loss = max(worst_loss, abs(a - b) / abs(b))
+        for step, (tensor, rel) in enumerate(res["grad_rel_worst"]):
+            worst_grad = max(worst_grad, rel)
+            if rel > 1e-4:
+                raise AssertionError(f"{name} vs 1f1b: rank {r} step {step} "
+                                     f"{tensor} {rel} relative in norm")
+    if worst_loss > 1e-5:
+        raise AssertionError(f"{name} vs 1f1b: losses {worst_loss} relative")
+    report["vs_1f1b"] = {
+        "layers": 4, "seq_len": 256, "dtype": "fp32", "steps": 2,
+        "loss_rel": worst_loss, "grad_rel_in_norm": worst_grad,
+        "losses_rank0": ranks[0]["zero_bubble"],
+        "wall_s": time.perf_counter() - t0}
+    log(f"{name} against 1F1B (4 x 768, seq 256, fp32, same weights; "
+        "losses to 1e-5, every gradient to 1e-4 relative in norm): "
+        + json.dumps(report["vs_1f1b"]))
+    return {name: out["launch_counts_first_stage"]}, report
+
+
+# -- context parallelism -----------------------------------------------------
+
+CP_RANKS = 4
+CP_LAYERS = 4  # TinyLlama-1.1B's 22 layers cut to 4: four replicas share
+#                the card
+CP_STEPS = 3
+# the published context, 512 tokens a rank, ragged documents of
+# 1024-2048 tokens (the JAX example's data at this size)
+CP_BATCH = dict(batch=4, seq_len=2048, vocab=32000, doc_len_min=1024,
+                seed=SEED)
+CP_DECODE = dict(prompt=1024, total=1040)
+
+
+def cp_fields(mode, dtype=torch.bfloat16):
+    """TinyLlama-1.1B's config at CP_LAYERS layers with attention over cp
+    (``mode``), as a dict a spawned rank rebuilds."""
+    import dataclasses
+
+    from apex_tpu_torch.models.gpt import tinyllama_1_1b_config
+
+    return dataclasses.asdict(tinyllama_1_1b_config(
+        num_layers=CP_LAYERS, compute_dtype=dtype,
+        context_parallel_mode=mode))
+
+
+def cp_kpm():
+    """The CP batch's key-padding mask (True = padded), on the card."""
+    from apex_tpu_torch.examples.long_context.train_ring_cp import make_batch
+
+    return torch.as_tensor(make_batch(**CP_BATCH)["kpm"], device="cuda")
+
+
+def llama_cp_phase(smi):
+    """TinyLlama-1.1B at full width, 4 layers, cp = 4 on 4 ranks of this
+    card over gloo: ``train_ring_cp``'s step through the ring and through
+    Ulysses (1 + 3 steps each, one more profiled), the CP step against a
+    cp = 1 model from the same weights (fp32 losses and gradients, bf16
+    mean loss), and KV-cache decode over cp against a cp = 1 forward."""
+    from apex_tpu_torch.transformer.testing.cp_workers import cp_card_worker
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        spawn,
+    )
+
+    torch.cuda.empty_cache()
+    jobs = [dict(kind="train", cp=CP_RANKS, config=cp_fields(mode),
+                 batch=CP_BATCH, steps=CP_STEPS, lr=1e-3, profile=True)
+            for mode in ("ring", "ulysses")]
+    jobs += [dict(kind="vs_single", cp=CP_RANKS, config=cp_fields(mode, dt),
+                  batch=CP_BATCH)
+             for dt in (torch.float32, torch.bfloat16)
+             for mode in ("ring", "ulysses")]
+    jobs.append(dict(kind="decode", cp=CP_RANKS,
+                     config=cp_fields("ring", torch.float32),
+                     batch=CP_BATCH, **CP_DECODE))
+    t0 = time.perf_counter()
+    ranks = spawn(cp_card_worker, CP_RANKS, args=(jobs, "cuda"),
+                  timeout=900.0)
+    wall = time.perf_counter() - t0
+    paths, report = {}, {"transport": GLOO_TRANSPORT, "gpu": smi,
+                         "wall_s": wall}
+    tokens = CP_BATCH["batch"] * CP_BATCH["seq_len"]
+    for i, mode in enumerate(("ring", "ulysses")):
+        name = f"llama_cp_{mode}"
+        res = [r[i] for r in ranks]
+        losses = [rec["loss"] for rec in res[0]["records"]]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: losses {losses}")
+        std = 0.02  # the untied head's init std (models.gpt.init_params)
+        expected = math.log(32000) + 2048 * std ** 2 / 2
+        if abs(losses[0] - expected) > 0.5:
+            raise AssertionError(f"{name}: first loss {losses[0]} is not "
+                                 f"near ln 32000 + 2048 x {std}^2 / 2 = "
+                                 f"{expected}")
+        for step in range(len(losses)):
+            digests = {r["records"][step]["digest"] for r in res}
+            if len(digests) != 1:
+                raise AssertionError(f"{name}: ranks' parameters differ "
+                                     f"after step {step}")
+        counts = res[0]["launches"]
+        missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{name}: {missing} not launched on rank 0")
+        paths[name] = counts
+        measured = res[0]["records"][1:]
+        step_ms = statistics.mean(rec["ms"] for rec in measured)
+        report[name] = {
+            "model": f"tinyllama-1.1b {CP_LAYERS}x2048 (22 layers cut to "
+                     f"{CP_LAYERS}), 32q/4kv heads, vocab 32000, random "
+                     "weights, bf16 compute, fp32 params",
+            "cp": CP_RANKS, "batch": CP_BATCH["batch"],
+            "seq_len": CP_BATCH["seq_len"], "losses": losses,
+            "step_ms": [rec["ms"] for rec in res[0]["records"]],
+            "step_ms_mean_after_first": step_ms,
+            "tokens_per_s": tokens / step_ms * 1e3,
+            "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in res],
+            "launches_per_step_rank0": {
+                k: n / len(losses) for k, n in counts.items()},
+            "staged_per_step_rank0": measured[-1]["staged"]}
+        prof = res[-1]["profile"]
+        report[name]["profile"] = {k: prof[k] for k in (
+            "wall_ms", "device_ms", "device_idle_share", "spans",
+            "chunk_update_host_share",
+            "chunk_update_device_share_of_device_time", "top")}
+        log(f"{name} ({GLOO_TRANSPORT}; tokens/s compared with nothing) "
+            + json.dumps(report[name]))
+    cases = [(mode, dt) for dt in ("fp32", "bf16")
+             for mode in ("ring", "ulysses")]
+    vs = {}
+    for j, (mode, dt) in enumerate(cases, start=2):
+        res = ranks[0][j]
+        rel = (abs(res["cp_mean_loss"] - res["single_mean_loss"])
+               / abs(res["single_mean_loss"]))
+        row = {"cp_mean_loss": res["cp_mean_loss"],
+               "single_mean_loss": res["single_mean_loss"],
+               "mean_loss_rel": rel}
+        if dt == "fp32":
+            row.update({k: res[k] for k in (
+                "loss_max_abs_err", "loss_max_rel_err", "worst_grad",
+                "worst_grad_rel")})
+            if not res["loss_ok"]:
+                raise AssertionError(f"cp {mode} fp32: per-token losses off "
+                                     f"by {res['loss_max_abs_err']} abs")
+            if res["worst_grad_rel"] > 1e-4:
+                raise AssertionError(f"cp {mode} fp32: {res['worst_grad']} "
+                                     f"{res['worst_grad_rel']} in norm")
+        elif rel > 2e-3:
+            raise AssertionError(f"cp {mode} bf16: mean loss {rel} relative")
+        vs[f"{mode} {dt}"] = row
+    report["vs_cp1"] = vs
+    log("llama cp=4 against cp=1, same weights and batch (fp32 per-token "
+        "losses rtol 2e-4 atol 2e-5, every gradient 1e-4 in norm; bf16 mean "
+        "loss 2e-3): " + json.dumps(vs))
+    res = ranks[0][-1]
+    got = torch.as_tensor(res["decoded"])
+    want = torch.as_tensor(res["reference"])[:, CP_DECODE["prompt"]:]
+    err = (got - want).abs()
+    if not torch.allclose(got, want, rtol=2e-4, atol=2e-4):
+        raise AssertionError(f"llama_cp_decode: logits off by "
+                             f"{float(err.max())}")
+    counts = res["launches"]
+    missing = [k for k in PATH_KERNELS["llama_cp_decode"] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"llama_cp_decode: {missing} not launched")
+    paths["llama_cp_decode"] = counts
+    report["llama_cp_decode"] = {
+        "prompt": CP_DECODE["prompt"],
+        "decode_steps": CP_DECODE["total"] - CP_DECODE["prompt"],
+        "logits_max_abs_err": float(err.max()), "launches_rank0": counts}
+    log("llama_cp_decode (fp32, prefill over cp=4, decode through "
+        "cp_decode_attention, against the cp=1 uncached forward, rtol 2e-4 "
+        "atol 2e-4): " + json.dumps(report["llama_cp_decode"]))
+    return paths, report
+
+
 def log_memory(after):
     """What stays allocated on the card after a phase: a later phase's
     peak memory counts it."""
@@ -2853,6 +3162,12 @@ def main():
     pipeline, _ = gpt_pipeline_phase(smi)
     paths.update(pipeline)
     log_memory("gpt_pipeline")
+    zero_bubble, _ = gpt_pipeline_zero_bubble_phase(smi)
+    paths.update(zero_bubble)
+    log_memory("gpt_pipeline_zero_bubble")
+    cp, _ = llama_cp_phase(smi)
+    paths.update(cp)
+    log_memory("llama_cp")
     for name, counts in paths.items():
         log(f"launches {name}: " + json.dumps(
             {k: counts[k] for k in PATH_KERNELS[name]}))

@@ -11,7 +11,9 @@ Inputs are made from a seeded numpy RNG. Checked:
 
 - the tp, dp and pp groups of every rank at (dp, pp, tp) = (1, 2, 2),
   (2, 2, 1) and (1, 4, 1) equal the JAX mesh's axis groups, and the pp
-  rank, the stage flags and ``get_group("pp")`` follow; cp > 1 raises;
+  rank, the stage flags and ``get_group("pp")`` follow; so do all four
+  groups, the ranks and the sizes at (dp, pp, cp, tp) = (1, 1, 4, 1),
+  (1, 1, 2, 2) and (2, 1, 2, 1), and cp > 1 without a world raises;
 - each JAX function of ``p2p.py`` at pp = 2 and 4: bit-equal (data only
   moves); the paired 1F1B operations receive their partner's tensor;
 - the micro-batch calculators and the schedule algebra: exact;
@@ -22,7 +24,9 @@ Inputs are made from a seeded numpy RNG. Checked:
   rank: outputs 1e-6 absolute (the same fp32 products), the mean loss
   and the per-micro-batch losses 1e-5 relative, every gradient 1e-4
   relative in norm (fp32 sums in another order); the parameters'
-  ``.grad`` stay None;
+  ``.grad`` stay None; the dispatcher returns the schedules JAX's does,
+  the zero-bubble one included (``tests/test_torch_zero_bubble.py``
+  holds it to JAX);
 - the interleaved schedules at P = 2 refuse a backend other than gloo,
   whose tags alone keep the two streams between one pair of ranks apart.
 """
@@ -52,6 +56,7 @@ from apex_tpu_torch.transformer.testing.pipeline_workers import (
 WORLD = 4
 ALL = P(("dp", "pp", "cp", "tp"))  # device r <- row r of a stacked array
 LAYOUTS = ((1, 2, 2), (2, 2, 1), (1, 4, 1))
+CP_LAYOUTS = ((1, 1, 4, 1), (1, 1, 2, 2), (2, 1, 2, 1))  # (dp, pp, cp, tp)
 H, MB = 6, 2  # toy hidden size and micro-batch rows
 
 
@@ -148,7 +153,7 @@ def both():
     p2p_cases, p2p_refs = _jax_p2p(rs)
     toy_cases, toy_refs = _toy_cases(rs)
     ports = spawn(jobs_worker, WORLD, args=([
-        ("groups_worker", (LAYOUTS,)),
+        ("groups_worker", (LAYOUTS + CP_LAYOUTS,)),
         ("p2p_worker", (p2p_cases,)),
         ("toy_schedules_worker", (toy_cases,))],), timeout=240.0)
     return (p2p_cases, p2p_refs, toy_refs), ports
@@ -156,15 +161,15 @@ def both():
 
 # -- process groups ----------------------------------------------------------
 
-def _jax_axis_groups(dp, pp, tp):
+def _jax_axis_groups(dp, pp, tp, cp=1):
     """{axis: {device id: the ids of its group along axis}} of the JAX
     mesh."""
     mesh = jps.initialize_model_parallel(
         tensor_model_parallel_size=tp, pipeline_model_parallel_size=pp,
-        devices=jax.devices()[:WORLD])
+        context_parallel_size=cp, devices=jax.devices()[:WORLD])
     try:
         ids = np.vectorize(lambda d: d.id)(mesh.devices)
-        assert mesh.shape == {"dp": dp, "pp": pp, "cp": 1, "tp": tp}
+        assert mesh.shape == {"dp": dp, "pp": pp, "cp": cp, "tp": tp}
     finally:
         jps.destroy_model_parallel()
     out = {}
@@ -192,8 +197,24 @@ def test_process_groups_match_the_jax_mesh(both, layout):
         assert got["pp_group_is_group"]
 
 
-def test_context_parallelism_still_raises():
-    with pytest.raises(NotImplementedError, match="context parallelism"):
+def test_context_parallelism_still_raises(both):
+    """The cp axis is ported: every rank's four groups, ranks and sizes at
+    (dp, pp, cp, tp) = (1, 1, 4, 1), (1, 1, 2, 2) and (2, 1, 2, 1) equal
+    the JAX mesh's (rank ``((d pp + p) cp + c) tp + t``). What still
+    raises is cp > 1 without a world to hold it."""
+    _, ports = both
+    for layout in CP_LAYOUTS:
+        dp, pp, cp, tp = layout
+        want = _jax_axis_groups(dp, pp, tp, cp)
+        for r in range(WORLD):
+            got = ports[r][0][layout]
+            for axis in ("tp", "dp", "pp", "cp"):
+                assert sorted(got["groups"][axis]) == want[axis][r], (
+                    layout, axis, r)
+            assert got["sizes"] == layout
+            assert got["ranks"] == (r // (pp * cp * tp), r // (cp * tp) % pp,
+                                    r // tp % cp, r % tp)
+    with pytest.raises(RuntimeError, match="world"):
         ps.initialize_model_parallel(context_parallel_size=2)
 
 
@@ -439,8 +460,13 @@ def test_dispatcher_matches_jax():
             jsched.get_forward_backward_func(*args, **kw)
         with pytest.raises(ValueError, match=str(jerr.value)[:40]):
             sched.get_forward_backward_func(*args, **kw)
-    with pytest.raises(NotImplementedError, match="B/W split"):
-        sched.get_forward_backward_func(None, 2, zero_bubble=True)
+    # JAX's test_dispatcher_zero_bubble
+    assert sched.get_forward_backward_func(None, 4, zero_bubble=True) is \
+        sched.forward_backward_zero_bubble
+    assert sched.get_forward_backward_func(None, 1, zero_bubble=True) is \
+        sched.forward_backward_no_pipelining
+    with pytest.raises(ValueError, match="zero_bubble"):
+        sched.get_forward_backward_func(2, 4, zero_bubble=True)
 
 
 def test_build_model_flags_match_jax():
@@ -459,9 +485,7 @@ def test_import_surfaces_match_jax():
     import apex_tpu_torch.parallel.pipeline as pipe
     import apex_tpu_torch.transformer.pipeline_parallel as tpp
 
-    zero_bubble = {"forward_backward_zero_bubble",
-                   "forward_backward_zero_bubble_with_pre_post"}
-    assert set(jpipe.__all__) - zero_bubble <= set(pipe.__all__)
+    assert set(jpipe.__all__) <= set(pipe.__all__)
     assert set(tpp.__all__) == set(jpp.__all__)
     for name in pipe.__all__:
         assert getattr(pipe, name) is not None

@@ -302,15 +302,14 @@ def test_training_step_matches_jax(jax_training):
 
 def test_training_refuses_what_is_not_ported():
     # tp, zero and max_devices are ported (tests/test_torch_parallel_
-    # training.py), and pipeline parallelism (tests/test_torch_pipeline*.py);
-    # compression, the layer-RMS taps and context parallelism are not
+    # training.py), pipeline parallelism (tests/test_torch_pipeline*.py)
+    # and context parallelism (tests/test_torch_context_parallel.py);
+    # compression and the layer-RMS taps are not
     from apex_tpu_torch.parallel import parallel_state
 
     for bad in (dict(compression="int8"), dict(collect_layer_rms=True)):
         with pytest.raises(NotImplementedError):
             build_gpt_training(GPTTargetConfig(**bad), device="cpu")
-    with pytest.raises(NotImplementedError):
-        parallel_state.initialize_model_parallel(context_parallel_size=2)
     # pp = 2 needs a world of that many processes, as tp = 2 does
     with pytest.raises(RuntimeError, match="world"):
         parallel_state.initialize_model_parallel(
