@@ -18,7 +18,11 @@ regions and layers, DDP, ZeRO-2 Adam at dp > 1, SyncBatchNorm), which
 the GPT step runs at tp x dp, pipeline parallelism (``parallel.pipeline``:
 1F1B, interleaved and zero-bubble schedules) and context parallelism
 (``parallel.ring_attention``: ring and Ulysses attention and decode over
-a sharded cache, ``examples.long_context.train_ring_cp``). All nine
+a sharded cache, ``examples.long_context.train_ring_cp``); and Apex's
+amp front end (``amp``: O0-O3, O1's cast engine, ``AmpOptimizer``;
+``fp16_utils``; the remaining fused optimizers; the ``mlp``,
+``fused_dense`` and ``normalization`` modules; ``examples.simple``,
+``examples.imagenet`` and ``examples.dcgan``). All nine
 Pallas kernels of the TPU package
 are rewritten by hand in CUDA C++ for ``sm_90a`` (``csrc/``, built and
 loaded by ``_kernels``).

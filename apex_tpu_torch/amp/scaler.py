@@ -6,18 +6,20 @@ exact dynamic schedule: growth by ``growth_factor`` after
 ``growth_interval`` clean steps, backoff by ``backoff_factor`` on an
 overflow once the ``hysteresis`` allowance is spent (refilled by any
 clean step), clamped to [min, max]. Nothing here syncs with the host;
-the caller decides when to read the overflow flag.
+the caller decides when to read the overflow flag. The free functions
+:func:`scale_loss` and :func:`unscale_grads` are the JAX package's: a
+default dynamic scaler's ``scale`` and ``unscale``.
 """
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Any, Tuple
 
 import torch
 
 from apex_tpu_torch._kernels import resolve_device
-from apex_tpu_torch.utils.pytree import tree_any_non_finite
+from apex_tpu_torch.utils.pytree import tree_any_non_finite, tree_map
 
-__all__ = ["LossScaler", "LossScalerState"]
+__all__ = ["LossScaler", "LossScalerState", "scale_loss", "unscale_grads"]
 
 
 @dataclasses.dataclass
@@ -68,13 +70,14 @@ class LossScaler:
         """loss * scale, in fp32."""
         return loss.float() * state.scale
 
-    def unscale(self, state: LossScalerState, grads: Dict[str, torch.Tensor]
-                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """(grads * (1 / scale), found_inf), the flag taken on the SCALED
-        grads; a multiplication by the fp32 reciprocal, as in JAX."""
+    def unscale(self, state: LossScalerState, grads: Any
+                ) -> Tuple[Any, torch.Tensor]:
+        """(grads * (1 / scale), found_inf) over any tensor collection, the
+        flag taken on the SCALED grads; a multiplication by the fp32
+        reciprocal, as in JAX."""
         inv = 1.0 / state.scale
         found_inf = tree_any_non_finite(grads)
-        out = {n: (g.float() * inv).to(g.dtype) for n, g in grads.items()}
+        out = tree_map(lambda g: (g.float() * inv).to(g.dtype), grads)
         return out, found_inf
 
     def update(self, state: LossScalerState, found_inf) -> LossScalerState:
@@ -124,3 +127,17 @@ class LossScaler:
             skipped=i32(d.get("skipped", 0)),
             hysteresis_tracker=i32(d.get("hysteresis_tracker",
                                          self.hysteresis)))
+
+
+_DEFAULT_SCALER = LossScaler()
+
+
+def scale_loss(loss, state: LossScalerState):
+    """The scaled loss to differentiate: ``loss`` in fp32 times the scale
+    (the entry half of the reference's ``with amp.scale_loss(...)``)."""
+    return _DEFAULT_SCALER.scale(state, loss)
+
+
+def unscale_grads(grads, state: LossScalerState):
+    """(grads unscaled, found_inf): the exit half of ``scale_loss``."""
+    return _DEFAULT_SCALER.unscale(state, grads)

@@ -13,6 +13,14 @@ The same naming carries the JAX ``fused_adam`` moments (per leaf, or one
 flat buffer already in the shared leaf order) and the loss scaler's
 state, so both frameworks can start from one mid-training state. Inputs
 are trees of numpy arrays (``jax.tree_util.tree_map(np.asarray, ...)``).
+
+The amp slice adds the MLP's list tree (``weights.<i>``), the modules
+whose flax parameters already have torch's layout (``mlp.MLP``,
+``fused_dense``, ``normalization``: a path join), the DCGAN example's G
+and D (Dense kernels transposed, Conv kernels HWIO -> OIHW,
+ConvTranspose kernels flipped in both spatial dims as HWIO -> IOHW),
+any optimizer state whose fields the port's dataclass shares, and
+``AmpOptimizerState`` (masters, inner state, scaler states).
 """
 
 from typing import Any, Dict
@@ -21,27 +29,43 @@ import numpy as np
 import torch
 
 from apex_tpu_torch._kernels import resolve_device
+from apex_tpu_torch.amp.optimizer import AmpOptimizerState
 from apex_tpu_torch.amp.scaler import LossScalerState
 from apex_tpu_torch.optimizers.fused_adam import FusedAdamState
 
-__all__ = ["bert_params_from_jax", "fused_adam_state_from_jax",
+__all__ = ["amp_state_from_jax", "bert_params_from_jax",
+           "dcgan_params_from_jax", "fused_adam_state_from_jax",
            "gpt_params_from_jax", "gpt_pipeline_params_from_jax",
-           "gpt_tp_params_from_jax",
+           "gpt_tp_params_from_jax", "mlp_params_from_jax",
+           "module_params_from_jax", "optimizer_state_from_jax",
            "resnet_params_from_jax", "scaler_state_from_jax"]
+
+
+def _from_numpy(a) -> torch.Tensor:
+    """A numpy array as a tensor; numpy's bfloat16 (``ml_dtypes``), which
+    torch cannot read, goes through fp32 exactly."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def gpt_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The port's ``GPTModel`` state_dict from a JAX ``GPTModel`` params
     tree (nested dicts of numpy arrays, e.g. ``variables["params"]``); any
-    tree, keyed by its paths joined with dots."""
+    tree, keyed by its paths joined with dots (a list's items by their
+    index)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
         if isinstance(node, dict):
             for k, v in node.items():
                 walk(v, path + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + (str(i),))
         else:
-            out[".".join(path)] = torch.from_numpy(np.array(node))
+            out[".".join(path)] = _from_numpy(node)
 
     walk(params, ())
     return out
@@ -159,3 +183,82 @@ def scaler_state_from_jax(state, device="cuda") -> LossScalerState:
         skipped=_tensor(state.skipped, dev, torch.int32),
         hysteresis_tracker=_tensor(state.hysteresis_tracker, dev,
                                    torch.int32))
+
+
+def module_params_from_jax(params: Dict[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """The state_dict of a module whose flax parameters have torch's
+    layout already (``mlp.MLP``: ``weight_<i>`` (out, in), ``bias_<i>``;
+    ``fused_dense``; ``normalization``): the path join."""
+    return gpt_params_from_jax(params)
+
+
+def mlp_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``ops.mlp``'s dict from the JAX ``mlp_init`` tree ``{"weights":
+    [...], "biases": [...]}``: ``weights.<i>``, ``biases.<i>``."""
+    return gpt_params_from_jax(params)
+
+
+def dcgan_params_from_jax(params: Dict[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """The DCGAN example's G or D state_dict from its flax params:
+    ``Dense_*`` kernels (in, out) transposed, ``Conv_*`` kernels HWIO ->
+    OIHW, ``ConvTranspose_*`` kernels flipped in both spatial dims and
+    HWIO -> IOHW (``examples.dcgan.main_amp.ConvTranspose``), GroupNorm
+    scales and every bias as they are."""
+    out = {}
+    for key, v in gpt_params_from_jax(params).items():
+        scope, dot, leaf = key.rpartition(".")
+        if leaf == "kernel":
+            if scope.startswith("ConvTranspose"):
+                v = v.flip(0, 1).permute(2, 3, 0, 1)
+            elif scope.startswith("Conv"):
+                v = v.permute(3, 2, 0, 1)
+            else:
+                v = v.t()
+            key = scope + dot + "weight"
+        out[key] = v.contiguous()
+    return out
+
+
+def optimizer_state_from_jax(state, state_cls, device="cuda",
+                             params_from_jax=None):
+    """A port optimizer state (the dataclass ``state_cls``) from the JAX
+    transform's NamedTuple state with the same field names: each tree of
+    parameters through ``params_from_jax`` (the path join by default),
+    each scalar a tensor of its dtype. A tree of per-tensor scalars
+    (NovoGrad's second moment) takes the path join."""
+    import dataclasses
+
+    dev = resolve_device(device)
+    convert = params_from_jax or gpt_params_from_jax
+    fields = {}
+    for f in dataclasses.fields(state_cls):
+        v = getattr(state, f.name)
+        if isinstance(v, dict):
+            scalars = all(np.ndim(x) == 0 for x in
+                          gpt_params_from_jax(v).values())
+            tree = (gpt_params_from_jax if scalars else convert)(v)
+            fields[f.name] = {k: t.to(dev) for k, t in tree.items()}
+        else:
+            fields[f.name] = torch.as_tensor(np.array(v), device=dev)
+    return state_cls(**fields)
+
+
+def amp_state_from_jax(state, inner_from_jax, device="cuda",
+                       params_from_jax=None) -> AmpOptimizerState:
+    """The port's ``AmpOptimizerState`` from a JAX one: the masters
+    through ``params_from_jax`` (the path join by default), the inner
+    state through ``inner_from_jax(inner, device)``, and the scaler state
+    or tuple of them. Without master weights (O0, O3) the port's masters
+    are the model's own tensors: hand those in after loading the
+    parameters (``state.replace(master=params)``)."""
+    dev = resolve_device(device)
+    convert = params_from_jax or gpt_params_from_jax
+    master = {k: v.to(dev) for k, v in convert(state.master).items()}
+    scaler = (tuple(scaler_state_from_jax(s, dev) for s in state.scaler)
+              if isinstance(state.scaler, tuple)
+              else scaler_state_from_jax(state.scaler, dev))
+    return AmpOptimizerState(master=master,
+                             inner=inner_from_jax(state.inner, dev),
+                             scaler=scaler)

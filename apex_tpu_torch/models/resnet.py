@@ -30,7 +30,7 @@ from apex_tpu_torch.parallel.sync_batch_norm import SyncBatchNorm
 
 __all__ = ["BasicBlock", "BottleneckBlock", "Conv", "ResNet", "ResNet18",
            "ResNet34", "ResNet50", "ResNet101", "ResNet152",
-           "cross_entropy_loss", "same_padding"]
+           "cross_entropy_loss", "lecun_normal", "same_padding"]
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -42,7 +42,7 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
+def lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
     """flax's default kernel init: a normal of variance 1 / fan_in
     truncated at two standard deviations (and rescaled for it)."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -64,7 +64,7 @@ class Conv(nn.Module):
         super().__init__()
         kh, kw = kernel_size
         self.strides, self.padding, self.dtype = tuple(strides), padding, dtype
-        w = _lecun_normal((features, in_features, kh, kw),
+        w = lecun_normal((features, in_features, kh, kw),
                           in_features * kh * kw, gen).to(device)
         if w.is_cuda:
             w = w.contiguous(memory_format=torch.channels_last)
@@ -182,7 +182,7 @@ class ResNet(nn.Module):
                 width = num_filters * 2 ** i * block_cls.expansion
         self.head = nn.Linear(width, num_classes, device=dev)
         with torch.no_grad():
-            self.head.weight.copy_(_lecun_normal((width, num_classes), width,
+            self.head.weight.copy_(lecun_normal((width, num_classes), width,
                                                  gen).t())
             self.head.bias.zero_()
 

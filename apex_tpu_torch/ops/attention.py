@@ -29,6 +29,7 @@ import math
 import torch
 
 from apex_tpu_torch import _kernels
+from apex_tpu_torch._cast_state import casts_disabled
 
 __all__ = ["causal_mask", "flash_attention", "window_mask"]
 
@@ -331,6 +332,7 @@ class _FlashFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+@casts_disabled
 def flash_attention(q, k, v, causal: bool = False, scale: float = None,
                     mask=None, key_padding_mask=None, window: int = None):
     """Multi-head attention; q: (b, h, sq, d), k/v: (b, h_kv, sk, d).

@@ -20,6 +20,7 @@ mode yet.
 import torch
 
 from apex_tpu_torch import _kernels
+from apex_tpu_torch._cast_state import casts_disabled
 
 __all__ = ["layer_norm", "rms_norm"]
 
@@ -231,6 +232,7 @@ class _RMSNormFn(torch.autograd.Function):
         return dx.reshape(x.shape), dw, None
 
 
+@casts_disabled
 def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
     """LayerNorm over the last dimension (ref: FusedLayerNorm)."""
     if _kernels.wants_grad(x, weight, bias):
@@ -240,6 +242,7 @@ def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
     return _ln_ref(x, weight, bias, eps)
 
 
+@casts_disabled
 def rms_norm(x, weight=None, eps: float = 1e-5):
     """RMSNorm over the last dimension (ref: FusedRMSNorm)."""
     if _kernels.wants_grad(x, weight):

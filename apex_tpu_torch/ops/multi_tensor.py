@@ -1,5 +1,5 @@
-"""Flat buffers of a parameter collection (counterpart of
-apex_tpu/ops/multi_tensor.py's ``flatten_pytree``/``unflatten_pytree``).
+"""Flat buffers of a parameter collection and the ``multi_tensor_*``
+functional ops (counterpart of apex_tpu/ops/multi_tensor.py).
 
 A collection is a dict from dotted names (``"transformer.layer_0.mlp..."``,
 the port's ``named_parameters()`` names, which are the JAX tree's paths
@@ -11,14 +11,20 @@ element interchangeable with the JAX package's.
 """
 
 import dataclasses
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import torch
 
-from apex_tpu_torch.utils.pytree import leaf_order
+from apex_tpu_torch.utils.pytree import (
+    leaf_order,
+    tree_any_non_finite,
+    tree_leaves,
+    tree_map,
+)
 
 __all__ = ["CHUNK_SIZE", "FlatSpec", "flatten_pytree", "leaf_order",
-           "unflatten_pytree"]
+           "multi_tensor_applier", "multi_tensor_axpby",
+           "multi_tensor_l2norm", "multi_tensor_scale", "unflatten_pytree"]
 
 # the reference's multi_tensor_applier chunk (and the JAX package's)
 CHUNK_SIZE = 2048 * 32
@@ -72,3 +78,54 @@ def unflatten_pytree(flat: torch.Tensor, spec: FlatSpec
         leaf = flat[off:off + n].reshape(shape)
         out[name] = leaf.to(dtype)
     return out
+
+
+# -- multi_tensor_* functional ops (ref: csrc/amp_C_frontend.cpp) ----------
+
+def multi_tensor_scale(tree: Any, scale) -> Tuple[Any, torch.Tensor]:
+    """(tree * scale, overflow flag of ``tree``): the scale is cast to each
+    leaf's dtype first, as the JAX function casts it."""
+    out = tree_map(lambda x: x * torch.as_tensor(scale, dtype=x.dtype,
+                                                 device=x.device), tree)
+    return out, tree_any_non_finite(tree)
+
+
+def multi_tensor_axpby(a, b, x_tree: Any, y_tree: Any
+                       ) -> Tuple[Any, torch.Tensor]:
+    """(a * x + b * y leaf by leaf, overflow flag of x or y)."""
+    def axpby(x, y):
+        def c(v):
+            return torch.as_tensor(v, dtype=x.dtype, device=x.device)
+        return c(a) * x + c(b) * y
+
+    out = tree_map(axpby, x_tree, y_tree)
+    return out, tree_any_non_finite(x_tree) | tree_any_non_finite(y_tree)
+
+
+def _leaf_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """A leaf's fp32 sum of squares: kernel #9 on a CUDA tensor."""
+    if x.is_cuda:
+        from apex_tpu_torch.optimizers._fused_kernels import sumsq_flat
+        return sumsq_flat(x.reshape(-1))
+    return x.float().square().sum()
+
+
+def multi_tensor_l2norm(tree: Any, per_tensor: bool = False):
+    """The global L2 norm over every leaf (0-d fp32), and with
+    ``per_tensor`` each leaf's norm too (1-d fp32, leaf order)."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        z = torch.zeros((), dtype=torch.float32)
+        return (z, torch.zeros(0, dtype=torch.float32)) if per_tensor else z
+    sq = torch.stack([_leaf_sumsq(x) for x in leaves])
+    total = torch.sqrt(sq.sum())
+    if per_tensor:
+        return total, torch.sqrt(sq)
+    return total
+
+
+def multi_tensor_applier(op, noop_flag, tensor_lists, *args):
+    """The reference's call convention: ``op(noop_flag, tensor_lists,
+    *args)``, which returns the new lists and flag; nothing is written in
+    place."""
+    return op(noop_flag, tensor_lists, *args)

@@ -13,6 +13,8 @@ from typing import Callable, Optional
 
 import torch
 
+from apex_tpu_torch._cast_state import casts_disabled
+
 __all__ = [
     "FusedScaleMaskSoftmax", "fused_scale_mask_softmax",
     "generic_scaled_masked_softmax", "scaled_masked_softmax",
@@ -35,11 +37,13 @@ def _softmax_fp32(x, dtype):
     return (p / p.sum(dim=-1, keepdim=True)).to(dtype)
 
 
+@casts_disabled
 def scaled_softmax(x, scale: float = 1.0):
     """softmax(x * scale)."""
     return _softmax_fp32(x * scale, x.dtype)
 
 
+@casts_disabled
 def scaled_masked_softmax(x, mask, scale: float = 1.0):
     """softmax of x * scale with the masked scores set to -10000; ``mask``
     broadcasts to x ((b, 1, sq, sk) against (b, np, sq, sk))."""
@@ -49,12 +53,14 @@ def scaled_masked_softmax(x, mask, scale: float = 1.0):
     return _softmax_fp32(xf, x.dtype)
 
 
+@casts_disabled
 def generic_scaled_masked_softmax(x, mask, scale: float = 1.0):
     """The arbitrary-size variant: the same function as
     :func:`scaled_masked_softmax`."""
     return scaled_masked_softmax(x, mask, scale)
 
 
+@casts_disabled
 def scaled_upper_triang_masked_softmax(x, scale: float = 1.0):
     """Causal softmax over the last two dims (sq, sk): keys past a query's
     position (bottom-right aligned) are masked out."""
@@ -82,6 +88,7 @@ class FusedScaleMaskSoftmax:
         del input_in_fp16, input_in_bf16, scaled_masked_softmax_fusion
         del softmax_in_fp32
 
+    @casts_disabled
     def __call__(self, x, mask=None):
         if _is_causal(self.attn_mask_type):
             assert mask is None, (
@@ -99,6 +106,7 @@ class FusedScaleMaskSoftmax:
         return scaled_masked_softmax(x, mask, self.scale)
 
 
+@casts_disabled
 def fused_scale_mask_softmax(x, mask=None, scale: float = 1.0,
                              causal: bool = False):
     """Functional form of the dispatcher."""

@@ -29,6 +29,7 @@ from apex_tpu_torch.ops.multi_tensor import (
     unflatten_pytree,
 )
 from apex_tpu_torch.optimizers._fused_kernels import adam_flat
+from apex_tpu_torch.optimizers.transform import bias_corrections
 
 __all__ = ["AdamTransform", "FusedAdam", "FusedAdamState", "fused_adam"]
 
@@ -59,13 +60,6 @@ def fused_adam(lr: float = 1e-3, bias_correction: bool = True,
     kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
               weight_decay=weight_decay, adam_w_mode=adam_w_mode)
 
-    def bias_corrections(step):
-        stepf = step.to(torch.float32)
-        if bias_correction:
-            return 1.0 - beta1 ** stepf, 1.0 - beta2 ** stepf
-        one = torch.ones((), dtype=torch.float32, device=step.device)
-        return one, one
-
     def device_of(params):
         return next(iter(params.values())).device
 
@@ -84,7 +78,7 @@ def fused_adam(lr: float = 1e-3, bias_correction: bool = True,
         if params is None:
             raise ValueError("fused_adam requires params")
         step = state.step + 1
-        bc1, bc2 = bias_corrections(step)
+        bc1, bc2 = bias_corrections(step, betas, bias_correction)
         updates, m, v = {}, {}, {}
         for name, p in params.items():
             u, m[name], v[name] = adam_flat(
@@ -109,7 +103,7 @@ def fused_adam(lr: float = 1e-3, bias_correction: bool = True,
         if params is None:
             raise ValueError("fused_adam requires params")
         step = state.step + 1
-        bc1, bc2 = bias_corrections(step)
+        bc1, bc2 = bias_corrections(step, betas, bias_correction)
         g_flat, _ = flatten_pytree(grads, dtype=torch.float32)
         p_flat, spec = flatten_pytree(params, dtype=torch.float32)
         upd, m, v = adam_flat(g_flat, p_flat, state.exp_avg,

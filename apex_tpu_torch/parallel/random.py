@@ -12,9 +12,12 @@ hidden global RNG:
 - data-parallel regions (hidden and embedding dropout, replicated
   weights) draw from ``seed``, the same on every tp rank;
 - :func:`shard_aware_generator` folds the rank of each named axis in:
-  the tp rank is already in the model-parallel generator's seed, and the
-  cp rank (the ranks hold different chunks of one sequence) goes into a
-  generator of its own, seeded from one draw of the shared generator.
+  the tp rank (hidden dropout under sequence parallelism, where the tp
+  ranks hold different slices of the sequence) and the cp rank (different
+  chunks of one sequence) go into a generator of its own, seeded from one
+  draw of the shared generator. A model-parallel region's generator
+  already carries the tp rank in its seed, so its dropout names no axis
+  to fold for tp (``transformer.layer.ShardAwareDropout``).
 
 Torch's generators give other numbers than ``jax.random`` from the same
 seed, so no draw is bit-equal to JAX's; the parity tests load JAX's
@@ -58,19 +61,25 @@ def data_parallel_generator(seed: int, device="cpu") -> torch.Generator:
 def shard_aware_generator(generator: torch.Generator,
                           axis_names: Sequence[str] = ()) -> torch.Generator:
     """``generator`` with the rank of every bound axis of ``axis_names``
-    folded in. The tp rank is folded in when the model-parallel generator
-    is seeded. For ``"cp"`` at cp > 1: one 48-bit draw from ``generator``
-    (the same draw on every cp rank, which keeps their shared generators
-    in step) and the cp rank seed a new generator on its device, so each
-    rank's mask differs, as JAX's ``fold_in`` of the axis index makes it.
-    An axis of size one, or none named, hands ``generator`` back (the JAX
-    function skips unbound axes the same way). The fold costs a draw and a
-    host read, so a caller folds once and draws from the result
+    folded in, as JAX's ``fold_in`` of each axis index makes the masks
+    differ. For ``"tp"`` and ``"cp"`` at a size above one: one 48-bit draw
+    from ``generator`` (the same draw on every rank, which keeps their
+    shared generators in step) and the ranks, folded in that order into
+    one seed (``(draw * tp + tp_rank) * cp + cp_rank``), seed a new
+    generator on its device, so every (tp, cp) rank's mask differs. An
+    axis of size one, or none named, hands ``generator`` back (the JAX
+    function skips unbound axes the same way). The fold costs a draw and
+    a host read, so a caller folds once and draws from the result
     (``transformer.layer.ShardAwareDropout`` does)."""
-    cp = ps.get_context_parallel_world_size()
-    if "cp" not in axis_names or cp == 1:
+    folds = [(size, rank) for axis, size, rank in (
+        ("tp", ps.get_tensor_model_parallel_world_size(),
+         ps.get_tensor_model_parallel_rank()),
+        ("cp", ps.get_context_parallel_world_size(),
+         ps.get_context_parallel_rank())) if axis in axis_names and size > 1]
+    if not folds:
         return generator
-    draw = int(torch.randint(0, 2 ** 48, (1,), generator=generator,
+    seed = int(torch.randint(0, 2 ** 48, (1,), generator=generator,
                              device=generator.device))
-    return _generator(draw * cp + ps.get_context_parallel_rank(),
-                      generator.device)
+    for size, rank in folds:
+        seed = seed * size + rank
+    return _generator(seed % 2 ** 63, generator.device)

@@ -294,10 +294,13 @@ class ShardAwareDropout(nn.Module):
     that dtype as JAX rounds its weak-typed scalar. ``model_parallel`` marks a region whose shards hold different
     slices (tp-sharded heads), which draws from the model-parallel
     generator. ``generator`` is handed in (:func:`seed_dropout`); a draw
-    without one raises. With ``"cp"`` named at cp > 1 the module folds its
-    cp rank in once, at its first draw after ``generator`` or the cp
-    group changes (:func:`shard_aware_generator`: one draw of the shared
-    generator and one host read), and draws from that generator after."""
+    without one raises. With ``"tp"`` (hidden dropout under sequence
+    parallelism) or ``"cp"`` named at a size above one the module folds
+    those ranks in once, at its first draw after ``generator`` or the
+    groups change (:func:`shard_aware_generator`: one draw of the shared
+    generator and one host read), and draws from that generator after. A
+    model-parallel region folds no tp rank: its generator's seed holds
+    it already."""
 
     def __init__(self, rate: float, axis_names=(),
                  model_parallel: bool = False,
@@ -306,15 +309,19 @@ class ShardAwareDropout(nn.Module):
         self.rate, self.axis_names = rate, tuple(axis_names)
         self.model_parallel = model_parallel
         self.generator = generator
-        self._folded = None  # ((generator, cp, cp rank), folded generator)
+        self._folded = None  # ((generator, tp, tp rank, cp, cp rank), folded)
 
     def _draw_generator(self) -> torch.Generator:
-        key = (ps.get_context_parallel_world_size(),
+        key = (ps.get_tensor_model_parallel_world_size(),
+               ps.get_tensor_model_parallel_rank(),
+               ps.get_context_parallel_world_size(),
                ps.get_context_parallel_rank())
         if (self._folded is None or self._folded[0][0] is not self.generator
                 or self._folded[0][1:] != key):
+            axes = tuple(a for a in self.axis_names
+                         if not (self.model_parallel and a == "tp"))
             self._folded = ((self.generator,) + key, shard_aware_generator(
-                self.generator, self.axis_names))
+                self.generator, axes))
         return self._folded[1]
 
     def forward(self, x):

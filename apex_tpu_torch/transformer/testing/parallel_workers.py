@@ -375,3 +375,44 @@ def sequence_worker(rank: int, world_size: int, jobs: Sequence):
     arguments), one after another in one world; returns their results in
     order."""
     return [globals()[name](rank, world_size, *args) for name, args in jobs]
+
+
+def sp_dropout_worker(rank: int, world_size: int, seed: int = 7):
+    """A transformer layer's two dropout modules at tp = ``world_size``
+    with sequence parallelism, rate 0.5, on ones (8, 2, 16), handed their
+    generators by ``seed_dropout`` from ``seed``, twice from the same
+    seed: the hidden dropout's outputs (``hidden``, ``hidden_again``),
+    the attention dropout's (``attention``, ``attention_again``), and the
+    attention mask the model-parallel generator draws directly
+    (``attention_direct``: its present behaviour, no fold)."""
+    from apex_tpu_torch.parallel.random import model_parallel_generator
+    from apex_tpu_torch.transformer import TransformerConfig
+    from apex_tpu_torch.transformer.layer import (
+        CoreAttention,
+        ShardAwareDropout,
+        _hidden_dropout_axes,
+        keep_mask,
+        seed_dropout,
+    )
+
+    ps.initialize_model_parallel(tensor_model_parallel_size=world_size)
+    cfg = TransformerConfig(num_layers=1, hidden_size=16,
+                            num_attention_heads=2 * world_size,
+                            sequence_parallel=True, hidden_dropout=0.5,
+                            attention_dropout=0.5)
+    x = torch.ones(8, 2, 16)
+    out = {}
+    for suffix in ("", "_again"):
+        mods = torch.nn.ModuleDict({
+            "hidden": ShardAwareDropout(
+                cfg.hidden_dropout, axis_names=_hidden_dropout_axes(cfg)),
+            "attention": CoreAttention(cfg).attention_dropout})
+        seed_dropout(mods, seed, "cpu")
+        mods.train()
+        for name, mod in mods.items():
+            out[name + suffix] = _np(mod(x))
+    direct = keep_mask(model_parallel_generator(seed, rank), 0.5, x.shape,
+                       "cpu")
+    out["attention_direct"] = _np(direct.float() * 2.0)
+    out["tp_rank"] = ps.get_tensor_model_parallel_rank()
+    return out

@@ -10,7 +10,8 @@ from typing import Any, List
 
 import torch
 
-__all__ = ["leaf_order", "tree_any_non_finite", "tree_leaves"]
+__all__ = ["leaf_order", "map_floats", "tree_any_non_finite", "tree_cast",
+           "tree_leaves", "tree_map"]
 
 
 def leaf_order(names):
@@ -37,3 +38,45 @@ def tree_any_non_finite(tree: Any) -> torch.Tensor:
         return torch.tensor(False)
     finite = torch.stack([torch.isfinite(t).all() for t in leaves])
     return finite.logical_not().any()
+
+
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``tree`` with ``fn(leaf, *leaves of rest)`` at every tensor leaf;
+    the other trees share its structure (dict keys, sequence lengths)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        if isinstance(tree, list):
+            return out
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    raise TypeError(f"not a tensor collection: {type(tree).__name__}")
+
+
+def tree_cast(tree: Any, dtype) -> Any:
+    """Every floating leaf of ``tree`` cast to ``dtype`` (None: unchanged);
+    integer and bool leaves pass through."""
+    if dtype is None:
+        return tree
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)
+
+
+def map_floats(fn, tree: Any) -> Any:
+    """``tree`` (any nesting of dicts, lists and tuples, named tuples
+    included) with ``fn`` applied to every floating tensor; other
+    tensors and non-tensor values (ints, strings, None) pass through."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree) if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: map_floats(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_floats(fn, v) for v in tree]
+    if isinstance(tree, tuple):
+        out = [map_floats(fn, v) for v in tree]
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return tree

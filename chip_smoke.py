@@ -173,7 +173,38 @@ swallowed:
    prompt tokens prefilled, 16 teacher-forced steps, which run #3 alone:
    the prefill's ring and ``cp_decode_attention`` are plain, as JAX's)
    against the cp = 1 uncached forward, rtol 2e-4, atol 2e-4;
-16. prints the ``kernels`` line (all nine kernels; ``launches`` is the
+16. amp, ImageNet: the ported ``examples/imagenet/main_amp.py`` on
+   ResNet-50 at 224^2, batch 256 (seeded random images and weights)
+   through ``amp.initialize`` and ``fused_sgd``: O0 (TF32 off), O1, O2
+   and O3 in bf16 and O2 in fp16 with dynamic scaling, 3 warm-up and 10
+   timed steps each: images/s, step ms, peak memory, finite falling
+   losses, the scale, O1's casts a forward beside the 53 convolutions
+   and one linear, bf16 O2 against the bench's O2 of phase 8, and a
+   profile of two O2 steps;
+17. amp, DCGAN: the ported ``examples/dcgan/main_amp.py`` at the JAX
+   example's defaults (batch 64, 32^2, nz 100), 50 steps of fp16 O2:
+   three scalers, an overflow injected into D's fake loss at step 10
+   skips D's step and halves that scaler alone, G's step and scaler go
+   on; #8 runs;
+18. amp, simple: the ported ``examples/simple/amp_mlp_train.py``, 60
+   steps of fp16 O2 with an overflow injected at step 10: that step
+   leaves params, masters and Adam state bit-unchanged and halves the
+   scale, the loss falls, #1, #8 and #9 run; then ``amp_parity``: the
+   simple example (fp32 O0, bf16 and fp16 O2) for 3 steps on the card
+   against the CPU from the same weights and data (losses, parameters,
+   scales, skips), the DCGAN (fp32 O0, bf16 and fp16 O2) for 3 steps
+   (losses, scales, skips; its parameters logged), its fp32 gradients
+   from the same weights, and its amp step (AmpOptimizer over #8 on D
+   with two losses and on G, O0 and fp16 O2) for 3 steps from the same
+   gradients (scales, masters, parameters), the O1 probe's
+   dtypes on the card equal to the CPU's, the normalization modules
+   forward and backward (launching #1-#4) in fp32 and bf16, and
+   ``fused_lamb`` (launching #9), ``fused_novograd``, ``fused_adagrad``,
+   ``fused_adam_swa``, LARC and ``clip_grad_norm`` for 3 steps;
+19. one step of ``fused_adam``, ``fused_lamb``, ``fused_novograd``,
+   ``fused_adagrad`` and ``fused_adam_swa`` over BERT-345M's parameters:
+   ms and launches, recorded for a later performance issue;
+20. prints the ``kernels`` line (all nine kernels; ``launches`` is the
    count of the kernel's first path below that runs it, and
    ``launches_by_path`` has every path's), then as the last line
    ``{"ok": true, "device": {...}}``.
@@ -191,7 +222,8 @@ them, its last-stage rank's checked beside them), ``gpt_pipeline_zero_
 bubble`` (likewise), and ``llama_cp_ring``, ``llama_cp_ulysses`` and
 ``llama_cp_decode`` (TinyLlama at cp = 4; each job's counts start at 0
 when its model is built and are read before any cp = 1 reference runs,
-and rank 0 reports them).
+and rank 0 reports them), and ``amp_imagenet``, ``amp_dcgan`` and
+``amp_mlp`` (the three amp examples; ResNet-50 runs none of the nine).
 """
 
 import gc
@@ -206,6 +238,7 @@ import time
 import numpy as np
 import torch
 
+START = time.perf_counter()
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12         # dense tensor-core bf16
@@ -307,6 +340,12 @@ PATH_KERNELS = {
     # both plain as JAX's: #3 alone; the counts are read before the cp = 1
     # reference forward runs
     "llama_cp_decode": ("rms_norm_fwd",),
+    # the amp examples: ResNet-50 at every level runs none of the nine
+    # (as bench.py's step); DCGAN's two Adams run #8; the simple example's
+    # input LayerNorm #1, its Adam #8 and its clip_grad_norm #9
+    "amp_imagenet": (),
+    "amp_dcgan": ("adam_update",),
+    "amp_mlp": ("layer_norm_fwd", "adam_update", "sumsq_flat"),
 }
 FORWARD_KERNELS = PATH_KERNELS["serving"]
 KERNEL_META = {  # name: (source, TPU kernel it replaces)
@@ -3113,11 +3152,613 @@ def llama_cp_phase(smi):
     return paths, report
 
 
+
+# -- amp front end (PR 12) ----------------------------------------------------
+
+AMP_IMAGENET = dict(batch=256, image_size=224, warmup=3, steps=10)
+AMP_IMAGENET_RUNS = (("O0", "bfloat16"), ("O1", "bfloat16"),
+                     ("O2", "bfloat16"), ("O3", "bfloat16"),
+                     ("O2", "float16"))
+RESNET50_CONVS, RESNET50_LINEARS = 53, 1
+
+
+def amp_imagenet_phase(smi, bench_rec):
+    """The ported ImageNet example (``examples/imagenet/main_amp.py``) on
+    ResNet-50 at 224^2, batch 256, seeded random images and weights,
+    through ``amp.initialize`` and ``fused_sgd``: O0 (TF32 off, as the
+    bench's O0), O1, O2 and O3 in bf16 and O2 in fp16 with dynamic
+    scaling, each 3 warm-up and 10 timed steps. Per level images/s, step
+    ms, peak memory, the losses (finite and falling) and the scale; O1's
+    casts per forward beside the convolutions and linears; bf16 O2's
+    images/s against the bench's hand-cast O2 from this run, and a
+    profile of two O2 steps."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.examples.imagenet import main_amp
+
+    c = AMP_IMAGENET
+    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.benchmark = True
+    report = {}
+    _kernels.reset_launch_counts()
+    try:
+        for level, half in AMP_IMAGENET_RUNS:
+            tf32 = level != "O0"
+            torch.backends.cudnn.allow_tf32 = tf32 and flags[1]
+            torch.backends.cuda.matmul.allow_tf32 = tf32 and flags[2]
+            profile = level == "O2" and half == "bfloat16"
+            args = main_amp.parse_args([
+                "--opt-level", level, "--half", half, "--batch-size",
+                str(c["batch"]), "--image-size", str(c["image_size"]),
+                "--warmup", str(c["warmup"]), "--steps",
+                str(c["warmup"] + c["steps"]), "--seed", str(SEED),
+                "--profile-steps", "2" if profile else "0"])
+            casts = []
+            rec = main_amp.train(args, log=lambda line: None, casts=casts)
+            losses = rec["losses"]
+            if not all(map(math.isfinite, losses)):
+                raise AssertionError(f"amp_imagenet {level} {half}: "
+                                     f"non-finite losses {losses}")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"amp_imagenet {level} {half}: the "
+                                     f"loss did not fall: {losses}")
+            name = f"{level}_{half}"
+            report[name] = {k: rec[k] for k in (
+                "imgs_per_s", "step_ms", "peak_mem_gb", "losses", "scales",
+                "skipped")}
+            report[name]["tf32"] = torch.backends.cudnn.allow_tf32
+            log(f"amp_imagenet {level} {half}: {rec['imgs_per_s']:.1f} "
+                f"images/s, {rec['step_ms']:.2f} ms a step, peak "
+                f"{rec['peak_mem_gb']:.2f} GB, losses {losses[0]:.4f} -> "
+                f"{losses[-1]:.4f}, scale {rec['scales'][-1]}, skipped "
+                f"{sum(rec['skipped'])} of {len(losses)} ({smi})")
+            if level == "O1":
+                if len(set(casts)) != 1 or casts[0] <= 0:
+                    raise AssertionError(f"O1 casts per forward: {casts}")
+                report[name]["casts_per_forward"] = casts[0]
+                log(f"amp_imagenet O1: the cast engine cast {casts[0]} "
+                    f"tensors a forward, beside {RESNET50_CONVS} "
+                    f"convolutions and {RESNET50_LINEARS} linear")
+            if profile:
+                prof = rec["profile"]
+                report[name]["profile"] = prof
+                log(f"profile amp_imagenet O2 (2 steps): wall "
+                    f"{prof['wall_ms']:.2f} ms, device "
+                    f"{prof['device_ms']:.2f} ms, idle "
+                    f"{100 * prof['device_idle_share']:.1f}% "
+                    + json.dumps(prof["top"]))
+                log("profile amp_imagenet O2 host: "
+                    + json.dumps(prof["host_top"]))
+            del rec
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    launches = _kernels.launch_counts()
+    o2 = report["O2_bfloat16"]["imgs_per_s"]
+    report["bench_o2_imgs_per_s"] = bench_rec["O2"]["imgs_per_s"]
+    report["o2_over_bench_o2"] = o2 / bench_rec["O2"]["imgs_per_s"]
+    log(f"amp_imagenet O2 bf16 {o2:.1f} images/s against the bench's O2 "
+        f"{bench_rec['O2']['imgs_per_s']:.1f} in this run: ratio "
+        f"{report['o2_over_bench_o2']:.4f} ({smi})")
+    log("amp_imagenet " + json.dumps(report))
+    return launches, report
+
+
+AMP_DCGAN = dict(steps=50, inject=(10, 1))
+
+
+def amp_dcgan_phase(smi):
+    """The ported DCGAN (``examples/dcgan/main_amp.py``) at the JAX
+    example's defaults (batch 64, 32^2, nz 100), 50 steps of fp16 O2: two
+    models, two ``AmpOptimizer``s, three scaled losses. An overflow
+    injected into D's fake loss at step 10 skips D's step and halves that
+    scaler alone; D's real-loss scaler and G's step and scaler go on."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.examples.dcgan import main_amp
+
+    c = AMP_DCGAN
+    args = main_amp.parse_args(["--opt-level", "O2", "--half", "float16",
+                                "--steps", str(c["steps"]), "--seed",
+                                str(SEED)])
+    _kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recs = main_amp.train(args, log=lambda line: None,
+                          inject_overflow=c["inject"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernels.launch_counts()
+    for r in recs:
+        if not (math.isfinite(r["errD"]) and math.isfinite(r["errG"])):
+            raise AssertionError(f"amp_dcgan: non-finite losses {r}")
+    step = c["inject"][0]
+    prev, hit = recs[step - 1], recs[step]
+    if not (hit["d_skipped"] and hit["scale_d1"] == prev["scale_d1"] / 2
+            and hit["scale_d0"] == prev["scale_d0"]
+            and not hit["g_skipped"] and hit["scale_g"] == prev["scale_g"]):
+        raise AssertionError(f"amp_dcgan: the injected overflow at step "
+                             f"{step}: before {prev}, at {hit}")
+    for name in PATH_KERNELS["amp_dcgan"]:
+        if launches[name] == 0:
+            raise AssertionError(f"amp_dcgan: {name} never launched")
+    report = {"steps": c["steps"], "ms_per_step": wall * 1e3 / c["steps"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "errD": [r["errD"] for r in recs],
+              "errG": [r["errG"] for r in recs],
+              "scales": {k: [r[k] for r in recs]
+                         for k in ("scale_d0", "scale_d1", "scale_g")},
+              "d_skipped": [i for i, r in enumerate(recs) if r["d_skipped"]],
+              "g_skipped": [i for i, r in enumerate(recs) if r["g_skipped"]]}
+    log(f"amp_dcgan fp16 O2: {report['ms_per_step']:.2f} ms a step (host "
+        f"clock, syncs each step), peak {report['peak_mem_gb']:.2f} GB, "
+        f"errD {recs[0]['errD']:.4f} -> {recs[-1]['errD']:.4f}, errG "
+        f"{recs[0]['errG']:.4f} -> {recs[-1]['errG']:.4f}; D skipped "
+        f"{report['d_skipped']}, G skipped {report['g_skipped']}; at the "
+        f"injected step {step}: D0 {hit['scale_d0']}, D1 "
+        f"{prev['scale_d1']} -> {hit['scale_d1']}, G {hit['scale_g']} "
+        f"({smi})")
+    log("amp_dcgan " + json.dumps(report))
+    return launches, report
+
+
+AMP_MLP = dict(steps=60, inject=10)
+
+
+def amp_mlp_phase(smi):
+    """The ported simple example (``examples/simple/amp_mlp_train.py``),
+    60 steps of fp16 O2 with an overflow injected at step 10: that step
+    is skipped with the parameters, masters and Adam state bit-unchanged
+    and the scale halved; the loss falls; #1 (the input LayerNorm), #8
+    (Adam, per tensor) and #9 (``clip_grad_norm``) launch."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.examples.simple import amp_mlp_train
+
+    c = AMP_MLP
+    args = amp_mlp_train.parse_args([
+        "--steps", str(c["steps"]), "--opt-level", "O2", "--half",
+        "float16", "--inject-overflow-at", str(c["inject"]), "--seed",
+        str(SEED)])
+    snap = {}
+
+    def clone(d):
+        return {k: v.detach().clone() for k, v in d.items()}
+
+    def hook(i, params, state, info):
+        if i in (c["inject"] - 1, c["inject"]):
+            snap[i] = (clone(params), clone(state.master),
+                       clone(state.inner.exp_avg),
+                       clone(state.inner.exp_avg_sq), int(state.inner.step),
+                       float(state.scaler.scale))
+
+    _kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recs = amp_mlp_train.train(args, log=lambda line: None, hook=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernels.launch_counts()
+    before, after = snap[c["inject"] - 1], snap[c["inject"]]
+    same = all(torch.equal(a[k], b[k]) for a, b in zip(before[:4], after[:4])
+               for k in a)
+    if not (recs[c["inject"]]["skipped"] and same
+            and before[4] == after[4] and after[5] == before[5] / 2):
+        raise AssertionError(f"amp_mlp: step {c['inject']} was not a clean "
+                             f"skip: record {recs[c['inject']]}, state "
+                             f"unchanged {same}, Adam step {before[4]} -> "
+                             f"{after[4]}, scale {before[5]} -> {after[5]}")
+    losses = [r["loss"] for r in recs]
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"amp_mlp: losses {losses}")
+    for name in PATH_KERNELS["amp_mlp"]:
+        if launches[name] == 0:
+            raise AssertionError(f"amp_mlp: {name} never launched")
+    report = {"ms_per_step": wall * 1e3 / c["steps"], "losses": losses,
+              "scales": [r["scale"] for r in recs],
+              "skipped": [i for i, r in enumerate(recs) if r["skipped"]]}
+    log(f"amp_mlp fp16 O2: {report['ms_per_step']:.3f} ms a step (host "
+        f"clock, one host read a step), loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, skipped {report['skipped']}, the injected step "
+        f"{c['inject']} left params, masters and Adam state bit-unchanged "
+        f"and took the scale {before[5]} -> {after[5]} ({smi})")
+    log("amp_mlp " + json.dumps(report))
+    return launches, report
+
+
+def _close(name, got, ref, rtol, atol, errors):
+    """Max abs error of ``got`` (card) against ``ref`` (CPU); raises past
+    ``atol + rtol * |ref|``."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    err = (got - ref).abs()
+    if bool((err > atol + rtol * ref.abs()).any()) or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"amp_parity {name}: card differs by "
+                             f"{float(err.max())} (rtol {rtol}, atol {atol})")
+    errors[name] = max(errors.get(name, 0.0), float(err.max()))
+
+
+def _close_norm(name, got, ref, tol, errors, tensor=""):
+    """``|got - ref| / |ref|`` in the 2-norm, ``got`` (card) against
+    ``ref`` (CPU); raises past ``tol``. An all-zero reference fails unless
+    ``got`` equals it."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    rel = float((got - ref).norm() / max(float(ref.norm()), 1e-30))
+    if not rel <= tol or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"amp_parity {name} {tensor}: card differs by "
+                             f"{rel} relative in norm (tol {tol})")
+    errors[name] = max(errors.get(name, 0.0), rel)
+
+
+# amp_parity's tolerances for the two examples' 3 steps, card against CPU.
+# simple: (level, half, losses rtol, parameters (rtol, atol)); fp32 O0 at
+# 1e-4 relative (+1e-6: the GEMMs and the LayerNorm kernel sum in another
+# order). At O2 Adam's update is about lr = 1e-3 an element whatever the
+# gradient's size, so a gradient that a half rounding tips moves its element
+# by up to 2 lr a step: bf16 parameters at atol 5e-3 (below 3 steps x 2 lr,
+# 2.5x the 2.0e-3 measured on an H100), fp16 at 2e-3.
+# dcgan: (level, half, first step's losses rtol, later steps' losses rtol)
+# of the example's 3 steps. The first step starts from the same weights; by
+# the next, Adam has moved the weights whose gradients sit at the rounding
+# level by about lr, differently on the two sides (on an H100 at fp32, errD
+# differed by 8.4e-5 relative at step 3 in one run of four, 2.2e-6-2.5e-6
+# in the others), so fp32's later steps are held at 5e-4. The half levels at 5-8x
+# what the H100 measured (6.7e-4 bf16, 3.6e-4 fp16 relative), under one
+# rounding of a loss in their dtype.
+# "dcgan step": the masters' (rtol, atol) after 3 amp steps from the same
+# gradients. #8 and the plain Adam agree bit for bit in adam_parity, but the
+# bias correction 1 - beta2**t is an fp32 pow on each side, and the card's
+# and the CPU's round 0.999**2 an ulp apart: 3e-5 of the correction, about
+# 1.5e-5 of that step's update (the H100 measured 3.7e-9 on a master);
+# atol 2e-8 is 1e-4 of lr.
+AMP_PARITY = {
+    "simple": (("O0", "bfloat16", 1e-4, (1e-4, 1e-6)),
+               ("O2", "bfloat16", 2e-2, (0.0, 5e-3)),
+               ("O2", "float16", 2e-3, (2e-3, 2e-3))),
+    "dcgan": (("O0", "bfloat16", 1e-5, 5e-4),
+              ("O2", "bfloat16", 5e-3, 5e-3),
+              ("O2", "float16", 2e-3, 2e-3)),
+    "dcgan step": (1e-6, 2e-8),
+}
+
+
+def amp_parity():
+    """The amp slice on the card against its plain path on the CPU from
+    the same weights and data, at small sizes; raises on any difference
+    past the stated tolerance. Returns the worst error of each check."""
+    from apex_tpu_torch import _kernels, amp
+    from apex_tpu_torch.amp.probe import o1_probe
+    from apex_tpu_torch.examples.dcgan import main_amp as dcgan
+    from apex_tpu_torch.examples.simple import amp_mlp_train
+    from apex_tpu_torch.normalization import FusedLayerNorm, FusedRMSNorm
+    from apex_tpu_torch.ops.mlp import mlp_init
+    import apex_tpu_torch.optimizers as opts
+
+    errors = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        # (a) the simple example, 3 steps; scales and skips exactly, the
+        # losses and final parameters at AMP_PARITY's tolerances
+        rs = np.random.RandomState(SEED + 30)
+        x = rs.randn(512, 256).astype(np.float32)
+        y = (x @ rs.randn(256).astype(np.float32))[:, None]
+        init = {k: v.numpy() for k, v in mlp_init(
+            SEED, amp_mlp_train.SIZES, device="cpu").items()}
+        for level, half, tol, (prtol, patol) in AMP_PARITY["simple"]:
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                final = {}
+                args = amp_mlp_train.parse_args([
+                    "--steps", "3", "--opt-level", level, "--half", half,
+                    "--device", dev, "--inject-overflow-at", "1"])
+                recs = amp_mlp_train.train(
+                    args, params=init, data=(x, y), log=lambda line: None,
+                    hook=lambda i, p, s, info: final.update(p))
+                runs[dev] = (recs, final)
+            (gr, gp), (cr, cp) = runs["cuda"], runs["cpu"]
+            if [(r["scale"], r["skipped"]) for r in gr] != \
+                    [(r["scale"], r["skipped"]) for r in cr]:
+                raise AssertionError(f"amp_parity simple {level} {half}: "
+                                     f"{gr} against {cr}")
+            key = f"simple {level} {half}"
+            _close(key + " losses", torch.tensor([r["loss"] for r in gr]),
+                   torch.tensor([r["loss"] for r in cr]), tol, 0.0, errors)
+            for n in gp:
+                _close(key + " params", gp[n], cp[n], prtol, patol, errors)
+        # (b) the DCGAN at batch 8 from one seed. (b1) 3 steps of the
+        # example at fp32 O0, bf16 O2 and fp16 O2: scales and skips exactly,
+        # the losses at AMP_PARITY's relative tolerance. Its parameters
+        # after those steps are logged, not held: Adam's first steps move an
+        # element by about lr whatever its gradient's size, so the
+        # gradients at the rounding level (the biases before GroupNorm) take
+        # lr-sized steps that differ between any two summation orders. What
+        # makes those steps is held instead, each from identical inputs:
+        # (b2) the gradients of D's real and fake losses and of G's loss at
+        # fp32, 1e-4 relative in norm (the CPU tests' bound against JAX);
+        # (b3) the amp step, AmpOptimizer over fused_adam (#8) on D (two
+        # losses, unscale_grads + step_unscaled) and G (step) for 3 steps
+        # of the same scaled gradients, at O0 and fp16 O2 (masters; D's
+        # third step overflows there, 0.52 x 2 x 65536 > 65504, and is
+        # skipped): the scales exactly, the masters at AMP_PARITY's
+        # "dcgan step" tolerances, the fp16 parameters to one fp16 ulp
+        # (2^-10 relative, 2^-24 absolute: the subnormals' step)
+        rs = np.random.RandomState(SEED + 31)
+        data = [(rs.uniform(-1, 1, (8, 32, 32, 3)).astype(np.float32),
+                 rs.randn(8, 100).astype(np.float32)) for _ in range(3)]
+        for level, half, tol0, tol in AMP_PARITY["dcgan"]:
+            runs, nets = {}, {}
+            for dev in ("cuda", "cpu"):
+                args = dcgan.parse_args(["--opt-level", level, "--half",
+                                         half, "--batch-size", "8",
+                                         "--steps", "3", "--device", dev])
+                nets[dev] = dcgan.build_models(32, 100, dev, SEED)
+                runs[dev] = dcgan.train(args, models=nets[dev], data=data,
+                                        log=lambda line: None)
+            key = f"dcgan {level} {half if level != 'O0' else 'fp32'}"
+            for k in ("scale_d0", "scale_d1", "scale_g", "d_skipped",
+                      "g_skipped"):
+                if [r[k] for r in runs["cuda"]] != \
+                        [r[k] for r in runs["cpu"]]:
+                    raise AssertionError(f"amp_parity {key} {k}: "
+                                         f"{runs['cuda']} against "
+                                         f"{runs['cpu']}")
+            for k in ("errD", "errG"):
+                got, ref = (torch.tensor([r[k] for r in runs[dev]])
+                            for dev in ("cuda", "cpu"))
+                _close(f"{key} {k} first step", got[:1], ref[:1], tol0, 0.0,
+                       errors)
+                _close(f"{key} {k}", got[1:], ref[1:], tol, 0.0, errors)
+            worst = 0.0
+            for gnet, cnet in zip(nets["cuda"], nets["cpu"]):
+                cref = dict(cnet.named_parameters())
+                for n, t in gnet.named_parameters():
+                    t, r = t.detach().float().cpu(), cref[n].detach().float()
+                    worst = max(worst, float((t - r).norm() / r.norm()))
+            errors[f"{key} params after 3 steps, logged"] = worst
+        grads = {}
+        for dev in ("cuda", "cpu"):
+            g, d = dcgan.build_models(32, 100, dev, SEED)
+            real, z = (torch.as_tensor(a, device=dev) for a in data[0])
+            fake = g(z)
+            out = {}
+            for name, net, logits, label in (
+                    ("D real", d, lambda: d(real), 1.0),
+                    ("D fake", d, lambda: d(fake.detach()), 0.0),
+                    ("G", g, lambda: d(fake), 1.0)):
+                lg = logits()
+                loss = dcgan.bce_with_logits(
+                    lg, torch.full_like(lg, label)).mean()
+                out[name] = dict(zip(
+                    [n for n, _ in net.named_parameters()],
+                    torch.autograd.grad(loss, list(net.parameters()),
+                                        retain_graph=True)))
+            grads[dev] = out
+        for name, ref in grads["cpu"].items():
+            for n, t in grads["cuda"][name].items():
+                _close_norm(f"dcgan fp32 {name} grads", t, ref[n], 1e-4,
+                            errors, n)
+        mrtol, matol = AMP_PARITY["dcgan step"]
+        for level, half in (("O0", torch.float32), ("O2", torch.float16)):
+            _kernels.reset_launch_counts()
+            res = {}
+            for dev in ("cuda", "cpu"):
+                g, d = dcgan.build_models(32, 100, dev, SEED)
+                d, d_amp, _ = amp.initialize(
+                    d, opts.fused_adam(lr=2e-4, betas=(0.5, 0.999)),
+                    opt_level=level, half_dtype=half, num_losses=2)
+                g, g_amp, _ = amp.initialize(
+                    g, opts.fused_adam(lr=2e-4, betas=(0.5, 0.999)),
+                    opt_level=level, half_dtype=half)
+                dp, gp = dict(d.named_parameters()), \
+                    dict(g.named_parameters())
+                ds, gs = d_amp.init(dp), g_amp.init(gp)
+
+                def scaled(gr, params, scaler, k, dev=dev):
+                    """The CPU gradients of one loss, varied by step, in
+                    each parameter's dtype times that loss's scale."""
+                    return {n: (t * (1.0 + 0.5 * k) * scaler.scale.cpu())
+                            .to(device=dev, dtype=params[n].dtype)
+                            for n, t in gr.items()}
+
+                for k in range(3):
+                    unscaled, infs = {}, {}
+                    for i, name in enumerate(("D real", "D fake")):
+                        unscaled[i], infs[i] = d_amp.unscale_grads(
+                            scaled(grads["cpu"][name], dp, ds.scaler[i], k),
+                            ds, loss_id=i)
+                    dp, ds, _ = d_amp.step_unscaled(
+                        {n: unscaled[0][n] + unscaled[1][n] for n in dp},
+                        ds, dp, infs)
+                    gp, gs, _ = g_amp.step(
+                        scaled(grads["cpu"]["G"], gp, gs.scaler, k), gs, gp)
+                res[dev] = ((d, ds), (g, gs))
+            if _kernels.launch_counts()["adam_update"] == 0:
+                raise AssertionError("amp_parity: the DCGAN's amp step "
+                                     "never launched adam_update")
+            key = f"dcgan step {level}"
+            scales = {dev: [float(s.scale) for s in (*ds.scaler,
+                                                     gs.scaler)]
+                      for dev, ((_, ds), (_, gs)) in res.items()}
+            if scales["cuda"] != scales["cpu"]:
+                raise AssertionError(f"amp_parity {key}: scales {scales}")
+            for (gm, gst), (cm, cst) in zip(res["cuda"], res["cpu"]):
+                for n in cst.master:
+                    _close(f"{key} masters", gst.master[n], cst.master[n],
+                           mrtol, matol, errors)
+                cref = dict(cm.named_parameters())
+                for n, t in gm.named_parameters():
+                    if t.dtype != cref[n].dtype:
+                        raise AssertionError(f"amp_parity {key} {n}: "
+                                             f"{t.dtype} on the card, "
+                                             f"{cref[n].dtype} on the CPU")
+                    rtol, atol = ((mrtol, matol) if t.dtype == torch.float32
+                                  else (2.0 ** -10, 2.0 ** -24))
+                    _close(f"{key} params", t, cref[n], rtol, atol, errors)
+        # (c) the O1 probe: every stage's dtype on the card is the CPU's
+        # (which the CPU tests hold to JAX's O1), bf16 values 2e-2
+        rs = np.random.RandomState(SEED + 32)
+        x, w = (torch.as_tensor(rs.randn(*s).astype(np.float32))
+                for s in ((64, 128), (128, 64)))
+        g = torch.as_tensor(1.0 + 0.1 * rs.randn(64).astype(np.float32))
+        with amp.cast_ops(torch.bfloat16):
+            card = o1_probe(x.cuda(), w.cuda(), g.cuda())
+            cpu = o1_probe(x, w, g)
+        for k in cpu:
+            if card[k].dtype != cpu[k].dtype:
+                raise AssertionError(f"amp_parity O1 probe {k}: "
+                                     f"{card[k].dtype} on the card, "
+                                     f"{cpu[k].dtype} on the CPU")
+        _close("o1 probe matmul", card["matmul"], cpu["matmul"], 2e-2, 2e-2,
+               errors)
+        errors["o1 probe dtypes"] = {k: str(v.dtype)[6:]
+                                     for k, v in card.items()}
+        # (d) the normalization modules, forward and backward, fp32 and
+        # bf16 at the kernels' tolerances; they launch #1-#4
+        _kernels.reset_launch_counts()
+        for cls, fwd, bwd in ((FusedLayerNorm, "layer_norm_fwd",
+                               "layer_norm_bwd"),
+                              (FusedRMSNorm, "rms_norm_fwd",
+                               "rms_norm_bwd")):
+            for dtype in (torch.float32, torch.bfloat16):
+                xs = torch.as_tensor(rs.randn(4, 8, 1024).astype(
+                    np.float32)).to(dtype)
+                dy = torch.as_tensor(rs.randn(4, 8, 1024).astype(
+                    np.float32)).to(dtype)
+                outs = {}
+                for dev in ("cuda", "cpu"):
+                    m = cls((8, 1024), device=dev, memory_efficient=True)
+                    with torch.no_grad():
+                        m.weight.copy_(1.0 + 0.1 * torch.arange(
+                            8 * 1024).reshape(8, 1024).sin())
+                    xi = xs.to(dev).requires_grad_()
+                    out = m(xi)
+                    out.backward(dy.to(dev))
+                    outs[dev] = (out, xi.grad, m.weight.grad)
+                atol, rtol = TOL[(fwd, dtype)]
+                _close(f"{cls.__name__} {str(dtype)[6:]} out",
+                       outs["cuda"][0], outs["cpu"][0], rtol, atol, errors)
+                atol, rtol = TOL[(bwd, dtype)]
+                _close(f"{cls.__name__} {str(dtype)[6:]} dx",
+                       outs["cuda"][1], outs["cpu"][1], rtol, atol, errors)
+                _close(f"{cls.__name__} {str(dtype)[6:]} dw",
+                       outs["cuda"][2], outs["cpu"][2], 1e-4, 2e-3, errors)
+        counts = _kernels.launch_counts()
+        for name in ("layer_norm_fwd", "layer_norm_bwd", "rms_norm_fwd",
+                     "rms_norm_bwd"):
+            if counts[name] == 0:
+                raise AssertionError(f"amp_parity: the normalization "
+                                     f"modules never launched {name}")
+        # (e) each new optimizer and clip_grad_norm, 3 steps in fp32:
+        # updates and states 1e-5 relative + 1e-7 (LAMB's norms through
+        # #9 sum in another order); LAMB and the clip launch #9
+        shapes = {"a": (257, 129), "b": (1000,), "c.w": (64, 3, 3)}
+        cases = {
+            "fused_lamb": opts.fused_lamb(lr=1e-2, weight_decay=0.01),
+            "fused_novograd": opts.fused_novograd(lr=1e-2,
+                                                  weight_decay=1e-3),
+            "fused_adagrad": opts.fused_adagrad(lr=1e-2, weight_decay=1e-3),
+            "fused_adam_swa": opts.fused_adam_swa(0.9, lr=1e-2,
+                                                  weight_decay=1e-3),
+            "larc": opts.larc(opts.fused_sgd(lr=0.1, momentum=0.9), lr=0.1),
+        }
+        for name, tx in cases.items():
+            params = {n: torch.as_tensor(rs.randn(*s).astype(np.float32))
+                      for n, s in shapes.items()}
+            grads = [{n: torch.as_tensor(rs.randn(*s).astype(np.float32))
+                      for n, s in shapes.items()} for _ in range(3)]
+            _kernels.reset_launch_counts()
+            result = {}
+            for dev in ("cuda", "cpu"):
+                p = {n: t.to(dev) for n, t in params.items()}
+                st = tx.init(p)
+                for g in grads:
+                    upd, st = tx.update({n: t.to(dev) for n, t in g.items()},
+                                        st, p)
+                    p = {n: p[n] + upd[n] for n in p}
+                result[dev] = p
+            for n in shapes:
+                _close(f"{name} params", result["cuda"][n],
+                       result["cpu"][n], 1e-5, 1e-7, errors)
+            if name == "fused_lamb" and \
+                    _kernels.launch_counts()["sumsq_flat"] == 0:
+                raise AssertionError("amp_parity: fused_lamb never "
+                                     "launched sumsq_flat")
+        for norm_type in (2.0, float("inf"), 1.5):
+            g = {n: torch.as_tensor(rs.randn(*s).astype(np.float32))
+                 for n, s in shapes.items()}
+            gc_, nc = opts.clip_grad_norm({n: t.cuda() for n, t in g.items()},
+                                          0.5, norm_type)
+            gp_, np_ = opts.clip_grad_norm(g, 0.5, norm_type)
+            _close(f"clip_grad_norm {norm_type} norm", nc, np_, 1e-5, 0.0,
+                   errors)
+            for n in g:
+                _close(f"clip_grad_norm {norm_type}", gc_[n], gp_[n], 1e-5,
+                       1e-7, errors)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    log("amp_parity (card against the CPU's plain path; tolerances in "
+        "chip_smoke.amp_parity): " + json.dumps(errors))
+    return errors
+
+
+OPT_TIMING_STEPS = 3
+
+
+def amp_optimizer_timings(smi):
+    """One step of ``fused_adam``, ``fused_lamb``, ``fused_novograd``,
+    ``fused_adagrad`` and ``fused_adam_swa`` over Megatron BERT-345M's
+    parameters (``models.bert``, fp32) and seeded random gradients: the
+    mean of 3 steps after one warm-up step (CUDA events) and the kernels
+    each step launches. Recorded for a later performance issue."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.models import BertModel, megatron_bert_345m_config
+    import apex_tpu_torch.optimizers as opts
+
+    model = BertModel(megatron_bert_345m_config(), device="cuda", seed=SEED)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    del model
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = {n: torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+             for n, p in params.items()}
+    n_params = sum(p.numel() for p in params.values())
+    rows = {}
+    for name, tx in (("fused_adam", opts.fused_adam(lr=1e-4)),
+                     ("fused_lamb", opts.fused_lamb(lr=1e-4)),
+                     ("fused_novograd", opts.fused_novograd(lr=1e-4)),
+                     ("fused_adagrad", opts.fused_adagrad(lr=1e-4)),
+                     ("fused_adam_swa", opts.fused_adam_swa(0.9, lr=1e-4))):
+        state = tx.init(params)
+        _, state = tx.update(grads, state, params)  # warm-up
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(OPT_TIMING_STEPS):
+            _, state = tx.update(grads, state, params)
+        e1.record()
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        rows[name] = {
+            "ms": e0.elapsed_time(e1) / OPT_TIMING_STEPS,
+            "launches_per_step": {k: v // OPT_TIMING_STEPS
+                                  for k, v in counts.items() if v},
+            "tensors": len(params), "parameters": n_params}
+        del state
+        torch.cuda.empty_cache()
+    log(f"optimizer steps over BERT-345M's {n_params:,} parameters in "
+        f"{len(params)} tensors, fp32 ({smi}): " + json.dumps(rows))
+    return rows
+
 def log_memory(after):
-    """What stays allocated on the card after a phase: a later phase's
-    peak memory counts it."""
+    """What stays allocated on the card after a phase (a later phase's
+    peak memory counts it), and the seconds since the script started."""
     log(f"memory after {after}: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
-        f"allocated")
+        f"allocated, {time.perf_counter() - START:.1f} s since the start")
 
 
 def main():
@@ -3148,7 +3789,7 @@ def main():
     log_memory("llama_serving")
     paths["llama_finetune"], _ = llama_finetune_phase(smi)
     log_memory("llama_finetune")
-    paths["resnet"], _ = resnet_phase(smi)
+    paths["resnet"], resnet_rec = resnet_phase(smi)
     log_memory("resnet")
     paths["bert_serving"], _ = bert_serving_phase(smi)
     log_memory("bert_serving")
@@ -3168,6 +3809,16 @@ def main():
     cp, _ = llama_cp_phase(smi)
     paths.update(cp)
     log_memory("llama_cp")
+    paths["amp_imagenet"], _ = amp_imagenet_phase(smi, resnet_rec)
+    log_memory("amp_imagenet")
+    paths["amp_dcgan"], _ = amp_dcgan_phase(smi)
+    log_memory("amp_dcgan")
+    paths["amp_mlp"], _ = amp_mlp_phase(smi)
+    log_memory("amp_mlp")
+    amp_parity()
+    log_memory("amp_parity")
+    amp_optimizer_timings(smi)
+    log_memory("amp_optimizer_timings")
     for name, counts in paths.items():
         log(f"launches {name}: " + json.dumps(
             {k: counts[k] for k in PATH_KERNELS[name]}))

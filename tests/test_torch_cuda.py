@@ -639,3 +639,68 @@ def test_gloo_p2p_of_cuda_tensors_goes_through_host_memory(gen):
             np.testing.assert_array_equal(got, want)
         assert staged == {"collectives": 0, "bytes": 0, "p2p": 4,
                           "p2p_bytes": 136}
+
+
+def test_o1_probe_dtypes_on_the_card_equal_the_cpu(gen):
+    """O1's cast engine on CUDA tensors: every stage of the probe (the
+    fused ops launch their kernels) has the CPU's dtype, and the bf16
+    values agree within one bf16 rounding."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp.probe import o1_probe
+
+    x = torch.randn(8, 16, generator=gen, device="cuda")
+    w = torch.randn(16, 8, generator=gen, device="cuda")
+    g = 1.0 + 0.1 * torch.randn(8, generator=gen, device="cuda")
+    _kernels.reset_launch_counts()
+    with amp.cast_ops(torch.bfloat16):
+        card = o1_probe(x, w, g)
+        cpu = o1_probe(x.cpu(), w.cpu(), g.cpu())
+    counts = _kernels.launch_counts()
+    assert counts["layer_norm_fwd"] >= 1 and counts["flash_fwd"] >= 1
+    for k in cpu:
+        assert card[k].dtype == cpu[k].dtype, k
+    torch.testing.assert_close(card["matmul"].cpu().float(),
+                               cpu["matmul"].float(), rtol=2e-2, atol=2e-2)
+
+
+def test_amp_optimizer_skip_on_the_card(gen):
+    """An overflowed step on the card leaves the parameters, the fp32
+    masters and the Adam state bit-unchanged and halves the scale; a
+    clean step launches the Adam kernel."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import fused_adam
+
+    p = {"w": torch.randn(64, 32, generator=gen, device="cuda").half()}
+    _, opt, _ = amp.initialize(None, fused_adam(lr=1e-2), "O2", torch.float16)
+    state = opt.init(p)
+    g = {"w": torch.randn(64, 32, generator=gen, device="cuda").half()}
+    _kernels.reset_launch_counts()
+    p, state, info = opt.step(g, state, p)
+    assert not bool(info["skipped"])
+    assert _kernels.launch_counts()["adam_update"] == 1
+    before = (p["w"].clone(), state.master["w"].clone(),
+              state.inner.exp_avg["w"].clone(), float(state.scaler.scale))
+    bad = {"w": g["w"].clone()}
+    bad["w"][3, 4] = float("inf")
+    p, state, info = opt.step(bad, state, p)
+    assert bool(info["skipped"]) and bool(info["found_inf"])
+    assert torch.equal(p["w"], before[0])
+    assert torch.equal(state.master["w"], before[1])
+    assert torch.equal(state.inner.exp_avg["w"], before[2])
+    assert float(state.scaler.scale) == before[3] / 2
+    assert _kernels.launch_counts()["adam_update"] == 1
+
+
+def test_normalization_modules_launch_the_norm_kernels(gen):
+    from apex_tpu_torch.normalization import FusedLayerNorm, FusedRMSNorm
+
+    x = torch.randn(4, 8, 256, generator=gen, device="cuda",
+                    requires_grad=True)
+    _kernels.reset_launch_counts()
+    for cls in (FusedLayerNorm, FusedRMSNorm):
+        for me in (False, True):
+            m = cls((8, 256), memory_efficient=me)
+            m(x).sum().backward()
+    c = _kernels.launch_counts()
+    assert c["layer_norm_fwd"] >= 2 and c["layer_norm_bwd"] >= 2
+    assert c["rms_norm_fwd"] >= 2 and c["rms_norm_bwd"] >= 2

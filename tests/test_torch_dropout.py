@@ -205,3 +205,33 @@ def test_a_draw_without_a_generator_raises():
     with pytest.raises(ValueError, match="no generator"):
         drop(torch.ones(4))
     assert torch.equal(drop.eval()(torch.ones(4)), torch.ones(4))
+
+
+def test_hidden_dropout_under_sp_differs_across_tp_ranks():
+    """Under sequence parallelism the tp ranks hold different slices of
+    the sequence, so JAX folds the tp rank into the hidden dropout's key
+    (``apex_tpu/transformer/layer.py`` ``_hidden_dropout_axes``). On a
+    world of 2 gloo ranks at tp = 2: the hidden-dropout masks differ
+    across the ranks and repeat from the same seed on each; the
+    attention dropout keeps drawing its model-parallel generator's own
+    mask (the tp rank is in that generator's seed, so no second fold).
+    The JAX and torch generators are different streams, so no mask is
+    compared with JAX's."""
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        spawn,
+    )
+    from apex_tpu_torch.transformer.testing.parallel_workers import (
+        sp_dropout_worker,
+    )
+
+    outs = spawn(sp_dropout_worker, 2, timeout=120.0)
+    assert [o["tp_rank"] for o in outs] == [0, 1]
+    masks = [o["hidden"] != 0 for o in outs]
+    assert not np.array_equal(masks[0], masks[1]), \
+        "tp ranks drew one hidden-dropout mask under sequence parallelism"
+    for o in outs:
+        np.testing.assert_array_equal(o["hidden"], o["hidden_again"])
+        np.testing.assert_array_equal(o["attention"], o["attention_again"])
+        np.testing.assert_array_equal(o["attention"], o["attention_direct"])
+        assert set(np.unique(o["hidden"])) <= {0.0, 2.0}
+    assert not np.array_equal(outs[0]["attention"], outs[1]["attention"])

@@ -114,3 +114,39 @@ def test_every_kernel_source_exists():
     for k in _kernels.KERNELS.values():
         assert (PACKAGE / "csrc" / f"{k.source}.cu").is_file()
     assert apex_tpu_torch.__version__
+
+
+def test_amp_slice_entry_points_refuse_a_host_without_cuda(monkeypatch):
+    """The amp slice's modules and examples run on the card by default
+    and on the CPU only when told."""
+    from apex_tpu_torch.examples.dcgan import main_amp as dcgan
+    from apex_tpu_torch.examples.imagenet import main_amp as imagenet
+    from apex_tpu_torch.examples.simple import amp_mlp_train
+    from apex_tpu_torch.fused_dense import FusedDense, FusedDenseGeluDense
+    from apex_tpu_torch.mlp import MLP
+    from apex_tpu_torch.normalization import FusedLayerNorm, FusedRMSNorm
+    from apex_tpu_torch.ops.mlp import mlp_init
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    makers = [
+        lambda d: mlp_init(0, [4, 2], device=d),
+        lambda d: MLP([4, 2], device=d),
+        lambda d: FusedDense(4, 2, device=d),
+        lambda d: FusedDenseGeluDense(4, 8, 2, device=d),
+        lambda d: FusedLayerNorm(4, device=d),
+        lambda d: FusedRMSNorm(4, device=d),
+        lambda d: dcgan.build_models(32, 8, device=d),
+    ]
+    for make in makers:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make("cuda")
+        make("cpu")
+    for module, argv in (
+            (amp_mlp_train, ["--steps", "1"]),
+            (dcgan, ["--steps", "1", "--batch-size", "2", "--nz", "4"]),
+            (imagenet, ["--steps", "1", "--batch-size", "2",
+                        "--image-size", "32"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            module.train(module.parse_args(argv), log=lambda s: None)
+    amp_mlp_train.train(amp_mlp_train.parse_args(
+        ["--steps", "1", "--device", "cpu"]), log=lambda s: None)

@@ -382,3 +382,241 @@ def test_fused_sgd_checks_its_arguments():
     p = {"w": torch.ones(3)}
     with pytest.raises(ValueError, match="requires params"):
         opt.update(p, opt.init(p))
+
+
+# -- the rest of the fused optimizers, clip_grad_norm, multi_tensor ops ----
+# Three steps of each on the same seeded params and grads, the port's
+# updates and states against the JAX transform's. Norms and trust ratios
+# sum in another order than XLA's reductions, and XLA contracts the
+# moment updates into FMAs: OPT_TOL, a few fp32 ulp relative.
+OPT_TOL = dict(rtol=2e-5, atol=1e-7)
+OPT_SHAPES = {"a": (7, 5), "b": (13,), "c.w": (2, 3, 4), "c.z": (6,)}
+
+
+def _jax_tree(d):
+    """Dotted names as the nested dicts they stand for."""
+    out = {}
+    for k, v in d.items():
+        node = out
+        *head, last = k.split(".")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return out
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def _state_leaves(state):
+    """Every tensor of a port optimizer state, by field and name."""
+    import dataclasses
+
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, dict):
+            out.update({f"{f.name}/{n}": t for n, t in v.items()})
+        elif isinstance(v, torch.Tensor):
+            out[f.name] = v
+    return out
+
+
+OPT_CASES = {
+    "lamb": ("fused_lamb", dict(lr=1e-2, weight_decay=0.01)),
+    "lamb_clip": ("fused_lamb", dict(lr=1e-2, max_grad_norm=0.5,
+                                     weight_decay=0.0)),
+    "lamb_nvlamb_nobc": ("fused_lamb", dict(lr=1e-2, use_nvlamb=True,
+                                            bias_correction=False)),
+    "novograd": ("fused_novograd", dict(lr=1e-2, weight_decay=1e-3)),
+    "novograd_init_zero": ("fused_novograd", dict(
+        lr=1e-2, init_zero=True, grad_averaging=False)),
+    "adagrad": ("fused_adagrad", dict(lr=1e-2, weight_decay=1e-3)),
+    "adagrad_w": ("fused_adagrad", dict(lr=1e-2, weight_decay=1e-3,
+                                        adagrad_w_mode=True)),
+    "adam_swa": ("fused_adam_swa", dict(swa_decay_rate=0.9, lr=1e-2,
+                                        weight_decay=1e-3)),
+    "adam_swa_w": ("fused_adam_swa", dict(swa_decay_rate=0.9, lr=1e-2,
+                                          weight_decay=1e-3,
+                                          adam_math_mode=1,
+                                          grad_clip_scale=0.5)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OPT_CASES))
+def test_optimizer_matches_jax_over_three_steps(case):
+    import optax
+
+    import apex_tpu.optimizers as jopts
+    import apex_tpu_torch.optimizers as topts
+
+    name, kw = OPT_CASES[case]
+    rs = np.random.RandomState(21)
+    params = {n: rs.randn(*s).astype(np.float32)
+              for n, s in OPT_SHAPES.items()}
+    jp = _jax_tree({n: jnp.asarray(v) for n, v in params.items()})
+    tp = {n: torch.from_numpy(v.copy()) for n, v in params.items()}
+    jopt, opt = getattr(jopts, name)(**kw), getattr(topts, name)(**kw)
+    js, ts = jopt.init(jp), opt.init(tp)
+    for step in range(3):
+        g = {n: rs.randn(*s).astype(np.float32)
+             for n, s in OPT_SHAPES.items()}
+        jupd, js = jopt.update(_jax_tree({n: jnp.asarray(v)
+                                          for n, v in g.items()}), js, jp)
+        upd, ts = opt.update({n: torch.from_numpy(v) for n, v in g.items()},
+                             ts, tp)
+        want = _flat(jupd)
+        for n in OPT_SHAPES:
+            np.testing.assert_allclose(upd[n].numpy(), want[n],
+                                       err_msg=f"{case} step {step} {n}",
+                                       **OPT_TOL)
+        jstate = js._asdict()
+        for key, t in _state_leaves(ts).items():
+            field, _, leaf = key.partition("/")
+            ref = _flat(jstate[field])[leaf] if leaf else np.asarray(
+                jstate[field])
+            np.testing.assert_allclose(t.numpy(), ref, err_msg=key,
+                                       **OPT_TOL)
+        jp = optax.apply_updates(jp, jupd)
+        tp = {n: tp[n] + upd[n] for n in tp}
+    if name == "fused_adam_swa":
+        avg = topts.swa_params(ts, like=tp)
+        jav = _flat(jopts.swa_params(js, like=jp))
+        for n in OPT_SHAPES:
+            np.testing.assert_allclose(avg[n].numpy(), jav[n], **OPT_TOL)
+
+
+@pytest.mark.parametrize("clip", [True, False])
+def test_larc_matches_jax_over_three_steps(clip):
+    import optax
+
+    from apex_tpu.optimizers import fused_sgd as jax_sgd
+    from apex_tpu.optimizers import larc as jax_larc
+    from apex_tpu_torch.optimizers import LARC, fused_sgd, larc
+
+    kw = dict(lr=0.1, trust_coefficient=0.02, clip=clip, weight_decay=1e-4)
+    rs = np.random.RandomState(5)
+    params = {n: rs.randn(*s).astype(np.float32)
+              for n, s in OPT_SHAPES.items()}
+    params["zero"] = np.zeros(3, np.float32)  # ||p|| = 0: factor 1
+    shapes = {n: v.shape for n, v in params.items()}
+    jp = _jax_tree({n: jnp.asarray(v) for n, v in params.items()})
+    tp = {n: torch.from_numpy(v.copy()) for n, v in params.items()}
+    jopt = jax_larc(jax_sgd(lr=0.1, momentum=0.9), **kw)
+    opt = larc(fused_sgd(lr=0.1, momentum=0.9), **kw)
+    assert isinstance(LARC(fused_sgd(lr=0.1), lr=0.1), type(opt))
+    js, ts = jopt.init(jp), opt.init(tp)
+    for _ in range(3):
+        g = {n: rs.randn(*s).astype(np.float32) for n, s in shapes.items()}
+        jupd, js = jopt.update(_jax_tree({n: jnp.asarray(v)
+                                          for n, v in g.items()}), js, jp)
+        upd, ts = opt.update({n: torch.from_numpy(v) for n, v in g.items()},
+                             ts, tp)
+        want = _flat(jupd)
+        for n in shapes:
+            np.testing.assert_allclose(upd[n].numpy(), want[n], err_msg=n,
+                                       **OPT_TOL)
+        jp = optax.apply_updates(jp, jupd)
+        tp = {n: tp[n] + upd[n] for n in tp}
+
+
+def test_optimizers_refuse_what_jax_refuses():
+    from apex_tpu_torch.optimizers import (
+        FusedAdamSWA,
+        FusedLAMB,
+        fused_adagrad,
+        fused_adam_swa,
+        fused_lamb,
+        fused_novograd,
+    )
+
+    with pytest.raises(RuntimeError, match="AMSGrad"):
+        FusedLAMB(amsgrad=True)
+    with pytest.raises(NotImplementedError, match="amsgrad"):
+        FusedAdamSWA(0.9, amsgrad=True)
+    with pytest.raises(ValueError, match="norm_type"):
+        fused_novograd(norm_type=1)
+    with pytest.raises(ValueError, match="math mode"):
+        fused_adam_swa(0.9, adam_math_mode=7)
+    p = {"a": torch.ones(2)}
+    for opt in (fused_lamb(), fused_novograd(), fused_adagrad(),
+                fused_adam_swa(0.9)):
+        with pytest.raises(ValueError, match="requires params"):
+            opt.update(p, opt.init(p), None)
+
+
+@pytest.mark.parametrize("norm_type", [2.0, float("inf"), 1.5])
+@pytest.mark.parametrize("max_norm", [1e9, 0.5])
+def test_clip_grad_norm_matches_jax(norm_type, max_norm):
+    """The norm and the clipped grads, fp32 and a bf16 leaf (cast back to
+    its dtype, as JAX does)."""
+    from apex_tpu.optimizers import clip_grad_norm as jax_clip
+    from apex_tpu_torch.optimizers import clip_grad_norm
+
+    rs = np.random.RandomState(3)
+    g = {n: rs.randn(*s).astype(np.float32) for n, s in OPT_SHAPES.items()}
+    jg = _jax_tree({n: jnp.asarray(v) for n, v in g.items()})
+    jg["h"] = jnp.asarray(g["b"]).astype(jnp.bfloat16)
+    tg = {n: torch.from_numpy(v) for n, v in g.items()}
+    tg["h"] = torch.from_numpy(g["b"]).to(torch.bfloat16)
+    jc, jn = jax_clip(jg, max_norm, norm_type)
+    tc, tn = clip_grad_norm(tg, max_norm, norm_type)
+    np.testing.assert_allclose(float(tn), float(jn), rtol=1e-6)
+    want = _flat(jc)
+    for n, t in tc.items():
+        assert t.dtype == tg[n].dtype
+        ref = want[n].astype(np.float32)
+        if t.dtype == torch.bfloat16:  # one bf16 rounding of close values
+            np.testing.assert_allclose(t.float().numpy(), ref, rtol=8e-3)
+        else:
+            np.testing.assert_allclose(t.numpy(), ref, rtol=1e-6, atol=1e-8)
+
+
+def test_multi_tensor_ops_match_jax():
+    from apex_tpu.multi_tensor_apply import multi_tensor_applier as japply
+    from apex_tpu.ops import multi_tensor as jmt
+    from apex_tpu_torch.multi_tensor_apply import (
+        MultiTensorApply,
+        multi_tensor_applier,
+    )
+    from apex_tpu_torch.ops import multi_tensor as tmt
+
+    rs = np.random.RandomState(9)
+    x = {n: rs.randn(*s).astype(np.float32) for n, s in OPT_SHAPES.items()}
+    y = {n: rs.randn(*s).astype(np.float32) for n, s in OPT_SHAPES.items()}
+    jx, jy = (_jax_tree({n: jnp.asarray(v) for n, v in d.items()})
+              for d in (x, y))
+    tx, ty = ({n: torch.from_numpy(v) for n, v in d.items()} for d in (x, y))
+    js, jf = jmt.multi_tensor_scale(jx, 0.25)
+    ts, tf = tmt.multi_tensor_scale(tx, 0.25)
+    ja, jaf = jmt.multi_tensor_axpby(2.0, -0.5, jx, jy)
+    ta, taf = tmt.multi_tensor_axpby(2.0, -0.5, tx, ty)
+    for n in OPT_SHAPES:
+        np.testing.assert_allclose(ts[n].numpy(), _flat(js)[n], rtol=1e-7)
+        np.testing.assert_allclose(ta[n].numpy(), _flat(ja)[n], rtol=1e-6,
+                                   atol=1e-7)
+    assert bool(tf) is bool(jf) is False and bool(taf) is bool(jaf) is False
+    jt, jper = jmt.multi_tensor_l2norm(jx, per_tensor=True)
+    tt, tper = tmt.multi_tensor_l2norm(tx, per_tensor=True)
+    np.testing.assert_allclose(float(tt), float(jt), rtol=1e-6)
+    np.testing.assert_allclose(tper.numpy(), np.asarray(jper), rtol=1e-6)
+    bad = dict(tx, a=torch.full((7, 5), float("inf")))
+    assert bool(tmt.multi_tensor_scale(bad, 1.0)[1])
+    assert bool(tmt.multi_tensor_axpby(1.0, 1.0, tx, bad)[1])
+    z, zper = tmt.multi_tensor_l2norm({}, per_tensor=True)
+    assert float(z) == 0.0 and zper.shape == (0,)
+
+    def op(flag, lists, scale):
+        return [[t * scale for t in lst] for lst in lists], flag
+
+    out, flag = multi_tensor_applier(op, 0, [[tx["a"]]], 3.0)
+    jout, _ = japply(op, 0, [[jx["a"]]], 3.0)
+    np.testing.assert_allclose(out[0][0].numpy(), np.asarray(jout[0][0]))
+    assert multi_tensor_applier.available and flag == 0
+    assert MultiTensorApply(1024).chunk_size == 1024
