@@ -13,6 +13,7 @@ from apex_tpu_torch.models.convert import (
     gpt_params_from_jax,
     gpt_pipeline_params_from_jax,
     gpt_tp_params_from_jax,
+    moe_params_from_jax,
     resnet_params_from_jax,
     scaler_state_from_jax,
 )
@@ -48,8 +49,7 @@ __all__ = [
     "bert_params_from_jax", "config_from_hf_llama", "cross_entropy_loss",
     "fused_adam_state_from_jax", "generate", "gpt2_small_config",
     "gpt_loss_fn", "gpt_params_from_jax", "gpt_pipeline_params_from_jax",
-    "gpt_tp_params_from_jax",
-    "llama_from_hf",
+    "gpt_tp_params_from_jax", "llama_from_hf", "moe_params_from_jax",
     "megatron_bert_345m_config", "mistral_from_hf",
     "params_from_hf_llama", "params_to_hf_llama", "resnet_params_from_jax",
     "sample_next_token", "scaler_state_from_jax", "tinyllama_1_1b_config",

@@ -14,6 +14,11 @@ flat buffer already in the shared leaf order) and the loss scaler's
 state, so both frameworks can start from one mid-training state. Inputs
 are trees of numpy arrays (``jax.tree_util.tree_map(np.asarray, ...)``).
 
+An MoE layer's ``mlp/router`` (h, E), ``mlp/w_in`` (E, h, ffn) and
+``mlp/w_out`` (E, ffn, h) carry the flax names too; under expert
+parallelism a rank keeps its slice of the experts
+(:func:`moe_params_from_jax`).
+
 The amp slice adds the MLP's list tree (``weights.<i>``), the modules
 whose flax parameters already have torch's layout (``mlp.MLP``,
 ``fused_dense``, ``normalization``: a path join), the DCGAN example's G
@@ -37,7 +42,8 @@ __all__ = ["amp_state_from_jax", "bert_params_from_jax",
            "dcgan_params_from_jax", "fused_adam_state_from_jax",
            "gpt_params_from_jax", "gpt_pipeline_params_from_jax",
            "gpt_tp_params_from_jax", "mlp_params_from_jax",
-           "module_params_from_jax", "optimizer_state_from_jax",
+           "module_params_from_jax", "moe_params_from_jax",
+           "optimizer_state_from_jax",
            "resnet_params_from_jax", "scaler_state_from_jax"]
 
 
@@ -126,6 +132,28 @@ def gpt_pipeline_params_from_jax(params: Dict[str, Any], rank: int,
 
     return {part: gpt_params_from_jax(walk(params[part], part == "stages"))
             for part in ("pre", "stages", "post")}
+
+
+def moe_params_from_jax(params: Dict[str, Any], num_experts: int,
+                        rank: int = 0, ep: int = 1
+                        ) -> Dict[str, torch.Tensor]:
+    """A ``GPTModel`` (or ``MoEMLP``) state_dict from a JAX tree with MoE
+    layers, for expert-parallel rank ``rank`` of ``ep``: the path join of
+    :func:`gpt_params_from_jax`, with every ``w_in`` and ``w_out`` that
+    holds all ``num_experts`` experts (a tree built outside ``shard_map``)
+    cut to the rank's ``num_experts / ep``; one that already holds a
+    rank's experts (read per device, :func:`gpt_tp_params_from_jax`)
+    stays as it is."""
+    if num_experts % ep:
+        raise ValueError(f"num_experts ({num_experts}) not divisible by "
+                         f"ep ({ep})")
+    local = num_experts // ep
+    out = gpt_params_from_jax(params)
+    for name, t in out.items():
+        if (name.rsplit(".", 1)[-1] in ("w_in", "w_out")
+                and t.shape[0] == num_experts and local != num_experts):
+            out[name] = t[rank * local:(rank + 1) * local].clone()
+    return out
 
 
 def bert_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

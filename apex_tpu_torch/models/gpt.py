@@ -61,6 +61,7 @@ from apex_tpu_torch.parallel.random import (
 )
 from apex_tpu_torch.transformer.config import TransformerConfig
 from apex_tpu_torch.transformer.enums import AttnMaskType
+from apex_tpu_torch.transformer.moe import MoEMLP, draw_experts
 from apex_tpu_torch.transformer.layer import (
     KVCache,
     ParallelTransformer,
@@ -202,7 +203,10 @@ def init_params(model: nn.Module, seed: int) -> None:
     """Draws ``model``'s parameters, in ``named_parameters`` order, on
     their device: normal 0.02 for the tables and the untied head, normal
     1/sqrt(fan_in) of the local shape for the kernels (JAX's initializers
-    see the shard), ones for the norm scales and zeros for the biases.
+    see the shard), ones for the norm scales and zeros for the biases;
+    an MoE layer's router and experts by ``transformer.moe.draw_experts``
+    from the data-parallel generator (every rank draws all E experts and
+    keeps its own).
     Tp-sharded parameters (``tensor_model_parallel``) draw from this tp
     rank's model-parallel generator, the others from the data-parallel
     one of ``seed``, the same on every rank (``parallel.random``)."""
@@ -211,7 +215,12 @@ def init_params(model: nn.Module, seed: int) -> None:
     shared = data_parallel_generator(seed, device)
     own = model_parallel_generator(
         seed, ps.get_tensor_model_parallel_rank(), device)
+    moe = {id(p) for m in model.modules() if isinstance(m, MoEMLP)
+           for p in m.parameters()}
     for name, p in params:
+        if id(p) in moe:
+            draw_experts(p, shared)
+            continue
         gen = own if getattr(p, "tensor_model_parallel", False) else shared
         leaf = name.rsplit(".", 1)[-1]
         if (leaf in ("embedding", "position_embeddings",

@@ -7,9 +7,8 @@ LayerNorm; #3, #4 for RMSNorm).
 ``normalized_shape`` names the trailing dims; they are flattened into
 one axis for the kernel (the same reduction), and the parameters keep
 the reference's ``normalized_shape`` layout. ``elementwise_affine=False``
-has no parameters. ``memory_efficient=True`` runs the call under
-``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` (JAX's
-``jax.checkpoint``): nothing of the norm is kept for the backward but
+has no parameters. ``memory_efficient=True`` is the functional norms'
+(``ops.layer_norm``): nothing of the norm is kept for the backward but
 its inputs, which the backward runs the forward again from; the values
 are unchanged. The kernels take parameters of any dtype, so the mixed
 variants are the same classes.
@@ -18,7 +17,6 @@ variants are the same classes.
 from typing import Sequence, Union
 
 import torch
-import torch.utils.checkpoint
 from torch import nn
 
 from apex_tpu_torch._kernels import resolve_device
@@ -69,19 +67,15 @@ class _FusedNorm(nn.Module):
         x2 = x.reshape(x.shape[:x.dim() - len(shape)] + (n,))
         w = None if self.weight is None else self.weight.reshape(n)
         b = None if self.bias is None else self.bias.reshape(n)
-        if self.memory_efficient:
-            out = torch.utils.checkpoint.checkpoint(
-                self._norm, x2, w, b, use_reentrant=False)
-        else:
-            out = self._norm(x2, w, b)
-        return out.reshape(x.shape)
+        return self._norm(x2, w, b).reshape(x.shape)
 
 
 class FusedLayerNorm(_FusedNorm):
     """``apex.normalization.FusedLayerNorm``: weight ones, bias zeros."""
 
     def _norm(self, x2, w, b):
-        return layer_norm(x2, w, b, eps=self.eps)
+        return layer_norm(x2, w, b, eps=self.eps,
+                          memory_efficient=self.memory_efficient)
 
 
 class FusedRMSNorm(_FusedNorm):
@@ -90,7 +84,8 @@ class FusedRMSNorm(_FusedNorm):
     with_bias = False
 
     def _norm(self, x2, w, b):
-        return rms_norm(x2, w, eps=self.eps)
+        return rms_norm(x2, w, eps=self.eps,
+                        memory_efficient=self.memory_efficient)
 
 
 MixedFusedLayerNorm = FusedLayerNorm

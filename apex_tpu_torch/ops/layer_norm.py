@@ -13,11 +13,15 @@ When a gradient is wanted, ``layer_norm`` goes through
 :class:`_LayerNormFn` and ``rms_norm`` through :class:`_RMSNormFn`, whose
 backward is the backward kernel (the JAX ``custom_vjp`` around
 ``_ln_pallas`` / ``_rms_pallas``): it recomputes the row statistics from
-the saved x, as the TPU kernel does. There is no ``memory_efficient``
-mode yet.
+the saved x, as the TPU kernel does. ``memory_efficient=True`` runs the
+call under ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``): only
+the inputs are kept and the backward runs the forward again (one more
+forward kernel launch a backward); the values are unchanged. A norm draws
+no random numbers, so the plain checkpoint is the whole of it.
 """
 
 import torch
+import torch.utils.checkpoint
 
 from apex_tpu_torch import _kernels
 from apex_tpu_torch._cast_state import casts_disabled
@@ -232,9 +236,16 @@ class _RMSNormFn(torch.autograd.Function):
         return dx.reshape(x.shape), dw, None
 
 
+def _checkpointed(fn, *args):
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
 @casts_disabled
-def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
+def layer_norm(x, weight=None, bias=None, eps: float = 1e-5,
+               memory_efficient: bool = False):
     """LayerNorm over the last dimension (ref: FusedLayerNorm)."""
+    if memory_efficient and _kernels.wants_grad(x, weight, bias):
+        return _checkpointed(layer_norm, x, weight, bias, eps)
     if _kernels.wants_grad(x, weight, bias):
         return _LayerNormFn.apply(x, weight, bias, eps)
     if x.is_cuda:
@@ -243,8 +254,11 @@ def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
 
 
 @casts_disabled
-def rms_norm(x, weight=None, eps: float = 1e-5):
+def rms_norm(x, weight=None, eps: float = 1e-5,
+             memory_efficient: bool = False):
     """RMSNorm over the last dimension (ref: FusedRMSNorm)."""
+    if memory_efficient and _kernels.wants_grad(x, weight):
+        return _checkpointed(rms_norm, x, weight, eps)
     if _kernels.wants_grad(x, weight):
         return _RMSNormFn.apply(x, weight, eps)
     if x.is_cuda:

@@ -40,7 +40,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
-    "AXIS_ORDER", "all_gather", "all_reduce", "all_to_all", "broadcast",
+    "AXIS_ORDER", "all_gather", "all_reduce", "all_to_all",
+    "amax_reduction", "broadcast", "get_amax_reduction_axes",
     "destroy_model_parallel", "get_context_parallel_group",
     "get_context_parallel_rank", "get_data_parallel_group",
     "get_data_parallel_rank", "get_data_parallel_world_size",
@@ -272,6 +273,26 @@ def get_context_parallel_group():
 def get_model_parallel_world_size() -> int:
     return get_tensor_model_parallel_world_size() * \
         get_pipeline_model_parallel_world_size()
+
+
+def get_amax_reduction_axes() -> tuple:
+    """The axes of the FP8 amax-reduction group (ref parallel_state.py:
+    280-292): the tp and dp ranks of a pipeline stage, every rank that
+    holds a shard of the same activations, and cp for the same reason as
+    dp."""
+    return (DATA_AXIS, CONTEXT_AXIS, TENSOR_AXIS)
+
+
+def amax_reduction(local_amax: torch.Tensor) -> torch.Tensor:
+    """The max of a local |x| max over every amax axis whose group has
+    more than one rank (the delayed-scaling statistic FP8 recipes
+    synchronize); ``local_amax`` itself without such a group."""
+    out = local_amax
+    for axis in get_amax_reduction_axes():
+        group = get_group(axis)
+        if group_size(group) > 1:
+            out = all_reduce(out, group, op="max")
+    return out
 
 
 def get_group(axis: str):

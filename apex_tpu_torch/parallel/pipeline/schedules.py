@@ -38,8 +38,9 @@ their own tags):
   the message travels, and is summed. Each W call walks the stage's
   graph again, activation gradients included: the split costs one more
   backward pass through the activations. A bubble tick adds nothing,
-  JAX's exact zeros. Every micro-batch's activations stay on the stage
-  until its backward, as the JAX scan's stash does.
+  JAX's exact zeros. Every micro-batch's graph stays on the stage until
+  its backward, as the JAX scan's stash does (under ``remat``, its stage
+  input and output only).
 
 A stage's input is a received tensor made a leaf with ``requires_grad``;
 its backward is ``torch.autograd.backward(output, grad_tensors=
@@ -53,11 +54,25 @@ same values (JAX's ``_publish_losses``).
 ``params`` is a tree (dicts, lists, tuples) of tensors that require
 grad, and the gradients come back in its structure, in its dtypes, with
 zeros for a tensor the stage does not reach. The parameters' ``.grad``
-are left as they were. ``remat`` and ``tick_block_remat`` are accepted
-so that the signatures match JAX's, where they bound the scan's stashed
-activations; a host-driven 1F1B already holds at most P micro-batches'
-activations on a stage, the bound they buy there, so nothing is
-recomputed here. The boundary tensor a stage receives has the shape and
+are left as they were.
+
+``remat=True`` (JAX's default, ``jax.checkpoint`` of the stage function)
+runs each stage forward, one micro-batch of one chunk, under
+``parallel.random.checkpoint``, and on the last global stage its loss
+with it: a micro-batch in flight keeps only its stage input (and the
+dropout generators' states), and its backward runs the forward again,
+with the same masks. At fp32 the values are bit-equal to ``remat=False``.
+Zero bubble walks a stage's graph twice (B, then W), so each walk
+recomputes it: two recomputes a micro-batch. ``tick_block_remat = B``
+bounds JAX's scan, whose carry stashes one boundary tensor a tick, by
+checkpointing blocks of B ticks (O(T / B + B) stashed, with the blocks'
+forward run again). A host-driven schedule has no carry; what it keeps a
+micro-batch in flight is that boundary tensor under ``remat=True``, at
+most P of them in 1F1B. So here ``0 < B < T`` (T the schedule's ticks,
+``V M + P - 1``) recomputes each stage forward as ``remat=True`` does,
+which is the memory JAX's blocks bound, and B >= T or 0 leaves
+``remat`` alone, as JAX's scan falls through to the plain one; a
+negative B raises. The boundary tensor a stage receives has the shape and
 dtype of the micro-batch input (``stage_fn`` keeps its input's shape,
 as the JAX scan requires); ``forward_backward_with_pre_post`` is given
 ``tensor_shape`` and ``dtype``, as Megatron's schedules are.
@@ -71,6 +86,7 @@ import torch.distributed as dist
 
 from apex_tpu_torch.parallel import parallel_state as ps
 from apex_tpu_torch.parallel.pipeline.p2p import BACKWARD_TAG, FORWARD_TAG
+from apex_tpu_torch.parallel.random import checkpoint
 
 __all__ = [
     "build_model", "forward_backward_no_pipelining",
@@ -195,10 +211,24 @@ def _chunk(params: Any, v: int, num_model_chunks: int) -> Any:
     return _rebuild(params, iter([t[v] for t in _leaves(params)]))
 
 
+def _recomputes(remat: bool, tick_block_remat: int, num_ticks: int) -> bool:
+    """Does each stage forward run under a checkpoint? (module
+    docstring: ``remat``, or a block of ticks shorter than the run)"""
+    if tick_block_remat < 0:
+        raise ValueError(f"tick_block_remat must be >= 0, got "
+                         f"{tick_block_remat}")
+    return remat or 0 < tick_block_remat < num_ticks
+
+
+def _stage_loss(stage_fn, loss_fn, params, x, m):
+    return loss_fn(stage_fn(params, x), m)
+
+
 def _run(stage_fn: Callable, params: Any, first_input: Callable[[int], Any],
          loss_fn: Optional[Callable[[Any, int], torch.Tensor]], like: Any,
          num_micro: int, num_model_chunks: int, interleaved: bool,
-         axis_name: str, leaves: Sequence[torch.Tensor]):
+         axis_name: str, leaves: Sequence[torch.Tensor], remat: bool,
+         tick_block_remat: int):
     """Runs this stage's steps. ``first_input(m)`` is global stage 0's
     input of micro-batch m; ``loss_fn(y, m)`` the last global stage's
     loss of its output (None: forward only). Returns ``(outputs, losses,
@@ -209,6 +239,11 @@ def _run(stage_fn: Callable, params: Any, first_input: Callable[[int], Any],
     r = 0 if group is None else dist.get_rank(group)
     V, M = num_model_chunks, num_micro
     forward_only = loss_fn is None
+    run_stage, run_stage_loss = stage_fn, functools.partial(
+        _stage_loss, stage_fn, loss_fn)
+    if _recomputes(remat, tick_block_remat, V * M + P - 1):
+        run_stage, run_stage_loss = (checkpoint(run_stage),
+                                     checkpoint(run_stage_loss))
     last_stage = V * P - 1
     prev, nxt = (r - 1) % P, (r + 1) % P
     # one stage with V chunks: its ring edge is these FIFOs
@@ -242,16 +277,16 @@ def _run(stage_fn: Callable, params: Any, first_input: Callable[[int], Any],
                     x = recv(like, prev, FORWARD_TAG)
                     if not forward_only:
                         x.requires_grad_(True)
-                y = stage_fn(_chunk(params, v, V), x)
-                if g == last_stage:
-                    if forward_only:
-                        outputs[m] = y
-                        continue
-                    loss = loss_fn(y, m)
+                if g == last_stage and not forward_only:
+                    loss = run_stage_loss(_chunk(params, v, V), x, m)
                     losses[m] = loss.detach().float()
-                    y = loss / M
-                else:
-                    send(y, nxt, FORWARD_TAG)
+                    stash[v].append((x, loss / M, g))
+                    continue
+                y = run_stage(_chunk(params, v, V), x)
+                if g == last_stage:
+                    outputs[m] = y
+                    continue
+                send(y, nxt, FORWARD_TAG)
                 if not forward_only:
                     stash[v].append((x, y, g))
                 continue
@@ -310,10 +345,9 @@ def pipeline_forward(stage_fn: Callable[[Any, Any], Any], params: Any,
     stage, and None on every other stage (where JAX returns bubble
     garbage). The outputs carry the last stage's own autograd graph, not
     the other stages'."""
-    del remat, tick_block_remat  # memory knobs of the JAX scan
     outputs, _, _ = _run(stage_fn, params, lambda m: microbatches[m], None,
                          microbatches[0], _leading_dim(microbatches), 1,
-                         False, axis_name, ())
+                         False, axis_name, (), remat, tick_block_remat)
     return torch.stack([outputs[m] for m in sorted(outputs)]) \
         if outputs else None
 
@@ -344,12 +378,11 @@ def pipeline_forward_interleaved(
     ``v P + rank``) in the interleaved order. Requires ``M % P == 0``
     (and gloo at P = 2). The last stage's outputs on rank P-1, None
     elsewhere."""
-    del remat, tick_block_remat
     num_micro = _leading_dim(microbatches)
     _check_interleaved(num_micro, num_model_chunks, axis_name)
     outputs, _, _ = _run(stage_fn, params_chunks, lambda m: microbatches[m],
                          None, microbatches[0], num_micro, num_model_chunks,
-                         True, axis_name, ())
+                         True, axis_name, (), remat, tick_block_remat)
     return torch.stack([outputs[m] for m in sorted(outputs)]) \
         if outputs else None
 
@@ -364,13 +397,12 @@ def forward_backward_pipelining_without_interleaving(
     gives each micro-batch's scalar loss on the last stage. Returns
     ``(loss, per_microbatch_losses, grads)``, the same loss and losses on
     every stage and this stage's gradients of the mean loss."""
-    del remat, tick_block_remat
     num_micro = _leading_dim(microbatches)
     leaves = _leaves(params)
     _, losses, grads = _run(
         stage_fn, params, lambda m: microbatches[m],
         lambda y, m: loss_fn(y, _micro(targets, m)), microbatches[0],
-        num_micro, 1, False, axis_name, leaves)
+        num_micro, 1, False, axis_name, leaves, remat, tick_block_remat)
     grads = _rebuild(params, iter(grads))
     loss, per = _publish_losses(losses, num_micro, axis_name,
                                 _device(params))
@@ -390,14 +422,14 @@ def forward_backward_pipelining_with_interleaving(
     v is global stage ``v P + rank``). Requires ``M % P == 0`` (and gloo
     at P = 2). Returns as 1F1B does, the gradients in ``params_chunks``'
     structure."""
-    del remat, tick_block_remat
     num_micro = _leading_dim(microbatches)
     _check_interleaved(num_micro, num_model_chunks, axis_name)
     leaves = _leaves(params_chunks)
     _, losses, grads = _run(
         stage_fn, params_chunks, lambda m: microbatches[m],
         lambda y, m: loss_fn(y, _micro(targets, m)), microbatches[0],
-        num_micro, num_model_chunks, True, axis_name, leaves)
+        num_micro, num_model_chunks, True, axis_name, leaves, remat,
+        tick_block_remat)
     grads = _rebuild(params_chunks, iter(grads))
     loss, per = _publish_losses(losses, num_micro, axis_name,
                                 _device(params_chunks))
@@ -441,7 +473,6 @@ def forward_backward_with_pre_post(
     -> scalar``. ``tensor_shape`` and ``dtype`` are those of ``h``, which
     a stage must know before it receives it. Returns ``(loss,
     per_microbatch_losses, grads)`` with ``grads`` shaped as ``params``."""
-    del remat, tick_block_remat
     num_micro = _leading_dim(inputs)
     V = num_model_chunks
     if V > 1:
@@ -453,7 +484,8 @@ def forward_backward_with_pre_post(
         stage_fn, params["stages"],
         lambda m: pre_fn(params["pre"], _micro(inputs, m)),
         lambda y, m: post_loss_fn(params["post"], y, _micro(targets, m)),
-        like, num_micro, V, V > 1, axis_name, leaves)
+        like, num_micro, V, V > 1, axis_name, leaves, remat,
+        tick_block_remat)
     grads = _rebuild(params, iter(grads))
     for part in ("pre", "post"):
         grads[part] = _combine_replicated_grads(grads[part], axis_name)
@@ -487,6 +519,7 @@ def _zb_run(stage_fn: Callable, params: Any,
             first_input: Callable[[int], torch.Tensor],
             loss_fn: Callable[[Any, int], torch.Tensor], like: Any,
             num_micro: int, axis_name: str, leaves: Sequence[torch.Tensor],
+            remat: bool, tick_block_remat: int,
             head: Sequence[torch.Tensor] = (), keep_dx: bool = False):
     """This stage's zero-bubble pass (module docstring). ``first_input(m)``
     is stage 0's input of micro-batch m; ``loss_fn(y, m)`` the last
@@ -504,6 +537,9 @@ def _zb_run(stage_fn: Callable, params: Any,
     head_wanted = [t for t in head if t.requires_grad]
     stash, losses, seeds, dxs = {}, {}, {}, {}
     acc = head_acc = None
+    run_stage = stage_fn
+    if _recomputes(remat, tick_block_remat, T):
+        run_stage = checkpoint(stage_fn)
     for t in range(T):
         u = t - r  # the micro-batch of this stage's tick t
         if not 0 <= u < M:
@@ -513,7 +549,7 @@ def _zb_run(stage_fn: Callable, params: Any,
         else:
             x = ps.p2p(group, (), [(like, r - 1, FORWARD_TAG)])[0]
             x.requires_grad_(True)
-        y = stage_fn(params, x)
+        y = run_stage(params, x)
         if not last:
             ps.p2p(group, [(y, r + 1, FORWARD_TAG)])
         stash[u] = (x, y)
@@ -565,13 +601,12 @@ def forward_backward_zero_bubble(
     docstring), so a step costs more than 1F1B's: one more activation
     backward a micro-batch, with its kernels and SP collectives. Returns
     ``(loss, per_microbatch_losses, grads)``."""
-    del remat, tick_block_remat
     num_micro = _leading_dim(microbatches)
     leaves = _leaves(params)
     losses, grads, _, _ = _zb_run(
         stage_fn, params, lambda m: microbatches[m],
         lambda y, m: loss_fn(y, _micro(targets, m)), microbatches[0],
-        num_micro, axis_name, leaves)
+        num_micro, axis_name, leaves, remat, tick_block_remat)
     grads = _rebuild(params, iter(grads))
     loss, per = _publish_losses(losses, num_micro, axis_name,
                                 _device(params))
@@ -597,7 +632,6 @@ def forward_backward_zero_bubble_with_pre_post(
     those of the hidden states between stages. Like
     :func:`forward_backward_zero_bubble` it costs more than 1F1B: W
     repeats B's activation backward."""
-    del remat, tick_block_remat
     num_micro = _leading_dim(inputs)
     device = _device(params["stages"])
     like = torch.empty(tuple(tensor_shape), dtype=dtype, device=device)
@@ -610,8 +644,8 @@ def forward_backward_zero_bubble_with_pre_post(
     losses, stage_grads, post_grads, dxs = _zb_run(
         stage_fn, params["stages"], first_input,
         lambda y, m: post_loss_fn(params["post"], y, _micro(targets, m)),
-        like, num_micro, axis_name, _leaves(params["stages"]),
-        head=_leaves(params["post"]), keep_dx=True)
+        like, num_micro, axis_name, _leaves(params["stages"]), remat,
+        tick_block_remat, head=_leaves(params["post"]), keep_dx=True)
     pre_leaves = _leaves(params["pre"])
     pre_wanted = [t for t in pre_leaves if t.requires_grad]
     acc = None

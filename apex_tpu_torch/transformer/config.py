@@ -6,10 +6,9 @@ the mesh-axis names, ``context_axis`` is kept (the name of the group
 that ring and Ulysses attention run over, ``parallel_state.get_group``);
 the tp group is always ``"tp"``. The ``attention_impl`` switch has no
 counterpart: the device of the tensors picks kernel or plain code
-(``apex_tpu_torch._kernels``). Fields for features the port does not
-have yet stay, so that a config that asks for one is refused with
-``NotImplementedError`` where the model is built (transformer/layer.py),
-not silently ignored.
+(``apex_tpu_torch._kernels``). ``moe_expert_axis`` names the group the
+experts are split over (``parallel_state.get_group``); None keeps every
+expert on every rank.
 """
 
 import dataclasses
@@ -56,9 +55,14 @@ class TransformerConfig:
     # "ring" | "ulysses": attention over the cp group at cp > 1
     context_parallel_mode: Optional[str] = None
     context_axis: str = "cp"
-    # not ported yet: any value other than the default raises
+    # mixture of experts: num_moe_experts switches the MLP to
+    # transformer.moe.MoEMLP; experts split over moe_expert_axis's group
     num_moe_experts: Optional[int] = None
-    recompute_granularity: Optional[str] = None
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_expert_axis: Optional[str] = None
+    moe_aux_loss_coeff: float = 0.01
+    recompute_granularity: Optional[str] = None  # None | "full" | "selective"
 
     params_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16

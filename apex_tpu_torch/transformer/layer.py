@@ -14,10 +14,23 @@ k | v]``, and the MLP ``ffn / tp`` columns. Under sequence parallelism
 (``sequence_parallel`` at tp > 1) the hidden states between the column
 and row products are split along the sequence; each norm then sees only
 its rank's rows, so its weight and bias pass the copy-to region, which
-all-reduces their gradients over tp (the JAX ``Norm``'s rule). MoE and
-recompute raise ``NotImplementedError`` where a config asks for them.
+all-reduces their gradients over tp (the JAX ``Norm``'s rule).
 LayerNorm, RMSNorm and flash attention differentiate through their
 backward kernels.
+
+Recompute (``recompute_granularity``, JAX's ``nn.remat``): "full" runs
+each layer under ``parallel.random.checkpoint``, "selective" the whole
+``ParallelAttention`` call (the QKV and output projections included,
+JAX's boundary, not Megatron's core attention alone). Neither applies
+with a cache or on a decode step, or without a gradient, so serving
+launches what it launched before. The checkpoint replays the dropout
+generators' draws, so the masks, the gradients and the generators'
+states after a step are those of a run without recompute.
+
+MoE (``num_moe_experts``): the MLP is ``transformer.moe.MoEMLP`` over
+the (s * b, h) tokens, JAX's branch; each layer keeps its last
+auxiliary loss, which ``moe.total_moe_aux_loss`` sums. It runs at tp = 1
+(:func:`check_supported`).
 
 Context parallelism (``context_parallel_mode`` "ring" or "ulysses" at a
 cp size above one, :func:`context_parallel_size`): each rank holds a
@@ -95,8 +108,10 @@ from apex_tpu_torch.parallel.ring_attention import (
     ulysses_attention,
 )
 from apex_tpu_torch.parallel.random import (
+    checkpoint,
     data_parallel_generator,
     model_parallel_generator,
+    note_draw,
     shard_aware_generator,
 )
 from apex_tpu_torch.transformer.config import TransformerConfig
@@ -110,16 +125,31 @@ __all__ = [
 ]
 
 
+RECOMPUTE_GRANULARITIES = (None, "full", "selective")
+
+
 def check_supported(cfg: TransformerConfig) -> None:
-    """Refuses configs that ask for what the port does not have yet."""
-    missing = []
-    if cfg.num_moe_experts is not None:
-        missing.append("MoE")
-    if cfg.recompute_granularity is not None:
-        missing.append("recompute")
-    if missing:
+    """Refuses a recompute granularity JAX does not know, and MoE at tp >
+    1: the port's ``MoEMLP`` is held to JAX at tp = 1 only."""
+    if cfg.recompute_granularity not in RECOMPUTE_GRANULARITIES:
+        raise ValueError(f"recompute_granularity must be one of "
+                         f"{RECOMPUTE_GRANULARITIES}, got "
+                         f"{cfg.recompute_granularity!r}")
+    if (cfg.num_moe_experts is not None
+            and ps.get_tensor_model_parallel_world_size() > 1):
         raise NotImplementedError(
-            f"not ported to apex_tpu_torch yet: {', '.join(missing)}")
+            "MoE at tensor-parallel size > 1 is not ported to "
+            "apex_tpu_torch: MoEMLP runs at tp = 1 (experts over "
+            "moe_expert_axis)")
+
+
+def _recompute(cfg: TransformerConfig, granularity: str, cache,
+               decode_step: bool) -> bool:
+    """Does this call run under a checkpoint? Only when the config asks
+    for ``granularity``, with a gradient, and with no cache (JAX skips
+    remat in cache mode: a decode has no backward)."""
+    return (cfg.recompute_granularity == granularity and cache is None
+            and not decode_step and torch.is_grad_enabled())
 
 
 def context_parallel_size(config: TransformerConfig) -> int:
@@ -284,7 +314,9 @@ class ParallelMLP(nn.Module):
 def keep_mask(generator: torch.Generator, keep_prob: float, shape,
               device) -> torch.Tensor:
     """The dropout mask: bool, True with probability ``keep_prob``
-    (``uniform < keep_prob``, as ``jax.random.bernoulli`` draws it)."""
+    (``uniform < keep_prob``, as ``jax.random.bernoulli`` draws it); the
+    draw is noted for a checkpoint's replay (``parallel.random``)."""
+    note_draw(generator)
     return torch.rand(shape, generator=generator, device=device) < keep_prob
 
 
@@ -544,7 +576,16 @@ class ParallelTransformerLayer(nn.Module):
         self.self_attention = ParallelAttention(
             config, layer_number, attn_mask_type, device)
         self.post_attention_layernorm = Norm(config, device)
-        self.mlp = ParallelMLP(config, device)
+        if config.num_moe_experts is not None:
+            from apex_tpu_torch.transformer.moe import MoEMLP
+
+            self.mlp = MoEMLP(config, num_experts=config.num_moe_experts,
+                              top_k=config.moe_top_k,
+                              capacity_factor=config.moe_capacity_factor,
+                              expert_axis=config.moe_expert_axis,
+                              device=device)
+        else:
+            self.mlp = ParallelMLP(config, device)
         self.hidden_dropout = ShardAwareDropout(
             config.hidden_dropout, axis_names=_hidden_dropout_axes(config))
 
@@ -556,8 +597,11 @@ class ParallelTransformerLayer(nn.Module):
         post_ln = cfg.apply_residual_connection_post_layernorm
 
         ln_out = self.input_layernorm(hidden_states)
-        attn_out = self.self_attention(ln_out, key_padding_mask, cache,
-                                       decode_step, rotary, attention_mask)
+        attend = self.self_attention
+        if _recompute(cfg, "selective", cache, decode_step):
+            attend = checkpoint(attend)
+        attn_out = attend(ln_out, key_padding_mask, cache, decode_step,
+                          rotary, attention_mask)
         residual = ln_out if post_ln else hidden_states
         # the module is the identity in eval or at rate 0: no call on the
         # decode path's per-layer host time
@@ -567,7 +611,12 @@ class ParallelTransformerLayer(nn.Module):
         h = (residual.to(rdtype) + attn_out.to(rdtype)).to(dtype)
 
         ln2 = self.post_attention_layernorm(h)
-        mlp_out = self.mlp(ln2)
+        if cfg.num_moe_experts is not None:
+            s, b, hid = ln2.shape
+            mlp_out, _ = self.mlp(ln2.reshape(s * b, hid))
+            mlp_out = mlp_out.reshape(s, b, hid)
+        else:
+            mlp_out = self.mlp(ln2)
         residual = ln2 if post_ln else h
         if drop:
             mlp_out = self.hidden_dropout(mlp_out)
@@ -581,7 +630,7 @@ class ParallelTransformer(nn.Module):
                  attn_mask_type: AttnMaskType = AttnMaskType.causal,
                  device=None):
         super().__init__()
-        self.num_layers = config.num_layers
+        self.config, self.num_layers = config, config.num_layers
         for i in range(config.num_layers):
             self.add_module(f"layer_{i}", ParallelTransformerLayer(
                 config, i, attn_mask_type, device))
@@ -589,10 +638,13 @@ class ParallelTransformer(nn.Module):
 
     def forward(self, hidden_states, key_padding_mask=None, cache=None,
                 decode_step: bool = False, rotary=None, attention_mask=None):
+        full = _recompute(self.config, "full", cache, decode_step)
         for i in range(self.num_layers):
-            hidden_states = getattr(self, f"layer_{i}")(
-                hidden_states, key_padding_mask, cache, decode_step, rotary,
-                attention_mask)
+            layer = getattr(self, f"layer_{i}")
+            if full:
+                layer = checkpoint(layer)
+            hidden_states = layer(hidden_states, key_padding_mask, cache,
+                                  decode_step, rotary, attention_mask)
         if self.final_layernorm is not None:
             hidden_states = self.final_layernorm(hidden_states)
         return hidden_states

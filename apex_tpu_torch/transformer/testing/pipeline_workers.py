@@ -294,6 +294,65 @@ def card_vs_plain_worker(rank: int, world_size: int, argv: Sequence[str],
     return out
 
 
+def remat_worker(rank: int, world_size: int, argv: Sequence[str],
+                 device: str = "cuda", zero_bubble: bool = False):
+    """``GPTPipelineTraining`` from ``argv`` at ``remat=True`` and then at
+    ``remat=False`` from the same weights and tokens, ``--train-iters``
+    steps each on ``device``. Returns, for this rank, whether every
+    loss and every step's gradients are bit-equal between the two (and
+    the largest difference), each run's losses, peak memory (the card's,
+    reset before the run), launch counts (and a step) and ``STAGED``
+    counts a step."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.transformer.testing.standalone_gpt import (
+        GPTPipelineTraining,
+    )
+
+    args = _args(argv, world_size)
+    cuda = torch.device(device).type == "cuda"
+    init, ref, out = None, None, {}
+    for remat in (True, False):
+        run = GPTPipelineTraining(
+            args, device, zero_bubble=zero_bubble, remat=remat,
+            num_model_chunks=args.virtual_pipeline_model_parallel_size or 1)
+        if init is None:  # on the host: both runs hold the same on the card
+            init = {part: {n: t.detach().cpu().clone()
+                           for n, t in named.items()}
+                    for part, named in run.params.items()}
+        else:
+            run.load(init)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        staged0 = dict(ps.STAGED)
+        steps = []
+        for i in range(run.steps):
+            loss, grads = run.step(i, return_grads=True)
+            steps.append((loss, {n: g.detach().cpu().clone()
+                                 for n, g in grads.items()}))
+        launches = _kernels.launch_counts()
+        out[f"remat_{remat}"] = dict(
+            losses=[loss for loss, _ in steps], launches=launches,
+            peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                         if cuda else None),
+            launches_per_step={k: n / run.steps for k, n in
+                               launches.items()},
+            staged_per_step={k: (n - staged0[k]) / run.steps
+                             for k, n in ps.STAGED.items()})
+        if ref is None:
+            ref = steps
+        del run
+    worst, equal = 0.0, True
+    for (la, ga), (lb, gb) in zip(ref, steps):
+        equal &= la == lb
+        for n, a in ga.items():
+            equal &= bool(torch.equal(a, gb[n]))
+            worst = max(worst, float((a - gb[n]).abs().max()))
+    ps.destroy_model_parallel()
+    return dict(out, bit_equal=equal, max_abs_diff=worst)
+
+
 def staged_p2p_worker(rank: int, world_size: int, device: str = "cuda"):
     """``parallel_state.p2p`` of CUDA tensors over gloo (two ranks, each
     sending to the other) against the same exchange of host tensors: the

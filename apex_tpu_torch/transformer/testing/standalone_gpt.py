@@ -98,16 +98,18 @@ class GPTPipelineTraining:
     stacked on a leading V dim (JAX's ``run_gpt`` passes no chunks; this
     is the ``forward_backward_with_pre_post(num_model_chunks=V)`` route).
     ``zero_bubble`` trains through ``forward_backward_zero_bubble_with_
-    pre_post`` (the B/W split) instead of 1F1B.
+    pre_post`` (the B/W split) instead of 1F1B. ``remat`` is the
+    schedules' (JAX's default, True: each stage forward recomputed in its
+    backward).
     The weights are drawn from ``--seed`` as ``GPTModel``'s are, chunk v
     of pp rank p (global stage ``v pp + p``) from its own seed, and the
     head at JAX's std (``build_gpt_pipeline``'s ``init_post``)."""
 
     def __init__(self, args, device="cuda", num_model_chunks: int = 1,
-                 zero_bubble: bool = False):
+                 zero_bubble: bool = False, remat: bool = True):
         if zero_bubble and num_model_chunks > 1:
             raise ValueError("zero_bubble has no interleaved variant")
-        self.zero_bubble = zero_bubble
+        self.zero_bubble, self.remat = zero_bubble, remat
         self.device = device = resolve_device(device)
         self.tp = tp = args.tensor_model_parallel_size
         self.pp = pp = args.pipeline_model_parallel_size
@@ -183,7 +185,7 @@ class GPTPipelineTraining:
         sequence parallelism, dp mean), and with ``return_grads`` the
         step's synced gradients by flat name too."""
         parts, cfg = self.parts, self.config
-        kw = dict(axis_name="pp",
+        kw = dict(axis_name="pp", remat=self.remat,
                   grad_sync_fn=self._sync if self.dp > 1 else None,
                   tensor_shape=self.tensor_shape, dtype=cfg.compute_dtype)
         if self.zero_bubble:

@@ -204,7 +204,29 @@ swallowed:
 19. one step of ``fused_adam``, ``fused_lamb``, ``fused_novograd``,
    ``fused_adagrad`` and ``fused_adam_swa`` over BERT-345M's parameters:
    ms and launches, recorded for a later performance issue;
-20. prints the ``kernels`` line (all nine kernels; ``launches`` is the
+20. recompute: GPT-2 small (12 x 768, vocab 50257) at
+   ``recompute_granularity`` None, "selective" and "full" from one seed,
+   1 + 3 steps of 2 micro-batches of 8 x 1024 through ``fused_adam``:
+   step ms, peak memory, what a forward leaves for its backward, launches
+   a step; losses and parameters bit-equal to None's (else 1e-6 relative
+   in norm); then hidden and attention dropout 0.1, 2 steps each:
+   gradients, losses and the generators' states equal to None's;
+21. MoE: GPT-2 small with 8 experts a layer (top-2, capacity factor
+   1.25), 8 x 1024 tokens, 1 + 5 steps of the loss plus
+   ``total_moe_aux_loss``: tokens/s, peak memory, each layer's dropped
+   share; at depth 2 in fp32 the card against the CPU; then at depth 2
+   (cut from 12) with the experts over dp = 4 ranks of this card over
+   gloo, fp32, each rank against ep = 1 on its tokens, and the
+   all-to-alls staged a rank;
+22. FP8: ``quantize`` card against CPU bit-equal at GPT-2's MLP shapes,
+   ``fp8_dense`` card against CPU, the QDQ dense's, a bf16 matmul's and
+   ``torch._scaled_mm``'s times on the same operands (the last a library
+   row, not on the path), and the FP8 example's 60 steps;
+23. the pipeline at pp = 2 x tp = 2 with SP (1F1B), ``remat`` True
+   against False from the same weights, fp32 (bit-equal) and bf16: peak
+   memory a rank, launches and staged collectives a step; the pipelined
+   phases 13 and 14 run at JAX's default, ``remat=True``;
+24. prints the ``kernels`` line (all nine kernels; ``launches`` is the
    count of the kernel's first path below that runs it, and
    ``launches_by_path`` has every path's), then as the last line
    ``{"ok": true, "device": {...}}``.
@@ -223,7 +245,11 @@ bubble`` (likewise), and ``llama_cp_ring``, ``llama_cp_ulysses`` and
 ``llama_cp_decode`` (TinyLlama at cp = 4; each job's counts start at 0
 when its model is built and are read before any cp = 1 reference runs,
 and rank 0 reports them), and ``amp_imagenet``, ``amp_dcgan`` and
-``amp_mlp`` (the three amp examples; ResNet-50 runs none of the nine).
+``amp_mlp`` (the three amp examples; ResNet-50 runs none of the nine),
+``gpt_recompute_none``, ``_selective``, ``_full`` and ``_dropout``,
+``gpt_moe``, ``gpt_moe_ep`` (rank 0), ``fp8`` (none of the nine) and
+``gpt_pipeline_no_remat`` (rank 0 of the bf16 run). Every path's kernels
+must have launched.
 """
 
 import gc
@@ -346,6 +372,31 @@ PATH_KERNELS = {
     "amp_imagenet": (),
     "amp_dcgan": ("adam_update",),
     "amp_mlp": ("layer_norm_fwd", "adam_update", "sumsq_flat"),
+    # GPT-2 small trained at each recompute granularity: "selective"
+    # reruns #5 (and the QKV/output products) in the backward, "full" #1
+    # and #5 too; with dropout 0.1 the attention takes CoreAttention
+    "gpt_recompute_none": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                           "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
+    "gpt_recompute_selective": ("layer_norm_fwd", "layer_norm_bwd",
+                                "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                "adam_update"),
+    "gpt_recompute_full": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                           "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
+    "gpt_recompute_dropout": ("layer_norm_fwd", "layer_norm_bwd",
+                              "adam_update"),
+    # GPT-2 small with 8 experts a layer; at ep = 4 over gloo (rank 0, one
+    # forward and backward, no optimizer)
+    "gpt_moe": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
+    "gpt_moe_ep": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                   "flash_bwd_dq", "flash_bwd_dkv"),
+    # the QDQ fp8_dense and its example run none of the nine (JAX's run no
+    # Pallas kernel either)
+    "fp8": (),
+    # pp = 2 x tp = 2 at remat=False (rank 0, the bf16 run)
+    "gpt_pipeline_no_remat": ("layer_norm_fwd", "layer_norm_bwd",
+                              "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                              "adam_update"),
 }
 FORWARD_KERNELS = PATH_KERNELS["serving"]
 KERNEL_META = {  # name: (source, TPU kernel it replaces)
@@ -3754,6 +3805,502 @@ def amp_optimizer_timings(smi):
         f"{len(params)} tensors, fp32 ({smi}): " + json.dumps(rows))
     return rows
 
+# -- recompute, MoE and FP8 ----------------------------------------------------
+
+RECOMPUTE = dict(micro_batch=8, seq_len=1024, num_micro=2, warmup=1, steps=3,
+                 lr=3e-4, weight_decay=0.01)
+GRANULARITIES = (None, "selective", "full")
+
+
+def _recompute_run(granularity, dropout, steps, num_micro, keep_grads=False):
+    """GPT-2 small at ``granularity`` (hidden and attention dropout
+    ``dropout``) trained ``steps`` steps of ``num_micro`` micro-batches
+    of 8 x 1024 seeded random tokens through ``fused_adam``, from seed 0.
+    Returns the losses, each step's ms, the peak memory and launch counts
+    of the steps after the first, the first step's gradients (with
+    ``keep_grads``) and the final parameters (both on the host, so that
+    no run's peak counts another's), and the dropout generators'
+    states."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.models import GPTModel, gpt2_small_config
+    from apex_tpu_torch.models.gpt import gpt_loss_fn
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.transformer.layer import ShardAwareDropout
+
+    cfg = gpt2_small_config(recompute_granularity=granularity,
+                            hidden_dropout=dropout, attention_dropout=dropout)
+    model = GPTModel(cfg, device="cuda", seed=SEED).train()
+    params = dict(model.named_parameters())
+    tx = fused_adam(lr=RECOMPUTE["lr"],
+                    weight_decay=RECOMPUTE["weight_decay"])
+    state = tx.init(params)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    mb, seq = RECOMPUTE["micro_batch"], RECOMPUTE["seq_len"]
+    tokens = torch.randint(0, cfg.vocab_size, (steps, num_micro, mb, seq),
+                           generator=gen).cuda()
+    losses, step_ms, first_grads, forward_gb = [], [], None, None
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for p in params.values():
+            p.grad = None
+        total = 0.0
+        for m in range(num_micro):
+            toks = tokens[i, m]
+            loss = gpt_loss_fn(model(toks, labels=torch.roll(toks, -1, 1)))
+            if i == 1 and m == 0:  # what the forward keeps for the backward
+                forward_gb = (torch.cuda.memory_allocated() / 1e9,
+                              torch.cuda.max_memory_allocated() / 1e9)
+            (loss / num_micro).backward()
+            total = total + loss.detach() / num_micro
+        grads = {n: p.grad for n, p in params.items()}
+        if keep_grads and i == 0:  # on the host: the card's peak is this run's
+            first_grads = {n: g.cpu() for n, g in grads.items()}
+        updates, state = tx.update(grads, state, params)
+        with torch.no_grad():
+            for n, p in params.items():
+                p.add_(updates[n])
+        losses.append(float(total))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _kernels.launch_counts()
+    gens = []
+    for m in model.modules():
+        if isinstance(m, ShardAwareDropout) and m.generator is not None:
+            gens.append(m.generator.get_state())
+    out = dict(losses=losses, step_ms=step_ms,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               mem_gb_after_forward=forward_gb[0],
+               peak_mem_gb_in_forward=forward_gb[1],
+               launches=launches,
+               launches_per_step={k: n / (steps - 1)
+                                  for k, n in launches.items()},
+               first_grads=first_grads,
+               params={n: p.detach().cpu() for n, p in params.items()},
+               generator_states=gens)
+    del model, state, params
+    return out
+
+
+def _compare_runs(a, b):
+    """(bit-equal?, the largest relative error in norm) over the first
+    step's gradients (when kept) and the final parameters."""
+    worst, equal = 0.0, True
+    pairs = [(a["params"], b["params"])]
+    if a["first_grads"] is not None:
+        pairs.append((a["first_grads"], b["first_grads"]))
+    for x, y in pairs:
+        for n, t in x.items():
+            equal &= bool(torch.equal(t, y[n]))
+            worst = max(worst, float((t - y[n]).float().norm()
+                                     / max(float(y[n].float().norm()),
+                                           1e-30)))
+    return equal, worst
+
+
+def gpt_recompute_phase(smi):
+    """GPT-2 small (12 x 768, vocab 50257) at ``recompute_granularity``
+    None, "selective" and "full" from one seed: 1 warm-up and 3 timed
+    steps of 2 micro-batches of 8 x 1024 through ``fused_adam`` (#8):
+    step ms, peak memory, what the first timed forward leaves allocated
+    for its backward, and launches per step; the losses and the
+    parameters after every step bit-equal to None's (else held at 1e-6
+    relative in norm). Then hidden and attention dropout 0.1 (the
+    CoreAttention path), 2 steps of one micro-batch at each granularity:
+    gradients, losses (the second step's masks) and the generators'
+    states after the steps equal to None's."""
+    torch.cuda.empty_cache()
+    runs, report = {}, {"gpu": smi, "model": "gpt2-small 12x768 vocab "
+                        "50257 (random weights, bf16 compute, fp32 params)",
+                        "micro_batch": RECOMPUTE["micro_batch"],
+                        "seq_len": RECOMPUTE["seq_len"],
+                        "num_micro": RECOMPUTE["num_micro"]}
+    steps = RECOMPUTE["warmup"] + RECOMPUTE["steps"]
+    for g in GRANULARITIES:
+        runs[g] = _recompute_run(g, 0.0, steps, RECOMPUTE["num_micro"],
+                                 keep_grads=True)
+        torch.cuda.empty_cache()
+    paths = {}
+    tokens = RECOMPUTE["micro_batch"] * RECOMPUTE["seq_len"] * \
+        RECOMPUTE["num_micro"]
+    for g, out in runs.items():
+        name = f"gpt_recompute_{g or 'none'}"
+        paths[name] = out["launches"]
+        timed = out["step_ms"][1:]
+        row = {"losses": out["losses"], "step_ms": out["step_ms"],
+               "step_ms_mean": statistics.mean(timed),
+               "tokens_per_s": tokens / statistics.mean(timed) * 1e3,
+               "peak_mem_gb": out["peak_mem_gb"],
+               "mem_gb_after_forward": out["mem_gb_after_forward"],
+               "peak_mem_gb_in_forward": out["peak_mem_gb_in_forward"],
+               "launches_per_step": {k: v for k, v in
+                                     out["launches_per_step"].items() if v}}
+        if g is not None:
+            equal, worst = _compare_runs(out, runs[None])
+            row.update(bit_equal_to_none=equal, rel_in_norm_to_none=worst,
+                       losses_equal=out["losses"] == runs[None]["losses"])
+            if not equal and worst > 1e-6:
+                raise AssertionError(f"recompute {g}: parameters or "
+                                     f"gradients {worst} from None's")
+        for k in PATH_KERNELS[name]:
+            if out["launches"][k] == 0:
+                raise AssertionError(f"{name}: {k} not launched")
+        report[name] = row
+        log(f"{name} ({smi}): " + json.dumps(row))
+    del runs
+    torch.cuda.empty_cache()
+    drop = {}
+    for g in GRANULARITIES:
+        drop[g] = _recompute_run(g, 0.1, 2, 1, keep_grads=True)
+        torch.cuda.empty_cache()
+    paths["gpt_recompute_dropout"] = drop["full"]["launches"]
+    for g in ("selective", "full"):
+        equal, worst = _compare_runs(drop[g], drop[None])
+        same_states = all(torch.equal(a, b) for a, b in zip(
+            drop[g]["generator_states"], drop[None]["generator_states"]))
+        row = {"losses": drop[g]["losses"],
+               "losses_none": drop[None]["losses"],
+               "bit_equal_to_none": equal, "rel_in_norm_to_none": worst,
+               "generator_states_equal": same_states,
+               "peak_mem_gb": drop[g]["peak_mem_gb"],
+               "peak_mem_gb_none": drop[None]["peak_mem_gb"],
+               "mem_gb_after_forward": drop[g]["mem_gb_after_forward"],
+               "mem_gb_after_forward_none":
+                   drop[None]["mem_gb_after_forward"]}
+        log(f"gpt_recompute dropout 0.1 {g} against None: "
+            + json.dumps(row))
+        if not (same_states and drop[g]["losses"] == drop[None]["losses"]
+                and (equal or worst <= 1e-6)):
+            raise AssertionError(f"dropout recompute {g}: {row}")
+        report[f"dropout_{g}"] = row
+    for k in PATH_KERNELS["gpt_recompute_dropout"]:
+        if paths["gpt_recompute_dropout"][k] == 0:
+            raise AssertionError(f"gpt_recompute_dropout: {k} not launched")
+    del drop
+    torch.cuda.empty_cache()
+    return paths, report
+
+
+MOE = dict(num_moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25)
+MOE_TRAIN = dict(micro_batch=8, seq_len=1024, warmup=1, steps=5, lr=3e-4)
+
+
+def _moe_step(model, cfg, tokens):
+    from apex_tpu_torch.models.gpt import gpt_loss_fn
+    from apex_tpu_torch.transformer.moe import total_moe_aux_loss
+
+    loss = gpt_loss_fn(model(tokens, labels=torch.roll(tokens, -1, 1)))
+    aux = total_moe_aux_loss(model, cfg)
+    (loss + aux).backward()
+    return loss.detach(), aux.detach()
+
+
+def gpt_moe_phase(smi):
+    """GPT-2 small with 8 experts a layer (top-2, capacity factor 1.25),
+    micro-batch 8 x 1024, 1 + 5 steps of the loss plus
+    ``total_moe_aux_loss`` through ``fused_adam``: tokens/s, peak memory,
+    each layer's share of dropped assignments; then at depth 2, fp32, 2 x
+    256 tokens, the card against the CPU's plain path from the same
+    weights: the loss and aux rtol 1e-5, each layer's dropped share
+    equal, every gradient 1e-4 relative in norm."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.models import GPTModel, gpt2_small_config
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.transformer.moe import MoEMLP
+
+    torch.cuda.empty_cache()
+    cfg = gpt2_small_config(**MOE)
+    model = GPTModel(cfg, device="cuda", seed=SEED)
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    tx = fused_adam(lr=MOE_TRAIN["lr"], weight_decay=0.01)
+    state = tx.init(params)
+    mb, seq = MOE_TRAIN["micro_batch"], MOE_TRAIN["seq_len"]
+    steps = MOE_TRAIN["warmup"] + MOE_TRAIN["steps"]
+    gen = torch.Generator().manual_seed(SEED + 2)
+    tokens = torch.randint(0, cfg.vocab_size, (steps, mb, seq),
+                           generator=gen).cuda()
+    losses, auxes, step_ms = [], [], []
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for p in params.values():
+            p.grad = None
+        loss, aux = _moe_step(model, cfg, tokens[i])
+        updates, state = tx.update({n: p.grad for n, p in params.items()},
+                                   state, params)
+        with torch.no_grad():
+            for n, p in params.items():
+                p.add_(updates[n])
+        losses.append(float(loss))
+        auxes.append(float(aux))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _kernels.launch_counts()
+    dropped = [float(m.dropped_share) for m in model.modules()
+               if isinstance(m, MoEMLP)]
+    timed = step_ms[1:]
+    if not all(math.isfinite(x) for x in losses + auxes):
+        raise AssertionError(f"gpt_moe losses {losses} aux {auxes}")
+    for k in PATH_KERNELS["gpt_moe"]:
+        if launches[k] == 0:
+            raise AssertionError(f"gpt_moe: {k} not launched")
+    report = {
+        "gpu": smi, "model": "gpt2-small 12x768 vocab 50257, 8 experts "
+        "top-2 cf 1.25 a layer (random weights, bf16 compute, fp32 params)",
+        "parameters": n_params, "micro_batch": mb, "seq_len": seq,
+        "steps": steps, "losses": losses, "aux_losses": auxes,
+        "step_ms": step_ms, "step_ms_mean": statistics.mean(timed),
+        "tokens_per_s": mb * seq / statistics.mean(timed) * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "dropped_share_by_layer_last_step": dropped,
+        "launches_per_step": {k: n / (steps - 1)
+                              for k, n in launches.items() if n}}
+    log(f"gpt_moe ({smi}): " + json.dumps(report))
+    del model, state, params, tokens
+    torch.cuda.empty_cache()
+
+    small = gpt2_small_config(num_layers=2, compute_dtype=torch.float32,
+                              **MOE)
+    toks = torch.randint(0, small.vocab_size, (2, 256),
+                         generator=torch.Generator().manual_seed(SEED + 3))
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        m = GPTModel(small, device=dev, seed=SEED)
+        if dev == "cpu":
+            m.load_state_dict({n: t.cpu() for n, t in
+                               sides["cuda"]["state"].items()})
+        loss, aux = _moe_step(m, small, toks.to(dev))
+        sides[dev] = dict(
+            state={n: t.detach().clone() for n, t in m.state_dict().items()},
+            loss=float(loss), aux=float(aux),
+            dropped=[float(x.dropped_share) for x in m.modules()
+                     if isinstance(x, MoEMLP)],
+            grads={n: p.grad.detach().cpu() for n, p in
+                   m.named_parameters()})
+    card, cpu = sides["cuda"], sides["cpu"]
+    worst = max(float((g - cpu["grads"][n]).norm()
+                      / max(float(cpu["grads"][n].norm()), 1e-30))
+                for n, g in card["grads"].items())
+    result = {"loss_card": card["loss"], "loss_cpu": cpu["loss"],
+              "aux_card": card["aux"], "aux_cpu": cpu["aux"],
+              "dropped_card": card["dropped"], "dropped_cpu": cpu["dropped"],
+              "grad_rel_in_norm_worst": worst}
+    log("gpt_moe card vs plain (2 x 768, 8 experts top-2, fp32, 2 x 256 "
+        "tokens; loss and aux 1e-5, dropped shares equal, gradients 1e-4 "
+        "relative in norm): " + json.dumps(result))
+    if (abs(card["loss"] - cpu["loss"]) > 1e-5 * abs(cpu["loss"])
+            or abs(card["aux"] - cpu["aux"]) > 1e-5 * abs(cpu["aux"])
+            or card["dropped"] != cpu["dropped"] or worst > 1e-4):
+        raise AssertionError(f"gpt_moe card vs plain: {result}")
+    report["card_vs_plain"] = result
+    del sides
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+MOE_EP = dict(num_layers=2, hidden_size=768, num_attention_heads=12,
+              vocab_size=50257, max_position_embeddings=1024,
+              hidden_dropout=0.0, attention_dropout=0.0,
+              compute_dtype=torch.float32, **MOE)
+
+
+def gpt_moe_ep_phase(smi):
+    """GPT-2 small's width at depth 2 (cut from 12: four processes share
+    the card and every all-to-all is staged through the host) with 8
+    experts split over dp = 4 ranks of this card over gloo (2 a rank),
+    fp32, 4 x 1024 tokens a rank: one forward and backward, each rank
+    held to ep = 1 with all 8 experts on its own tokens (the loss and aux
+    1e-5, the final hidden states 1e-5 and every gradient 1e-4 relative
+    in norm; an expert's summed over the ranks, as the all-to-all's
+    backward sums it); the all-to-alls and bytes staged a rank."""
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        spawn,
+    )
+    from apex_tpu_torch.transformer.testing.recompute_workers import (
+        moe_gpt_ep_worker,
+    )
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(moe_gpt_ep_worker, GPT_PARALLEL_RANKS,
+                  args=(MOE_EP, 4, 1024, "cuda"), timeout=600.0)
+    wall = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        if (abs(out["loss_ep"] - out["loss_one"]) > 1e-5 * out["loss_one"]
+                or abs(out["aux_ep"] - out["aux_one"]) > 1e-5 * out["aux_one"]
+                or out["hidden_rel"] > 1e-5
+                or out["grad_rel_worst"][1] > 1e-4
+                or out["staged_ep"]["collectives"] == 0):
+            raise AssertionError(f"gpt_moe_ep rank {r}: {out}")
+        for k in PATH_KERNELS["gpt_moe_ep"]:
+            if out["launches_ep"][k] == 0:
+                raise AssertionError(f"gpt_moe_ep rank {r}: {k} not "
+                                     "launched")
+    report = {"gpu": smi, "transport": GLOO_TRANSPORT, "wall_s": wall,
+              "ranks": [{k: v for k, v in out.items() if k != "launches_ep"}
+                        for out in ranks]}
+    log("gpt_moe_ep (2 x 768, 8 experts over dp 4, fp32, 4 x 1024 tokens a "
+        "rank; ep 4 against ep 1 on each rank's tokens): "
+        + json.dumps(report))
+    return ranks[0]["launches_ep"], report
+
+
+FP8_SHAPES = dict(x=(8192, 768), w=(768, 3072))
+# card against CPU, relative in norm: the output, fp32 products summed in
+# another order; the gradients pass the e4m3 cast, where a product that
+# rounds otherwise lands a few elements across an e4m3 rounding midpoint,
+# each one e4m3 step (up to 2^-3 relative) apart
+FP8_TOL = {"y": 1e-5, "grad_x": 1e-3, "grad_w": 1e-3}
+
+
+def fp8_phase(smi):
+    """``amp.fp8`` on the card at GPT-2's MLP shapes (x 8192 x 768, w 768 x
+    3072): ``quantize`` bit-equal to the CPU's in both formats; the QDQ
+    ``fp8_dense`` (fp32 compute) forward, returned states and gradients
+    against the CPU's (states equal, the rest ``FP8_TOL`` relative in
+    norm);
+    the times of the QDQ dense (fp32 and bf16 compute), a bf16
+    ``torch.matmul`` and ``torch._scaled_mm`` on the same fp8 operands
+    (timed only: a library row, not on the path); then the FP8 example's
+    60 steps on the card: the loss falls, its qerr."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.amp import fp8
+    from apex_tpu_torch.examples.fp8 import train_fp8_mlp
+
+    _kernels.reset_launch_counts()
+    gen = torch.Generator().manual_seed(SEED + 4)
+    x = torch.randn(*FP8_SHAPES["x"], generator=gen) * 3.0
+    w = torch.randn(*FP8_SHAPES["w"], generator=gen) / math.sqrt(768)
+    report = {"gpu": smi, "shapes": FP8_SHAPES}
+    for fmt in ("e4m3", "e5m2"):
+        for name, t in (("x", x), ("w", w)):
+            scale = torch.tensor(fp8.FP8_MAX[fmt]) / t.abs().max()
+            card = fp8.quantize(t.cuda(), scale.cuda(), fmt)
+            cpu = fp8.quantize(t, scale, fmt)
+            if not torch.equal(card.view(torch.uint8).cpu(),
+                               cpu.view(torch.uint8)):
+                raise AssertionError(f"fp8 quantize {fmt} {name}: card and "
+                                     "CPU bits differ")
+    report["quantize_bit_equal"] = True
+    states = {}
+    for dev in ("cuda", "cpu"):
+        sx = fp8.update_fp8_state(fp8.init_fp8_state(8, dev),
+                                  float(x.abs().max()))
+        sw = fp8.update_fp8_state(fp8.init_fp8_state(8, dev),
+                                  float(w.abs().max()))
+        xt = x.to(dev, copy=True).requires_grad_()
+        wt = w.to(dev, copy=True).requires_grad_()
+        y, (nsx, nsw) = fp8.fp8_dense(xt, wt, sx, sw)
+        dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+            SEED + 5)).to(dev)
+        gx, gw = torch.autograd.grad(y, [xt, wt], dy)
+        states[dev] = [t.detach().cpu() for t in (y, gx, gw)] + [
+            nsx.amax_history.cpu(), nsx.scale.cpu(), nsw.scale.cpu()]
+    errs = {}
+    for i, name in enumerate(("y", "grad_x", "grad_w")):
+        a, b = states["cuda"][i], states["cpu"][i]
+        errs[name] = float((a - b).norm() / b.norm())
+    if any(errs[k] > FP8_TOL[k] for k in errs) or not all(
+            torch.equal(a, b) for a, b in zip(states["cuda"][3:],
+                                               states["cpu"][3:])):
+        raise AssertionError(f"fp8_dense card vs CPU: {errs}")
+    report["fp8_dense_card_vs_cpu_rel_in_norm"] = errs
+
+    xc, wc = x.cuda(), w.cuda()
+    sx = fp8.update_fp8_state(fp8.init_fp8_state(8, "cuda"),
+                              float(x.abs().max()))
+    sw = fp8.update_fp8_state(fp8.init_fp8_state(8, "cuda"),
+                              float(w.abs().max()))
+    qx, qw = fp8.quantize(xc, sx.scale), fp8.quantize(wc, sw.scale)
+    qw_cols = qw.t().contiguous().t()  # column-major, as _scaled_mm wants
+    xb, wb = xc.bfloat16(), wc.bfloat16()
+    inv_x, inv_w = 1.0 / sx.scale, 1.0 / sw.scale
+    m, k = FP8_SHAPES["x"]
+    n = FP8_SHAPES["w"][1]
+    flops = 2 * m * k * n
+    timings = {
+        "qdq_dense_fp32_ms": time_ms(lambda: fp8.fp8_dense(xc, wc, sx, sw)),
+        "qdq_dense_bf16_ms": time_ms(lambda: fp8.fp8_dense(
+            xc, wc, sx, sw, compute_dtype=torch.bfloat16)),
+        "matmul_bf16_ms": time_ms(lambda: torch.matmul(xb, wb)),
+        "scaled_mm_fp8_ms": time_ms(lambda: torch._scaled_mm(
+            qx, qw_cols, scale_a=inv_x, scale_b=inv_w,
+            out_dtype=torch.bfloat16)),
+        "bound_bf16_ms": bound((m * k + k * n + m * n) * 2, flops,
+                               BF16_FLOPS)[0],
+        "bound_fp8_ms": bound(m * k + k * n + m * n * 2, flops,
+                              2 * BF16_FLOPS)[0]}
+    report["timings"] = timings
+    lines = []
+    records = train_fp8_mlp.train(train_fp8_mlp.parse_args([]),
+                                  log=lines.append)
+    report["example"] = {
+        "demo": lines[0], "steps": len(records),
+        "loss_first": records[0]["loss"], "loss_last": records[-1]["loss"],
+        "qerr_first": records[0]["qerr"], "qerr_last": records[-1]["qerr"],
+        "qerr_max": max(r["qerr"] for r in records)}
+    log(f"fp8 ({smi}): " + json.dumps(report))
+    return _kernels.launch_counts(), report
+
+
+PIPELINE_REMAT_ARGV = tuple(a for a in GPT_PIPELINE_ARGV if a != "--bf16") + (
+    "--pipeline-model-parallel-size", "2", "--tensor-model-parallel-size",
+    "2", "--sequence-parallel", "--train-iters", "2")
+
+
+def gpt_pipeline_remat_phase(smi):
+    """GPT-2 small at pp = 2 x tp = 2 with SP (1F1B, 4 ranks over gloo),
+    ``remat`` True and then False from the same weights, 2 steps each, in
+    fp32 (every loss and gradient bit-equal) and in bf16 (the memory of
+    the path's own precision): each run's peak memory a rank, launches
+    and staged bytes a step."""
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        spawn,
+    )
+    from apex_tpu_torch.transformer.testing.recompute_workers import (
+        jobs_worker,
+    )
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(jobs_worker, GPT_PARALLEL_RANKS, args=([
+        ("remat_worker", (PIPELINE_REMAT_ARGV, "cuda")),
+        ("remat_worker", (PIPELINE_REMAT_ARGV + ("--bf16",), "cuda"))],),
+        timeout=900.0)
+    wall = time.perf_counter() - t0
+    report = {"gpu": smi, "transport": GLOO_TRANSPORT, "wall_s": wall}
+    for i, precision in enumerate(("fp32", "bf16")):
+        outs = [r[i] for r in ranks]
+        if precision == "fp32" and not all(o["bit_equal"] for o in outs):
+            raise AssertionError("gpt_pipeline remat True vs False at fp32: "
+                                 + json.dumps([o["max_abs_diff"]
+                                               for o in outs]))
+        report[precision] = {
+            "bit_equal_by_rank": [o["bit_equal"] for o in outs],
+            "max_abs_diff_by_rank": [o["max_abs_diff"] for o in outs],
+            **{f"remat_{flag}": {
+                "peak_mem_gb_by_rank": [o[f"remat_{flag}"]["peak_mem_gb"]
+                                        for o in outs],
+                "losses": outs[0][f"remat_{flag}"]["losses"],
+                "launches_per_step_rank0":
+                    outs[0][f"remat_{flag}"]["launches_per_step"],
+                "launches_per_step_last_stage":
+                    outs[-1][f"remat_{flag}"]["launches_per_step"],
+                "staged_per_step_rank0":
+                    outs[0][f"remat_{flag}"]["staged_per_step"]}
+               for flag in (True, False)}}
+    log("gpt_pipeline remat True against False (pp 2 x tp 2 sp, 12 x 768, "
+        "4 x 1024, M = 4; fp32 bit-equal): " + json.dumps(report))
+    return ranks[0][1]["remat_False"]["launches"], report
+
+
 def log_memory(after):
     """What stays allocated on the card after a phase (a later phase's
     peak memory counts it), and the seconds since the script started."""
@@ -3819,9 +4366,23 @@ def main():
     log_memory("amp_parity")
     amp_optimizer_timings(smi)
     log_memory("amp_optimizer_timings")
+    recompute, _ = gpt_recompute_phase(smi)
+    paths.update(recompute)
+    log_memory("gpt_recompute")
+    paths["gpt_moe"], _ = gpt_moe_phase(smi)
+    log_memory("gpt_moe")
+    paths["gpt_moe_ep"], _ = gpt_moe_ep_phase(smi)
+    log_memory("gpt_moe_ep")
+    paths["fp8"], _ = fp8_phase(smi)
+    log_memory("fp8")
+    paths["gpt_pipeline_no_remat"], _ = gpt_pipeline_remat_phase(smi)
+    log_memory("gpt_pipeline_remat")
     for name, counts in paths.items():
         log(f"launches {name}: " + json.dumps(
             {k: counts[k] for k in PATH_KERNELS[name]}))
+        missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"path {name}: {missing} not launched")
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

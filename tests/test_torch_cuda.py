@@ -20,7 +20,11 @@ partial sums of a few thousand terms each). Every kernel's repeat call
 on the same inputs is bit-equal (fixed summation orders, no atomics).
 The collectives and the point-to-point messages of CUDA tensors under
 gloo, staged through host memory, equal the same operations on host
-tensors bit for bit.
+tensors bit for bit. Recompute with dropout on the card gives no
+recompute's gradients and generator states bit for bit; ``MoEMLP`` and
+``fp8_dense`` in fp32 on the card agree with the CPU to 1e-5 relative
+in norm (``fp8_dense``'s gradients 1e-3: they pass an e4m3 cast), and
+``quantize`` bit for bit.
 """
 
 import math
@@ -704,3 +708,108 @@ def test_normalization_modules_launch_the_norm_kernels(gen):
     c = _kernels.launch_counts()
     assert c["layer_norm_fwd"] >= 2 and c["layer_norm_bwd"] >= 2
     assert c["rms_norm_fwd"] >= 2 and c["rms_norm_bwd"] >= 2
+
+
+def _dropout_gpt_run(granularity, steps=2):
+    """A small GPT with hidden and attention dropout 0.1 trained two SGD
+    steps on the card at ``granularity``: losses, gradients by step, the
+    dropout generators' states after the steps, and the launch counts."""
+    from apex_tpu_torch.transformer.layer import ShardAwareDropout
+
+    _kernels.reset_launch_counts()
+    cfg = TransformerConfig(num_layers=2, hidden_size=128,
+                            num_attention_heads=2, vocab_size=256,
+                            max_position_embeddings=64, hidden_dropout=0.1,
+                            attention_dropout=0.1,
+                            recompute_granularity=granularity)
+    model = GPTModel(cfg, device="cuda", seed=0).train()
+    toks = torch.randint(0, 256, (2, 64), generator=torch.Generator()
+                         .manual_seed(1)).cuda()
+    losses, grads = [], []
+    for _ in range(steps):
+        for p in model.parameters():
+            p.grad = None
+        loss = gpt_loss_fn(model(toks, labels=torch.roll(toks, -1, 1)))
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+        with torch.no_grad():
+            for p in model.parameters():
+                p.sub_(0.1 * p.grad)
+    states = [m.generator.get_state() for m in model.modules()
+              if isinstance(m, ShardAwareDropout)]
+    return losses, grads, states, _kernels.launch_counts()
+
+
+@pytest.mark.parametrize("granularity", ["selective", "full"])
+def test_recompute_replays_dropout_on_the_card(gen, granularity):
+    """Recompute with dropout 0.1 on the card: the losses, every gradient
+    and the generators' states after two steps equal to no recompute's,
+    bit for bit; "full" runs the LayerNorm forward kernel again in the
+    backward."""
+    ref = _dropout_gpt_run(None)
+    got = _dropout_gpt_run(granularity)
+    assert got[0] == ref[0]
+    for a, b in zip(got[1], ref[1]):
+        assert all(torch.equal(a[n], b[n]) for n in a)
+    assert all(torch.equal(a, b) for a, b in zip(got[2], ref[2]))
+    if granularity == "full":
+        assert got[3]["layer_norm_fwd"] > ref[3]["layer_norm_fwd"]
+
+
+def test_moe_mlp_on_the_card_matches_the_cpu(gen):
+    """``MoEMLP`` (8 experts, top-2) in fp32 on the card against the CPU
+    from the same weights: output, aux loss and every gradient 1e-5
+    relative in norm (fp32 products summed in another order)."""
+    from apex_tpu_torch.transformer.moe import MoEMLP
+
+    cfg = TransformerConfig(num_layers=1, hidden_size=64,
+                            num_attention_heads=2, ffn_hidden_size=256,
+                            compute_dtype=torch.float32)
+    x = torch.randn(512, 64, generator=torch.Generator().manual_seed(2))
+    out, weights = {}, None
+    for dev in ("cpu", "cuda"):
+        mod = MoEMLP(cfg, num_experts=8, top_k=2, expert_axis=None,
+                     device=dev, seed=3)
+        if weights is None:  # the CPU's draw, on both sides
+            weights = mod.state_dict()
+        mod.load_state_dict(weights)
+        xt = x.to(dev, copy=True).requires_grad_()
+        y, aux = mod(xt)
+        (y.square().sum() + 0.01 * aux).backward()
+        out[dev] = [t.detach().cpu() for t in (
+            y, aux, xt.grad, mod.router.grad, mod.w_in.grad, mod.w_out.grad)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).norm() / b.norm()) < 1e-5
+
+
+def test_fp8_dense_on_the_card_matches_the_cpu(gen):
+    """``quantize`` bit-equal on the card and the CPU in both formats;
+    ``fp8_dense`` (fp32 compute) output 1e-5 and gradients 1e-3 relative
+    in norm (the gradient passes the e4m3 cast: a product rounded
+    otherwise can land an element across an e4m3 midpoint, one e4m3 step
+    off), its returned states equal."""
+    from apex_tpu_torch.amp import fp8
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(256, 128, generator=g) * 5
+    w = torch.randn(128, 64, generator=g) / 11
+    for fmt in ("e4m3", "e5m2"):
+        scale = torch.tensor(fp8.FP8_MAX[fmt]) / x.abs().max()
+        assert torch.equal(
+            fp8.quantize(x.cuda(), scale.cuda(), fmt).view(torch.uint8).cpu(),
+            fp8.quantize(x, scale, fmt).view(torch.uint8))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sx = fp8.update_fp8_state(fp8.init_fp8_state(4, dev), 20.0)
+        sw = fp8.update_fp8_state(fp8.init_fp8_state(4, dev), 0.5)
+        xt, wt = x.to(dev).requires_grad_(), w.to(dev).requires_grad_()
+        y, (nsx, nsw) = fp8.fp8_dense(xt, wt, sx, sw)
+        y.square().sum().backward()
+        out[dev] = ([t.detach().cpu() for t in (y, xt.grad, wt.grad)],
+                    [t.cpu() for t in (nsx.amax_history, nsx.scale,
+                                       nsw.amax_history, nsw.scale)])
+    for a, b, tol in zip(out["cuda"][0], out["cpu"][0], (1e-5, 1e-3, 1e-3)):
+        assert float((a - b).norm() / b.norm()) < tol
+    assert all(torch.equal(a, b) for a, b in zip(out["cuda"][1],
+                                                   out["cpu"][1]))

@@ -153,9 +153,16 @@ def test_sample_next_token_greedy_rows_take_argmax():
 
 
 def test_unported_features_raise():
-    # rope is ported (tests/test_torch_llama.py); recompute is not
-    with pytest.raises(NotImplementedError, match="recompute"):
-        GPTModel(TransformerConfig(recompute_granularity="full", **SMALL),
+    # recompute and MoE were refused before they were ported: both now
+    # build and run a forward (their values: test_torch_recompute.py,
+    # test_torch_moe.py); a granularity JAX does not know still raises
+    toks = torch.from_numpy(_tokens(2, 8)).long()
+    for extra in (dict(recompute_granularity="full"),
+                  dict(recompute_granularity="selective"),
+                  dict(num_moe_experts=2)):
+        model = GPTModel(TransformerConfig(**SMALL, **extra), device="cpu")
+        out = model(toks)
+        assert out.shape == (2, 8, 256) and bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError, match="recompute_granularity"):
+        GPTModel(TransformerConfig(recompute_granularity="block", **SMALL),
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        GPTModel(TransformerConfig(num_moe_experts=2, **SMALL), device="cpu")
