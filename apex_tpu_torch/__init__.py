@@ -22,7 +22,10 @@ a sharded cache, ``examples.long_context.train_ring_cp``); and Apex's
 amp front end (``amp``: O0-O3, O1's cast engine, ``AmpOptimizer``;
 ``fp16_utils``; the remaining fused optimizers; the ``mlp``,
 ``fused_dense`` and ``normalization`` modules; ``examples.simple``,
-``examples.imagenet`` and ``examples.dcgan``). All nine
+``examples.imagenet`` and ``examples.dcgan``); and compressed gradient
+collectives with error feedback (``parallel.compress``, in DDP, ZeRO
+Adam and ZeRO LAMB), ZeRO's param remainders, the layer-RMS taps, and
+BERT, KV-cache decode and MoE at tp > 1. All nine
 Pallas kernels of the TPU package
 are rewritten by hand in CUDA C++ for ``sm_90a`` (``csrc/``, built and
 loaded by ``_kernels``).

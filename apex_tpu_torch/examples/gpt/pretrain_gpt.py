@@ -23,12 +23,15 @@ is one rank of a ``--dist-backend`` world (NCCL by default; gloo where
 NCCL cannot run, such as several ranks on one card, moves CUDA tensors
 through host memory) at tensor-parallel size ``--tp``, with sequence
 parallelism unless ``--no-sequence-parallel``, and data-parallel size the
-rest; ``--zero`` shards Adam's state over dp (ZeRO-2). Rank r takes card
+rest; ``--zero`` shards Adam's state over dp (ZeRO-2), and
+``--compression int8|fp8`` (``--compression-block`` elements a scale)
+quantizes the dp gradient sync with error feedback. ``--layer-rms``
+appends each layer's output RMS to the step line. Rank r takes card
 ``LOCAL_RANK`` modulo the cards it sees. Only rank 0 prints; its last
 line is one JSON object with its kernel launch counts of the run, every
 rank's peak device memory, what rank 0 staged through host memory
-(gloo with CUDA tensors) and, under ZeRO, the length of a rank's
-optimizer-state shard. Telemetry, journaling, checkpoints and
+(gloo with CUDA tensors), under ZeRO the length of a rank's
+optimizer-state shard, and rank 0's parameters' element counts. Telemetry, journaling, checkpoints and
 remediation are not ported yet.
 """
 
@@ -73,6 +76,18 @@ def parse_args(argv=None):
     p.add_argument("--zero", action="store_true",
                    help="ZeRO-2 optimizer (distributed_fused_adam): Adam "
                         "moments and the fp32 master sharded 1/dp over dp")
+    p.add_argument("--compression", default="none",
+                   choices=["none", "int8", "fp8"],
+                   help="quantized gradient collectives (parallel."
+                        "compress): the dp gradient sync travels "
+                        "block-scaled int8/fp8 with fp32 scales and an "
+                        "error-feedback residual; found_inf consensus and "
+                        "the master update stay exact")
+    p.add_argument("--compression-block", type=int, default=128,
+                   help="elements per fp32 scale block for --compression")
+    p.add_argument("--layer-rms", action="store_true",
+                   help="collect each layer's output RMS (the step's "
+                        "collect_layer_rms) and print it on the step line")
     p.add_argument("--dist-backend", default="nccl",
                    choices=["nccl", "gloo"],
                    help="torch.distributed backend under "
@@ -110,7 +125,9 @@ def _run(args, device, distributed):
         sequence_parallel=args.sequence_parallel,
         micro_batch=args.micro_batch, global_batch=args.global_batch,
         lr=args.lr, weight_decay=args.weight_decay, seed=args.seed,
-        zero=args.zero)
+        zero=args.zero, compression=args.compression,
+        compression_block=args.compression_block,
+        collect_layer_rms=args.layer_rms)
     training = build_gpt_training(cfg, device=device)
     main_rank = not distributed or dist.get_rank() == 0
     say = print if main_rank else (lambda *a, **k: None)
@@ -136,17 +153,21 @@ def _run(args, device, distributed):
     records = []
     for i in range(args.steps):
         t0 = time.perf_counter()
-        _, loss, verdict, metrics = run_step(i)
+        _, loss, verdict, metrics, *rms = run_step(i)
         sync()
         secs = time.perf_counter() - t0
         rec = dict(step=i, **metrics, tokens_per_s=tokens_per_step / secs,
                    step_ms=secs * 1e3, verdict=verdict_name(verdict))
         records.append(rec)
+        tail = ""
+        if rms:
+            rec["layer_rms"] = rms[0]
+            tail = " layer_rms " + ",".join(f"{v:.6g}" for v in rms[0])
         say(f"step {i:5d} loss {loss:.4f} grad_norm "
             f"{metrics['grad_norm']:.4f} loss_scale "
             f"{metrics['loss_scale']:.1f} tokens_per_s "
             f"{rec['tokens_per_s']:.1f} step_ms {rec['step_ms']:.2f} "
-            f"verdict {rec['verdict']}", flush=True)
+            f"verdict {rec['verdict']}{tail}", flush=True)
     if args.profile_steps > 0:
         from apex_tpu_torch.utils.profiling import profile_device
 
@@ -164,12 +185,15 @@ def _run(args, device, distributed):
             "dp": training.dp, "zero": cfg.zero,
             "sequence_parallel": training.transformer_config
             .sequence_parallel,
-            "backend": args.dist_backend,
+            "backend": args.dist_backend, "compression": args.compression,
             "launch_counts_rank0": _kernels.launch_counts(),
             "peak_mem_gb_by_rank": peaks,
             "staged_through_host_rank0": dict(ps.STAGED),
             "zero_shard_len": (state.opt.master_shard.numel() if cfg.zero
-                               else None)}), flush=True)
+                               else None),
+            "param_numels_rank0": [p.numel()
+                                   for p in state.params.values()]}),
+            flush=True)
     return records
 
 

@@ -9,6 +9,7 @@ from apex_tpu_torch.models.bert import (
 )
 from apex_tpu_torch.models.convert import (
     bert_params_from_jax,
+    bert_tp_params_from_jax,
     fused_adam_state_from_jax,
     gpt_params_from_jax,
     gpt_pipeline_params_from_jax,
@@ -46,7 +47,8 @@ from apex_tpu_torch.models.resnet import (
 __all__ = [
     "BertModel", "Embedding", "GPTModel", "Pooler", "ResNet", "ResNet18",
     "ResNet34", "ResNet50", "ResNet101", "ResNet152", "bert_extended_attention_mask",
-    "bert_params_from_jax", "config_from_hf_llama", "cross_entropy_loss",
+    "bert_params_from_jax", "bert_tp_params_from_jax",
+    "config_from_hf_llama", "cross_entropy_loss",
     "fused_adam_state_from_jax", "generate", "gpt2_small_config",
     "gpt_loss_fn", "gpt_params_from_jax", "gpt_pipeline_params_from_jax",
     "gpt_tp_params_from_jax", "llama_from_hf", "moe_params_from_jax",

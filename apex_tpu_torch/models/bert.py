@@ -21,7 +21,20 @@ the result is cast back to the hidden dtype before the tied logits.
 
 Parameter names are the flax ones (``pooler.Dense_0``,
 ``lm_head_dense``, ``lm_head_norm_scale`` ...), so
-``models.convert.bert_params_from_jax`` carries a JAX tree across. Random
+``models.convert.bert_params_from_jax`` carries a JAX tree across
+(``bert_tp_params_from_jax`` one tp rank's shards).
+
+At tp > 1 the stack, the embedding and the tied LM logits are split over
+tp as GPT's are, and the logits stay vocab-sharded into
+``vocab_parallel_cross_entropy``; the pooler, the binary head and the LM
+head's dense layer and norm are flax ``nn.Dense`` layers, replicated on
+every tp rank. Under sequence parallelism the final hidden states are
+gathered along the sequence before the heads with
+``to_model_parallel=False``, whose backward is a split, not a
+reduce-scatter: two heads read the gathered states, the binary head's
+cotangent is the same on every tp rank while the LM head's partial one
+is summed by the logits' copy-to region, so their sum is replicated and
+a reduce-scatter would count the binary path tp times. Random
 weights come from ``seed`` as ``GPTModel``'s do; the dropout generators
 from the same seed (``transformer.layer.seed_dropout``). JAX's
 ``deterministic`` is ``not self.training``.
@@ -34,18 +47,21 @@ from torch import nn
 from apex_tpu_torch._kernels import resolve_device
 from apex_tpu_torch.models.gpt import Embedding, init_params
 from apex_tpu_torch.ops.layer_norm import layer_norm
-from apex_tpu_torch.parallel import parallel_state as ps
 from apex_tpu_torch.parallel.cross_entropy import vocab_parallel_cross_entropy
-from apex_tpu_torch.parallel.layers import ColumnParallelLinear
+from apex_tpu_torch.parallel.layers import _dot
+from apex_tpu_torch.parallel.mappings import (
+    gather_from_sequence_parallel_region,
+)
 from apex_tpu_torch.transformer.config import TransformerConfig
 from apex_tpu_torch.transformer.enums import AttnMaskType
 from apex_tpu_torch.transformer.layer import (
     ParallelTransformer,
     check_supported,
     seed_dropout,
+    sequence_parallel,
 )
 
-__all__ = ["BertModel", "Pooler", "bert_extended_attention_mask"]
+__all__ = ["BertModel", "Dense", "Pooler", "bert_extended_attention_mask"]
 
 
 def bert_extended_attention_mask(attention_mask):
@@ -56,12 +72,22 @@ def bert_extended_attention_mask(attention_mask):
     return ~ext[:, None, :, :]
 
 
-def _dense(in_features, out_features, config, device):
-    """flax ``nn.Dense`` without a dtype: fp32 params, and an fp32 product
-    of the promoted input (``output_dtype`` fp32)."""
-    return ColumnParallelLinear(in_features, out_features,
-                                params_dtype=config.params_dtype,
-                                output_dtype=torch.float32, device=device)
+class Dense(nn.Module):
+    """flax ``nn.Dense`` without a dtype, the same on every tp rank: a
+    ``kernel`` (in, out) and a ``bias`` in the params dtype, and an fp32
+    product of the promoted input (the parallel linears' product rule)."""
+
+    def __init__(self, in_features, out_features, config, device):
+        super().__init__()
+        dt = config.params_dtype
+        self.kernel = nn.Parameter(torch.empty(in_features, out_features,
+                                               dtype=dt, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_features, dtype=dt,
+                                             device=device))
+
+    def forward(self, x):
+        y = _dot(x, self.kernel, torch.float32)
+        return y + self.bias.to(y.dtype)
 
 
 class Pooler(nn.Module):
@@ -70,7 +96,7 @@ class Pooler(nn.Module):
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
-        self.Dense_0 = _dense(config.hidden_size, config.hidden_size, config,
+        self.Dense_0 = Dense(config.hidden_size, config.hidden_size, config,
                               device)
 
     def forward(self, hidden_states):  # (s, b, h)
@@ -94,8 +120,6 @@ class BertModel(nn.Module):
                  post_process: bool = True, device="cuda", seed: int = 0):
         super().__init__()
         check_supported(config)
-        if ps.get_tensor_model_parallel_world_size() > 1:
-            raise NotImplementedError("BERT at tp > 1 is not ported yet")
         device = resolve_device(device)
         self.config, self.num_tokentypes = config, num_tokentypes
         self.add_binary_head = add_binary_head
@@ -109,14 +133,14 @@ class BertModel(nn.Module):
             attn_mask_type=AttnMaskType.padding, device=device)
         if post_process:
             h = config.hidden_size
-            self.lm_head_dense = _dense(h, h, config, device)
+            self.lm_head_dense = Dense(h, h, config, device)
             self.lm_head_norm_scale = nn.Parameter(
                 torch.ones(h, device=device))
             self.lm_head_norm_bias = nn.Parameter(
                 torch.zeros(h, device=device))
             if add_binary_head:
                 self.pooler = Pooler(config, device)
-                self.binary_head = _dense(h, 2, config, device)
+                self.binary_head = Dense(h, 2, config, device)
         init_params(self, seed)
         seed_dropout(self, seed, device)
 
@@ -142,6 +166,11 @@ class BertModel(nn.Module):
         h = self.transformer(h, key_padding_mask, attention_mask=ext_mask)
         if not self.post_process:
             return h
+        if sequence_parallel(cfg):
+            # the heads need the whole sequence (token 0 lives on tp rank
+            # 0); the backward is a split (module docstring)
+            h = gather_from_sequence_parallel_region(h,
+                                                     to_model_parallel=False)
 
         binary_logits = None
         if self.add_binary_head:

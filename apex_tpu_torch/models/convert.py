@@ -39,6 +39,7 @@ from apex_tpu_torch.amp.scaler import LossScalerState
 from apex_tpu_torch.optimizers.fused_adam import FusedAdamState
 
 __all__ = ["amp_state_from_jax", "bert_params_from_jax",
+           "bert_tp_params_from_jax",
            "dcgan_params_from_jax", "fused_adam_state_from_jax",
            "gpt_params_from_jax", "gpt_pipeline_params_from_jax",
            "gpt_tp_params_from_jax", "mlp_params_from_jax",
@@ -161,6 +162,16 @@ def bert_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     tree: the same path join as :func:`gpt_params_from_jax` (the LM head's
     norm parameters are direct parameters of the model on both sides)."""
     return gpt_params_from_jax(params)
+
+
+def bert_tp_params_from_jax(params: Dict[str, Any], rank: int
+                            ) -> Dict[str, torch.Tensor]:
+    """Port rank ``rank``'s ``BertModel`` state_dict from a JAX BERT params
+    tree built inside ``shard_map`` at tp > 1 (each device holding its own
+    shards under a sharding that claims replication): each leaf from
+    device ``rank``'s buffer, as :func:`gpt_tp_params_from_jax` reads a
+    GPT's; the replicated heads read the same on every device."""
+    return gpt_tp_params_from_jax(params, rank)
 
 
 def resnet_params_from_jax(params: Dict[str, Any],

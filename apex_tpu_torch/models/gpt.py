@@ -17,8 +17,13 @@ At tensor-parallel size tp > 1 (``parallel_state``) the vocabulary, the
 heads and the FFN are split over tp; the logits are the rank's vocab
 shard, and the loss is tp-replicated after the vocab-parallel cross
 entropy's reductions. Under sequence parallelism the embedding's output
-is split along the sequence and gathered again before the head. Serving
-(the KV cache) is at tp = 1 only.
+is split along the sequence and gathered again before the head. The KV
+cache at tp > 1 holds each rank's heads (its KV groups under GQA), and a
+decode step's logits are the rank's vocab shard. Under sequence
+parallelism a cached prefill keeps it, while a decode step skips the
+embedding's sequence split and the head's gather and runs the layers in
+the plain-TP layout (one token cannot be split along the sequence), as
+JAX does.
 
 Under context parallelism (a ``context_parallel_mode`` at cp > 1) the
 tokens are this rank's contiguous chunk of each sequence: the default
@@ -38,6 +43,7 @@ decode step. A position past the table fails at the gather, the bound
 that ``generate`` and the engine check before they run a model.
 """
 
+import contextlib
 import math
 from typing import Optional
 
@@ -50,6 +56,7 @@ from apex_tpu_torch.parallel.cross_entropy import vocab_parallel_cross_entropy
 from apex_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
     VocabParallelEmbedding,
+    sequence_parallel_suspended,
 )
 from apex_tpu_torch.parallel.mappings import (
     gather_from_sequence_parallel_region,
@@ -286,13 +293,13 @@ class GPTModel(nn.Module):
 
     def new_cache(self, batch: int, slots: int) -> KVCache:
         """An empty KV cache for ``batch`` rows of ``slots`` positions (a
-        cp rank's slots at cp > 1: JAX's cache length / cp)."""
-        if ps.get_tensor_model_parallel_world_size() > 1:
-            raise NotImplementedError("serving at tp > 1 is not ported yet")
+        cp rank's slots at cp > 1: JAX's cache length / cp) of this tp
+        rank's KV heads."""
         cfg = self.config
         return KVCache(
             cfg.num_layers, batch,
-            cfg.num_query_groups or cfg.num_attention_heads, slots,
+            (cfg.num_query_groups or cfg.num_attention_heads)
+            // ps.get_tensor_model_parallel_world_size(), slots,
             cfg.kv_channels, cfg.compute_dtype, self.device)
 
     def hidden_states(self, tokens, position_ids=None, key_padding_mask=None,
@@ -319,14 +326,16 @@ class GPTModel(nn.Module):
                 cache.rows_checked = True
             if position_ids is None:
                 position_ids = cache.index[:, None]
-        h = self.embedding(tokens, position_ids)
-        rotary = None
-        if self.rope_cos is not None:
-            if position_ids is None:
-                position_ids = default_positions(
-                    self.config, tokens.shape[1], tokens.device)
-            rotary = self._rotary(position_ids)
-        h = self.transformer(h, key_padding_mask, cache, decode_step, rotary)
+        with _decode_layout(decode_step):
+            h = self.embedding(tokens, position_ids)
+            rotary = None
+            if self.rope_cos is not None:
+                if position_ids is None:
+                    position_ids = default_positions(
+                        self.config, tokens.shape[1], tokens.device)
+                rotary = self._rotary(position_ids)
+            h = self.transformer(h, key_padding_mask, cache, decode_step,
+                                 rotary)
         if cache is not None:
             if decode_step:
                 cache.index += 1
@@ -356,14 +365,22 @@ class GPTModel(nn.Module):
         :meth:`hidden_states` for the cache arguments); with ``labels``
         (b, s), the fp32 per-token losses instead, times ``loss_mask``
         where one is given."""
-        logits = self.logits(self.hidden_states(
-            tokens, position_ids, key_padding_mask, cache, decode_step))
+        with _decode_layout(decode_step):
+            logits = self.logits(self.hidden_states(
+                tokens, position_ids, key_padding_mask, cache, decode_step))
         if labels is None:
             return logits
         losses = vocab_parallel_cross_entropy(logits, labels)
         if loss_mask is not None:
             losses = losses * loss_mask
         return losses
+
+
+def _decode_layout(decode_step: bool):
+    """A decode step runs the plain-TP layout: one token cannot be split
+    along the sequence (JAX replaces ``sequence_parallel`` for it)."""
+    return (sequence_parallel_suspended() if decode_step
+            else contextlib.nullcontext())
 
 
 def gpt_loss_fn(losses, loss_mask=None):

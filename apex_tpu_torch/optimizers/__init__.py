@@ -2,7 +2,8 @@
 ``update`` over dicts of named tensors): fused Adam on the hand-written
 Adam kernel, ZeRO-2 Adam at a data-parallel world of one, which clips
 with the hand-written sum-of-squares kernel, fused LAMB (its norms on
-the sum-of-squares kernel), and, plain torch as in JAX, momentum SGD,
+the sum-of-squares kernel), ZeRO LAMB (its global norm on the same
+kernel), and, plain torch as in JAX, momentum SGD,
 NovoGrad, Adagrad, LARC and Adam with weight averaging;
 ``clip_grad_norm``."""
 
@@ -16,6 +17,11 @@ from apex_tpu_torch.optimizers.distributed_fused_adam import (
     DistributedFusedAdam,
     DistributedFusedAdamState,
     distributed_fused_adam,
+)
+from apex_tpu_torch.optimizers.distributed_fused_lamb import (
+    DistributedFusedLAMB,
+    DistributedFusedLAMBState,
+    distributed_fused_lamb,
 )
 from apex_tpu_torch.optimizers.fused_adagrad import (
     FusedAdagrad,
@@ -56,13 +62,15 @@ from apex_tpu_torch.optimizers.larc import LARC, LARCState, larc, \
 from apex_tpu_torch.optimizers.transform import Transform, chain
 
 __all__ = ["AdamTransform", "DistributedFusedAdam",
-           "DistributedFusedAdamState", "FusedAdagrad", "FusedAdagradState",
+           "DistributedFusedAdamState", "DistributedFusedLAMB",
+           "DistributedFusedLAMBState", "FusedAdagrad", "FusedAdagradState",
            "FusedAdam", "FusedAdamSWA", "FusedAdamSWAState",
            "FusedAdamState", "FusedLAMB", "FusedLAMBState",
            "FusedMixedPrecisionLamb", "FusedNovoGrad", "FusedNovoGradState",
            "FusedSGD", "FusedSGDState", "LARC", "LARCState", "SGDTransform",
            "Transform", "adam_flat", "chain", "clip_grad_norm",
-           "distributed_fused_adam", "fused_adagrad", "fused_adam",
+           "distributed_fused_adam", "distributed_fused_lamb",
+           "fused_adagrad", "fused_adam",
            "fused_adam_swa", "fused_lamb", "fused_novograd", "fused_sgd",
            "l2norm_flat", "larc", "larc_scaling", "sumsq_flat",
            "swa_params"]

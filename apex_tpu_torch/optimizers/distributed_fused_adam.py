@@ -27,9 +27,26 @@ Memory: the Adam math runs out of place over the shard, as JAX writes
 it, but each intermediate is freed as soon as the next one is made, and
 the gradient shard is dropped before the updates are built.
 
-Not ported: ``compression`` and ``store_param_remainders`` raise
-``NotImplementedError``. ``param_gather_buckets`` is accepted and
-ignored: the bucketed gather is bit-identical to the whole-shard one.
+``compression`` (a ``parallel.compress.CompressionConfig``): the flat
+padded gradient goes through ``compress.quantized_psum_scatter``
+instead of the exact reduce-scatter, so the gradients travel in the
+wire dtype with fp32 block scales and the master update stays fp32.
+With its ``error_feedback`` the state's ``ef_residual`` is this rank's
+fp32 residual over the whole padded buffer (``padded_total``
+elements: its error over its contribution to every chunk); otherwise a
+0-d zero.
+
+``store_param_remainders`` (bf16 parameters only): the state keeps the
+low 16 bits of each fp32 master element (an int16 tensor of the bits),
+and the bf16 parameter is the high 16 bits, its truncation, not its
+rounding; the master is rebuilt from the two exactly, as int16 halves of
+one fp32 word (little-endian: low half first), so no integer arithmetic
+on unsigned types is needed. The master shard's state takes half the
+bytes. The updates are fp32, so ``p += update`` lands each bf16
+parameter exactly on the new master's high half.
+
+``param_gather_buckets`` is accepted and ignored: the bucketed gather is
+bit-identical to the whole-shard one (a performance item).
 """
 
 import dataclasses
@@ -44,26 +61,33 @@ from apex_tpu_torch.ops.multi_tensor import (
 )
 from apex_tpu_torch.optimizers._fused_kernels import sumsq_flat
 from apex_tpu_torch.optimizers.fused_adam import AdamTransform, Tensors
+from apex_tpu_torch.parallel import compress
 from apex_tpu_torch.parallel import parallel_state as ps
 
 __all__ = ["DistributedFusedAdam", "DistributedFusedAdamState",
-           "ZeroStateSpecs", "distributed_fused_adam", "zero_state_specs"]
+           "ZeroStateSpecs", "distributed_fused_adam", "master_from_remainder",
+           "split_master", "zero_scatter_with_ef", "zero_state_specs"]
 
 
 class DistributedFusedAdamState(NamedTuple):
     step: torch.Tensor  # 0-d int32, the same on every rank
-    master_shard: torch.Tensor  # fp32 (padded_total / N,): this rank's
+    # fp32 (padded_total / N,): this rank's; with store_param_remainders
+    # the int16 bits of each element's low half
+    master_shard: torch.Tensor
     exp_avg: torch.Tensor
     exp_avg_sq: torch.Tensor
-    # error-feedback residual of the compressed reduce-scatter; a 0-d zero,
-    # as in JAX with compression off
+    # error-feedback residual of the compressed reduce-scatter: fp32
+    # (padded_total,) a rank; a 0-d zero, as in JAX, with compression or
+    # its error feedback off
     ef_residual: torch.Tensor
 
 
 class ZeroStateSpecs(NamedTuple):
     """Where the ZeRO state lives (the counterpart of the JAX
-    ``zero_state_specs``' PartitionSpecs): ``step`` and ``ef_residual``
-    are replicated, and each of ``master_shard``, ``exp_avg`` and
+    ``zero_state_specs``' PartitionSpecs): ``step`` is replicated,
+    ``ef_residual`` is each rank's own (its whole padded buffer) under
+    compression with error feedback and a replicated zero otherwise, and
+    each of ``master_shard``, ``exp_avg`` and
     ``exp_avg_sq`` is data-parallel rank d's slice ``[d * shard_len, (d +
     1) * shard_len)`` of one global flat buffer of ``spec.padded_total``
     elements in the JAX leaf order, zero past ``spec.total``."""
@@ -110,17 +134,77 @@ def zero_init_master_shard(params: Tensors, group):
     return flat[r * shard:(r + 1) * shard].clone(), shard
 
 
-def zero_scatter_grads(grads: Tensors, group, average: bool = True):
+def zero_scatter_grads(grads: Tensors, group, average: bool = True,
+                       compression=None, ef=None):
     """This rank's shard of the group's sum of the ranks' own gradients
     (one fused reduce-scatter of the flat buffer), divided by N with
     ``average``; and the flat spec. A gradient that is already the dp
-    mean would be divided twice: pass each rank's own."""
+    mean would be divided twice: pass each rank's own.
+
+    With ``compression`` the reduce-scatter is
+    ``compress.quantized_psum_scatter`` of the flat buffer plus ``ef``
+    (the fp32 residual at the padded length, where given), and a third
+    value is returned: the new residual (``ef`` itself without one)."""
     n = ps.group_size(group)
     gflat, spec = _padded_flatten(grads, n)
-    gshard = ps.reduce_scatter(gflat, group)
+    new_ef = ef
+    if compression is not None:
+        acc = gflat if ef is None else gflat + ef
+        del gflat
+        gshard, sent = compress.quantized_psum_scatter(
+            acc, group, compression, return_transmitted=True)
+        if ef is not None:
+            new_ef = compress.ef_update(acc, sent)
+        del acc, sent
+    else:
+        gshard = ps.reduce_scatter(gflat, group)
     if average and n > 1:
         gshard = gshard / n
+    if compression is not None:
+        return gshard, spec, new_ef
     return gshard, spec
+
+
+def zero_scatter_with_ef(grads: Tensors, group, average: bool, compression,
+                         ef_residual):
+    """The ZeRO optimizers' shared scatter: always ``(gshard, spec,
+    new_ef)``, ``new_ef`` the state's residual where compression or its
+    error feedback leaves it untouched, so Adam and LAMB agree on it."""
+    if compression is None:
+        gshard, spec = zero_scatter_grads(grads, group, average)
+        return gshard, spec, ef_residual
+    use_ef = getattr(compression, "error_feedback", False)
+    gshard, spec, new_ef = zero_scatter_grads(
+        grads, group, average, compression=compression,
+        ef=ef_residual if use_ef else None)
+    return gshard, spec, ef_residual if new_ef is None else new_ef
+
+
+def zero_init_ef(shard: int, group, compression, device) -> torch.Tensor:
+    """The initial ``ef_residual``: fp32 zeros at the padded length under
+    compression with error feedback, else a 0-d zero."""
+    if compression is not None and getattr(compression, "error_feedback",
+                                           False):
+        return torch.zeros(shard * ps.group_size(group), dtype=torch.float32,
+                           device=device)
+    return torch.zeros((), dtype=torch.float32, device=device)
+
+
+def master_from_remainder(param_bf16: torch.Tensor,
+                          remainder: torch.Tensor) -> torch.Tensor:
+    """The exact fp32 master: the bf16 parameter's bits as the high half
+    and ``remainder``'s (int16) as the low half of each fp32 word."""
+    return torch.stack([remainder, param_bf16.view(torch.int16)],
+                       dim=-1).view(torch.float32).reshape(param_bf16.shape)
+
+
+def split_master(master: torch.Tensor):
+    """fp32 master -> (its high half as bf16, the truncation that is the
+    parameter; its low half's int16 bits, the remainder)."""
+    halves = master.contiguous().view(torch.int16).reshape(
+        master.shape + (2,))
+    return (halves[..., 1].contiguous().view(torch.bfloat16),
+            halves[..., 0].contiguous())
 
 
 def zero_gather_updates(new_master: torch.Tensor, params: Tensors,
@@ -168,17 +252,10 @@ def distributed_fused_adam(
     ``max_grad_norm``: clip the global gradient norm before the Adam
     math, ``min(1, max_grad_norm / (norm + 1e-6))`` (the torch
     convention), the norm from ``sumsq_flat`` on this rank's shard and an
-    all-reduce of the sum. See the module docstring for what raises.
+    all-reduce of the sum. ``compression`` and ``store_param_remainders``:
+    see the module docstring.
     """
     del param_gather_buckets
-    if compression is not None:
-        raise NotImplementedError(
-            "distributed_fused_adam: compressed reduce-scatter is not "
-            "ported yet")
-    if store_param_remainders:
-        raise NotImplementedError(
-            "distributed_fused_adam: store_param_remainders is not ported "
-            "yet")
     beta1, beta2 = betas
     grp = group if group is not None else ps.get_group(axis_name)
     if axis_size is not None and axis_size != ps.group_size(grp):
@@ -187,14 +264,24 @@ def distributed_fused_adam(
 
     @torch.no_grad()
     def init_fn(params: Tensors) -> DistributedFusedAdamState:
-        master, _ = zero_init_master_shard(params, grp)
+        if store_param_remainders:
+            bad = [p.dtype for p in params.values()
+                   if p.dtype != torch.bfloat16]
+            if bad:
+                raise ValueError(
+                    "store_param_remainders requires bfloat16 params (the "
+                    f"bf16 param is the master's high half); got {bad[0]}")
+        master, shard = zero_init_master_shard(params, grp)
         dev = master.device
+        if store_param_remainders:
+            # the master is the bf16 params exactly: every low half is 0
+            master = torch.zeros(shard, dtype=torch.int16, device=dev)
         return DistributedFusedAdamState(
             step=torch.zeros((), dtype=torch.int32, device=dev),
             master_shard=master,
-            exp_avg=torch.zeros_like(master),
-            exp_avg_sq=torch.zeros_like(master),
-            ef_residual=torch.zeros((), dtype=torch.float32, device=dev),
+            exp_avg=torch.zeros(shard, dtype=torch.float32, device=dev),
+            exp_avg_sq=torch.zeros(shard, dtype=torch.float32, device=dev),
+            ef_residual=zero_init_ef(shard, grp, compression, dev),
         )
 
     @torch.no_grad()
@@ -202,7 +289,8 @@ def distributed_fused_adam(
                   params: Optional[Tensors] = None):
         if params is None:
             raise ValueError("distributed_fused_adam requires params")
-        g, spec = zero_scatter_grads(grads, grp, average_grads)
+        g, spec, new_ef = zero_scatter_with_ef(
+            grads, grp, average_grads, compression, state.ef_residual)
         if g.shape != state.master_shard.shape:
             raise ValueError(f"the gradient shard ({g.shape[0]}) does not "
                              f"match the master "
@@ -219,7 +307,19 @@ def distributed_fused_adam(
             bc1, bc2 = 1.0 - beta1 ** stepf, 1.0 - beta2 ** stepf
         else:
             bc1 = bc2 = torch.ones((), dtype=torch.float32, device=g.device)
-        p = state.master_shard
+        if store_param_remainders:
+            pflat, _ = flatten_pytree(params, dtype=torch.bfloat16)
+            n = ps.group_size(grp)
+            pad = -pflat.shape[0] % n
+            if pad:
+                pflat = torch.cat([pflat, pflat.new_zeros(pad)])
+            shard = pflat.shape[0] // n
+            r = _rank(grp)
+            p = master_from_remainder(pflat[r * shard:(r + 1) * shard],
+                                      state.master_shard)
+            del pflat
+        else:
+            p = state.master_shard
 
         # adam_math of the JAX module, one rounded operation at a time in
         # its order, with each intermediate freed when it is consumed
@@ -244,10 +344,18 @@ def distributed_fused_adam(
         new_master = p - upd
         del upd
 
-        updates = zero_gather_updates(new_master, params, spec, grp)
+        if store_param_remainders:
+            hi, new_master = split_master(new_master)
+            new = unflatten_pytree(ps.all_gather(hi, grp), dataclasses.replace(
+                spec, dtypes=tuple(params[n].dtype for n in spec.names)))
+            # fp32 updates: p + u in fp32 is exactly the new high half
+            updates = {n: new[n].float() - params[n].float()
+                       for n in spec.names}
+        else:
+            updates = zero_gather_updates(new_master, params, spec, grp)
         return updates, DistributedFusedAdamState(
             step=step, master_shard=new_master, exp_avg=m, exp_avg_sq=v,
-            ef_residual=state.ef_residual)
+            ef_residual=new_ef)
 
     return AdamTransform(init_fn, update_fn)
 

@@ -1,7 +1,9 @@
 """Tensor, sequence and data parallelism over ``torch.distributed``: the
 process groups (``parallel.parallel_state``), the tensor- and
 sequence-parallel regions (``parallel.mappings``) and layers, the
-data-parallel gradient sync (``parallel.ddp``), BatchNorm synchronized
+data-parallel gradient sync (``parallel.ddp``) and its quantized
+collectives with error feedback (``parallel.compress``), BatchNorm
+synchronized
 over a group, the parallel RNG seeds (``parallel.random``), pipeline
 parallelism (``parallel.pipeline``: stage edges, micro-batch calculators
 and the schedules) and context parallelism (``parallel.ring_attention``:

@@ -14,8 +14,16 @@ one collective per tensor.
 Collections are dicts from names to tensors (``dict(model
 .named_parameters())``); ``group`` defaults to ``parallel_state``'s
 data-parallel group, and with no group every function is the identity
-(a world of one). ``compression`` (the JAX package's quantized
-collectives, ``parallel/compress.py``) is not ported yet and raises.
+(a world of one).
+
+``compression`` (a ``parallel.compress.CompressionConfig``) sends the
+gradients through the block-scaled quantized all-reduce of
+``parallel/compress.py`` instead, leaf by leaf as JAX does: the block
+boundaries, and so every code, are each gradient's own, not those of a
+flat buffer. ``ef_state`` (``compress.ef_init(grads)``) adds the
+error-feedback residual and returns ``(grads, new_ef_state)``. The
+quantized path runs one collective pair a phase a leaf (four a leaf),
+where the exact path runs one a dtype.
 """
 
 from collections import defaultdict
@@ -24,6 +32,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from apex_tpu_torch.ops.multi_tensor import flatten_pytree, unflatten_pytree
+from apex_tpu_torch.parallel import compress
 from apex_tpu_torch.parallel import parallel_state as ps
 
 __all__ = ["DistributedDataParallel", "Reducer", "all_reduce_gradients",
@@ -34,13 +43,6 @@ Tensors = Dict[str, torch.Tensor]
 
 def _dp_group(group):
     return ps.get_data_parallel_group() if group is None else group
-
-
-def _no_compression(compression) -> None:
-    if compression is not None:
-        raise NotImplementedError(
-            "compressed gradient collectives (parallel/compress.py) are not "
-            "ported yet")
 
 
 def _by_flat_buffer(tree: Tensors, dtype_of: Callable, collective: Callable
@@ -62,15 +64,46 @@ def all_reduce_gradients(grads: Tensors, group=None,
                          gradient_average: bool = True,
                          gradient_predivide_factor: float = 1.0,
                          allreduce_always_fp32: bool = False,
-                         compression=None) -> Tensors:
+                         compression=None, ef_state: Optional[Tensors] = None):
     """The data-parallel sum (mean with ``gradient_average``) of each
     rank's gradients, in each gradient's dtype (summed in fp32 with
-    ``allreduce_always_fp32``)."""
-    _no_compression(compression)
+    ``allreduce_always_fp32``). With ``compression`` each gradient takes
+    ``compress.quantized_psum`` after the predivide; with ``ef_state``
+    (fp32 residuals by the gradients' names) the residual is added
+    before quantizing and ``(grads, new_ef_state)`` is returned.
+    ``ef_state`` whose names are not the gradients' raises, as does
+    ``ef_state`` without ``compression``."""
+    if compression is None and ef_state is not None:
+        raise ValueError("ef_state without compression: the exact psum has "
+                         "no quantization error to feed back")
+    if ef_state is not None and set(ef_state) != set(grads):
+        # pairing residuals with the wrong gradients would corrupt the
+        # feedback silently; build ef_state with compress.ef_init(grads)
+        raise ValueError(f"ef_state names {sorted(ef_state)} do not match "
+                         f"the gradients' {sorted(grads)}")
     group = _dp_group(group)
+    n = ps.group_size(group)
+    if compression is not None:
+        out, new_ef = {}, {}
+        for name, g in grads.items():
+            orig = g.dtype
+            if allreduce_always_fp32:
+                g = g.float()
+            if gradient_predivide_factor != 1.0:
+                g = g / gradient_predivide_factor
+            acc = g.float()
+            if ef_state is not None:
+                acc = acc + ef_state[name]
+            g, sent = compress.quantized_psum(acc, group, compression,
+                                              return_transmitted=True)
+            if ef_state is not None:
+                new_ef[name] = compress.ef_update(acc, sent)
+            if gradient_average:
+                g = g * (gradient_predivide_factor / n)
+            out[name] = g.to(orig)
+        return out if ef_state is None else (out, new_ef)
     if group is None:
         return grads
-    n = ps.group_size(group)
 
     def reduce(flat):
         if gradient_predivide_factor != 1.0:
@@ -110,16 +143,19 @@ class DistributedDataParallel:
                  gradient_average: bool = True,
                  gradient_predivide_factor: float = 1.0,
                  allreduce_always_fp32: bool = False, compression=None):
-        _no_compression(compression)
         self.loss_fn, self.group = loss_fn, group
+        self.compression = compression
         self.gradient_average = gradient_average
         self.gradient_predivide_factor = gradient_predivide_factor
         self.allreduce_always_fp32 = allreduce_always_fp32
 
-    def reduce(self, grads: Tensors) -> Tensors:
+    def reduce(self, grads: Tensors, ef_state: Optional[Tensors] = None):
+        """Synced gradients; with ``compression`` and ``ef_state``,
+        ``(grads, new_ef_state)`` (:func:`all_reduce_gradients`)."""
         return all_reduce_gradients(
             grads, self.group, self.gradient_average,
-            self.gradient_predivide_factor, self.allreduce_always_fp32)
+            self.gradient_predivide_factor, self.allreduce_always_fp32,
+            compression=self.compression, ef_state=ef_state)
 
     def value_and_grad(self) -> Callable:
         """``f(params, *args, **kw) -> (loss, synced grads)`` of

@@ -24,8 +24,14 @@ built and at each call) each rank holds its shard:
 Tp-sharded parameters carry ``tensor_model_parallel = True`` (Megatron's
 attribute): the initialisation draws them from the tp rank's own stream
 (``models.gpt.init_params``, ``parallel.random``).
+
+Under :func:`sequence_parallel_suspended` the linears run the plain-TP
+layout although built for sequence parallelism: a KV-cache decode step's
+single token cannot be split along the sequence (JAX replaces the
+config's ``sequence_parallel`` with False for such a step).
 """
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -42,7 +48,28 @@ from apex_tpu_torch.parallel.mappings import (
 )
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding"]
+           "VocabParallelEmbedding", "sequence_parallel_active",
+           "sequence_parallel_suspended"]
+
+_SP_SUSPENDED = False
+
+
+@contextlib.contextmanager
+def sequence_parallel_suspended():
+    """Within the block the column and row linears take and give
+    tp-replicated activations (copy-to and all-reduce), and
+    :func:`sequence_parallel_active` is False, whatever the config."""
+    global _SP_SUSPENDED
+    before, _SP_SUSPENDED = _SP_SUSPENDED, True
+    try:
+        yield
+    finally:
+        _SP_SUSPENDED = before
+
+
+def sequence_parallel_active(enabled: bool) -> bool:
+    """``enabled``, unless inside :func:`sequence_parallel_suspended`."""
+    return enabled and not _SP_SUSPENDED
 
 
 def _dot(x, w, out_dtype):
@@ -93,7 +120,7 @@ class ColumnParallelLinear(nn.Module):
     def forward(self, x):
         if self.tp > 1:
             x = (gather_from_sequence_parallel_region(x)
-                 if self.sequence_parallel
+                 if sequence_parallel_active(self.sequence_parallel)
                  else copy_to_tensor_model_parallel_region(x))
         y = _dot(x, self.kernel, self.output_dtype or x.dtype)
         if self.bias is not None:
@@ -127,13 +154,13 @@ class RowParallelLinear(nn.Module):
         if self.tp > 1 and not self.input_is_parallel:
             x = scatter_to_tensor_model_parallel_region(x)
         y = _dot(x, self.kernel, x.dtype)
+        sp = sequence_parallel_active(self.sequence_parallel)
         if self.tp > 1:
-            y = (reduce_scatter_to_sequence_parallel_region(y)
-                 if self.sequence_parallel
+            y = (reduce_scatter_to_sequence_parallel_region(y) if sp
                  else reduce_from_tensor_model_parallel_region(y))
         if self.bias is not None:
             b = self.bias
-            if self.sequence_parallel:
+            if sp:
                 b = copy_to_tensor_model_parallel_region(b)
             y = y + b.to(y.dtype)
         return y

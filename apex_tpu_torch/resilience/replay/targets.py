@@ -6,6 +6,7 @@ One home for the GPT step, as in the JAX package: the bf16 GPT model,
 ``distributed_fused_adam`` (``zero``), dynamic loss scaling with
 ``GradScaler``, the anomaly-sentinel gate, the chaos ``poison_loss`` arm
 and the escalation ``lr_scale`` input, in the JAX step's order.
+
 ``build_gpt_training(cfg)`` returns a :class:`GPTTraining` with
 ``init_state``, ``reshape_batch`` and ``train_step``;
 ``examples/gpt/pretrain_gpt.py`` drives it.
@@ -16,8 +17,20 @@ world's size over tp (``parallel_state`` over the initialized
 ``torch.distributed`` world; a world of one without it). Every rank takes
 the whole ``(num_micro, micro_batch * dp, seq)`` batch and trains on its
 columns ``[d * micro_batch, (d + 1) * micro_batch)``, the JAX step's
-``P(None, "dp")``. A ``compression`` other than ``"none"`` and
-``collect_layer_rms`` raise ``NotImplementedError``.
+``P(None, "dp")``.
+
+``compression`` ("int8" or "fp8", ``compression_block`` elements a
+scale) sends the data-parallel gradient sync through
+``parallel.compress``: under ZeRO the optimizer owns the quantized
+reduce-scatter and its error-feedback residual (a state field); under
+DDP each gradient takes the quantized all-reduce and the residuals ride
+in the optimizer-state slot as ``{"opt", "ef_residual"}``, updated on
+gated steps too (a poisoned residual resets to zero). The scaler's
+``found_inf`` consensus stays exact. ``collect_layer_rms`` appends to the
+step's outputs the (layers,) fp32 RMS of each layer's output in depth
+order: each micro-batch's per-layer RMS (the layers'
+``layer_out_rms``) squared, averaged over the micro-batches, all-reduced
+to the mean over tp and then over dp, and its square root.
 """
 
 import dataclasses
@@ -35,6 +48,7 @@ from apex_tpu_torch.optimizers import (
     distributed_fused_adam,
     fused_adam,
 )
+from apex_tpu_torch.parallel import compress
 from apex_tpu_torch.parallel import parallel_state as ps
 from apex_tpu_torch.parallel.ddp import all_reduce_gradients
 from apex_tpu_torch.resilience.chaos import poison_loss
@@ -90,7 +104,9 @@ class GPTTrainState:
     parameters (by name), so updating them updates the model."""
 
     params: Dict[str, torch.nn.Parameter]
-    opt: Union[FusedAdamState, DistributedFusedAdamState]
+    # under DDP with compression: {"opt": FusedAdamState, "ef_residual":
+    # fp32 residuals by parameter name}
+    opt: Union[FusedAdamState, DistributedFusedAdamState, Dict[str, Any]]
     scaler: LossScalerState
     sentinel: SentinelState
 
@@ -108,15 +124,30 @@ class GPTTraining:
     opt: Any
     scaler: GradScaler
     sentinel: AnomalySentinel
+    compression: Optional[compress.CompressionConfig] = None
+
+    @property
+    def ddp_compressed(self) -> bool:
+        """Does the residual ride in the optimizer-state slot (DDP with
+        compression)?"""
+        return self.compression is not None and not self.cfg.zero
 
     def init_state(self) -> GPTTrainState:
         """Re-draws the model's weights from ``cfg.seed`` and returns
         fresh optimizer, scaler and sentinel states."""
         self.model.init_weights(self.cfg.seed)
         params = dict(self.model.named_parameters())
-        return GPTTrainState(params, self.opt.init(params),
-                             self.scaler.init(self.device),
+        opt = self.opt.init(params)
+        if self.ddp_compressed:
+            opt = {"opt": opt, "ef_residual": compress.ef_init(params)}
+        return GPTTrainState(params, opt, self.scaler.init(self.device),
                              self.sentinel.init(self.device))
+
+    def layer_rms(self) -> torch.Tensor:
+        """The layers' last ``layer_out_rms``, (layers,) in depth order."""
+        tr = self.model.transformer
+        return torch.stack([getattr(tr, f"layer_{i}").layer_out_rms
+                            for i in range(tr.num_layers)])
 
     def reshape_batch(self, x, y):
         """(global_batch, seq) arrays -> the step's (num_micro,
@@ -127,7 +158,9 @@ class GPTTraining:
 
     def train_step(self, state: GPTTrainState, tokens, labels,
                    inject_nan=0.0, lr_scale=1.0):
-        """One step: ``(state, loss, verdict, metrics)``.
+        """One step: ``(state, loss, verdict, metrics)``, and with
+        ``collect_layer_rms`` the (layers,) RMS vector (a list of floats)
+        fifth.
 
         ``tokens`` and ``labels`` are (num_micro, micro_batch * dp, seq)
         integer arrays or tensors, the same on every rank; this rank
@@ -163,10 +196,13 @@ class GPTTraining:
         scale = state.scaler.scale
         for p in params.values():
             p.grad = None
-        micro_losses = []
+        micro_losses, rms_sq = [], None
         for i in range(self.num_micro):
             li = gpt_loss_fn(self.model(tokens[i], labels=labels[i]))
             micro_losses.append(li.detach())
+            if self.cfg.collect_layer_rms:
+                sq = self.layer_rms().square()
+                rms_sq = sq if rms_sq is None else rms_sq + sq
             poison_loss(li * (scale / self.num_micro), inject_nan).backward()
 
         with torch.no_grad():
@@ -175,7 +211,13 @@ class GPTTraining:
                                   torch.stack(micro_losses).mean()),
                 inject_nan)
             grads = {n: p.grad for n, p in params.items()}
-            if not self.cfg.zero:
+            opt_state, new_ef = state.opt, None
+            if self.ddp_compressed:
+                opt_state = state.opt["opt"]
+                grads, new_ef = all_reduce_gradients(
+                    grads, compression=self.compression,
+                    ef_state=state.opt["ef_residual"])
+            elif not self.cfg.zero:
                 grads = all_reduce_gradients(grads)
             grads, found_inf = self.scaler.unscale(state.scaler, grads)
             new_scaler = self.scaler.update(state.scaler, found_inf)
@@ -184,9 +226,21 @@ class GPTTraining:
             gate = found_inf | self.sentinel.is_anomalous_loss(
                 state.sentinel, unscaled)
             if not bool(gate):  # the step's one host sync
-                updates, state.opt = self.opt.update(grads, state.opt, params)
+                updates, opt_state = self.opt.update(grads, opt_state, params)
                 for n, p in params.items():
                     p.add_(updates[n] * lr_scale)
+            # the residual updates on gated steps too (ef_update resets
+            # poisoned elements)
+            state.opt = (opt_state if new_ef is None
+                         else {"opt": opt_state, "ef_residual": new_ef})
+            layer_rms = None
+            if rms_sq is not None:
+                mean_sq = rms_sq / self.num_micro
+                for group in (ps.get_tensor_model_parallel_group(),
+                              ps.get_data_parallel_group()):
+                    mean_sq = ps.all_reduce(mean_sq, group) / ps.group_size(
+                        group)
+                layer_rms = torch.sqrt(mean_sq)
             sent = state.sentinel
             new_sent, verdict = self.sentinel.update(
                 sent, unscaled, anomaly=gate,
@@ -206,6 +260,8 @@ class GPTTraining:
         state.scaler, state.sentinel = new_scaler, new_sent
         metrics = dict(zip(("loss", "grad_norm", "loss_scale", "loss_z",
                             "skipped", "anomalies"), vals[:6]))
+        if layer_rms is not None:
+            return state, vals[0], int(vals[6]), metrics, layer_rms.tolist()
         return state, vals[0], int(vals[6]), metrics
 
 
@@ -225,12 +281,6 @@ def build_gpt_training(cfg: GPTTargetConfig, device="cuda") -> GPTTraining:
     Initializes ``parallel_state`` for ``cfg.tp`` over the initialized
     world (process-global, as in JAX); ``max_devices``, where set, must
     be the world's size."""
-    unsupported = [name for name, on in (
-        ("compression", cfg.compression != "none"),
-        ("collect_layer_rms", cfg.collect_layer_rms)) if on]
-    if unsupported:
-        raise NotImplementedError(
-            f"not ported to apex_tpu_torch yet: {', '.join(unsupported)}")
     dev = resolve_device(device)
     world = (torch.distributed.get_world_size()
              if torch.distributed.is_initialized() else 1)
@@ -251,13 +301,19 @@ def build_gpt_training(cfg: GPTTargetConfig, device="cuda") -> GPTTraining:
         max_position_embeddings=cfg.seq_len, hidden_dropout=0.0,
         attention_dropout=0.0,
         sequence_parallel=cfg.sequence_parallel and cfg.tp > 1,
-        compute_dtype=torch.bfloat16)
+        compute_dtype=torch.bfloat16,
+        collect_layer_metrics=cfg.collect_layer_rms)
     model = GPTModel(tcfg, device=dev, seed=cfg.seed)
+    compression = None
+    if cfg.compression != "none":
+        compression = compress.CompressionConfig(
+            dtype=cfg.compression, block_size=cfg.compression_block)
     if cfg.zero:
         # its reduce-scatter is the dp gradient sync (average_grads
-        # completes the mean)
+        # completes the mean); with compression it owns the residual
         opt = distributed_fused_adam(lr=cfg.lr, weight_decay=cfg.weight_decay,
-                                     axis_name="dp", average_grads=True)
+                                     axis_name="dp", average_grads=True,
+                                     compression=compression)
     else:
         opt = fused_adam(lr=cfg.lr, weight_decay=cfg.weight_decay)
     return GPTTraining(
@@ -271,4 +327,5 @@ def build_gpt_training(cfg: GPTTargetConfig, device="cuda") -> GPTTraining:
                                  warmup_steps=cfg.spike_warmup,
                                  skip_budget=cfg.skip_budget,
                                  rollback_budget=cfg.rollback_budget),
+        compression=compression,
     )

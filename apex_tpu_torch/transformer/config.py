@@ -63,6 +63,9 @@ class TransformerConfig:
     moe_expert_axis: Optional[str] = None
     moe_aux_loss_coeff: float = 0.01
     recompute_granularity: Optional[str] = None  # None | "full" | "selective"
+    # each ParallelTransformerLayer keeps the fp32 RMS of its output as
+    # ``layer_out_rms`` (JAX sows it under "intermediates")
+    collect_layer_metrics: bool = False
 
     params_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16

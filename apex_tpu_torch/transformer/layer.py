@@ -29,8 +29,16 @@ states after a step are those of a run without recompute.
 
 MoE (``num_moe_experts``): the MLP is ``transformer.moe.MoEMLP`` over
 the (s * b, h) tokens, JAX's branch; each layer keeps its last
-auxiliary loss, which ``moe.total_moe_aux_loss`` sums. It runs at tp = 1
-(:func:`check_supported`).
+auxiliary loss, which ``moe.total_moe_aux_loss`` sums. At tp > 1 its
+weights are not split over tp: without sequence parallelism every tp rank
+routes the same tokens through the same experts; under it each rank
+routes its own sequence shard, and each rank's expert gradients are its
+own (no tp reduction), as in JAX.
+
+With ``collect_layer_metrics`` each layer keeps ``layer_out_rms``, the
+fp32 RMS ``sqrt(mean(out**2))`` of its last output (detached; not of a
+checkpoint's recompute), JAX's ``layer_out_rms`` tap, so a caller reads
+it after the forward without running another.
 
 Context parallelism (``context_parallel_mode`` "ring" or "ulysses" at a
 cp size above one, :func:`context_parallel_size`): each rank holds a
@@ -65,7 +73,11 @@ row's own position.
 KV-cache decoding follows ParallelAttention's cache mode: a prefill call
 writes the prompt's K/V into the cache, and a decode step writes one new
 token per row at that row's own position and attends to the cache with
-the unwritten tail padded out. The JAX engine ``vmap``s a single-sequence
+the unwritten tail padded out. At tp > 1 each rank caches its own heads
+(its KV groups under GQA). Under sequence parallelism the prefill keeps
+it (the column products gather the sequence, so the cache holds the
+full-length K/V) and each decode step runs the plain-TP layout
+(``parallel.layers.sequence_parallel_suspended``), as JAX does. The JAX engine ``vmap``s a single-sequence
 decode over lanes; here the batch dimension is written out, so each row
 of the cache carries its own position (:attr:`KVCache.index`). At cp > 1
 each rank caches only the positions it computed, JAX's slot map: its
@@ -98,6 +110,7 @@ from apex_tpu_torch.parallel import parallel_state as ps
 from apex_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
+    sequence_parallel_active,
 )
 from apex_tpu_torch.parallel.mappings import (
     copy_to_tensor_model_parallel_region,
@@ -110,6 +123,7 @@ from apex_tpu_torch.parallel.ring_attention import (
 from apex_tpu_torch.parallel.random import (
     checkpoint,
     data_parallel_generator,
+    is_recomputing,
     model_parallel_generator,
     note_draw,
     shard_aware_generator,
@@ -129,18 +143,11 @@ RECOMPUTE_GRANULARITIES = (None, "full", "selective")
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Refuses a recompute granularity JAX does not know, and MoE at tp >
-    1: the port's ``MoEMLP`` is held to JAX at tp = 1 only."""
+    """Refuses a recompute granularity JAX does not know."""
     if cfg.recompute_granularity not in RECOMPUTE_GRANULARITIES:
         raise ValueError(f"recompute_granularity must be one of "
                          f"{RECOMPUTE_GRANULARITIES}, got "
                          f"{cfg.recompute_granularity!r}")
-    if (cfg.num_moe_experts is not None
-            and ps.get_tensor_model_parallel_world_size() > 1):
-        raise NotImplementedError(
-            "MoE at tensor-parallel size > 1 is not ported to "
-            "apex_tpu_torch: MoEMLP runs at tp = 1 (experts over "
-            "moe_expert_axis)")
 
 
 def _recompute(cfg: TransformerConfig, granularity: str, cache,
@@ -245,9 +252,11 @@ class KVCache:
 
 
 def sequence_parallel(config: TransformerConfig) -> bool:
-    """Is the sequence split over tp? (``sequence_parallel`` at tp > 1)"""
-    return (config.sequence_parallel
-            and ps.get_tensor_model_parallel_world_size() > 1)
+    """Is the sequence split over tp? (``sequence_parallel`` at tp > 1,
+    outside ``parallel.layers.sequence_parallel_suspended``)"""
+    return sequence_parallel_active(
+        config.sequence_parallel
+        and ps.get_tensor_model_parallel_world_size() > 1)
 
 
 class Norm(nn.Module):
@@ -588,6 +597,7 @@ class ParallelTransformerLayer(nn.Module):
             self.mlp = ParallelMLP(config, device)
         self.hidden_dropout = ShardAwareDropout(
             config.hidden_dropout, axis_names=_hidden_dropout_axes(config))
+        self.layer_out_rms: Optional[torch.Tensor] = None
 
     def forward(self, hidden_states, key_padding_mask=None, cache=None,
                 decode_step: bool = False, rotary=None, attention_mask=None):
@@ -620,7 +630,11 @@ class ParallelTransformerLayer(nn.Module):
         residual = ln2 if post_ln else h
         if drop:
             mlp_out = self.hidden_dropout(mlp_out)
-        return (residual.to(rdtype) + mlp_out.to(rdtype)).to(dtype)
+        out = (residual.to(rdtype) + mlp_out.to(rdtype)).to(dtype)
+        if cfg.collect_layer_metrics and not is_recomputing():
+            self.layer_out_rms = torch.sqrt(torch.mean(torch.square(
+                out.detach().float())))
+        return out
 
 
 class ParallelTransformer(nn.Module):

@@ -21,7 +21,7 @@ import time
 import traceback
 from typing import Any, Callable, List, Sequence
 
-__all__ = ["spawn"]
+__all__ = ["jobs_worker", "spawn"]
 
 
 def _rank_main(rank: int, world_size: int, backend: str, store: str,
@@ -101,3 +101,22 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (),
         if errors:
             raise RuntimeError("spawned world failed:\n" + "\n".join(errors))
         return results
+
+
+def jobs_worker(rank: int, world_size: int, jobs: Sequence) -> List[Any]:
+    """Runs ``jobs``, pairs (``"package.module:function"`` of a rank
+    function, its extra arguments), one after another in one world, with
+    ``parallel_state``'s groups destroyed after each; returns their
+    results in order. One spawned world serves rank functions of several
+    modules, so a run pays the processes' start once."""
+    import importlib
+
+    from apex_tpu_torch.parallel import parallel_state
+
+    out = []
+    for name, args in jobs:
+        module, fn = name.split(":")
+        out.append(getattr(importlib.import_module(module), fn)(
+            rank, world_size, *args))
+        parallel_state.destroy_model_parallel()
+    return out

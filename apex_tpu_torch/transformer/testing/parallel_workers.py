@@ -20,7 +20,8 @@ import torch
 from apex_tpu_torch.parallel import mappings
 from apex_tpu_torch.parallel import parallel_state as ps
 
-__all__ = ["REGIONS", "card_vs_plain_worker", "data_parallel_worker",
+__all__ = ["REGIONS", "card_vs_plain_worker",
+           "compress_runs_worker", "data_parallel_worker",
            "gpt_worker", "layers_worker", "mappings_worker",
            "sequence_worker", "staged_collectives_worker",
            "training_worker"]
@@ -165,11 +166,14 @@ def gpt_worker(rank: int, world_size: int, tp: int, config: Dict,
 
 
 def _run_steps(training, state, batches: Sequence) -> List[Dict]:
+    """Each step's metrics and verdict (and its ``layer_rms`` where the
+    step returns one)."""
     steps = []
     for x, y, nan in batches:
-        state, loss, verdict, metrics = training.train_step(
+        state, loss, verdict, metrics, *rms = training.train_step(
             state, x, y, inject_nan=nan)
-        steps.append(dict(metrics, verdict=verdict))
+        steps.append(dict(metrics, verdict=verdict,
+                          **({"layer_rms": rms[0]} if rms else {})))
     return steps
 
 
@@ -190,8 +194,15 @@ def training_worker(rank: int, world_size: int, target: Dict,
     if training.cfg.zero:  # the master shard of the loaded weights
         state.opt = training.opt.init(state.params)
     steps = _run_steps(training, state, batches)
-    return dict(steps=steps, opt_step=int(state.opt.step),
-                params={n: _np(p) for n, p in state.params.items()})
+    opt = state.opt["opt"] if isinstance(state.opt, dict) else state.opt
+    out = dict(steps=steps, opt_step=int(opt.step),
+               params={n: _np(p) for n, p in state.params.items()})
+    if isinstance(state.opt, dict):  # DDP with compression
+        out["ef_residual"] = {n: _np(e) for n, e in
+                              state.opt["ef_residual"].items()}
+    elif getattr(opt, "ef_residual", torch.zeros(())).dim():
+        out["ef_residual"] = _np(opt.ef_residual)  # ZeRO with compression
+    return out
 
 
 def data_parallel_worker(rank: int, world_size: int, cases: Dict):
@@ -348,6 +359,77 @@ def card_vs_plain_worker(rank: int, world_size: int, target: Dict,
         out["fp32"]["card" if dev is device else "plain"] = dict(
             losses=losses, params={n: _np(p) for n, p in params.items()})
     out["launches"] = _kernels.launch_counts()
+    return out
+
+
+def compress_runs_worker(rank: int, world_size: int, target: Dict,
+                         runs: Dict, batches: Sequence,
+                         device: str = "cuda"):
+    """``build_gpt_training`` of ``target`` updated by each of ``runs``
+    ({name: fields, e.g. compression; ``"plain": True`` runs it on the CPU
+    too}) from the same weights (the first run's draw on ``device``),
+    through ``batches``. Returns by (run, "card" or "plain"): the losses,
+    verdicts and layer RMS vectors of every step, each step's ms, the peak
+    memory, the collectives and bytes staged a step over the steps after
+    the first, the run's launch counts, rank 0's parameters' element
+    counts, and, for runs with a plain side, the final parameters."""
+    import time
+
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.resilience.replay import (
+        GPTTargetConfig,
+        build_gpt_training,
+    )
+
+    init, out = None, {}
+    for name, extra in runs.items():
+        extra = dict(extra)
+        plain = extra.pop("plain", False)
+        cfg = GPTTargetConfig(**dict(target, **extra))
+        for dev in (device, "cpu") if plain else (device,):
+            training = build_gpt_training(cfg, device=dev)
+            state = training.init_state()
+            if init is None:
+                init = {k: v.detach().cpu().clone() for k, v in
+                        training.model.state_dict().items()}
+            else:
+                training.model.load_state_dict(init)
+            if cfg.zero:  # the master shard of the loaded weights
+                state.opt = training.opt.init(state.params)
+            cuda = training.device.type == "cuda"
+            sync = torch.cuda.synchronize if cuda else (lambda: None)
+            if cuda:
+                sync()
+                torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launch_counts()
+            steps, ms, staged0 = [], [], dict(ps.STAGED)
+            for i, (x, y, nan) in enumerate(batches):
+                if i == 1:
+                    staged0 = dict(ps.STAGED)
+                t0 = time.perf_counter()
+                state, _, verdict, metrics, *rms = training.train_step(
+                    state, x, y, inject_nan=nan)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                steps.append(dict(metrics, verdict=verdict,
+                                  layer_rms=rms[0] if rms else None))
+            n = max(1, len(batches) - 1)
+            rec = dict(
+                losses=[st["loss"] for st in steps],
+                verdicts=[st["verdict"] for st in steps],
+                layer_rms=[st["layer_rms"] for st in steps], step_ms=ms,
+                staged={k: (v - staged0[k]) / n
+                        for k, v in ps.STAGED.items()},
+                launches=_kernels.launch_counts(),
+                peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                             if cuda else None),
+                numels=[p.numel() for p in state.params.values()])
+            if plain:
+                rec["params"] = {n: _np(p) for n, p in state.params.items()}
+            out[(name, "card" if dev == device else "plain")] = rec
+            del training, state
+            if cuda:
+                torch.cuda.empty_cache()
     return out
 
 

@@ -55,7 +55,10 @@ swallowed:
    forward and backward at (4,16,512,64) non-causal with and without key
    padding, the forward at serving's (32,16,512,64) with its lengths,
    LayerNorm forward at (2048, 1024) and (16384, 1024) and backward at
-   (2048, 1024), in bf16 and fp32; the decode-shape rows
+   (2048, 1024), in bf16 and fp32; the flash decode step of a tp = 2
+   rank of GPT-2 small, (8,6,1,64) over a 256-slot cache, and the sum of
+   squares over one ZeRO LAMB shard of BERT-345M at dp = 4 (84,082,688);
+   the decode-shape rows
    and the LayerNorm backward also as CUDA graphs of the kernel alone and
    of the library call, and the LayerNorm backward's loop kernel both ways
    beside it);
@@ -145,7 +148,7 @@ swallowed:
    50304, the layout, and #1, #2, #5, #6, #7 and #8 launched on the first
    and the last stage; per-step ms and tokens/s, every rank's peak memory
    and the p2p messages and bytes staged a step; then (c) the same 4
-   ranks at pp = 2 x tp = 2 with SP, 4 layers at seq 256, on the card's
+   ranks at pp = 2 x tp = 2 with SP, 2 layers at seq 128, on the card's
    kernels and on the CPU's plain versions from the same weights: 3 bf16
    steps (losses 2e-3 relative, parameters 2e-3 absolute) and 2 fp32
    steps (losses 1e-5 relative, each tensor 1e-4 relative in norm);
@@ -154,9 +157,9 @@ swallowed:
    1F1B run's settings) from a spawned world, 1 + 2 steps: the checks of
    13 (a), per-step ms, tokens/s, peak memory and staged p2p beside
    ``algebra``'s zero-bubble and 1F1B costs at (2, 4); then zero bubble
-   against 1F1B from the same weights at 4 layers, seq 256, fp32, 2
+   against 1F1B from the same weights at 2 layers, seq 128, fp32, 2
    steps: losses 1e-5 relative, every gradient 1e-4 relative in norm;
-15. context parallelism: TinyLlama-1.1B at full width, 22 layers cut to 4,
+15. context parallelism: TinyLlama-1.1B at full width, 22 layers cut to 2,
    cp = 4 on 4 ranks of this card over gloo (ring messages, all-to-alls
    and gradient sums staged through pinned host memory), batch 4 x 2048
    tokens (512 a rank) of ragged documents of 1024-2048 tokens, bf16:
@@ -222,11 +225,26 @@ swallowed:
    ``fp8_dense`` card against CPU, the QDQ dense's, a bf16 matmul's and
    ``torch._scaled_mm``'s times on the same operands (the last a library
    row, not on the path), and the FP8 example's 60 steps;
-23. the pipeline at pp = 2 x tp = 2 with SP (1F1B), ``remat`` True
-   against False from the same weights, fp32 (bit-equal) and bf16: peak
-   memory a rank, launches and staged collectives a step; the pipelined
-   phases 13 and 14 run at JAX's default, ``remat=True``;
-24. prints the ``kernels`` line (all nine kernels; ``launches`` is the
+23. the pipeline at pp = 2 x tp = 2 with SP (1F1B) at GPT-2 small's
+   width and depth 2, ``remat`` True against False from the same
+   weights, fp32 (bit-equal) and bf16: peak memory a rank, launches and
+   staged collectives a step; the pipelined phases 13 and 14 run at
+   JAX's default, ``remat=True``;
+24. the multi-GPU tail, as jobs of one world of 4 ranks and one of 2:
+   GPT-2 small at tp = 2 x dp = 2 through the training target with
+   int8 (ZeRO with the layer-RMS taps, and DDP) and fp8 (ZeRO) gradient
+   collectives beside the exact ZeRO and DDP runs from the same weights
+   (the staged bytes a step differ from the exact run's by the predicted
+   difference of the data-parallel sync alone, byte for byte), and at 2
+   layers card against plain; BERT-345M through ``standalone_bert`` at tp = 2 x dp =
+   2 with SP, and at 2 layers card against plain in fp32; GPT-2 small's
+   KV-cache prefill and decode at tp = 2 with and without SP against the
+   full forward (bf16 on the card, fp32 plain at 2 layers); ZeRO LAMB
+   (exact and int8) and ZeRO Adam with remainders (rebuilt master bit
+   for bit against the fp32 run's) over BERT-345M's shapes at dp = 4;
+   GPT-2 small with 8 experts at tp = 2 (depth 2) against tp = 1, and
+   with SP card against plain;
+25. prints the ``kernels`` line (all nine kernels; ``launches`` is the
    count of the kernel's first path below that runs it, and
    ``launches_by_path`` has every path's), then as the last line
    ``{"ok": true, "device": {...}}``.
@@ -247,9 +265,14 @@ when its model is built and are read before any cp = 1 reference runs,
 and rank 0 reports them), and ``amp_imagenet``, ``amp_dcgan`` and
 ``amp_mlp`` (the three amp examples; ResNet-50 runs none of the nine),
 ``gpt_recompute_none``, ``_selective``, ``_full`` and ``_dropout``,
-``gpt_moe``, ``gpt_moe_ep`` (rank 0), ``fp8`` (none of the nine) and
-``gpt_pipeline_no_remat`` (rank 0 of the bf16 run). Every path's kernels
-must have launched.
+``gpt_moe``, ``gpt_moe_ep`` (rank 0), ``fp8`` (none of the nine),
+``gpt_pipeline_no_remat`` (rank 0 of the bf16 run), and
+``gpt_compress_zero`` and ``gpt_compress_ddp`` (rank 0 of each example
+run), ``bert_tp`` (rank 0), ``gpt_tp_decode`` (rank 0's prefill and
+decode steps), ``zero_lamb_remainders`` (rank 0's exact LAMB run) and
+``gpt_moe_tp`` (rank 0's SP pass). Every path's kernels must have
+launched. ``python3 chip_smoke.py --tail`` (development) runs only the
+build and phase 24, and prints no result.
 """
 
 import gc
@@ -321,6 +344,10 @@ N_TINYLLAMA = 1_100_048_384  # parameters of TinyLlama-1.1B (untied head)
 # the final norm 1,536), flattened and padded to 957 chunks of 65,536 =
 # 62,717,952, and each of dp = 2 ranks keeps half: one ZeRO shard
 ZERO_SHARD_TP2 = 31_358_976
+# BERT-345M's 336,267,266 parameters flattened and padded to 5,132 chunks
+# of 65,536 = 336,330,752, of which each of dp = 4 ranks keeps a quarter:
+# one ZeRO LAMB shard (zero_lamb_remainders)
+LAMB_SHARD_BERT = 84_082_688
 # the kernels each path must launch; a kernel's "launches" in the kernels
 # line is the count of the first path here that runs it
 PATH_KERNELS = {
@@ -397,6 +424,23 @@ PATH_KERNELS = {
     "gpt_pipeline_no_remat": ("layer_norm_fwd", "layer_norm_bwd",
                               "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                               "adam_update"),
+    # GPT-2 small at tp = 2 x dp = 2 with SP and int8 gradient
+    # collectives (rank 0): under ZeRO Adam in plain ops, under DDP on #8
+    "gpt_compress_zero": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                          "flash_bwd_dq", "flash_bwd_dkv"),
+    "gpt_compress_ddp": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                         "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
+    # Megatron BERT-345M through standalone_bert at tp = 2 x dp = 2 (rank 0)
+    "bert_tp": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
+    # GPT-2 small's KV-cache prefill and split-KV decode at tp = 2 (rank 0)
+    "gpt_tp_decode": ("layer_norm_fwd", "flash_fwd"),
+    # ZeRO LAMB's global norm (rank 0 of dp = 4); ZeRO Adam with
+    # remainders sets no max_grad_norm, so runs none of the nine
+    "zero_lamb_remainders": ("sumsq_flat",),
+    # GPT-2 small with 8 experts at tp = 2 with SP (rank 0, one pass)
+    "gpt_moe_tp": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                   "flash_bwd_dq", "flash_bwd_dkv"),
 }
 FORWARD_KERNELS = PATH_KERNELS["serving"]
 KERNEL_META = {  # name: (source, TPU kernel it replaces)
@@ -1505,6 +1549,14 @@ def kernel_timings(errors):
     out["flash_fwd"].append(time_flash(
         "GPT-2 tp=2 training causal q,k,v (4,6,1024,64) bf16", q, k, v,
         True, None, errors))
+    # gpt_tp_decode's step: a tp rank's 6 heads over a 256-slot cache,
+    # the 8 lanes 129-160 positions in
+    q, k, v = attn_inputs(8, 6, 6, 1, 256, 64, torch.bfloat16, gen)
+    kpm = torch.arange(256, device="cuda")[None, :] >= torch.arange(
+        129, 161, 4, device="cuda")[:, None]
+    out["flash_fwd"].append(time_flash(
+        "GPT-2 tp=2 decode q (8,6,1,64) k,v (8,6,256,64) bf16 key-padding",
+        q, k, v, False, kpm, errors, graph=True))
     del q, k, v
     q, k, v = attn_inputs(8, 32, 4, 1, 2048, 64, torch.bfloat16, gen)
     lens = torch.tensor([64, 300, 500, 800, 1000, 1200, 1500, 1600],
@@ -1567,7 +1619,8 @@ def kernel_timings(errors):
                            time_rms_norm(2048, 2048)]  # a cp rank's rows
     out["rms_norm_bwd"] = [time_rms_norm_bwd(8192, 2048),
                            time_rms_norm_bwd(2048, 2048)]
-    out["sumsq_flat"] = [time_sumsq(N_TINYLLAMA), time_sumsq(ZERO_SHARD_TP2)]
+    out["sumsq_flat"] = [time_sumsq(N_TINYLLAMA), time_sumsq(ZERO_SHARD_TP2),
+                         time_sumsq(LAMB_SHARD_BERT)]
     for name, rows in out.items():
         for r in rows:
             share = (f", {100 * r['bound_share']:.1f}% of bound"
@@ -2787,9 +2840,11 @@ GPT_PIPELINE_1F1B = ("--pipeline-model-parallel-size", "2",
 GPT_PIPELINE_INTERLEAVED = ("--pipeline-model-parallel-size", "4",
                             "--num-layers-per-virtual-pipeline-stage", "1",
                             "--train-iters", "3")
+# 2 layers, one a stage, at seq 128: small, to keep the whole script near
+# 1,000 s
 PIPELINE_CARD_VS_PLAIN_ARGV = (
-    "--num-layers", "4", "--hidden-size", "768", "--num-attention-heads",
-    "12", "--seq-length", "256", "--max-position-embeddings", "256",
+    "--num-layers", "2", "--hidden-size", "768", "--num-attention-heads",
+    "12", "--seq-length", "128", "--max-position-embeddings", "128",
     "--make-vocab-size-divisible-by", str(GPT_PARALLEL_VOCAB),
     "--pipeline-model-parallel-size", "2", "--tensor-model-parallel-size",
     "2", "--sequence-parallel", "--micro-batch-size", "2",
@@ -2854,8 +2909,8 @@ def check_pipeline_run(name, summary, layout, kernels):
 def gpt_pipeline_phase(smi):
     """(a) ``standalone_gpt`` at GPT-2 small's full width, pp = 2 x tp = 2
     with SP, 1F1B, 1 + 3 steps; (b) the interleaved schedule at pp = 4, V
-    = 3 from a spawned world, 1 + 2 steps; (c) card against plain at 4
-    layers and seq 256."""
+    = 3 from a spawned world, 1 + 2 steps; (c) card against plain at 2
+    layers and seq 128."""
     from apex_tpu_torch.transformer.testing.distributed_test_base import (
         spawn,
     )
@@ -2905,8 +2960,8 @@ def gpt_pipeline_phase(smi):
 
 
 def gpt_pipeline_card_vs_plain(device="cuda"):
-    """The same 4 ranks at pp = 2 x tp = 2 with SP, 4 layers of GPT-2
-    small's width at seq 256, from one seed: 3 bf16 steps within
+    """The same 4 ranks at pp = 2 x tp = 2 with SP, 2 layers of GPT-2
+    small's width at seq 128, from one seed: 3 bf16 steps within
     ``gpt_parallel_card_vs_plain``'s bounds (losses 2e-3 relative,
     parameters 2e-3 absolute), and 2 fp32 steps (losses 1e-5 relative,
     every step's gradients and the final tensors 1e-4 relative in norm;
@@ -2956,7 +3011,7 @@ def gpt_pipeline_card_vs_plain(device="cuda"):
             raise AssertionError(f"rank {r}: {missing} not launched")
     result = {"ranks": len(ranks), "wall_s": wall, **worst,
               "losses_bf16_card_rank0": ranks[0]["bf16"]["card"]["losses"]}
-    log("gpt_pipeline card vs plain (4 x 768, seq 256, pp 2 x tp 2 sp, bf16 "
+    log("gpt_pipeline card vs plain (2 x 768, seq 128, pp 2 x tp 2 sp, bf16 "
         "to 2e-3, fp32 losses to 1e-5, every step's gradients and the "
         "tensors to 1e-4 relative in norm, those zero at init to 1e-2): "
         + json.dumps(result))
@@ -2970,7 +3025,7 @@ def gpt_pipeline_card_vs_plain(device="cuda"):
 GPT_PIPELINE_ZERO_BUBBLE = ("--pipeline-model-parallel-size", "2",
                             "--tensor-model-parallel-size", "2",
                             "--sequence-parallel", "--train-iters", "3")
-# zero bubble against 1F1B: 4 layers at seq 256 in fp32, 2 steps
+# zero bubble against 1F1B: 2 layers at seq 128 in fp32, 2 steps
 ZERO_BUBBLE_VS_1F1B_ARGV = PIPELINE_CARD_VS_PLAIN_ARGV + ("--train-iters",
                                                            "2")
 
@@ -2978,7 +3033,7 @@ ZERO_BUBBLE_VS_1F1B_ARGV = PIPELINE_CARD_VS_PLAIN_ARGV + ("--train-iters",
 def gpt_pipeline_zero_bubble_phase(smi):
     """(a) ``GPTPipelineTraining(zero_bubble=True)`` at GPT-2 small's full
     width, pp = 2 x tp = 2 with SP, 1 + 2 steps from a spawned world; (b)
-    zero bubble against 1F1B from the same weights at 4 layers, seq 256,
+    zero bubble against 1F1B from the same weights at 2 layers, seq 128,
     fp32."""
     from apex_tpu_torch.parallel.pipeline import algebra
     from apex_tpu_torch.transformer.testing.distributed_test_base import (
@@ -3039,11 +3094,11 @@ def gpt_pipeline_zero_bubble_phase(smi):
     if worst_loss > 1e-5:
         raise AssertionError(f"{name} vs 1f1b: losses {worst_loss} relative")
     report["vs_1f1b"] = {
-        "layers": 4, "seq_len": 256, "dtype": "fp32", "steps": 2,
+        "layers": 2, "seq_len": 128, "dtype": "fp32", "steps": 2,
         "loss_rel": worst_loss, "grad_rel_in_norm": worst_grad,
         "losses_rank0": ranks[0]["zero_bubble"],
         "wall_s": time.perf_counter() - t0}
-    log(f"{name} against 1F1B (4 x 768, seq 256, fp32, same weights; "
+    log(f"{name} against 1F1B (2 x 768, seq 128, fp32, same weights; "
         "losses to 1e-5, every gradient to 1e-4 relative in norm): "
         + json.dumps(report["vs_1f1b"]))
     return {name: out["launch_counts_first_stage"]}, report
@@ -3052,8 +3107,8 @@ def gpt_pipeline_zero_bubble_phase(smi):
 # -- context parallelism -----------------------------------------------------
 
 CP_RANKS = 4
-CP_LAYERS = 4  # TinyLlama-1.1B's 22 layers cut to 4: four replicas share
-#                the card
+CP_LAYERS = 2  # TinyLlama-1.1B's 22 layers cut to 2: four replicas share
+#                the card, and the whole script stays near 1,000 s
 CP_STEPS = 3
 # the published context, 512 tokens a rank, ragged documents of
 # 1024-2048 tokens (the JAX example's data at this size)
@@ -3082,7 +3137,7 @@ def cp_kpm():
 
 
 def llama_cp_phase(smi):
-    """TinyLlama-1.1B at full width, 4 layers, cp = 4 on 4 ranks of this
+    """TinyLlama-1.1B at full width, 2 layers, cp = 4 on 4 ranks of this
     card over gloo: ``train_ring_cp``'s step through the ring and through
     Ulysses (1 + 3 steps each, one more profiled), the CP step against a
     cp = 1 model from the same weights (fp32 losses and gradients, bf16
@@ -4250,14 +4305,19 @@ def fp8_phase(smi):
     return _kernels.launch_counts(), report
 
 
-PIPELINE_REMAT_ARGV = tuple(a for a in GPT_PIPELINE_ARGV if a != "--bf16") + (
+# GPT-2 small's width at depth 2, one layer a stage (cut from 12 to keep
+# the whole script near 1,000 s)
+PIPELINE_REMAT_ARGV = tuple(
+    "2" if i and GPT_PIPELINE_ARGV[i - 1] == "--num-layers" else a
+    for i, a in enumerate(GPT_PIPELINE_ARGV) if a != "--bf16") + (
     "--pipeline-model-parallel-size", "2", "--tensor-model-parallel-size",
     "2", "--sequence-parallel", "--train-iters", "2")
 
 
 def gpt_pipeline_remat_phase(smi):
-    """GPT-2 small at pp = 2 x tp = 2 with SP (1F1B, 4 ranks over gloo),
-    ``remat`` True and then False from the same weights, 2 steps each, in
+    """GPT-2 small's width at depth 2 at pp = 2 x tp = 2 with SP (1F1B, 4
+    ranks over gloo), ``remat`` True and then False from the same
+    weights, 2 steps each, in
     fp32 (every loss and gradient bit-equal) and in bf16 (the memory of
     the path's own precision): each run's peak memory a rank, launches
     and staged bytes a step."""
@@ -4296,10 +4356,509 @@ def gpt_pipeline_remat_phase(smi):
                 "staged_per_step_rank0":
                     outs[0][f"remat_{flag}"]["staged_per_step"]}
                for flag in (True, False)}}
-    log("gpt_pipeline remat True against False (pp 2 x tp 2 sp, 12 x 768, "
+    log("gpt_pipeline remat True against False (pp 2 x tp 2 sp, 2 x 768, "
         "4 x 1024, M = 4; fp32 bit-equal): " + json.dumps(report))
     return ranks[0][1]["remat_False"]["launches"], report
 
+
+# -- the multi-GPU tail -----------------------------------------------------
+#
+# Its 4-rank checks run as jobs of one spawned world and its 2-rank checks
+# as jobs of another, so the phase pays the processes' start twice
+# (``distributed_test_base.jobs_worker``); each job resets the launch
+# counts before its path and reads them after it.
+
+# GPT-2 small at tp = 2 x dp = 2 with SP through the training target (the
+# example's step) at full width, 1 + 2 steps a run: the exact ZeRO and DDP
+# runs and their int8 (ZeRO with the layer-RMS taps) and fp8 (ZeRO)
+# compressed twins, from one draw of the weights
+COMPRESS_TARGET = dict(vocab=GPT_PARALLEL_VOCAB, seq_len=1024, layers=12,
+                       hidden=768, heads=12, tp=2, micro_batch=4,
+                       global_batch=16, seed=SEED, sequence_parallel=True)
+COMPRESS_STEPS = 3
+COMPRESS_RUNS = {
+    "exact zero": dict(zero=True),
+    "int8 zero": dict(zero=True, compression="int8", collect_layer_rms=True),
+    "fp8 zero": dict(zero=True, compression="fp8"),
+    "exact ddp": dict(zero=False),
+    "int8 ddp": dict(zero=False, compression="int8"),
+}
+# the compressed runs' paths and the exact run each is held to
+COMPRESS_PATHS = {"int8 zero": ("gpt_compress_zero", "exact zero"),
+                  "fp8 zero": (None, "exact zero"),
+                  "int8 ddp": ("gpt_compress_ddp", "exact ddp")}
+FLAT_CHUNK = 2048 * 32  # ops.multi_tensor.CHUNK_SIZE: flat buffers pad to it
+
+
+def _blocks(n, block=128):
+    return max(1, -(-n // block))
+
+
+def staged_scatter_bytes(padded, n, item, block=128):
+    """What ``quantized_psum_scatter`` of a ``padded``-element buffer over
+    n ranks stages through the host on one rank: two all-to-alls, the
+    (n, chunk) payload and the (n, nb) fp32 scales, each copied in and
+    out."""
+    chunk = padded // n
+    return 2 * (n * chunk * item + n * _blocks(chunk, block) * 4)
+
+
+def staged_psum_bytes(size, n, item, block=128):
+    """What ``quantized_psum`` of one ``size``-element leaf stages on one
+    rank: phase 1's two all-to-alls, and phase 2's two all-gathers (one
+    chunk in, n out)."""
+    chunk = -(-size // n)
+    nb = _blocks(chunk, block)
+    return 2 * (n * chunk * item + n * nb * 4) + (n + 1) * (chunk * item
+                                                            + nb * 4)
+
+
+def predicted_dp_staged(numels, dp, zero, compression):
+    """Bytes the data-parallel gradient sync stages a step on one rank:
+    the exact reduce-scatter of the flat fp32 buffer (in, and its shard
+    out) or in-place all-reduce (in and out), or the quantized ones (the
+    payload's itemsize is 1 in int8 and fp8); and its collectives."""
+    total = sum(numels)
+    padded = -(-total // FLAT_CHUNK) * FLAT_CHUNK
+    padded = -(-padded // dp) * dp
+    if compression is None:
+        return ((padded * 4 + padded // dp * 4, 1) if zero
+                else (2 * padded * 4, 1))
+    if zero:
+        return staged_scatter_bytes(padded, dp, 1), 2
+    # a leaf under min_elements (16) takes the exact in-place all-reduce
+    return (sum(staged_psum_bytes(n, dp, 1) if n >= 16 else 2 * 4 * n
+                for n in numels),
+            sum(4 if n >= 16 else 1 for n in numels))
+
+
+def compress_batches(target, steps):
+    """``steps`` batches of the synthetic stream (the example's) in the
+    step's (num_micro, micro_batch x dp, seq) layout, at dp = 2."""
+    from apex_tpu_torch.data import LMDataset
+    from apex_tpu_torch.resilience.replay import synthetic_corpus
+
+    seq, gb = target["seq_len"], target["global_batch"]
+    shape = (gb // (target["micro_batch"] * 2), target["micro_batch"] * 2,
+             seq)
+    lm = LMDataset(synthetic_corpus(target["vocab"]), seq)
+    return [tuple(a.reshape(shape) for a in lm.batch(range(gb * i,
+                                                           gb * (i + 1))))
+            + (0.0,) for i in range(steps)]
+
+
+def gpt_compress_phase(smi, full, small):
+    """``full``: the ranks' ``compress_runs_worker`` results at GPT-2
+    small's width (``COMPRESS_RUNS``): finite losses, every verdict ok,
+    the first loss equal to the exact run's (the same weights and batch),
+    12 positive finite layer RMS values every step; step ms, peak memory a
+    rank and the collectives and bytes staged a step a rank beside the
+    exact run's, whose difference must be the predicted difference of the
+    data-parallel sync (and the RMS vector's two all-reduces) alone, byte
+    for byte: the rest of the step stages the same. ``small``: card
+    against plain (:func:`compress_card_vs_plain`)."""
+    from apex_tpu_torch.resilience import VERDICT_OK
+
+    out, paths = full[0], {}
+    report = {"transport": GLOO_TRANSPORT, "gpu": smi,
+              "model": f"gpt2-small 12x768 vocab {GPT_PARALLEL_VOCAB} "
+                       "(random weights, bf16 compute, fp32 params), "
+                       "tp=2 dp=2 sp, build_gpt_training"}
+    for name, (path, ref) in COMPRESS_PATHS.items():
+        run, base = out[(name, "card")], out[(ref, "card")]
+        extra = COMPRESS_RUNS[name]
+        zero = extra["zero"]
+        kernels = PATH_KERNELS["gpt_compress_zero" if zero
+                               else "gpt_compress_ddp"]
+        losses = run["losses"]
+        if (any(run["launches"][k] == 0 for k in kernels)
+                or not all(math.isfinite(x) for x in losses)
+                or any(v != VERDICT_OK for v in run["verdicts"])
+                or losses[0] != base["losses"][0]):
+            raise AssertionError(f"{name}: {run} vs {base['losses']}")
+        rms_bytes, rms_coll = 0, 0
+        if extra.get("collect_layer_rms"):
+            for rms in run["layer_rms"]:
+                if len(rms) != 12 or not all(math.isfinite(v) and v > 0
+                                             for v in rms):
+                    raise AssertionError(f"{name}: layer rms {rms}")
+            # the RMS vector's two all-reduces (the mean over tp, then
+            # dp) of 12 fp32 values, each staged in and out
+            rms_bytes, rms_coll = 2 * 2 * 12 * 4, 2
+        pred_exact, coll_exact = predicted_dp_staged(run["numels"], 2, zero,
+                                                     None)
+        pred, coll = predicted_dp_staged(run["numels"], 2, zero,
+                                         extra["compression"])
+        saved = base["staged"]["bytes"] - run["staged"]["bytes"] + rms_bytes
+        more = (run["staged"]["collectives"] - base["staged"]["collectives"]
+                - rms_coll)
+        if (abs(saved - (pred_exact - pred)) > 0.5
+                or abs(more - (coll - coll_exact)) > 1e-9):
+            raise AssertionError(
+                f"{name}: staged {run['staged']} vs exact {base['staged']}: "
+                f"the dp sync saved {saved} bytes a step, predicted "
+                f"{pred_exact - pred}; {more} more collectives, predicted "
+                f"{coll - coll_exact}")
+        report[name] = {
+            "steps": COMPRESS_STEPS - 1, "losses": losses,
+            "exact_losses": base["losses"],
+            "step_ms_mean": statistics.mean(run["step_ms"][1:]),
+            "exact_step_ms_mean": statistics.mean(base["step_ms"][1:]),
+            "peak_mem_gb_by_rank": [r[(name, "card")]["peak_mem_gb"]
+                                    for r in full],
+            "exact_peak_mem_gb_by_rank": [r[(ref, "card")]["peak_mem_gb"]
+                                          for r in full],
+            "staged_per_step_rank0": run["staged"],
+            "exact_staged_per_step_rank0": base["staged"],
+            "dp_sync_staged_bytes": {"predicted": pred,
+                                     "exact_predicted": pred_exact,
+                                     "saved_measured": saved},
+            "dp_sync_collectives": {"compressed": coll, "exact": coll_exact},
+            "layer_rms_last": run["layer_rms"][-1],
+            "launches_rank0": run["launches"]}
+        log(f"gpt_compress {name} " + json.dumps(report[name]))
+        if path is not None:
+            paths[path] = run["launches"]
+    report["card_vs_plain"] = compress_card_vs_plain(small)
+    return paths, report
+
+
+COMPRESS_CARD_VS_PLAIN = {
+    "exact": dict(),
+    "zero int8": dict(compression="int8", plain=True),
+    "ddp int8": dict(zero=False, compression="int8", plain=True),
+}
+# compressed against exact losses on the card, relative: quantization
+# error through Adam's first step (measured in the log)
+COMPRESS_VS_EXACT_RTOL = 1e-2
+
+
+def compress_card_vs_plain(ranks):
+    """``ranks``: ``compress_runs_worker``'s results at CARD_VS_PLAIN's
+    size (2 layers of GPT-2 small, seq 256, tp = 2 x dp = 2 with SP,
+    bf16, 2 steps): the exact ZeRO step, and the int8 ZeRO and DDP steps
+    on the card and on the CPU from the same weights: each compressed run
+    card against plain at ``test_torch_training.py``'s tolerances
+    (verdicts equal, losses 2e-3 relative, parameters 2e-3 absolute), and
+    against the exact run on the card (the first loss equal, the rest
+    ``COMPRESS_VS_EXACT_RTOL``)."""
+    worst = {"loss": 0.0, "param": 0.0, "vs_exact": 0.0}
+    for r, out in enumerate(ranks):
+        exact = out[("exact", "card")]["losses"]
+        for name in ("zero int8", "ddp int8"):
+            card, plain = out[(name, "card")], out[(name, "plain")]
+            if card["verdicts"] != plain["verdicts"]:
+                raise AssertionError(f"rank {r} {name}: verdicts")
+            for a, b in zip(card["losses"], plain["losses"]):
+                worst["loss"] = max(worst["loss"], abs(a - b) / abs(b))
+            for n, want in plain["params"].items():
+                worst["param"] = max(worst["param"], float(
+                    np.abs(card["params"][n] - want).max()))
+            if card["losses"][0] != exact[0]:
+                raise AssertionError(f"rank {r} {name}: first loss "
+                                     f"{card['losses'][0]} vs {exact[0]}")
+            for a, b in zip(card["losses"], exact):
+                worst["vs_exact"] = max(worst["vs_exact"],
+                                        abs(a - b) / abs(b))
+            kernels = PATH_KERNELS["gpt_compress_zero" if "zero" in name
+                                   else "gpt_compress_ddp"]
+            if any(card["launches"][k] == 0 for k in kernels):
+                raise AssertionError(f"rank {r} {name}: {card['launches']}")
+    result = {"ranks": len(ranks), **worst,
+              "losses_rank0": {f"{k[0]} {k[1]}": v["losses"]
+                               for k, v in ranks[0].items()}}
+    log("gpt_compress card vs plain (2 x 768, seq 256, 4 ranks, bf16, 2 "
+        "steps; card vs plain losses 2e-3, params 2e-3, compressed vs "
+        f"exact {COMPRESS_VS_EXACT_RTOL}): " + json.dumps(result))
+    if (worst["loss"] > 2e-3 or worst["param"] > 2e-3
+            or worst["vs_exact"] > COMPRESS_VS_EXACT_RTOL):
+        raise AssertionError(f"gpt_compress card vs plain: {result}")
+    return result
+
+
+BERT_TP_ARGV = (
+    "--num-layers 24 --hidden-size 1024 --num-attention-heads 16 "
+    "--seq-length 512 --max-position-embeddings 512 "
+    f"--make-vocab-size-divisible-by {BERT_VOCAB} --micro-batch-size 4 "
+    "--global-batch-size 16 --lr 1e-4 --bf16 --train-iters 4 "
+    "--tensor-model-parallel-size 2 --sequence-parallel").split()
+N_BERT_345M = 336_267_266  # parameters of Megatron BERT-345M (binary head)
+BERT_TP_CARD_VS_PLAIN = (
+    "--num-layers 2 --hidden-size 1024 --num-attention-heads 16 "
+    "--seq-length 512 --max-position-embeddings 512 "
+    f"--make-vocab-size-divisible-by {BERT_VOCAB} --micro-batch-size 2 "
+    "--global-batch-size 4 --lr 1e-4 --train-iters 1 "
+    "--tensor-model-parallel-size 2 --sequence-parallel").split()
+
+
+def bert_tp_phase(smi, summary, small):
+    """``summary``: ``standalone_bert``'s run (``train``, as its ``main``
+    runs it) of Megatron BERT-345M at tp = 2 x dp = 2 with SP, micro-batch
+    4, global 16, 1 + 3 steps: the first loss within 1.0 of ln 30592,
+    every rank's first-step gradients finite, the tp shards adding up to
+    336,267,266 elements in 301 tensors a rank; step ms, peak memory and
+    staged bytes a rank. ``small``: 2 layers at full width in fp32, one
+    step card against plain (the loss 1e-4 relative, the gradients 1e-4
+    relative in norm)."""
+    losses = summary["losses"]
+    counts = summary["launch_counts_rank0"]
+    missing = [k for k in PATH_KERNELS["bert_tp"] if counts[k] == 0]
+    if (missing or not summary["finite_grads_every_rank"]
+            or summary["elements_over_tp"] != N_BERT_345M
+            or summary["tensors_a_rank"] != 301
+            or (summary["tp"], summary["dp"],
+                summary["sequence_parallel"]) != (2, 2, True)
+            or abs(losses[0] - math.log(BERT_VOCAB)) > 1.0
+            or not all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"bert_tp: {summary} {missing}")
+    steps = summary["steps"]
+    report = {
+        "model": "Megatron BERT-345M 24x1024 vocab 30592 (random weights, "
+                 "bf16 compute, fp32 params), standalone_bert tp=2 dp=2 sp",
+        "gpu": smi, "transport": GLOO_TRANSPORT, "losses": losses,
+        "step_ms": summary["step_ms"],
+        "step_ms_mean_after_first": summary["step_ms_mean_after_first"],
+        "tokens_per_s": summary["tokens_per_s"],
+        "peak_mem_gb_by_rank": summary["peak_mem_gb_by_rank"],
+        "staged_per_step_rank0": {k: v / steps for k, v in
+                                  summary["staged_rank0"].items()},
+        "launches_per_step_rank0": {k: v / steps for k, v in counts.items()},
+        "elements_over_tp": summary["elements_over_tp"]}
+    log("bert_tp " + json.dumps(report))
+    worst = {"loss": 0.0, "grad": 0.0}
+    for r, out in enumerate(small):
+        for a, b in zip(out["card"], out["plain"]):
+            worst["loss"] = max(worst["loss"], abs(a - b) / abs(b))
+        worst["grad"] = max(worst["grad"], out["grad_rel_worst"])
+        if any(out["launches"][k] == 0 for k in PATH_KERNELS["bert_tp"]):
+            raise AssertionError(f"bert_tp card vs plain rank {r}: "
+                                 f"{out['launches']}")
+    report["card_vs_plain"] = dict(worst, losses_rank0=small[0]["card"])
+    log("bert_tp card vs plain (2 x 1024, seq 512, fp32, 4 ranks, 1 step; "
+        "loss and gradients 1e-4): " + json.dumps(report["card_vs_plain"]))
+    if worst["loss"] > 1e-4 or worst["grad"] > 1e-4:
+        raise AssertionError(f"bert_tp card vs plain: {worst}")
+    return counts, report
+
+
+GPT2_TP_DECODE = dict(num_layers=12, hidden_size=768, num_attention_heads=12,
+                      vocab_size=GPT_PARALLEL_VOCAB,
+                      max_position_embeddings=1024, layernorm_epsilon=1e-5,
+                      hidden_dropout=0.0, attention_dropout=0.0)
+DECODE_TP = dict(lanes=8, prompt=128, steps=32, slots=256)
+# bf16 on the card: each decode step's logits against the full forward's,
+# absolute, of logits whose largest |value| is logged beside; the prefill
+# and the split decode kernel round their bf16 outputs at other points
+# than the full forward's flash prefill (flash_fwd's bf16 tolerance is
+# 2e-2 relative)
+DECODE_TP_BF16_ATOL = 5e-2
+# fp32 on the CPU (plain versions), 2 layers: JAX's bound (2e-5) at this
+# width's sums
+DECODE_TP_FP32_ATOL = 1e-4
+DECODE_CASES = ("tp", "tp_sp", "plain_fp32_tp", "plain_fp32_tp_sp")
+
+
+def decode_jobs():
+    """The 2-rank world's decode jobs, in ``DECODE_CASES``' order: GPT-2
+    small at tp = 2 from a seed, without and with SP, bf16 on the card,
+    then at 2 layers fp32 on the CPU; 8 prompts of 128 tokens into a
+    256-slot cache and 32 teacher-forced decode steps."""
+    rs = np.random.RandomState(SEED)
+    total = DECODE_TP["prompt"] + DECODE_TP["steps"]
+    tokens = rs.randint(0, GPT2_TP_DECODE["vocab_size"],
+                        (DECODE_TP["lanes"], total))
+    jobs = []
+    for dev, layers, dtype in (("cuda", 12, torch.bfloat16),
+                               ("cpu", 2, torch.float32)):
+        for sp in (False, True):
+            cfg = dict(GPT2_TP_DECODE, num_layers=layers,
+                       sequence_parallel=sp, compute_dtype=dtype)
+            jobs.append((f"{TP_WORKERS}:decode_tp_worker", (
+                2, cfg, None, tokens, DECODE_TP["prompt"],
+                DECODE_TP["slots"], dev, SEED, False)))
+    return jobs
+
+
+def gpt_tp_decode_phase(smi, ranks):
+    """``ranks``: the 2-rank world's results of :func:`decode_jobs`: each
+    step's logits (this rank's vocab shard) against the full forward's at
+    that position, bf16 on the card (``DECODE_TP_BF16_ATOL``), and at 2
+    layers in fp32 on the CPU's plain versions (``DECODE_TP_FP32_ATOL``);
+    each rank caches its 6 of 12 heads; #1 and #5 launch in the prefill,
+    #5 again in the decode steps as the split-KV kernel."""
+    report = {"gpu": smi, "transport": GLOO_TRANSPORT}
+    for i, name in enumerate(DECODE_CASES):
+        outs = [r[i] for r in ranks]
+        tol = DECODE_TP_FP32_ATOL if "plain" in name else DECODE_TP_BF16_ATOL
+        worst = max(o["worst"] for o in outs)
+        report[name] = {
+            "worst_abs": worst, "atol": tol,
+            "logit_max": max(o["logit_max"] for o in outs),
+            "prefill_ms": outs[0]["prefill_ms"],
+            "step_ms": outs[0]["step_ms"],
+            "decode_splits": outs[0]["decode_splits"],
+            "cache_heads": outs[0]["cache_heads"],
+            "launches_prefill_rank0": outs[0]["launches_prefill"],
+            "launches_decode_rank0": outs[0]["launches_decode"]}
+        if worst > tol or outs[0]["cache_heads"] != 6:
+            raise AssertionError(f"gpt_tp_decode {name}: {report[name]}")
+        if "plain" not in name and (
+                outs[0]["launches_decode"]["flash_fwd"] == 0
+                or outs[0]["decode_splits"] < 2
+                or any(outs[0]["launches_prefill"][k] == 0
+                       for k in PATH_KERNELS["gpt_tp_decode"])):
+            raise AssertionError(f"gpt_tp_decode {name}: {report[name]}")
+    log("gpt_tp_decode (GPT-2 small tp=2, 8 x 128 prompt, 32 steps, 256 "
+        "slots): " + json.dumps(report))
+    first = ranks[0][0]
+    counts = {k: first["launches_prefill"][k] + first["launches_decode"][k]
+              for k in first["launches_prefill"]}
+    return counts, report
+
+
+def bert_345m_shapes():
+    """Megatron BERT-345M's 301 parameters by name and shape (read off a
+    one-layer build at full width on the CPU, its layer repeated 24
+    times), so a flat buffer of them has the model's layout."""
+    from apex_tpu_torch.models import BertModel, megatron_bert_345m_config
+
+    one = BertModel(megatron_bert_345m_config(num_layers=1), device="cpu")
+    shapes = {}
+    for name, p in one.named_parameters():
+        if name.startswith("transformer.layer_0."):
+            for i in range(24):
+                shapes[name.replace("layer_0", f"layer_{i}")] = tuple(p.shape)
+        else:
+            shapes[name] = tuple(p.shape)
+    return shapes
+
+
+ZERO_RANKS = 4
+ZERO_STEPS = 1
+
+
+def zero_lamb_remainders_phase(smi, ranks):
+    """``ranks``: ``zero_bytes_worker`` over BERT-345M's 301 parameter
+    shapes at dp = 4, gradients drawn on the card: ``distributed_fused_lamb``
+    exact and int8 (#9 launches; the staged bytes a step differ by the
+    predicted difference of the reduce-scatter alone), and
+    ``distributed_fused_adam(store_param_remainders=True)`` over the same
+    values in bf16 against the fp32 run: the master rebuilt from (bf16
+    params, remainder) equal to the fp32 run's bit for bit, each bf16
+    parameter its master's truncated high half, and the state's master
+    half the fp32 run's bytes."""
+    padded = ranks[0]["shard_len"] * ZERO_RANKS
+    pred_exact = padded * 4 + padded // ZERO_RANKS * 4
+    pred_int8 = staged_scatter_bytes(padded, ZERO_RANKS, 1)
+    for r, out in enumerate(ranks):
+        saved = (out["lamb_exact"]["staged"]["bytes"]
+                 - out["lamb_int8"]["staged"]["bytes"])
+        if (not out["master_bits_equal"] or not out["params_are_high_halves"]
+                or 2 * out["master_bytes"]["remainders"]
+                != out["master_bytes"]["fp32"]
+                or out["n_params"] != N_BERT_345M
+                or out["lamb_exact"]["launches"]["sumsq_flat"] == 0
+                or out["lamb_int8"]["launches"]["sumsq_flat"] == 0
+                or abs(saved - (pred_exact - pred_int8)) > 0.5):
+            raise AssertionError(f"zero_lamb_remainders rank {r}: {out}")
+    out = ranks[0]
+    report = {"gpu": smi, "transport": GLOO_TRANSPORT, "dp": ZERO_RANKS,
+              "steps": ZERO_STEPS, "shard_len": out["shard_len"],
+              "lamb_dp_staged_bytes_predicted": {"exact": pred_exact,
+                                                 "int8": pred_int8},
+              **{k: out[k] for k in (
+                  "lamb_exact", "lamb_int8", "adam_remainders", "adam_fp32",
+                  "lamb_int8_vs_exact_max_abs", "master_bytes",
+                  "master_bits_equal", "n_params")}}
+    log("zero_lamb_remainders (BERT-345M's 301 shapes, dp 4): "
+        + json.dumps(report))
+    return out["lamb_exact"]["launches"], report
+
+
+MOE_TP = dict(num_layers=2, hidden_size=768, num_attention_heads=12,
+              vocab_size=GPT_PARALLEL_VOCAB, max_position_embeddings=1024,
+              hidden_dropout=0.0, attention_dropout=0.0,
+              compute_dtype=torch.float32, **MOE)
+
+
+def gpt_moe_tp_phase(smi, ranks):
+    """``ranks``: ``moe_tp_card_worker``'s results: GPT-2 small's width at
+    depth 2 (cut from 12, as ``gpt_moe_ep``: two processes share the
+    card) with 8 experts (top-2, cf 1.25) at tp = 2, fp32, 4 x 1024
+    tokens, one forward and backward of the loss plus the aux: without SP
+    against tp = 1 from the same weights (loss and aux 1e-5 relative,
+    every gradient 1e-4 relative in norm); with SP (each rank routes its
+    own sequence shard) on the card, and at 4 x 128 tokens against the
+    CPU's plain versions (loss 1e-5, gradients 1e-4)."""
+    for r, out in enumerate(ranks):
+        if (abs(out["loss_tp2"] - out["loss_one"]) > 1e-5 * out["loss_one"]
+                or abs(out["aux_tp2"] - out["aux_one"]) > 1e-5 * out["aux_one"]
+                or out["grad_rel_tp2"] > 1e-4
+                or abs(out["loss_sp_small_card"] - out["loss_sp_small_plain"])
+                > 1e-5 * out["loss_sp_small_plain"]
+                or out["grad_rel_sp_small"] > 1e-4
+                or not math.isfinite(out["loss_sp"])
+                or any(out["launches_sp"][k] == 0
+                       for k in PATH_KERNELS["gpt_moe_tp"])):
+            raise AssertionError(f"gpt_moe_tp rank {r}: {out}")
+    report = {"gpu": smi, "transport": GLOO_TRANSPORT,
+              "ranks": [{k: v for k, v in out.items()
+                         if not k.startswith("launches")} for out in ranks]}
+    log("gpt_moe_tp (2 x 768, 8 experts, tp 2, fp32, 4 x 1024 tokens; tp 2 "
+        "against tp 1, SP card against plain at 4 x 128): "
+        + json.dumps(report))
+    return ranks[0]["launches_sp"], report
+
+
+TESTING = "apex_tpu_torch.transformer.testing"
+TP_WORKERS = f"{TESTING}.tp_workers"
+
+
+def tail_phases(smi):
+    """The multi-GPU tail's phases: one world of 4 ranks on this card
+    runs the compressed GPT runs, their card-against-plain check, BERT at
+    tp = 2 x dp = 2 and its check, and the ZeRO LAMB and remainders jobs;
+    one world of 2 runs the decode and MoE jobs at tp = 2. Returns their
+    paths' launch counts."""
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        jobs_worker,
+        spawn,
+    )
+
+    torch.cuda.empty_cache()
+    shapes = bert_345m_shapes()
+    t0 = time.perf_counter()
+    four = spawn(jobs_worker, GPT_PARALLEL_RANKS, args=([
+        (f"{TESTING}.parallel_workers:compress_runs_worker",
+         (COMPRESS_TARGET, COMPRESS_RUNS,
+          compress_batches(COMPRESS_TARGET, COMPRESS_STEPS), "cuda")),
+        (f"{TESTING}.parallel_workers:compress_runs_worker",
+         (CARD_VS_PLAIN, COMPRESS_CARD_VS_PLAIN,
+          compress_batches(CARD_VS_PLAIN, 2), "cuda")),
+        (f"{TP_WORKERS}:bert_train_worker", (BERT_TP_ARGV, "cuda")),
+        (f"{TP_WORKERS}:bert_card_vs_plain_worker",
+         (BERT_TP_CARD_VS_PLAIN, "cuda")),
+        (f"{TESTING}.compress_workers:zero_bytes_worker",
+         (shapes, ZERO_STEPS, "cuda", SEED)),
+    ],), timeout=1200.0)
+    four_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = spawn(jobs_worker, 2, args=(decode_jobs() + [
+        (f"{TP_WORKERS}:moe_tp_card_worker",
+         (MOE_TP, 4, 1024, 128, "cuda", SEED))],), timeout=600.0)
+    log(f"multi-GPU tail: the world of 4 ran {four_s:.1f} s, the world of "
+        f"2 {time.perf_counter() - t0:.1f} s ({GLOO_TRANSPORT})")
+    paths = {}
+    job = [[r[i] for r in four] for i in range(5)]
+    compressed, _ = gpt_compress_phase(smi, job[0], job[1])
+    paths.update(compressed)
+    paths["bert_tp"], _ = bert_tp_phase(smi, job[2][0], job[3])
+    paths["zero_lamb_remainders"], _ = zero_lamb_remainders_phase(smi, job[4])
+    paths["gpt_tp_decode"], _ = gpt_tp_decode_phase(
+        smi, [r[:len(DECODE_CASES)] for r in two])
+    paths["gpt_moe_tp"], _ = gpt_moe_tp_phase(smi, [r[-1] for r in two])
+    log_memory("multi_gpu_tail")
+    return paths
 
 def log_memory(after):
     """What stays allocated on the card after a phase (a later phase's
@@ -4308,12 +4867,27 @@ def log_memory(after):
         f"allocated, {time.perf_counter() - START:.1f} s since the start")
 
 
+def check_paths(paths):
+    for name, counts in paths.items():
+        log(f"launches {name}: " + json.dumps(
+            {k: counts[k] for k in PATH_KERNELS[name]}))
+        missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"path {name}: {missing} not launched")
+
+
 def main():
     smi = device_phase()
 
     from apex_tpu_torch import _kernels
 
     log(f"build: {_kernels.build_all():.1f} s")
+    if sys.argv[1:2] == ["--tail"]:
+        # development: the multi-GPU tail's phases alone, no kernels line
+        # and no result line
+        check_paths(tail_phases(smi))
+        log(f"tail phases done in {time.perf_counter() - START:.1f} s")
+        return
 
     errors = {}
     for check_fn in (ln_parity, flash_parity, ln_bwd_parity, flash_bwd_parity,
@@ -4377,12 +4951,8 @@ def main():
     log_memory("fp8")
     paths["gpt_pipeline_no_remat"], _ = gpt_pipeline_remat_phase(smi)
     log_memory("gpt_pipeline_remat")
-    for name, counts in paths.items():
-        log(f"launches {name}: " + json.dumps(
-            {k: counts[k] for k in PATH_KERNELS[name]}))
-        missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
-        if missing:
-            raise AssertionError(f"path {name}: {missing} not launched")
+    paths.update(tail_phases(smi))
+    check_paths(paths)
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

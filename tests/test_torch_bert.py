@@ -475,9 +475,27 @@ def test_parse_args_refuses_flags_it_would_not_honour(flag):
 @pytest.mark.parametrize("flag", ["--tensor-model-parallel-size",
                                   "--pipeline-model-parallel-size"])
 def test_run_bert_refuses_model_parallelism(flag):
-    args = parse_args(args=BERT_ARGV + [flag, "2"])
-    with pytest.raises(NotImplementedError, match=flag):
-        standalone_bert.run_bert(args, log=lambda _: None, device="cpu")
+    """Pipelined BERT raises JAX's refusal; tensor parallelism is ported
+    (tests/test_torch_bert_tp.py holds it to JAX) and trains here in a
+    world of 2 gloo ranks: finite losses, equal on both ranks, the first
+    near ln(128)."""
+    if flag == "--pipeline-model-parallel-size":
+        args = parse_args(args=BERT_ARGV + [flag, "2"])
+        with pytest.raises(NotImplementedError, match="dp x tp"):
+            standalone_bert.run_bert(args, log=lambda _: None, device="cpu")
+        return
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        jobs_worker,
+        spawn,
+    )
+
+    ranks = spawn(jobs_worker, 2, args=([
+        ("apex_tpu_torch.transformer.testing.tp_workers:run_bert_worker",
+         (BERT_ARGV + [flag, "2"],))],), timeout=180.0)
+    losses = [r[0]["losses"] for r in ranks]
+    assert ranks[0][0]["tp"] == 2 and losses[0] == losses[1]
+    assert len(losses[0]) == 3 and np.isfinite(losses[0]).all()
+    assert abs(losses[0][0] - np.log(128)) < 1.0
 
 
 def test_tokentype_refusals():

@@ -24,7 +24,9 @@ tensors bit for bit. Recompute with dropout on the card gives no
 recompute's gradients and generator states bit for bit; ``MoEMLP`` and
 ``fp8_dense`` in fp32 on the card agree with the CPU to 1e-5 relative
 in norm (``fp8_dense``'s gradients 1e-3: they pass an e4m3 cast), and
-``quantize`` bit for bit.
+``quantize`` bit for bit; the compressed collectives' block quantizer
+equals the CPU's bit for bit, and the ZeRO remainders' split and rebuild
+are exact.
 """
 
 import math
@@ -813,3 +815,41 @@ def test_fp8_dense_on_the_card_matches_the_cpu(gen):
         assert float((a - b).norm() / b.norm()) < tol
     assert all(torch.equal(a, b) for a, b in zip(out["cuda"][1],
                                                    out["cpu"][1]))
+
+
+def test_quantize_blockwise_on_the_card_equals_the_cpu(gen):
+    """``parallel.compress``'s block quantizer on the card: payload bits,
+    scales and the dequantized values equal the CPU's in int8 and fp8,
+    ragged tail, zero block and NaN block included."""
+    from apex_tpu_torch.parallel import compress
+
+    x = torch.randn(1000, generator=torch.Generator().manual_seed(5)) * 3
+    x[:128] = 0.0
+    x[300] = float("nan")
+    for dtype in ("int8", "fp8"):
+        cfg = compress.CompressionConfig(dtype=dtype)
+        pc, sc = compress.quantize_blockwise(x.cuda(), cfg)
+        p, s = compress.quantize_blockwise(x, cfg)
+        assert torch.equal(pc.view(torch.uint8).cpu(), p.view(torch.uint8))
+        sc = sc.cpu()
+        assert bool(((sc == s) | (sc.isnan() & s.isnan())).all())
+        dc = compress.dequantize_blockwise(pc, sc, cfg).cpu()
+        d = compress.dequantize_blockwise(p, s, cfg)
+        assert bool(((dc == d) | (dc.isnan() & d.isnan())).all())
+
+
+def test_param_remainders_round_trip_on_the_card(gen):
+    """``store_param_remainders``' split and rebuild on the card: the bf16
+    half is the master's truncation, and (bf16, remainder) rebuilds the
+    fp32 master bit for bit."""
+    from apex_tpu_torch.optimizers.distributed_fused_adam import (
+        master_from_remainder,
+        split_master,
+    )
+
+    m = torch.randn(100_003, device="cuda") * 7
+    hi, lo = split_master(m)
+    assert torch.equal(hi.view(torch.int16).to(torch.int32) & 0xFFFF,
+                       (m.view(torch.int32) >> 16) & 0xFFFF)
+    assert torch.equal(master_from_remainder(hi, lo).view(torch.int32),
+                       m.view(torch.int32))

@@ -21,7 +21,11 @@ one only). Checked:
 - a layer with MoE and ``total_moe_aux_loss`` against JAX's sown loss;
 - a tiny MoE GPT (2 layers, 4 experts, top-2) against JAX's: the loss
   plus the aux loss rtol 1e-5, every gradient 1e-4 relative in norm;
-  ``moe_params_from_jax`` cuts a full tree to a rank's experts.
+  ``moe_params_from_jax`` cuts a full tree to a rank's experts;
+- a MoE layer at tensor-parallel size 2, with and without sequence
+  parallelism, on a world of 2 gloo ranks against JAX's layer under
+  ``shard_map`` (weights carried with ``gpt_tp_params_from_jax``):
+  output and dx 1e-5, aux 1e-6, every gradient 1e-4 relative in norm.
 """
 
 import functools
@@ -327,3 +331,111 @@ def test_moe_params_cut_to_a_ranks_experts():
     mine = moe_params_from_jax({"mlp": {"w_in": np.zeros((2, 2, 3))}}, 8,
                                rank=1, ep=4)
     assert mine["mlp.w_in"].shape == (2, 2, 3)
+
+
+# -- MoE at tensor-parallel size 2 ---------------------------------------------
+
+MOE_TP = 2
+
+
+def _moe_tp_case(sp):
+    """A MoE layer (4 experts, top-2) at tp 2 on 2 devices of the CPU
+    mesh, initialised inside ``shard_map`` (each device keeping its
+    attention shards; the router and experts are not split over tp):
+    JAX's output, aux loss and gradients of ``<out, ct> + 0.01 aux`` by
+    device, and the port's case."""
+    from apex_tpu_torch.models import gpt_tp_params_from_jax
+
+    cfg = JaxConfig(compute_dtype=jnp.float32, num_moe_experts=4,
+                    moe_top_k=2, sequence_parallel=sp, **BASE)
+    layer = JaxLayer(config=cfg)
+    s = 8 // MOE_TP if sp else 8
+    x = np.stack([_x(11 + (r if sp else 0), (s, 2, H))
+                  for r in range(MOE_TP)])
+    ct = np.stack([_x(21 + (r if sp else 0), (s, 2, H))
+                   for r in range(MOE_TP)])
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:MOE_TP]).reshape(
+        1, 1, 1, MOE_TP), jps.AXIS_ORDER)
+    every = P(("dp", "pp", "cp", "tp"))
+
+    @jax.jit
+    @functools.partial(shard_map, mesh=mesh, in_specs=(every,),
+                       out_specs=P(), check_vma=False)
+    def init(a):
+        return layer.init(jax.random.PRNGKey(5), a[0])["params"]
+
+    params = init(jnp.asarray(x))
+
+    @jax.jit
+    @functools.partial(shard_map, mesh=mesh, in_specs=(P(), every, every),
+                       out_specs=(every,) * 4, check_vma=False)
+    def run(p, a, c):
+        def f(p, a):
+            y, inter = layer.apply({"params": p}, a,
+                                   mutable=["intermediates"])
+            aux = jmoe.total_moe_aux_loss(inter, cfg)
+            return jnp.sum(y * c[0]) + aux, (y, aux)
+
+        (_, (y, aux)), (gp, gx) = jax.value_and_grad(
+            f, argnums=(0, 1), has_aux=True)(p, a[0])
+        return y[None], (aux / cfg.moe_aux_loss_coeff)[None], gx[None], \
+            jax.tree_util.tree_map(lambda t: t[None], gp)
+
+    y, aux, gx, gp = run(params, jnp.asarray(x), jnp.asarray(ct))
+    case = dict(config=dict(BASE, compute_dtype=torch.float32,
+                            num_moe_experts=4, moe_top_k=2,
+                            sequence_parallel=sp),
+                params=[{k: v.numpy() for k, v in
+                         gpt_tp_params_from_jax(params, r).items()}
+                        for r in range(MOE_TP)], x=x, ct=ct)
+    ref = dict(y=np.asarray(y), aux=np.asarray(aux), dx=np.asarray(gx),
+               grads=[gpt_params_from_jax(jax.tree_util.tree_map(
+                   lambda t: np.asarray(t)[r], gp)) for r in range(MOE_TP)])
+    return case, ref
+
+
+@pytest.fixture(scope="module")
+def moe_tp():
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        jobs_worker,
+    )
+
+    jps.initialize_model_parallel(tensor_model_parallel_size=MOE_TP,
+                                  devices=jax.devices()[:MOE_TP])
+    try:
+        pairs = {("sp" if sp else "tp"): _moe_tp_case(sp)
+                 for sp in (False, True)}
+    finally:
+        jps.destroy_model_parallel()
+    ports = spawn(jobs_worker, MOE_TP, args=([
+        ("apex_tpu_torch.transformer.testing.tp_workers:moe_tp_worker",
+         (MOE_TP, {k: c for k, (c, _) in pairs.items()}))],), timeout=180.0)
+    return {k: r for k, (_, r) in pairs.items()}, [p[0] for p in ports]
+
+
+@pytest.mark.parametrize("mode", ["tp", "sp"])
+def test_moe_layer_at_tp2_matches_jax(moe_tp, mode):
+    """The Queue 3 repair: MoE at tp = 2, with and without sequence
+    parallelism, against JAX's layer under ``shard_map``: output and dx
+    1e-5, the aux loss 1e-6 relative and every gradient 1e-4 relative in
+    norm, on each rank. Without SP both ranks route the same tokens, so
+    the expert gradients are equal; under SP each rank routes its own
+    shard and keeps its own expert gradients (no tp sum), as JAX does."""
+    refs, ports = moe_tp
+    ref = refs[mode]
+    for r in range(MOE_TP):
+        got = ports[r][mode]
+        np.testing.assert_allclose(got["y"], ref["y"][r], rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got["dx"], ref["dx"][r], rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got["aux"], float(ref["aux"][r]),
+                                   rtol=1e-6)
+        want = ref["grads"][r]
+        assert set(got["grads"]) == set(want)
+        for n, g in want.items():
+            assert _rel(got["grads"][n], g.numpy()) < 1e-4, (mode, r, n)
+    w_in = "mlp.w_in"
+    same = np.array_equal(ports[0][mode]["grads"][w_in],
+                          ports[1][mode]["grads"][w_in])
+    assert same == (mode == "tp")

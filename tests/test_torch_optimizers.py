@@ -307,10 +307,22 @@ def test_distributed_fused_adam_refuses_what_is_not_ported():
     # world of one: no process group)
     with pytest.raises(ValueError, match="axis_size 2"):
         distributed_fused_adam(axis_size=2)
-    with pytest.raises(NotImplementedError, match="compress"):
-        distributed_fused_adam(compression=object())
-    with pytest.raises(NotImplementedError, match="remainders"):
-        DistributedFusedAdam(store_param_remainders=True)
+    # compression and remainders are ported (tests/test_torch_zero_
+    # compress.py holds them to JAX over dp): at a world of one the
+    # compressed reduce-scatter is the identity and leaves a zero residual
+    # of the padded length, and remainders take bf16 params only
+    from apex_tpu_torch.parallel.compress import CompressionConfig
+
+    tp0 = gpt_params_from_jax(_params())
+    exact, comp = distributed_fused_adam(lr=1e-2), distributed_fused_adam(
+        lr=1e-2, compression=CompressionConfig())
+    ue, _ = exact.update(gpt_params_from_jax(_grads(0)), exact.init(tp0), tp0)
+    uc, sc = comp.update(gpt_params_from_jax(_grads(0)), comp.init(tp0), tp0)
+    assert all(torch.equal(ue[n], uc[n]) for n in tp0)
+    assert sc.ef_residual.shape == sc.master_shard.shape
+    assert not sc.ef_residual.any()
+    with pytest.raises(ValueError, match="bfloat16"):
+        DistributedFusedAdam(store_param_remainders=True).init(tp0)
     # the bucketed gather is bit-identical at a world of one
     a, b = (distributed_fused_adam(lr=1e-2, param_gather_buckets=k)
             for k in (None, 4))

@@ -302,14 +302,25 @@ def test_training_step_matches_jax(jax_training):
 
 def test_training_refuses_what_is_not_ported():
     # tp, zero and max_devices are ported (tests/test_torch_parallel_
-    # training.py), pipeline parallelism (tests/test_torch_pipeline*.py)
-    # and context parallelism (tests/test_torch_context_parallel.py);
-    # compression and the layer-RMS taps are not
+    # training.py), pipeline parallelism (tests/test_torch_pipeline*.py),
+    # context parallelism (tests/test_torch_context_parallel.py), and
+    # compression and the layer-RMS taps (tests/test_torch_training_
+    # compress.py): at a world of one they build, the DDP residual rides
+    # in the optimizer slot, and the taps give one finite RMS a layer
     from apex_tpu_torch.parallel import parallel_state
 
-    for bad in (dict(compression="int8"), dict(collect_layer_rms=True)):
-        with pytest.raises(NotImplementedError):
-            build_gpt_training(GPTTargetConfig(**bad), device="cpu")
+    tiny = dict(vocab=64, seq_len=16, layers=2, hidden=32, heads=2,
+                micro_batch=2, global_batch=4)
+    for extra in (dict(compression="int8"), dict(collect_layer_rms=True)):
+        tr = build_gpt_training(GPTTargetConfig(**tiny, **extra),
+                                device="cpu")
+        state = tr.init_state()
+        assert isinstance(state.opt, dict) == ("compression" in extra)
+        x = np.arange(4 * 16).reshape(4, 16) % 64
+        out = tr.train_step(state, *tr.reshape_batch(x, np.roll(x, -1, 1)))
+        assert len(out) == (5 if "collect_layer_rms" in extra else 4)
+        if len(out) == 5:
+            assert len(out[4]) == 2 and np.isfinite(out[4]).all()
     # pp = 2 needs a world of that many processes, as tp = 2 does
     with pytest.raises(RuntimeError, match="world"):
         parallel_state.initialize_model_parallel(
