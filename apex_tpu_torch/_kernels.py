@@ -118,6 +118,19 @@ def _finish_build(proc: subprocess.Popen) -> None:
     os.replace(proc.tmp, proc.out)  # type: ignore[attr-defined]
 
 
+#: kernel entry points loaded (their library built or opened) in this
+#: process; the serving engine's counterpart of a compile counter
+_LIBRARY_LOADS = [0]
+
+
+def library_loads() -> int:
+    """How many kernel entry points this process has loaded so far: each
+    first call of a :class:`Kernel` builds its library when missing and
+    opens it. The serving engine loads its path's kernels in ``start()``
+    and counts any later load as a steady-state violation."""
+    return _LIBRARY_LOADS[0]
+
+
 class Kernel:
     """One C entry point of a kernel library, with its launch count."""
 
@@ -137,6 +150,7 @@ class Kernel:
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
+            _LIBRARY_LOADS[0] += 1
         return self._fn
 
     def __call__(self, *args) -> None:

@@ -1,0 +1,42 @@
+"""Run-level goodput (counterpart of apex_tpu/monitor/goodput/): the
+span ledger and the accountant.
+
+- ``spans``      — the ``kind="span"`` phase ledger (closed taxonomy
+  :data:`~apex_tpu_torch.monitor.goodput.spans.PHASES`), ``kind="run"``
+  incarnation headers, and the torn-stream teardown flush.
+- ``accountant`` — replays one or more streams into a goodput/badput
+  partition whose identity ``productive + sum(badput) + unattributed ==
+  wall`` is exact.
+
+Not ported yet: the fleet-health checks, the live monitor, the
+perf-regression sentinel and the command line.
+"""
+
+from apex_tpu_torch.monitor.goodput.accountant import (
+    BADPUT_PHASES,
+    GoodputReport,
+    account,
+    read_records,
+)
+from apex_tpu_torch.monitor.goodput.spans import (
+    PHASE_PRIORITY,
+    PHASES,
+    PRODUCTIVE_PHASE,
+    PRODUCTIVE_PHASES,
+    Span,
+    begin_span,
+    derive_run_id,
+    emit_span,
+    flush_open_spans,
+    get_router,
+    run_header,
+    set_router,
+    span,
+)
+
+__all__ = [
+    "BADPUT_PHASES", "GoodputReport", "PHASES", "PHASE_PRIORITY",
+    "PRODUCTIVE_PHASE", "PRODUCTIVE_PHASES", "Span", "account",
+    "begin_span", "derive_run_id", "emit_span", "flush_open_spans",
+    "get_router", "read_records", "run_header", "set_router", "span",
+]

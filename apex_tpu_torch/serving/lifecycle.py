@@ -1,15 +1,40 @@
 """Request lifecycle: the closed state machine every request traverses
-(copied from apex_tpu/serving/lifecycle.py, which is jax-free).
+(counterpart of apex_tpu/serving/lifecycle.py).
+
+A serving request is only trustworthy if its ending is ACCOUNTED: a
+request that vanishes (client never hears back, no record says why) is
+the serving analogue of a silently-dropped batch. Every request admitted
+to — or refused by — the :class:`~apex_tpu_torch.serving.engine.ServingEngine`
+walks this CLOSED machine:
 
     queued -> admitted -> prefill -> decode -> {completed, timed_out,
                                                 cancelled, failed}
 
 with ``rejected`` reachable straight from submission (admission-control
-shedding) and the other terminal states reachable from every live
-state. :func:`transition` refuses any edge not in :data:`TRANSITIONS`,
-so an engine code path cannot invent a half-state. The JAX package's
-``kind="request"`` record emission through its metric router is not
-ported yet.
+shedding: bounded queue, TTFT budget, malformed payload, drain) and the
+other terminal states reachable from every live state — a deadline or a
+client disconnect does not wait for a convenient phase. The machine is
+closed the same way the goodput span taxonomy is closed
+(monitor/goodput/spans.py): :func:`transition` refuses any edge not in
+:data:`TRANSITIONS`, so a new engine code path cannot invent a
+half-state that fragments the accounting.
+
+Every transition emits ONE ``kind="request"`` record through the shared
+MetricRouter schema (StdoutSink skips the kind — a loaded server emits
+several per tick; the jsonl stream is the durable home):
+
+    {"t", "step", "kind": "request", "host", "id", "state", "reason",
+     "prompt_len", "max_new", "tokens_out", ...}
+
+plus latency fields as they become known (``queue_wait_s`` on
+admission, ``ttft_s`` at the first token, ``total_s`` on a terminal
+state). ``step`` is the scheduler tick. The terminal record carries
+``terminal: true``, so "every submitted request reached exactly one
+terminal state" is a one-pass assertion over the stream — the overload
+drill's no-silent-drops contract.
+
+Copied from the JAX package's module, which imports no JAX, but for the
+``bucket`` field (see :class:`Request`).
 """
 
 import dataclasses
@@ -19,7 +44,7 @@ __all__ = [
     "QUEUED", "ADMITTED", "PREFILL", "DECODE",
     "COMPLETED", "REJECTED", "TIMED_OUT", "CANCELLED", "FAILED",
     "STATES", "TERMINAL_STATES", "TRANSITIONS",
-    "Request", "transition",
+    "Request", "transition", "emit_request_record",
 ]
 
 QUEUED = "queued"
@@ -65,6 +90,10 @@ class Request:
     enforces at every tick. ``tokens_out`` accumulates generated token
     ids; ``lane``/``blocks`` are the engine's placement (a decode slot
     and the KV pool blocks reserved for the request's worst case).
+
+    The JAX package's ``bucket`` field (the padded prefill shape the
+    request was compiled into) has no counterpart: the port has no
+    prefill buckets, a prompt runs at its own length.
     """
 
     rid: int
@@ -81,6 +110,13 @@ class Request:
     admit_t: Optional[float] = None
     first_token_t: Optional[float] = None
     end_t: Optional[float] = None
+    #: per-step next-token logits (host np arrays), populated only under
+    #: the engine's ``collect_logits`` debug/test mode
+    logits: Optional[List[Any]] = None
+    #: caller-owned routing metadata merged into EVERY record this
+    #: request emits (the fleet router stamps replica placement, the
+    #: prefix-cache hit rate, and the re-dispatch attempt here)
+    tags: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def prompt_len(self) -> int:
@@ -120,9 +156,10 @@ def transition(req: Request, new_state: str, now: Optional[float] = None,
     Terminal states are absorbing: transitioning OUT of one raises.
 
     ``now`` is the caller's injected clock reading (the engine passes
-    its ``time_fn()``, which tests replace with a virtual clock). With
-    ``now=None`` the edge is walked but no timestamp is stamped:
-    ``admit_t``/``end_t`` stay as they were.
+    its ``time_fn()``, which fleet chaos drills replace with a virtual
+    clock). With ``now=None`` the edge is walked but no timestamp is
+    stamped: ``admit_t``/``end_t`` stay as they were, and the record's
+    latency fields simply don't exist yet (None-not-fake-number).
     """
     if new_state not in STATES:
         raise ValueError(
@@ -149,3 +186,45 @@ def transition(req: Request, new_state: str, now: Optional[float] = None,
         if new_state in TERMINAL_STATES:
             req.end_t = now
     return req
+
+
+def emit_request_record(router, tick: int, req: Request, trace=None,
+                        **extra) -> Optional[dict]:
+    """One ``kind="request"`` record for ``req``'s current state.
+
+    Called once per transition by the engine; with ``router=None`` the
+    record is a no-op (un-wired library cost: nothing). Latency fields
+    are included only once they exist — None-not-fake-number.
+
+    ``trace`` is the emitter's :class:`~apex_tpu_torch.serving.trace.emit.
+    TraceEmitter` (or None): because this function is the SINGLE
+    request-record emission point, hooking it here grows the request's
+    causal span tree on every transition without per-call-site wiring —
+    the hook runs after the flat record so the stream reads
+    transition-then-spans.
+    """
+    rec = None
+    if router is not None:
+        fields = {
+            "id": int(req.rid),
+            "state": req.state,
+            "reason": req.reason,
+            "prompt_len": int(req.prompt_len),
+            "max_new": int(req.max_new_tokens),
+            "tokens_out": len(req.tokens_out),
+        }
+        if req.tags:
+            fields.update(req.tags)
+        if req.queue_wait_s is not None:
+            fields["queue_wait_s"] = float(req.queue_wait_s)
+        if req.ttft_s is not None:
+            fields["ttft_s"] = float(req.ttft_s)
+        if req.end_t is not None:
+            fields["total_s"] = float(req.end_t - req.submit_t)
+        if req.terminal:
+            fields["terminal"] = True
+        fields.update(extra)
+        rec = router.event("request", int(tick), **fields)
+    if trace is not None:
+        trace.on_record(int(tick), req)
+    return rec

@@ -69,6 +69,28 @@ swallowed:
    short input on the card agree with the plain path on the CPU, and in
    fp32 the engine's greedy tokens equal ``generate``'s on the same
    prompts;
+4b. serving_fleet: the serving front end at GPT-2 small's full width
+   (bf16, the same seeded weights): (a) one 8-lane engine with a record
+   router serves 24 requests of the serving workload plus fillers that
+   overflow its 32-deep queue (``queue_full``), books malformed,
+   out-of-vocab and too-long refusals, then arms a TTFT budget of
+   ``TTFT_BUDGET_FACTOR`` x its measured per-admission cost and sheds
+   ``ttft_budget`` only after an injected slow-decode tick; a drain
+   mid-load finishes the in-flight and rejects the queued as
+   ``draining``, and a zero-grace drain on a second engine evicts by
+   deadline; every request has one terminal record, the pool is free
+   and kept its storage, no kernel loaded after ``start()``, the goodput
+   identity holds with ``==`` and the x-ray passes; (b) in fp32, a
+   prefill and a decode replica give ``generate``'s greedy tokens on 4
+   requests through KV handoffs whose ledger closes matched with n_blocks
+   x 12 x 2 x 12 x 16 x 64 x 4 bytes each; (c) 3 replicas (1 prefill, 2
+   decode) under a seeded ``PoissonLoadGenerator`` with a replica kill
+   mid-load and the autoscaler armed: the kill, the re-dispatch, a
+   restart, a readmission and a scale-up happen, every global id has one
+   terminal record, the ledger (589,824 bytes a block) is matched, the
+   x-ray and the goodput identity hold; logs tokens/s, TTFT p50/p99, time
+   per output token, handoff bytes and ms, ticks from the kill to the
+   detection and the readmission, and drain seconds;
 5. training: ``build_gpt_training`` at GPT-2 small's full width (micro
    batch 8, global batch 16, seq 1024, lr 3e-4) on the synthetic stream,
    one warm-up step (after which every one of the 148 parameters must
@@ -250,7 +272,9 @@ swallowed:
    ``{"ok": true, "device": {...}}``.
 
 The paths, each driven with the counts set to 0 just before it and read
-just after: ``serving`` and ``training`` (GPT-2 small), ``llama_serving``
+just after: ``serving``, ``serving_fleet`` (its three parts; the fp32
+``generate`` references run before the counts are set to 0) and
+``training`` (GPT-2 small), ``llama_serving``
 and ``llama_finetune`` (TinyLlama-1.1B), ``resnet`` (ResNet-50, which
 runs none of the nine kernels), ``bert_serving``, ``bert_pretrain`` and
 ``bert_dropout`` (Megatron BERT-345M), ``gpt_parallel`` and
@@ -352,6 +376,10 @@ LAMB_SHARD_BERT = 84_082_688
 # line is the count of the first path here that runs it
 PATH_KERNELS = {
     "serving": ("layer_norm_fwd", "flash_fwd"),
+    # the serving front end: engine records and drain, the disaggregated
+    # pair and the chaos fleet (prefill and split-KV decode on every
+    # replica)
+    "serving_fleet": ("layer_norm_fwd", "flash_fwd"),
     "training": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
                  "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
     "llama_serving": ("rms_norm_fwd", "flash_fwd"),
@@ -1716,6 +1744,326 @@ def serving_phase(smi):
                                  f"!= generate {want}")
     log(f"engine == generate on {len(out32)} fp32 greedy requests")
     return launches, serving
+
+
+# -- the serving front end ---------------------------------------------------
+
+# the TTFT budget the single engine arms after its load: this many times
+# its measured per-admission cost (prefill + one decode tick, the EMAs
+# estimated_ttft_s reads), so only the injected slow tick can breach it
+TTFT_BUDGET_FACTOR = 3.0
+# the chaos drill's kill lands mid-load: the prefill replica then holds
+# most of the queue
+FLEET_KILL_TICK = 8
+# GPT-2 small's KV bytes a 16-token block: 12 layers x (K, V) x 12 heads
+# x 16 tokens x 64 dims x itemsize
+KV_BLOCK_ELEMENTS = 12 * 2 * 12 * 16 * 64
+
+
+def _terminal_once(records, ids):
+    """Every id in ``ids`` has exactly one terminal request record, and no
+    other id has one."""
+    seen = {}
+    for r in records:
+        if r.get("kind") == "request" and r.get("terminal"):
+            seen.setdefault(r["id"], []).append(r["state"])
+    return set(seen) == set(ids) and all(len(v) == 1 for v in seen.values())
+
+
+def _identity(records):
+    from apex_tpu_torch.monitor.goodput import account
+
+    rep = account(records)
+    lhs = rep.productive_s
+    for phase in sorted(rep.badput_s):
+        lhs = lhs + rep.badput_s[phase]
+    return lhs + rep.unattributed_s == rep.wall_s and rep.productive_s > 0.0
+
+
+def _latency(reqs):
+    from apex_tpu_torch.serving import percentile
+
+    ttft = [r.ttft_s for r in reqs if r.ttft_s is not None]
+    tpot = [(r.end_t - r.first_token_t) / (len(r.tokens_out) - 1)
+            for r in reqs if r.state == "completed" and len(r.tokens_out) > 1]
+    return {"ttft_p50_ms": percentile(ttft, 50.0) * 1e3,
+            "ttft_p99_ms": percentile(ttft, 99.0) * 1e3,
+            "per_token_p50_ms": percentile(tpot, 50.0) * 1e3}
+
+
+def _handoffs(records, itemsize):
+    """(n, bytes, ms per handoff, every booking's bytes follow the block
+    formula) from the ledger's and the x-ray's records."""
+    outs = [r for r in records
+            if r.get("kind") == "handoff" and r.get("side") == "out"]
+    ms = [r["dur_s"] * 1e3 for r in records
+          if r.get("kind") == "trace" and r.get("name") == "handoff"]
+    exact = all(r["bytes"] == r["blocks"] * KV_BLOCK_ELEMENTS * itemsize
+                for r in outs)
+    return (len(outs), sum(r["bytes"] for r in outs),
+            statistics.median(ms) if ms else None, exact)
+
+
+def serving_fleet_phase(smi):
+    """Phase 4b (module docstring): the engine's records, shedding and
+    drain, the disaggregated pair and the chaos fleet, at GPT-2 small's
+    full width."""
+    import dataclasses
+
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.models import GPTModel, generate, gpt2_small_config
+    from apex_tpu_torch.monitor import MemorySink, MetricRouter
+    from apex_tpu_torch.monitor.goodput import run_header
+    from apex_tpu_torch.resilience.chaos import FaultPlan
+    from apex_tpu_torch.serving import (
+        PoissonLoadGenerator,
+        ServingConfig,
+        ServingEngine,
+    )
+    from apex_tpu_torch.serving.fleet import (
+        FleetConfig,
+        FleetRouter,
+        engine_factory,
+    )
+    from apex_tpu_torch.serving.profile import make_requests, serving_config
+    from apex_tpu_torch.serving.trace.analyze import analyze as xray
+
+    t_phase = time.perf_counter()
+    mcfg = gpt2_small_config()
+    vocab = mcfg.vocab_size
+    model = GPTModel(mcfg, device="cuda", seed=SEED)
+    gpu32 = GPTModel(gpt2_small_config(compute_dtype=torch.float32),
+                     device="cuda", seed=SEED)
+    rs = np.random.RandomState(SEED + 1)
+    main_reqs = make_requests(24, vocab, rs)
+    pair_reqs = [(p[:200], 16) for p, _ in make_requests(4, vocab, rs)]
+    drain_reqs = make_requests(6, vocab, rs)
+    refs = [generate(gpu32, p[None], n)[0, len(p):].tolist()
+            for p, n in pair_reqs]
+    kinds = ("request", "run", "span", "trace", "memory", "fleet",
+             "handoff", "slo")
+    out = {"model": "gpt2-small 12x768 vocab 50257 (random weights)",
+           "gpu": smi}
+
+    def fail(msg):
+        raise AssertionError(f"serving_fleet: {msg}")
+
+    _kernels.reset_launch_counts()
+    # -- (a) one engine: records, shedding, drain, closure ----------------
+    mem = MemorySink(kinds=kinds, max_records=None)
+    router = MetricRouter([mem])
+    run_header(router, "serving-fleet-a")
+    plan = FaultPlan()
+    cfg = serving_config(SEED)
+    eng = ServingEngine(model, cfg, router=router, fault_plan=plan).start()
+    ptrs = (eng.k_pool.data_ptr(), eng.v_pool.data_ptr())
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, n) for p, n in main_reqs]
+    filler = [eng.submit(rs.randint(0, vocab, size=32), 2)
+              for _ in range(cfg.max_queue_depth - len(reqs) + 2)]
+    while not eng.idle:
+        eng.tick()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(r.state != "completed" for r in reqs):
+        fail(f"main load: {eng.stats()['terminal']}")
+    shed = [r.reason for r in filler if r.state == "rejected"]
+    if shed != ["queue_full"] * 2:
+        fail(f"queue overflow shed {shed}, expected 2 x queue_full")
+    refused = [eng.submit(np.zeros((0,), np.int64), 4),
+               eng.submit(np.array([vocab]), 4),
+               eng.submit(rs.randint(0, vocab, size=1000), 100)]
+    if [r.reason for r in refused] != ["malformed", "malformed", "too_long"]:
+        fail(f"refusals booked {[r.reason for r in refused]}")
+    tokens = sum(len(r.tokens_out) for r in reqs + filler)
+    out["engine"] = {"requests": len(reqs), "fillers": len(filler),
+                     "tokens_out": tokens, "wall_s": wall,
+                     "tokens_per_s": tokens / wall, **_latency(reqs)}
+    # arm the budget from the engine's own measured cost; only the
+    # injected slow tick may breach it
+    est0 = eng.estimated_ttft_s()
+    budget = TTFT_BUDGET_FACTOR * est0
+    eng.config = dataclasses.replace(cfg, ttft_budget_s=budget)
+    calm = eng.submit(rs.randint(0, vocab, size=32), 4)
+    calm_state = calm.state
+    plan.slow_decode_steps = frozenset({eng._tick})
+    plan.slow_decode_s = 2.0 * budget
+    eng.tick()
+    est1 = eng.estimated_ttft_s()
+    hot = eng.submit(rs.randint(0, vocab, size=32), 4)
+    if calm_state != "queued" or hot.reason != "ttft_budget":
+        fail(f"TTFT shedding: before the fault {calm_state} "
+             f"({calm.reason}), after it {hot.state} ({hot.reason}); "
+             f"estimates {est0:.4f} -> {est1:.4f} s, budget {budget:.4f}")
+    eng.config = cfg
+    while not eng.idle:
+        eng.tick()
+    mid = [eng.submit(p, n) for p, n in drain_reqs]
+    for _ in range(3):
+        eng.tick()
+    inflight = [r for r in mid if r.state == "decode"]
+    queued = [r for r in mid if r.state == "queued"]
+    report = eng.drain(grace_s=60.0)
+    if (not inflight or not queued
+            or any(r.state != "completed" for r in inflight)
+            or any(r.reason != "draining" for r in queued)
+            or eng.drain().get("redundant") is not True):
+        fail(f"drain mid-load: {report}")
+    eng2 = ServingEngine(model, ServingConfig(
+        lanes=1, block_size=16, num_blocks=64, max_seq_len=1024),
+        router=router).start()
+    # a fresh id on the shared stream: its x-ray keys on ids
+    r_e = eng2.submit(*drain_reqs[0], rid=len(eng.requests()))
+    eng2.tick()
+    report2 = eng2.drain(grace_s=0.0)
+    if (r_e.reason, report2["evicted"]) != ("drain_deadline", 1):
+        fail(f"zero-grace drain: {r_e.state} {r_e.reason} {report2}")
+    router.close()
+    recs = mem.snapshot()
+    ids = [r.rid for r in eng.requests()] + [r.rid for r in eng2.requests()]
+    checks = {
+        "one terminal record a request": _terminal_once(recs, set(ids)),
+        "pool free": (eng.allocator.free_blocks == cfg.num_blocks
+                      and eng2.allocator.free_blocks == 64),
+        "pool kept its storage": (eng.k_pool.data_ptr(),
+                                  eng.v_pool.data_ptr()) == ptrs,
+        "no kernel loaded after start()": (eng.steady_state_compiles
+                                           == eng2.steady_state_compiles
+                                           == 0),
+        "goodput identity ==": _identity(recs),
+        "x-ray passes": xray(recs).ok,
+        "memory records": any(r["kind"] == "memory" for r in recs),
+    }
+    if not all(checks.values()):
+        fail(f"engine checks {checks}")
+    out["engine"].update(
+        shed=eng.stats()["reasons"], ttft_budget_s=budget,
+        estimate_before_s=est0, estimate_after_s=est1,
+        drain_s=report["drain_s"], drain=report,
+        zero_grace_drain_s=report2["drain_s"])
+    log(f"serving_fleet (a) engine: {out['engine']['tokens_per_s']:.1f} "
+        f"tokens/s, TTFT p50 {out['engine']['ttft_p50_ms']:.1f} ms p99 "
+        f"{out['engine']['ttft_p99_ms']:.1f} ms, drain "
+        f"{report['drain_s']:.3f} s; " + ", ".join(checks))
+
+    # -- (b) the disaggregated pair in fp32: tokens through a handoff ------
+    mem_b = MemorySink(kinds=kinds, max_records=None)
+    router_b = MetricRouter([mem_b])
+    run_header(router_b, "serving-fleet-b")
+    cfg_b = ServingConfig(lanes=8, block_size=16, num_blocks=64,
+                          max_seq_len=1024)
+    fleet_b = FleetRouter(engine_factory(gpu32, cfg_b, router=router_b),
+                          FleetConfig(replicas=2, prefill_replicas=1),
+                          router=router_b).start()
+    pair = [fleet_b.submit(p, n) for p, n in pair_reqs]
+    while not fleet_b.idle:
+        fleet_b.tick()
+    fleet_b.drain(grace_s=10.0)
+    router_b.close()
+    recs_b = mem_b.snapshot()
+    n_h, bytes_h, ms_h, exact = _handoffs(recs_b, 4)
+    audit = fleet_b.ledger.audit()
+    if [r.tokens_out for r in pair] != refs:
+        fail("fp32 tokens through a handoff differ from generate's")
+    if not (audit["matched"] and n_h >= len(pair) and exact
+            and audit["bytes_in"] == audit["bytes_out"] == bytes_h):
+        fail(f"handoff ledger {audit}, formula held: {exact}")
+    if not (_terminal_once(recs_b, set(range(len(pair))))
+            and xray(recs_b).ok and _identity(recs_b)):
+        fail("the pair's stream does not close")
+    out["pair"] = {"handoffs": n_h, "bytes": bytes_h, "ms_per_handoff": ms_h,
+                   "bytes_per_block": KV_BLOCK_ELEMENTS * 4}
+    log(f"serving_fleet (b) fp32 pair: generate's tokens on {len(pair)} "
+        f"requests through {n_h} handoffs, {bytes_h} B, ledger matched")
+
+    # -- (c) the chaos drill ----------------------------------------------
+    mem_c = MemorySink(kinds=kinds, max_records=None)
+    router_c = MetricRouter([mem_c])
+    run_header(router_c, "serving-fleet-c")
+    fleet = FleetRouter(
+        engine_factory(model, serving_config(SEED), router=router_c),
+        FleetConfig(replicas=3, prefill_replicas=1, miss_ticks_to_detect=2,
+                    # the autoscaler's budget (admission never sheds):
+                    # under the standing load it breaches at once
+                    ttft_budget_s=1e-4, breach_ticks=2, min_replicas=1,
+                    max_replicas=4),
+        router=router_c,
+        fault_plan=FaultPlan(kill_replica_steps={FLEET_KILL_TICK})).start()
+    gen = PoissonLoadGenerator(rate_rps=40.0, vocab=vocab, n_requests=24,
+                               prompt_len=(32, 768), max_new=(32, 64),
+                               seed=SEED)
+    t0 = time.perf_counter()
+    # the seeded schedule injected at once (virtual time), so the kill
+    # finds a loaded victim
+    gen.pump(fleet, now=0.0)
+    gen.pump(fleet, now=1e6)
+    n = 0
+    while not fleet.idle and n < 2000:
+        fleet.tick()
+        n += 1
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    for _ in range(6):  # probation needs clean ticks past idle
+        fleet.tick()
+    t0 = time.perf_counter()
+    fleet_report = fleet.drain(grace_s=30.0)
+    drain_c = time.perf_counter() - t0
+    router_c.close()
+    recs_c = mem_c.snapshot()
+    fleet_recs = [r for r in recs_c if r.get("kind") == "fleet"]
+    at = {}
+    for r in fleet_recs:
+        at.setdefault((r.get("check"), r.get("action")), r["step"])
+    done = fleet.requests()
+    tokens_c = sum(len(r.tokens_out) for r in done)
+    n_hc, bytes_hc, ms_hc, exact_c = _handoffs(recs_c, 2)
+    audit_c = fleet.ledger.audit()
+    checks = {
+        "kill": ("chaos", "kill_replica") in at,
+        "re-dispatched": fleet.redispatched > 0 and any(
+            r.get("attempt", 1) > 1 for r in recs_c
+            if r.get("kind") == "request"),
+        "restart": ("replica", "restarted") in at,
+        "readmit": ("replica", "readmitted") in at,
+        "scale-up": ("autoscale", "added") in at,
+        "all completed": (len(done) == 24
+                          and all(r.state == "completed" for r in done)),
+        "one terminal record a global id": _terminal_once(
+            recs_c, set(range(24))),
+        "ledger matched": audit_c["matched"] and exact_c and n_hc > 0,
+        "x-ray passes": xray(recs_c).ok,
+        "goodput identity ==": _identity(recs_c),
+        "no kernel loaded after start()": sum(
+            rep.engine.steady_state_compiles for rep in fleet.replicas) == 0,
+    }
+    if not all(checks.values()):
+        fail(f"chaos drill checks {checks}; fleet actions "
+             f"{sorted(at.items(), key=lambda kv: kv[1])}")
+    kill = at[("chaos", "kill_replica")]
+    out["fleet"] = {
+        "requests": len(done), "tokens_out": tokens_c, "ticks": n,
+        "wall_s": wall_c, "tokens_per_s": tokens_c / wall_c,
+        **_latency(done), "handoffs": n_hc, "handoff_bytes": bytes_hc,
+        "ms_per_handoff": ms_hc, "redispatched": fleet.redispatched,
+        "kill_tick": kill,
+        "ticks_kill_to_detect": at[("replica", "detected")] - kill,
+        "ticks_kill_to_readmit": at[("replica", "readmitted")] - kill,
+        "scale_up_tick": at[("autoscale", "added")],
+        "replicas": len(fleet.replicas), "drain_s": drain_c,
+        "drain": {k: v for k, v in fleet_report.items() if k != "replicas"},
+    }
+    launches = _kernels.launch_counts()
+    for name in PATH_KERNELS["serving_fleet"]:
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serving_fleet (c) chaos drill: {out['fleet']['tokens_per_s']:.1f} "
+        f"tokens/s over {n} ticks, kill at tick {kill}, detected +"
+        f"{out['fleet']['ticks_kill_to_detect']}, readmitted +"
+        f"{out['fleet']['ticks_kill_to_readmit']}; " + ", ".join(checks))
+    log("serving_fleet " + json.dumps(out))
+    return launches, out
 
 
 # -- training --------------------------------------------------------------
@@ -4903,6 +5251,8 @@ def main():
     paths = {}
     paths["serving"], _ = serving_phase(smi)
     log_memory("serving")
+    paths["serving_fleet"], _ = serving_fleet_phase(smi)
+    log_memory("serving_fleet")
     paths["training"], _ = training_phase(smi)
     training_card_vs_plain()
     log_memory("training")

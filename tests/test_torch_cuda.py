@@ -239,6 +239,45 @@ def test_engine_goes_through_both_kernels(gen):
         assert r.tokens_out == want.tolist()
 
 
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_extract_adopt_on_the_card_resumes_bit_identically(gen, dtype):
+    """A request handed off mid-decode (``extract``: one device-to-host
+    copy a side; ``adopt``: the blocks written in place) finishes with
+    the tokens of the same request served on one engine, bit for bit;
+    the adopter's pool keeps its storage and no kernel loads after
+    ``start()``."""
+    cfg = TransformerConfig(num_layers=2, hidden_size=256,
+                            num_attention_heads=4, vocab_size=512,
+                            max_position_embeddings=128, hidden_dropout=0.0,
+                            attention_dropout=0.0, compute_dtype=dtype)
+    model = GPTModel(cfg, seed=0)
+    scfg = ServingConfig(lanes=2, block_size=16, num_blocks=16,
+                         max_seq_len=128)
+    prompt = torch.randint(0, 512, (37,), generator=gen,
+                           device="cuda").cpu().numpy()
+    alone = ServingEngine(model, scfg).start()
+    ref = alone.submit(prompt, 20)
+    while not alone.idle:
+        alone.tick()
+    src = ServingEngine(model, scfg).start()
+    dst = ServingEngine(model, scfg).start()
+    ptrs = (dst.k_pool.data_ptr(), dst.v_pool.data_ptr())
+    req = src.submit(prompt, 20)
+    for _ in range(6):
+        src.tick()
+    payload = src.extract(req.rid)
+    assert payload["kv"]["k"].device.type == "cpu"
+    assert payload["bytes"] == (payload["n_blocks"] * 2 * 2 * 4 * 16 * 64
+                                * torch.finfo(dtype).bits // 8)
+    assert dst.adopt(payload)
+    while not dst.idle:
+        dst.tick()
+    assert req.state == "completed" and req.tokens_out == ref.tokens_out
+    assert (dst.k_pool.data_ptr(), dst.v_pool.data_ptr()) == ptrs
+    assert src.steady_state_compiles == dst.steady_state_compiles == 0
+
+
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 

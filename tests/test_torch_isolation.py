@@ -84,6 +84,22 @@ def test_entry_points_refuse_a_host_without_cuda(monkeypatch):
         ServingEngine(model, ServingConfig(max_seq_len=16, block_size=4,
                                            num_blocks=4))
     assert generate(model, [[1, 2]], 2, device="cpu").shape == (1, 4)
+    # the fleet's engine factory and the serving gate run on the card too
+    from apex_tpu_torch.serving.__main__ import main as serving_main
+    from apex_tpu_torch.serving.fleet import (
+        FleetConfig,
+        FleetRouter,
+        engine_factory,
+    )
+
+    cfg = ServingConfig(max_seq_len=16, block_size=4, num_blocks=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FleetRouter(engine_factory(model, cfg), FleetConfig(replicas=1))
+    FleetRouter(engine_factory(model, cfg, device="cpu"),
+                FleetConfig(replicas=1))
+    for argv in (["--selftest"], ["--selftest", "--fleet"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serving_main(argv)
 
 
 def test_kernel_wrapper_raises_and_counts_only_launches(monkeypatch):
