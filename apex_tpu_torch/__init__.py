@@ -25,7 +25,11 @@ amp front end (``amp``: O0-O3, O1's cast engine, ``AmpOptimizer``;
 ``examples.imagenet`` and ``examples.dcgan``); and compressed gradient
 collectives with error feedback (``parallel.compress``, in DDP, ZeRO
 Adam and ZeRO LAMB), ZeRO's param remainders, the layer-RMS taps, and
-BERT, KV-cache decode and MoE at tp > 1. All nine
+BERT, KV-cache decode and MoE at tp > 1; and serving's front end and its
+example (``examples.serving.serve_gpt``: SIGTERM drain, the incident
+ladder of ``resilience.health``), beam search, and the monitor's
+instruments (``monitor``: FLOPs/MFU, the metric bag, the stall watchdog
+and profiler trigger, the HBM x-ray, goodput and fleet checks). All nine
 Pallas kernels of the TPU package
 are rewritten by hand in CUDA C++ for ``sm_90a`` (``csrc/``, built and
 loaded by ``_kernels``).

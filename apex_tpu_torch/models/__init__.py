@@ -18,7 +18,11 @@ from apex_tpu_torch.models.convert import (
     resnet_params_from_jax,
     scaler_state_from_jax,
 )
-from apex_tpu_torch.models.generate import generate, sample_next_token
+from apex_tpu_torch.models.generate import (
+    beam_search,
+    generate,
+    sample_next_token,
+)
 from apex_tpu_torch.models.gpt import (
     Embedding,
     GPTModel,
@@ -46,6 +50,7 @@ from apex_tpu_torch.models.resnet import (
 
 __all__ = [
     "BertModel", "Embedding", "GPTModel", "Pooler", "ResNet", "ResNet18",
+    "beam_search",
     "ResNet34", "ResNet50", "ResNet101", "ResNet152", "bert_extended_attention_mask",
     "bert_params_from_jax", "bert_tp_params_from_jax",
     "config_from_hf_llama", "cross_entropy_loss",

@@ -6,7 +6,8 @@ the flash kernel's key-padding path. ``use_cache=False`` recomputes the
 prefix every step and is the reference the cache is tested against.
 
 Sampling draws from an explicit ``torch.Generator`` on the model's
-device; greedy decoding needs none. ``beam_search`` is not ported yet.
+device; greedy decoding needs none. ``beam_search`` is fixed-width beam
+search over the same cache, reordering its rows to follow the beams.
 """
 
 from typing import Optional
@@ -15,7 +16,7 @@ import torch
 
 from apex_tpu_torch._kernels import resolve_device
 
-__all__ = ["generate", "sample_next_token"]
+__all__ = ["beam_search", "generate", "sample_next_token"]
 
 
 def _filter_logits(next_logits, top_k, top_p):
@@ -126,3 +127,79 @@ def generate(model, prompt_tokens, max_new_tokens: int,
         # causal: the prefix alone gives position cur - 1's logits
         buf[:, cur] = pick(model(buf[:, :cur])[:, cur - 1])
     return buf
+
+
+def _top_k(x, k: int):
+    """``(values, indices)`` of the ``k`` largest entries of each row,
+    best first, an exact tie broken toward the lower index as
+    ``jax.lax.top_k`` breaks it (``torch.topk`` leaves the order of ties
+    unspecified, and the card's and the CPU's differ)."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+@torch.no_grad()
+def beam_search(model, prompt_tokens, max_new_tokens: int, num_beams: int,
+                length_penalty: float = 1.0, device="cuda"):
+    """Beam-search decoding over the KV cache, on ``device`` (where
+    ``model`` must live).
+
+    The prompt is prefilled once per batch row and the cache's rows are
+    tiled to ``b * num_beams`` beams (``repeat_interleave``: row r ->
+    beams r k .. r k + k - 1). Every step scores the (b, k * vocab) joint
+    log-probs, keeps the top ``num_beams`` per row (an exact tie goes to
+    the lower index, as in JAX), and reorders the
+    cache's ``k``, ``v`` and ``index`` rows to follow the winning beams
+    (``index_select``, HF's ``_reorder_cache``). Returns ``(tokens,
+    scores)``: tokens (b, num_beams, s + max_new_tokens) int64 sorted
+    best-first, scores (b, num_beams) fp32, the sequence log-probs over
+    ``(s + max_new_tokens) ** length_penalty`` (HF's BeamHypotheses
+    divides by the FULL length, prompt included). No early stopping and
+    no EOS: generation always runs ``max_new_tokens`` steps.
+    """
+    if num_beams < 1:
+        raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+    device = resolve_device(device)
+    if model.device != device:
+        raise ValueError(f"model is on {model.device}, beam_search asked "
+                         f"for {device}")
+    prompt = torch.as_tensor(prompt_tokens, device=device).long()
+    b, s = prompt.shape
+    k = num_beams
+    if max_new_tokens <= 0:
+        return (prompt[:, None, :].expand(b, k, s).clone(),
+                torch.zeros((b, k), dtype=torch.float32, device=device))
+    _check_position_bound(model, s, max_new_tokens)
+    total = s + max_new_tokens
+
+    cache = model.new_cache(b, total)
+    logp0 = torch.log_softmax(model(prompt, cache=cache)[:, s - 1].float(),
+                              dim=-1)
+    vocab = logp0.shape[-1]
+    first_scores, first_tokens = _top_k(logp0, k)  # (b, k), best first
+    cache.k = cache.k.repeat_interleave(k, dim=1)
+    cache.v = cache.v.repeat_interleave(k, dim=1)
+    cache.index = cache.index.repeat_interleave(k)
+    buf = torch.zeros((b * k, total), dtype=torch.long, device=device)
+    buf[:, :s] = prompt.repeat_interleave(k, dim=0)
+    tok = first_tokens.reshape(b * k)
+    buf[:, s] = tok
+    scores = first_scores.reshape(b * k)  # cumulative log-prob per beam
+    base = (torch.arange(b, device=device) * k)[:, None]
+    for cur in range(s + 1, total):
+        logits = model(tok[:, None], cache=cache, decode_step=True)[:, 0]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        joint = (scores[:, None] + logp).reshape(b, k * vocab)
+        best, flat = _top_k(joint, k)  # (b, k)
+        rows = (base + torch.div(flat, vocab, rounding_mode="floor")
+                ).reshape(b * k)
+        tok = (flat % vocab).reshape(b * k)
+        # follow the winning beams: history, cache rows and scores
+        buf = buf.index_select(0, rows)
+        cache.k = cache.k.index_select(1, rows)
+        cache.v = cache.v.index_select(1, rows)
+        cache.index = cache.index.index_select(0, rows)
+        buf[:, cur] = tok
+        scores = best.reshape(b * k)
+    norm = scores / (total ** length_penalty)
+    return buf.reshape(b, k, total), norm.reshape(b, k)

@@ -106,7 +106,10 @@ def _quantize_rows(rows: torch.Tensor, config: CompressionConfig):
     xp = torch.nn.functional.pad(rows, (0, nb * bs - n)).reshape(r, nb, bs)
     amax = xp.abs().amax(dim=2)  # NaN propagates
     one = torch.ones((), dtype=torch.float32, device=rows.device)
-    scales = torch.where(amax > 0, amax / qmax, one)
+    # divide by a tensor on amax's device: CUDA turns a division by a
+    # host scalar into a multiply by its reciprocal, one ulp off the true
+    # quotient the CPU (and JAX) compute
+    scales = torch.where(amax > 0, amax / torch.full_like(amax, qmax), one)
     # a NaN amax fails the > 0 test and would take scale 1.0: any
     # non-finite block gets a NaN scale instead
     scales = torch.where(torch.isfinite(amax), scales,

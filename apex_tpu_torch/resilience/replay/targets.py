@@ -9,7 +9,9 @@ and the escalation ``lr_scale`` input, in the JAX step's order.
 
 ``build_gpt_training(cfg)`` returns a :class:`GPTTraining` with
 ``init_state``, ``reshape_batch`` and ``train_step``;
-``examples/gpt/pretrain_gpt.py`` drives it.
+``examples/gpt/pretrain_gpt.py`` drives it, folding each step's scalars
+into a ``monitor.MetricBag`` of :data:`METRIC_SPEC` (``init_bag``) on the
+device.
 
 Each process is one rank: tensor-parallel size ``tp`` (with sequence
 parallelism under ``sequence_parallel``), and data-parallel size the
@@ -42,6 +44,7 @@ import torch
 from apex_tpu_torch._kernels import resolve_device
 from apex_tpu_torch.amp import GradScaler, LossScalerState
 from apex_tpu_torch.models.gpt import GPTModel, gpt_loss_fn
+from apex_tpu_torch.monitor.metrics import metric_bag
 from apex_tpu_torch.optimizers import (
     DistributedFusedAdamState,
     FusedAdamState,
@@ -58,7 +61,20 @@ from apex_tpu_torch.transformer.utils import calc_params_l2_norm
 from apex_tpu_torch.utils.pytree import tree_any_non_finite
 
 __all__ = ["GPTTargetConfig", "GPTTrainState", "GPTTraining",
-           "build_gpt_training", "synthetic_corpus", "tp_duplicated"]
+           "METRIC_SPEC", "build_gpt_training", "synthetic_corpus",
+           "tp_duplicated"]
+
+#: the step's in-step metric taps and their bag modes (the JAX step's
+#: ``metric_spec``): the scalars the host wants to SEE accumulate on the
+#: device and cross once per log interval
+METRIC_SPEC = {
+    "loss": "mean",          # unscaled, dp-averaged
+    "grad_norm": "mean",     # global L2 of the unscaled grads
+    "loss_scale": "last",    # dynamic-scaler gauge
+    "loss_z": "last",        # sentinel z-score of this loss
+    "skipped": "sum",        # updates suppressed this interval
+    "anomalies": "last",     # sentinel's running total this run
+}
 
 
 def synthetic_corpus(vocab: int, n_tokens: int = 200_000) -> np.ndarray:
@@ -143,6 +159,11 @@ class GPTTraining:
         return GPTTrainState(params, opt, self.scaler.init(self.device),
                              self.sentinel.init(self.device))
 
+    def init_bag(self):
+        """A fresh ``monitor.MetricBag`` of :data:`METRIC_SPEC` on this
+        rank's device, for :meth:`train_step`'s ``bag``."""
+        return metric_bag(METRIC_SPEC, device=self.device)
+
     def layer_rms(self) -> torch.Tensor:
         """The layers' last ``layer_out_rms``, (layers,) in depth order."""
         tr = self.model.transformer
@@ -157,7 +178,7 @@ class GPTTraining:
         return x.reshape(shape), y.reshape(shape)
 
     def train_step(self, state: GPTTrainState, tokens, labels,
-                   inject_nan=0.0, lr_scale=1.0):
+                   inject_nan=0.0, lr_scale=1.0, bag=None):
         """One step: ``(state, loss, verdict, metrics)``, and with
         ``collect_layer_rms`` the (layers,) RMS vector (a list of floats)
         fifth.
@@ -178,7 +199,8 @@ class GPTTraining:
         gated step params and Adam state stay as they were. Last the
         sentinel update, with ``bad_params`` from the post-update params.
         ``grad_norm`` is the tp-aware norm of the unscaled grads the
-        optimizer takes.
+        optimizer takes. With ``bag`` (from :meth:`init_bag`) the six
+        metrics are folded into it on the device before the transfer.
 
         Parameters are updated IN PLACE and ``state`` is updated and
         returned; after the step each ``p.grad`` holds this rank's scaled
@@ -252,6 +274,10 @@ class GPTTraining:
             grad_norm = calc_params_l2_norm(
                 grads, tp_duplicate_predicate=tp_duplicated,
                 group=ps.get_tensor_model_parallel_group())
+            if bag is not None:
+                bag.add(loss=unscaled, grad_norm=grad_norm,
+                        loss_scale=new_scaler.scale, loss_z=loss_z,
+                        skipped=gate, anomalies=new_sent.anomalies)
             vals = torch.stack([
                 unscaled, grad_norm, new_scaler.scale,
                 loss_z, gate.float(), new_sent.anomalies.float(),

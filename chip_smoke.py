@@ -91,6 +91,35 @@ swallowed:
    x-ray and the goodput identity hold; logs tokens/s, TTFT p50/p99, time
    per output token, handoff bytes and ms, ticks from the kill to the
    detection and the readmission, and drain seconds;
+4c. serve_gpt: the serving example and the monitor at GPT-2 small's
+   width (seed 0, fp32 params, bf16 compute): (a) ``python -m
+   apex_tpu_torch.examples.serving.serve_gpt`` at 12 x 768, vocab 50257,
+   rope positions, 8 lanes x 512 blocks of 16, 96 Poisson requests at 12
+   req/s (prompts 32-768, 32-64 new tokens), queue 16, TTFT budget 2 s,
+   deadline 30 s and the JAX drill's chaos faults, SIGTERM once 40
+   request records exist (grace 60 s): it drains and exits 0, one
+   terminal record an id, shedding with reasons, the goodput identity with
+   ``==``, no steady-state kernel load, #1 and #5 launched; (b) the same
+   model with 24 requests, a wedge at tick 20 and the incident ladder at
+   2 s x (1, 1.5, 3): exit 43 within 30 s of the wedge, the dump, the
+   terminate record and the incident span in the stream, whose goodput
+   identity holds; (c) beam search on GPT-2 small, 2 prompts of 64, 4
+   beams, 32 new tokens: bf16 launches #1 and #5, fp32 on the card gives
+   the CPU's plain tokens and scores within 1e-4, one beam is greedy
+   ``generate``; a ``MetricBag`` fed ``global_grad_norm`` (#9) of a
+   backward's grads on the card, read in one fetch, against an fp64 norm;
+   (d) the GPT example at the training phase's shape for 6 steps with
+   ``--log-interval 2``, a profiled window at steps 3-4, ``--xray-hbm``
+   and a 120 s stall deadline: three metrics records with a finite loss
+   and grad norm and 0 < MFU <= 1.05, one fetch an interval, a memory
+   record under the card's capacity, a Chrome trace naming #1, #2 and
+   #5-#8, no stall; ``oom_guard`` around an allocation larger than the
+   card; the ledger's GPT-2 small parameters (124,439,808) and KV pool
+   (512 x 589,824 bytes) against the model and the engine; logs each
+   drill's tokens/s, TTFT p50/p99, shed share, drain seconds and seconds
+   from the wedge to the exit, and the example's step ms, tokens/s, MFU,
+   profiled against unprofiled step ms, and predicted against measured
+   resident and peak bytes;
 5. training: ``build_gpt_training`` at GPT-2 small's full width (micro
    batch 8, global batch 16, seq 1024, lr 3e-4) on the synthetic stream,
    one warm-up step (after which every one of the 148 parameters must
@@ -163,10 +192,10 @@ swallowed:
    message staged through pinned host memory), vocab 50304, micro batch
    4, M = 4, seq 1024, bf16, random weights from seed 0: (a)
    ``standalone_gpt`` under ``torch.distributed.run`` at pp = 2 x tp = 2
-   with sequence parallelism (1F1B), 1 + 3 steps, and (b) the interleaved
-   schedule at pp = 4 with V = 3 chunks of one layer
-   (``forward_backward_with_pre_post(num_model_chunks=3)``) from a
-   spawned world, 1 + 2 steps: finite losses, the first within 0.5 of ln
+   with sequence parallelism (1F1B) at depth 4 (cut from 12), 1 + 1
+   steps, and (b) the interleaved schedule at pp = 4 with V = 3 chunks of
+   one layer (``forward_backward_with_pre_post(num_model_chunks=3)``)
+   from a spawned world, 1 + 1 steps: finite losses, the first within 0.5 of ln
    50304, the layout, and #1, #2, #5, #6, #7 and #8 launched on the first
    and the last stage; per-step ms and tokens/s, every rank's peak memory
    and the p2p messages and bytes staged a step; then (c) the same 4
@@ -176,7 +205,8 @@ swallowed:
    steps (losses 1e-5 relative, each tensor 1e-4 relative in norm);
 14. GPT-2 small pipelined at pp = 2 x tp = 2 with SP through the
    zero-bubble B/W split (``GPTPipelineTraining(zero_bubble=True)``, the
-   1F1B run's settings) from a spawned world, 1 + 2 steps: the checks of
+   1F1B run's settings, depth 4) from a spawned world, 1 + 1 steps: the
+   checks of
    13 (a), per-step ms, tokens/s, peak memory and staged p2p beside
    ``algebra``'s zero-bubble and 1F1B costs at (2, 4); then zero bubble
    against 1F1B from the same weights at 2 layers, seq 128, fp32, 2
@@ -253,13 +283,15 @@ swallowed:
    staged collectives a step; the pipelined phases 13 and 14 run at
    JAX's default, ``remat=True``;
 24. the multi-GPU tail, as jobs of one world of 4 ranks and one of 2:
-   GPT-2 small at tp = 2 x dp = 2 through the training target with
+   GPT-2 small (depth 4, cut from 12) at tp = 2 x dp = 2 through the
+   training target, 1 + 1 steps, with
    int8 (ZeRO with the layer-RMS taps, and DDP) and fp8 (ZeRO) gradient
    collectives beside the exact ZeRO and DDP runs from the same weights
    (the staged bytes a step differ from the exact run's by the predicted
    difference of the data-parallel sync alone, byte for byte), and at 2
-   layers card against plain; BERT-345M through ``standalone_bert`` at tp = 2 x dp =
-   2 with SP, and at 2 layers card against plain in fp32; GPT-2 small's
+   layers card against plain; BERT-345M through ``standalone_bert`` at
+   tp = 2 x dp = 2 with SP, 1 + 2 steps, and at 2 layers card against
+   plain in fp32; GPT-2 small's
    KV-cache prefill and decode at tp = 2 with and without SP against the
    full forward (bf16 on the card, fp32 plain at 2 layers); ZeRO LAMB
    (exact and int8) and ZeRO Adam with remainders (rebuilt master bit
@@ -294,9 +326,13 @@ and rank 0 reports them), and ``amp_imagenet``, ``amp_dcgan`` and
 ``gpt_compress_zero`` and ``gpt_compress_ddp`` (rank 0 of each example
 run), ``bert_tp`` (rank 0), ``gpt_tp_decode`` (rank 0's prefill and
 decode steps), ``zero_lamb_remainders`` (rank 0's exact LAMB run) and
-``gpt_moe_tp`` (rank 0's SP pass). Every path's kernels must have
-launched. ``python3 chip_smoke.py --tail`` (development) runs only the
-build and phase 24, and prints no result.
+``gpt_moe_tp`` (rank 0's SP pass), and ``serve_gpt`` (the SIGTERM
+drill's process), ``serve_gpt_beam`` (the bf16 beam search),
+``monitor_grad_norm`` (``global_grad_norm``) and ``gpt_monitor`` (the GPT
+example's process under its telemetry flags). Every path's kernels must
+have launched. ``python3 chip_smoke.py --tail`` (development) runs only
+the build and phase 24, and ``--serve-gpt`` only the build and phase 4c;
+neither prints a result.
 """
 
 import gc
@@ -380,6 +416,14 @@ PATH_KERNELS = {
     # pair and the chaos fleet (prefill and split-KV decode on every
     # replica)
     "serving_fleet": ("layer_norm_fwd", "flash_fwd"),
+    # the serving example's SIGTERM drill (its process's counts), beam
+    # search in bf16, the bag's global_grad_norm, and the GPT example
+    # under its telemetry flags (its process's counts)
+    "serve_gpt": ("layer_norm_fwd", "flash_fwd"),
+    "serve_gpt_beam": ("layer_norm_fwd", "flash_fwd"),
+    "monitor_grad_norm": ("sumsq_flat",),
+    "gpt_monitor": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                    "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
     "training": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
                  "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
     "llama_serving": ("rms_norm_fwd", "flash_fwd"),
@@ -2071,6 +2115,394 @@ def serving_fleet_phase(smi):
 TRAIN_STEPS = 8
 
 
+# -- the serving example and the monitor -------------------------------------
+
+SERVE_GPT_MODEL = ["--layers", "12", "--hidden", "768", "--heads", "12",
+                   "--vocab", "50257", "--max-seq-len", "1024", "--lanes",
+                   "8", "--block-size", "16", "--blocks", "512",
+                   "--seed", str(SEED)]
+SERVE_GPT_LOAD = ["--rate", "12", "--prompt-len", "32", "768",
+                  "--max-new", "32", "64"]
+# the JAX overload drill's own faults
+SERVE_GPT_DRILL = ["--requests", "96", *SERVE_GPT_LOAD, "--queue-depth", "16",
+                   "--ttft-budget", "2", "--deadline", "30",
+                   "--chaos-slow-decode-steps", "30,60",
+                   "--chaos-slow-decode-s", "0.3",
+                   "--chaos-abandon", "5,15,25", "--chaos-malformed", "10,20",
+                   "--chaos-burst-steps", "40", "--chaos-burst-n", "12"]
+SERVE_GPT_WEDGE = ["--requests", "24", *SERVE_GPT_LOAD,
+                   "--chaos-hang-step", "20", "--stall-deadline", "2",
+                   "--stall-dump-after", "1.5", "--stall-terminate-after", "3"]
+SERVE_GPT_SIGTERM_AFTER = 40  # request records in the stream
+SERVE_GPT_GRACE_S = 60.0
+GPT_MONITOR_ARGV = ["--vocab", "50257", "--seq-len", "1024", "--layers", "12",
+                    "--hidden", "768", "--heads", "12", "--micro-batch", "8",
+                    "--global-batch", "16", "--steps", "6",
+                    "--log-interval", "2", "--profile-step", "3",
+                    "--xray-hbm", "--stall-deadline", "120"]
+# each training kernel's names in a profiler trace (the __global__ symbols
+# of its source)
+TRACE_KERNELS = {
+    "layer_norm_fwd": ("norm_fwd_row_kernel", "norm_fwd_kernel"),
+    "layer_norm_bwd": ("ln_bwd_row_kernel", "norm_bwd_kernel"),
+    "flash_fwd": ("flash_fwd_mma", "flash_fwd_kernel"),
+    "flash_bwd_dq": ("flash_bwd_dq_mma", "flash_bwd_dq_kernel"),
+    "flash_bwd_dkv": ("flash_bwd_dkv_mma", "flash_bwd_dkv_kernel"),
+    "adam_update": ("adam_kernel",),
+}
+
+
+def _jsonl(path):
+    out = []
+    with open(path) as f:
+        for line in f:
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                pass  # a line being written
+    return out
+
+
+def _serve_gpt_proc(extra, tmp, name):
+    """Starts the serving example with its output in a file."""
+    import os
+
+    jsonl = os.path.join(tmp, f"{name}.jsonl")
+    out = open(os.path.join(tmp, f"{name}.out"), "w")
+    env = dict(os.environ, APEX_TPU_PREEMPTION_GRACE_S=str(SERVE_GPT_GRACE_S))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "apex_tpu_torch.examples.serving.serve_gpt",
+         *SERVE_GPT_MODEL, *extra, "--metrics-jsonl", jsonl],
+        stdout=out, stderr=subprocess.STDOUT, text=True, env=env)
+    return proc, jsonl, out
+
+
+def _goodput_identity(records):
+    from apex_tpu_torch.monitor.goodput import BADPUT_PHASES
+
+    (g,) = [r for r in records if r.get("kind") == "goodput"][-1:]
+    total = g["productive_s"]
+    for phase in BADPUT_PHASES:
+        total = total + g[f"badput_{phase}_s"]
+    return total + g["unattributed_s"] == g["wall_s"] and g["productive_s"] > 0
+
+
+def serve_gpt_sigterm_drill(tmp):
+    """(a): the overload drill under a mid-load SIGTERM."""
+    import signal
+
+    from apex_tpu_torch.monitor.xray.hbm import predict_serving_memory
+
+    proc, jsonl, out = _serve_gpt_proc(SERVE_GPT_DRILL, tmp, "sigterm")
+    try:
+        t0 = time.perf_counter()
+        n = 0
+        while time.perf_counter() - t0 < 120 and proc.poll() is None:
+            time.sleep(0.05)
+            try:
+                with open(jsonl) as f:
+                    n = f.read().count('"kind": "request"')
+            except FileNotFoundError:
+                continue
+            if n >= SERVE_GPT_SIGTERM_AFTER:
+                break
+        if proc.poll() is not None or n < SERVE_GPT_SIGTERM_AFTER:
+            raise AssertionError(f"serve_gpt ended or stalled before the "
+                                 f"SIGTERM ({n} request records)")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=180)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        out.close()
+    text = open(out.name).read()
+    if rc != 0 or "termination notice: draining" not in text:
+        raise AssertionError(f"serve_gpt SIGTERM drill rc={rc}:\n"
+                             f"{text[-4000:]}")
+    summary = json.loads(text.strip().splitlines()[-1])
+    records = _jsonl(jsonl)
+    ids = {r["id"] for r in records if r.get("kind") == "request"}
+    if not _terminal_once(records, ids) or len(ids) != summary["submitted"]:
+        raise AssertionError("serve_gpt: not one terminal record an id")
+    reasons = summary["reasons"]
+    shed = reasons.get("ttft_budget", 0) + reasons.get("queue_full", 0)
+    if shed == 0 or not reasons.get("malformed") or not reasons.get(
+            "client_cancel"):
+        raise AssertionError(f"serve_gpt: reasons {reasons}")
+    if not _goodput_identity(records):
+        raise AssertionError("serve_gpt: the goodput identity broke")
+    if summary["steady_state_compiles"] != 0:
+        raise AssertionError(f"serve_gpt: {summary['steady_state_compiles']}"
+                             f" steady-state kernel loads")
+    pool = predict_serving_memory(num_layers=12, num_kv_heads=12,
+                                  head_dim=64, num_blocks=512, block_size=16)
+    if not (summary["kv_pool_bytes"] == pool.component_bytes("kv_pool")
+            == 512 * 589_824):
+        raise AssertionError(f"KV pool {summary['kv_pool_bytes']} bytes, "
+                             f"ledger {pool.component_bytes('kv_pool')}")
+    drill = {
+        "tokens_per_s": summary["tokens_per_s"],
+        "ttft_p50_ms": summary["ttft_p50_s"] * 1e3,
+        "ttft_p99_ms": summary["ttft_p99_s"] * 1e3,
+        "submitted": summary["submitted"], "terminal": summary["terminal"],
+        "reasons": reasons, "shed_share": shed / summary["submitted"],
+        "drain_s": summary["drain"]["drain_s"],
+        "drain": summary["drain"], "wall_s": summary["wall_s"],
+        "kv_pool_bytes": summary["kv_pool_bytes"],
+    }
+    log("serve_gpt sigterm drill " + json.dumps(drill))
+    return summary["launch_counts"], drill
+
+
+def serve_gpt_wedge_drill(tmp):
+    """(b): the wedge at tick 20 and the incident ladder's exit."""
+    from apex_tpu_torch.monitor.goodput import account
+
+    proc, jsonl, out = _serve_gpt_proc(SERVE_GPT_WEDGE, tmp, "wedge")
+    try:
+        rc = proc.wait(timeout=180)
+        t_exit = time.monotonic()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        out.close()
+    text = open(out.name).read()
+    if rc != 43:
+        raise AssertionError(f"serve_gpt wedge drill rc={rc}:\n"
+                             f"{text[-4000:]}")
+    records = _jsonl(jsonl)
+    stages = [(r["kind"], r.get("stage") or r.get("phase")) for r in records]
+    need = [("stall", None), ("incident", "dump"), ("span", "incident"),
+            ("incident", "terminate")]
+    if any(k not in stages for k in need):
+        raise AssertionError(f"serve_gpt wedge: records {stages[-12:]}")
+    dump, term = (stages.index(("incident", s)) for s in ("dump", "terminate"))
+    span = records[stages.index(("span", "incident"))]
+    # the span starts at the last heartbeat (CLOCK_MONOTONIC, shared by
+    # both processes): the wedge
+    wedge_to_exit = t_exit - span["start"]
+    rep = account(records)
+    lhs = rep.productive_s
+    for phase in sorted(rep.badput_s):
+        lhs = lhs + rep.badput_s[phase]
+    identity = lhs + rep.unattributed_s == rep.wall_s
+    if not dump < term or wedge_to_exit > 30.0 or not identity:
+        raise AssertionError(f"serve_gpt wedge: dump {dump} terminate {term}"
+                             f" wedge-to-exit {wedge_to_exit:.1f} s, "
+                             f"identity {identity}")
+    wedge = {"exit_code": rc, "wedge_to_exit_s": wedge_to_exit,
+             "incident_span_s": span["dur_s"],
+             "dump_overdue_s": records[dump]["overdue_s"],
+             "terminate_overdue_s": records[term]["overdue_s"],
+             "badput_incident_s": rep.badput_s.get("incident"),
+             "inflight_at_dump": len(records[dump].get("requests", []))}
+    log("serve_gpt wedge drill " + json.dumps(wedge))
+    return wedge
+
+
+def serve_gpt_beam_and_bag():
+    """(c): beam search in bf16 and fp32 on GPT-2 small, and the bag."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.models import (
+        GPTModel,
+        beam_search,
+        generate,
+        gpt2_small_config,
+        gpt_loss_fn,
+    )
+    from apex_tpu_torch.monitor import (
+        global_grad_norm,
+        host_fetch_count,
+        metric_bag,
+        read_bag,
+    )
+    from apex_tpu_torch.monitor.xray.hbm import (
+        TransformerDims,
+        gpt_param_elements,
+    )
+
+    mcfg = gpt2_small_config()
+    model = GPTModel(mcfg, device="cuda", seed=SEED)
+    numel = sum(p.numel() for p in model.parameters())
+    ledger = gpt_param_elements(TransformerDims.from_config(mcfg))
+    if not numel == ledger == N_GPT2_SMALL:
+        raise AssertionError(f"GPT-2 small: {numel} parameters, ledger "
+                             f"{ledger}")
+    prompts = np.random.RandomState(SEED).randint(0, mcfg.vocab_size, (2, 64))
+    beam_search(model, prompts[:, :8], 2, 4)  # warm-up
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens, scores = beam_search(model, prompts, 32, 4)
+    torch.cuda.synchronize()
+    beam_ms = (time.perf_counter() - t0) * 1e3
+    launches = _kernels.launch_counts()
+    if tokens.shape != (2, 4, 96) or not torch.isfinite(scores).all() or \
+            not bool((tokens[:, :, 64:] < mcfg.vocab_size).all()):
+        raise AssertionError("bf16 beam search: bad tokens or scores")
+
+    f32 = gpt2_small_config(compute_dtype=torch.float32)
+    gpu32 = GPTModel(f32, device="cuda", seed=SEED)
+    cpu32 = GPTModel(f32, device="cpu", seed=SEED)
+    cpu32.load_state_dict({k: v.cpu() for k, v in gpu32.state_dict().items()})
+    tc, sc = beam_search(gpu32, prompts, 32, 4)
+    tp, sp = beam_search(cpu32, prompts, 32, 4, device="cpu")
+    serr = float((sc.cpu() - sp).abs().max())
+    log(f"beam search fp32 card vs cpu plain (2 x 64 prompts, 4 beams, 32 "
+        f"new): tokens equal {torch.equal(tc.cpu(), tp)}, scores "
+        f"max_abs_err={serr:.3e} (atol 1e-4)")
+    if not torch.equal(tc.cpu(), tp) or serr > 1e-4:
+        raise AssertionError("fp32 beam search disagrees with the plain path")
+    one, _ = beam_search(gpu32, prompts, 32, 1)
+    if not torch.equal(one[:, 0], generate(gpu32, prompts, 32)):
+        raise AssertionError("one beam is not greedy generate")
+    del gpu32, cpu32
+
+    # the bag: global_grad_norm (#9) of a backward's grads, one fetch
+    rs = np.random.RandomState(SEED + 1)
+    x = torch.as_tensor(rs.randint(0, mcfg.vocab_size, (2, 128)),
+                        device="cuda")
+    loss = gpt_loss_fn(model(x[:, :-1], labels=x[:, 1:]))
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    bag = metric_bag({"grad_norm": "mean", "loss": "mean"})
+    fetches = host_fetch_count()
+    bag.add(grad_norm=global_grad_norm(grads), loss=loss.detach())
+    torch.cuda.synchronize()
+    norm_launches = _kernels.launch_counts()
+    vals = read_bag(bag)
+    ref = math.sqrt(sum(float(g.double().square().sum())
+                        for g in grads.values()))
+    rel = abs(vals["grad_norm"] - ref) / ref
+    if host_fetch_count() - fetches != 1 or rel > 1e-5 or not math.isfinite(
+            vals["loss"]):
+        raise AssertionError(f"bag: {vals}, fp64 norm {ref}, fetches "
+                             f"{host_fetch_count() - fetches}")
+    beam = {"beam_ms_bf16": beam_ms, "fp32_scores_max_abs_err": serr,
+            "grad_norm_rel_err_vs_fp64": rel, "parameters": numel}
+    log("serve_gpt beam and bag " + json.dumps(beam))
+    del model, grads
+    torch.cuda.empty_cache()
+    return launches, norm_launches, beam
+
+
+def gpt_monitor_run(tmp):
+    """(d): the GPT example under its telemetry flags."""
+    import os
+
+    jsonl = os.path.join(tmp, "gpt.jsonl")
+    prof = os.path.join(tmp, "profiles")
+    cmd = [sys.executable, "-m", "apex_tpu_torch.examples.gpt.pretrain_gpt",
+           *GPT_MONITOR_ARGV, "--metrics-jsonl", jsonl, "--profile-dir", prof]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the GPT example exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+    step_ms = [float(line.split()[11]) for line in proc.stdout.splitlines()
+               if line.startswith("step ")]
+    (tel,) = [json.loads(line)["telemetry"]
+              for line in proc.stdout.splitlines()
+              if line.startswith('{"telemetry"')]
+    records = _jsonl(jsonl)
+    metrics = [r for r in records if r["kind"] == "metrics"]
+    mfus = [r["mfu"] for r in metrics]
+    if len(metrics) != 3 or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+            and r["tokens_per_s"] > 0 for r in metrics) or not all(
+            m is not None and 0.0 < m <= 1.05 for m in mfus):
+        raise AssertionError(f"GPT example metrics: {metrics}")
+    if not tel["host_fetches"] == tel["intervals"] == 3:
+        raise AssertionError(f"GPT example fetches: {tel}")
+    memory = [r for r in records
+              if r["kind"] == "memory" and r.get("scope") == "device"]
+    if not memory or any(r["peak_bytes_in_use"] > r["capacity_bytes"]
+                         for r in memory):
+        raise AssertionError(f"GPT example memory records: {memory}")
+    if tel["stalls"] or [r for r in records if r["kind"] in ("stall",
+                                                             "incident")]:
+        raise AssertionError("GPT example: a stall record")
+    (trace,) = tel["captures"]
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    missing = [k for k, subs in TRACE_KERNELS.items()
+               if not any(s in n for n in names for s in subs)]
+    if missing:
+        raise AssertionError(f"the trace names no kernel of {missing}")
+    hs = tel["hbm"]
+    mon = {
+        "step_ms": step_ms,
+        "profiled_step_ms": statistics.mean(step_ms[3:5]),
+        "unprofiled_step_ms": statistics.mean(step_ms[1:3] + step_ms[5:]),
+        "tokens_per_s": [r["tokens_per_s"] for r in metrics],
+        "mfu": mfus, "peak_flops": tel["peak_flops"],
+        "flops_per_step": tel["flops_per_step"],
+        "host_fetches": tel["host_fetches"], "intervals": tel["intervals"],
+        "trace_kernels": len(names),
+        "predicted_resident_bytes": hs["predicted_resident_bytes"],
+        "measured_resident_bytes": memory[-1]["bytes_in_use"],
+        "predicted_peak_bytes": hs["predicted_peak_bytes"],
+        "measured_peak_bytes": hs["achieved_peak_bytes"],
+        "capacity_bytes": memory[-1]["capacity_bytes"],
+    }
+    log("gpt monitor " + json.dumps(mon))
+    return tel["launch_counts"], mon
+
+
+def oom_guard_check():
+    from apex_tpu_torch.monitor import MemorySink, MetricRouter
+    from apex_tpu_torch.monitor.xray.hbm import oom_guard
+
+    mem = MemorySink()
+    router = MetricRouter([mem])
+    total = torch.cuda.mem_get_info()[1]
+    try:
+        with oom_guard(router, 0, capacity_bytes=total):
+            torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+        raise AssertionError("an allocation of twice the card succeeded")
+    except torch.cuda.OutOfMemoryError:
+        pass
+    router.close()
+    oom = [r for r in mem.records if r["kind"] == "oom"]
+    if len(oom) != 1 or oom[0]["capacity_bytes"] != total:
+        raise AssertionError(f"oom_guard records: {oom}")
+    torch.cuda.empty_cache()
+    log(f"oom_guard: one kind='oom' record, OutOfMemoryError re-raised "
+        f"({2 * total} bytes asked of {total})")
+
+
+def serve_gpt_phase(smi):
+    """Phase 4c (module docstring): the serving example's drills, beam
+    search, the bag and the GPT example's monitor."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="serve_gpt-")
+    try:
+        t0 = time.perf_counter()
+        serve_launches, drill = serve_gpt_sigterm_drill(tmp)
+        t1 = time.perf_counter()
+        wedge = serve_gpt_wedge_drill(tmp)
+        t2 = time.perf_counter()
+        beam_launches, norm_launches, beam = serve_gpt_beam_and_bag()
+        t3 = time.perf_counter()
+        gpt_launches, mon = gpt_monitor_run(tmp)
+        oom_guard_check()
+        t4 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"serve_gpt phase: sigterm drill {t1 - t0:.1f} s, wedge drill "
+        f"{t2 - t1:.1f} s, beam and bag {t3 - t2:.1f} s, GPT monitor "
+        f"{t4 - t3:.1f} s")
+    log("serve_gpt " + json.dumps({"sigterm": drill, "wedge": wedge,
+                                   "beam": beam, "monitor": mon, "gpu": smi}))
+    return {"serve_gpt": serve_launches, "serve_gpt_beam": beam_launches,
+            "monitor_grad_norm": norm_launches,
+            "gpt_monitor": gpt_launches}, mon
+
+
 def training_phase(smi):
     """GPT-2 small at full width through ``build_gpt_training``: one
     warm-up step, then TRAIN_STEPS measured steps."""
@@ -3180,14 +3612,18 @@ GPT_PIPELINE_ARGV = (
     "--make-vocab-size-divisible-by", str(GPT_PARALLEL_VOCAB), "--bf16",
     "--micro-batch-size", "4", "--global-batch-size", "16", "--seed",
     str(SEED))
+# the 1F1B and zero-bubble runs at depth 4 (cut from 12, and to 1 + 1
+# steps, to keep the whole script under its time limit on a slow host)
+PIPELINE_LAYERS = 4
 GPT_PIPELINE_1F1B = ("--pipeline-model-parallel-size", "2",
                      "--tensor-model-parallel-size", "2",
-                     "--sequence-parallel", "--train-iters", "4",
+                     "--sequence-parallel", "--num-layers",
+                     str(PIPELINE_LAYERS), "--train-iters", "2",
                      "--distributed-backend", "gloo")
 # 12 layers = pp 4 x V 3 chunks x 1 layer
 GPT_PIPELINE_INTERLEAVED = ("--pipeline-model-parallel-size", "4",
                             "--num-layers-per-virtual-pipeline-stage", "1",
-                            "--train-iters", "3")
+                            "--train-iters", "2")
 # 2 layers, one a stage, at seq 128: small, to keep the whole script near
 # 1,000 s
 PIPELINE_CARD_VS_PLAIN_ARGV = (
@@ -3255,10 +3691,10 @@ def check_pipeline_run(name, summary, layout, kernels):
 
 
 def gpt_pipeline_phase(smi):
-    """(a) ``standalone_gpt`` at GPT-2 small's full width, pp = 2 x tp = 2
-    with SP, 1F1B, 1 + 3 steps; (b) the interleaved schedule at pp = 4, V
-    = 3 from a spawned world, 1 + 2 steps; (c) card against plain at 2
-    layers and seq 128."""
+    """(a) ``standalone_gpt`` at GPT-2 small's full width and depth 4, pp =
+    2 x tp = 2 with SP, 1F1B, 1 + 1 steps; (b) the interleaved schedule at
+    pp = 4, V = 3 from a spawned world, 1 + 1 steps; (c) card against
+    plain at 2 layers and seq 128."""
     from apex_tpu_torch.transformer.testing.distributed_test_base import (
         spawn,
     )
@@ -3273,16 +3709,17 @@ def gpt_pipeline_phase(smi):
     inter = spawn(interleaved_worker, GPT_PARALLEL_RANKS, args=(
         GPT_PIPELINE_ARGV + GPT_PIPELINE_INTERLEAVED, "cuda"),
         timeout=600.0)[0]
-    runs = (("gpt_pipeline", summary, (2, 2, 1, 1, True), wall),
+    runs = (("gpt_pipeline", summary, (2, 2, 1, 1, True), wall,
+             PIPELINE_LAYERS),
             ("gpt_pipeline_interleaved", inter, (1, 4, 1, 3, False),
-             time.perf_counter() - t0))
-    for name, out, layout, wall in runs:
+             time.perf_counter() - t0, 12))
+    for name, out, layout, wall, layers in runs:
         check_pipeline_run(name, out, layout, PATH_KERNELS[name])
         steps = out["steps"]
         paths[name] = out["launch_counts_first_stage"]
         report[name] = {
-            "model": f"gpt2-small 12x768 vocab {GPT_PARALLEL_VOCAB} (random "
-                     "weights, bf16 compute, fp32 params), "
+            "model": f"gpt2-small {layers}x768 vocab {GPT_PARALLEL_VOCAB} "
+                     "(random weights, bf16 compute, fp32 params), "
                      f"tp={out['tp']} pp={out['pp']} dp={out['dp']} "
                      f"V={out['num_model_chunks']}"
                      + (" sp" if out["sequence_parallel"] else ""),
@@ -3369,10 +3806,11 @@ def gpt_pipeline_card_vs_plain(device="cuda"):
 # -- the zero-bubble schedule ------------------------------------------------
 
 # GPT-2 small at pp = 2 x tp = 2 with SP through the B/W split: the 1F1B
-# run's settings (GPT_PIPELINE_1F1B), 1 + 2 steps
+# run's settings (GPT_PIPELINE_1F1B), 1 + 1 steps
 GPT_PIPELINE_ZERO_BUBBLE = ("--pipeline-model-parallel-size", "2",
                             "--tensor-model-parallel-size", "2",
-                            "--sequence-parallel", "--train-iters", "3")
+                            "--sequence-parallel", "--num-layers",
+                            str(PIPELINE_LAYERS), "--train-iters", "2")
 # zero bubble against 1F1B: 2 layers at seq 128 in fp32, 2 steps
 ZERO_BUBBLE_VS_1F1B_ARGV = PIPELINE_CARD_VS_PLAIN_ARGV + ("--train-iters",
                                                            "2")
@@ -3380,7 +3818,8 @@ ZERO_BUBBLE_VS_1F1B_ARGV = PIPELINE_CARD_VS_PLAIN_ARGV + ("--train-iters",
 
 def gpt_pipeline_zero_bubble_phase(smi):
     """(a) ``GPTPipelineTraining(zero_bubble=True)`` at GPT-2 small's full
-    width, pp = 2 x tp = 2 with SP, 1 + 2 steps from a spawned world; (b)
+    width and depth 4, pp = 2 x tp = 2 with SP, 1 + 1 steps from a spawned
+    world; (b)
     zero bubble against 1F1B from the same weights at 2 layers, seq 128,
     fp32."""
     from apex_tpu_torch.parallel.pipeline import algebra
@@ -3410,9 +3849,9 @@ def gpt_pipeline_zero_bubble_phase(smi):
                          ("1f1b", algebra.one_f_one_b_cost(2, 4)))}
     report = {
         "transport": GLOO_TRANSPORT, "gpu": smi,
-        "model": f"gpt2-small 12x768 vocab {GPT_PARALLEL_VOCAB} (random "
-                 "weights, bf16 compute, fp32 params), tp=2 pp=2 dp=1 sp, "
-                 "zero bubble",
+        "model": f"gpt2-small {PIPELINE_LAYERS}x768 vocab "
+                 f"{GPT_PARALLEL_VOCAB} (random weights, bf16 compute, fp32 "
+                 "params), tp=2 pp=2 dp=1 sp, zero bubble",
         "num_micro": out["num_micro"], "micro_batch": 4, "seq_len": 1024,
         "steps": steps, "losses": out["losses"], "step_ms": out["step_ms"],
         "step_ms_mean_after_first": out["step_ms_mean_after_first"],
@@ -4720,10 +5159,12 @@ def gpt_pipeline_remat_phase(smi):
 # example's step) at full width, 1 + 2 steps a run: the exact ZeRO and DDP
 # runs and their int8 (ZeRO with the layer-RMS taps) and fp8 (ZeRO)
 # compressed twins, from one draw of the weights
-COMPRESS_TARGET = dict(vocab=GPT_PARALLEL_VOCAB, seq_len=1024, layers=12,
+# depth 4 (cut from 12) and 1 + 1 steps, to keep the whole script under
+# its time limit on a slow host
+COMPRESS_TARGET = dict(vocab=GPT_PARALLEL_VOCAB, seq_len=1024, layers=4,
                        hidden=768, heads=12, tp=2, micro_batch=4,
                        global_batch=16, seed=SEED, sequence_parallel=True)
-COMPRESS_STEPS = 3
+COMPRESS_STEPS = 2
 COMPRESS_RUNS = {
     "exact zero": dict(zero=True),
     "int8 zero": dict(zero=True, compression="int8", collect_layer_rms=True),
@@ -4797,10 +5238,11 @@ def compress_batches(target, steps):
 
 def gpt_compress_phase(smi, full, small):
     """``full``: the ranks' ``compress_runs_worker`` results at GPT-2
-    small's width (``COMPRESS_RUNS``): finite losses, every verdict ok,
-    the first loss equal to the exact run's (the same weights and batch),
-    12 positive finite layer RMS values every step; step ms, peak memory a
-    rank and the collectives and bytes staged a step a rank beside the
+    small's width at depth 4 (``COMPRESS_RUNS``): finite losses, every
+    verdict ok, the first loss equal to the exact run's (the same weights
+    and batch), a positive finite layer RMS value a layer every step;
+    step ms, peak memory a rank and the collectives and bytes staged a
+    step a rank beside the
     exact run's, whose difference must be the predicted difference of the
     data-parallel sync (and the RMS vector's two all-reduces) alone, byte
     for byte: the rest of the step stages the same. ``small``: card
@@ -4809,7 +5251,8 @@ def gpt_compress_phase(smi, full, small):
 
     out, paths = full[0], {}
     report = {"transport": GLOO_TRANSPORT, "gpu": smi,
-              "model": f"gpt2-small 12x768 vocab {GPT_PARALLEL_VOCAB} "
+              "model": f"gpt2-small {COMPRESS_TARGET['layers']}x768 vocab "
+                       f"{GPT_PARALLEL_VOCAB} "
                        "(random weights, bf16 compute, fp32 params), "
                        "tp=2 dp=2 sp, build_gpt_training"}
     for name, (path, ref) in COMPRESS_PATHS.items():
@@ -4826,13 +5269,14 @@ def gpt_compress_phase(smi, full, small):
             raise AssertionError(f"{name}: {run} vs {base['losses']}")
         rms_bytes, rms_coll = 0, 0
         if extra.get("collect_layer_rms"):
+            depth = COMPRESS_TARGET["layers"]
             for rms in run["layer_rms"]:
-                if len(rms) != 12 or not all(math.isfinite(v) and v > 0
-                                             for v in rms):
+                if len(rms) != depth or not all(math.isfinite(v) and v > 0
+                                                for v in rms):
                     raise AssertionError(f"{name}: layer rms {rms}")
             # the RMS vector's two all-reduces (the mean over tp, then
-            # dp) of 12 fp32 values, each staged in and out
-            rms_bytes, rms_coll = 2 * 2 * 12 * 4, 2
+            # dp) of one fp32 value a layer, each staged in and out
+            rms_bytes, rms_coll = 2 * 2 * depth * 4, 2
         pred_exact, coll_exact = predicted_dp_staged(run["numels"], 2, zero,
                                                      None)
         pred, coll = predicted_dp_staged(run["numels"], 2, zero,
@@ -4928,7 +5372,7 @@ BERT_TP_ARGV = (
     "--num-layers 24 --hidden-size 1024 --num-attention-heads 16 "
     "--seq-length 512 --max-position-embeddings 512 "
     f"--make-vocab-size-divisible-by {BERT_VOCAB} --micro-batch-size 4 "
-    "--global-batch-size 16 --lr 1e-4 --bf16 --train-iters 4 "
+    "--global-batch-size 16 --lr 1e-4 --bf16 --train-iters 3 "
     "--tensor-model-parallel-size 2 --sequence-parallel").split()
 N_BERT_345M = 336_267_266  # parameters of Megatron BERT-345M (binary head)
 BERT_TP_CARD_VS_PLAIN = (
@@ -4942,7 +5386,7 @@ BERT_TP_CARD_VS_PLAIN = (
 def bert_tp_phase(smi, summary, small):
     """``summary``: ``standalone_bert``'s run (``train``, as its ``main``
     runs it) of Megatron BERT-345M at tp = 2 x dp = 2 with SP, micro-batch
-    4, global 16, 1 + 3 steps: the first loss within 1.0 of ln 30592,
+    4, global 16, 1 + 2 steps: the first loss within 1.0 of ln 30592,
     every rank's first-step gradients finite, the tp shards adding up to
     336,267,266 elements in 301 tensors a rank; step ms, peak memory and
     staged bytes a rank. ``small``: 2 layers at full width in fp32, one
@@ -5230,6 +5674,11 @@ def main():
     from apex_tpu_torch import _kernels
 
     log(f"build: {_kernels.build_all():.1f} s")
+    if sys.argv[1:2] == ["--serve-gpt"]:
+        # development: phase 4c alone, no kernels line and no result line
+        check_paths(serve_gpt_phase(smi)[0])
+        log(f"serve_gpt phase done in {time.perf_counter() - START:.1f} s")
+        return
     if sys.argv[1:2] == ["--tail"]:
         # development: the multi-GPU tail's phases alone, no kernels line
         # and no result line
@@ -5253,6 +5702,9 @@ def main():
     log_memory("serving")
     paths["serving_fleet"], _ = serving_fleet_phase(smi)
     log_memory("serving_fleet")
+    serve_gpt, _ = serve_gpt_phase(smi)
+    paths.update(serve_gpt)
+    log_memory("serve_gpt")
     paths["training"], _ = training_phase(smi)
     training_card_vs_plain()
     log_memory("training")

@@ -26,7 +26,9 @@ recompute's gradients and generator states bit for bit; ``MoEMLP`` and
 in norm (``fp8_dense``'s gradients 1e-3: they pass an e4m3 cast), and
 ``quantize`` bit for bit; the compressed collectives' block quantizer
 equals the CPU's bit for bit, and the ZeRO remainders' split and rebuild
-are exact.
+are exact. fp32 beam search on the card gives the CPU's tokens, its
+scores within 1e-4; the memory report and the OOM guard read the card's
+allocator exactly.
 """
 
 import math
@@ -870,8 +872,9 @@ def test_quantize_blockwise_on_the_card_equals_the_cpu(gen):
         pc, sc = compress.quantize_blockwise(x.cuda(), cfg)
         p, s = compress.quantize_blockwise(x, cfg)
         assert torch.equal(pc.view(torch.uint8).cpu(), p.view(torch.uint8))
-        sc = sc.cpu()
-        assert bool(((sc == s) | (sc.isnan() & s.isnan())).all())
+        sh = sc.cpu()
+        assert bool(((sh == s) | (sh.isnan() & s.isnan())).all())
+        # payload and scales both on the card, as the collectives hold them
         dc = compress.dequantize_blockwise(pc, sc, cfg).cpu()
         d = compress.dequantize_blockwise(p, s, cfg)
         assert bool(((dc == d) | (dc.isnan() & d.isnan())).all())
@@ -892,3 +895,76 @@ def test_param_remainders_round_trip_on_the_card(gen):
                        (m.view(torch.int32) >> 16) & 0xFFFF)
     assert torch.equal(master_from_remainder(hi, lo).view(torch.int32),
                        m.view(torch.int32))
+
+
+def test_beam_search_on_the_card_equals_the_cpu(gen):
+    """fp32 beam search through the card's kernels (prefill and split-KV
+    decode at b x k rows, the cache reordered by ``index_select``) gives
+    the CPU's plain path's tokens from the same weights, and its scores
+    within 1e-4 (two paths' fp32 sums in another order)."""
+    from apex_tpu_torch.models import beam_search
+
+    cfg = TransformerConfig(num_layers=2, hidden_size=128,
+                            num_attention_heads=4, vocab_size=512,
+                            max_position_embeddings=96, hidden_dropout=0.0,
+                            attention_dropout=0.0,
+                            compute_dtype=torch.float32)
+    card = GPTModel(cfg, device="cuda", seed=0)
+    cpu = GPTModel(cfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    prompt = np.random.RandomState(0).randint(0, 512, (2, 24))
+    _kernels.reset_launch_counts()
+    tc, sc = beam_search(card, prompt, 16, 4)
+    counts = _kernels.launch_counts()
+    tp, sp = beam_search(cpu, prompt, 16, 4, device="cpu")
+    assert counts["layer_norm_fwd"] > 0 and counts["flash_fwd"] > 0
+    assert torch.equal(tc.cpu(), tp)
+    assert float((sc.cpu() - sp).abs().max()) <= 1e-4
+
+
+def test_memory_report_reads_a_known_allocation(gen):
+    """``memory_report`` on the card: the arguments are what was allocated
+    before, the output what the call left resident, the temporaries the
+    peak above it, and the total the allocator's peak."""
+    from apex_tpu_torch.monitor.xray import hbm
+
+    x = torch.zeros(1 << 20, device="cuda")  # 4 MiB argument
+
+    def fn(x):
+        tmp = torch.ones(1 << 21, device="cuda")  # 8 MiB, freed inside
+        return x + tmp[: x.numel()]  # 4 MiB output
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    r = hbm.memory_report(fn, x)
+    assert r.argument_bytes == base
+    assert r.output_bytes == 4 << 20
+    assert r.temp_bytes == 8 << 20
+    assert r.generated_code_bytes == 0
+    assert r.total_bytes == base + (12 << 20)
+    assert r.device_memory_bytes == torch.cuda.mem_get_info()[1]
+    assert 0 < r.headroom_bytes < r.device_memory_bytes
+
+
+def test_oom_guard_on_the_card(gen):
+    """An allocation larger than the card raises
+    ``torch.cuda.OutOfMemoryError`` through ``oom_guard``, which emits one
+    ``kind="oom"`` record with the prediction's components first."""
+    from apex_tpu_torch.monitor import MemorySink, MetricRouter
+    from apex_tpu_torch.monitor.xray import hbm
+
+    mem = MemorySink()
+    router = MetricRouter([mem])
+    pred = hbm.predict_serving_memory(num_layers=12, num_kv_heads=12,
+                                      head_dim=64, num_blocks=512,
+                                      block_size=16)
+    total = torch.cuda.mem_get_info()[1]
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        with hbm.oom_guard(router, 5, breakdown=pred, capacity_bytes=total):
+            torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+    router.close()
+    (rec,) = [r for r in mem.records if r["kind"] == "oom"]
+    assert rec["step"] == 5 and rec["capacity_bytes"] == total
+    assert rec["components"] == {"kv_pool": 512 * 589_824}
+    assert rec["suggestions"][0]["knob"] == "num_blocks"
+    torch.cuda.empty_cache()

@@ -100,6 +100,24 @@ def test_entry_points_refuse_a_host_without_cuda(monkeypatch):
     for argv in (["--selftest"], ["--selftest", "--fleet"]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serving_main(argv)
+    # the serving example, beam search and the bag too; the example's
+    # SIGTERM latch is given back when it raises
+    import signal
+
+    from apex_tpu_torch.examples.serving.serve_gpt import main as serve_main
+    from apex_tpu_torch.models import beam_search
+    from apex_tpu_torch.monitor import metric_bag
+
+    before = signal.getsignal(signal.SIGTERM)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_main([])
+    assert signal.getsignal(signal.SIGTERM) == before
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        beam_search(model, [[1, 2]], 2, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        metric_bag({"loss": "mean"})
+    assert beam_search(model, [[1, 2]], 2, 2, device="cpu")[0].shape == (
+        1, 2, 4)
 
 
 def test_kernel_wrapper_raises_and_counts_only_launches(monkeypatch):
