@@ -16,8 +16,12 @@ package's examples/gpt/pretrain_gpt.py).
         --micro-batch 4 --global-batch 16 --steps 4
 
 Builds the step with ``build_gpt_training`` (resilience/replay/targets.py),
-walks the JAX package's synthetic stream in order, ``global_batch``
-samples a step, and prints one line per step:
+reads the JAX package's synthetic stream (its 200,000 tokens, or as many
+as the run's batches need) in order through
+``MegatronPretrainingSampler`` (``global_batch`` samples a step, resumed
+at ``step * global_batch``) and ``RobustBatches`` (``--data-skip-budget``
+failed loads skipped and counted as ``data_skipped``), and prints one
+line per step:
 ``step N loss L grad_norm G loss_scale S tokens_per_s T step_ms M
 verdict V``. ``--profile-steps N`` runs N further steps under
 ``torch.profiler`` and prints the device time by kernel as one JSON line
@@ -54,8 +58,41 @@ watermarks into ``kind="memory"`` records each interval and guards the
 step with ``oom_guard``. On the card rank 0 prints one more JSON line,
 before the others: ``{"telemetry": ...}``, the run's host fetches,
 intervals, profiler captures, stalls, HBM summary and kernel launch
-counts. Journaling, checkpoints,
-remediation and the comms and compiled-memory x-rays are not ported yet.
+counts. Each step is timed by ``utils.Timers`` (a ``kind="timer"``
+record each interval) and marked by ``utils.step_annotation``
+(``ProfilerStep#N`` in a profiler trace).
+
+Resilience (the JAX example's wiring): the sentinel's verdict drives the
+skip -> rollback -> halt ladder of ``resilience.ResilienceManager``
+(``--spike-z``, ``--spike-warmup``, ``--skip-budget``,
+``--rollback-budget``; a host ring of ``--snapshot-capacity`` snapshots
+every ``--snapshot-interval`` steps, ``--max-rollbacks``, the LR dampened
+by ``--lr-dampen`` and the data stream rewound on each rollback; the
+anomaly log at ``--anomaly-log``, default ``<save>/anomalies.jsonl``).
+``--save DIR`` checkpoints every ``--save-interval`` steps through
+``utils.AutoResume`` (async, verified in the background unless
+``--no-background-finalize``, ``--keep-last-n`` retention), saves and
+exits on SIGTERM under the ``--grace-s`` budget, and on a rerun resumes
+from the newest step that verifies. With ``--save`` the run journals
+(``--journal``, default on with ``--save``): every step's batch ids and
+crc, chaos arms, lr_scale, loss, verdict and layer RMS go to
+``<save>/replay-journal.jsonl``, every checkpoint is a replay anchor, and
+``python -m apex_tpu_torch.resilience.replay DIR [--bisect]`` re-executes
+it. The chaos flags drive every recovery path: ``--chaos-nan-steps``,
+``--chaos-sigterm-step``, ``--chaos-corrupt-latest`` (before the restore)
+and ``--chaos-bitflip-step``/``--chaos-bitflip-bit`` (a silent flip of one
+parameter bit after that step). The bitflip drill, on the card or with
+``--device cpu``:
+
+    python -m apex_tpu_torch.examples.gpt.pretrain_gpt --steps 8 \
+        --layers 2 --hidden 64 --heads 4 --seq-len 32 --micro-batch 1 \
+        --global-batch 16 --save-interval 2 --save /tmp/flip \
+        --chaos-bitflip-step 3
+    python -m apex_tpu_torch.resilience.replay /tmp/flip --bisect
+
+Checkpoints are taken at a world of one (a world > 1 raises: its layout
+comes with the elastic resharder). Not ported yet: remediation, the
+elastic reshard, and the comms and compiled-memory x-rays.
 """
 
 import argparse
@@ -70,18 +107,56 @@ import torch.distributed as dist
 
 from apex_tpu_torch import _kernels
 from apex_tpu_torch import monitor
-from apex_tpu_torch.data import LMDataset
+from apex_tpu_torch.data import (
+    LMDataset,
+    MegatronPretrainingSampler,
+    RobustBatches,
+)
 from apex_tpu_torch.monitor import goodput
 from apex_tpu_torch.monitor.xray import hbm as xhbm
 from apex_tpu_torch.parallel import parallel_state as ps
+from apex_tpu_torch.resilience import chaos
+from apex_tpu_torch.resilience.health import IncidentResponder
+from apex_tpu_torch.resilience.integrity import save_checkpoint_verified
+from apex_tpu_torch.resilience.replay.journal import (
+    FlightRecorder,
+    batch_crc,
+    journal_path,
+)
+from apex_tpu_torch.resilience.replay.replayer import (
+    determinism_guard,
+    numerics_flags_kept,
+)
 from apex_tpu_torch.resilience.replay.targets import (
     GPTTargetConfig,
     build_gpt_training,
     synthetic_corpus,
 )
-from apex_tpu_torch.resilience.health import IncidentResponder
+from apex_tpu_torch.resilience.rollback import (
+    EscalationPolicy,
+    ResilienceManager,
+    RollbackBuffer,
+)
 from apex_tpu_torch.resilience.sentinel import verdict_name
 from apex_tpu_torch.transformer.testing.commons import initialize_distributed
+from apex_tpu_torch.utils.autoresume import AutoResume
+from apex_tpu_torch.utils.checkpoint import latest_step
+from apex_tpu_torch.utils.pytree import tree_copy_
+from apex_tpu_torch.utils.timers import Timers, step_annotation
+
+#: the synthetic stream's shortest length (the JAX example's)
+CORPUS_TOKENS = 200_000
+
+
+def corpus_tokens(args) -> int:
+    """The synthetic stream's length: the JAX example's, or enough for
+    every batch the run may read (its steps, the profile steps and the
+    data skip budget), whichever is more. The stream is prefix-stable,
+    so a longer one begins with the same batches; the journal header
+    records the length, and a replay regenerates the same stream."""
+    samples = ((args.steps + args.profile_steps + args.data_skip_budget)
+               * args.global_batch)
+    return max(CORPUS_TOKENS, samples * args.seq_len + 1)
 
 
 def parse_args(argv=None):
@@ -150,6 +225,67 @@ def parse_args(argv=None):
                    help="HBM x-ray: the analytic ledger at startup, live "
                         "kind='memory' watermark records each interval and "
                         "kind='oom' forensics on device-memory exhaustion")
+    p.add_argument("--data-skip-budget", type=int, default=16,
+                   help="batches whose host-side load may fail (skipped "
+                        "and logged, data_skipped in the metrics records) "
+                        "before the run fails loudly")
+    # checkpoints and the journal (utils.autoresume, resilience.replay)
+    p.add_argument("--save", default=None, help="checkpoint directory")
+    p.add_argument("--save-interval", type=int, default=100)
+    p.add_argument("--keep-last-n", type=int, default=None,
+                   help="checkpoint retention: keep only the newest N steps")
+    p.add_argument("--background-finalize",
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help="verify and commit async interval saves on the "
+                        "writer's background thread "
+                        "(--no-background-finalize: at the next save)")
+    p.add_argument("--grace-s", type=float, default=None,
+                   help="preemption grace budget in seconds (default: "
+                        "$APEX_TPU_PREEMPTION_GRACE_S); the SIGTERM save "
+                        "downgrades to finalize-pending or skip when a "
+                        "full save cannot fit")
+    p.add_argument("--journal", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="flight-recorder journaling (default: on with "
+                        "--save, recording the numerics flags; an explicit "
+                        "--journal also pins them, determinism_guard)")
+    # the resilience policy (resilience.sentinel, resilience.rollback)
+    p.add_argument("--spike-z", type=float, default=6.0,
+                   help="loss z-score above the running EMA that counts "
+                        "as a spike")
+    p.add_argument("--spike-warmup", type=int, default=10,
+                   help="clean steps before spike detection arms")
+    p.add_argument("--skip-budget", type=int, default=1,
+                   help="consecutive anomalies answered by skipping the "
+                        "batch")
+    p.add_argument("--rollback-budget", type=int, default=2,
+                   help="further consecutive anomalies answered by "
+                        "rollback")
+    p.add_argument("--snapshot-interval", type=int, default=10,
+                   help="steps between in-memory rollback snapshots")
+    p.add_argument("--snapshot-capacity", type=int, default=2,
+                   help="rollback snapshots kept in host RAM")
+    p.add_argument("--max-rollbacks", type=int, default=3,
+                   help="rollbacks per run before halting")
+    p.add_argument("--lr-dampen", type=float, default=0.5,
+                   help="lr_scale multiplier applied on each rollback")
+    p.add_argument("--anomaly-log", default=None,
+                   help="jsonl anomaly log (default: <save>/anomalies.jsonl)")
+    # fault injection (resilience.chaos), for tests and drills
+    p.add_argument("--chaos-nan-steps", default="",
+                   help="comma/range list of steps whose loss is "
+                        "NaN-poisoned")
+    p.add_argument("--chaos-sigterm-step", type=int, default=None,
+                   help="deliver a real SIGTERM after this step")
+    p.add_argument("--chaos-corrupt-latest", default="none",
+                   choices=["none", "bitflip", "truncate"],
+                   help="corrupt the newest checkpoint BEFORE restoring")
+    p.add_argument("--chaos-bitflip-step", type=int, default=None,
+                   help="flip one low-mantissa bit of one parameter in "
+                        "memory AFTER this step (silent corruption that "
+                        "only the replay bisector pins)")
+    p.add_argument("--chaos-bitflip-bit", type=int, default=12,
+                   help="bit index (from the LSB) for --chaos-bitflip-step")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -167,7 +303,9 @@ def main(argv=None):
         initialize_distributed(args.dist_backend,
                                tensor_model_parallel_size=args.tp)
     try:
-        return _run(args, device, distributed)
+        # --journal pins the numerics flags for the run (determinism_guard)
+        with numerics_flags_kept():
+            return _run(args, device, distributed)
     finally:
         if distributed:
             ps.destroy_model_parallel()
@@ -176,7 +314,9 @@ def main(argv=None):
 
 def _telemetry_router(args, main_rank):
     """The run's router: rank 0 writes the jsonl and CSV sinks; every
-    rank keeps an in-process window for the incident bundle."""
+    rank keeps an in-process window for the incident bundle. The run id
+    comes from ``--save`` (every restart of a job joins one ledger), else
+    ``--metrics-jsonl``."""
     window = monitor.MemorySink(max_records=512)
     sinks = [window]
     if main_rank and args.metrics_jsonl:
@@ -185,8 +325,9 @@ def _telemetry_router(args, main_rank):
         sinks.append(monitor.CsvSink(args.metrics_csv))
     router = monitor.MetricRouter(sinks)
     goodput.set_router(router)
-    goodput.run_header(router, goodput.derive_run_id(args.metrics_jsonl))
-    return router, window
+    run_id = goodput.derive_run_id(args.save or args.metrics_jsonl)
+    goodput.run_header(router, run_id)
+    return router, window, run_id
 
 
 def _hbm_prediction(cfg, training):
@@ -206,6 +347,15 @@ def _hbm_prediction(cfg, training):
 
 
 def _run(args, device, distributed):
+    if args.log_interval < 1:
+        raise SystemExit("--log-interval must be >= 1")
+    if args.save and distributed:
+        raise SystemExit(
+            "--save at a world > 1: each rank's shards and the global "
+            "layout come with the elastic resharder, a later slice of the "
+            "port; checkpoints are taken at a world of one")
+    journal_on = (args.journal if args.journal is not None
+                  else bool(args.save))
     cfg = GPTTargetConfig(
         vocab=args.vocab, seq_len=args.seq_len, layers=args.layers,
         hidden=args.hidden, heads=args.heads, tp=args.tp,
@@ -214,28 +364,76 @@ def _run(args, device, distributed):
         lr=args.lr, weight_decay=args.weight_decay, seed=args.seed,
         zero=args.zero, compression=args.compression,
         compression_block=args.compression_block,
-        collect_layer_rms=args.layer_rms)
-    if args.log_interval < 1:
-        raise SystemExit("--log-interval must be >= 1")
+        spike_z=args.spike_z, spike_warmup=args.spike_warmup,
+        skip_budget=args.skip_budget, rollback_budget=args.rollback_budget,
+        collect_layer_rms=args.layer_rms or journal_on)
     main_rank = not distributed or dist.get_rank() == 0
     say = print if main_rank else (lambda *a, **k: None)
-    router, window = _telemetry_router(args, main_rank)
-    with goodput.span("init"):
-        training = build_gpt_training(cfg, device=device)
-        if training.device.type == "cuda":
-            _kernels.build_all()  # every nvcc at once, not one per launch
-        state = training.init_state()
-        bag = training.init_bag()
-        lm = LMDataset(synthetic_corpus(args.vocab), args.seq_len)
+    router, window, run_id = _telemetry_router(args, main_rank)
+    init_span = goodput.begin_span("init")
+    # the numerics flags, recorded (and pinned only under an explicit
+    # --journal) BEFORE the step is built, so a replay applies the same
+    guard_flags = (determinism_guard(pin=args.journal is True,
+                                     device=device) if journal_on else {})
+    training = build_gpt_training(cfg, device=device)
+    if training.device.type == "cuda":
+        _kernels.build_all()  # every nvcc at once, not one per launch
+    state = training.init_state()
+    bag = training.init_bag()
+    n_tokens = corpus_tokens(args)
+    lm = LMDataset(synthetic_corpus(args.vocab, n_tokens), args.seq_len)
     if len(lm) < cfg.global_batch:
         raise SystemExit(f"the stream holds {len(lm)} samples, fewer than "
                          f"one global batch ({cfg.global_batch})")
+    world = dist.get_world_size() if distributed else 1
+    recorder = None
+    if journal_on:
+        recorder = FlightRecorder(
+            journal_path(args.save) if args.save else None, router=router)
+        recorder.header(
+            run_id, "gpt", config=cfg.to_json(),
+            corpus={"synthetic": {"vocab": args.vocab,
+                                  "n_tokens": n_tokens}},
+            devices=world, steps=args.steps, **guard_flags)
+    # chaos drill: corrupt the newest checkpoint BEFORE the restore,
+    # which must fall back to the previous step that verifies
+    if args.save and args.chaos_corrupt_latest != "none":
+        touched = chaos.corrupt_latest_checkpoint(
+            args.save, mode=args.chaos_corrupt_latest)
+        if touched:
+            say(f"[chaos] corrupted newest checkpoint: {touched}")
+    ar = (AutoResume(args.save, interval=args.save_interval,
+                     keep_last_n=args.keep_last_n, grace_s=args.grace_s,
+                     background_finalize=args.background_finalize,
+                     journal=recorder)
+          if args.save else None)
+    step0 = 0
+    if ar is not None:
+        try:
+            # copied into the live state: the model trains its own
+            # parameters from the restored values
+            step0, _ = ar.restore(state.as_tuple())
+        except ValueError as e:
+            # an older payload layout: train fresh (the checkpoints stay
+            # on disk). A refused restore across a change of layout is
+            # ElasticRestoreError, a RuntimeError, and is not caught
+            say(f"checkpoint in {args.save} has an incompatible layout "
+                f"({e}); starting fresh")
+        if step0 == 0 and latest_step(args.save) is not None:
+            say(f"WARNING: checkpoints exist under {args.save} but none "
+                f"restored under the current state layout; training "
+                f"starts FRESH")
+        if step0:
+            say(f"resumed from step {step0}")
+    if recorder is not None:
+        # the segment start: a fresh run's init state is rebuilt from the
+        # seed (init=True anchor), a resumed run's from its checkpoint
+        recorder.anchor(step0, init=(step0 == 0))
     if training.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     sync = (torch.cuda.synchronize if training.device.type == "cuda"
             else lambda: None)
     tokens_per_step = cfg.global_batch * cfg.seq_len
-    world = dist.get_world_size() if distributed else 1
     # model FLOPs for MFU; the peak is None off the table's cards (the CPU
     # included) unless APEX_TPU_PEAK_FLOPS pins it, and mfu is then null
     step_flops = monitor.training_flops_per_step(
@@ -243,15 +441,18 @@ def _run(args, device, distributed):
                                     cfg.seq_len), tokens_per_step)
     peak_flops = monitor.peak_flops_per_device(training.device)
     trigger = monitor.ProfilerTrigger(
-        args.profile_dir or os.path.join(tempfile.gettempdir(), "profiles"),
+        args.profile_dir or os.path.join(
+            args.save or tempfile.gettempdir(), "profiles"),
         window_steps=2, router=router)
     if args.profile_step is not None:
         trigger.request(step=args.profile_step)
     responder = None
     if args.stall_deadline:
+        # its terminate stage tombstones ar's pending save
         responder = IncidentResponder(
             args.stall_deadline, router=router, window=window,
-            trigger=trigger, dump_after=args.stall_dump_after,
+            trigger=trigger, autoresume=ar,
+            dump_after=args.stall_dump_after,
             terminate_after=args.stall_terminate_after)
     hbm_mon = predicted = None
     if args.xray_hbm:
@@ -266,72 +467,211 @@ def _run(args, device, distributed):
             return contextlib.nullcontext()
         return xhbm.oom_guard(router, step, breakdown=predicted)
 
-    def run_step(i, bag=None):
-        first = (i * cfg.global_batch) % (len(lm) - cfg.global_batch + 1)
-        x, y = training.reshape_batch(
-            *lm.batch(range(first, first + cfg.global_batch)))
-        return training.train_step(state, x, y, bag=bag)
+    # the host half of the resilience loop: snapshot ring + escalation
+    # policy (skip -> rollback + LR dampen -> halt) + the anomaly log
+    mgr = ResilienceManager(
+        buffer=RollbackBuffer(capacity=args.snapshot_capacity,
+                              interval=args.snapshot_interval),
+        policy=EscalationPolicy(max_rollbacks=args.max_rollbacks,
+                                lr_dampen=args.lr_dampen),
+        log_path=args.anomaly_log or (
+            os.path.join(args.save, "anomalies.jsonl") if args.save
+            else None),
+        router=router)
+    plan = chaos.FaultPlan(
+        nan_steps=args.chaos_nan_steps,
+        sigterm_steps=({args.chaos_sigterm_step}
+                       if args.chaos_sigterm_step is not None
+                       else frozenset()),
+        bitflip_steps=({args.chaos_bitflip_step}
+                       if args.chaos_bitflip_step is not None
+                       else frozenset()),
+        bitflip_bit=args.chaos_bitflip_bit)
+
+    # the sampler's own resume: the stream picks up where the saved (or
+    # rolled-back-to) run left off
+    def make_iter(start_step):
+        return iter(MegatronPretrainingSampler(
+            total_samples=len(lm),
+            consumed_samples=start_step * cfg.global_batch,
+            local_minibatch_size=cfg.global_batch,  # each rank takes its
+            data_parallel_rank=0,                   # dp columns itself
+            data_parallel_size=1))
+
+    timers = Timers(write_fn=router.timer_write_fn)
+    it = make_iter(step0)
+    # the ids the loader ACTUALLY consumed, journaled per step: a skipped
+    # batch shifts every later one, and a replay fetches these ids
+    last_ids = []
+
+    def load_batch():
+        ids = list(next(it))  # `it` late-bound: a rollback rewinds it
+        last_ids[:] = ids
+        return lm.batch(ids)
+
+    batches = RobustBatches(load_batch, max_skips=args.data_skip_budget)
+    # seed the ring so an anomaly before the first cadence point can
+    # still roll back instead of halting
+    mgr.buffer.snapshot(step0, state.as_tuple())
+    init_span.close()
 
     records = []
     fetches0 = monitor.host_fetch_count()
-    intervals = 0
+    intervals = steps_run = 0
     last_emit_t, since_emit = time.perf_counter(), 0
-    for i in range(args.steps):
-        trigger.maybe_start(i)
+    step_i = step0
+    while step_i < args.steps:
+        with goodput.span("data_wait", step=step_i):
+            x0, y0 = batches()
+            x, y = training.reshape_batch(x0, y0)
+        batch_ids = list(last_ids)
+        crc = batch_crc(x0, y0) if recorder is not None else None
+        nan_armed = plan.take_nan(step_i)
+        lr_scale_now = mgr.lr_scale
+        trigger.maybe_start(step_i)
         t0 = time.perf_counter()
         # the first step loads kernels and sets up the card's libraries:
         # booked as compile, the rest as productive steps
-        with goodput.span("compile" if i == 0 else "step", step=i), \
-                guard(i):
-            _, loss, verdict, metrics, *rms = run_step(i, bag)
+        with goodput.span("compile" if steps_run == 0 else "step",
+                          step=step_i), guard(step_i), \
+                step_annotation(step_i):
+            timers("step").start()
+            _, loss, verdict, metrics, *rms = training.train_step(
+                state, x, y, inject_nan=nan_armed, lr_scale=lr_scale_now,
+                bag=bag)
             sync()
+            timers("step").stop()
         secs = time.perf_counter() - t0
+        steps_run += 1
         if responder is not None:
-            if i == 0:
+            if steps_run == 1:
                 responder.start()  # armed once the first step is behind
-            responder.beat(i)
-        trigger.on_verdict(i, verdict)
-        trigger.maybe_stop(i)
+            responder.beat(step_i)
+        trigger.on_verdict(step_i, verdict)
+        trigger.maybe_stop(step_i)
         since_emit += 1
-        rec = dict(step=i, **metrics, tokens_per_s=tokens_per_step / secs,
-                   step_ms=secs * 1e3, verdict=verdict_name(verdict))
+        rec = dict(step=step_i, **metrics,
+                   tokens_per_s=tokens_per_step / secs, step_ms=secs * 1e3,
+                   verdict=verdict_name(verdict),
+                   data_skipped=batches.skipped)
         records.append(rec)
         tail = ""
-        if rms:
+        if rms and args.layer_rms:
             rec["layer_rms"] = rms[0]
             tail = " layer_rms " + ",".join(f"{v:.6g}" for v in rms[0])
-        say(f"step {i:5d} loss {loss:.4f} grad_norm "
+        say(f"step {step_i:5d} loss {loss:.4f} grad_norm "
             f"{metrics['grad_norm']:.4f} loss_scale "
             f"{metrics['loss_scale']:.1f} tokens_per_s "
             f"{rec['tokens_per_s']:.1f} step_ms {rec['step_ms']:.2f} "
             f"verdict {rec['verdict']}{tail}", flush=True)
-        if (i + 1) % args.log_interval == 0 or i == args.steps - 1:
+        if recorder is not None:
+            # what a replay needs to re-execute this step, and the output
+            # fingerprints it is compared against
+            contiguous = batch_ids == list(
+                range(batch_ids[0], batch_ids[-1] + 1))
+            recorder.step(
+                step_i,
+                batch=([batch_ids[0], batch_ids[-1] + 1]
+                       if contiguous else None),
+                batch_ids=None if contiguous else batch_ids,
+                batch_crc=crc, inject_nan=nan_armed, lr_scale=lr_scale_now,
+                loss=loss, verdict=verdict,
+                loss_scale=metrics["loss_scale"],
+                layer_rms=rms[0] if rms else None,
+                data_skipped=batches.skipped)
+        # chaos: silent in-memory corruption AFTER the step, so the next
+        # checkpoint faithfully saves it; written into the live parameter
+        flipped, flip_info = plan.maybe_bitflip(step_i, state.params)
+        if flip_info is not None:
+            tree_copy_(state.params, flipped)
+            say(f"[chaos] bit-flipped {flip_info['path']}"
+                f"[{flip_info['element']}] bit {flip_info['bit']}")
+            if recorder is not None:
+                recorder.event(step_i, "bitflip_injected", **flip_info)
+        action = mgr.resolve(step_i, verdict, loss=loss)
+        if action == "halt":
+            if responder is not None:
+                responder.stop()  # the final save is not a wedged step
+            # save the newest KNOWN-GOOD state, not the live one
+            if len(mgr.buffer):
+                good_step, _ = mgr.buffer.rollback(into=state.as_tuple())
+            else:
+                good_step = step_i
+            if args.save:
+                ar.finalize()  # an interval save may still be in flight
+                save_checkpoint_verified(args.save, good_step,
+                                         state.as_tuple(),
+                                         keep_last_n=args.keep_last_n)
+            if recorder is not None:
+                recorder.event(step_i, "halt", good_step=good_step)
+            say(f"halting at step {step_i}: anomaly persisted; "
+                f"checkpointed known-good step {good_step}")
+            break
+        if action == "rollback":
+            rolled_from = step_i
+            step_i, _ = mgr.do_rollback(into=state.as_tuple())
+            it = make_iter(step_i)
+            if recorder is not None:
+                # a non-replayable break (the ring is in memory only)
+                recorder.event(rolled_from, "rollback", to_step=step_i)
+            say(f"rolled back to step {step_i} "
+                f"(lr_scale {mgr.lr_scale:.3f})")
+            continue
+        if action == "skip":
+            say(f"anomalous step {step_i}: update skipped "
+                f"(loss {loss:.4f})")
+        else:
+            mgr.observe_good(step_i + 1, state.as_tuple())
+        if (step_i + 1) % args.log_interval == 0 or step_i == args.steps - 1:
             # ONE device-to-host fetch of the bag per interval; the rest of
             # the record is host arithmetic
             if hbm_mon is not None:
-                hbm_mon.sample(i)
+                hbm_mon.sample(step_i)
             vals = monitor.read_bag(bag)
             interval_s = time.perf_counter() - last_emit_t
             sec_per_step = interval_s / since_emit
             router.metrics(
-                i, **vals,
+                step_i, **vals,
                 tokens_per_s=monitor.tokens_per_second(
                     tokens_per_step * since_emit, interval_s),
                 mfu=monitor.mfu(step_flops, sec_per_step, num_devices=world,
                                 peak_flops=peak_flops),
-                step_ms=1e3 * sec_per_step,
+                step_ms=1e3 * sec_per_step, data_skipped=batches.skipped,
                 **(hbm_mon.metrics_fields() if hbm_mon is not None else {}))
+            timers.write(["step"], step_i, normalizer=since_emit)
             monitor.reset_bag(bag)
             intervals += 1
             last_emit_t, since_emit = time.perf_counter(), 0
+        plan.maybe_sigterm(step_i)
+        if (responder is not None and ar is not None
+                and ar.termination_signaled):
+            responder.stop()  # the termination save is not a wedged step
+        if ar is not None and ar.step(step_i + 1, state.as_tuple()):
+            if ar.termination_decision == "save":
+                say(f"termination checkpoint at step {step_i + 1}; exiting")
+            else:
+                say(f"termination at step {step_i + 1}: "
+                    f"{ar.termination_decision} (grace budget); exiting")
+            break
+        step_i += 1
+    shutdown_span = goodput.begin_span("shutdown", step=step_i)
+    if mgr.events:
+        say(f"anomalies this run: {len(mgr.events)} "
+            f"(rollbacks {mgr.rollbacks_used}, lr_scale {mgr.lr_scale:.3f})")
     if responder is not None:
         responder.stop()
     trigger.close()  # abort a capture still open (end of run)
+    if ar is not None:
+        ar.close()  # commit an interval save still in flight
+    if recorder is not None:
+        recorder.close()
     fetches = monitor.host_fetch_count() - fetches0
-    router.event("summary", args.steps - 1, steps_run=args.steps,
+    router.event("summary", step_i, steps_run=steps_run,
                  host_fetches=fetches, intervals=intervals,
                  profiles=len(trigger.captures),
-                 stalls=len(responder.stalls) if responder else 0)
+                 stalls=len(responder.stalls) if responder else 0,
+                 anomalies=len(mgr.events), rollbacks=mgr.rollbacks_used,
+                 lr_scale=mgr.lr_scale, data_skipped=batches.skipped)
     telemetry = {
         "host_fetches": fetches, "intervals": intervals,
         "captures": [c["trace"] for c in trigger.captures],
@@ -352,11 +692,17 @@ def _run(args, device, distributed):
     if args.profile_steps > 0:
         from apex_tpu_torch.utils.profiling import profile_device
 
+        def run_step():
+            x, y = training.reshape_batch(*batches())
+            return training.train_step(state, x, y)
+
         report = profile_device(lambda: [
-            run_step(args.steps + j) for j in range(args.profile_steps)])
+            run_step() for _ in range(args.profile_steps)])
         say(json.dumps({"profile_steps": args.profile_steps,
                         "tokens_per_step": tokens_per_step, **report}),
             flush=True)
+    shutdown_span.close()
+    goodput.set_router(None)
     router.close()
     if distributed:
         peak = torch.tensor([torch.cuda.max_memory_allocated(device) / 1e9

@@ -41,14 +41,17 @@ on demand, deterministically:
   bisector pins the step and the leaf. ``FaultPlan.bitflip_steps``
   schedules it.
 
+- **Disk corruption** — ``corrupt_checkpoint`` bit-flips or truncates a
+  saved step directory's largest file in place (silent disk rot, a torn
+  write on a non-atomic backend), and ``corrupt_latest_checkpoint`` does
+  it to the newest finalized step; only the integrity manifest catches
+  either.
+
 ``FaultPlan`` schedules all of these by global step with consumed-once
 semantics: after a rollback re-winds the loop, the REPLAYED step runs
 clean — which is what makes the recovered trajectory comparable to an
 uninjected run in tests (persistent=True disables that for testing the
 halt path).
-
-Not ported yet: ``corrupt_checkpoint`` and ``corrupt_latest_checkpoint``,
-which wait for the port's checkpoint module.
 """
 
 import dataclasses
@@ -62,12 +65,13 @@ from typing import FrozenSet, Iterable, Optional, Set, Union
 import numpy as np
 import torch
 
-from apex_tpu_torch.utils.pytree import leaf_order
+from apex_tpu_torch.utils.pytree import map_tensors, tree_leaves_with_path
 
 logger = logging.getLogger("apex_tpu_torch.resilience")
 
 __all__ = [
-    "FaultPlan", "bitflip_leaf", "parse_steps", "poison_loss",
+    "FaultPlan", "bitflip_leaf", "corrupt_checkpoint",
+    "corrupt_latest_checkpoint", "parse_steps", "poison_loss",
     "simulate_sigterm", "wedge",
 ]
 
@@ -300,42 +304,6 @@ def simulate_sigterm() -> None:
     os.kill(os.getpid(), _signal.SIGTERM)
 
 
-def _keystr(path) -> str:
-    """A leaf path written as ``jax.tree_util.keystr`` writes the nested
-    dicts and lists it stands for: ``['layer_0']['mlp']['kernel']``."""
-    return "".join(f"[{k!r}]" if isinstance(k, str) else f"[{k}]"
-                   for k in path)
-
-
-def _leaves_with_path(tree, path=()):
-    """(path, tensor) pairs in the JAX leaf order (``utils.pytree``); a
-    dotted dict key stands for the nested dicts of its components."""
-    if isinstance(tree, torch.Tensor):
-        yield path, tree
-    elif isinstance(tree, dict):
-        for k in leaf_order(tree):
-            yield from _leaves_with_path(
-                tree[k], path + tuple(str(k).split(".")))
-    elif isinstance(tree, (list, tuple)):
-        for i, x in enumerate(tree):
-            yield from _leaves_with_path(x, path + (i,))
-    else:
-        raise TypeError(f"not a tensor collection: {type(tree).__name__}")
-
-
-def _replace_leaf(tree, target, patched):
-    """``tree`` with the tensor ``target`` (by identity) replaced."""
-    if isinstance(tree, torch.Tensor):
-        return patched if tree is target else tree
-    if isinstance(tree, dict):
-        return {k: _replace_leaf(v, target, patched)
-                for k, v in tree.items()}
-    out = [_replace_leaf(v, target, patched) for v in tree]
-    if isinstance(tree, list):
-        return out
-    return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
-
-
 def bitflip_leaf(tree, bit: int = 12, seed: int = 0,
                  path_filter: Optional[str] = None):
     """Flip one bit of one element of one leaf of a live tensor tree.
@@ -357,16 +325,15 @@ def bitflip_leaf(tree, bit: int = 12, seed: int = 0,
     change that no loss-spike sentinel notices.
     """
     candidates = [
-        (path, leaf) for path, leaf in _leaves_with_path(tree)
+        (path, leaf) for path, leaf in tree_leaves_with_path(tree)
         if leaf.is_floating_point() and leaf.numel() > 0
-        and (path_filter is None or path_filter in _keystr(path))
+        and (path_filter is None or path_filter in path)
     ]
     if not candidates:
         raise ValueError(
             f"no float leaf to flip (path_filter={path_filter!r})"
         )
-    path, leaf = candidates[seed % len(candidates)]
-    keystr = _keystr(path)
+    keystr, leaf = candidates[seed % len(candidates)]
     flat = leaf.detach().reshape(-1).cpu().clone()
     n = flat.numel()
     idx = (seed * 2654435761 + n // 2) % n
@@ -386,4 +353,62 @@ def bitflip_leaf(tree, bit: int = 12, seed: int = 0,
     }
     logger.warning("chaos: bit-flipped %s[%d] bit %d (%r -> %r)",
                    keystr, idx, bit, before, after)
-    return _replace_leaf(tree, leaf, patched), info
+    return map_tensors(lambda t: patched if t is leaf else t, tree), info
+
+
+def _payload_files(step_dir: str):
+    """Checkpoint payload files, largest first (stable tiebreak on name):
+    the tensor payload dominates, so "largest first" deterministically
+    targets real tensor bytes."""
+    files = []
+    for root, _, names in os.walk(step_dir):
+        for n in names:
+            p = os.path.join(root, n)
+            files.append((-os.path.getsize(p), os.path.relpath(p, step_dir), p))
+    files.sort()
+    return [p for _, _, p in files]
+
+
+def corrupt_checkpoint(step_dir: str, mode: str = "bitflip", seed: int = 0) -> str:
+    """Corrupt a checkpoint directory in place; returns the file touched.
+
+    ``bitflip``: XOR one byte (position seeded) of a payload file (the
+    largest for seed 0) with 0x40: silent disk rot. ``truncate``: cut
+    that file to half: a torn write on a non-atomic backend. Both leave
+    the directory structure intact, so only content verification (the
+    manifest) can catch them. The JAX package's function, byte for byte.
+    """
+    files = _payload_files(step_dir)
+    if not files:
+        raise FileNotFoundError(f"no files to corrupt under {step_dir}")
+    target = files[seed % len(files)]
+    size = os.path.getsize(target)
+    if mode == "truncate":
+        with open(target, "rb+") as f:
+            f.truncate(max(size // 2, 0))
+    elif mode == "bitflip":
+        if size == 0:
+            raise ValueError(f"cannot bit-flip empty file {target}")
+        pos = (seed * 2654435761 + size // 2) % size
+        with open(target, "rb+") as f:
+            f.seek(pos)
+            b = f.read(1)
+            f.seek(pos)
+            f.write(bytes([b[0] ^ 0x40]))
+    else:
+        raise ValueError(f"unknown corruption mode: {mode!r}")
+    return target
+
+
+def corrupt_latest_checkpoint(
+    directory: str, mode: str = "bitflip", seed: int = 0
+) -> Optional[str]:
+    """Corrupt the NEWEST finalized step dir; returns it (None if empty)."""
+    from apex_tpu_torch.utils.checkpoint import finalized_steps
+
+    steps = finalized_steps(directory)
+    if not steps:
+        return None
+    step_dir = os.path.join(os.path.abspath(directory), f"step_{steps[-1]}")
+    corrupt_checkpoint(step_dir, mode=mode, seed=seed)
+    return step_dir

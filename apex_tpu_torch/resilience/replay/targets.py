@@ -113,6 +113,17 @@ class GPTTargetConfig:
     collect_layer_rms: bool = False
     max_devices: Optional[int] = None
 
+    def to_json(self) -> dict:
+        """The journal header's replay recipe."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_json(cls, d: dict) -> "GPTTargetConfig":
+        """Tolerant of extra keys (an older replayer reading a newer
+        journal must fail on MISSING semantics, not added ones)."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
 
 @dataclasses.dataclass
 class GPTTrainState:
@@ -125,6 +136,12 @@ class GPTTrainState:
     opt: Union[FusedAdamState, DistributedFusedAdamState, Dict[str, Any]]
     scaler: LossScalerState
     sentinel: SentinelState
+
+    def as_tuple(self):
+        """``(params, opt, scaler, sentinel)``: the JAX step's state
+        tuple, the tree checkpoints, snapshots and fingerprints take (a
+        parameter's path starts ``[0]``, as in the JAX package)."""
+        return (self.params, self.opt, self.scaler, self.sentinel)
 
 
 @dataclasses.dataclass

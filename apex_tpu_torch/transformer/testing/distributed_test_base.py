@@ -25,13 +25,14 @@ __all__ = ["jobs_worker", "spawn"]
 
 
 def _rank_main(rank: int, world_size: int, backend: str, store: str,
-               out_dir: str, fn: Callable, args: Sequence) -> None:
+               out_dir: str, fn: Callable, args: Sequence,
+               threads: int) -> None:
     import torch
     import torch.distributed as dist
 
     from apex_tpu_torch.parallel import parallel_state
 
-    torch.set_num_threads(1)  # ranks share the host's cores
+    torch.set_num_threads(threads)  # ranks share the host's cores
     result, error = None, None
     try:
         dist.init_process_group(backend, init_method=f"file://{store}",
@@ -55,17 +56,20 @@ def _rank_main(rank: int, world_size: int, backend: str, store: str,
 
 
 def spawn(fn: Callable, world_size: int, args: Sequence = (),
-          timeout: float = 180.0, backend: str = "gloo") -> List[Any]:
+          timeout: float = 180.0, backend: str = "gloo",
+          threads: int = 1) -> List[Any]:
     """``[fn(0, world_size, *args), ..., fn(world_size - 1, ...)]``, each
-    run in its own process of one ``backend`` world. Raises with the
-    ranks' tracebacks if any rank raised, or ``TimeoutError`` if the world
-    has not ended after ``timeout`` seconds."""
+    run in its own process of one ``backend`` world with ``threads``
+    intra-op CPU threads (one by default: test workers run worlds side by
+    side). Raises with the ranks' tracebacks if any rank raised, or
+    ``TimeoutError`` if the world has not ended after ``timeout``
+    seconds."""
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="apex_tpu_torch_world_") as tmp:
         store = os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main,
                              args=(r, world_size, backend, store, tmp, fn,
-                                   tuple(args)), daemon=True)
+                                   tuple(args), threads), daemon=True)
                  for r in range(world_size)]
         for p in procs:
             p.start()

@@ -178,16 +178,16 @@ swallowed:
    the GPT example under ``torch.distributed.run``, 4 ranks on this one
    card over gloo (NCCL refuses two ranks on one card; gloo moves each
    collective's CUDA tensors through pinned host memory, every kernel
-   and product still runs on the card), micro batch 4, global 16, seq
-   1024: (a) ZeRO-2, 1 + 3 steps, (b) DDP and ``fused_adam``, 1 + 2
-   steps; per-step loss, verdict and tokens/s, every rank's peak memory,
-   the first loss within 0.5 of ln 50304 and every verdict OK, and rank
-   0's launch counts (#1, #2, #5, #6, #7 grow, and #8 under DDP); then (c)
-   the same 4 ranks at 2 layers and seq 256 on the card's kernels and on
-   the CPU's plain versions from the same weights: 3 bf16 ZeRO steps
-   within the training tolerances, 2 fp32 steps of the model, the dp
-   all-reduce and ``fused_adam`` to 1e-4; and (d) one step of GPT-2
-   small in a NCCL world of one;
+   and product still runs on the card), depth 4 (cut from 12), micro
+   batch 4, global 16, seq 1024: (a) ZeRO-2, 1 + 3 steps, (b) DDP and
+   ``fused_adam``, 1 + 2 steps; per-step loss, verdict and tokens/s,
+   every rank's peak memory, the first loss within 0.5 of ln 50304 and
+   every verdict OK, and rank 0's launch counts (#1, #2, #5, #6, #7
+   grow, and #8 under DDP); then (c) the same 4 ranks at 2 layers and
+   seq 256 on the card's kernels and on the CPU's plain versions from
+   the same weights: 3 bf16 ZeRO steps within the training tolerances,
+   2 fp32 steps of the model, the dp all-reduce and ``fused_adam`` to
+   1e-4; and (d) one step of GPT-2 small in a NCCL world of one;
 13. GPT-2 small pipelined, 4 ranks on this card over gloo (each p2p
    message staged through pinned host memory), vocab 50304, micro batch
    4, M = 4, seq 1024, bf16, random weights from seed 0: (a)
@@ -298,7 +298,19 @@ swallowed:
    for bit against the fp32 run's) over BERT-345M's shapes at dp = 4;
    GPT-2 small with 8 experts at tp = 2 (depth 2) against tp = 1, and
    with SP card against plain;
-25. prints the ``kernels`` line (all nine kernels; ``launches`` is the
+25. the GPT example's recovery path at GPT-2 small's full width, in
+   process through ``main(argv)``, 6 steps a run: a clean run saved
+   every 2 steps and the same with one parameter bit flipped after step
+   3; the clean run's replay bitwise with zero divergence, the flipped
+   run's replay diverging (exit 2) and its bisect naming step 4, the
+   exact leaf and anchors 2 and 4; a SIGTERM after step 3 ending in a
+   verified step-4 checkpoint, and a rerun over that checkpoint
+   bit-flipped on disk falling back to step 2 with the clean run's
+   losses bit for bit; a NaN at step 3 with no skip budget rolled back
+   and completed. It logs the bytes of a checkpoint, the save, sha256,
+   crc32, restore and replay times and the free disk space, and removes
+   its directories;
+26. prints the ``kernels`` line (all nine kernels; ``launches`` is the
    count of the kernel's first path below that runs it, and
    ``launches_by_path`` has every path's), then as the last line
    ``{"ok": true, "device": {...}}``.
@@ -329,16 +341,18 @@ decode steps), ``zero_lamb_remainders`` (rank 0's exact LAMB run) and
 ``gpt_moe_tp`` (rank 0's SP pass), and ``serve_gpt`` (the SIGTERM
 drill's process), ``serve_gpt_beam`` (the bf16 beam search),
 ``monitor_grad_norm`` (``global_grad_norm``) and ``gpt_monitor`` (the GPT
-example's process under its telemetry flags). Every path's kernels must
-have launched. ``python3 chip_smoke.py --tail`` (development) runs only
-the build and phase 24, and ``--serve-gpt`` only the build and phase 4c;
-neither prints a result.
+example's process under its telemetry flags), and ``gpt_resilience``
+(every step and replay of phase 25). Every path's kernels must have
+launched. ``python3 chip_smoke.py --tail`` (development) runs only the
+build and phase 24, ``--serve-gpt`` only the build and phase 4c, and
+``--resilience`` only the build and phase 25; none prints a result.
 """
 
 import gc
 import hashlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -399,11 +413,21 @@ TOL = {
 }
 N_GPT2_SMALL = 124_439_808  # parameters of GPT-2 small (tied head)
 N_TINYLLAMA = 1_100_048_384  # parameters of TinyLlama-1.1B (untied head)
-# GPT-2 small at tp = 2 (vocab 50304): a rank holds 62,659,584 parameters
-# (half the table, 19,316,736; positions 786,432; 12 layers of 3,546,240;
-# the final norm 1,536), flattened and padded to 957 chunks of 65,536 =
-# 62,717,952, and each of dp = 2 ranks keeps half: one ZeRO shard
-ZERO_SHARD_TP2 = 31_358_976
+
+
+def zero_shard_tp2(layers: int) -> int:
+    """One ZeRO shard of GPT-2 small at tp = 2 (vocab 50304) and
+    ``layers`` deep: a rank holds half the table, 19,316,736, the
+    positions, 786,432, ``layers`` layers of 3,546,240 and the final norm,
+    1,536, flattened and padded to whole chunks of 65,536, and each of
+    dp = 2 ranks keeps half."""
+    held = 19_316_736 + 786_432 + layers * 3_546_240 + 1_536
+    return -(-held // 65_536) * 65_536 // 2
+
+
+# 12 layers: 62,659,584 parameters a rank, padded to 957 chunks
+ZERO_SHARD_TP2 = zero_shard_tp2(12)
+assert ZERO_SHARD_TP2 == 31_358_976
 # BERT-345M's 336,267,266 parameters flattened and padded to 5,132 chunks
 # of 65,536 = 336,330,752, of which each of dp = 4 ranks keeps a quarter:
 # one ZeRO LAMB shard (zero_lamb_remainders)
@@ -513,6 +537,11 @@ PATH_KERNELS = {
     # GPT-2 small with 8 experts at tp = 2 with SP (rank 0, one pass)
     "gpt_moe_tp": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
                    "flash_bwd_dq", "flash_bwd_dkv"),
+    # the GPT example's recovery path at GPT-2 small width: checkpointed
+    # runs, bitwise replays and the bisect, SIGTERM resume, corrupt-latest
+    # fallback and the NaN rollback (the phase's whole run of steps)
+    "gpt_resilience": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                       "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
 }
 FORWARD_KERNELS = PATH_KERNELS["serving"]
 KERNEL_META = {  # name: (source, TPU kernel it replaces)
@@ -3336,12 +3365,20 @@ def dropout_statistics():
 # it too): the table is padded to a multiple of 128, as Megatron-LM's
 # --make-vocab-size-divisible-by 128 pads GPT-2's vocabulary
 GPT_PARALLEL_VOCAB = 50304
+# the ZeRO and DDP runs at depth 4 (cut from 12, as the 1F1B run's, to
+# keep the whole script under its time limit on a slow host)
+GPT_PARALLEL_LAYERS = 4
 GPT_PARALLEL_ARGV = (
     "--vocab", str(GPT_PARALLEL_VOCAB), "--seq-len", "1024", "--layers",
-    "12", "--hidden", "768", "--heads", "12", "--micro-batch", "4",
-    "--global-batch", "16", "--tp", "2", "--seed", str(SEED),
+    str(GPT_PARALLEL_LAYERS), "--hidden", "768", "--heads", "12",
+    "--micro-batch", "4", "--global-batch", "16", "--tp", "2", "--seed",
+    str(SEED),
     "--dist-backend", "gloo")
 GPT_PARALLEL_RANKS = 4
+# the CPU threads of each spawned rank: the host's cores shared by the 4
+# ranks (8 cores on the card's machine, 2 a rank), for the plain CPU
+# versions the card is held against
+RANK_THREADS = max(1, len(os.sched_getaffinity(0)) // GPT_PARALLEL_RANKS)
 # NCCL refuses two ranks on one card, so the 4 ranks share it over gloo,
 # which moves the CUDA tensors of each collective through host memory
 GLOO_TRANSPORT = ("gloo: 4 ranks on one card; each collective's CUDA "
@@ -3409,15 +3446,17 @@ def gpt_parallel_phase(smi):
         missing = [k for k in kernels if counts[k] == 0]
         if missing:
             raise AssertionError(f"{name}: {missing} not launched on rank 0")
-        if "--zero" in extra and (counts["adam_update"] != 0 or
-                                  summary["zero_shard_len"] != ZERO_SHARD_TP2):
+        if "--zero" in extra and (
+                counts["adam_update"] != 0 or summary["zero_shard_len"]
+                != zero_shard_tp2(GPT_PARALLEL_LAYERS)):
             raise AssertionError(f"{name}: Adam kernel launched or shard "
                                  f"{summary['zero_shard_len']}")
         paths[name] = counts
         measured = records[1:]
         report[name] = {
-            "model": f"gpt2-small 12x768 vocab {GPT_PARALLEL_VOCAB} (random "
-                     "weights, bf16 compute, fp32 params), tp=2 dp=2 sp",
+            "model": f"gpt2-small {GPT_PARALLEL_LAYERS}x768 vocab "
+                     f"{GPT_PARALLEL_VOCAB} (random weights, bf16 compute, "
+                     "fp32 params), tp=2 dp=2 sp",
             "steps": len(measured), "micro_batch": 4, "global_batch": 16,
             "seq_len": 1024, "first_loss": losses[0],
             "tokens_per_s_mean": statistics.mean(
@@ -3463,7 +3502,8 @@ def gpt_parallel_card_vs_plain(target=CARD_VS_PLAIN, device="cuda"):
                + (0.0,) for i in range(3)]
     t0 = time.perf_counter()
     ranks = spawn(card_vs_plain_worker, GPT_PARALLEL_RANKS,
-                  args=(target, batches, 2, device), timeout=600.0)
+                  args=(target, batches, 2, device),
+                  threads=RANK_THREADS, timeout=600.0)
     wall = time.perf_counter() - t0
     lr = 3e-4
     worst = {"bf16_loss": 0.0, "bf16_param": 0.0, "fp32_loss": 0.0,
@@ -3708,7 +3748,7 @@ def gpt_pipeline_phase(smi):
     t0 = time.perf_counter()
     inter = spawn(interleaved_worker, GPT_PARALLEL_RANKS, args=(
         GPT_PIPELINE_ARGV + GPT_PIPELINE_INTERLEAVED, "cuda"),
-        timeout=600.0)[0]
+        threads=RANK_THREADS, timeout=600.0)[0]
     runs = (("gpt_pipeline", summary, (2, 2, 1, 1, True), wall,
              PIPELINE_LAYERS),
             ("gpt_pipeline_interleaved", inter, (1, 4, 1, 3, False),
@@ -3762,7 +3802,7 @@ def gpt_pipeline_card_vs_plain(device="cuda"):
     t0 = time.perf_counter()
     ranks = spawn(card_vs_plain_worker, GPT_PARALLEL_RANKS,
                   args=(PIPELINE_CARD_VS_PLAIN_ARGV, 2, device),
-                  timeout=600.0)
+                  threads=RANK_THREADS, timeout=600.0)
     wall = time.perf_counter() - t0
     lr = 3e-4
     worst = {"bf16_loss": 0.0, "bf16_param": 0.0, "fp32_loss": 0.0,
@@ -3838,7 +3878,7 @@ def gpt_pipeline_zero_bubble_phase(smi):
     t0 = time.perf_counter()
     out = spawn(interleaved_worker, GPT_PARALLEL_RANKS, args=(
         GPT_PIPELINE_ARGV + GPT_PIPELINE_ZERO_BUBBLE, "cuda", True),
-        timeout=600.0)[0]
+        threads=RANK_THREADS, timeout=600.0)[0]
     wall = time.perf_counter() - t0
     if out["schedule"] != "zero_bubble":
         raise AssertionError(f"{name}: ran {out['schedule']}")
@@ -3868,7 +3908,8 @@ def gpt_pipeline_zero_bubble_phase(smi):
         + json.dumps(report))
     t0 = time.perf_counter()
     ranks = spawn(zero_bubble_vs_1f1b_worker, GPT_PARALLEL_RANKS,
-                  args=(ZERO_BUBBLE_VS_1F1B_ARGV, "cuda"), timeout=600.0)
+                  args=(ZERO_BUBBLE_VS_1F1B_ARGV, "cuda"),
+                  threads=RANK_THREADS, timeout=600.0)
     worst_loss = worst_grad = 0.0
     for r, res in enumerate(ranks):
         for a, b in zip(res["zero_bubble"], res["1f1b"]):
@@ -3947,7 +3988,7 @@ def llama_cp_phase(smi):
                      batch=CP_BATCH, **CP_DECODE))
     t0 = time.perf_counter()
     ranks = spawn(cp_card_worker, CP_RANKS, args=(jobs, "cuda"),
-                  timeout=900.0)
+                  threads=RANK_THREADS, timeout=900.0)
     wall = time.perf_counter() - t0
     paths, report = {}, {"transport": GLOO_TRANSPORT, "gpu": smi,
                          "wall_s": wall}
@@ -4972,7 +5013,8 @@ def gpt_moe_ep_phase(smi):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = spawn(moe_gpt_ep_worker, GPT_PARALLEL_RANKS,
-                  args=(MOE_EP, 4, 1024, "cuda"), timeout=600.0)
+                  args=(MOE_EP, 4, 1024, "cuda"),
+                  threads=RANK_THREADS, timeout=600.0)
     wall = time.perf_counter() - t0
     for r, out in enumerate(ranks):
         if (abs(out["loss_ep"] - out["loss_one"]) > 1e-5 * out["loss_one"]
@@ -5120,7 +5162,7 @@ def gpt_pipeline_remat_phase(smi):
     ranks = spawn(jobs_worker, GPT_PARALLEL_RANKS, args=([
         ("remat_worker", (PIPELINE_REMAT_ARGV, "cuda")),
         ("remat_worker", (PIPELINE_REMAT_ARGV + ("--bf16",), "cuda"))],),
-        timeout=900.0)
+        threads=RANK_THREADS, timeout=900.0)
     wall = time.perf_counter() - t0
     report = {"gpu": smi, "transport": GLOO_TRANSPORT, "wall_s": wall}
     for i, precision in enumerate(("fp32", "bf16")):
@@ -5632,12 +5674,13 @@ def tail_phases(smi):
          (BERT_TP_CARD_VS_PLAIN, "cuda")),
         (f"{TESTING}.compress_workers:zero_bytes_worker",
          (shapes, ZERO_STEPS, "cuda", SEED)),
-    ],), timeout=1200.0)
+    ],), threads=RANK_THREADS, timeout=1200.0)
     four_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     two = spawn(jobs_worker, 2, args=(decode_jobs() + [
         (f"{TP_WORKERS}:moe_tp_card_worker",
-         (MOE_TP, 4, 1024, 128, "cuda", SEED))],), timeout=600.0)
+         (MOE_TP, 4, 1024, 128, "cuda", SEED))],),
+        threads=RANK_THREADS, timeout=600.0)
     log(f"multi-GPU tail: the world of 4 ran {four_s:.1f} s, the world of "
         f"2 {time.perf_counter() - t0:.1f} s ({GLOO_TRANSPORT})")
     paths = {}
@@ -5651,6 +5694,167 @@ def tail_phases(smi):
     paths["gpt_moe_tp"], _ = gpt_moe_tp_phase(smi, [r[-1] for r in two])
     log_memory("multi_gpu_tail")
     return paths
+
+RESILIENCE_ARGV = ["--vocab", "50257", "--seq-len", "1024", "--layers",
+                   "12", "--hidden", "768", "--heads", "12", "--micro-batch",
+                   "8", "--global-batch", "16", "--steps", "6",
+                   "--log-interval", "2"]
+
+
+def _resilience_run(argv, tmp, name):
+    """One in-process run of the GPT example (``main(argv)``) with its
+    records in ``<tmp>/<name>.jsonl``: (records by step, the jsonl's
+    records, seconds). A rolled-back step's record is its last run's."""
+    import os
+
+    from apex_tpu_torch.examples.gpt import pretrain_gpt
+
+    jsonl = os.path.join(tmp, f"{name}.jsonl")
+    t0 = time.perf_counter()
+    records = pretrain_gpt.main([
+        *RESILIENCE_ARGV, *argv, "--metrics-jsonl", jsonl,
+        "--profile-dir", os.path.join(tmp, "profiles")])
+    secs = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_step = {r["step"]: r for r in records}
+    if not all(math.isfinite(r["loss"]) for r in by_step.values()):
+        raise AssertionError(f"{name}: a non-finite loss in "
+                             f"{[r['loss'] for r in records]}")
+    return by_step, _jsonl(jsonl), secs
+
+
+def _span_ms(records, phase, **match):
+    return [{"step": r["step"], "ms": r["dur_s"] * 1e3}
+            for r in records if r["kind"] == "span" and r["phase"] == phase
+            and all(r.get(k) == v for k, v in match.items())]
+
+
+def gpt_resilience_phase(smi):
+    """The GPT example's recovery path at GPT-2 small width, in process
+    (module docstring, phase 25): (a) a clean run saved every 2 steps,
+    (b) the same with a bit flipped after step 3, (c) a bitwise replay
+    of (a), (d) the replay of (b) diverging and its bisect, (e) a SIGTERM
+    after step 3 and a rerun over a corrupted newest checkpoint, (f) a
+    NaN at step 3 rolled back. Every step runs on the card."""
+    import os
+    import shutil
+    import tempfile
+
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.resilience import integrity
+    from apex_tpu_torch.resilience.replay import load_journal
+    from apex_tpu_torch.resilience.replay.__main__ import main as replay
+    from apex_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="gpt_resilience-")
+    free = shutil.disk_usage(tmp).free
+    log(f"gpt_resilience: {tmp} has {free / 1e9:.1f} GB free")
+    A, B, C = (os.path.join(tmp, n) for n in "ABC")
+    out = {"gpu": smi, "free_bytes_before": free}
+    t_start = time.perf_counter()
+    _kernels.reset_launch_counts()
+    try:
+        # (a) and (b)
+        a, a_recs, out["run_a_s"] = _resilience_run(
+            ["--save", A, "--save-interval", "2"], tmp, "a")
+        if sorted(a) != list(range(6)) or any(
+                r["verdict"] != "ok" for r in a.values()):
+            raise AssertionError(f"run A: {a}")
+        b, _, out["run_b_s"] = _resilience_run(
+            ["--save", B, "--save-interval", "2", "--chaos-bitflip-step",
+             "3"], tmp, "b")
+        (flip,) = [e for e in load_journal(B).events
+                   if e["event"] == "bitflip_injected"]
+        if any(r["verdict"] != "ok" for r in b.values()):
+            raise AssertionError("the sentinel flagged the bit flip")
+        step_dir = os.path.join(A, "step_2")
+        out["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(step_dir, n))
+            for n in os.listdir(step_dir))
+        out["checkpoint_files"] = len(os.listdir(step_dir))
+        out["saves_a_ms"] = _span_ms(a_recs, "ckpt_save")
+        t0 = time.perf_counter()
+        if integrity.verify_checkpoint(step_dir, deep=True) != (True, "ok"):
+            raise AssertionError("step 2 of A does not verify")
+        out["sha256_ms"] = (time.perf_counter() - t0) * 1e3
+        host = load_checkpoint(A, 2)
+        t0 = time.perf_counter()
+        integrity.tree_fingerprint(host)
+        out["crc32_ms"] = (time.perf_counter() - t0) * 1e3
+        del host
+        # (c) a bitwise replay of A; (d) B diverges, and its bisect
+        t0 = time.perf_counter()
+        rc = replay([A, "--json", os.path.join(tmp, "replay_a.jsonl")])
+        out["replay_a_s"] = time.perf_counter() - t0
+        (rep,) = [r for r in _jsonl(os.path.join(tmp, "replay_a.jsonl"))
+                  if r["kind"] == "replay"]
+        if rc != 0 or not rep["ok"] or rep["mode"] != "bitwise" or (
+                rep["steps_replayed"] != 6 or rep["anchors_checked"]
+                != [2, 4, 6]):
+            raise AssertionError(f"replay of A: rc {rc}, {rep}")
+        out["replay_step_ms"] = _span_ms(
+            _jsonl(os.path.join(tmp, "replay_a.jsonl")), "step",
+            replay=True)
+        if replay([B]) != 2:
+            raise AssertionError("the replay of B found no divergence")
+        t0 = time.perf_counter()
+        rc = replay([B, "--bisect", "--json",
+                     os.path.join(tmp, "bisect_b.jsonl")])
+        out["bisect_b_s"] = time.perf_counter() - t0
+        (div,) = [r for r in _jsonl(os.path.join(tmp, "bisect_b.jsonl"))
+                  if r["kind"] == "divergence"]
+        if rc != 0 or not div["found"] or div["step"] != 4 or (
+                div["leaves"] != ["[0]" + flip["path"]]) or not (
+                div["exact_leaves"]) or (div["clean_anchor"],
+                                         div["dirty_anchor"]) != (2, 4):
+            raise AssertionError(f"bisect of B: rc {rc}, {div}")
+        out["bisect"] = {k: div[k] for k in (
+            "step", "leaves", "exact_leaves", "clean_anchor",
+            "dirty_anchor", "layer", "probes")}
+        shutil.rmtree(A)
+        shutil.rmtree(B)
+        # (e) SIGTERM after step 3: a verified checkpoint at step 4; the
+        # rerun over its corruption falls back to step 2
+        c, _, out["run_c_s"] = _resilience_run(
+            ["--save", C, "--save-interval", "2", "--chaos-sigterm-step",
+             "3"], tmp, "c")
+        if sorted(c) != [0, 1, 2, 3] or (
+                integrity.verified_latest_step(C) != 4):
+            raise AssertionError(
+                f"SIGTERM run: steps {sorted(c)}, newest verified "
+                f"{integrity.verified_latest_step(C)}")
+        c2, c2_recs, out["run_c_resume_s"] = _resilience_run(
+            ["--save", C, "--save-interval", "2", "--chaos-corrupt-latest",
+             "bitflip"], tmp, "c2")
+        if sorted(c2) != [2, 3, 4, 5] or any(
+                c2[i]["loss"] != a[i]["loss"] for i in c2) or any(
+                c[i]["loss"] != a[i]["loss"] for i in c):
+            raise AssertionError(
+                f"resume after SIGTERM and corruption: "
+                f"{[c[i]['loss'] for i in c]} then "
+                f"{[c2[i]['loss'] for i in c2]}, against "
+                f"{[a[i]['loss'] for i in a]}")
+        out["restore_ms"] = _span_ms(c2_recs, "ckpt_restore")
+        # (f) a NaN at step 3 with no skip budget: rolled back, completed
+        log_path = os.path.join(tmp, "anomalies.jsonl")
+        f, f_recs, out["run_f_s"] = _resilience_run(
+            ["--chaos-nan-steps", "3", "--skip-budget", "0",
+             "--anomaly-log", log_path], tmp, "f")
+        ladder = [(r["kind"], r["step"]) for r in _jsonl(log_path)]
+        (summary,) = [r for r in f_recs if r["kind"] == "summary"]
+        if ladder != [("rollback", 3), ("rollback_restore", 0)] or (
+                sorted(f) != list(range(6))) or summary["rollbacks"] != 1:
+            raise AssertionError(f"NaN rollback: {ladder}, {summary}")
+        out["rollback_ms"] = _span_ms(f_recs, "rollback")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = _kernels.launch_counts()
+    out["phase_s"] = time.perf_counter() - t_start
+    out["losses_a"] = [a[i]["loss"] for i in range(6)]
+    log("gpt_resilience " + json.dumps(out))
+    return launches, out
+
 
 def log_memory(after):
     """What stays allocated on the card after a phase (a later phase's
@@ -5678,6 +5882,12 @@ def main():
         # development: phase 4c alone, no kernels line and no result line
         check_paths(serve_gpt_phase(smi)[0])
         log(f"serve_gpt phase done in {time.perf_counter() - START:.1f} s")
+        return
+    if sys.argv[1:2] == ["--resilience"]:
+        # development: phase 25 alone, no kernels line and no result line
+        check_paths({"gpt_resilience": gpt_resilience_phase(smi)[0]})
+        log(f"gpt_resilience phase done in "
+            f"{time.perf_counter() - START:.1f} s")
         return
     if sys.argv[1:2] == ["--tail"]:
         # development: the multi-GPU tail's phases alone, no kernels line
@@ -5754,6 +5964,9 @@ def main():
     paths["gpt_pipeline_no_remat"], _ = gpt_pipeline_remat_phase(smi)
     log_memory("gpt_pipeline_remat")
     paths.update(tail_phases(smi))
+    log_memory("tail")
+    paths["gpt_resilience"], _ = gpt_resilience_phase(smi)
+    log_memory("gpt_resilience")
     check_paths(paths)
 
     kernels = []

@@ -28,7 +28,10 @@ in norm (``fp8_dense``'s gradients 1e-3: they pass an e4m3 cast), and
 equals the CPU's bit for bit, and the ZeRO remainders' split and rebuild
 are exact. fp32 beam search on the card gives the CPU's tokens, its
 scores within 1e-4; the memory report and the OOM guard read the card's
-allocator exactly.
+allocator exactly. The GPT step (GPT-2 small's widths at 2 layers) gives
+the same bits twice from one state, by every leaf's crc32; a checkpoint
+round trip on the card keeps every leaf's crc32; and an async save
+issued just before an in-place Adam step writes the pre-step bytes.
 """
 
 import math
@@ -968,3 +971,93 @@ def test_oom_guard_on_the_card(gen):
     assert rec["components"] == {"kv_pool": 512 * 589_824}
     assert rec["suggestions"][0]["knob"] == "num_blocks"
     torch.cuda.empty_cache()
+
+
+RESILIENCE_TARGET = dict(vocab=50257, seq_len=1024, layers=2, hidden=768,
+                         heads=12, micro_batch=8, global_batch=16)
+
+
+def _gpt_training_on_the_card():
+    from apex_tpu_torch.data import LMDataset
+    from apex_tpu_torch.resilience.replay import (
+        GPTTargetConfig,
+        build_gpt_training,
+        synthetic_corpus,
+    )
+
+    tr = build_gpt_training(GPTTargetConfig(**RESILIENCE_TARGET),
+                            device="cuda")
+    lm = LMDataset(synthetic_corpus(50257), 1024)
+    return tr, tr.init_state(), tr.reshape_batch(*lm.batch(range(16)))
+
+
+def _crcs(tree):
+    from apex_tpu_torch.resilience import tree_fingerprint
+
+    return [(leaf["path"], leaf["crc32"])
+            for leaf in tree_fingerprint(tree)["leaves"]]
+
+
+def test_gpt_step_twice_from_one_state_is_bit_equal(gen):
+    """Two runs of one GPT step from one state give the same loss and the
+    same bits in every leaf of the state (crc32): the step a bitwise
+    replay rests on."""
+    from apex_tpu_torch.utils.checkpoint import host_snapshot
+    from apex_tpu_torch.utils.pytree import tree_copy_
+
+    tr, state, (x, y) = _gpt_training_on_the_card()
+    start = host_snapshot(state.as_tuple())
+    state, loss1, _, _ = tr.train_step(state, x, y)
+    after1 = _crcs(state.as_tuple())
+    tree_copy_(state.as_tuple(), start)
+    assert _crcs(state.as_tuple()) == _crcs(start)
+    state, loss2, _, _ = tr.train_step(state, x, y)
+    assert loss1 == loss2
+    assert _crcs(state.as_tuple()) == after1
+
+
+def test_checkpoint_round_trip_on_the_card_keeps_every_crc(gen, tmp_path):
+    """A verified save and restore of the GPT state on the card: the
+    manifest's per-leaf crc32s are the live state's, and the restored
+    leaves (on the card) carry the same."""
+    from apex_tpu_torch.resilience import (
+        load_checkpoint_verified,
+        read_manifest,
+        save_checkpoint_verified,
+    )
+
+    tr, state, (x, y) = _gpt_training_on_the_card()
+    state, *_ = tr.train_step(state, x, y)
+    want = _crcs(state.as_tuple())
+    path = save_checkpoint_verified(str(tmp_path), 1, state.as_tuple())
+    manifest = read_manifest(path)
+    assert [(leaf["path"], leaf["crc32"])
+            for leaf in manifest["fingerprint"]["leaves"]] == want
+    state, *_ = tr.train_step(state, x, y)
+    assert _crcs(state.as_tuple()) != want
+    step, restored = load_checkpoint_verified(str(tmp_path),
+                                              target=state.as_tuple())
+    assert step == 1 and _crcs(restored) == want
+    assert restored[0]["embedding.word_embeddings.embedding"].is_cuda
+
+
+def test_async_save_before_an_in_place_step_writes_the_pre_step_bytes(
+        gen, tmp_path):
+    """``AsyncCheckpointWriter.save`` returns with its host copy complete:
+    the Adam step issued right after it updates the parameters in place,
+    and the file still holds the state before the step."""
+    from apex_tpu_torch.utils.checkpoint import (
+        AsyncCheckpointWriter,
+        load_checkpoint,
+    )
+
+    tr, state, (x, y) = _gpt_training_on_the_card()
+    state, *_ = tr.train_step(state, x, y)
+    before = _crcs(state.as_tuple())
+    writer = AsyncCheckpointWriter()
+    writer.save(str(tmp_path), 1, state.as_tuple())
+    state, *_ = tr.train_step(state, x, y)
+    writer.close()
+    assert _crcs(state.as_tuple()) != before
+    saved = load_checkpoint(str(tmp_path), 1, target=state.as_tuple())
+    assert _crcs(saved) == before

@@ -118,6 +118,13 @@ def test_entry_points_refuse_a_host_without_cuda(monkeypatch):
         metric_bag({"loss": "mean"})
     assert beam_search(model, [[1, 2]], 2, 2, device="cpu")[0].shape == (
         1, 2, 4)
+    # the replay CLI's modes that run the step (its --diff is host-only)
+    from apex_tpu_torch.resilience.replay.__main__ import main as replay_main
+
+    for argv in (["--selftest"], ["/nonexistent/journal.jsonl"],
+                 ["/nonexistent/journal.jsonl", "--bisect"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            replay_main(argv)
 
 
 def test_kernel_wrapper_raises_and_counts_only_launches(monkeypatch):
