@@ -90,9 +90,26 @@ parameter bit after that step). The bitflip drill, on the card or with
         --chaos-bitflip-step 3
     python -m apex_tpu_torch.resilience.replay /tmp/flip --bisect
 
-Checkpoints are taken at a world of one (a world > 1 raises: its layout
-comes with the elastic resharder). Not ported yet: remediation, the
-elastic reshard, and the comms and compiled-memory x-rays.
+At world > 1 a checkpoint holds the whole world's global state, written
+by rank 0 (``utils.checkpoint``), and a rerun on another world size (dp
+4 saved, dp 2 resumed, and back) restores it through the elastic
+resharder (``resilience.elastic``): the ZeRO flat buffers regrouped,
+every leaf's crc32 verified. ``--remediate`` (with ``--save``) arms the
+remediation controller (``resilience.remediation``): detector records
+(the sentinel's trail, stalls) open cases, a canary replays the
+journaled segments before any quarantine, and the run exits 44 to be
+relaunched (quarantine,
+readmit after ``--remediation-probation`` clean steps, a preemption's
+rejoin) on the persisted device count, or 45 to halt (past ``--remediation-max-restarts``). Run it
+under the supervisor, which relaunches it as a world of the persisted
+device count:
+
+    python -m apex_tpu_torch.resilience.remediation --supervise \
+        --save /tmp/heal --devices 4 -- -m \
+        apex_tpu_torch.examples.gpt.pretrain_gpt --dist-backend gloo \
+        --device cpu --zero --save /tmp/heal --save-interval 2 --remediate
+
+Not ported yet: the comms and compiled-memory x-rays.
 """
 
 import argparse
@@ -118,6 +135,10 @@ from apex_tpu_torch.parallel import parallel_state as ps
 from apex_tpu_torch.resilience import chaos
 from apex_tpu_torch.resilience.health import IncidentResponder
 from apex_tpu_torch.resilience.integrity import save_checkpoint_verified
+from apex_tpu_torch.resilience.remediation.controller import (
+    after_step,
+    sync_queue,
+)
 from apex_tpu_torch.resilience.replay.journal import (
     FlightRecorder,
     batch_crc,
@@ -286,12 +307,45 @@ def parse_args(argv=None):
                         "only the replay bisector pins)")
     p.add_argument("--chaos-bitflip-bit", type=int, default=12,
                    help="bit index (from the LSB) for --chaos-bitflip-step")
+    # auto-remediation (resilience.remediation): detector findings ->
+    # canary-verified quarantine, probation, readmit, escalate-to-halt,
+    # with kind="remediation" records and the exit codes a supervisor
+    # relaunches on
+    p.add_argument("--remediate", action="store_true",
+                   help="arm the auto-remediation controller (requires "
+                        "--save: the persisted plan, the replay journal "
+                        "the canary re-executes and the checkpoints a "
+                        "quarantine falls back to all live there); the "
+                        "run exits 44 to request a restart (reduced "
+                        "topology / readmit / post-preemption rejoin) and "
+                        "45 on escalate-to-halt")
+    p.add_argument("--remediation-probation", type=int, default=8,
+                   help="clean steps a quarantined/restarted incarnation "
+                        "must run before the case closes (readmit)")
+    p.add_argument("--remediation-max-restarts", type=int, default=4,
+                   help="controller-driven restarts before "
+                        "escalate-to-halt")
+    p.add_argument("--remediation-verify",
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help="canary-verify findings before any quarantine "
+                        "(--no-remediation-verify is the deliberately "
+                        "broken policy the campaign's false-positive "
+                        "check exists to catch; drills only)")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
 
+class RunRecords(list):
+    """The run's per-step records, and its exit code (``exit_code``: 0
+    done, 44 restart me with the persisted plan, 45 escalated halt;
+    ``resilience/exit_codes.py``)."""
+
+    exit_code = 0
+
+
 def main(argv=None):
-    """Runs the loop; returns the per-step records it printed."""
+    """Runs the loop; returns the per-step records it printed (a
+    :class:`RunRecords`, whose ``exit_code`` the command exits with)."""
     args = parse_args(argv)
     distributed = "WORLD_SIZE" in os.environ  # under torch.distributed.run
     device = torch.device(args.device)
@@ -349,11 +403,11 @@ def _hbm_prediction(cfg, training):
 def _run(args, device, distributed):
     if args.log_interval < 1:
         raise SystemExit("--log-interval must be >= 1")
-    if args.save and distributed:
+    if args.remediate and not args.save:
         raise SystemExit(
-            "--save at a world > 1: each rank's shards and the global "
-            "layout come with the elastic resharder, a later slice of the "
-            "port; checkpoints are taken at a world of one")
+            "--remediate requires --save: the persisted remediation plan, "
+            "the replay journal, and the quarantine fallback checkpoints "
+            "all live in the save directory")
     journal_on = (args.journal if args.journal is not None
                   else bool(args.save))
     cfg = GPTTargetConfig(
@@ -388,8 +442,10 @@ def _run(args, device, distributed):
     world = dist.get_world_size() if distributed else 1
     recorder = None
     if journal_on:
+        # rank 0 writes the journal; the other ranks keep theirs in memory
         recorder = FlightRecorder(
-            journal_path(args.save) if args.save else None, router=router)
+            journal_path(args.save) if args.save and main_rank else None,
+            router=router)
         recorder.header(
             run_id, "gpt", config=cfg.to_json(),
             corpus={"synthetic": {"vocab": args.vocab,
@@ -398,10 +454,13 @@ def _run(args, device, distributed):
     # chaos drill: corrupt the newest checkpoint BEFORE the restore,
     # which must fall back to the previous step that verifies
     if args.save and args.chaos_corrupt_latest != "none":
-        touched = chaos.corrupt_latest_checkpoint(
-            args.save, mode=args.chaos_corrupt_latest)
+        touched = (chaos.corrupt_latest_checkpoint(
+            args.save, mode=args.chaos_corrupt_latest) if main_rank
+            else None)
         if touched:
             say(f"[chaos] corrupted newest checkpoint: {touched}")
+        if distributed:
+            dist.barrier()
     ar = (AutoResume(args.save, interval=args.save_interval,
                      keep_last_n=args.keep_last_n, grace_s=args.grace_s,
                      background_finalize=args.background_finalize,
@@ -429,6 +488,10 @@ def _run(args, device, distributed):
         # the segment start: a fresh run's init state is rebuilt from the
         # seed (init=True anchor), a resumed run's from its checkpoint
         recorder.anchor(step0, init=(step0 == 0))
+    controller = (_controller(args, training, lm, router, run_id, step0,
+                              world, main_rank, recorder)
+                  if args.remediate else None)
+    exit_code = 0
     if training.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     sync = (torch.cuda.synchronize if training.device.type == "cuda"
@@ -604,6 +667,14 @@ def _run(args, device, distributed):
                                          keep_last_n=args.keep_last_n)
             if recorder is not None:
                 recorder.event(step_i, "halt", good_step=good_step)
+            if controller is not None:
+                # the halt record opened an escalation case: its terminal
+                # verdict and exit code 45 tell the supervisor not to
+                # restart what the ladder already failed to heal
+                sync_queue(controller)
+                decision = controller.process(step_i)
+                if decision is not None:
+                    exit_code = decision.exit_code
             say(f"halting at step {step_i}: anomaly persisted; "
                 f"checkpointed known-good step {good_step}")
             break
@@ -622,6 +693,10 @@ def _run(args, device, distributed):
                 f"(loss {loss:.4f})")
         else:
             mgr.observe_good(step_i + 1, state.as_tuple())
+        if controller is not None and verdict == 0:
+            # a clean step advances every open case toward its closure
+            sync_queue(controller)
+            controller.on_clean_step(step_i)
         if (step_i + 1) % args.log_interval == 0 or step_i == args.steps - 1:
             # ONE device-to-host fetch of the bag per interval; the rest of
             # the record is host arithmetic
@@ -652,12 +727,40 @@ def _run(args, device, distributed):
             else:
                 say(f"termination at step {step_i + 1}: "
                     f"{ar.termination_decision} (grace budget); exiting")
+            if controller is not None:
+                # under a supervisor a preemption is a restart: persist
+                # the case, exit 44, rejoin on relaunch
+                decision = controller.on_preemption(step_i)
+                exit_code = decision.exit_code
+                say(f"[remediation] {decision.reason} "
+                    f"(exit {decision.exit_code})")
             break
+        if controller is not None:
+            decision = after_step(controller, ar, recorder, responder,
+                                  args.save_interval, step_i)
+            if decision is not None:
+                exit_code = decision.exit_code
+                say(f"[remediation] {decision.reason} "
+                    f"(exit {decision.exit_code}, devices "
+                    f"{decision.device_count}, restore step "
+                    f"{decision.restore_step})", flush=True)
+                break
         step_i += 1
     shutdown_span = goodput.begin_span("shutdown", step=step_i)
     if mgr.events:
         say(f"anomalies this run: {len(mgr.events)} "
             f"(rollbacks {mgr.rollbacks_used}, lr_scale {mgr.lr_scale:.3f})")
+    if controller is not None:
+        if exit_code == 0:
+            # the run completed: close the cases that saw clean recovery;
+            # what is left open persists for the next incarnation
+            sync_queue(controller)
+            controller.run_end(step_i)
+        closed = controller.state.history
+        if closed or controller.open_cases:
+            say(f"[remediation] {len(closed)} case(s) closed "
+                f"({[(c['kind'], c['verdict']) for c in closed]}), "
+                f"{len(controller.open_cases)} open")
     if responder is not None:
         responder.stop()
     trigger.close()  # abort a capture still open (end of run)
@@ -722,7 +825,36 @@ def _run(args, device, distributed):
             "param_numels_rank0": [p.numel()
                                    for p in state.params.values()]}),
             flush=True)
+    records = RunRecords(records)
+    records.exit_code = exit_code
     return records
+
+
+def _controller(args, training, lm, router, run_id, step0, world,
+                main_rank, recorder):
+    """The remediation controller of ``--remediate``: detector records
+    tap off the router, the canary replays the journaled segments
+    through this process's own step, and rank 0 persists the plan.
+    ``world_devices`` is the FULL topology (what a readmit restores):
+    in a reduced incarnation the live world plus the quarantined
+    ranks."""
+    from apex_tpu_torch.resilience import remediation
+
+    canary = (remediation.GPTCanary(
+        journal_path(args.save), args.save, training=training, lm=lm,
+        floor_step=step0) if recorder is not None else None)
+    state = remediation.RemediationState.load(args.save)
+    controller = remediation.RemediationController(
+        policy=remediation.RemediationPolicy(
+            probation_steps=args.remediation_probation,
+            max_restarts=args.remediation_max_restarts,
+            verify_before_quarantine=args.remediation_verify),
+        router=router, save_dir=args.save,
+        world_devices=world + len(state.excluded), canary_fn=canary,
+        state=state, run_id=run_id, writer=main_rank)
+    router.add_sink(remediation.ControllerSink(controller))
+    controller.adopt_pending(step0)
+    return controller
 
 
 def _mib(b):
@@ -730,4 +862,4 @@ def _mib(b):
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main().exit_code)

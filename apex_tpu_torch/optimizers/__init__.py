@@ -17,6 +17,7 @@ from apex_tpu_torch.optimizers.distributed_fused_adam import (
     DistributedFusedAdam,
     DistributedFusedAdamState,
     distributed_fused_adam,
+    zero_regroup_flat,
 )
 from apex_tpu_torch.optimizers.distributed_fused_lamb import (
     DistributedFusedLAMB,
@@ -73,4 +74,4 @@ __all__ = ["AdamTransform", "DistributedFusedAdam",
            "fused_adagrad", "fused_adam",
            "fused_adam_swa", "fused_lamb", "fused_novograd", "fused_sgd",
            "l2norm_flat", "larc", "larc_scaling", "sumsq_flat",
-           "swa_params"]
+           "swa_params", "zero_regroup_flat"]

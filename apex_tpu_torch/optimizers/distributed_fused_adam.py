@@ -66,7 +66,8 @@ from apex_tpu_torch.parallel import parallel_state as ps
 
 __all__ = ["DistributedFusedAdam", "DistributedFusedAdamState",
            "ZeroStateSpecs", "distributed_fused_adam", "master_from_remainder",
-           "split_master", "zero_scatter_with_ef", "zero_state_specs"]
+           "split_master", "zero_regroup_flat", "zero_scatter_with_ef",
+           "zero_state_specs"]
 
 
 class DistributedFusedAdamState(NamedTuple):
@@ -205,6 +206,40 @@ def split_master(master: torch.Tensor):
         master.shape + (2,))
     return (halves[..., 1].contiguous().view(torch.bfloat16),
             halves[..., 0].contiguous())
+
+
+def zero_regroup_flat(flat: torch.Tensor, target_len: int) -> torch.Tensor:
+    """A saved padded ZeRO flat buffer regrouped to a new dp size (the
+    JAX function's rule): the global buffer is the true vector of length
+    T zero-padded to a multiple of the dp size (:func:`_padded_flatten`),
+    so a change of dp changes only the padding: truncate (dropping
+    zeros) or zero-extend to ``target_len``, on the buffer's device and
+    in its dtype.
+
+    Refuses (``ValueError``) a truncation that would drop a nonzero
+    value: that is optimizer state, not padding. The
+    ``store_param_remainders`` state (int16 low halves of the master)
+    regroups by the same rule: a padding element's master is 0.0, whose
+    low half is the int16 0, so its zeros are padding as the fp32
+    buffers' are. The elastic restore (``resilience.elastic.reshard``)
+    wraps the refusal in its ``ElasticRestoreError``."""
+    if flat.dim() != 1:
+        raise ValueError(f"ZeRO flat buffer must be 1-D, got "
+                         f"{tuple(flat.shape)}")
+    n, target_len = flat.shape[0], int(target_len)
+    if target_len == n:
+        return flat
+    if target_len < n:
+        tail = flat[target_len:]
+        nonzero = int(torch.count_nonzero(tail))
+        if nonzero:
+            raise ValueError(
+                f"regroup {n} -> {target_len} would truncate {nonzero} "
+                f"nonzero value(s) — the dropped region is state, not dp "
+                f"padding; the target layout is too small for the saved "
+                f"flat buffer")
+        return flat[:target_len]
+    return torch.cat([flat, flat.new_zeros(target_len - n)])
 
 
 def zero_gather_updates(new_master: torch.Tensor, params: Tensors,

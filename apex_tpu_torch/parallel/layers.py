@@ -88,9 +88,13 @@ def _local(size: int, tp: int, what: str) -> int:
     return size // tp
 
 
-def _sharded(t: torch.Tensor) -> nn.Parameter:
+def _sharded(t: torch.Tensor, dim: int) -> nn.Parameter:
+    """A tp-sharded parameter split along ``dim`` of the whole one
+    (``partition_dim``, Megatron's name; a checkpoint's global leaf is
+    the tp ranks' shards concatenated along it)."""
     p = nn.Parameter(t)
     p.tensor_model_parallel = True
+    p.partition_dim = dim
     return p
 
 
@@ -113,9 +117,9 @@ class ColumnParallelLinear(nn.Module):
             raise ValueError("gather_output under sequence parallelism")
         out = _local(output_size, self.tp, "output_size")
         self.kernel = _sharded(torch.empty(
-            input_size, out, dtype=params_dtype, device=device))
+            input_size, out, dtype=params_dtype, device=device), 1)
         self.bias = _sharded(torch.zeros(
-            out, dtype=params_dtype, device=device)) if use_bias else None
+            out, dtype=params_dtype, device=device), 0) if use_bias else None
 
     def forward(self, x):
         if self.tp > 1:
@@ -145,7 +149,7 @@ class RowParallelLinear(nn.Module):
         self.sequence_parallel = sequence_parallel_enabled and self.tp > 1
         self.kernel = _sharded(torch.empty(
             _local(input_size, self.tp, "input_size"), output_size,
-            dtype=params_dtype, device=device))
+            dtype=params_dtype, device=device), 0)
         self.bias = nn.Parameter(torch.zeros(
             output_size, dtype=params_dtype,
             device=device)) if use_bias else None
@@ -177,7 +181,7 @@ class VocabParallelEmbedding(nn.Module):
         self.vocab_local = _local(num_embeddings, self.tp, "num_embeddings")
         self.embedding = _sharded(torch.empty(
             self.vocab_local, embedding_dim, dtype=params_dtype,
-            device=device))
+            device=device), 0)
 
     def forward(self, ids):
         if self.tp == 1:

@@ -31,6 +31,18 @@ would run at scale.
 
 Without ``initialize_model_parallel`` (or without a process group) every
 getter answers for a world of one, as the JAX package's do with no mesh.
+
+A world makes each group it needs once: ``initialize_model_parallel``
+takes the group of a set of ranks from a cache of the world's groups,
+and ``destroy_model_parallel`` forgets the layout but leaves its groups
+to the next one (every rank asks for the same groups in the same order,
+so the cache hits on every rank alike); they go down with the world's
+default group. A world that lays out many layouts in turn (the tests'
+spawned worlds run dozens, the elastic path 4 -> 2 -> 4 ranks) so opens
+a handful of gloo contexts, not hundreds: every ``new_group`` is a
+full-mesh TCP rendezvous of its ranks, and under a loaded host one of
+hundreds of them failing ("Gloo connectFullMesh failed ... Connection
+closed by peer") took down a test's whole world.
 """
 
 import dataclasses
@@ -41,11 +53,13 @@ import torch.distributed as dist
 
 __all__ = [
     "AXIS_ORDER", "all_gather", "all_reduce", "all_to_all",
-    "amax_reduction", "broadcast", "get_amax_reduction_axes",
+    "amax_reduction", "broadcast", "broadcast_object",
+    "get_amax_reduction_axes",
     "destroy_model_parallel", "get_context_parallel_group",
     "get_context_parallel_rank", "get_data_parallel_group",
     "get_data_parallel_rank", "get_data_parallel_world_size",
-    "get_group", "get_model_parallel_world_size",
+    "get_group", "get_model_parallel_world_size", "get_model_world_group",
+    "get_model_world_size", "groups_made", "participates",
     "get_pipeline_model_parallel_group", "get_pipeline_model_parallel_rank",
     "get_pipeline_model_parallel_split_rank",
     "get_pipeline_model_parallel_world_size",
@@ -85,9 +99,18 @@ class _Axes:
     cp: int = 1
     cp_rank: int = 0
     cp_group: object = None  # None at cp = 1: no collective
+    devices: int = 1
+    world_group: object = None  # the sub-world's ranks; None: the world
 
 
 _AXES: Optional[_Axes] = None
+# the world's groups by their ranks (and the world they belong to), and
+# how many this process has made (:func:`groups_made`)
+_GROUPS: dict = {}
+_GROUPS_MADE = 0
+# True on a rank outside the leading ``devices`` ranks the layout was
+# built over: it sits out every collective of the layout
+_SITTING_OUT = False
 # the JAX module's host-side pipeline settings, kept without a world too
 _VIRTUAL_PIPELINE_WORLD_SIZE: Optional[int] = None
 _VIRTUAL_PIPELINE_RANK: Optional[int] = None
@@ -118,16 +141,26 @@ def initialize_model_parallel(
         pipeline_model_parallel_size: int = 1,
         virtual_pipeline_model_parallel_size: Optional[int] = None,
         pipeline_model_parallel_split_rank: Optional[int] = None,
-        context_parallel_size: int = 1) -> None:
+        context_parallel_size: int = 1,
+        devices: Optional[int] = None) -> None:
     """Builds the tp, dp, (at pp > 1) pp and (at cp > 1) cp groups of the
     initialized world (ref: parallel_state.py:100). Data-parallel size is
     what remains after tp x pp x cp, as in JAX. Every rank builds every
     group, in the same order, as ``torch.distributed.new_group``
     requires. Without a process group the world is one process. The
     virtual pipeline size and the split rank are kept for their getters,
-    as in JAX."""
+    as in JAX.
+
+    ``devices`` (a count ``n``; JAX's sub-mesh ``devices=``) lays the
+    groups over the world's leading ``n`` ranks only: one spawned world
+    of 4 then runs a layout of 2, as JAX's 8-device process runs a
+    4-device mesh. The ranks past ``n``
+    still call every ``new_group`` (torch requires it), then sit out:
+    :func:`participates` is False there, every getter answers for a
+    world of one, and no collective of the layout waits on them.
+    :func:`get_model_world_group` is the group of the ``n`` ranks."""
     global _AXES, _VIRTUAL_PIPELINE_WORLD_SIZE, _VIRTUAL_PIPELINE_RANK
-    global _PIPELINE_SPLIT_RANK
+    global _PIPELINE_SPLIT_RANK, _SITTING_OUT
     tp, pp = tensor_model_parallel_size, pipeline_model_parallel_size
     cp = context_parallel_size
     if not dist.is_initialized() and tp * pp * cp != 1:
@@ -137,7 +170,8 @@ def initialize_model_parallel(
             "processes (transformer.testing.commons.initialize_distributed)")
     destroy_model_parallel()
     if dist.is_initialized():
-        world, rank = dist.get_world_size(), dist.get_rank()
+        full, rank = dist.get_world_size(), dist.get_rank()
+        world = _device_count(devices, full)
         if world % (tp * pp * cp):
             raise RuntimeError(f"world size ({world}) is not divisible by tp "
                                f"({tp}) x pp ({pp}) x cp ({cp})")
@@ -148,40 +182,93 @@ def initialize_model_parallel(
             if (axis == "pp" and pp == 1) or (axis == "cp" and cp == 1):
                 continue
             for ranks in groups:
-                g = dist.new_group(ranks)
+                g = _group(ranks)
                 if rank in ranks:
                     mine[axis] = g
-        _AXES = _Axes(tp=tp, dp=dp, tp_rank=rank % tp,
-                      dp_rank=rank // (tp * pp * cp), tp_group=mine["tp"],
-                      dp_group=mine["dp"], pp=pp,
-                      pp_rank=rank // (tp * cp) % pp,
-                      pp_group=mine.get("pp"), cp=cp,
-                      cp_rank=rank // tp % cp, cp_group=mine.get("cp"))
+        world_group = _group(list(range(world))) if world < full else None
+        _SITTING_OUT = rank >= world
+        if not _SITTING_OUT:
+            _AXES = _Axes(tp=tp, dp=dp, tp_rank=rank % tp,
+                          dp_rank=rank // (tp * pp * cp),
+                          tp_group=mine["tp"], dp_group=mine["dp"], pp=pp,
+                          pp_rank=rank // (tp * cp) % pp,
+                          pp_group=mine.get("pp"), cp=cp,
+                          cp_rank=rank // tp % cp, cp_group=mine.get("cp"),
+                          devices=world, world_group=world_group)
     _VIRTUAL_PIPELINE_WORLD_SIZE = virtual_pipeline_model_parallel_size
     _VIRTUAL_PIPELINE_RANK = (0 if virtual_pipeline_model_parallel_size
                               else None)
     _PIPELINE_SPLIT_RANK = pipeline_model_parallel_split_rank
 
 
+def _group(ranks):
+    """The world's process group of ``ranks``, made on first use (every
+    rank of the world calls this for every group, in the same order, as
+    ``torch.distributed.new_group`` requires of the making call)."""
+    global _GROUPS_MADE
+    world = dist.group.WORLD
+    if _GROUPS.get("world") is not world:
+        _GROUPS.clear()
+        _GROUPS["world"] = world
+    key = tuple(ranks)
+    if key not in _GROUPS:
+        _GROUPS[key] = dist.new_group(list(ranks))
+        _GROUPS_MADE += 1
+    return _GROUPS[key]
+
+
+def groups_made() -> int:
+    """How many process groups this process has made
+    (``torch.distributed.new_group`` calls of ``parallel_state``)."""
+    return _GROUPS_MADE
+
+
+def _device_count(devices: Optional[int], world: int) -> int:
+    """The layout's rank count: ``devices``, the whole world when None."""
+    if devices is None:
+        return world
+    if not 1 <= devices <= world:
+        raise ValueError(f"devices={devices}: the world has {world} rank(s)")
+    return devices
+
+
 def model_parallel_is_initialized() -> bool:
     return _AXES is not None
 
 
+def participates() -> bool:
+    """Does this rank take part in the layout? False only on a rank past
+    the ``devices`` that :func:`initialize_model_parallel` was given."""
+    return not _SITTING_OUT
+
+
+def get_model_world_size() -> int:
+    """The ranks of the layout (the world, or its leading ``devices``)."""
+    return 1 if _AXES is None else _AXES.devices
+
+
+def get_model_world_group():
+    """The group of the layout's ranks: ``torch.distributed``'s world
+    when the layout spans it, None without a layout or a world."""
+    if _AXES is None or not dist.is_initialized():
+        return None
+    return (_AXES.world_group if _AXES.world_group is not None
+            else dist.group.WORLD)
+
+
 def destroy_model_parallel() -> None:
-    """Destroys the groups (ref: parallel_state.py:761); the default
-    group stays, for its owner to destroy."""
+    """Forgets the layout (ref: parallel_state.py:761), after every send
+    in flight is waited for. Its groups stay with the world, for the next
+    layout (module docstring); they and the default group go down when
+    the default group's owner destroys it."""
     global _AXES, _VIRTUAL_PIPELINE_WORLD_SIZE, _VIRTUAL_PIPELINE_RANK
-    global _PIPELINE_SPLIT_RANK
+    global _PIPELINE_SPLIT_RANK, _SITTING_OUT
     axes, _AXES = _AXES, None
+    _SITTING_OUT = False
     _VIRTUAL_PIPELINE_WORLD_SIZE = _VIRTUAL_PIPELINE_RANK = None
     _PIPELINE_SPLIT_RANK = None
     if axes is not None and dist.is_initialized():
-        wait_sends()  # no group goes down under a message in flight
-        for g in {id(g): g for g in (axes.tp_group, axes.dp_group,
-                                     axes.pp_group, axes.cp_group)
-                  if g is not None
-                  }.values():
-            dist.destroy_process_group(g)
+        wait_sends()  # no layout ends under a message in flight
 
 
 def get_tensor_model_parallel_world_size() -> int:
@@ -407,6 +494,20 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
         group, lambda o, i: dist.all_to_all_single(o, i, group=group), out,
         xt)
     return out
+
+
+def broadcast_object(obj, group="layout"):
+    """The first rank's ``obj`` (any picklable value) on every rank of
+    ``group``, by default the layout's (:func:`get_model_world_group`);
+    ``obj`` itself without a group of more than one rank."""
+    if group == "layout":
+        group = get_model_world_group()
+    if group is None or group_size(group) == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return box[0]
 
 
 def broadcast(x: torch.Tensor, group, src_index: int = 0) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Training and serving health: the anomaly sentinel, fault injection,
-the exit-code taxonomy, the remediation policy, the incident responder
-(``health``), the rollback ladder (``rollback``), checkpoint integrity
-(``integrity``), the shared retry policy (``retry``), the manifest's
-topology block (``elastic``) and deterministic replay (``replay``)."""
+the exit-code taxonomy, the incident responder (``health``), the
+rollback ladder (``rollback``), checkpoint integrity (``integrity``),
+the shared retry policy (``retry``), the elastic restore across a change
+of layout (``elastic``), deterministic replay (``replay``) and the
+self-healing loop (``remediation``)."""
 
 from apex_tpu_torch.resilience.chaos import (
     FaultPlan,

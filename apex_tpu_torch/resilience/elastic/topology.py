@@ -1,49 +1,49 @@
 """Checkpoint topology block: the manifest's record of how the state was
 laid out (counterpart of apex_tpu/resilience/elastic/topology.py).
 
-A checkpoint is restorable as it is only onto the layout that saved it:
-the same world, the same tensor-, pipeline- and data-parallel sizes, and
-each leaf in the same global shape and dtype. :func:`topology_block`
-records that at save time, and ``resilience.integrity.write_manifest``
-embeds it in the manifest under ``"topology"`` (manifest version 2, as
-the JAX package's):
+A checkpoint saved on layout A restores on layout B only if the restore
+can answer, per leaf: what was its GLOBAL shape and dtype, and how was
+it split over the ranks. The ZeRO flat buffers bake the data-parallel
+size into their very length (the flat parameter vector is zero-padded
+to a multiple of dp before it is sharded), so without the block a change
+of layout is invisible until the restore fails, or silently misloads.
+:func:`topology_block` records it at save time from the live state and
+this process's ``parallel_state`` (``elastic.layout``), and
+``resilience.integrity.write_manifest`` embeds it in the manifest under
+``"topology"`` (manifest version 2, as the JAX package's):
 
     {"version": 1,
-     "mesh": {"axes": {"dp": 1, "tp": 1, "pp": 1}, "devices": 1},
+     "mesh": {"axes": {"dp": 4, "tp": 1, "pp": 1}, "devices": 4},
      "leaves": [{"path": "[0]['transformer']['layer_0']...",
                  "shape": [768, 2304], "dtype": "float32", "spec": null,
                  "zero_shard_axis": null, "ef": false}, ...]}
 
-The port saves at a world of one, where every leaf is whole on its
-rank: ``spec`` is null (replicated, the JAX package's reading of a leaf
-without a named sharding) and the global shape is the leaf's own. The
-resharder that restores across a change of layout
-(``resilience/elastic/reshard.py`` in the JAX package), and checkpoints
-at world > 1, come with a later slice of the port; until then
-:func:`check_restorable` refuses a restore whose saved layout differs
-from the live one (:class:`ElasticRestoreError`), and never loads a
-misplaced state.
+``shape`` is the leaf's global shape, ``spec`` its partition in the JAX
+block's form (a list with an axis name per split dim; null for a
+replicated leaf), ``zero_shard_axis`` (``"dp"``) marks the ZeRO flat
+buffers, the only leaves whose global shape may change across a change
+of layout (``reshard`` regroups them), and ``ef`` marks the
+error-feedback residuals (the ``ef_residual`` naming contract), advisory
+state the restore resets rather than refuses over.
+
+Manifests written before the block existed lack the key; the elastic
+restore treats them as predating the manifest-format upgrade and falls
+back to the newest checkpoint that carries one.
 """
 
 from typing import Any, Dict, Optional
 
-from apex_tpu_torch.utils.pytree import tree_leaves_with_path
-
-__all__ = ["TOPOLOGY_VERSION", "ElasticRestoreError", "check_restorable",
-           "is_ef_path", "live_mesh", "topology_block"]
+__all__ = ["TOPOLOGY_VERSION", "ElasticRestoreError", "is_ef_path",
+           "live_mesh", "topology_block"]
 
 TOPOLOGY_VERSION = 1
 
-#: where a restore across a change of layout will come from
-RESHARD_SLICE = ("the elastic resharder (resilience/elastic/reshard.py), "
-                 "which a later slice of the port brings with checkpoints "
-                 "at world > 1")
-
 
 class ElasticRestoreError(RuntimeError):
-    """A restore whose saved layout differs from the live one. A
-    ``RuntimeError``, so the examples' incompatible-payload ``ValueError``
-    handling never turns a refusal into a fresh start."""
+    """A checkpoint/target layout mismatch the elastic restore refuses to
+    guess through. A ``RuntimeError``, so the examples' incompatible-
+    payload ``ValueError`` handling never turns a refusal into a fresh
+    start."""
 
 
 def is_ef_path(path_str: str) -> bool:
@@ -53,8 +53,10 @@ def is_ef_path(path_str: str) -> bool:
 
 
 def live_mesh() -> Dict[str, Any]:
-    """``{"axes": {"dp", "tp", "pp"}, "devices"}`` of this process's
-    ``parallel_state`` (a world of one when it is not initialized)."""
+    """``{"axes": {"dp", "tp", "pp"[, "cp"]}, "devices"}`` of this
+    process's ``parallel_state`` layout (a world of one when it is not
+    initialized; ``devices`` counts the layout's ranks, which may be a
+    leading subset of the world)."""
     from apex_tpu_torch.parallel import parallel_state as ps
 
     if not ps.model_parallel_is_initialized():
@@ -69,36 +71,28 @@ def live_mesh() -> Dict[str, Any]:
     return {"axes": axes, "devices": dp * tp * pp * cp}
 
 
-def topology_block(tree: Any, mesh: Optional[dict] = None) -> dict:
+def topology_block(tree: Any, mesh: Optional[dict] = None,
+                   layout=None) -> dict:
     """The manifest topology block of a live state tree (module
-    docstring); ``mesh`` defaults to :func:`live_mesh`. Leaf paths are
-    the integrity fingerprint's, so the two blocks join per leaf."""
+    docstring): each leaf's global shape and split under ``layout``
+    (default: ``elastic.layout.StateLayout`` of ``tree`` on this
+    process's layout). ``mesh`` defaults to :func:`live_mesh`. Leaf
+    paths are the integrity fingerprint's, so the two blocks join per
+    leaf."""
+    from apex_tpu_torch.resilience.elastic.layout import ZERO, StateLayout
+    from apex_tpu_torch.utils.pytree import tree_leaves_with_path
+
     mesh = live_mesh() if mesh is None else mesh
+    layout = StateLayout(tree) if layout is None else layout
     leaves = []
-    for path, leaf in tree_leaves_with_path(tree):
+    for i, (path, leaf) in enumerate(tree_leaves_with_path(tree)):
+        split = layout.splits[i]
         leaves.append({
             "path": path,
-            "shape": [int(d) for d in leaf.shape],
+            "shape": [int(d) for d in layout.global_shape(i)],
             "dtype": str(leaf.dtype).replace("torch.", ""),
-            "spec": None,
-            "zero_shard_axis": None,
+            "spec": layout.spec(i),
+            "zero_shard_axis": "dp" if split == ZERO else None,
             "ef": is_ef_path(path),
         })
     return {"version": TOPOLOGY_VERSION, "mesh": mesh, "leaves": leaves}
-
-
-def check_restorable(saved: Optional[dict], mesh: Optional[dict] = None
-                     ) -> None:
-    """Raise :class:`ElasticRestoreError` when the saved topology block's
-    layout (world and parallel sizes) differs from the live one
-    (``mesh``, default :func:`live_mesh`). A manifest without a block
-    (written before the block existed) passes; a leaf of another shape
-    or dtype is refused by the restore's own structure check."""
-    if saved is None:
-        return
-    mesh = live_mesh() if mesh is None else mesh
-    if saved.get("mesh") is not None and saved["mesh"] != mesh:
-        raise ElasticRestoreError(
-            f"the checkpoint was saved on {saved['mesh']}, this process "
-            f"runs {mesh}: restoring across a change of layout needs "
-            f"{RESHARD_SLICE}")

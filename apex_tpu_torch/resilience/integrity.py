@@ -33,6 +33,13 @@ memory (little-endian, row-major), the bytes ``np.ascontiguousarray``
 gives the JAX package: the same tree gives the same fingerprint in
 either package. The leaves' crc32s and the files' sha256s are computed
 on threads of their own (``zlib`` and ``hashlib`` release the GIL).
+
+At world > 1 (``utils.checkpoint``) a step is the whole world's global
+tree, written by the layout's first rank: its fingerprint is taken over
+the GLOBAL arrays (:func:`global_fingerprint`), so a step saved at dp 4
+verifies, leaf by leaf, at dp 2; the first rank commits the manifest
+and every rank waits for it. A verified step saved on another layout
+restores through ``resilience.elastic.restore_resharded``.
 """
 
 import hashlib
@@ -57,7 +64,8 @@ from apex_tpu_torch.utils.pytree import tree_leaves_with_path
 logger = logging.getLogger("apex_tpu_torch.resilience")
 
 __all__ = [
-    "MANIFEST_SUFFIX", "MANIFEST_VERSION", "apply_retention", "leaf_crc32",
+    "MANIFEST_SUFFIX", "MANIFEST_VERSION", "apply_retention",
+    "global_fingerprint", "leaf_crc32",
     "load_checkpoint_verified", "manifest_path", "read_manifest",
     "save_checkpoint_verified", "save_with_retry", "tree_fingerprint",
     "verified_latest_step", "verified_steps", "verify_checkpoint",
@@ -142,6 +150,21 @@ def tree_fingerprint(tree: Any) -> dict:
         json.dumps(structure, sort_keys=True).encode()
     ).hexdigest()
     return {"structure_hash": structure_hash, "leaves": leaves}
+
+
+def global_fingerprint(tree: Any) -> dict:
+    """:func:`tree_fingerprint` of the global tree ``tree`` stands for:
+    at world > 1 it is gathered to the layout's first rank, which
+    fingerprints it, and every rank returns that fingerprint
+    (collective); at a world of one, ``tree``'s own."""
+    from apex_tpu_torch.utils.checkpoint import multi_rank_layout
+
+    layout = multi_rank_layout(tree)
+    if layout is None:
+        return tree_fingerprint(tree)
+    host = layout.gather(tree)
+    return layout.broadcast_object(
+        tree_fingerprint(host) if layout.is_writer else None)
 
 
 def verify_restored(tree: Any, manifest: dict) -> Tuple[bool, str]:
@@ -345,8 +368,34 @@ def save_checkpoint_verified(
     ``extra`` merges additional keys into the manifest (AutoResume
     persists its save-duration EMAs this way). The manifest commit and
     retention sweep are rank-0-only (every rank racing ``os.replace`` on
-    the same manifest tmp file would corrupt the commit marker).
+    the same manifest tmp file would corrupt the commit marker). At
+    world > 1 the save is collective: the global tree is gathered, the
+    layout's first rank writes, fingerprints and commits it, and every
+    rank returns once the manifest is in.
     """
+    from apex_tpu_torch.utils.checkpoint import (
+        layout_barrier,
+        multi_rank_layout,
+        write_host_tree,
+    )
+
+    layout = multi_rank_layout(tree)
+    if layout is not None:
+        from apex_tpu_torch.resilience.elastic.topology import (
+            topology_block,
+        )
+
+        topology = topology_block(tree, layout=layout)
+        host = layout.gather(tree)
+        path = os.path.join(os.path.abspath(directory), f"step_{step}")
+        if layout.is_writer:
+            save_with_retry(lambda: write_host_tree(directory, step, host),
+                            retries=retries, backoff=backoff)
+            write_manifest(path, host, topology=topology, extra=extra)
+            if keep_last_n is not None:
+                apply_retention(directory, keep_last_n)
+        layout_barrier()
+        return path
     path = save_with_retry(
         lambda: save_checkpoint(directory, step, tree),
         retries=retries, backoff=backoff,
@@ -368,15 +417,24 @@ def load_checkpoint_verified(
     """Restore the newest checkpoint that passes verification.
 
     Walks steps newest-first: verified steps restore; torn / corrupt /
-    uncommitted ones are skipped with a warning. A verified step saved
-    on another layout (world, tp, dp, pp) than ``mesh`` (default: this
-    process's, ``elastic.live_mesh``) raises
-    ``elastic.ElasticRestoreError``. The restored tree is new tensors on
-    the target's devices (``utils.checkpoint.load_checkpoint``). ``allow_unverified``
+    uncommitted ones are skipped with a warning. At world > 1, or from a
+    verified step saved on another layout (world, tp, dp, pp) than
+    ``mesh`` (default: this process's, ``elastic.live_mesh``), the
+    restore is ``elastic.restore_resharded``'s (collective; its refusals
+    are ``elastic.ElasticRestoreError``). The restored tree is new
+    tensors on the target's devices. ``allow_unverified``
     additionally accepts pre-manifest (legacy) checkpoints — file
     corruption in those is undetectable, so it is opt-in. Raises
     ``FileNotFoundError`` when nothing restorable exists.
     """
+    from apex_tpu_torch.resilience.elastic import (
+        live_mesh,
+        restore_resharded,
+    )
+    from apex_tpu_torch.utils.checkpoint import multi_rank_layout
+
+    if target is not None and multi_rank_layout(target) is not None:
+        return restore_resharded(directory, target, mesh=mesh, deep=deep)
     candidates = list(reversed(finalized_steps(directory)))
     for s in candidates:
         sd = _step_dir(directory, s)
@@ -391,14 +449,15 @@ def load_checkpoint_verified(
         if not ok and not legacy:
             logger.warning("skipping unverified checkpoint step_%d: %s", s, reason)
             continue
-        if ok:
-            # a verified step saved on another layout is refused, never
-            # loaded (ElasticRestoreError, outside the fallback below)
-            from apex_tpu_torch.resilience.elastic.topology import (
-                check_restorable,
-            )
-
-            check_restorable((read_manifest(sd) or {}).get("topology"), mesh)
+        topo = (read_manifest(sd) or {}).get("topology") if ok else None
+        if (target is not None and topo and topo.get("mesh") is not None
+                and topo["mesh"] != (live_mesh() if mesh is None
+                                     else mesh)):
+            # saved on another layout: resharded, never loaded as it is
+            # (its refusals are ElasticRestoreError, outside the
+            # fallback below)
+            return restore_resharded(directory, target, mesh=mesh,
+                                     step=s, deep=deep)
         try:
             tree = load_checkpoint(directory, s, target=target)
         except Exception as e:  # noqa: BLE001 - a corrupt payload raises variously

@@ -294,8 +294,12 @@ class GPTReplayContext:
         else:
             device = resolve_device(device)
             self.cfg = GPTTargetConfig.from_json(header.get("config") or {})
+            # the live layout's size: the recorded max_devices' sub-world
+            # of a larger spawned world, else the whole world
             world = (torch.distributed.get_world_size()
                      if torch.distributed.is_initialized() else 1)
+            if self.cfg.max_devices is not None:
+                world = min(world, int(self.cfg.max_devices))
             want = header.get("devices")
             if want is not None and world != int(want):
                 raise ReplayError(
@@ -374,8 +378,6 @@ class GPTReplayContext:
                     f"anchor step {step} needs a checkpoint dir"
                 )
             from apex_tpu_torch.resilience import integrity
-            from apex_tpu_torch.resilience.elastic import check_restorable
-            from apex_tpu_torch.utils.checkpoint import load_checkpoint
 
             step_dir = os.path.join(os.path.abspath(ckpt_dir),
                                     f"step_{step}")
@@ -386,10 +388,22 @@ class GPTReplayContext:
                     f"({reason}) — replay refuses an unvouched-for start "
                     f"state"
                 )
-            check_restorable(
-                (integrity.read_manifest(step_dir) or {}).get("topology"))
             live = self.state
-            loaded = load_checkpoint(ckpt_dir, step, target=live.as_tuple())
+            if (integrity.read_manifest(step_dir) or {}).get("topology"):
+                # every layout (world > 1, or a step saved on another
+                # one) restores through the resharder, collectively (its
+                # files just verified deep above)
+                from apex_tpu_torch.resilience.elastic import (
+                    restore_resharded,
+                )
+
+                _, loaded = restore_resharded(ckpt_dir, live.as_tuple(),
+                                              step=step, deep=False)
+            else:
+                from apex_tpu_torch.utils.checkpoint import load_checkpoint
+
+                loaded = load_checkpoint(ckpt_dir, step,
+                                         target=live.as_tuple())
             tree_copy_(live.as_tuple(), loaded)
             return live
 
@@ -537,7 +551,8 @@ def replay_segment(
         fp = (manifest or {}).get("fingerprint")
         if not fp:
             return
-        got = integrity.tree_fingerprint(state.as_tuple())
+        # the global state's fingerprint (collective at world > 1)
+        got = integrity.global_fingerprint(state.as_tuple())
         report.anchors_checked.append(int(step))
         report.compared["anchor"] = report.compared.get("anchor", 0) + 1
         if got["structure_hash"] != fp["structure_hash"]:

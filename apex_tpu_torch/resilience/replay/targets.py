@@ -16,7 +16,10 @@ device.
 Each process is one rank: tensor-parallel size ``tp`` (with sequence
 parallelism under ``sequence_parallel``), and data-parallel size the
 world's size over tp (``parallel_state`` over the initialized
-``torch.distributed`` world; a world of one without it). Every rank takes
+``torch.distributed`` world; a world of one without it). ``max_devices``
+lays the step over the world's first ``max_devices`` ranks only (JAX's
+sub-mesh of the first devices): the others sit out, and
+``build_gpt_training`` returns None there. Every rank takes
 the whole ``(num_micro, micro_batch * dp, seq)`` batch and trains on its
 columns ``[d * micro_batch, (d + 1) * micro_batch)``, the JAX step's
 ``P(None, "dp")``.
@@ -317,20 +320,25 @@ def tp_duplicated(path: str) -> bool:
             or path.endswith("dense_4h_to_h/bias"))
 
 
-def build_gpt_training(cfg: GPTTargetConfig, device="cuda") -> GPTTraining:
+def build_gpt_training(cfg: GPTTargetConfig, device="cuda"
+                       ) -> Optional[GPTTraining]:
     """The GPT training step of ``cfg`` on this rank's device (CUDA unless
     the caller names another), with the JAX package's batch-geometry
     checks and its model, optimizer, scaler and sentinel settings.
     Initializes ``parallel_state`` for ``cfg.tp`` over the initialized
-    world (process-global, as in JAX); ``max_devices``, where set, must
-    be the world's size."""
+    world (process-global, as in JAX); ``max_devices``, where set, over
+    its first ``max_devices`` ranks (every rank calls this; None on a
+    rank past them, which sits out)."""
     dev = resolve_device(device)
     world = (torch.distributed.get_world_size()
              if torch.distributed.is_initialized() else 1)
-    if cfg.max_devices is not None and cfg.max_devices != world:
+    if cfg.max_devices is not None and cfg.max_devices > world:
         raise ValueError(f"max_devices={cfg.max_devices}, but the world "
                          f"has {world} process(es), one a device")
-    ps.initialize_model_parallel(tensor_model_parallel_size=cfg.tp)
+    ps.initialize_model_parallel(tensor_model_parallel_size=cfg.tp,
+                                 devices=cfg.max_devices)
+    if not ps.participates():
+        return None
     dp = ps.get_data_parallel_world_size()
     num_micro = cfg.global_batch // (cfg.micro_batch * dp)
     assert num_micro >= 1, "global batch too small for micro batch x dp"

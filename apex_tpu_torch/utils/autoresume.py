@@ -10,9 +10,17 @@ is first-class:
 - ``AutoResume`` installs a signal handler that only flips a host-local
   flag (async-signal-safe; no IO in the handler).
 - In a ``torch.distributed`` world the flag becomes a CONSENSUS (one
-  MAX all-reduce a poll) before anyone saves: ranks receive SIGTERM at
-  different times, and a rank that checkpoints at step N while others
-  continue to N+3 produces a torn checkpoint.
+  MAX all-reduce a poll, over the ``parallel_state`` layout's ranks)
+  before anyone saves: ranks receive SIGTERM at different times, and a
+  rank that checkpoints at step N while others continue to N+3 produces
+  a torn checkpoint.
+- At world > 1 a save is collective: the global tree is gathered to the
+  layout's first rank, which writes, fingerprints and commits it
+  (``utils.checkpoint``), and every finalize point ends with the
+  layout's ranks waiting for one another, so no rank reads a step
+  whose manifest is not in yet. A restore across a change of layout
+  (another world, dp or tp) goes through
+  ``resilience.elastic.restore_resharded``.
 - ``step()`` combines the periodic-interval save (ref
   ``--adlr-autoresume-interval`` semantics) with the termination save;
   ``restore()`` resumes from the newest verified step directory.
@@ -200,9 +208,10 @@ class AutoResume:
       copies it INTO the live state it is given (``copy_``, so a model
       keeps training its own parameters); when the saved topology
       disagrees with the live layout (``mesh=``, default the
-      ``parallel_state`` of the process) it refuses with
-      ``resilience.elastic.ElasticRestoreError`` (the resharder comes
-      with a later slice of the port).
+      ``parallel_state`` of the process) the restore is resharded
+      (``resilience.elastic.restore_resharded``: the ZeRO flat buffers
+      regrouped, every leaf's crc32 verified), and what it cannot prove
+      safe raises ``resilience.elastic.ElasticRestoreError``.
 
     Deadline-decision caveat (multi-host): the decision inputs — signal
     arrival time and save-duration EMAs — are host-local, so hosts could
@@ -269,6 +278,9 @@ class AutoResume:
         # self._pending to None (a GIL-atomic store) so _commit's
         # identity check refuses the marker for a disowned save.
         self._pending: Optional[dict] = None
+        # a save issued since the layout's ranks last met (world > 1):
+        # the next finalize ends with a barrier (module docstring)
+        self._unsynced = False
         self._bg_thread: Optional[threading.Thread] = None
         self._abandoned_step: Optional[int] = None
         # monotonic arrival time of the first termination signal — the
@@ -388,8 +400,17 @@ class AutoResume:
         Emits a blocking ``ckpt_save`` span ONLY when it actually blocks:
         joining an already-finished background finalize is free, which is
         what lets the accountant book an overlapped save at
-        issuance-only.
+        issuance-only. At world > 1 the layout's ranks then wait for one
+        another, so every rank sees the committed manifest.
         """
+        self._finalize_local()
+        if self._unsynced:
+            self._unsynced = False
+            from apex_tpu_torch.utils.checkpoint import layout_barrier
+
+            layout_barrier()
+
+    def _finalize_local(self) -> None:
         thread = self._bg_thread
         if thread is not None:
             if thread.is_alive():
@@ -467,6 +488,7 @@ class AutoResume:
         # in the background finalize (module docstring); only the
         # snapshot stays, because the caller updates the live tensors in
         # place the moment step() returns.
+        self._unsynced = True
         with _goodput_span("ckpt_save", step=step):
             topology = self._topology(state)
             # the retry covers save ISSUANCE (snapshot-to-host + handoff);
@@ -615,13 +637,17 @@ class AutoResume:
         get_autoresume, made distributed-safe). A world of one reads its
         own flag.
         """
+        from apex_tpu_torch.parallel import parallel_state as ps
+
         dist = torch.distributed
         if not dist.is_initialized() or dist.get_world_size() == 1:
             return self._requested
-        device = ("cuda" if dist.get_backend() == "nccl"
+        # the layout's ranks (a sub-world's, when the layout spans one)
+        group = ps.get_model_world_group() or dist.group.WORLD
+        device = ("cuda" if dist.get_backend(group) == "nccl"
                   else "cpu")
         flag = torch.tensor([float(self._requested)], device=device)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
         return bool(flag.item() > 0)
 
     # -- deadline budget ---------------------------------------------------
@@ -739,9 +765,10 @@ class AutoResume:
         Restoration walks step dirs newest-first, checks each integrity manifest, and falls back past
         torn / bit-flipped / uncommitted checkpoints to the newest step
         that verifies (pre-manifest legacy checkpoints are accepted, as
-        their corruption is undetectable). When the newest verified
-        manifest's topology block disagrees with the live layout
-        (``mesh=``, default ``parallel_state``'s), it REFUSES with
+        their corruption is undetectable). At world > 1, or when the
+        newest verified manifest's topology block disagrees with the live
+        layout (``mesh=``, default ``parallel_state``'s), the restore is
+        resharded (collective), and a layout it cannot prove safe raises
         ``ElasticRestoreError`` rather than misloading.
         """
         from apex_tpu_torch.utils.pytree import tree_copy_

@@ -23,6 +23,15 @@ in place), and a restore puts each leaf on the device and in the dtype
 of the target's leaf. :class:`AsyncCheckpointWriter` takes that copy
 before ``save`` returns (into pinned buffers it reuses, on the card) and
 writes the files on a thread of its own.
+
+At world > 1 (a ``parallel_state`` layout of more than one rank) one
+step directory holds the whole world's state: every leaf is written as
+its global array (``resilience.elastic.layout``), gathered from the
+ranks to the layout's first rank, which alone writes it; a save is
+collective, and a restore across layouts goes through
+``resilience.elastic.restore_resharded``. The directory appears under
+its final name only once the whole global tree is in it, so a torn
+multi-rank step is never ``latest_step``.
 """
 
 import logging
@@ -41,8 +50,10 @@ logger = logging.getLogger("apex_tpu_torch.utils.checkpoint")
 
 __all__ = [
     "IO_THREADS", "SHARD_BYTES", "TMP_MARKER", "TREE_FILE",
-    "AsyncCheckpointWriter", "finalized_steps", "host_snapshot",
-    "latest_step", "load_checkpoint", "parallel_io", "save_checkpoint",
+    "AsyncCheckpointWriter", "finalized_steps", "global_snapshot",
+    "host_snapshot", "latest_step", "layout_barrier", "load_checkpoint",
+    "multi_rank_layout", "parallel_io", "read_plain", "save_checkpoint",
+    "write_host_tree",
 ]
 
 #: the tree file inside a step directory; the tensors are in shard files
@@ -136,12 +147,35 @@ def host_snapshot(tree: Any, pinned: Optional[list] = None) -> Any:
     return out
 
 
+def multi_rank_layout(tree: Any):
+    """The ``elastic.layout.StateLayout`` of ``tree`` when this process
+    is a rank of a layout of several, else None."""
+    from apex_tpu_torch.parallel import parallel_state as ps
+
+    if ps.get_model_world_size() <= 1:
+        return None
+    from apex_tpu_torch.resilience.elastic.layout import StateLayout
+
+    return StateLayout(tree)
+
+
+def global_snapshot(tree: Any, pinned: Optional[list] = None):
+    """``(host tree, is_writer)``: at a world of one the
+    :func:`host_snapshot` of ``tree`` and True; on a rank of a layout of
+    several, the global tree on the layout's first rank (the writer) and
+    None elsewhere (collective: every rank calls it)."""
+    layout = multi_rank_layout(tree)
+    if layout is None:
+        return host_snapshot(tree, pinned), True
+    return layout.gather(tree), layout.is_writer
+
+
 def _step_dir(directory: str, step: int) -> str:
     return os.path.join(os.path.abspath(directory), f"step_{step}")
 
 
-def _write(directory: str, step: int, host_tree: Any,
-           overwrite: bool = True) -> str:
+def write_host_tree(directory: str, step: int, host_tree: Any,
+                    overwrite: bool = True) -> str:
     """Write a host tree to ``step_<N>`` through a temporary directory."""
     path = _step_dir(directory, step)
     if os.path.exists(path) and not overwrite:
@@ -168,8 +202,24 @@ def _write(directory: str, step: int, host_tree: Any,
 def save_checkpoint(directory: str, step: int, tree: Any,
                     overwrite: bool = True) -> str:
     """Write ``tree`` to ``directory/step_<N>``; returns the path. The
-    tree may hold tensors on any device and state classes of them."""
-    return _write(directory, step, host_snapshot(tree), overwrite)
+    tree may hold tensors on any device and state classes of them. On a
+    rank of a layout of several the save is collective: the global tree
+    is gathered and written by the layout's first rank, and every rank
+    returns once it is on disk."""
+    host, writer = global_snapshot(tree)
+    path = _step_dir(directory, step)
+    if writer:
+        path = write_host_tree(directory, step, host, overwrite)
+    layout_barrier()
+    return path
+
+
+def layout_barrier() -> None:
+    """Wait for every rank of a layout of several (a no-op otherwise)."""
+    from apex_tpu_torch.parallel import parallel_state as ps
+
+    if ps.get_model_world_size() > 1:
+        torch.distributed.barrier(group=ps.get_model_world_group())
 
 
 def _unleaf(plain: Any, leaves: list) -> Any:
@@ -181,6 +231,23 @@ def _unleaf(plain: Any, leaves: list) -> Any:
     if isinstance(plain, list):
         return [_unleaf(v, leaves) for v in plain]
     return plain
+
+
+def read_plain(directory: str, step: int):
+    """``(plain tree, leaves)`` of ``step_<N>``: the tree file's plain
+    containers, each tensor a ``{"__leaf__": i}`` of ``leaves`` (host
+    tensors, read on threads of their own)."""
+    path = _step_dir(directory, step)
+
+    def load(name):
+        return torch.load(os.path.join(path, name), map_location="cpu",
+                          weights_only=True)
+
+    head = load(TREE_FILE)
+    leaves = [t for shard in parallel_io(
+        load, [f"shard_{k:04d}.pt" for k in range(head["shards"])])
+        for t in shard]
+    return head["tree"], leaves
 
 
 def load_checkpoint(directory: str, step: Optional[int] = None,
@@ -199,20 +266,11 @@ def load_checkpoint(directory: str, step: Optional[int] = None,
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {directory}")
-    path = _step_dir(directory, step)
-
-    def load(name):
-        return torch.load(os.path.join(path, name), map_location="cpu",
-                          weights_only=True)
-
-    head = load(TREE_FILE)
-    leaves = [t for shard in parallel_io(
-        load, [f"shard_{k:04d}.pt" for k in range(head["shards"])])
-        for t in shard]
+    plain, leaves = read_plain(directory, step)
     if target is None:
-        return _unleaf(head["tree"], leaves)
+        return _unleaf(plain, leaves)
     want: list = []
-    if _plain(target, want) != head["tree"]:
+    if _plain(target, want) != plain:
         raise ValueError(f"step_{step}: the saved tree's structure differs "
                          f"from the target's")
     for i, (t, saved) in enumerate(zip(want, leaves)):
@@ -234,7 +292,10 @@ class AsyncCheckpointWriter:
     save waits for the previous one first, so ``step_N`` directories
     never interleave, and the pinned host buffers of the previous save
     are then free to reuse. :attr:`snapshot` is the host tree of the
-    newest save, the very bytes its file holds.
+    newest save, the very bytes its file holds. On a rank of a layout of
+    several, ``save`` gathers the global tree (collective) and only the
+    layout's first rank writes it; elsewhere :attr:`snapshot` is None
+    and nothing is written.
     """
 
     def __init__(self):
@@ -246,12 +307,14 @@ class AsyncCheckpointWriter:
     def save(self, directory: str, step: int, tree: Any,
              overwrite: bool = True) -> str:
         self.wait()
-        self.snapshot = host_snapshot(tree, self._pinned)
+        self.snapshot, writer = global_snapshot(tree, self._pinned)
         host, path = self.snapshot, _step_dir(directory, step)
+        if not writer:
+            return path
 
         def run():
             try:
-                _write(directory, step, host, overwrite)
+                write_host_tree(directory, step, host, overwrite)
             except BaseException as e:  # noqa: BLE001 - re-raised by wait
                 self._error = e
 

@@ -173,7 +173,12 @@ swallowed:
    batch, 8 ``fused_adam`` steps at lr 1e-4: the loss falls, no flash
    kernel runs, the LayerNorm and Adam kernels do; then the dropout's kept
    share and scale on the card and two models of one seed bit-equal;
-12. GPT-2 small at tp = 2 x dp = 2 with sequence parallelism (full
+12. (Before it, the spawned runs of phases 12 (c), 13 (b, c), 14, 15,
+   21's ep and 23 run as jobs of one shared world of 4 ranks
+   (``gloo_world``), which so pays the processes' start, and the import
+   of ``torch._dynamo`` that torch's activation checkpoint makes on its
+   first call, once; each phase then checks and logs its jobs' results.)
+   GPT-2 small at tp = 2 x dp = 2 with sequence parallelism (full
    width, vocab 50257 padded to 50304 so that it divides by tp, seed 0):
    the GPT example under ``torch.distributed.run``, 4 ranks on this one
    card over gloo (NCCL refuses two ranks on one card; gloo moves each
@@ -195,7 +200,7 @@ swallowed:
    with sequence parallelism (1F1B) at depth 4 (cut from 12), 1 + 1
    steps, and (b) the interleaved schedule at pp = 4 with V = 3 chunks of
    one layer (``forward_backward_with_pre_post(num_model_chunks=3)``)
-   from a spawned world, 1 + 1 steps: finite losses, the first within 0.5 of ln
+   in the shared world, 1 + 1 steps: finite losses, the first within 0.5 of ln
    50304, the layout, and #1, #2, #5, #6, #7 and #8 launched on the first
    and the last stage; per-step ms and tokens/s, every rank's peak memory
    and the p2p messages and bytes staged a step; then (c) the same 4
@@ -205,7 +210,7 @@ swallowed:
    steps (losses 1e-5 relative, each tensor 1e-4 relative in norm);
 14. GPT-2 small pipelined at pp = 2 x tp = 2 with SP through the
    zero-bubble B/W split (``GPTPipelineTraining(zero_bubble=True)``, the
-   1F1B run's settings, depth 4) from a spawned world, 1 + 1 steps: the
+   1F1B run's settings, depth 4) in the shared world, 1 + 1 steps: the
    checks of
    13 (a), per-step ms, tokens/s, peak memory and staged p2p beside
    ``algebra``'s zero-bubble and 1F1B costs at (2, 4); then zero bubble
@@ -297,7 +302,21 @@ swallowed:
    (exact and int8) and ZeRO Adam with remainders (rebuilt master bit
    for bit against the fp32 run's) over BERT-345M's shapes at dp = 4;
    GPT-2 small with 8 experts at tp = 2 (depth 2) against tp = 1, and
-   with SP card against plain;
+   with SP card against plain; and ``gpt_elastic``, GPT-2 small's width
+   at depth 2 under ZeRO-2 in the world of 4: the elastic trip (3 steps
+   at dp 4 and a verified save, restored at dp 2 on ranks {0, 1}, 2
+   steps and a save, restored at dp 4 and 2 steps; every restore held
+   leaf for leaf, the flat buffers on the common prefix with zero
+   padding and every crc32 to its manifest; the losses within 1e-4 of an
+   uninterrupted dp-4 run, and every leaf of the state within 1e-2 of how
+   far that run's steps moved it), then the remediation selftest's SDC case (a
+   bit flipped after step 3, confirmed by the canary with the step and
+   the leaf, quarantined 4 -> 2 with the corrupt checkpoints moved
+   aside, readmitted 2 -> 4 after 2 clean steps; one terminal verdict,
+   the goodput identity ``==``, the final loss within 5e-2 of the clean
+   reference) and its false-positive clear; it prints each rank's
+   checkpoint bytes, save and restore ms, the canary's replayed step ms
+   and the seconds;
 25. the GPT example's recovery path at GPT-2 small's full width, in
    process through ``main(argv)``, 6 steps a run: a clean run saved
    every 2 steps and the same with one parameter bit flipped after step
@@ -344,8 +363,10 @@ drill's process), ``serve_gpt_beam`` (the bf16 beam search),
 example's process under its telemetry flags), and ``gpt_resilience``
 (every step and replay of phase 25). Every path's kernels must have
 launched. ``python3 chip_smoke.py --tail`` (development) runs only the
-build and phase 24, ``--serve-gpt`` only the build and phase 4c, and
-``--resilience`` only the build and phase 25; none prints a result.
+build and phase 24, ``--elastic`` only the build and phase 24's
+``gpt_elastic`` jobs (in a world of 4 of their own), ``--serve-gpt``
+only the build and phase 4c, and ``--resilience`` only the build and
+phase 25; none prints a result.
 """
 
 import gc
@@ -542,6 +563,10 @@ PATH_KERNELS = {
     # fallback and the NaN rollback (the phase's whole run of steps)
     "gpt_resilience": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
                        "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
+    # the elastic trip and the remediation loop over 4 ranks (ZeRO-2:
+    # Adam in plain ops, 0 launches of #8), counted on rank 0
+    "gpt_elastic": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                    "flash_bwd_dq", "flash_bwd_dkv"),
 }
 FORWARD_KERNELS = PATH_KERNELS["serving"]
 KERNEL_META = {  # name: (source, TPU kernel it replaces)
@@ -3417,7 +3442,7 @@ def run_gpt_example(extra, steps):
     return records, summary, wall
 
 
-def gpt_parallel_phase(smi):
+def gpt_parallel_phase(smi, world):
     """(a) ZeRO, (b) DDP through the example at full width; (c) card
     against plain at small depth; (d) one NCCL step at a world of one."""
     torch.cuda.empty_cache()
@@ -3471,7 +3496,8 @@ def gpt_parallel_phase(smi):
                 summary["staged_through_host_rank0"].items()},
             "wall_s": wall}
         log(f"{name} " + json.dumps(report[name]))
-    report["card_vs_plain"] = gpt_parallel_card_vs_plain()
+    report["card_vs_plain"] = gpt_parallel_card_vs_plain(
+        world["parallel_card_vs_plain"])
     report["nccl_world_of_one"] = nccl_world_of_one()
     return paths, report
 
@@ -3481,30 +3507,27 @@ CARD_VS_PLAIN = dict(vocab=GPT_PARALLEL_VOCAB, seq_len=256, layers=2,
                      global_batch=4, seed=SEED, zero=True)
 
 
-def gpt_parallel_card_vs_plain(target=CARD_VS_PLAIN, device="cuda"):
-    """The same 4 ranks and seed, 2 layers of GPT-2 small's width at seq
-    256: ZeRO training in bf16 (3 steps) and an fp32 loop of the model,
-    the data-parallel all-reduce and fused_adam (2 steps), on the card's
-    kernels and on the CPU's plain versions over gloo."""
+def parallel_card_vs_plain_args(target=CARD_VS_PLAIN):
+    """``parallel_workers.card_vs_plain_worker``'s arguments: ``target``
+    and its 3 batches of the synthetic stream, 2 fp32 steps, the card."""
     from apex_tpu_torch.data import LMDataset
     from apex_tpu_torch.resilience.replay import synthetic_corpus
-    from apex_tpu_torch.transformer.testing.distributed_test_base import (
-        spawn,
-    )
-    from apex_tpu_torch.transformer.testing.parallel_workers import (
-        card_vs_plain_worker,
-    )
 
     seq = target["seq_len"]
     lm = LMDataset(synthetic_corpus(target["vocab"], 20_000), seq)
     batches = [tuple(a.reshape(1, 4, seq) for a in lm.batch(range(4 * i,
                                                                 4 * i + 4)))
                + (0.0,) for i in range(3)]
-    t0 = time.perf_counter()
-    ranks = spawn(card_vs_plain_worker, GPT_PARALLEL_RANKS,
-                  args=(target, batches, 2, device),
-                  threads=RANK_THREADS, timeout=600.0)
-    wall = time.perf_counter() - t0
+    return target, batches, 2, "cuda"
+
+
+def gpt_parallel_card_vs_plain(ranks):
+    """``ranks``: ``card_vs_plain_worker``'s results, the same 4 ranks and
+    seed, 2 layers of GPT-2 small's width at seq 256: ZeRO training in
+    bf16 (3 steps) and an fp32 loop of the model, the data-parallel
+    all-reduce and fused_adam (2 steps), on the card's kernels and on the
+    CPU's plain versions over gloo."""
+    target = CARD_VS_PLAIN
     lr = 3e-4
     worst = {"bf16_loss": 0.0, "bf16_param": 0.0, "fp32_loss": 0.0,
              "fp32_param": 0.0, "fp32_param_abs": 0.0, "fp32_k_bias": 0.0}
@@ -3532,7 +3555,7 @@ def gpt_parallel_card_vs_plain(target=CARD_VS_PLAIN, device="cuda"):
                    if out["launches"][k] == 0]
         if missing:
             raise AssertionError(f"rank {r}: {missing} not launched")
-    result = {"ranks": len(ranks), "wall_s": wall, **worst,
+    result = {"ranks": len(ranks), **worst,
               "losses_bf16_card_rank0": [
                   x["loss"] for x in ranks[0]["bf16"]["card"]["steps"]]}
     log("gpt_parallel card vs plain (2 x 768, seq 256, 4 ranks, bf16 "
@@ -3730,29 +3753,74 @@ def check_pipeline_run(name, summary, layout, kernels):
                                  f"{stage} stage")
 
 
-def gpt_pipeline_phase(smi):
-    """(a) ``standalone_gpt`` at GPT-2 small's full width and depth 4, pp =
-    2 x tp = 2 with SP, 1F1B, 1 + 1 steps; (b) the interleaved schedule at
-    pp = 4, V = 3 from a spawned world, 1 + 1 steps; (c) card against
-    plain at 2 layers and seq 128."""
+PIPELINE_WORKERS = "apex_tpu_torch.transformer.testing.pipeline_workers"
+#: the spawned runs of the 4-rank phases before the tail, as jobs of one
+#: world of 4 (name, rank function, its arguments): the tp x dp card
+#: against plain; the pipeline's interleaved schedule, card against plain,
+#: zero bubble and zero bubble against 1F1B, and remat True against False
+#: in fp32 and bf16; TinyLlama at cp = 4; MoE at ep = 4
+GLOO_JOBS = (
+    ("parallel_card_vs_plain",
+     "apex_tpu_torch.transformer.testing.parallel_workers:"
+     "card_vs_plain_worker", lambda: parallel_card_vs_plain_args()),
+    ("interleaved", f"{PIPELINE_WORKERS}:interleaved_worker",
+     lambda: (GPT_PIPELINE_ARGV + GPT_PIPELINE_INTERLEAVED, "cuda")),
+    ("card_vs_plain", f"{PIPELINE_WORKERS}:card_vs_plain_worker",
+     lambda: (PIPELINE_CARD_VS_PLAIN_ARGV, 2, "cuda")),
+    ("zero_bubble", f"{PIPELINE_WORKERS}:interleaved_worker",
+     lambda: (GPT_PIPELINE_ARGV + GPT_PIPELINE_ZERO_BUBBLE, "cuda", True)),
+    ("zero_bubble_vs_1f1b",
+     "apex_tpu_torch.transformer.testing.cp_workers:"
+     "zero_bubble_vs_1f1b_worker",
+     lambda: (ZERO_BUBBLE_VS_1F1B_ARGV, "cuda")),
+    ("remat_fp32", f"{PIPELINE_WORKERS}:remat_worker",
+     lambda: (PIPELINE_REMAT_ARGV, "cuda")),
+    ("remat_bf16", f"{PIPELINE_WORKERS}:remat_worker",
+     lambda: (PIPELINE_REMAT_ARGV + ("--bf16",), "cuda")),
+    ("llama_cp", "apex_tpu_torch.transformer.testing.cp_workers:"
+     "cp_card_worker", lambda: (cp_jobs(), "cuda")),
+    ("moe_ep", "apex_tpu_torch.transformer.testing.recompute_workers:"
+     "moe_gpt_ep_worker", lambda: (MOE_EP, 4, 1024, "cuda")),
+)
+
+
+def gloo_world():
+    """The 4-rank phases' spawned runs (:data:`GLOO_JOBS`) in one world of
+    4 ranks, which so pays the processes' start and their first
+    activation checkpoint's imports once (torch's checkpoint imports
+    ``torch._dynamo`` on its first call in a process: 25-50 s of the
+    first step of each pipelined world on the card's host, where eight
+    worlds paid their starts eight times). Returns ``({name: every rank's
+    result}, seconds)``."""
     from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        jobs_worker,
         spawn,
-    )
-    from apex_tpu_torch.transformer.testing.pipeline_workers import (
-        interleaved_worker,
     )
 
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(jobs_worker, GPT_PARALLEL_RANKS, args=(
+        [(fn, args()) for _, fn, args in GLOO_JOBS],),
+        threads=RANK_THREADS, timeout=1200.0)
+    seconds = time.perf_counter() - t0
+    log(f"the shared world of 4 ran {seconds:.1f} s ({GLOO_TRANSPORT})")
+    return {name: [r[i] for r in ranks]
+            for i, (name, _, _) in enumerate(GLOO_JOBS)}, seconds
+
+
+def gpt_pipeline_phase(smi, world):
+    """(a) ``standalone_gpt`` at GPT-2 small's full width and depth 4, pp =
+    2 x tp = 2 with SP, 1F1B, 1 + 1 steps; (b) the interleaved schedule at
+    pp = 4, V = 3 (``world``: :func:`gloo_world`'s results), 1 + 1
+    steps; (c) card against plain at 2 layers and seq 128."""
+    torch.cuda.empty_cache()
     paths, report = {}, {"transport": GLOO_TRANSPORT, "gpu": smi}
     _, summary, wall = run_standalone_gpt(GPT_PIPELINE_1F1B)
-    t0 = time.perf_counter()
-    inter = spawn(interleaved_worker, GPT_PARALLEL_RANKS, args=(
-        GPT_PIPELINE_ARGV + GPT_PIPELINE_INTERLEAVED, "cuda"),
-        threads=RANK_THREADS, timeout=600.0)[0]
+    inter = world["interleaved"][0]
     runs = (("gpt_pipeline", summary, (2, 2, 1, 1, True), wall,
              PIPELINE_LAYERS),
             ("gpt_pipeline_interleaved", inter, (1, 4, 1, 3, False),
-             time.perf_counter() - t0, 12))
+             None, 12))
     for name, out, layout, wall, layers in runs:
         check_pipeline_run(name, out, layout, PATH_KERNELS[name])
         steps = out["steps"]
@@ -3780,30 +3848,20 @@ def gpt_pipeline_phase(smi):
             "wall_s": wall}
         log(f"{name} ({GLOO_TRANSPORT}; tokens/s compared with nothing) "
             + json.dumps(report[name]))
-    report["card_vs_plain"] = gpt_pipeline_card_vs_plain()
+    report["card_vs_plain"] = gpt_pipeline_card_vs_plain(
+        world["card_vs_plain"])
     return paths, report
 
 
-def gpt_pipeline_card_vs_plain(device="cuda"):
-    """The same 4 ranks at pp = 2 x tp = 2 with SP, 2 layers of GPT-2
-    small's width at seq 128, from one seed: 3 bf16 steps within
-    ``gpt_parallel_card_vs_plain``'s bounds (losses 2e-3 relative,
-    parameters 2e-3 absolute), and 2 fp32 steps (losses 1e-5 relative,
-    every step's gradients and the final tensors 1e-4 relative in norm;
-    the tensors that start at zero 1e-2 and the key bias 2 lr a step
-    element by element, ``hold_fp32_to_plain``)."""
-    from apex_tpu_torch.transformer.testing.distributed_test_base import (
-        spawn,
-    )
-    from apex_tpu_torch.transformer.testing.pipeline_workers import (
-        card_vs_plain_worker,
-    )
-
-    t0 = time.perf_counter()
-    ranks = spawn(card_vs_plain_worker, GPT_PARALLEL_RANKS,
-                  args=(PIPELINE_CARD_VS_PLAIN_ARGV, 2, device),
-                  threads=RANK_THREADS, timeout=600.0)
-    wall = time.perf_counter() - t0
+def gpt_pipeline_card_vs_plain(ranks):
+    """``ranks``: ``card_vs_plain_worker``'s results, the same 4 ranks at
+    pp = 2 x tp = 2 with SP, 2 layers of GPT-2 small's width at seq 128,
+    from one seed: 3 bf16 steps within ``gpt_parallel_card_vs_plain``'s
+    bounds (losses 2e-3 relative, parameters 2e-3 absolute), and 2 fp32
+    steps (losses 1e-5 relative, every step's gradients and the final
+    tensors 1e-4 relative in norm; the tensors that start at zero 1e-2
+    and the key bias 2 lr a step element by element,
+    ``hold_fp32_to_plain``)."""
     lr = 3e-4
     worst = {"bf16_loss": 0.0, "bf16_param": 0.0, "fp32_loss": 0.0,
              "fp32_param": 0.0, "fp32_param_abs": 0.0, "fp32_k_bias": 0.0}
@@ -3834,7 +3892,7 @@ def gpt_pipeline_card_vs_plain(device="cuda"):
                    if out["launches"][k] == 0]
         if missing:
             raise AssertionError(f"rank {r}: {missing} not launched")
-    result = {"ranks": len(ranks), "wall_s": wall, **worst,
+    result = {"ranks": len(ranks), **worst,
               "losses_bf16_card_rank0": ranks[0]["bf16"]["card"]["losses"]}
     log("gpt_pipeline card vs plain (2 x 768, seq 128, pp 2 x tp 2 sp, bf16 "
         "to 2e-3, fp32 losses to 1e-5, every step's gradients and the "
@@ -3856,30 +3914,15 @@ ZERO_BUBBLE_VS_1F1B_ARGV = PIPELINE_CARD_VS_PLAIN_ARGV + ("--train-iters",
                                                            "2")
 
 
-def gpt_pipeline_zero_bubble_phase(smi):
+def gpt_pipeline_zero_bubble_phase(smi, world):
     """(a) ``GPTPipelineTraining(zero_bubble=True)`` at GPT-2 small's full
-    width and depth 4, pp = 2 x tp = 2 with SP, 1 + 1 steps from a spawned
-    world; (b)
-    zero bubble against 1F1B from the same weights at 2 layers, seq 128,
-    fp32."""
+    width and depth 4, pp = 2 x tp = 2 with SP, 1 + 1 steps; (b) zero
+    bubble against 1F1B from the same weights at 2 layers, seq 128, fp32
+    (``world``: :func:`gloo_world`'s results)."""
     from apex_tpu_torch.parallel.pipeline import algebra
-    from apex_tpu_torch.transformer.testing.distributed_test_base import (
-        spawn,
-    )
-    from apex_tpu_torch.transformer.testing.cp_workers import (
-        zero_bubble_vs_1f1b_worker,
-    )
-    from apex_tpu_torch.transformer.testing.pipeline_workers import (
-        interleaved_worker,
-    )
 
-    torch.cuda.empty_cache()
     name = "gpt_pipeline_zero_bubble"
-    t0 = time.perf_counter()
-    out = spawn(interleaved_worker, GPT_PARALLEL_RANKS, args=(
-        GPT_PIPELINE_ARGV + GPT_PIPELINE_ZERO_BUBBLE, "cuda", True),
-        threads=RANK_THREADS, timeout=600.0)[0]
-    wall = time.perf_counter() - t0
+    out = world["zero_bubble"][0]
     if out["schedule"] != "zero_bubble":
         raise AssertionError(f"{name}: ran {out['schedule']}")
     check_pipeline_run(name, out, (2, 2, 1, 1, True), PATH_KERNELS[name])
@@ -3903,13 +3946,10 @@ def gpt_pipeline_zero_bubble_phase(smi):
             k: n / steps for k, n in out["launch_counts_last_stage"].items()},
         "staged_per_step_rank0": {
             k: n / steps for k, n in out["staged_rank0"].items()},
-        "algebra": cost, "wall_s": wall}
+        "algebra": cost}
     log(f"{name} ({GLOO_TRANSPORT}; tokens/s compared with nothing) "
         + json.dumps(report))
-    t0 = time.perf_counter()
-    ranks = spawn(zero_bubble_vs_1f1b_worker, GPT_PARALLEL_RANKS,
-                  args=(ZERO_BUBBLE_VS_1F1B_ARGV, "cuda"),
-                  threads=RANK_THREADS, timeout=600.0)
+    ranks = world["zero_bubble_vs_1f1b"]
     worst_loss = worst_grad = 0.0
     for r, res in enumerate(ranks):
         for a, b in zip(res["zero_bubble"], res["1f1b"]):
@@ -3924,8 +3964,7 @@ def gpt_pipeline_zero_bubble_phase(smi):
     report["vs_1f1b"] = {
         "layers": 2, "seq_len": 128, "dtype": "fp32", "steps": 2,
         "loss_rel": worst_loss, "grad_rel_in_norm": worst_grad,
-        "losses_rank0": ranks[0]["zero_bubble"],
-        "wall_s": time.perf_counter() - t0}
+        "losses_rank0": ranks[0]["zero_bubble"]}
     log(f"{name} against 1F1B (2 x 768, seq 128, fp32, same weights; "
         "losses to 1e-5, every gradient to 1e-4 relative in norm): "
         + json.dumps(report["vs_1f1b"]))
@@ -3964,18 +4003,10 @@ def cp_kpm():
     return torch.as_tensor(make_batch(**CP_BATCH)["kpm"], device="cuda")
 
 
-def llama_cp_phase(smi):
-    """TinyLlama-1.1B at full width, 2 layers, cp = 4 on 4 ranks of this
-    card over gloo: ``train_ring_cp``'s step through the ring and through
-    Ulysses (1 + 3 steps each, one more profiled), the CP step against a
-    cp = 1 model from the same weights (fp32 losses and gradients, bf16
-    mean loss), and KV-cache decode over cp against a cp = 1 forward."""
-    from apex_tpu_torch.transformer.testing.cp_workers import cp_card_worker
-    from apex_tpu_torch.transformer.testing.distributed_test_base import (
-        spawn,
-    )
-
-    torch.cuda.empty_cache()
+def cp_jobs():
+    """``cp_workers.cp_card_worker``'s jobs: the ring and Ulysses training
+    runs (one more step profiled), cp = 4 against cp = 1 in fp32 and bf16,
+    and decode over cp."""
     jobs = [dict(kind="train", cp=CP_RANKS, config=cp_fields(mode),
                  batch=CP_BATCH, steps=CP_STEPS, lr=1e-3, profile=True)
             for mode in ("ring", "ulysses")]
@@ -3986,12 +4017,17 @@ def llama_cp_phase(smi):
     jobs.append(dict(kind="decode", cp=CP_RANKS,
                      config=cp_fields("ring", torch.float32),
                      batch=CP_BATCH, **CP_DECODE))
-    t0 = time.perf_counter()
-    ranks = spawn(cp_card_worker, CP_RANKS, args=(jobs, "cuda"),
-                  threads=RANK_THREADS, timeout=900.0)
-    wall = time.perf_counter() - t0
-    paths, report = {}, {"transport": GLOO_TRANSPORT, "gpu": smi,
-                         "wall_s": wall}
+    return jobs
+
+
+def llama_cp_phase(smi, ranks):
+    """TinyLlama-1.1B at full width, 2 layers, cp = 4 on 4 ranks of this
+    card over gloo: ``train_ring_cp``'s step through the ring and through
+    Ulysses (1 + 3 steps each, one more profiled), the CP step against a
+    cp = 1 model from the same weights (fp32 losses and gradients, bf16
+    mean loss), and KV-cache decode over cp against a cp = 1 forward
+    (``ranks``: ``cp_card_worker``'s results of :func:`cp_jobs`)."""
+    paths, report = {}, {"transport": GLOO_TRANSPORT, "gpu": smi}
     tokens = CP_BATCH["batch"] * CP_BATCH["seq_len"]
     for i, mode in enumerate(("ring", "ulysses")):
         name = f"llama_cp_{mode}"
@@ -4994,7 +5030,7 @@ MOE_EP = dict(num_layers=2, hidden_size=768, num_attention_heads=12,
               compute_dtype=torch.float32, **MOE)
 
 
-def gpt_moe_ep_phase(smi):
+def gpt_moe_ep_phase(smi, ranks):
     """GPT-2 small's width at depth 2 (cut from 12: four processes share
     the card and every all-to-all is staged through the host) with 8
     experts split over dp = 4 ranks of this card over gloo (2 a rank),
@@ -5003,19 +5039,6 @@ def gpt_moe_ep_phase(smi):
     1e-5, the final hidden states 1e-5 and every gradient 1e-4 relative
     in norm; an expert's summed over the ranks, as the all-to-all's
     backward sums it); the all-to-alls and bytes staged a rank."""
-    from apex_tpu_torch.transformer.testing.distributed_test_base import (
-        spawn,
-    )
-    from apex_tpu_torch.transformer.testing.recompute_workers import (
-        moe_gpt_ep_worker,
-    )
-
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = spawn(moe_gpt_ep_worker, GPT_PARALLEL_RANKS,
-                  args=(MOE_EP, 4, 1024, "cuda"),
-                  threads=RANK_THREADS, timeout=600.0)
-    wall = time.perf_counter() - t0
     for r, out in enumerate(ranks):
         if (abs(out["loss_ep"] - out["loss_one"]) > 1e-5 * out["loss_one"]
                 or abs(out["aux_ep"] - out["aux_one"]) > 1e-5 * out["aux_one"]
@@ -5027,7 +5050,7 @@ def gpt_moe_ep_phase(smi):
             if out["launches_ep"][k] == 0:
                 raise AssertionError(f"gpt_moe_ep rank {r}: {k} not "
                                      "launched")
-    report = {"gpu": smi, "transport": GLOO_TRANSPORT, "wall_s": wall,
+    report = {"gpu": smi, "transport": GLOO_TRANSPORT,
               "ranks": [{k: v for k, v in out.items() if k != "launches_ep"}
                         for out in ranks]}
     log("gpt_moe_ep (2 x 768, 8 experts over dp 4, fp32, 4 x 1024 tokens a "
@@ -5143,28 +5166,16 @@ PIPELINE_REMAT_ARGV = tuple(
     "2", "--sequence-parallel", "--train-iters", "2")
 
 
-def gpt_pipeline_remat_phase(smi):
+def gpt_pipeline_remat_phase(smi, world):
     """GPT-2 small's width at depth 2 at pp = 2 x tp = 2 with SP (1F1B, 4
     ranks over gloo), ``remat`` True and then False from the same
     weights, 2 steps each, in
     fp32 (every loss and gradient bit-equal) and in bf16 (the memory of
     the path's own precision): each run's peak memory a rank, launches
-    and staged bytes a step."""
-    from apex_tpu_torch.transformer.testing.distributed_test_base import (
-        spawn,
-    )
-    from apex_tpu_torch.transformer.testing.recompute_workers import (
-        jobs_worker,
-    )
-
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = spawn(jobs_worker, GPT_PARALLEL_RANKS, args=([
-        ("remat_worker", (PIPELINE_REMAT_ARGV, "cuda")),
-        ("remat_worker", (PIPELINE_REMAT_ARGV + ("--bf16",), "cuda"))],),
-        threads=RANK_THREADS, timeout=900.0)
-    wall = time.perf_counter() - t0
-    report = {"gpu": smi, "transport": GLOO_TRANSPORT, "wall_s": wall}
+    and staged bytes a step (``world``: :func:`gloo_world`'s
+    results)."""
+    ranks = list(zip(world["remat_fp32"], world["remat_bf16"]))
+    report = {"gpu": smi, "transport": GLOO_TRANSPORT}
     for i, precision in enumerate(("fp32", "bf16")):
         outs = [r[i] for r in ranks]
         if precision == "fp32" and not all(o["bit_equal"] for o in outs):
@@ -5646,14 +5657,195 @@ def gpt_moe_tp_phase(smi, ranks):
 
 TESTING = "apex_tpu_torch.transformer.testing"
 TP_WORKERS = f"{TESTING}.tp_workers"
+ELASTIC_WORKERS = f"{TESTING}.elastic_workers"
+#: the elastic path: GPT-2 small's width at depth 2, ZeRO-2, bf16 compute
+#: with fp32 params, micro batch 4 x seq 1024, global batch 16, seed 0
+ELASTIC_CFG = dict(vocab=50257, seq_len=1024, layers=2, hidden=768,
+                   heads=12, micro_batch=4, global_batch=16, zero=True,
+                   seed=SEED)
+#: the trip's steps: at dp 4, then at dp 2 on ranks {0, 1}, then dp 4
+ELASTIC_STEPS = (3, 2, 2)
+#: the remediation selftest's sequences on the card: steps a sequence
+#: (5: anchors at 2 and 4), the bit flip's step, the probation's clean
+#: steps, and the segments the false-positive clear replays
+REMEDIATION_CARD = dict(steps=5, flip_step=3, probation=2,
+                        clear_segments=1)
+#: the trip's losses after the round trip against the uninterrupted dp-4
+#: run's, absolute: the dp-2 leg sums its two micro-batches in another
+#: order, which moved them 9.5e-7 (PERF.md), while the run's loss falls
+#: about 1.25e-2 a step, so a lost update lands far outside
+ELASTIC_LOSS_TOL = 1e-4
+#: the state after the trip against the uninterrupted run's, leaf by
+#: leaf: |trip - uninterrupted| over |uninterrupted - first save|, how far
+#: the same steps moved the leaf. A lost step of the four moves it about
+#: a quarter; the sound trip's worst was Adam's first moment, 2.75e-3
+#: (PERF.md has the readings)
+ELASTIC_STATE_TOL = 1e-2
+
+
+def elastic_jobs(tmp):
+    """The ``gpt_elastic`` phase's jobs for the world of 4: the elastic
+    trip and the remediation selftest's SDC and false-positive cases."""
+    import os
+
+    return [
+        (f"{ELASTIC_WORKERS}:elastic_trip_worker",
+         (ELASTIC_CFG, os.path.join(tmp, "trip"), "cuda", ELASTIC_STEPS)),
+        (f"{ELASTIC_WORKERS}:remediation_worker",
+         (os.path.join(tmp, "remediation"), "cuda",
+          {k: v for k, v in ELASTIC_CFG.items() if k != "seed"},
+          REMEDIATION_CARD["steps"], REMEDIATION_CARD["flip_step"],
+          REMEDIATION_CARD["probation"],
+          REMEDIATION_CARD["clear_segments"])),
+    ]
+
+
+def trip_against_uninterrupted(smi, out):
+    """Holds the elastic trip (rank 0's :func:`elastic_trip_worker`
+    result) to the uninterrupted dp-4 run: its losses to
+    ``ELASTIC_LOSS_TOL``, and every leaf of its state to
+    ``ELASTIC_STATE_TOL`` of how far the uninterrupted steps moved the
+    leaf. Logs and returns the readings."""
+    ref = out["losses"]["reference"]
+    trip_losses = out["losses"]["sub"] + out["losses"]["back"]
+    worst = max(abs(a - b) for a, b in zip(trip_losses, ref))
+    # each leaf's distance from the uninterrupted run over how far those
+    # steps moved it (both are over |uninterrupted|); the key bias moves by
+    # rounding noise (elastic_workers._rel_diffs): printed, not bounded
+    diff, moved = out["state_rel_diff"], out["state_moved"]
+    ratio = {k: 0.0 if diff[k] == 0 else
+             diff[k] / moved[k] if moved[k] else math.inf for k in diff}
+    held = {k: v for k, v in ratio.items() if not k.endswith("['bias'] k")}
+    state_path, state_worst = max(held.items(), key=lambda kv: kv[1])
+    trip_report = {"loss_max_abs_diff": worst, "loss_tol": ELASTIC_LOSS_TOL,
+                   "state_worst": [state_path, state_worst],
+                   "state_tol": ELASTIC_STATE_TOL, "held": len(held),
+                   "key_bias": {k: v for k, v in ratio.items()
+                                if k not in held},
+                   "diff_over_moved": ratio}
+    log(f"gpt_elastic trip against the uninterrupted run ({smi}): "
+        + json.dumps(trip_report))
+    if not all(math.isfinite(x) for x in trip_losses) or \
+            worst > ELASTIC_LOSS_TOL:
+        raise AssertionError(f"gpt_elastic trip losses {trip_losses} vs "
+                             f"the uninterrupted {ref}")
+    if not state_worst <= ELASTIC_STATE_TOL:
+        raise AssertionError(
+            f"gpt_elastic trip state: {state_path} is {state_worst} of its "
+            "steps' move off the uninterrupted run's")
+    return trip_report
+
+
+def gpt_elastic_phase(smi, trip, rem):
+    """The ``gpt_elastic`` phase's checks on the world of 4's results:
+    ``trip`` (every rank's :func:`elastic_trip_worker` result) and
+    ``rem`` (rank 0's :func:`remediation_worker`). Prints each rank's
+    checkpoint bytes, save and restore ms, the canary's replayed step ms,
+    the launch counts and the seconds, each beside the card; returns the
+    path's launch counts (rank 0's, both jobs)."""
+    from apex_tpu_torch.monitor.goodput.accountant import account
+    from apex_tpu_torch.resilience.remediation.__main__ import loop_checks
+
+    out = trip[0]
+    for name, held in out["checks"].items():
+        if not all(held[k] for k in ("leaves_equal", "flat_prefix_equal",
+                                     "crc32_equal")):
+            raise AssertionError(f"gpt_elastic {name}: {held}")
+    trip_report = trip_against_uninterrupted(smi, out)
+    failures = []
+    loop_checks(failures, rem, steps=REMEDIATION_CARD["steps"])
+    if failures:
+        raise AssertionError(f"gpt_elastic remediation: {failures}")
+    records = rem["result"].records
+    replay = [r["dur_s"] * 1e3 for r in records if r.get("kind") == "span"
+              and r.get("phase") == "step" and r.get("replay")]
+    restores = [r["dur_s"] * 1e3 for r in records if r.get("kind") == "span"
+                and r.get("phase") == "ckpt_restore"]
+    launches = {k: out["launches"][k] + rem["launches"][k]
+                for k in out["launches"]}
+    report = {
+        "gpu": smi, "model": "gpt2-small 2x768 vocab 50257 (random "
+        "weights, bf16 compute, fp32 params), ZeRO-2, dp 4 -> 2 -> 4",
+        "transport": GLOO_TRANSPORT,
+        "ckpt_bytes_written_by_rank": {
+            step: [out["ckpt_bytes"][step] if r["rank"] == 0 else 0
+                   for r in trip] for step in out["ckpt_bytes"]},
+        "state_bytes_by_rank": {step: [r["state_bytes"].get(step)
+                                       for r in trip]
+                                for step in out["state_bytes"]},
+        "save_block_ms_by_rank": {step: [r["save_ms"].get(step)
+                                         for r in trip]
+                                  for step in out["save_ms"]},
+        "restore_reshard_ms_by_rank": {step: [r["restore_ms"].get(step)
+                                              for r in trip]
+                                       for step in out["restore_ms"]},
+        "restore_checks": out["checks"],
+        "losses": out["losses"],
+        "trip_vs_uninterrupted": {k: v for k, v in trip_report.items()
+                                  if k != "diff_over_moved"},
+        "remediation": {
+            "incarnations": [i["devices"] for i in
+                             rem["result"].incarnations],
+            "terminals": [(t.get("finding"), t.get("verdict"))
+                          for t in rem["result"].terminals],
+            "final_loss": rem["result"].losses.get(
+                REMEDIATION_CARD["steps"] - 1),
+            "reference_final_loss": rem["reference"].losses.get(
+                REMEDIATION_CARD["steps"] - 1),
+            "goodput": account(records,
+                               run_id=rem["result"].run_id).fields(),
+            "canary_replayed_step_ms": replay,
+            "ckpt_restore_ms": restores,
+            "builds": rem["builds"],
+        },
+        "launches_rank0": launches,
+        "seconds": {"trip": out["seconds"], "remediation": rem["seconds"]},
+    }
+    log("gpt_elastic (GPT-2 small 2 layers, 4 ranks -> 2 -> 4; the trip's "
+        "restores held leaf for leaf, flat buffers on the prefix, crc32 to "
+        f"the manifest; losses to {ELASTIC_LOSS_TOL} and every leaf to "
+        f"{ELASTIC_STATE_TOL} of its steps' move of the uninterrupted run; "
+        "the remediation selftest's SDC and false-positive cases): "
+        + json.dumps(report, default=str))
+    return launches, report
+
+
+def elastic_only(smi):
+    """``--elastic``: the ``gpt_elastic`` phase alone in its own world of
+    4 (development; the full script runs it in the tail's world)."""
+    import shutil
+    import tempfile
+
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        jobs_worker,
+        spawn,
+    )
+
+    tmp = tempfile.mkdtemp(prefix="gpt_elastic-")
+    try:
+        t0 = time.perf_counter()
+        four = spawn(jobs_worker, GPT_PARALLEL_RANKS,
+                     args=(elastic_jobs(tmp),), threads=RANK_THREADS,
+                     timeout=900.0)
+        log(f"gpt_elastic: the world of 4 ran "
+            f"{time.perf_counter() - t0:.1f} s ({smi})")
+        launches, _ = gpt_elastic_phase(smi, [r[0] for r in four],
+                                        four[0][1])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"gpt_elastic": launches}
 
 
 def tail_phases(smi):
     """The multi-GPU tail's phases: one world of 4 ranks on this card
     runs the compressed GPT runs, their card-against-plain check, BERT at
-    tp = 2 x dp = 2 and its check, and the ZeRO LAMB and remainders jobs;
-    one world of 2 runs the decode and MoE jobs at tp = 2. Returns their
-    paths' launch counts."""
+    tp = 2 x dp = 2 and its check, the ZeRO LAMB and remainders jobs, and
+    the ``gpt_elastic`` jobs (the elastic trip and the remediation loop,
+    which so pay no launch of their own); one world of 2 runs the decode
+    and MoE jobs at tp = 2. Returns their paths' launch counts."""
+    import shutil
+    import tempfile
+
     from apex_tpu_torch.transformer.testing.distributed_test_base import (
         jobs_worker,
         spawn,
@@ -5661,6 +5853,9 @@ def tail_phases(smi):
 
     torch.cuda.empty_cache()
     shapes = bert_345m_shapes()
+    elastic_tmp = tempfile.mkdtemp(prefix="gpt_elastic-")
+    log(f"gpt_elastic: {elastic_tmp} has "
+        f"{shutil.disk_usage(elastic_tmp).free / 1e9:.1f} GB free")
     t0 = time.perf_counter()
     four = spawn(jobs_worker, GPT_PARALLEL_RANKS, args=([
         (f"{TESTING}.parallel_workers:compress_runs_worker",
@@ -5674,8 +5869,10 @@ def tail_phases(smi):
          (BERT_TP_CARD_VS_PLAIN, "cuda")),
         (f"{TESTING}.compress_workers:zero_bytes_worker",
          (shapes, ZERO_STEPS, "cuda", SEED)),
+        *elastic_jobs(elastic_tmp),
     ],), threads=RANK_THREADS, timeout=1200.0)
     four_s = time.perf_counter() - t0
+    shutil.rmtree(elastic_tmp, ignore_errors=True)
     t0 = time.perf_counter()
     two = spawn(jobs_worker, 2, args=(decode_jobs() + [
         (f"{TP_WORKERS}:moe_tp_card_worker",
@@ -5684,7 +5881,7 @@ def tail_phases(smi):
     log(f"multi-GPU tail: the world of 4 ran {four_s:.1f} s, the world of "
         f"2 {time.perf_counter() - t0:.1f} s ({GLOO_TRANSPORT})")
     paths = {}
-    job = [[r[i] for r in four] for i in range(5)]
+    job = [[r[i] for r in four] for i in range(7)]
     compressed, _ = gpt_compress_phase(smi, job[0], job[1])
     paths.update(compressed)
     paths["bert_tp"], _ = bert_tp_phase(smi, job[2][0], job[3])
@@ -5692,6 +5889,7 @@ def tail_phases(smi):
     paths["gpt_tp_decode"], _ = gpt_tp_decode_phase(
         smi, [r[:len(DECODE_CASES)] for r in two])
     paths["gpt_moe_tp"], _ = gpt_moe_tp_phase(smi, [r[-1] for r in two])
+    paths["gpt_elastic"], _ = gpt_elastic_phase(smi, job[5], job[6][0])
     log_memory("multi_gpu_tail")
     return paths
 
@@ -5889,6 +6087,13 @@ def main():
         log(f"gpt_resilience phase done in "
             f"{time.perf_counter() - START:.1f} s")
         return
+    if sys.argv[1:2] == ["--elastic"]:
+        # development: the gpt_elastic phase alone, no kernels line and no
+        # result line
+        check_paths(elastic_only(smi))
+        log(f"gpt_elastic phase done in "
+            f"{time.perf_counter() - START:.1f} s")
+        return
     if sys.argv[1:2] == ["--tail"]:
         # development: the multi-GPU tail's phases alone, no kernels line
         # and no result line
@@ -5930,16 +6135,17 @@ def main():
     log_memory("bert_pretrain")
     paths["bert_dropout"], _ = bert_dropout_phase(smi)
     log_memory("bert_dropout")
-    parallel, _ = gpt_parallel_phase(smi)
+    world, _ = gloo_world()
+    parallel, _ = gpt_parallel_phase(smi, world)
     paths.update(parallel)
     log_memory("gpt_parallel")
-    pipeline, _ = gpt_pipeline_phase(smi)
+    pipeline, _ = gpt_pipeline_phase(smi, world)
     paths.update(pipeline)
     log_memory("gpt_pipeline")
-    zero_bubble, _ = gpt_pipeline_zero_bubble_phase(smi)
+    zero_bubble, _ = gpt_pipeline_zero_bubble_phase(smi, world)
     paths.update(zero_bubble)
     log_memory("gpt_pipeline_zero_bubble")
-    cp, _ = llama_cp_phase(smi)
+    cp, _ = llama_cp_phase(smi, world["llama_cp"])
     paths.update(cp)
     log_memory("llama_cp")
     paths["amp_imagenet"], _ = amp_imagenet_phase(smi, resnet_rec)
@@ -5957,11 +6163,13 @@ def main():
     log_memory("gpt_recompute")
     paths["gpt_moe"], _ = gpt_moe_phase(smi)
     log_memory("gpt_moe")
-    paths["gpt_moe_ep"], _ = gpt_moe_ep_phase(smi)
+    paths["gpt_moe_ep"], _ = gpt_moe_ep_phase(smi, world["moe_ep"])
     log_memory("gpt_moe_ep")
     paths["fp8"], _ = fp8_phase(smi)
     log_memory("fp8")
-    paths["gpt_pipeline_no_remat"], _ = gpt_pipeline_remat_phase(smi)
+    paths["gpt_pipeline_no_remat"], _ = gpt_pipeline_remat_phase(
+        smi, world)
+    del world
     log_memory("gpt_pipeline_remat")
     paths.update(tail_phases(smi))
     log_memory("tail")

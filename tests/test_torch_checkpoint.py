@@ -175,7 +175,8 @@ def test_restore_copies_into_the_target_and_refuses_other_layouts(tmp_path):
     assert step == 3 and state is live
     assert state["layer_0"]["kernel"] is kernel  # written in place
     assert torch.equal(kernel, tree["layer_0"]["kernel"])
-    # a manifest from a world of 2 (dp = 2): refused, nothing loaded
+    # a manifest from a world of 2 (dp = 2) whose leaves keep their
+    # global shapes: resharded onto this world of one, not refused
     path = integrity.manifest_path(str(tmp_path / "step_3"))
     integrity.write_manifest(
         str(tmp_path / "step_3"), tree,
@@ -183,7 +184,19 @@ def test_restore_copies_into_the_target_and_refuses_other_layouts(tmp_path):
                                        "devices": 2}))
     assert os.path.exists(path)
     fresh = _torch(_tree(4))
-    with pytest.raises(ElasticRestoreError, match="resharder"):
+    step, state = ar.restore(fresh)
+    assert step == 3 and torch.equal(fresh["layer_0"]["kernel"],
+                                     tree["layer_0"]["kernel"])
+    # one whose leaf had another global shape there (not a ZeRO buffer):
+    # refused with the resharder's reason, nothing loaded
+    topo = topology_block(tree, {"axes": {"dp": 2, "tp": 1, "pp": 1},
+                                 "devices": 2})
+    leaf = next(l for l in topo["leaves"]
+                if l["path"] == "['layer_0']['kernel']")
+    leaf["shape"] = [leaf["shape"][0] * 2] + leaf["shape"][1:]
+    integrity.write_manifest(str(tmp_path / "step_3"), tree, topology=topo)
+    fresh = _torch(_tree(4))
+    with pytest.raises(ElasticRestoreError, match="manifest disagree"):
         ar.restore(fresh)
     with pytest.raises(ElasticRestoreError):
         integrity.load_checkpoint_verified(str(tmp_path), target=fresh)

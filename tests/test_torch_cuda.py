@@ -31,7 +31,11 @@ scores within 1e-4; the memory report and the OOM guard read the card's
 allocator exactly. The GPT step (GPT-2 small's widths at 2 layers) gives
 the same bits twice from one state, by every leaf's crc32; a checkpoint
 round trip on the card keeps every leaf's crc32; and an async save
-issued just before an in-place Adam step writes the pre-step bytes.
+issued just before an in-place Adam step writes the pre-step bytes. A
+ZeRO state's checkpoint written through the multi-rank layout at a world
+of one (its one rank the whole global tree) restores through the
+resharder with every leaf's crc32 its manifest's, and
+``zero_regroup_flat`` on the card equals it on the CPU bit for bit.
 """
 
 import math
@@ -977,7 +981,7 @@ RESILIENCE_TARGET = dict(vocab=50257, seq_len=1024, layers=2, hidden=768,
                          heads=12, micro_batch=8, global_batch=16)
 
 
-def _gpt_training_on_the_card():
+def _gpt_training_on_the_card(**overrides):
     from apex_tpu_torch.data import LMDataset
     from apex_tpu_torch.resilience.replay import (
         GPTTargetConfig,
@@ -985,8 +989,8 @@ def _gpt_training_on_the_card():
         synthetic_corpus,
     )
 
-    tr = build_gpt_training(GPTTargetConfig(**RESILIENCE_TARGET),
-                            device="cuda")
+    tr = build_gpt_training(GPTTargetConfig(**RESILIENCE_TARGET,
+                                            **overrides), device="cuda")
     lm = LMDataset(synthetic_corpus(50257), 1024)
     return tr, tr.init_state(), tr.reshape_batch(*lm.batch(range(16)))
 
@@ -1061,3 +1065,48 @@ def test_async_save_before_an_in_place_step_writes_the_pre_step_bytes(
     assert _crcs(state.as_tuple()) != before
     saved = load_checkpoint(str(tmp_path), 1, target=state.as_tuple())
     assert _crcs(saved) == before
+
+
+def test_layout_checkpoint_restores_through_the_resharder_by_every_crc(
+        gen, tmp_path):
+    """The GPT state under ZeRO, saved through ``elastic.layout`` (the
+    multi-rank path's gather, at a world of one the whole tree) and the
+    manifest's topology block, restores through ``restore_resharded``
+    onto the card with every leaf's crc32 the manifest's."""
+    from apex_tpu_torch.resilience import read_manifest
+    from apex_tpu_torch.resilience.elastic import restore_resharded
+    from apex_tpu_torch.resilience.elastic.layout import StateLayout
+    from apex_tpu_torch.resilience.elastic.topology import topology_block
+    from apex_tpu_torch.resilience.integrity import write_manifest
+    from apex_tpu_torch.utils.checkpoint import write_host_tree
+
+    tr, state, (x, y) = _gpt_training_on_the_card(zero=True)
+    state, *_ = tr.train_step(state, x, y)
+    tree = state.as_tuple()
+    want = _crcs(tree)
+    layout = StateLayout(tree)
+    host = layout.gather(tree)
+    path = write_host_tree(str(tmp_path), 1, host)
+    write_manifest(path, host, topology=topology_block(tree, layout=layout))
+    manifest = read_manifest(path)
+    assert [(leaf["path"], leaf["crc32"])
+            for leaf in manifest["fingerprint"]["leaves"]] == want
+    assert sum(leaf["zero_shard_axis"] == "dp"
+               for leaf in manifest["topology"]["leaves"]) == 3
+    state, *_ = tr.train_step(state, x, y)
+    step, restored = restore_resharded(str(tmp_path), state.as_tuple())
+    assert step == 1 and _crcs(restored) == want
+    assert restored[1].master_shard.is_cuda
+
+
+def test_zero_regroup_flat_on_the_card_equals_the_cpu(gen):
+    from apex_tpu_torch.optimizers import zero_regroup_flat
+
+    flat = torch.zeros(65538, device="cuda")
+    flat[:65000] = torch.randn(65000, generator=gen, device="cuda")
+    for n in (65536, 65538, 65540):
+        got = zero_regroup_flat(flat, n)
+        assert got.is_cuda and torch.equal(
+            got.cpu(), zero_regroup_flat(flat.cpu(), n))
+    with pytest.raises(ValueError, match="nonzero"):
+        zero_regroup_flat(flat, 64000)

@@ -191,3 +191,32 @@ def test_amp_slice_entry_points_refuse_a_host_without_cuda(monkeypatch):
             module.train(module.parse_args(argv), log=lambda s: None)
     amp_mlp_train.train(amp_mlp_train.parse_args(
         ["--steps", "1", "--device", "cpu"]), log=lambda s: None)
+
+
+def test_elastic_and_remediation_entry_points_refuse_a_host_without_cuda(
+        monkeypatch, tmp_path):
+    """The elastic and remediation gates (and the campaign) build their
+    models on the card unless ``--device cpu``: without a card they raise
+    before any world is spawned; ``--supervise`` runs no model."""
+    from apex_tpu_torch.resilience.elastic.__main__ import main as elastic
+    from apex_tpu_torch.resilience.remediation.__main__ import (
+        main as remediation,
+    )
+    from apex_tpu_torch.resilience.remediation.campaign import TrainingCache
+    from apex_tpu_torch.resilience.remediation.campaign import (
+        campaign_config,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main, argv in ((elastic, ["--dir", str(tmp_path / "e")]),
+                       (remediation, ["--selftest", "--dir",
+                                      str(tmp_path / "r")]),
+                       (remediation, ["--campaign", "1", "--dir",
+                                      str(tmp_path / "c")])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainingCache(campaign_config()).get(1)
+    assert remediation(["--supervise", "--save", str(tmp_path / "s"),
+                        "--devices", "1", "--launcher", "none", "--",
+                        sys.executable, "-c", "pass"]) == 0

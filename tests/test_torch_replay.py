@@ -46,7 +46,14 @@ _DRILL = ["--device", "cpu", "--steps", "8", "--layers", "2", "--hidden",
 @pytest.fixture(autouse=True)
 def _restore_process_state():
     """The example's routers install a SIGTERM flush and flush hooks, and
-    its AutoResume a SIGTERM latch: put them back after each test."""
+    its AutoResume a SIGTERM latch: put them back after each test. The
+    in-process drills' tiny steps run on one intra-op thread: beside the
+    other test workers' processes, torch's default of one thread a core
+    made them 5-8 times slower (152 s against 29 s for
+    ``test_nan_rollback_sigterm_resume_and_corrupt_latest`` beside six
+    busy processes on 8 cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     handler = signal.getsignal(signal.SIGTERM)
     hooks = list(port_router._FLUSH_HOOKS)
     cudnn = torch.backends.cudnn
@@ -65,6 +72,7 @@ def _restore_process_state():
         os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
     else:
         os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    torch.set_num_threads(threads)
 
 
 def _losses(records):
@@ -305,8 +313,9 @@ def test_cross_process_determinism():
     per-step fingerprints and the same crc32 of every state leaf."""
     results = []
     for _ in range(2):
-        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
+        # one intra-op thread, as the drills above (the fixture's reason)
+        env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO
+                   + os.pathsep + os.environ.get("PYTHONPATH", ""))
         proc = subprocess.run(
             [sys.executable, "-c", _DETERMINISM_CHILD], capture_output=True,
             text=True, cwd=REPO, env=env, timeout=300)
