@@ -9,7 +9,9 @@ sources include them from ``csrc/``) and the flags, so an edited source
 or header is rebuilt and an unchanged one is reused. The build runs at
 the first launch (or at :func:`build_all`, which starts one ``nvcc`` per
 source in parallel); nothing here touches CUDA when the module is
-imported.
+imported. A host library, ``csrc/<name>.cpp`` with a plain C interface
+for the CPU (the native data path, ``_native``), is built by ``g++``
+into the same cache, named the same way (:func:`host_library`).
 
 Every launch goes through :class:`Kernel`, which raises on a nonzero
 ``cudaError_t`` and counts the launch in ``Kernel.launches``, a plain
@@ -36,7 +38,9 @@ __all__ = [
     "ADAM", "FLASH_BWD_DKV", "FLASH_BWD_DQ", "FLASH_FWD", "KERNELS",
     "LAYER_NORM_BWD", "LAYER_NORM_BWD_LOOP", "LAYER_NORM_FWD",
     "NORM_FWD_LOOP", "RMS_NORM_BWD", "RMS_NORM_FWD", "SUMSQ_FLAT", "Kernel",
-    "build_all", "dtype_code", "launch_counts", "reset_launch_counts",
+    "build_all", "dtype_code", "host_library", "host_library_path",
+    "launch_counts", "library_load_seconds", "library_loads",
+    "reset_launch_counts",
     "resolve_device", "wants_grad",
 ]
 
@@ -118,9 +122,51 @@ def _finish_build(proc: subprocess.Popen) -> None:
     os.replace(proc.tmp, proc.out)  # type: ignore[attr-defined]
 
 
+#: the host library's g++ flags (``csrc/<name>.cpp``, :func:`host_library`)
+_HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
+
+def _gxx() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found on PATH: the native host library "
+                           "(csrc/apex_tpu_C.cpp) is built with it")
+    return path
+
+
+def host_library_path(name: str) -> Path:
+    """Where :func:`host_library` keeps ``csrc/<name>.cpp``'s build: named
+    by a hash of the source and the flags, as the kernels' libraries."""
+    h = hashlib.sha256((_CSRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join(_HOST_FLAGS).encode())
+    return _BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The host (CPU) library of ``csrc/<name>.cpp``, built with ``g++``
+    into the kernels' cache when missing (a temp file renamed into place,
+    so an interrupted or concurrent build never leaves half a library)
+    and opened. Raises when the compiler is missing or the build fails."""
+    out = host_library_path(name)
+    if not out.exists():
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_gxx(), *_HOST_FLAGS, str(_CSRC / f"{name}.cpp"), "-o",
+             str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, timeout=300)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed ({proc.returncode}):\n"
+                               f"{proc.stdout}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
+
+
 #: kernel entry points loaded (their library built or opened) in this
-#: process; the serving engine's counterpart of a compile counter
-_LIBRARY_LOADS = [0]
+#: process, and the seconds those loads took: the port's counterpart of
+#: a compile counter (``monitor.xray.compile_watch``)
+_LIBRARY_LOADS = [0, 0.0]
 
 
 def library_loads() -> int:
@@ -129,6 +175,11 @@ def library_loads() -> int:
     opens it. The serving engine loads its path's kernels in ``start()``
     and counts any later load as a steady-state violation."""
     return _LIBRARY_LOADS[0]
+
+
+def library_load_seconds() -> float:
+    """The seconds this process's kernel loads (builds included) took."""
+    return _LIBRARY_LOADS[1]
 
 
 class Kernel:
@@ -141,6 +192,7 @@ class Kernel:
 
     def _load(self):
         if self._fn is None:
+            t0 = time.perf_counter()
             path = _library_path(self.source)
             if not path.exists():
                 proc = _start_build(self.source)
@@ -151,6 +203,7 @@ class Kernel:
             fn.restype = ctypes.c_int
             self._fn = fn
             _LIBRARY_LOADS[0] += 1
+            _LIBRARY_LOADS[1] += time.perf_counter() - t0
         return self._fn
 
     def __call__(self, *args) -> None:

@@ -72,22 +72,31 @@ class AmpOptimizer:
 
     def init(self, params) -> AmpOptimizerState:
         """Masters (fp32 copies under O2), the inner state over them and
-        the scaler state(s), on the parameters' device."""
+        the scaler state(s), on the parameters' device.
+
+        The master copy and the optimizer state's build are setup wall
+        time: they run in a goodput ``init`` span (init badput in the
+        run-level ledger when a span router is registered, free
+        otherwise), as in the JAX package."""
+        from apex_tpu_torch.monitor.goodput.spans import span as _span
+
         params = _named(params)
         device = next(iter(params.values())).device
-        with torch.no_grad():
-            if self.policy.master_weights:
-                master = {n: p.detach().float().clone()
-                          for n, p in params.items()}
+        with _span("init"):
+            with torch.no_grad():
+                if self.policy.master_weights:
+                    master = {n: p.detach().float().clone()
+                              for n, p in params.items()}
+                else:
+                    master = params
+            if self.num_losses > 1:
+                scaler = tuple(self.scaler.init(device)
+                               for _ in range(self.num_losses))
             else:
-                master = params
-        if self.num_losses > 1:
-            scaler = tuple(self.scaler.init(device)
-                           for _ in range(self.num_losses))
-        else:
-            scaler = self.scaler.init(device)
-        return AmpOptimizerState(master=master, inner=self.tx.init(master),
-                                 scaler=scaler)
+                scaler = self.scaler.init(device)
+            return AmpOptimizerState(master=master,
+                                     inner=self.tx.init(master),
+                                     scaler=scaler)
 
     def _scaler_state(self, state: AmpOptimizerState, loss_id: int
                       ) -> LossScalerState:

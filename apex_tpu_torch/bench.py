@@ -11,14 +11,23 @@ the mean softmax cross-entropy, the backward, and ``fused_sgd(lr=0.1,
 momentum=0.9, weight_decay=1e-4)`` applied to the fp32 parameters, on one
 fixed batch of seeded random images and labels. O2 computes in bf16 over
 fp32 parameters; O0 is the same step in fp32, with TF32 off in cuDNN and
-cuBLAS for its run (restored after). cuDNN's autotuner is on
-(``cudnn.benchmark``, as the ImageNet example sets it) for both.
+cuBLAS for its run (restored after). cuDNN's autotuner
+(``cudnn.benchmark``, as the ImageNet example sets it) is on for O2 and
+off for O0: on an H100 80GB HBM3 (700 W) its search over the fp32
+convolutions took 69.3 s and found nothing faster than cuDNN's own
+choice (0.43 s a step either way), while O2's took 20.0 s and saves
+about 4% a step.
 
-After ``--warmup`` steps, ``--steps`` steps are timed with CUDA events
-around the whole run (no host sync inside it); on the CPU, which only the
-tests ask for, with the host clock. Prints one JSON line: each mode's
-images/s, step ms, peak memory and losses, O2's ratio to O0, the batch,
-and the device with its power limit. Raises if a loss or the parameter
+After ``--warmup`` steps, a step is timed by its slope, as the JAX
+bench times it (``utils.benchmarking.chained_seconds_per_iter``): chains
+of 1 and of 1 + ``--steps`` steps in a row, each best of 2 runs that end
+in a ``torch.cuda.synchronize`` and the fetch of the chain's losses, and
+the difference of the two over ``--steps`` (no host sync inside a
+chain; on the CPU, which only the tests ask for, the same on the host's
+clock). Prints one JSON line: each mode's images/s, step ms, peak memory
+and losses (the warm-up steps' and the longest chain's last
+``--steps``), O2's ratio to O0, the batch, and the device with its power
+limit. Raises if a loss or the parameter
 sum is not finite. ``--profile-steps N`` (on the card) runs N more steps
 of each mode under ``torch.profiler`` and adds the device time by kernel
 (the top 10) and the device's idle share to the mode's record.
@@ -28,7 +37,6 @@ import argparse
 import json
 import math
 import subprocess
-import time
 from typing import Dict, List
 
 import torch
@@ -36,6 +44,7 @@ import torch
 from apex_tpu_torch._kernels import resolve_device
 from apex_tpu_torch.models import resnet
 from apex_tpu_torch.optimizers import fused_sgd
+from apex_tpu_torch.utils.benchmarking import chained_seconds_per_iter
 from apex_tpu_torch.utils.profiling import profile_device
 
 __all__ = ["MODELS", "main", "measure", "train_step"]
@@ -82,19 +91,21 @@ def measure(dtype: torch.dtype, model_name: str = "resnet50",
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     losses: List[torch.Tensor] = [step() for _ in range(warmup)]
-    if cuda:
-        torch.cuda.synchronize(dev)
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        e0.record()
-    t0 = time.perf_counter()
-    losses += [step() for _ in range(steps)]
-    if cuda:
-        e1.record()
-        torch.cuda.synchronize(dev)
-        ms = e0.elapsed_time(e1) / steps
-    else:
-        ms = (time.perf_counter() - t0) * 1e3 / steps
-    losses = [float(v) for v in losses]
+
+    def build(k):
+        # k steps in a row, each on the parameters the last one updated;
+        # their losses are the chain's output (one small fetch)
+        return lambda: torch.stack([step() for _ in range(k)])
+
+    # the slope between chains of 1 and 1 + steps steps, best of 2 each
+    # (as the JAX bench times its scan): the host's dispatch, the
+    # synchronisation and the fetch cancel
+    sec, (chain,) = chained_seconds_per_iter(
+        build, reps=2, target_signal=0.4, max_span=steps,
+        return_output=True)
+    ms = sec * 1e3
+    losses = [float(v) for v in losses] + [float(v)
+                                           for v in chain[-steps:]]
     psum = float(sum(p.detach().double().sum() for p in model.parameters()))
     if not all(map(math.isfinite, losses + [psum])):
         raise FloatingPointError(f"diverged: losses {losses}, parameter sum "
@@ -124,21 +135,21 @@ def run(model_name="resnet50", image_size=224, batch=256, warmup=3,
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], check=True, capture_output=True,
             text=True).stdout.strip()
-        rec["timer"] = "cuda events"
+        rec["timer"] = "slope of chained steps, cuda synchronize"
     else:
-        rec["device"], rec["timer"] = "cpu", "host clock"
+        rec["device"], rec["timer"] = "cpu", "slope of chained steps"
     flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.benchmark = True
-    rec["cudnn_benchmark"] = True
     try:
         for mode, dtype in MODES.items():
             tf32 = mode != "O0"
+            torch.backends.cudnn.benchmark = mode != "O0"
             torch.backends.cudnn.allow_tf32 = tf32 and flags[1]
             torch.backends.cuda.matmul.allow_tf32 = tf32 and flags[2]
             rec[mode] = measure(dtype, model_name, image_size, batch, warmup,
                                 steps, dev, seed, profile_steps)
             rec[mode]["tf32"] = torch.backends.cudnn.allow_tf32
+            rec[mode]["cudnn_benchmark"] = torch.backends.cudnn.benchmark
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
     finally:

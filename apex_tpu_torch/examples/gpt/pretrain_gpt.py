@@ -1,4 +1,4 @@
-"""Pretrain a GPT on the synthetic token stream (the core loop of the JAX
+"""Pretrain a GPT on a memory-mapped token file (the core loop of the JAX
 package's examples/gpt/pretrain_gpt.py).
 
     python -m apex_tpu_torch.examples.gpt.pretrain_gpt --steps 20
@@ -16,8 +16,11 @@ package's examples/gpt/pretrain_gpt.py).
         --micro-batch 4 --global-batch 16 --steps 4
 
 Builds the step with ``build_gpt_training`` (resilience/replay/targets.py),
-reads the JAX package's synthetic stream (its 200,000 tokens, or as many
-as the run's batches need) in order through
+reads the token file at ``--corpus PREFIX`` (``data.write_token_file``'s
+format) or by default the JAX package's synthetic corpus written to a
+temp dir (its 200,000 tokens, or as many as the run's batches need),
+memory-mapped through ``data.IndexedTokenDataset`` with each batch
+gathered by the native host library (``_native``), in order through
 ``MegatronPretrainingSampler`` (``global_batch`` samples a step, resumed
 at ``step * global_batch``) and ``RobustBatches`` (``--data-skip-budget``
 failed loads skipped and counted as ``data_skipped``), and prints one
@@ -58,7 +61,10 @@ watermarks into ``kind="memory"`` records each interval and guards the
 step with ``oom_guard``. On the card rank 0 prints one more JSON line,
 before the others: ``{"telemetry": ...}``, the run's host fetches,
 intervals, profiler captures, stalls, HBM summary and kernel launch
-counts. Each step is timed by ``utils.Timers`` (a ``kind="timer"``
+counts, and the recompile sentinel's records
+(``monitor.xray.CompileWatcher``: a ``kind="compile"`` record for each
+step that loaded a kernel, ``recompile`` true after the first step).
+Each step is timed by ``utils.Timers`` (a ``kind="timer"``
 record each interval) and marked by ``utils.step_annotation``
 (``ProfilerStep#N`` in a profiler trace).
 
@@ -125,6 +131,7 @@ import torch.distributed as dist
 from apex_tpu_torch import _kernels
 from apex_tpu_torch import monitor
 from apex_tpu_torch.data import (
+    IndexedTokenDataset,
     LMDataset,
     MegatronPretrainingSampler,
     RobustBatches,
@@ -182,6 +189,10 @@ def corpus_tokens(args) -> int:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--corpus", default=None,
+                   help="token file prefix (see apex_tpu_torch.data."
+                        "write_token_file); default: a synthetic corpus in "
+                        "a temp dir")
     p.add_argument("--vocab", type=int, default=512)
     p.add_argument("--seq-len", type=int, default=128)
     p.add_argument("--layers", type=int, default=4)
@@ -435,7 +446,8 @@ def _run(args, device, distributed):
     state = training.init_state()
     bag = training.init_bag()
     n_tokens = corpus_tokens(args)
-    lm = LMDataset(synthetic_corpus(args.vocab, n_tokens), args.seq_len)
+    prefix = args.corpus or synthetic_corpus(args.vocab, n_tokens)
+    lm = LMDataset(IndexedTokenDataset(prefix), args.seq_len)
     if len(lm) < cfg.global_batch:
         raise SystemExit(f"the stream holds {len(lm)} samples, fewer than "
                          f"one global batch ({cfg.global_batch})")
@@ -448,8 +460,10 @@ def _run(args, device, distributed):
             router=router)
         recorder.header(
             run_id, "gpt", config=cfg.to_json(),
-            corpus={"synthetic": {"vocab": args.vocab,
-                                  "n_tokens": n_tokens}},
+            corpus={"prefix": prefix,
+                    **({} if args.corpus
+                       else {"synthetic": {"vocab": args.vocab,
+                                           "n_tokens": n_tokens}})},
             devices=world, steps=args.steps, **guard_flags)
     # chaos drill: corrupt the newest checkpoint BEFORE the restore,
     # which must fall back to the previous step that verifies
@@ -576,6 +590,9 @@ def _run(args, device, distributed):
     # seed the ring so an anomaly before the first cadence point can
     # still roll back instead of halting
     mgr.buffer.snapshot(step0, state.as_tuple())
+    # recompile sentinel: always on; a kernel loaded after the first step
+    # escaped the warm-up, and every such step pays it
+    compile_watcher = monitor.xray.CompileWatcher(router=router)
     init_span.close()
 
     records = []
@@ -745,6 +762,9 @@ def _run(args, device, distributed):
                     f"{decision.device_count}, restore step "
                     f"{decision.restore_step})", flush=True)
                 break
+        # compile accounting last in the iteration: the first step's
+        # kernel loads land in its bucket (warm-up, not a recompile)
+        compile_watcher.on_step(step_i)
         step_i += 1
     shutdown_span = goodput.begin_span("shutdown", step=step_i)
     if mgr.events:
@@ -782,6 +802,8 @@ def _run(args, device, distributed):
         "peak_flops": peak_flops,
         "flops_per_step": step_flops,
         "launch_counts": _kernels.launch_counts(),
+        "compiles": [{k: r[k] for k in ("step", "compiles", "recompile")}
+                     for r in compile_watcher.records],
     }
     if hbm_mon is not None:
         hs = hbm_mon.summary()

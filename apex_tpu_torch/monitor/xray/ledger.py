@@ -1,0 +1,274 @@
+"""Collective-traffic ledger: byte accounting of the port's collectives
+(counterpart of apex_tpu/monitor/xray/ledger.py).
+
+Every collective of the port goes through ``parallel.parallel_state``'s
+helpers (``all_reduce``, ``all_gather``, ``reduce_scatter``,
+``all_to_all`` and the pipeline's ``p2p``), and each of them records
+itself here. Recording is free when no ledger is active (one check of a
+thread-local list a call).
+
+Under an active :func:`comms_ledger` context each helper records, per
+tensor: op kind under the JAX package's names (``psum``/``pmax`` for an
+all-reduce of that op, ``all_gather``, ``psum_scatter`` for a
+reduce-scatter, ``all_to_all``, ``ppermute`` for each point-to-point
+send), the mesh axis its process group lays out (``tp``, ``dp``, ``pp``
+or ``cp``; ``world`` for a sub-world's group), the axis size, shape,
+dtype, payload bytes and the ring-algorithm wire bytes, by the JAX
+ledger's conventions:
+
+- ``bytes``     — the operand payload: ``numel * itemsize`` of this
+  rank's input (for all_gather the local shard; for psum_scatter the
+  full pre-scatter tensor).
+- ``ici_bytes`` — per-rank wire traffic of the bandwidth-optimal ring:
+  psum/pmax ``2(n-1)/n * bytes``, all_gather ``(n-1) * bytes``,
+  psum_scatter and all_to_all ``(n-1)/n * bytes``, ppermute ``bytes``.
+- ``count``     — 1, multiplied by every enclosing :func:`scaled` region.
+
+A collective over a group of one rank moves nothing and is not recorded,
+as in JAX.
+
+WHAT IS CAPTURED: the JAX ledger records while jax TRACES, so it sees a
+step's forward collectives and every ``custom_vjp`` backward rule, but
+not the collectives jax's transpose rules synthesize (the reversed
+``ppermute`` edges of a differentiated pipeline scan). This ledger is
+eager: a helper records when it RUNS, so it sees every collective the
+step executed, the backward's included, once per execution; a branch
+the step did not take records nothing (JAX traces both sides of a
+``lax.cond``). ``parallel_state.STAGED`` is a different count: the gloo
+transport's host copies (both directions, every staged collective,
+broadcasts included), where this ledger counts the logical payload.
+The JAX ledger's wire roofline (``ici_bandwidth_per_device``,
+``roofline_seconds``, ``ici_seconds``) has no counterpart yet: the
+port's ranks share one card and talk over gloo through the host, so no
+link speed bounds the traffic counted here.
+:func:`predict_comms` (JAX: an ``eval_shape`` trace) runs the function
+once under a fresh ledger.
+"""
+
+import contextlib
+import dataclasses
+import math
+import threading
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+__all__ = [
+    "CollectiveEntry",
+    "CommsLedger",
+    "axis_of",
+    "comms_ledger",
+    "muted",
+    "predict_comms",
+    "record",
+    "scaled",
+]
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveEntry:
+    """One recorded collective (see the module docstring for the byte
+    conventions)."""
+
+    op: str
+    axis: str
+    axis_size: int
+    shape: Tuple[int, ...]
+    dtype: str
+    bytes: int
+    ici_bytes: int
+    count: int = 1
+
+    @property
+    def total_bytes(self) -> int:
+        return self.bytes * self.count
+
+    @property
+    def total_ici_bytes(self) -> int:
+        return self.ici_bytes * self.count
+
+
+class CommsLedger:
+    """Collectives recorded under one :func:`comms_ledger` context."""
+
+    def __init__(self):
+        self.entries: List[CollectiveEntry] = []
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def filter(self, op: Optional[str] = None, axis: Optional[str] = None):
+        """Entries matching ``op`` and/or ``axis`` (None = any)."""
+        return [
+            e for e in self.entries
+            if (op is None or e.op == op) and (axis is None or e.axis == axis)
+        ]
+
+    def total_bytes(self, op=None, axis=None) -> int:
+        return sum(e.total_bytes for e in self.filter(op, axis))
+
+    def total_ici_bytes(self, op=None, axis=None) -> int:
+        return sum(e.total_ici_bytes for e in self.filter(op, axis))
+
+    def per_axis(self) -> Dict[str, Dict[str, int]]:
+        """``{axis: {bytes, ici_bytes, calls, axis_size}}`` aggregates."""
+        out: Dict[str, Dict[str, int]] = {}
+        for e in self.entries:
+            d = out.setdefault(
+                e.axis,
+                {"bytes": 0, "ici_bytes": 0, "calls": 0,
+                 "axis_size": e.axis_size},
+            )
+            d["bytes"] += e.total_bytes
+            d["ici_bytes"] += e.total_ici_bytes
+            d["calls"] += e.count
+        return out
+
+    def per_op(self, axis: Optional[str] = None) -> Dict[str, Dict[str, int]]:
+        out: Dict[str, Dict[str, int]] = {}
+        for e in self.filter(axis=axis):
+            d = out.setdefault(e.op, {"bytes": 0, "ici_bytes": 0, "calls": 0})
+            d["bytes"] += e.total_bytes
+            d["ici_bytes"] += e.total_ici_bytes
+            d["calls"] += e.count
+        return out
+
+    def to_records(self, step: int = 0) -> List[dict]:
+        """One ``kind="comms"`` record per mesh axis (the MetricRouter
+        schema; route with ``router.emit``)."""
+        from apex_tpu_torch.monitor.router import make_record
+
+        return [make_record(
+            "comms", step, axis=axis, axis_size=d["axis_size"],
+            bytes=d["bytes"], ici_bytes=d["ici_bytes"], calls=d["calls"])
+            for axis, d in sorted(self.per_axis().items())]
+
+    def summary(self) -> str:
+        """Human-readable per-axis/per-op breakdown."""
+        if not self.entries:
+            return "comms ledger: no collectives recorded"
+        lines = ["comms ledger (per step):"]
+        for axis, d in sorted(self.per_axis().items()):
+            lines.append(
+                f"  axis {axis!r} (n={d['axis_size']}): "
+                f"{d['bytes'] / 2**20:.2f} MiB payload, "
+                f"{d['ici_bytes'] / 2**20:.2f} MiB wire, "
+                f"{d['calls']} calls"
+            )
+            for op, od in sorted(self.per_op(axis).items()):
+                lines.append(
+                    f"    {op:12s} {od['calls']:5d} calls "
+                    f"{od['bytes'] / 2**20:9.2f} MiB"
+                )
+        return "\n".join(lines)
+
+
+class _State(threading.local):
+    def __init__(self):
+        self.ledgers: List[CommsLedger] = []
+        self.multiplier = 1
+
+
+_STATE = _State()
+
+
+@contextlib.contextmanager
+def comms_ledger():
+    """Activate a :class:`CommsLedger` for the collectives that run
+    within. Nesting is supported (each active ledger records)."""
+    led = CommsLedger()
+    _STATE.ledgers.append(led)
+    try:
+        yield led
+    finally:
+        _STATE.ledgers.remove(led)
+
+
+@contextlib.contextmanager
+def muted():
+    """Suppress recording within (collectives that are no part of the
+    step being accounted, such as a probe's)."""
+    with scaled(0):
+        yield
+
+
+@contextlib.contextmanager
+def scaled(n: int):
+    """Mark a region whose collectives stand for ``n`` executions each:
+    entries recorded within get ``count`` multiplied by ``n``; nested
+    regions multiply."""
+    n = int(n)
+    if n < 0:
+        raise ValueError(f"scaled() multiplier must be >= 0, got {n}")
+    prev = _STATE.multiplier
+    _STATE.multiplier = prev * n
+    try:
+        yield
+    finally:
+        _STATE.multiplier = prev
+
+
+def predict_comms(fn, *args, **kwargs) -> CommsLedger:
+    """Runs ``fn(*args, **kwargs)`` once under a fresh ledger and returns
+    it (JAX's traces the function abstractly; eager torch has no abstract
+    run, so the call does its work)."""
+    with comms_ledger() as led:
+        fn(*args, **kwargs)
+    return led
+
+
+# -- recording core ---------------------------------------------------------
+
+
+def axis_of(group) -> str:
+    """The mesh axis name of ``group`` in the present layout: ``tp``,
+    ``dp``, ``pp`` or ``cp``; ``world`` for a sub-world's group (or the
+    default group); ``group`` for any other."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import parallel_state as ps
+
+    axes = ps._AXES
+    if axes is not None:
+        for name in ps.AXIS_ORDER:
+            if getattr(axes, f"{name}_group") is group:
+                return name
+        if axes.world_group is not None and group is axes.world_group:
+            return "world"
+    if dist.is_initialized() and group is dist.group.WORLD:
+        return "world"
+    return "group"
+
+
+def _ici_bytes(op: str, nbytes: int, n: int, nonempty: bool = True) -> int:
+    if n <= 1 or not nonempty:
+        return 0
+    if op in ("psum", "pmean", "pmax", "pmin"):
+        return math.ceil(2 * (n - 1) * nbytes / n)
+    if op == "all_gather":
+        return (n - 1) * nbytes
+    if op in ("psum_scatter", "all_to_all"):
+        return math.ceil((n - 1) * nbytes / n)
+    return nbytes  # ppermute: the busiest rank ships its payload once
+
+
+def record(op: str, x, group, *, nonempty: bool = True) -> None:
+    """Record ``x`` (a tensor, or a list or tuple of them) as one ``op``
+    occurrence over ``group``. No-op when no ledger is active or the
+    group has one rank or none."""
+    if not _STATE.ledgers or _STATE.multiplier == 0:
+        return
+    from apex_tpu_torch.parallel import parallel_state as ps
+
+    n = ps.group_size(group)
+    if n <= 1:
+        return
+    axis = axis_of(group)
+    mult = _STATE.multiplier
+    for t in (x if isinstance(x, (list, tuple)) else (x,)):
+        nbytes = t.numel() * t.element_size()
+        entry = CollectiveEntry(
+            op=op, axis=axis, axis_size=n, shape=tuple(t.shape),
+            dtype=str(t.dtype).replace("torch.", ""), bytes=nbytes,
+            ici_bytes=_ici_bytes(op, nbytes, n, nonempty), count=mult)
+        for led in _STATE.ledgers:
+            led.entries.append(entry)

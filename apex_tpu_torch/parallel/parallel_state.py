@@ -25,9 +25,11 @@ moves CUDA tensors through host memory (:func:`staged_through_host`).
 Every collective of the port goes through this module's helpers
 (:func:`all_reduce`, :func:`all_gather`, :func:`reduce_scatter`,
 :func:`broadcast`, :func:`all_to_all`), which return their input
-unchanged where there is no process group. A group of size one still
-runs its collective, so a world of one under NCCL runs the NCCL calls it
-would run at scale.
+unchanged where there is no process group; all but the broadcast (and
+each send of :func:`p2p`) record themselves in the collective-traffic
+ledger (``monitor.xray.ledger``) when one is active. A group of size one
+still runs its collective, so a world of one under NCCL runs the NCCL
+calls it would run at scale.
 
 Without ``initialize_model_parallel`` (or without a process group) every
 getter answers for a world of one, as the JAX package's do with no mesh.
@@ -439,11 +441,20 @@ def staged_through_host(group, collective: Callable, out: torch.Tensor,
     return out
 
 
+def _record(op: str, x, group) -> None:
+    """The collective-traffic ledger's record of this call (a no-op
+    unless a ``monitor.xray.ledger.comms_ledger`` is active)."""
+    from apex_tpu_torch.monitor.xray import ledger
+
+    ledger.record(op, x, group)
+
+
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """Elementwise sum (or ``op="max"``) of ``x`` over ``group``, as a new
     tensor; ``x`` itself when there is no group."""
     if group is None:
         return x
+    _record({"sum": "psum", "max": "pmax"}[op], x, group)
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     return staged_through_host(
         group, lambda o: dist.all_reduce(o, op=red, group=group),
@@ -454,6 +465,7 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in rank order."""
     if group is None:
         return x
+    _record("all_gather", x, group)
     n = group_size(group)
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
@@ -472,6 +484,7 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     if xt.shape[0] % n:
         raise ValueError(f"dim {dim} ({xt.shape[0]}) does not divide by "
                          f"the group's {n} ranks")
+    _record("psum_scatter", x, group)
     out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
     staged_through_host(
         group, lambda o, i: _REDUCE_SCATTER(o, i, group=group), out, xt)
@@ -488,6 +501,7 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     if x.shape[0] % n:
         raise ValueError(f"dim 0 ({x.shape[0]}) does not divide by the "
                          f"group's {n} ranks")
+    _record("all_to_all", x, group)
     xt = x.contiguous()
     out = torch.empty_like(xt)
     staged_through_host(
@@ -546,6 +560,7 @@ def p2p(group, sends=(), recvs=()) -> list:
     and is copied to the card; each counts in ``STAGED``."""
     staged = _staged(group)
     for t, dst, tag in sends:
+        _record("ppermute", t, group)
         t = t.detach().contiguous()
         if staged and t.is_cuda:
             t = torch.empty(t.shape, dtype=t.dtype,

@@ -146,18 +146,20 @@ def campaign_config(**overrides):
 
 
 def campaign_corpus(cfg, steps: int = 8, slack: int = 16):
-    """``(lm, corpus)``: the seeded synthetic stream as an ``LMDataset``
-    and its journal-header recipe (a replay regenerates it): the JAX
-    campaign's 20,000 tokens, or as many as ``steps`` plus a probation's
-    ``slack`` global batches need, whichever is more (the stream is
-    prefix-stable)."""
-    from apex_tpu_torch.data import LMDataset
+    """``(lm, corpus)``: the seeded synthetic corpus, written as a token
+    file (``synthetic_corpus``), as an ``LMDataset`` over it, and its
+    journal-header entry (``{"prefix": ...}``, which a replay reads): the
+    JAX campaign's 20,000 tokens, or as many as ``steps`` plus a
+    probation's ``slack`` global batches need, whichever is more (the
+    stream is prefix-stable)."""
+    from apex_tpu_torch.data import IndexedTokenDataset, LMDataset
     from apex_tpu_torch.resilience.replay.targets import synthetic_corpus
 
     n_tokens = max(CORPUS_TOKENS,
                    (steps + slack) * cfg.global_batch * cfg.seq_len + 1)
-    lm = LMDataset(synthetic_corpus(cfg.vocab, n_tokens), cfg.seq_len)
-    return lm, {"synthetic": {"vocab": cfg.vocab, "n_tokens": n_tokens}}
+    prefix = synthetic_corpus(cfg.vocab, n_tokens)
+    return LMDataset(IndexedTokenDataset(prefix), cfg.seq_len), {
+        "prefix": prefix}
 
 
 class TrainingCache:

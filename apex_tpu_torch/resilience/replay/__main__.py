@@ -42,8 +42,9 @@ def _check(failures, ok, label):
         failures.append(label)
 
 
-def _record_run(training, lm, ckpt_dir, journal_file, cfg, steps,
-                save_interval, flags, bitflip_step=None, bitflip_seed=1):
+def _record_run(training, lm, ckpt_dir, journal_file, cfg, corpus_prefix,
+                steps, save_interval, flags, bitflip_step=None,
+                bitflip_seed=1):
     """A miniature recording loop: the example's journal wiring without
     its CLI/telemetry shell. Returns (flip_info, losses)."""
     from apex_tpu_torch.resilience import chaos, integrity
@@ -56,8 +57,7 @@ def _record_run(training, lm, ckpt_dir, journal_file, cfg, steps,
     rec = FlightRecorder(journal_file)
     rec.header(
         "selftest", "gpt", config=cfg.to_json(),
-        corpus={"synthetic": {"vocab": cfg.vocab, "n_tokens": 4_000}},
-        **flags,
+        corpus={"prefix": corpus_prefix}, **flags,
     )
     state = training.init_state()
     rec.anchor(0, init=True)
@@ -93,7 +93,7 @@ def _record_run(training, lm, ckpt_dir, journal_file, cfg, steps,
 
 def selftest(directory=None, device="cuda") -> int:
     from apex_tpu_torch._kernels import resolve_device
-    from apex_tpu_torch.data import LMDataset
+    from apex_tpu_torch.data import IndexedTokenDataset, LMDataset
     from apex_tpu_torch.resilience.replay.bisect import (
         bisect_divergence,
         format_divergence,
@@ -126,8 +126,9 @@ def selftest(directory=None, device="cuda") -> int:
         micro_batch=1, global_batch=8, spike_warmup=4,
         collect_layer_rms=True,
     )
+    corpus = synthetic_corpus(cfg.vocab, n_tokens=4_000)
     training = build_gpt_training(cfg, device=device)
-    lm = LMDataset(synthetic_corpus(cfg.vocab, n_tokens=4_000), cfg.seq_len)
+    lm = LMDataset(IndexedTokenDataset(corpus), cfg.seq_len)
     steps, save_interval = 6, 2
 
     def build_context(journal):
@@ -140,7 +141,7 @@ def selftest(directory=None, device="cuda") -> int:
     clean_journal = os.path.join(clean_dir, "replay-journal.jsonl")
     os.makedirs(clean_dir, exist_ok=True)
     _, losses = _record_run(training, lm, clean_dir, clean_journal, cfg,
-                            steps, save_interval, flags)
+                            corpus, steps, save_interval, flags)
     journal = load_journal(clean_journal)
     _check(failures, len(journal.steps) == steps and len(journal.anchors)
            == 1 + steps // save_interval,
@@ -172,7 +173,7 @@ def selftest(directory=None, device="cuda") -> int:
     flip_journal = os.path.join(flip_dir, "replay-journal.jsonl")
     os.makedirs(flip_dir, exist_ok=True)
     flip_info, flip_losses = _record_run(
-        training, lm, flip_dir, flip_journal, cfg, steps,
+        training, lm, flip_dir, flip_journal, cfg, corpus, steps,
         save_interval, flags, bitflip_step=3,
     )
     fj = load_journal(flip_journal)
@@ -210,7 +211,7 @@ def selftest(directory=None, device="cuda") -> int:
     edge_journal = os.path.join(edge_dir, "replay-journal.jsonl")
     os.makedirs(edge_dir, exist_ok=True)
     edge_info, _ = _record_run(
-        training, lm, edge_dir, edge_journal, cfg, steps,
+        training, lm, edge_dir, edge_journal, cfg, corpus, steps,
         save_interval, flags, bitflip_step=steps - 1,
     )
     ej = load_journal(edge_journal)

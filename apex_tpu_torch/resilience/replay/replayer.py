@@ -334,23 +334,24 @@ class GPTReplayContext:
         self.close()
 
     def _build_corpus(self, corpus: dict):
-        from apex_tpu_torch.data import LMDataset
+        from apex_tpu_torch.data import IndexedTokenDataset, LMDataset
 
+        prefix = corpus.get("prefix")
+        if prefix and os.path.exists(prefix + ".bin"):
+            return LMDataset(IndexedTokenDataset(prefix), self.cfg.seq_len)
         synth = corpus.get("synthetic")
         if synth:
             # regenerate the seeded synthetic stream; every batch is
             # crc-verified against the journal, so a generator drift
             # fails loudly instead of mis-attributing a divergence
-            tokens = synthetic_corpus(
+            prefix = synthetic_corpus(
                 int(synth.get("vocab", self.cfg.vocab)),
                 int(synth.get("n_tokens", 200_000)),
             )
-            return LMDataset(tokens, self.cfg.seq_len)
+            return LMDataset(IndexedTokenDataset(prefix), self.cfg.seq_len)
         raise ReplayError(
-            f"journal corpus unavailable: prefix={corpus.get('prefix')!r} "
-            f"is a token file, which the port reads only once the indexed "
-            f"dataset's file format is ported, and no synthetic recipe "
-            f"was recorded"
+            f"journal corpus unavailable: prefix={prefix!r} missing and "
+            f"no synthetic recipe recorded"
         )
 
     @property

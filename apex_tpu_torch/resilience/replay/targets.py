@@ -39,6 +39,8 @@ to the mean over tp and then over dp, and its square root.
 """
 
 import dataclasses
+import os
+import tempfile
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
@@ -80,13 +82,21 @@ METRIC_SPEC = {
 }
 
 
-def synthetic_corpus(vocab: int, n_tokens: int = 200_000) -> np.ndarray:
-    """The JAX package's deterministic synthetic token stream (a seeded
-    markov-ish walk, so the LM has structure to learn), as an int32
-    array; no file is written."""
+def synthetic_corpus(vocab: int, n_tokens: int = 200_000) -> str:
+    """The JAX package's deterministic synthetic token corpus (a seeded
+    markov-ish walk, so the LM has structure to learn), written as an
+    int32 token file in a new temp dir; returns its prefix (read it with
+    ``data.IndexedTokenDataset``). The replayer regenerates a recording
+    run's data from the recipe in its journal header: same seed, same
+    stream, verified per step by the journaled ``batch_crc``."""
+    from apex_tpu_torch.data import write_token_file
+
+    prefix = os.path.join(tempfile.mkdtemp(prefix="apex_torch_corpus_"),
+                          "synthetic")
     rng = np.random.RandomState(0)
     toks = np.cumsum(rng.randint(1, 5, size=(n_tokens,)), dtype=np.int64) % vocab
-    return toks.astype(np.int32)
+    write_token_file(prefix, toks.astype(np.int32))
+    return prefix
 
 
 @dataclasses.dataclass(frozen=True)

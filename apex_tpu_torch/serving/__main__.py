@@ -66,6 +66,36 @@ def tiny_config():
     )
 
 
+class _HeldClock:
+    """The engine's clock (``time_fn``): the host's monotonic clock,
+    which the deadline checks hold still and step by hand, so that where
+    a deadline lands does not depend on how loaded the host is. It never
+    runs backwards: released, it goes on from the instant it was held
+    at."""
+
+    def __init__(self):
+        import time
+
+        self._now = time.monotonic
+        self._offset = 0.0
+        self._held = None
+
+    def __call__(self) -> float:
+        if self._held is not None:
+            return self._held
+        return self._now() + self._offset
+
+    def hold(self) -> None:
+        self._held = self()
+
+    def step(self, dt: float) -> None:
+        self._held += dt
+
+    def release(self) -> None:
+        self._offset = self._held - self._now()
+        self._held = None
+
+
 def _identity_holds(rep) -> bool:
     lhs = rep.productive_s
     for phase in sorted(rep.badput_s):
@@ -86,7 +116,7 @@ def _finish(failures, name: str) -> int:
 
 
 def selftest(device="cuda", model=None) -> int:
-    import time as _time
+    import dataclasses
 
     import numpy as np
     import torch
@@ -120,13 +150,16 @@ def selftest(device="cuda", model=None) -> int:
     mem = MemorySink(kinds=("request", "run", "span"))
     router = MetricRouter([mem])
     run_header(router, "serving-selftest")
-    plan = FaultPlan(slow_decode_steps={40}, slow_decode_s=0.3)
+    # the TTFT budget is armed on an engine of its own (section 9): its
+    # estimate is the measured prefill and decode times, which a loaded
+    # host inflates enough to shed the other checks' requests
     cfg = ServingConfig(
         lanes=3, block_size=8, num_blocks=4, max_seq_len=32,
-        max_queue_depth=4, ttft_budget_s=0.5, seed=0, collect_logits=True,
+        max_queue_depth=4, seed=0, collect_logits=True,
     )
+    clock = _HeldClock()
     eng = ServingEngine(model, cfg, device=device, router=router,
-                        fault_plan=plan)
+                        time_fn=clock)
     print(f"serving selftest on {device} (pool {cfg.num_blocks}x"
           f"{cfg.block_size})", flush=True)
     eng.start()
@@ -169,8 +202,11 @@ def selftest(device="cuda", model=None) -> int:
            "all KV blocks reclaimed after completion")
 
     # -- 2. deadlines: queued and in-batch ------------------------------
+    # on the held clock, 5 ms a tick: the deadline lands mid-decode
+    # however long a tick takes on this host
+    clock.hold()
     r_q = eng.submit(prompts[0], max_new_tokens=4, deadline_s=0.0)
-    _time.sleep(0.005)
+    clock.step(0.005)
     eng.tick()
     _check(failures,
            r_q.state == "timed_out" and r_q.reason == "deadline",
@@ -179,9 +215,9 @@ def selftest(device="cuda", model=None) -> int:
     n = 0
     while not r_a.terminal and n < 200:
         eng.tick()
-        # pace the driver so the deadline lands mid-decode on any host
-        _time.sleep(0.005)
+        clock.step(0.005)
         n += 1
+    clock.release()
     _check(failures,
            r_a.state == "timed_out" and len(r_a.tokens_out) > 0,
            "in-batch request evicted at its deadline, tokens booked")
@@ -197,7 +233,7 @@ def selftest(device="cuda", model=None) -> int:
            and eng.allocator.free_blocks == cfg.num_blocks,
            "client abandon mid-decode: cancelled, blocks reclaimed")
 
-    # -- 4. admission: malformed / too_long / queue_full / ttft ---------
+    # -- 4. admission: malformed / too_long / queue_full ----------------
     bad = eng.submit(np.zeros((0,), np.int32), max_new_tokens=3)
     oov = eng.submit(np.array([999], np.int32), max_new_tokens=3)
     r_long = eng.submit(rng.randint(0, 61, size=31).astype(np.int32),
@@ -227,16 +263,6 @@ def selftest(device="cuda", model=None) -> int:
             if (r.state, r.reason) == ("rejected", "queue_full")]
     _check(failures, len(shed) == 3 and parked[1].state == "queued",
            "bounded queue sheds exactly the overflow (queue_full)")
-    # a chaos slow-decode tick inflates the measured EMAs; with the
-    # queue still deep the TTFT estimate must exceed the 0.5 s budget
-    eng._tick = 40  # land on the armed slow tick
-    eng.tick()
-    est = eng.estimated_ttft_s()
-    r_ttft = eng.submit(prompts[0], max_new_tokens=2)
-    _check(failures,
-           est is not None and est > cfg.ttft_budget_s
-           and (r_ttft.state, r_ttft.reason) == ("rejected", "ttft_budget"),
-           "TTFT budget sheds when the estimate exceeds it")
     n = 0
     while not eng.idle and n < 400:
         eng.tick()
@@ -297,6 +323,31 @@ def selftest(device="cuda", model=None) -> int:
            and report2["evicted"] == 1
            and eng2.allocator.free_blocks == cfg2.num_blocks,
            "zero-grace drain deadline-evicts and reclaims")
+
+    # -- 9. TTFT budget (fresh engine, built with the budget armed) -----
+    # a pool-filling decode parks three requests behind it; a chaos
+    # slow-decode tick (the first) sets the decode EMA to 0.3 s, so the
+    # estimate is at least 4 x 0.3 s > 0.5 s (a loaded host only adds to
+    # it). Before the first prefill there is no estimate and nothing is
+    # shed.
+    cfg3 = dataclasses.replace(cfg, ttft_budget_s=0.5)
+    eng3 = ServingEngine(model, cfg3, device=device, router=router,
+                         fault_plan=FaultPlan(slow_decode_steps={0},
+                                              slow_decode_s=0.3))
+    eng3.start()
+    waiting = ([eng3.submit(prompts[0], max_new_tokens=20)
+                for _ in range(2)]
+               + [eng3.submit(prompts[0], max_new_tokens=2)
+                  for _ in range(2)])
+    eng3.tick()
+    est = eng3.estimated_ttft_s()
+    r_ttft = eng3.submit(prompts[0], max_new_tokens=2)
+    _check(failures,
+           all(r.state != "rejected" for r in waiting)
+           and est is not None and est > cfg3.ttft_budget_s
+           and (r_ttft.state, r_ttft.reason) == ("rejected", "ttft_budget"),
+           "TTFT budget sheds when the estimate exceeds it")
+    eng3.drain(grace_s=0.0)
     router.close()
     return _finish(failures, "serving selftest")
 

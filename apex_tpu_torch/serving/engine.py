@@ -19,7 +19,10 @@ own length). Two contracts of the JAX engine take another form here:
   library is built and loaded at its first use. :meth:`start` loads
   every kernel the model's path runs (inside a ``compile`` goodput
   span), and :attr:`steady_state_compiles` counts each kernel loaded
-  after it (``_kernels.library_loads``): 0 in a healthy steady state.
+  after it, through the one recompile sentinel of the port
+  (``monitor.xray.compile_watch.CompileWatcher`` over
+  ``_kernels.library_loads``, as the JAX engine's): 0 in a healthy
+  steady state.
 - **Donation.** The pool is written in place: ``k_pool`` and ``v_pool``
   keep their storage across ticks and across :meth:`adopt`, and no
   second pool is ever allocated.
@@ -243,7 +246,7 @@ class ServingEngine:
         self._prefill_ema: Optional[float] = None
         self._decode_ema: Optional[float] = None
         self._steady_compiles = 0
-        self._loads_seen: Optional[int] = None
+        self._compile_watch = None
 
         B, MB = config.lanes, config.max_blocks_per_lane
         self._tables = np.full((B, MB), config.num_blocks, np.int64)
@@ -264,7 +267,9 @@ class ServingEngine:
             if self.device.type == "cuda":
                 for k in path_kernels(self.model):
                     k._load()
-        self._loads_seen = _kernels.library_loads()
+        from apex_tpu_torch.monitor.xray.compile_watch import CompileWatcher
+
+        self._compile_watch = CompileWatcher(router=self.router)
         self._started = True
         cfg = self.config
         logger.info("serving engine ready: %d lanes, %d blocks x %d tokens",
@@ -282,20 +287,19 @@ class ServingEngine:
         return self._steady_compiles
 
     def _watch_compiles(self, t: int) -> None:
-        loads = _kernels.library_loads()
-        if self._loads_seen is not None and loads > self._loads_seen:
-            self._steady_compiles += loads - self._loads_seen
+        rec = self._compile_watch.on_step(t)
+        if rec is not None:
+            self._steady_compiles += int(rec["compiles"])
             logger.warning("serving steady-state kernel load at tick %d: "
                            "a kernel escaped start()", t)
-        self._loads_seen = loads
 
     def acknowledge_compiles(self) -> None:
-        """Re-anchor the load counter after a booked external burst: the
-        count is process-wide, so a fleet starting a new replica (its
+        """Re-anchor the compile watcher after a booked external burst:
+        the count is process-wide, so a fleet starting a new replica (its
         own ``compile`` span) would otherwise land on every survivor's
         violation counter."""
-        if self._started:
-            self._loads_seen = _kernels.library_loads()
+        if self._compile_watch is not None:
+            self._compile_watch.rebaseline()
 
     # -- admission ----------------------------------------------------------
 

@@ -112,15 +112,27 @@ def jobs_worker(rank: int, world_size: int, jobs: Sequence) -> List[Any]:
     function, its extra arguments), one after another in one world, with
     ``parallel_state``'s groups destroyed after each; returns their
     results in order. One spawned world serves rank functions of several
-    modules, so a run pays the processes' start once."""
+    modules, so a run pays the processes' start once. Each job's cached
+    device memory goes back to the card when it ends (worlds may share
+    one card), and rank 0 writes each job's seconds to standard error."""
     import importlib
+    import sys
+
+    import torch
 
     from apex_tpu_torch.parallel import parallel_state
 
     out = []
     for name, args in jobs:
         module, fn = name.split(":")
+        t0 = time.perf_counter()
         out.append(getattr(importlib.import_module(module), fn)(
             rank, world_size, *args))
         parallel_state.destroy_model_parallel()
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+        if rank == 0:
+            print(f"world of {world_size}: {fn} ran "
+                  f"{time.perf_counter() - t0:.1f} s", file=sys.stderr,
+                  flush=True)
     return out

@@ -155,7 +155,7 @@ def elastic_trip_worker(rank: int, world: int, cfg_kw: dict,
     import torch.distributed as dist
 
     from apex_tpu_torch import _kernels
-    from apex_tpu_torch.data import LMDataset
+    from apex_tpu_torch.data import IndexedTokenDataset, LMDataset
     from apex_tpu_torch.parallel import parallel_state as ps
     from apex_tpu_torch.resilience import integrity
     from apex_tpu_torch.resilience.elastic import restore_resharded
@@ -174,9 +174,9 @@ def elastic_trip_worker(rank: int, world: int, cfg_kw: dict,
     start = time.perf_counter()
     first, middle, last = steps
     gb = cfg_kw["global_batch"]
-    lm = LMDataset(synthetic_corpus(cfg_kw["vocab"], max(
+    lm = LMDataset(IndexedTokenDataset(synthetic_corpus(cfg_kw["vocab"], max(
         200_000, (sum(steps) + middle + last + 1) * gb * cfg_kw["seq_len"]
-        + 1)), cfg_kw["seq_len"])
+        + 1))), cfg_kw["seq_len"])
     out = {"rank": rank, "save_ms": {}, "restore_ms": {}, "state_bytes": {},
            "checks": {}, "losses": {}, "ckpt_bytes": {}}
     _kernels.reset_launch_counts()

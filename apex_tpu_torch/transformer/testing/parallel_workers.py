@@ -182,7 +182,10 @@ def training_worker(rank: int, world_size: int, target: Dict,
     """``build_gpt_training(GPTTargetConfig(**target))`` on the CPU from
     this rank's weights ``params[rank]``, through ``batches`` ((tokens,
     labels, inject_nan) of the whole world): each step's loss, verdict and
-    metrics, the final parameters and the optimizer's step."""
+    metrics, the final parameters, the optimizer's step, and the
+    collective-traffic ledger of the first step (``comms``: by axis, each
+    op's bytes, ici_bytes and calls)."""
+    from apex_tpu_torch.monitor.xray.ledger import comms_ledger
     from apex_tpu_torch.resilience.replay import (
         GPTTargetConfig,
         build_gpt_training,
@@ -193,10 +196,13 @@ def training_worker(rank: int, world_size: int, target: Dict,
     _load(training.model, params[rank])
     if training.cfg.zero:  # the master shard of the loaded weights
         state.opt = training.opt.init(state.params)
-    steps = _run_steps(training, state, batches)
+    with comms_ledger() as led:
+        steps = _run_steps(training, state, batches[:1])
+    steps += _run_steps(training, state, batches[1:])
     opt = state.opt["opt"] if isinstance(state.opt, dict) else state.opt
     out = dict(steps=steps, opt_step=int(opt.step),
-               params={n: _np(p) for n, p in state.params.items()})
+               params={n: _np(p) for n, p in state.params.items()},
+               comms={axis: led.per_op(axis) for axis in led.per_axis()})
     if isinstance(state.opt, dict):  # DDP with compression
         out["ef_residual"] = {n: _np(e) for n, e in
                               state.opt["ef_residual"].items()}
@@ -371,11 +377,15 @@ def compress_runs_worker(rank: int, world_size: int, target: Dict,
     through ``batches``. Returns by (run, "card" or "plain"): the losses,
     verdicts and layer RMS vectors of every step, each step's ms, the peak
     memory, the collectives and bytes staged a step over the steps after
-    the first, the run's launch counts, rank 0's parameters' element
-    counts, and, for runs with a plain side, the final parameters."""
+    the first and, over the same steps, the collective-traffic ledger's
+    totals a step by axis (``comms``: bytes, ici_bytes and calls), the
+    run's launch counts, rank 0's parameters' element counts, and, for
+    runs with a plain side, the final parameters."""
+    import contextlib
     import time
 
     from apex_tpu_torch import _kernels
+    from apex_tpu_torch.monitor.xray.ledger import comms_ledger
     from apex_tpu_torch.resilience.replay import (
         GPTTargetConfig,
         build_gpt_training,
@@ -403,16 +413,19 @@ def compress_runs_worker(rank: int, world_size: int, target: Dict,
                 torch.cuda.reset_peak_memory_stats()
             _kernels.reset_launch_counts()
             steps, ms, staged0 = [], [], dict(ps.STAGED)
-            for i, (x, y, nan) in enumerate(batches):
-                if i == 1:
-                    staged0 = dict(ps.STAGED)
-                t0 = time.perf_counter()
-                state, _, verdict, metrics, *rms = training.train_step(
-                    state, x, y, inject_nan=nan)
-                sync()
-                ms.append((time.perf_counter() - t0) * 1e3)
-                steps.append(dict(metrics, verdict=verdict,
-                                  layer_rms=rms[0] if rms else None))
+            with contextlib.ExitStack() as stack:
+                led = None
+                for i, (x, y, nan) in enumerate(batches):
+                    if i == 1:
+                        staged0 = dict(ps.STAGED)
+                        led = stack.enter_context(comms_ledger())
+                    t0 = time.perf_counter()
+                    state, _, verdict, metrics, *rms = training.train_step(
+                        state, x, y, inject_nan=nan)
+                    sync()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    steps.append(dict(metrics, verdict=verdict,
+                                      layer_rms=rms[0] if rms else None))
             n = max(1, len(batches) - 1)
             rec = dict(
                 losses=[st["loss"] for st in steps],
@@ -420,6 +433,10 @@ def compress_runs_worker(rank: int, world_size: int, target: Dict,
                 layer_rms=[st["layer_rms"] for st in steps], step_ms=ms,
                 staged={k: (v - staged0[k]) / n
                         for k, v in ps.STAGED.items()},
+                comms=({axis: {k: (v if k == "axis_size" else v / n)
+                               for k, v in d.items()}
+                        for axis, d in led.per_axis().items()}
+                       if led is not None else {}),
                 launches=_kernels.launch_counts(),
                 peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
                              if cuda else None),

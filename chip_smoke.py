@@ -8,7 +8,12 @@ swallowed:
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit;
 2. build: compiles every kernel of ``apex_tpu_torch/csrc`` with ``nvcc``
-   (one process per source, all at once) and prints the seconds;
+   (one process per source, all at once) and prints the seconds; then
+   the native host library (``apex_tpu_torch/csrc/apex_tpu_C.cpp``,
+   built with ``g++`` on this host and loaded, its ABI checked) gathers
+   GPT-2 training's, TinyLlama's and an 8.4 MB (threaded) batch from a
+   token file, bit-equal to numpy's fancy index, both timed
+   (``native``);
 3. kernel parity: each kernel against its plain PyTorch version on the
    card, in fp32 and bf16 where it takes bf16, at the main paths' shapes
    and the edge cases (ragged lengths, a fully padded row, GQA 12/4 and
@@ -121,8 +126,10 @@ swallowed:
    profiled against unprofiled step ms, and predicted against measured
    resident and peak bytes;
 5. training: ``build_gpt_training`` at GPT-2 small's full width (micro
-   batch 8, global batch 16, seq 1024, lr 3e-4) on the synthetic stream,
-   one warm-up step (after which every one of the 148 parameters must
+   batch 8, global batch 16, seq 1024, lr 3e-4) on the synthetic corpus
+   written as a token file and read through ``_native`` (as every GPT
+   phase reads it; the first batches' crc32s are logged), one warm-up
+   step (after which every one of the 148 parameters must
    hold a finite gradient) and 8 measured steps: finite losses, every
    verdict OK, the last loss below the first, and all six kernels'
    launch counts grow. Then on a small model: loss and every gradient on
@@ -139,18 +146,35 @@ swallowed:
    positions gives the logits of a full forward of the same prefix, and
    the logits of a 32-token input on the card agree with the plain path
    on the CPU;
-7. Llama fine-tuning: the fine-tuning example's loop
-   (``examples/llama/finetune_llama.LlamaFinetune``) on TinyLlama-1.1B at
-   full width and depth, bf16 compute, batch 4 x 2048, lr 1e-3, clip 1.0,
-   through ``distributed_fused_adam`` at a data-parallel world of one:
-   after one warm-up step all 157 parameters hold a finite gradient; in
-   5 measured steps the loss falls, the sum-of-squares kernel computes the
-   clip factor once per step, and the RMSNorm and flash kernels run;
+7. Llama fine-tuning: the fine-tuning example
+   (``examples/llama/finetune_llama.main``, with ``--metrics-jsonl`` and
+   ``--xray-hbm``) on TinyLlama-1.1B at full width and depth, bf16
+   compute, batch 4 x 2048, lr 1e-3, clip 1.0, through
+   ``distributed_fused_adam`` at a data-parallel world of one, 1 + 5
+   steps: the loss falls over the 5, the sum-of-squares kernel computes
+   the clip factor once per step, the RMSNorm and flash kernels run, the
+   goodput identity holds with ``==``, the allocator's peak over the
+   first step is within ``LLAMA_HBM_BAND`` of the composed HBM ledger's
+   prediction, and the recompile sentinel flags nothing after the first
+   step; one more step of the trained state gives all 157 parameters a
+   finite gradient;
+7b. Llama recovery (``llama_runtime``): the example at TinyLlama's width
+   and depth ``LLAMA_RUNTIME_LAYERS`` (2, cut from 22 so the checkpoints
+   fit the time), 4 x 2048: 2 + 2 uninterrupted steps; 2 steps saved
+   (``--save``) and a rerun resumed for 2 more, its losses and every
+   leaf's crc32 (parameters and ZeRO state) equal to the uninterrupted
+   run's, its journal (both incarnations) diffing clean against the
+   uninterrupted one's (``replay --diff``); a process under a
+   ``--run-deadline`` far shorter than its run ends in exit 43 after the
+   dump and terminate records. It logs the checkpoint's bytes, the save
+   and restore ms and the seconds;
 8. ResNet-50: ``apex_tpu_torch.bench``, the twin of ``bench.py``, at its
    size (224^2, batch 256, seeded random images and weights): O2 (bf16
-   compute, fp32 parameters), then O0 (fp32, TF32 off), each 3 warm-up and
-   10 timed steps of loss, backward and ``fused_sgd``; finite losses that
-   fall in each mode; then a small fp32 ResNet's loss, every gradient and
+   compute, fp32 parameters, cuDNN's autotuner on), then O0 (fp32, TF32
+   and the autotuner off), each 3 warm-up
+   steps of loss, backward and ``fused_sgd``, then a step timed by the
+   slope between chains of 1 and 11 steps (best of 2 each); finite losses
+   that fall in each mode; then a small fp32 ResNet's loss, every gradient and
    its new batch statistics on the card against the CPU;
 9. BERT serving: Megatron BERT-345M at full width and depth (24 x 1024,
    16 heads, FFN 4096, vocab 30592, 512 positions, two tokentypes, the
@@ -235,7 +259,8 @@ swallowed:
    against the cp = 1 uncached forward, rtol 2e-4, atol 2e-4;
 16. amp, ImageNet: the ported ``examples/imagenet/main_amp.py`` on
    ResNet-50 at 224^2, batch 256 (seeded random images and weights)
-   through ``amp.initialize`` and ``fused_sgd``: O0 (TF32 off), O1, O2
+   through ``amp.initialize`` and ``fused_sgd``: O0 (TF32 and cuDNN's
+   autotuner off, as the bench's), O1, O2
    and O3 in bf16 and O2 in fp16 with dynamic scaling, 3 warm-up and 10
    timed steps each: images/s, step ms, peak memory, finite falling
    losses, the scale, O1's casts a forward beside the 53 convolutions
@@ -302,7 +327,9 @@ swallowed:
    (exact and int8) and ZeRO Adam with remainders (rebuilt master bit
    for bit against the fp32 run's) over BERT-345M's shapes at dp = 4;
    GPT-2 small with 8 experts at tp = 2 (depth 2) against tp = 1, and
-   with SP card against plain; and ``gpt_elastic``, GPT-2 small's width
+   with SP card against plain (the compressed and exact runs also log
+   the collective-traffic ledger's bytes a step by axis, beside what
+   gloo staged); and ``gpt_elastic``, GPT-2 small's width
    at depth 2 under ZeRO-2 in the world of 4: the elastic trip (3 steps
    at dp 4 and a verified save, restored at dp 2 on ranks {0, 1}, 2
    steps and a save, restored at dp 4 and 2 steps; every restore held
@@ -317,8 +344,9 @@ swallowed:
    reference) and its false-positive clear; it prints each rank's
    checkpoint bytes, save and restore ms, the canary's replayed step ms
    and the seconds;
-25. the GPT example's recovery path at GPT-2 small's full width, in
-   process through ``main(argv)``, 6 steps a run: a clean run saved
+25. the GPT example's recovery path at GPT-2 small's full width and
+   depth 4 (cut from 12 for the script's time), in process through
+   ``main(argv)``, 6 steps a run: a clean run saved
    every 2 steps and the same with one parameter bit flipped after step
    3; the clean run's replay bitwise with zero divergence, the flipped
    run's replay diverging (exit 2) and its bisect naming step 4, the
@@ -338,7 +366,8 @@ The paths, each driven with the counts set to 0 just before it and read
 just after: ``serving``, ``serving_fleet`` (its three parts; the fp32
 ``generate`` references run before the counts are set to 0) and
 ``training`` (GPT-2 small), ``llama_serving``
-and ``llama_finetune`` (TinyLlama-1.1B), ``resnet`` (ResNet-50, which
+and ``llama_finetune`` (TinyLlama-1.1B), ``llama_runtime`` (its three
+in-process runs), ``resnet`` (ResNet-50, which
 runs none of the nine kernels), ``bert_serving``, ``bert_pretrain`` and
 ``bert_dropout`` (Megatron BERT-345M), ``gpt_parallel`` and
 ``gpt_parallel_ddp`` (GPT-2 small at tp = 2 x dp = 2; each run's ranks
@@ -366,7 +395,9 @@ launched. ``python3 chip_smoke.py --tail`` (development) runs only the
 build and phase 24, ``--elastic`` only the build and phase 24's
 ``gpt_elastic`` jobs (in a world of 4 of their own), ``--serve-gpt``
 only the build and phase 4c, and ``--resilience`` only the build and
-phase 25; none prints a result.
+phase 25, and ``--llama-runtime`` only the build and phase 7b; none
+prints a result. Every temp file of a run goes into one directory that
+the script removes when it ends.
 """
 
 import gc
@@ -567,6 +598,10 @@ PATH_KERNELS = {
     # Adam in plain ops, 0 launches of #8), counted on rank 0
     "gpt_elastic": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
                     "flash_bwd_dq", "flash_bwd_dkv"),
+    # the Llama example's recovery path at TinyLlama width (depth cut):
+    # the uninterrupted run, the saved run and its resumed rerun
+    "llama_runtime": ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd",
+                      "flash_bwd_dq", "flash_bwd_dkv", "sumsq_flat"),
 }
 FORWARD_KERNELS = PATH_KERNELS["serving"]
 KERNEL_META = {  # name: (source, TPU kernel it replaces)
@@ -2557,18 +2592,83 @@ def serve_gpt_phase(smi):
             "gpt_monitor": gpt_launches}, mon
 
 
+def token_file_lm(vocab, seq_len, n_tokens=200_000):
+    """The synthetic corpus written as a token file (``synthetic_corpus``)
+    and read as the examples read it: memory-mapped
+    (``data.IndexedTokenDataset``), each batch gathered by the native host
+    library (``_native``)."""
+    from apex_tpu_torch.data import IndexedTokenDataset, LMDataset
+    from apex_tpu_torch.resilience.replay import synthetic_corpus
+
+    return LMDataset(IndexedTokenDataset(synthetic_corpus(vocab, n_tokens)),
+                     seq_len)
+
+
+# the token-file gathers timed on the card's host: GPT-2 training's
+# global batch (16 x 1025 int32, 65.6 kB), TinyLlama fine-tuning's
+# (4 x 2049) and a 1024 x 2049 batch (8.4 MB, past the library's 8 MB
+# threshold: striped over threads)
+NATIVE_GATHERS = ((16, 1024), (4, 2048), (1024, 2048))
+
+
+def native_phase(smi):
+    """The native host library on the card's host: built with g++ from the
+    checkout's ``apex_tpu_torch/csrc/apex_tpu_C.cpp`` (or taken from the
+    build cache) and loaded, its ABI checked; then each NATIVE_GATHERS
+    batch gathered from a token file through ``LMDataset.batch``
+    (``_native.gather_rows``), bit-equal to numpy's fancy index of the
+    same rows (the plain version), both timed (median of 20)."""
+    from apex_tpu_torch import _kernels, _native
+
+    t0 = time.perf_counter()
+    _native.library()
+    out = {"gpu": smi, "library": os.path.relpath(
+        _kernels.host_library_path("apex_tpu_C"),
+        os.path.dirname(os.path.abspath(__file__))),
+        "build_and_load_s": time.perf_counter() - t0,
+        "abi": _native.ABI_VERSION, "threads": _native._MT_THREADS}
+    lm = token_file_lm(50257, 2048, n_tokens=1024 * 2048 + 1)
+    tokens = np.asarray(lm.ds.tokens)
+    rows = []
+    for n, seq in NATIVE_GATHERS:
+        offs = np.arange(n, dtype=np.int64) * seq
+        got = _native.gather_rows(lm.ds.tokens, offs, seq + 1)
+        want = tokens[offs[:, None] + np.arange(seq + 1)]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"gather_rows ({n}, {seq + 1}) differs "
+                                 f"from numpy's")
+
+        def ms(fn):
+            ts = []
+            for _ in range(20):
+                t = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t) * 1e3)
+            return statistics.median(ts)
+
+        rows.append({
+            "rows": n, "row_len": seq + 1, "bytes": got.nbytes,
+            "threaded": got.nbytes >= _native._MT_BYTES_THRESHOLD,
+            "native_ms": ms(lambda: _native.gather_rows(
+                lm.ds.tokens, offs, seq + 1)),
+            "numpy_ms": ms(lambda: tokens[offs[:, None]
+                                          + np.arange(seq + 1)])})
+    out["gathers"] = rows
+    log("native " + json.dumps(out))
+    return out
+
+
 def training_phase(smi):
     """GPT-2 small at full width through ``build_gpt_training``: one
     warm-up step, then TRAIN_STEPS measured steps."""
     from apex_tpu_torch import _kernels
-    from apex_tpu_torch.data import LMDataset
     from apex_tpu_torch.models import gpt2_small_config
     from apex_tpu_torch.resilience import VERDICT_OK, verdict_name
     from apex_tpu_torch.resilience.replay import (
         GPTTargetConfig,
         build_gpt_training,
-        synthetic_corpus,
     )
+    from apex_tpu_torch.resilience.replay.journal import batch_crc
 
     cfg = GPTTargetConfig(vocab=50257, seq_len=1024, layers=12, hidden=768,
                           heads=12, micro_batch=8, global_batch=16, lr=3e-4,
@@ -2581,13 +2681,20 @@ def training_phase(smi):
     if len(state.params) != 148 or n_params != N_GPT2_SMALL:
         raise AssertionError(f"{len(state.params)} parameters of "
                              f"{n_params} elements")
-    lm = LMDataset(synthetic_corpus(cfg.vocab), cfg.seq_len)
+    lm = token_file_lm(cfg.vocab, cfg.seq_len)
 
     def batch(i):
         first = (i * cfg.global_batch) % (len(lm) - cfg.global_batch + 1)
         return tr.reshape_batch(*lm.batch(range(first,
                                                 first + cfg.global_batch)))
 
+    # the first batches' crc32s (the journal's batch_crc): the token file's
+    # bytes through the native gather, the same on any host
+    crcs = [batch_crc(*lm.batch(range(i * cfg.global_batch,
+                                      (i + 1) * cfg.global_batch)))
+            for i in range(3)]
+    log(f"training: token file {lm.ds.prefix}.bin ({len(lm.ds)} tokens), "
+        f"first batches' crc32 {crcs}")
     state, loss0, verdict0, _ = tr.train_step(state, *batch(0))  # warm-up
     torch.cuda.synchronize()
     bad = [n for n, p in state.params.items()
@@ -2638,6 +2745,7 @@ def training_phase(smi):
         "step_ms_min": min(r["step_ms"] for r in steps),
         "first_loss": losses[0], "last_loss": losses[-1],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "first_batch_crc32": crcs,
         "launches": launches,
         "launches_per_step": {k: n / TRAIN_STEPS for k, n in launches.items()},
         "gpu": smi,
@@ -2656,13 +2764,11 @@ SMALL_TARGET = dict(vocab=512, seq_len=64, layers=2, hidden=128, heads=2,
 
 def training_card_vs_plain():
     """The repair check and the step's control flow, card against CPU."""
-    from apex_tpu_torch.data import LMDataset
     from apex_tpu_torch.models import GPTModel, gpt_loss_fn
     from apex_tpu_torch.resilience import VERDICT_SKIP
     from apex_tpu_torch.resilience.replay import (
         GPTTargetConfig,
         build_gpt_training,
-        synthetic_corpus,
     )
     from apex_tpu_torch.transformer import TransformerConfig
 
@@ -2709,7 +2815,7 @@ def training_card_vs_plain():
     sg, sc = tg.init_state(), tc.init_state()
     tc.model.load_state_dict({k: v.cpu()
                               for k, v in tg.model.state_dict().items()})
-    lm = LMDataset(synthetic_corpus(cfg.vocab, 20_000), cfg.seq_len)
+    lm = token_file_lm(cfg.vocab, cfg.seq_len, 20_000)
     for i in range(3):
         x, y = tg.reshape_batch(*lm.batch(range(4 * i, 4 * i + 4)))
         sg, loss_g, v_g, m_g = tg.train_step(sg, x, y)
@@ -2887,78 +2993,260 @@ def llama_serving_phase(smi):
 
 
 LLAMA_STEPS = 5
+# the HBM x-ray's band at TinyLlama's fine-tuning step: the allocator's
+# peak over the first step against the composed ledger's prediction,
+# which counts the weights, one gradient each, the ZeRO state and the
+# batch, and no activations (the JAX example's composition): the peak
+# adds the bf16 activations the backward keeps (1.80x on an H100 80GB
+# HBM3 at 700 W)
+LLAMA_HBM_BAND = (1.0, 2.5)
 
 
 def llama_finetune_phase(smi):
-    """The fine-tuning example's loop on TinyLlama-1.1B: one warm-up step,
-    then LLAMA_STEPS measured steps."""
+    """The fine-tuning example (``finetune_llama.main``) on TinyLlama-1.1B
+    at full width and depth (``--model tinyllama-1.1b --bf16``), 1 +
+    LLAMA_STEPS steps of 4 x 2048 tokens, with ``--metrics-jsonl`` and
+    ``--xray-hbm``: the goodput identity,
+    the HBM prediction against the allocator's peak (LLAMA_HBM_BAND), no
+    recompile after the first step, the path's kernels; then one more
+    step of the trained state with every gradient checked finite."""
+    import os
+    import tempfile
+
     from apex_tpu_torch import _kernels
-    from apex_tpu_torch.examples.llama.finetune_llama import LlamaFinetune
-    from apex_tpu_torch.models import GPTModel, tinyllama_1_1b_config
+    from apex_tpu_torch.examples.llama import finetune_llama
 
     batch, seq_len = 4, 2048
-    model = GPTModel(tinyllama_1_1b_config(), device="cuda", seed=SEED)
+    tmp = tempfile.mkdtemp(prefix="llama_finetune-")
+    jsonl = os.path.join(tmp, "llama.jsonl")
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    steps = 1 + LLAMA_STEPS
+    t0 = time.perf_counter()
+    recs = finetune_llama.main(
+        ["--model", "tinyllama-1.1b", "--bf16", "--steps", str(steps),
+         "--batch", str(batch), "--seq-len", str(seq_len), "--lr", "1e-3",
+         "--clip", "1.0", "--seed", str(SEED), "--metrics-jsonl", jsonl,
+         "--xray-hbm"])
+    wall = time.perf_counter() - t0
+    launches = _kernels.launch_counts()
+    model = recs.finetune.model
     n_params = sum(p.numel() for p in model.parameters())
     n_tensors = len(list(model.parameters()))
     if (n_tensors, n_params) != (157, N_TINYLLAMA):
         raise AssertionError(f"{n_tensors} parameters of {n_params} elements")
-    run = LlamaFinetune(model, batch, seq_len, lr=1e-3, clip=1.0, seed=SEED)
-    loss0, bad = run.step(check_grads=True)  # warm-up
-    torch.cuda.synchronize()
-    if bad or not math.isfinite(loss0):
-        raise AssertionError(f"warm-up step: loss {loss0}, no finite "
-                             f"gradient for {bad}")
-    log(f"llama warm-up: loss {loss0:.4f}; all 157 parameters got a finite "
-        f"gradient")
-
-    torch.cuda.reset_peak_memory_stats()
-    _kernels.reset_launch_counts()
-    steps, t_all = [], 0.0
-    for i in range(1, LLAMA_STEPS + 1):
-        t0 = time.perf_counter()
-        loss, _ = run.step()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        t_all += ms
-        steps.append(dict(step=i, loss=loss, step_ms=ms))
-        log(f"llama step {i} loss {loss:.4f} step_ms {ms:.2f}")
-    launches = _kernels.launch_counts()
-    losses = [r["loss"] for r in steps]
+    records = _jsonl(jsonl)
+    losses = [r["loss"] for r in recs]
+    timed = [r["step_ms"] for r in recs[1:]]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite Llama loss: {losses}")
-    if not losses[-1] < losses[0]:
+    if not losses[-1] < losses[1]:
         raise AssertionError(f"the Llama loss did not fall: {losses}")
-    if launches["sumsq_flat"] != LLAMA_STEPS:
+    if launches["sumsq_flat"] != steps:
         raise AssertionError(f"the clip ran sumsq_flat "
-                             f"{launches['sumsq_flat']} times in "
-                             f"{LLAMA_STEPS} steps")
+                             f"{launches['sumsq_flat']} times in {steps} "
+                             f"steps")
     for name in PATH_KERNELS["llama_finetune"]:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"Llama fine-tuning run")
+    (g,) = [r for r in records if r["kind"] == "goodput"]
+    if not _goodput_identity(records):
+        raise AssertionError(f"the goodput identity does not hold: {g}")
+    compiles = [r for r in records if r["kind"] == "compile"]
+    if [r for r in compiles if r["recompile"]]:
+        raise AssertionError(f"a recompile after step 1: {compiles}")
+    (alloc,) = [r for r in records if r["kind"] == "memory"
+                and r.get("scope") == "allocator"]
+    ratio = alloc["total_bytes"] / alloc["predicted_peak_bytes"]
+    if not LLAMA_HBM_BAND[0] <= ratio <= LLAMA_HBM_BAND[1]:
+        raise AssertionError(
+            f"the allocator's peak {alloc['total_bytes']} B is {ratio:.3f}x "
+            f"the predicted {alloc['predicted_peak_bytes']} B, outside "
+            f"{LLAMA_HBM_BAND}")
+    device_mem = [r for r in records if r["kind"] == "memory"
+                  and r.get("scope") == "device"]
+    # one more step of the trained state: every parameter gets a finite
+    # gradient (not counted in the path's launches)
+    loss_x, bad = recs.finetune.step(check_grads=True)
+    if bad or not math.isfinite(loss_x):
+        raise AssertionError(f"a further step: loss {loss_x}, no finite "
+                             f"gradient for {bad}")
+    log(f"llama fine-tuning: all 157 parameters got a finite gradient "
+        f"(loss {loss_x:.4f})")
     tokens = LLAMA_STEPS * batch * seq_len
     finetune = {
         "model": "TinyLlama-1.1B 22x2048 GQA 32/4 vocab 32000 (random "
-                 "weights, bf16 compute, fp32 params), ZeRO-2 Adam at dp=1",
+                 "weights, bf16 compute, fp32 params), ZeRO-2 Adam at dp=1, "
+                 "through the example's main",
         "batch": batch, "seq_len": seq_len, "steps": LLAMA_STEPS,
         "lr": 1e-3, "clip": 1.0,
-        "tokens_per_s": tokens / (t_all / 1e3),
-        "step_ms_mean": t_all / LLAMA_STEPS,
-        "step_ms_min": min(r["step_ms"] for r in steps),
-        "warmup_loss": loss0, "first_loss": losses[0],
-        "last_loss": losses[-1], "losses": losses,
+        "tokens_per_s": tokens / (sum(timed) / 1e3),
+        "step_ms_mean": sum(timed) / LLAMA_STEPS,
+        "step_ms_min": min(timed),
+        "warmup_loss": losses[0], "first_loss": losses[1],
+        "last_loss": losses[-1], "losses": losses[1:],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "wall_s": wall,
+        "hbm": {"predicted_peak_bytes": alloc["predicted_peak_bytes"],
+                "allocator_peak_bytes": alloc["total_bytes"],
+                "allocator_argument_bytes": alloc["argument_bytes"],
+                "ratio": ratio, "band": LLAMA_HBM_BAND,
+                "watermark_peak_bytes": (device_mem[-1]["peak_bytes_in_use"]
+                                         if device_mem else None)},
+        "goodput": {k: g[k] for k in g if k.endswith("_s")},
+        "compile_records": [{k: r[k] for k in ("step", "compiles",
+                                                "compile_seconds",
+                                                "recompile")}
+                            for r in compiles],
         "launches": launches,
-        "launches_per_step": {k: n / LLAMA_STEPS for k, n in launches.items()},
+        "launches_per_step": {k: n / steps for k, n in launches.items()},
         "gpu": smi,
     }
     log(f"llama fine-tuning: {finetune['tokens_per_s']:.1f} tokens/s over "
         f"{LLAMA_STEPS} steps of {batch} x {seq_len} tokens, peak "
-        f"{finetune['peak_mem_gb']:.2f} GB")
+        f"{finetune['peak_mem_gb']:.2f} GB, hbm allocator/predicted "
+        f"{ratio:.3f}")
     log("llama finetune " + json.dumps(finetune))
-    del run, model
+    del recs, model
+    gc.collect()
     torch.cuda.empty_cache()
     return launches, finetune
+
+
+# the Llama recovery phase: TinyLlama-1.1B's width (hidden 2048, 32 heads
+# over 4 KV heads, SwiGLU 5632, vocab 32,000) at depth 2, cut from 22 so
+# that its four runs, two saves and a restore (about 3.5 GB a checkpoint:
+# 219M fp32 parameters and their ZeRO master and moments) fit the
+# script's time; batch 4 x 2048 in bf16, 2 steps saved and 2 resumed
+LLAMA_RUNTIME_LAYERS = 2
+LLAMA_RUNTIME_STEPS = (2, 2)
+LLAMA_RUNTIME_ARGV = ["--batch", "4", "--seq-len", "2048", "--lr", "1e-3",
+                      "--clip", "1.0", "--seed", str(SEED)]
+# the wedge: a run deadline far under the run (its steps take about 100 ms
+# each at this depth), in a process of its own (exit 43 ends it)
+LLAMA_WEDGE_STEPS, LLAMA_WEDGE_DEADLINE = 200, 0.2
+_LLAMA_WEDGE = """
+import sys, torch
+from apex_tpu_torch.examples.llama import finetune_llama
+from apex_tpu_torch.models import GPTModel, tinyllama_1_1b_config
+model = GPTModel(tinyllama_1_1b_config(num_layers={layers}),
+                 device="cuda", seed={seed})
+finetune_llama.main(sys.argv[1:], model=model)
+"""
+
+
+def llama_runtime_phase(smi):
+    """The Llama example's recovery path at TinyLlama's width, depth
+    LLAMA_RUNTIME_LAYERS, in process through ``main(argv, model=)``: (a)
+    k + n uninterrupted steps, journaled; (b) k steps saved; (c) the rerun
+    resumed from (b) for n more and saved: every leaf of its state
+    bit-equal by crc32 to (a)'s, the losses bit for bit, the resumed
+    journal diffing clean against (a)'s (``replay --diff``); (d) a run
+    under a ``--run-deadline`` far under it ends in exit 43."""
+    import os
+    import shutil
+    import tempfile
+
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.examples.llama import finetune_llama
+    from apex_tpu_torch.models import GPTModel, tinyllama_1_1b_config
+    from apex_tpu_torch.resilience import integrity
+    from apex_tpu_torch.resilience.replay.__main__ import main as replay
+
+    k, n = LLAMA_RUNTIME_STEPS
+    tmp = tempfile.mkdtemp(prefix="llama_runtime-")
+    free = shutil.disk_usage(tmp).free
+    log(f"llama_runtime: {tmp} has {free / 1e9:.1f} GB free")
+    A, B = os.path.join(tmp, "A"), os.path.join(tmp, "B")
+    out = {"gpu": smi, "layers": LLAMA_RUNTIME_LAYERS, "k": k, "n": n}
+    t_start = time.perf_counter()
+
+    def model():
+        return GPTModel(tinyllama_1_1b_config(
+            num_layers=LLAMA_RUNTIME_LAYERS), device="cuda", seed=SEED)
+
+    def run(argv, name):
+        t0 = time.perf_counter()
+        jsonl = os.path.join(tmp, f"{name}.jsonl")
+        recs = finetune_llama.main([*LLAMA_RUNTIME_ARGV, *argv,
+                                    "--metrics-jsonl", jsonl],
+                                   model=model())
+        secs = time.perf_counter() - t0
+        fp = integrity.tree_fingerprint(recs.finetune.checkpoint_state())
+        losses = {r["step"]: r["loss"] for r in recs}
+        records = _jsonl(jsonl)
+        del recs
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, fp, records, secs
+
+    _kernels.reset_launch_counts()
+    try:
+        # (a) uninterrupted, journaled into its metrics stream (no save)
+        a, fp_a, _, out["run_a_s"] = run(
+            ["--steps", str(k + n), "--journal"], "a")
+        # (b) k steps saved; (c) resumed for n more, saved
+        b, _, b_recs, out["run_b_s"] = run(
+            ["--steps", str(k), "--save", B], "b")
+        c, fp_c, c_recs, out["run_c_s"] = run(
+            ["--steps", str(n), "--save", B], "c")
+        launches = _kernels.launch_counts()
+        if sorted(b) != list(range(k)) or sorted(c) != list(
+                range(k, k + n)):
+            raise AssertionError(f"steps: saved {sorted(b)}, resumed "
+                                 f"{sorted(c)}")
+        if any(a[i] != x for i, x in {**b, **c}.items()):
+            raise AssertionError(f"losses: uninterrupted {a}, saved {b}, "
+                                 f"resumed {c}")
+        differ = [la["path"] for la, lc in zip(fp_a["leaves"],
+                                               fp_c["leaves"])
+                  if la["crc32"] != lc["crc32"]]
+        if fp_a["structure_hash"] != fp_c["structure_hash"] or differ:
+            raise AssertionError(f"resumed state differs from the "
+                                 f"uninterrupted run's at {differ[:5]}")
+        out["leaves"] = len(fp_c["leaves"])
+        step_dir = os.path.join(B, f"step_{k}")
+        out["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(step_dir, f))
+            for f in os.listdir(step_dir))
+        out["save_ms"] = [r["dur_s"] * 1e3 for r in b_recs + c_recs
+                          if r["kind"] == "span"
+                          and r["phase"] == "ckpt_save"]
+        out["restore_ms"] = [r["dur_s"] * 1e3 for r in c_recs
+                             if r["kind"] == "span"
+                             and r["phase"] == "ckpt_restore"]
+        # the resumed run's journal (both incarnations) against (a)'s
+        rc = replay(["--diff", os.path.join(tmp, "a.jsonl"),
+                     os.path.join(B, "replay-journal.jsonl")])
+        if rc != 0:
+            raise AssertionError(f"replay --diff of the resumed journal "
+                                 f"exited {rc}")
+        # (d) the wedge
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _LLAMA_WEDGE.format(
+                layers=LLAMA_RUNTIME_LAYERS, seed=SEED),
+             *LLAMA_RUNTIME_ARGV, "--steps", str(LLAMA_WEDGE_STEPS),
+             "--run-deadline", str(LLAMA_WEDGE_DEADLINE),
+             "--metrics-jsonl", os.path.join(tmp, "d.jsonl")],
+            capture_output=True, text=True, timeout=300)
+        out["wedge_s"] = time.perf_counter() - t0
+        incidents = [r.get("stage") for r in
+                     _jsonl(os.path.join(tmp, "d.jsonl"))
+                     if r["kind"] == "incident"]
+        if proc.returncode != 43 or "terminate" not in incidents:
+            raise AssertionError(f"the wedge exited {proc.returncode} "
+                                 f"(incident stages {incidents}):\n"
+                                 f"{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        out["wedge_incident_stages"] = incidents
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["losses"] = [a[i] for i in sorted(a)]
+    out["phase_s"] = time.perf_counter() - t_start
+    log("llama_runtime " + json.dumps(out))
+    return launches, out
 
 
 # -- ResNet-50 ----------------------------------------------------------------
@@ -2970,13 +3258,16 @@ RESNET = dict(model_name="resnet50", image_size=224, batch=256, warmup=3,
 
 def resnet_phase(smi):
     """The twin of bench.py (``apex_tpu_torch.bench``) at full width: O2,
-    then O0 with TF32 off, each 3 warm-up and 10 timed steps on one fixed
-    batch; finite losses that fall over each mode's steps. Then the small
+    then O0 with TF32 off, each 3 warm-up steps on one fixed batch and a
+    step timed by the slope between chains of 1 and 11 steps (best of 2
+    each); finite losses that fall over each mode's steps. Then the small
     fp32 ResNet's step, card against CPU."""
     from apex_tpu_torch import _kernels, bench
 
     _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
     rec = bench.run(device="cuda", seed=SEED, **RESNET)
+    bench_s = time.perf_counter() - t0
     launches = _kernels.launch_counts()
     for mode in ("O2", "O0"):
         losses = rec[mode]["losses"]
@@ -2989,7 +3280,10 @@ def resnet_phase(smi):
             f"{losses[-1]:.4f}")
     log(f"resnet50 O2/O0: {rec['o2_over_o0']:.3f} ({smi})")
     log("resnet " + json.dumps(rec))
+    t0 = time.perf_counter()
     resnet_card_vs_plain()
+    log(f"resnet phase: the bench {bench_s:.1f} s, card against CPU "
+        f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     return launches, rec
 
@@ -3442,15 +3736,22 @@ def run_gpt_example(extra, steps):
     return records, summary, wall
 
 
-def gpt_parallel_phase(smi, world):
-    """(a) ZeRO, (b) DDP through the example at full width; (c) card
-    against plain at small depth; (d) one NCCL step at a world of one."""
+#: the GPT example's launches under ``torch.distributed.run``: name, extra
+#: flags, steps
+GPT_PARALLEL_RUNS = (("gpt_parallel", ("--zero",), 4),
+                     ("gpt_parallel_ddp", (), 3))
+
+
+def gpt_parallel_phase(smi, world, examples):
+    """(a) ZeRO, (b) DDP through the example at full width (``examples``:
+    :func:`run_gpt_example`'s results by name, from
+    :func:`multi_rank_runs`); (c) card against plain at small depth; (d)
+    one NCCL step at a world of one."""
     torch.cuda.empty_cache()
     paths, report = {}, {"transport": GLOO_TRANSPORT, "gpu": smi}
-    for name, extra, steps, kernels in (
-            ("gpt_parallel", ("--zero",), 4, PATH_KERNELS["gpt_parallel"]),
-            ("gpt_parallel_ddp", (), 3, PATH_KERNELS["gpt_parallel_ddp"])):
-        records, summary, wall = run_gpt_example(extra, steps)
+    for name, extra, steps in GPT_PARALLEL_RUNS:
+        kernels = PATH_KERNELS[name]
+        records, summary, wall = examples[name]
         for r in records:
             log(f"{name} step {r['step']} loss {r['loss']:.4f} grad_norm "
                 f"{r['grad_norm']:.4f} verdict {r['verdict']} tokens_per_s "
@@ -3510,11 +3811,8 @@ CARD_VS_PLAIN = dict(vocab=GPT_PARALLEL_VOCAB, seq_len=256, layers=2,
 def parallel_card_vs_plain_args(target=CARD_VS_PLAIN):
     """``parallel_workers.card_vs_plain_worker``'s arguments: ``target``
     and its 3 batches of the synthetic stream, 2 fp32 steps, the card."""
-    from apex_tpu_torch.data import LMDataset
-    from apex_tpu_torch.resilience.replay import synthetic_corpus
-
     seq = target["seq_len"]
-    lm = LMDataset(synthetic_corpus(target["vocab"], 20_000), seq)
+    lm = token_file_lm(target["vocab"], seq, 20_000)
     batches = [tuple(a.reshape(1, 4, seq) for a in lm.batch(range(4 * i,
                                                                 4 * i + 4)))
                + (0.0,) for i in range(3)]
@@ -3621,13 +3919,11 @@ def nccl_world_of_one():
 
     import torch.distributed as dist
 
-    from apex_tpu_torch.data import LMDataset
     from apex_tpu_torch.parallel import parallel_state as ps
     from apex_tpu_torch.resilience import VERDICT_OK
     from apex_tpu_torch.resilience.replay import (
         GPTTargetConfig,
         build_gpt_training,
-        synthetic_corpus,
     )
     from apex_tpu_torch.transformer.testing.commons import (
         initialize_distributed,
@@ -3643,7 +3939,7 @@ def nccl_world_of_one():
             backend = dist.get_backend()
             tr = build_gpt_training(cfg, device="cuda")
             state = tr.init_state()
-            lm = LMDataset(synthetic_corpus(cfg.vocab), cfg.seq_len)
+            lm = token_file_lm(cfg.vocab, cfg.seq_len)
             x, y = tr.reshape_batch(*lm.batch(range(cfg.global_batch)))
             t0 = time.perf_counter()
             state, loss, verdict, metrics = tr.train_step(state, x, y)
@@ -3808,14 +4104,59 @@ def gloo_world():
             for i, (name, _, _) in enumerate(GLOO_JOBS)}, seconds
 
 
-def gpt_pipeline_phase(smi, world):
+def multi_rank_runs():
+    """Every spawned run of the multi-rank phases: the ZeRO LAMB world
+    alone (:func:`zero_world`, the one that needs 40 GB of the card), then
+    three lanes side by side: the shared world of 4 (:func:`gloo_world`);
+    the tail's world of 4 (:func:`tail_world_of_4`); the tail's world of
+    2, then the GPT example's launches (:data:`GPT_PARALLEL_RUNS`) and
+    ``standalone_gpt``'s 1F1B under ``torch.distributed.run``. Each
+    lane's ranks spend most of their time in process starts and in gloo's
+    copies through host memory, with the card idle, so the lanes share
+    the host's cores (their step times, compared with nothing, are those
+    of runs side by side) and the card's memory (about 60 GB at most).
+    The phases check the results afterwards, in the script's order.
+    Returns ``{"zero": ..., "world": ..., "tail": ..., "launches":
+    {...}}``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def launches():
+        out = {"two": tail_world_of_2()}
+        for name, extra, steps in GPT_PARALLEL_RUNS:
+            out[name] = run_gpt_example(extra, steps)
+        out["gpt_pipeline"] = run_standalone_gpt(GPT_PIPELINE_1F1B)
+        return out
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    zero = zero_world()
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        lanes = {"world": pool.submit(timed, lambda: gloo_world()[0]),
+                 "tail": pool.submit(timed, tail_world_of_4),
+                 "launches": pool.submit(timed, launches)}
+    out, seconds = {"zero": zero}, {}
+    for name, lane in lanes.items():
+        out[name], seconds[name] = lane.result()
+    log(f"multi-rank runs: the ZeRO LAMB world {t1 - t0:.1f} s, then lanes "
+        f"{json.dumps(seconds)} s side by side, "
+        f"{time.perf_counter() - t1:.1f} s ({GLOO_TRANSPORT})")
+    return out
+
+
+def gpt_pipeline_phase(smi, world, standalone):
     """(a) ``standalone_gpt`` at GPT-2 small's full width and depth 4, pp =
-    2 x tp = 2 with SP, 1F1B, 1 + 1 steps; (b) the interleaved schedule at
+    2 x tp = 2 with SP, 1F1B, 1 + 1 steps (``standalone``: its
+    :func:`run_standalone_gpt` result); (b) the interleaved schedule at
     pp = 4, V = 3 (``world``: :func:`gloo_world`'s results), 1 + 1
     steps; (c) card against plain at 2 layers and seq 128."""
     torch.cuda.empty_cache()
     paths, report = {}, {"transport": GLOO_TRANSPORT, "gpu": smi}
-    _, summary, wall = run_standalone_gpt(GPT_PIPELINE_1F1B)
+    _, summary, wall = standalone
     inter = world["interleaved"][0]
     runs = (("gpt_pipeline", summary, (2, 2, 1, 1, True), wall,
              PIPELINE_LAYERS),
@@ -4135,8 +4476,8 @@ RESNET50_CONVS, RESNET50_LINEARS = 53, 1
 def amp_imagenet_phase(smi, bench_rec):
     """The ported ImageNet example (``examples/imagenet/main_amp.py``) on
     ResNet-50 at 224^2, batch 256, seeded random images and weights,
-    through ``amp.initialize`` and ``fused_sgd``: O0 (TF32 off, as the
-    bench's O0), O1, O2 and O3 in bf16 and O2 in fp16 with dynamic
+    through ``amp.initialize`` and ``fused_sgd``: O0 (TF32 and cuDNN's
+    autotuner off, as the bench's O0), O1, O2 and O3 in bf16 and O2 in fp16 with dynamic
     scaling, each 3 warm-up and 10 timed steps. Per level images/s, step
     ms, peak memory, the losses (finite and falling) and the scale; O1's
     casts per forward beside the convolutions and linears; bf16 O2's
@@ -4148,12 +4489,13 @@ def amp_imagenet_phase(smi, bench_rec):
     c = AMP_IMAGENET
     flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.benchmark = True
     report = {}
     _kernels.reset_launch_counts()
     try:
         for level, half in AMP_IMAGENET_RUNS:
             tf32 = level != "O0"
+            # the autotuner as the bench sets it: off for O0's fp32
+            torch.backends.cudnn.benchmark = level != "O0"
             torch.backends.cudnn.allow_tf32 = tf32 and flags[1]
             torch.backends.cuda.matmul.allow_tf32 = tf32 and flags[2]
             profile = level == "O2" and half == "bfloat16"
@@ -5277,13 +5619,10 @@ def predicted_dp_staged(numels, dp, zero, compression):
 def compress_batches(target, steps):
     """``steps`` batches of the synthetic stream (the example's) in the
     step's (num_micro, micro_batch x dp, seq) layout, at dp = 2."""
-    from apex_tpu_torch.data import LMDataset
-    from apex_tpu_torch.resilience.replay import synthetic_corpus
-
     seq, gb = target["seq_len"], target["global_batch"]
     shape = (gb // (target["micro_batch"] * 2), target["micro_batch"] * 2,
              seq)
-    lm = LMDataset(synthetic_corpus(target["vocab"]), seq)
+    lm = token_file_lm(target["vocab"], seq)
     return [tuple(a.reshape(shape) for a in lm.batch(range(gb * i,
                                                            gb * (i + 1))))
             + (0.0,) for i in range(steps)]
@@ -5294,7 +5633,8 @@ def gpt_compress_phase(smi, full, small):
     small's width at depth 4 (``COMPRESS_RUNS``): finite losses, every
     verdict ok, the first loss equal to the exact run's (the same weights
     and batch), a positive finite layer RMS value a layer every step;
-    step ms, peak memory a rank and the collectives and bytes staged a
+    step ms, peak memory a rank, the collective-traffic ledger's bytes a
+    step by axis (tp and dp) and the collectives and bytes staged a
     step a rank beside the
     exact run's, whose difference must be the predicted difference of the
     data-parallel sync (and the RMS vector's two all-reduces) alone, byte
@@ -5355,12 +5695,21 @@ def gpt_compress_phase(smi, full, small):
                                           for r in full],
             "staged_per_step_rank0": run["staged"],
             "exact_staged_per_step_rank0": base["staged"],
+            # the collective-traffic ledger's logical payload a step by
+            # axis (JAX's conventions), beside the gloo transport's staged
+            # host copies above
+            "comms_per_step_rank0": run["comms"],
+            "exact_comms_per_step_rank0": base["comms"],
             "dp_sync_staged_bytes": {"predicted": pred,
                                      "exact_predicted": pred_exact,
                                      "saved_measured": saved},
             "dp_sync_collectives": {"compressed": coll, "exact": coll_exact},
             "layer_rms_last": run["layer_rms"][-1],
             "launches_rank0": run["launches"]}
+        if set(run["comms"]) != {"tp", "dp"} or set(base["comms"]) != {
+                "tp", "dp"}:
+            raise AssertionError(f"{name}: the ledger's axes "
+                                 f"{run['comms']}, exact {base['comms']}")
         log(f"gpt_compress {name} " + json.dumps(report[name]))
         if path is not None:
             paths[path] = run["launches"]
@@ -5836,13 +6185,12 @@ def elastic_only(smi):
     return {"gpt_elastic": launches}
 
 
-def tail_phases(smi):
-    """The multi-GPU tail's phases: one world of 4 ranks on this card
-    runs the compressed GPT runs, their card-against-plain check, BERT at
-    tp = 2 x dp = 2 and its check, the ZeRO LAMB and remainders jobs, and
-    the ``gpt_elastic`` jobs (the elastic trip and the remediation loop,
-    which so pay no launch of their own); one world of 2 runs the decode
-    and MoE jobs at tp = 2. Returns their paths' launch counts."""
+def tail_world_of_4():
+    """The multi-GPU tail's world of 4 ranks on this card: the compressed
+    GPT runs, their card-against-plain check, BERT at tp = 2 x dp = 2 and
+    its check, and the ``gpt_elastic`` jobs (the elastic trip and the
+    remediation loop, which so pay no launch of their own). Returns every
+    rank's results by job."""
     import shutil
     import tempfile
 
@@ -5851,8 +6199,6 @@ def tail_phases(smi):
         spawn,
     )
 
-    torch.cuda.empty_cache()
-    shapes = bert_345m_shapes()
     elastic_tmp = tempfile.mkdtemp(prefix="gpt_elastic-")
     log(f"gpt_elastic: {elastic_tmp} has "
         f"{shutil.disk_usage(elastic_tmp).free / 1e9:.1f} GB free")
@@ -5867,34 +6213,80 @@ def tail_phases(smi):
         (f"{TP_WORKERS}:bert_train_worker", (BERT_TP_ARGV, "cuda")),
         (f"{TP_WORKERS}:bert_card_vs_plain_worker",
          (BERT_TP_CARD_VS_PLAIN, "cuda")),
-        (f"{TESTING}.compress_workers:zero_bytes_worker",
-         (shapes, ZERO_STEPS, "cuda", SEED)),
         *elastic_jobs(elastic_tmp),
     ],), threads=RANK_THREADS, timeout=1200.0)
-    four_s = time.perf_counter() - t0
     shutil.rmtree(elastic_tmp, ignore_errors=True)
+    log(f"multi-GPU tail: the world of 4 ran "
+        f"{time.perf_counter() - t0:.1f} s ({GLOO_TRANSPORT})")
+    return four
+
+
+def zero_world():
+    """The ZeRO LAMB and remainders job alone in a world of 4: over
+    BERT-345M's shapes each rank holds about 10 GB of the card, so it
+    shares the card with no other world. Returns every rank's result."""
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        jobs_worker,
+        spawn,
+    )
+
+    t0 = time.perf_counter()
+    ranks = spawn(jobs_worker, GPT_PARALLEL_RANKS, args=([
+        (f"{TESTING}.compress_workers:zero_bytes_worker",
+         (bert_345m_shapes(), ZERO_STEPS, "cuda", SEED))],),
+        threads=RANK_THREADS, timeout=600.0)
+    log(f"multi-GPU tail: the ZeRO LAMB world of 4 ran "
+        f"{time.perf_counter() - t0:.1f} s ({GLOO_TRANSPORT})")
+    return [r[0] for r in ranks]
+
+
+def tail_world_of_2():
+    """The multi-GPU tail's world of 2: the decode and MoE jobs at tp = 2.
+    Returns every rank's results by job."""
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        jobs_worker,
+        spawn,
+    )
+
     t0 = time.perf_counter()
     two = spawn(jobs_worker, 2, args=(decode_jobs() + [
         (f"{TP_WORKERS}:moe_tp_card_worker",
          (MOE_TP, 4, 1024, 128, "cuda", SEED))],),
         threads=RANK_THREADS, timeout=600.0)
-    log(f"multi-GPU tail: the world of 4 ran {four_s:.1f} s, the world of "
-        f"2 {time.perf_counter() - t0:.1f} s ({GLOO_TRANSPORT})")
+    log(f"multi-GPU tail: the world of 2 ran "
+        f"{time.perf_counter() - t0:.1f} s ({GLOO_TRANSPORT})")
+    return two
+
+
+def tail_phases(smi, four=None, two=None, zero=None):
+    """The multi-GPU tail's phases over :func:`tail_world_of_4`'s,
+    :func:`tail_world_of_2`'s and :func:`zero_world`'s results (run here,
+    one after the other, when not given). Returns their paths' launch
+    counts."""
+    torch.cuda.empty_cache()
+    if zero is None:
+        zero = zero_world()
+    if four is None:
+        four = tail_world_of_4()
+    if two is None:
+        two = tail_world_of_2()
     paths = {}
-    job = [[r[i] for r in four] for i in range(7)]
+    job = [[r[i] for r in four] for i in range(6)]
     compressed, _ = gpt_compress_phase(smi, job[0], job[1])
     paths.update(compressed)
     paths["bert_tp"], _ = bert_tp_phase(smi, job[2][0], job[3])
-    paths["zero_lamb_remainders"], _ = zero_lamb_remainders_phase(smi, job[4])
+    paths["zero_lamb_remainders"], _ = zero_lamb_remainders_phase(smi, zero)
     paths["gpt_tp_decode"], _ = gpt_tp_decode_phase(
         smi, [r[:len(DECODE_CASES)] for r in two])
     paths["gpt_moe_tp"], _ = gpt_moe_tp_phase(smi, [r[-1] for r in two])
-    paths["gpt_elastic"], _ = gpt_elastic_phase(smi, job[5], job[6][0])
+    paths["gpt_elastic"], _ = gpt_elastic_phase(smi, job[4], job[5][0])
     log_memory("multi_gpu_tail")
     return paths
 
+# depth 4, cut from 12 (as the GPT phases at tp x dp and pp are) to keep
+# the whole script well inside its time limit on a slow host
 RESILIENCE_ARGV = ["--vocab", "50257", "--seq-len", "1024", "--layers",
-                   "12", "--hidden", "768", "--heads", "12", "--micro-batch",
+                   "4", "--hidden", "768", "--heads", "12", "--micro-batch",
                    "8", "--global-batch", "16", "--steps", "6",
                    "--log-interval", "2"]
 
@@ -6076,6 +6468,14 @@ def main():
     from apex_tpu_torch import _kernels
 
     log(f"build: {_kernels.build_all():.1f} s")
+    native_phase(smi)
+    if sys.argv[1:2] == ["--llama-runtime"]:
+        # development: the Llama recovery phase alone, no kernels line and
+        # no result line
+        check_paths({"llama_runtime": llama_runtime_phase(smi)[0]})
+        log(f"llama_runtime phase done in "
+            f"{time.perf_counter() - START:.1f} s")
+        return
     if sys.argv[1:2] == ["--serve-gpt"]:
         # development: phase 4c alone, no kernels line and no result line
         check_paths(serve_gpt_phase(smi)[0])
@@ -6127,6 +6527,8 @@ def main():
     log_memory("llama_serving")
     paths["llama_finetune"], _ = llama_finetune_phase(smi)
     log_memory("llama_finetune")
+    paths["llama_runtime"], _ = llama_runtime_phase(smi)
+    log_memory("llama_runtime")
     paths["resnet"], resnet_rec = resnet_phase(smi)
     log_memory("resnet")
     paths["bert_serving"], _ = bert_serving_phase(smi)
@@ -6135,11 +6537,13 @@ def main():
     log_memory("bert_pretrain")
     paths["bert_dropout"], _ = bert_dropout_phase(smi)
     log_memory("bert_dropout")
-    world, _ = gloo_world()
-    parallel, _ = gpt_parallel_phase(smi, world)
+    runs = multi_rank_runs()
+    world = runs["world"]
+    parallel, _ = gpt_parallel_phase(smi, world, runs["launches"])
     paths.update(parallel)
     log_memory("gpt_parallel")
-    pipeline, _ = gpt_pipeline_phase(smi, world)
+    pipeline, _ = gpt_pipeline_phase(smi, world,
+                                     runs["launches"]["gpt_pipeline"])
     paths.update(pipeline)
     log_memory("gpt_pipeline")
     zero_bubble, _ = gpt_pipeline_zero_bubble_phase(smi, world)
@@ -6171,7 +6575,9 @@ def main():
         smi, world)
     del world
     log_memory("gpt_pipeline_remat")
-    paths.update(tail_phases(smi))
+    paths.update(tail_phases(smi, runs["tail"], runs["launches"]["two"],
+                             runs["zero"]))
+    del runs
     log_memory("tail")
     paths["gpt_resilience"], _ = gpt_resilience_phase(smi)
     log_memory("gpt_resilience")
@@ -6197,5 +6603,21 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def run_in_own_tmpdir(fn):
+    """Runs ``fn`` with every temp file of the run, this process's and
+    those of the processes it starts (the synthetic token corpora of the
+    phases, which outlive each example's run as the JAX package's do, among
+    them), in one directory that is removed when ``fn`` ends."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-")
+    os.environ["TMPDIR"] = tempfile.tempdir = tmp
+    try:
+        return fn()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 if __name__ == "__main__":
-    main()
+    run_in_own_tmpdir(main)

@@ -35,7 +35,11 @@ issued just before an in-place Adam step writes the pre-step bytes. A
 ZeRO state's checkpoint written through the multi-rank layout at a world
 of one (its one rank the whole global tree) restores through the
 resharder with every leaf's crc32 its manifest's, and
-``zero_regroup_flat`` on the card equals it on the CPU bit for bit.
+``zero_regroup_flat`` on the card equals it on the CPU bit for bit. The
+native host library builds and loads on the card's host, and a token
+file's batches equal numpy's rows; the Llama example at TinyLlama's
+width (2 layers) saved and resumed gives the uninterrupted run's losses
+and every leaf's crc32.
 """
 
 import math
@@ -982,7 +986,7 @@ RESILIENCE_TARGET = dict(vocab=50257, seq_len=1024, layers=2, hidden=768,
 
 
 def _gpt_training_on_the_card(**overrides):
-    from apex_tpu_torch.data import LMDataset
+    from apex_tpu_torch.data import IndexedTokenDataset, LMDataset
     from apex_tpu_torch.resilience.replay import (
         GPTTargetConfig,
         build_gpt_training,
@@ -991,7 +995,7 @@ def _gpt_training_on_the_card(**overrides):
 
     tr = build_gpt_training(GPTTargetConfig(**RESILIENCE_TARGET,
                                             **overrides), device="cuda")
-    lm = LMDataset(synthetic_corpus(50257), 1024)
+    lm = LMDataset(IndexedTokenDataset(synthetic_corpus(50257)), 1024)
     return tr, tr.init_state(), tr.reshape_batch(*lm.batch(range(16)))
 
 
@@ -1110,3 +1114,49 @@ def test_zero_regroup_flat_on_the_card_equals_the_cpu(gen):
             got.cpu(), zero_regroup_flat(flat.cpu(), n))
     with pytest.raises(ValueError, match="nonzero"):
         zero_regroup_flat(flat, 64000)
+
+
+def test_native_library_and_token_file_batches_on_the_card_host(gen):
+    """The native host library builds and loads on the card's host, and a
+    token file's batches through ``LMDataset`` (the library's gather,
+    below and above its threading threshold) equal numpy's fancy index
+    of the same rows; they reach the card as the step's input unchanged."""
+    from apex_tpu_torch import _native
+    from apex_tpu_torch.data import IndexedTokenDataset, LMDataset
+    from apex_tpu_torch.resilience.replay import synthetic_corpus
+
+    _native.library()
+    lm = LMDataset(IndexedTokenDataset(synthetic_corpus(50257, 2_200_000)),
+                   2048)
+    tokens = np.asarray(lm.ds.tokens)
+    for ids in (range(4), range(1024)):  # 33 kB; 8.4 MB, threaded
+        x, y = lm.batch(ids)
+        rows = tokens[np.asarray(lm.offsets[list(ids)])[:, None]
+                      + np.arange(2049)]
+        assert np.array_equal(x, rows[:, :-1])
+        assert np.array_equal(y, rows[:, 1:])
+        assert torch.equal(torch.as_tensor(x).cuda().cpu(),
+                           torch.as_tensor(rows[:, :-1]))
+    assert np.array_equal(np.sort(lm.epoch_permutation(3)),
+                          np.arange(len(lm)))
+
+
+def test_llama_example_resume_on_the_card_is_bit_equal(gen, tmp_path):
+    """The Llama example at TinyLlama's width (2 layers): 2 steps saved and
+    2 resumed give the 4 uninterrupted steps' losses and every leaf's
+    crc32 of the parameters and the ZeRO state."""
+    from apex_tpu_torch.examples.llama import finetune_llama
+
+    def run(argv):
+        model = GPTModel(tinyllama_1_1b_config(num_layers=2), device="cuda",
+                         seed=0)
+        recs = finetune_llama.main(["--batch", "2", "--seq-len", "512",
+                                    *argv], model=model)
+        return ({r["step"]: r["loss"] for r in recs},
+                _crcs(recs.finetune.checkpoint_state()))
+
+    whole, want = run(["--steps", "4"])
+    first, _ = run(["--steps", "2", "--save", str(tmp_path)])
+    rest, got = run(["--steps", "2", "--save", str(tmp_path)])
+    assert {**first, **rest} == whole
+    assert got == want

@@ -15,6 +15,7 @@ from apex_tpu.data import IndexedTokenDataset
 from apex_tpu.data import LMDataset as JaxLMDataset
 from apex_tpu.data import batchsampler as jbs
 from apex_tpu.data import robust as jrobust
+from apex_tpu_torch.data import IndexedTokenDataset as PortIndexedTokenDataset
 from apex_tpu_torch.data import (
     LMDataset,
     MegatronPretrainingRandomSampler,
@@ -123,14 +124,11 @@ def test_example_batches_and_their_crc_equal_jax(tmp_path):
     """The GPT example's stream: the sampler's ids over the synthetic
     corpus give JAX's batches byte for byte, and the journal's
     ``batch_crc`` of them is JAX's."""
-    from apex_tpu.data import write_token_file
     from apex_tpu.resilience.replay.journal import batch_crc as jax_crc
 
-    tokens = synthetic_corpus(128, 20_000)
-    prefix = str(tmp_path / "corpus")
-    write_token_file(prefix, tokens)
+    prefix = synthetic_corpus(128, 20_000)
     jlm = JaxLMDataset(IndexedTokenDataset(prefix), seq_len=32)
-    lm = LMDataset(tokens, 32)
+    lm = LMDataset(PortIndexedTokenDataset(prefix), 32)
     assert len(lm) == len(jlm)
     for ids in _stream(MegatronPretrainingSampler(len(lm), 48, 16, 0, 1), 4):
         x, y = lm.batch(ids)

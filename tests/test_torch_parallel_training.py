@@ -21,7 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from apex_tpu_torch.data import LMDataset
+from apex_tpu_torch.data import IndexedTokenDataset, LMDataset
 from apex_tpu_torch.models import gpt_tp_params_from_jax
 from apex_tpu_torch.resilience import VERDICT_OK, VERDICT_SKIP
 from apex_tpu_torch.resilience.replay import synthetic_corpus
@@ -44,7 +44,7 @@ def _per_device(x):
 
 
 def _batches():
-    lm = LMDataset(synthetic_corpus(512, 20_000), 64)
+    lm = LMDataset(IndexedTokenDataset(synthetic_corpus(512, 20_000)), 64)
     out = []
     for step, nan in enumerate(NAN):
         x, y = lm.batch(range(8 * step, 8 * step + 8))
@@ -53,6 +53,7 @@ def _batches():
 
 
 def _jax_run(zero, batches):
+    from apex_tpu.monitor.xray.ledger import predict_comms
     from apex_tpu.parallel import parallel_state
     from apex_tpu.resilience.replay.targets import GPTTargetConfig as JaxCfg
     from apex_tpu.resilience.replay.targets import (
@@ -65,6 +66,13 @@ def _jax_run(zero, batches):
         init = [{k: v.numpy() for k, v in
                  gpt_tp_params_from_jax(params["params"], r).items()}
                 for r in range(WORLD)]
+        x, y, _ = batches[0]
+        led = predict_comms(jt.train_step, params, opt_state, scaler_state,
+                            sent_state, jt.init_bag(),
+                            jnp.asarray(x, jnp.int32),
+                            jnp.asarray(y, jnp.int32), jnp.float32(0.0),
+                            jnp.float32(1.0))
+        comms = {axis: led.per_op(axis) for axis in led.per_axis()}
         steps = []
         for x, y, nan in batches:
             out = jt.train_step(params, opt_state, scaler_state, sent_state,
@@ -81,26 +89,27 @@ def _jax_run(zero, batches):
                  for r in range(WORLD)]
     finally:
         parallel_state.destroy_model_parallel()
-    return init, steps, final
+    return init, steps, final, comms
 
 
 @pytest.fixture(scope="module")
 def runs():
     """{zero: (JAX steps, JAX final params by rank, the port's results by
-    rank)}: the JAX runs first, then one spawned world for both of the
-    port's."""
+    rank, JAX's ``predict_comms`` of the step by axis and op)}: the JAX
+    runs first, then one spawned world for both of the port's."""
     batches = _batches()
     jax_runs = {z: _jax_run(z, batches) for z in (False, True)}
     ports = spawn(sequence_worker, WORLD, args=([
         ("training_worker", (dict(TARGET, zero=z), jax_runs[z][0], batches))
         for z in (False, True)],), timeout=300.0)
-    return {z: (jax_runs[z][1], jax_runs[z][2], [p[i] for p in ports])
+    return {z: (jax_runs[z][1], jax_runs[z][2], [p[i] for p in ports],
+                jax_runs[z][3])
             for i, z in enumerate((False, True))}
 
 
 @pytest.mark.parametrize("zero", [False, True], ids=["ddp", "zero"])
 def test_parallel_step_losses_and_verdicts_match_jax(runs, zero):
-    jsteps, _, ports = runs[zero]
+    jsteps, _, ports, _ = runs[zero]
     for step, (js, nan) in enumerate(zip(jsteps, NAN)):
         for r in range(WORLD):
             got = ports[r]["steps"][step]
@@ -126,7 +135,7 @@ def test_parallel_step_losses_and_verdicts_match_jax(runs, zero):
 
 @pytest.mark.parametrize("zero", [False, True], ids=["ddp", "zero"])
 def test_parallel_step_final_params_match_jax_on_every_rank(runs, zero):
-    _, jfinal, ports = runs[zero]
+    _, jfinal, ports, _ = runs[zero]
     for r in range(WORLD):
         got = ports[r]["params"]
         assert set(got) == set(jfinal[r])
@@ -142,3 +151,54 @@ def test_parallel_step_final_params_match_jax_on_every_rank(runs, zero):
     for name in ports[0]["params"]:
         np.testing.assert_array_equal(ports[0]["params"][name],
                                       ports[2]["params"][name])
+
+
+# The port's collective-traffic ledger (monitor.xray.ledger) of the first
+# step against JAX's predict_comms of the step, by axis and op: bytes,
+# ici_bytes (ring formulas) and calls, on every rank. Where they differ,
+# the reason:
+# - tp psum: JAX psums the cross-entropy's three (micro batch, seq) row
+#   statistics one by one, the port stacks them into one (3, micro batch,
+#   seq) psum: the same bytes, two calls a micro-batch fewer.
+# - dp under DDP: JAX psums each gradient leaf (28) and pmeans the loss;
+#   the port all-reduces the gradients as one flat buffer padded to the
+#   flatten's 65,536-element chunk, and sums the loss (then divides): one
+#   call each, the padding's bytes more.
+# - dp under ZeRO: JAX gathers the updated parameters in two buckets, the
+#   port in one (it accepts param_gather_buckets and drops it; ROADMAP
+#   Queue 2, item o): the same bytes, one call fewer; JAX's pmean of the
+#   loss is the port's psum (then a division).
+CHUNK = 65536
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["ddp", "zero"])
+def test_parallel_step_comms_ledger_matches_jax_predict_comms(runs, zero):
+    _, _, ports, want = runs[zero]
+    for r in range(WORLD):
+        got = ports[r]["comms"]
+        assert set(got) == set(want) == {"tp", "dp"}
+        tp_calls = {op: d["calls"] for op, d in want["tp"].items()}
+        tp_calls["psum"] -= 2 * 2  # 2 micro-batches
+        assert set(got["tp"]) == set(want["tp"])
+        for op, d in got["tp"].items():
+            assert (d["bytes"], d["ici_bytes"], d["calls"]) == (
+                want["tp"][op]["bytes"], want["tp"][op]["ici_bytes"],
+                tp_calls[op]), (r, op)
+        dp, jdp = got["dp"], want["dp"]
+        loss_bytes = jdp["pmean"]["bytes"]
+        if not zero:
+            assert set(dp) == {"psum"} and set(jdp) == {"psum", "pmean"}
+            assert jdp["psum"]["calls"] == 28 and dp["psum"]["calls"] == 2
+            padded = -(-jdp["psum"]["bytes"] // (4 * CHUNK)) * 4 * CHUNK
+            assert dp["psum"]["bytes"] == dp["psum"]["ici_bytes"] == (
+                padded + loss_bytes)
+        else:
+            assert set(dp) == {"psum", "psum_scatter", "all_gather"}
+            assert dp["psum_scatter"] == jdp["psum_scatter"]
+            assert (dp["all_gather"]["bytes"], dp["all_gather"]["ici_bytes"],
+                    dp["all_gather"]["calls"]) == (
+                jdp["all_gather"]["bytes"], jdp["all_gather"]["ici_bytes"],
+                jdp["all_gather"]["calls"] - 1)
+            assert dp["psum"] == {
+                k: jdp["psum"][k] + jdp["pmean"][k]
+                for k in ("bytes", "ici_bytes", "calls")}

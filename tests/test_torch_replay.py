@@ -272,8 +272,11 @@ def test_the_stream_is_sized_from_the_run(tmp_path, monkeypatch):
     n_tokens = (8 + 16) * 16 * 32 + 1  # (steps + skip budget) batches
     assert load_journal(d).header["corpus"]["synthetic"] == {
         "vocab": 512, "n_tokens": n_tokens}
-    np.testing.assert_array_equal(synthetic_corpus(512, n_tokens)[:2_000],
-                                  synthetic_corpus(512, 2_000))
+    from apex_tpu_torch.data import IndexedTokenDataset
+
+    np.testing.assert_array_equal(
+        IndexedTokenDataset(synthetic_corpus(512, n_tokens)).tokens[:2_000],
+        IndexedTokenDataset(synthetic_corpus(512, 2_000)).tokens)
     assert replay_main([d, "--device", "cpu"]) == 0
 
 
@@ -285,7 +288,7 @@ def test_replay_selftest_passes_on_the_cpu(tmp_path):
 _DETERMINISM_CHILD = r"""
 import json
 import numpy as np
-from apex_tpu_torch.data import LMDataset
+from apex_tpu_torch.data import IndexedTokenDataset, LMDataset
 from apex_tpu_torch.resilience import integrity
 from apex_tpu_torch.resilience.replay import (
     GPTTargetConfig, build_gpt_training, determinism_guard, synthetic_corpus)
@@ -294,7 +297,7 @@ determinism_guard(device="cpu")
 cfg = GPTTargetConfig(vocab=64, seq_len=16, layers=2, hidden=32, heads=4,
                       micro_batch=1, global_batch=8, collect_layer_rms=True)
 training = build_gpt_training(cfg, device="cpu")
-lm = LMDataset(synthetic_corpus(64, 4_000), 16)
+lm = LMDataset(IndexedTokenDataset(synthetic_corpus(64, 4_000)), 16)
 state = training.init_state()
 steps = []
 for step in range(5):

@@ -311,6 +311,7 @@ def test_bench_cli_runs_on_the_cpu():
     rec = json.loads(res.stdout.strip().splitlines()[-1])
     assert rec["device"] == "cpu" and rec["batch"] == 8
     assert rec["O0"]["tf32"] is False
+    assert rec["O2"]["cudnn_benchmark"] and not rec["O0"]["cudnn_benchmark"]
     for mode in ("O2", "O0"):
         assert rec[mode]["imgs_per_s"] > 0 and len(rec[mode]["losses"]) == 3
     assert rec["o2_over_o0"] == rec["O2"]["imgs_per_s"] / \

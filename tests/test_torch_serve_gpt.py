@@ -96,6 +96,9 @@ def _one_terminal_each(req_records):
     assert {v[0] for v in terminal.values()} <= TERMINAL_STATES
 
 
+BURST_STEP = 40
+
+
 def test_serve_gpt_sigterm_overload_drill(tmp_path):
     jsonl = str(tmp_path / "serving.jsonl")
     proc = _serve([
@@ -104,15 +107,19 @@ def test_serve_gpt_sigterm_overload_drill(tmp_path):
         "--deadline", "30", "--metrics-jsonl", jsonl,
         "--chaos-slow-decode-steps", "30,60", "--chaos-slow-decode-s",
         "0.3", "--chaos-abandon", "5,15,25",
-        "--chaos-malformed", "10,20", "--chaos-burst-steps", "40",
+        "--chaos-malformed", "10,20", "--chaos-burst-steps", str(BURST_STEP),
         "--chaos-burst-n", "12",
     ], env=_env(APEX_TPU_PREEMPTION_GRACE_S=str(GRACE)))
     try:
         t0 = time.monotonic()
         while time.monotonic() - t0 < 120:
             time.sleep(0.2)
-            n = sum(1 for r in _stream(jsonl) if r.get("kind") == "request")
-            if n > 60 or proc.poll() is not None:
+            req = [r for r in _stream(jsonl) if r.get("kind") == "request"]
+            # mid-load, once the burst's overload has been served: a
+            # SIGTERM before the burst's tick (a fast host's first 60
+            # records) leaves nothing to shed
+            if (len(req) > 60 and max(r["step"] for r in req) > BURST_STEP
+                    or proc.poll() is not None):
                 break
         assert proc.poll() is None, "the drill ended before the SIGTERM"
         proc.send_signal(signal.SIGTERM)  # mid-load

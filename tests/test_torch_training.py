@@ -22,7 +22,7 @@ from apex_tpu.resilience.sentinel import AnomalySentinel as JaxSentinel
 from apex_tpu.transformer import TransformerConfig as JaxConfig
 from apex_tpu.transformer import calc_params_l2_norm as jax_l2_norm
 from apex_tpu_torch.amp import GradScaler, LossScaler
-from apex_tpu_torch.data import LMDataset
+from apex_tpu_torch.data import IndexedTokenDataset, LMDataset
 from apex_tpu_torch.examples.gpt import pretrain_gpt
 from apex_tpu_torch.models import (
     GPTModel,
@@ -162,18 +162,23 @@ def test_poison_loss_and_l2_norm():
 # -- data --------------------------------------------------------------------
 
 def test_synthetic_corpus_and_lm_dataset_match_jax(tmp_path):
-    from apex_tpu.data import IndexedTokenDataset
+    from apex_tpu.data import IndexedTokenDataset as JaxIndexedTokenDataset
     from apex_tpu.data import LMDataset as JaxLMDataset
-    from apex_tpu.data import write_token_file
+    from apex_tpu.resilience.replay.targets import (
+        synthetic_corpus as jax_synthetic_corpus,
+    )
 
-    toks = synthetic_corpus(100, 5000)
+    prefix = synthetic_corpus(100, 5000)
+    toks = IndexedTokenDataset(prefix).tokens
     rng = np.random.RandomState(0)
     want = np.cumsum(rng.randint(1, 5, size=(5000,)), dtype=np.int64) % 100
     np.testing.assert_array_equal(toks, want.astype(np.int32))
-    prefix = str(tmp_path / "c")
-    write_token_file(prefix, toks)
-    jlm = JaxLMDataset(IndexedTokenDataset(prefix), seq_len=64)
-    lm = LMDataset(toks, 64)
+    # the two packages' token files hold the same bytes
+    with open(prefix + ".bin", "rb") as a, \
+            open(jax_synthetic_corpus(100, 5000) + ".bin", "rb") as b:
+        assert a.read() == b.read()
+    jlm = JaxLMDataset(JaxIndexedTokenDataset(prefix), seq_len=64)
+    lm = LMDataset(IndexedTokenDataset(prefix), 64)
     assert len(lm) == len(jlm)
     for got, ref in zip(lm.batch([0, 5, len(lm) - 1]),
                         jlm.batch([0, 5, len(jlm) - 1])):
@@ -258,7 +263,7 @@ def test_training_step_matches_jax(jax_training):
     state = pt.init_state()
     pt.model.load_state_dict(gpt_params_from_jax(_np(params["params"])),
                              strict=True)
-    lm = LMDataset(synthetic_corpus(512, 20_000), 64)
+    lm = LMDataset(IndexedTokenDataset(synthetic_corpus(512, 20_000)), 64)
     for step, nan in enumerate([0, 0, 0, 1]):
         x, y = pt.reshape_batch(*lm.batch(range(4 * step, 4 * step + 4)))
         out = jt.train_step(params, opt_state, scaler_state, sent_state,

@@ -23,7 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from apex_tpu_torch.data import LMDataset
+from apex_tpu_torch.data import IndexedTokenDataset, LMDataset
 from apex_tpu_torch.models import gpt_tp_params_from_jax
 from apex_tpu_torch.resilience import VERDICT_OK, VERDICT_SKIP
 from apex_tpu_torch.resilience.replay import synthetic_corpus
@@ -48,7 +48,7 @@ def _per_device(x):
 
 
 def _batches():
-    lm = LMDataset(synthetic_corpus(512, 20_000), 64)
+    lm = LMDataset(IndexedTokenDataset(synthetic_corpus(512, 20_000)), 64)
     out = []
     for step, nan in enumerate(NAN):
         x, y = lm.batch(range(8 * step, 8 * step + 8))
