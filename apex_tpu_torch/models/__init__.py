@@ -10,12 +10,16 @@ from apex_tpu_torch.models.bert import (
 from apex_tpu_torch.models.convert import (
     bert_params_from_jax,
     bert_tp_params_from_jax,
+    bottleneck_params_from_jax,
     fused_adam_state_from_jax,
     gpt_params_from_jax,
     gpt_pipeline_params_from_jax,
     gpt_tp_params_from_jax,
+    group_norm_params_from_jax,
     moe_params_from_jax,
+    multihead_attn_params_from_jax,
     resnet_params_from_jax,
+    rnn_params_from_jax,
     scaler_state_from_jax,
 )
 from apex_tpu_torch.models.generate import (
@@ -53,6 +57,8 @@ __all__ = [
     "beam_search",
     "ResNet34", "ResNet50", "ResNet101", "ResNet152", "bert_extended_attention_mask",
     "bert_params_from_jax", "bert_tp_params_from_jax",
+    "bottleneck_params_from_jax", "group_norm_params_from_jax",
+    "multihead_attn_params_from_jax", "rnn_params_from_jax",
     "config_from_hf_llama", "cross_entropy_loss",
     "fused_adam_state_from_jax", "generate", "gpt2_small_config",
     "gpt_loss_fn", "gpt_params_from_jax", "gpt_pipeline_params_from_jax",

@@ -26,6 +26,11 @@ and D (Dense kernels transposed, Conv kernels HWIO -> OIHW,
 ConvTranspose kernels flipped in both spatial dims as HWIO -> IOHW),
 any optimizer state whose fields the port's dataclass shares, and
 ``AmpOptimizerState`` (masters, inner state, scaler states).
+
+The contrib slice adds the multi-head attention modules, group norm and
+the RNNs (flax names and layouts on both sides: a path join) and the
+contrib bottleneck blocks (convolution kernels HWIO -> OIHW, the
+BatchNorms' ``batch_stats`` as buffers, as for the ResNet).
 """
 
 from typing import Any, Dict
@@ -39,13 +44,15 @@ from apex_tpu_torch.amp.scaler import LossScalerState
 from apex_tpu_torch.optimizers.fused_adam import FusedAdamState
 
 __all__ = ["amp_state_from_jax", "bert_params_from_jax",
-           "bert_tp_params_from_jax",
-           "dcgan_params_from_jax", "fused_adam_state_from_jax",
+           "bert_tp_params_from_jax", "bottleneck_params_from_jax",
+           "dcgan_params_from_jax", "group_norm_params_from_jax", "fused_adam_state_from_jax",
            "gpt_params_from_jax", "gpt_pipeline_params_from_jax",
            "gpt_tp_params_from_jax", "mlp_params_from_jax",
            "module_params_from_jax", "moe_params_from_jax",
+           "multihead_attn_params_from_jax",
            "optimizer_state_from_jax",
-           "resnet_params_from_jax", "scaler_state_from_jax"]
+           "resnet_params_from_jax", "rnn_params_from_jax",
+           "scaler_state_from_jax"]
 
 
 def _from_numpy(a) -> torch.Tensor:
@@ -187,6 +194,35 @@ def resnet_params_from_jax(params: Dict[str, Any],
             key = scope + dot + "weight"
         out[key] = v.contiguous()
     return out
+
+
+def bottleneck_params_from_jax(params: Dict[str, Any],
+                               batch_stats: Dict[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """The state_dict of ``contrib.bottleneck``'s ``Bottleneck`` or
+    ``SpatialBottleneck`` from the JAX module's ``params`` and
+    ``batch_stats``: the ResNet's walk (HWIO kernels -> OIHW
+    ``weight``)."""
+    return resnet_params_from_jax(params, batch_stats)
+
+
+def multihead_attn_params_from_jax(params: Dict[str, Any]
+                                   ) -> Dict[str, torch.Tensor]:
+    """The state_dict of ``contrib.multihead_attn``'s modules from a JAX
+    module's ``params``: the same names and (in, out) layout."""
+    return gpt_params_from_jax(params)
+
+
+def group_norm_params_from_jax(params: Dict[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """``contrib.group_norm.GroupNorm``'s ``scale`` and ``bias``."""
+    return gpt_params_from_jax(params)
+
+
+def rnn_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The state_dict of an ``rnn.RNN`` from the JAX ``RNN``'s
+    ``params`` (``layer<l>[_reverse].cell.<wi|wh|...>``)."""
+    return gpt_params_from_jax(params)
 
 
 def _tensor(x, device, dtype=None):

@@ -26,6 +26,15 @@ from apex_tpu_torch.parallel import parallel_state as ps
 __all__ = ["SyncBatchNorm", "convert_syncbn_model"]
 
 
+def _sum_over(x, groups):
+    """``x`` summed over ``groups``, one group or a tuple of groups of
+    different mesh axes (summed over each in turn: the sum over their
+    product)."""
+    for group in groups if isinstance(groups, (tuple, list)) else (groups,):
+        x = ps.all_reduce(x, group)
+    return x
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over ``group`` forward; the same sum of the gradients
     backward."""
@@ -33,11 +42,11 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return ps.all_reduce(x, group)
+        return _sum_over(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        return ps.all_reduce(g, ctx.group), None
+        return _sum_over(g, ctx.group), None
 
 
 class SyncBatchNorm(nn.Module):
@@ -47,7 +56,8 @@ class SyncBatchNorm(nn.Module):
     computed in fp32 and cast to ``dtype`` (x's dtype when None); the
     parameters ``scale`` and ``bias`` and the buffers ``mean`` and ``var``
     are fp32 (the flax names). ``process_group``: the group whose
-    moments are summed (None: this rank's alone)."""
+    moments are summed, or a tuple of groups of different mesh axes (the
+    JAX module's several ``axis_names``; None: this rank's alone)."""
 
     def __init__(self, features: int,
                  use_running_average: Optional[bool] = None,

@@ -63,6 +63,10 @@ swallowed:
    (2048, 1024), in bf16 and fp32; the flash decode step of a tp = 2
    rank of GPT-2 small, (8,6,1,64) over a 256-slot cache, and the sum of
    squares over one ZeRO LAMB shard of BERT-345M at dp = 4 (84,082,688);
+   the contrib MHA example's widest point: flash forward and backward at
+   (120,16,64,64) non-causal, with and without encdec's key padding
+   (``mha_kpm``), and LayerNorm forward and backward at (7680, 1024), in
+   fp32 and bf16 (an fp32 row's bound is the fp32 peak);
    the decode-shape rows
    and the LayerNorm backward also as CUDA graphs of the kernel alone and
    of the library call, and the LayerNorm backward's loop kernel both ways
@@ -198,7 +202,8 @@ swallowed:
    kernel runs, the LayerNorm and Adam kernels do; then the dropout's kept
    share and scale on the card and two models of one seed bit-equal;
 12. (Before it, the spawned runs of phases 12 (c), 13 (b, c), 14, 15,
-   21's ep and 23 run as jobs of one shared world of 4 ranks
+   18b's spatial bottleneck, 21's ep and 23 run as jobs of one shared
+   world of 4 ranks
    (``gloo_world``), which so pays the processes' start, and the import
    of ``torch._dynamo`` that torch's activation checkpoint makes on its
    first call, once; each phase then checks and logs its jobs' results.)
@@ -286,6 +291,21 @@ swallowed:
    forward and backward (launching #1-#4) in fp32 and bf16, and
    ``fused_lamb`` (launching #9), ``fused_novograd``, ``fused_adagrad``,
    ``fused_adam_swa``, LARC and ``clip_grad_norm`` for 3 steps;
+18b. contrib: the MHA modules (a 2-layer stack at hidden 1024, 16
+   heads, norm-add self-attention and encdec with key padding and a
+   fully padded row, whose output must be the last projection's bias) on
+   the card in fp32 and bf16 against the plain path on the CPU in fp32,
+   output and every gradient (``CONTRIB_TOL``); the MHA example's loop at
+   full width (18 layers, seq 64) at 10 and 120 sequences, norm-add self
+   and encdec, fp32 and bf16, slope-timed (the counted ``contrib``
+   path); the ResNet-50 bottleneck blocks (stage 1 and stride 2, 56 x
+   56, batch 32) in bf16 against fp32, GroupNorm + swish (8 x 320 x 64 x
+   64) in bf16 against fp32, the transducer (8 x 256 x 64 x 1024), focal
+   loss (4 x 120,087 anchors x 96 classes) and ``index_mul_2d`` card
+   against CPU with their gradients, ASP's masks over GPT-2 small exactly
+   2:4, and a 2-layer LSTM and mLSTM at hidden 1024 card against CPU;
+   the seconds of each part; and, in the shared world of 4, the spatial
+   bottleneck at cp = 4 (``SPATIAL_CASES``) against the unsharded block;
 19. one step of ``fused_adam``, ``fused_lamb``, ``fused_novograd``,
    ``fused_adagrad`` and ``fused_adam_swa`` over BERT-345M's parameters:
    ms and launches, recorded for a later performance issue;
@@ -380,6 +400,7 @@ bubble`` (likewise), and ``llama_cp_ring``, ``llama_cp_ulysses`` and
 when its model is built and are read before any cp = 1 reference runs,
 and rank 0 reports them), and ``amp_imagenet``, ``amp_dcgan`` and
 ``amp_mlp`` (the three amp examples; ResNet-50 runs none of the nine),
+``contrib`` (the MHA example's sweep in phase 18b),
 ``gpt_recompute_none``, ``_selective``, ``_full`` and ``_dropout``,
 ``gpt_moe``, ``gpt_moe_ep`` (rank 0), ``fp8`` (none of the nine),
 ``gpt_pipeline_no_remat`` (rank 0 of the bf16 run), and
@@ -395,8 +416,9 @@ launched. ``python3 chip_smoke.py --tail`` (development) runs only the
 build and phase 24, ``--elastic`` only the build and phase 24's
 ``gpt_elastic`` jobs (in a world of 4 of their own), ``--serve-gpt``
 only the build and phase 4c, and ``--resilience`` only the build and
-phase 25, and ``--llama-runtime`` only the build and phase 7b; none
-prints a result. Every temp file of a run goes into one directory that
+phase 25, and ``--llama-runtime`` only the build and phase 7b, and
+``--contrib`` only the build and phase 18b (without the spatial job);
+none prints a result. Every temp file of a run goes into one directory that
 the script removes when it ends.
 """
 
@@ -602,6 +624,8 @@ PATH_KERNELS = {
     # the uninterrupted run, the saved run and its resumed rerun
     "llama_runtime": ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd",
                       "flash_bwd_dq", "flash_bwd_dkv", "sumsq_flat"),
+    "contrib": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                "flash_bwd_dq", "flash_bwd_dkv"),
 }
 FORWARD_KERNELS = PATH_KERNELS["serving"]
 KERNEL_META = {  # name: (source, TPU kernel it replaces)
@@ -843,6 +867,25 @@ def lens_kpm(lens, sk):
 
 BERT_SERVING_FLASH = ("BERT serving non-causal (32,16,512,64) key-padding, "
                       "the serving batch's 32 lengths")
+
+
+# the contrib MHA example (apex_tpu_torch/examples/multihead_attn) at its
+# sweep's top: 120 sequences of 64 tokens, hidden 1024, 16 heads of 64
+MHA_FLASH_SHAPE = (120, 16, 16, 64, 64, 64)  # b, h, h_kv, sq, sk, d
+MHA_ROWS = 120 * 64  # the pre-LayerNorm's rows
+
+
+def mha_kpm(b=120, sk=64):
+    """Encdec's key padding at the example's shape: sequence i keeps
+    64 - (7i mod 65) keys, so lengths run over 0-64: sequence 0 keeps all
+    and sequence 37 none (a fully padded row, whose output is zeros)."""
+    return lens_kpm([64 - (7 * i) % 65 for i in range(b)], sk)
+
+
+def mha_flash_label(padded, dtype):
+    return ("contrib MHA non-causal (120,16,64,64)"
+            + (" encdec key-padding" if padded else "")
+            + f" {str(dtype)[6:]}")
 
 
 def bert_flash_cases(dtype, gen):
@@ -1254,6 +1297,13 @@ def sumsq_parity(errors):
 
 # -- kernel timing ---------------------------------------------------------
 
+def peak_flops(dtype):
+    """The card's peak rate for products of ``dtype``: the tensor cores'
+    for bf16, the fp32 units' for fp32 (the kernels' fp32 path is
+    scalar)."""
+    return BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+
+
 def bound(bytes_moved, flops, peak_flops):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -1349,7 +1399,7 @@ def time_flash(label, q, k, v, causal, kpm, errors, graph=False):
     esize = q.element_size()
     b_ms, by = bound((2 * q.numel() + 2 * keys * d) * esize
                      + b * h * sq * 4 + (kpm.numel() if kpm is not None else 0),
-                     4 * pairs * d, BF16_FLOPS)
+                     4 * pairs * d, peak_flops(q.dtype))
     out = at.flash_attention(q, k, v, causal=causal, key_padding_mask=kpm)
     ref = at._flash_ref(q, k, v, scale, causal, None, kpm)
     err = check("flash_fwd", q.dtype, label, out, ref, errors)
@@ -1445,10 +1495,11 @@ def time_layer_norm_bwd(rows, hidden, dtype=torch.bfloat16):
 FLASH_BWD_ROUNDS = 3
 
 
-def time_flash_bwd(gen, b, h, h_kv, s, errors, d=64, causal=True, kpm=None):
+def time_flash_bwd(gen, b, h, h_kv, s, errors, d=64, causal=True, kpm=None,
+                   dtype=torch.bfloat16):
     """dq and dk/dv at a training shape, (b, h, s, d) queries over h_kv
-    key/value heads, bf16, causal or not, with or without a key-padding
-    row. The plain version and the library call
+    key/value heads, in ``dtype``, causal or not, with or without a
+    key-padding row. The plain version and the library call
     compute the whole backward (dq, dk and dv) and stand in both rows.
     The two kernels and the library's forward and forward+backward are
     timed in turns, FLASH_BWD_ROUNDS rounds, and each keeps its median, so
@@ -1457,8 +1508,8 @@ def time_flash_bwd(gen, b, h, h_kv, s, errors, d=64, causal=True, kpm=None):
 
     from apex_tpu_torch.ops import attention as at
 
-    q, k, v = attn_inputs(b, h, h_kv, s, s, d, torch.bfloat16, gen)
-    do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    q, k, v = attn_inputs(b, h, h_kv, s, s, d, dtype, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     scale = 1.0 / math.sqrt(d)
     o, lse = at._flash_kernel(q, k, v, scale, causal, kpm)
     delta = (do.float() * o.float()).sum(-1)
@@ -1494,17 +1545,19 @@ def time_flash_bwd(gen, b, h, h_kv, s, errors, d=64, causal=True, kpm=None):
     log(f"time flash backward rounds (b={b} h={h} h_kv={h_kv} s={s} d={d}): "
         + json.dumps(rounds))
     med = {name: statistics.median(ms) for name, ms in rounds.items()}
-    q_t = b * h * s * d * 2  # bytes of one bf16 (b, h, s, d) tensor
-    kv_t = b * h_kv * s * d * 2  # bytes of one bf16 (b, h_kv, s, d) tensor
+    esize = q.element_size()
+    q_t = b * h * s * d * esize  # bytes of one (b, h, s, d) tensor
+    kv_t = b * h_kv * s * d * esize  # bytes of one (b, h_kv, s, d) tensor
     rows = b * h * s * 4  # bytes of one fp32 (b, h, s) row vector
     # dq: reads q, k, v, dO, lse, delta, writes dq; dk/dv: reads the same,
     # writes dk and dv
     dq_bound = bound(3 * q_t + 2 * kv_t + 2 * rows, 3 * 2 * pairs * d,
-                     BF16_FLOPS)
+                     peak_flops(dtype))
     dkv_bound = bound(2 * q_t + 4 * kv_t + 2 * rows, 4 * 2 * pairs * d,
-                      BF16_FLOPS)
-    label = (f"q,dO ({b},{h},{s},{d}) k,v ({b},{h_kv},{s},{d}) bf16"
-             if h != h_kv else f"q,k,v,dO ({b},{h},{s},{d}) bf16")
+                      peak_flops(dtype))
+    name = str(dtype)[6:]
+    label = (f"q,dO ({b},{h},{s},{d}) k,v ({b},{h_kv},{s},{d}) {name}"
+             if h != h_kv else f"q,k,v,dO ({b},{h},{s},{d}) {name}")
     label += " causal" if causal else " non-causal"
     if kpm is not None:
         label += " key-padding"
@@ -1749,6 +1802,15 @@ def kernel_timings(errors):
     out["flash_fwd"].append(time_flash(ULYSSES_FLASH + " bf16", q, k, v,
                                        True, cp_kpm(), errors))
     del q, k, v
+    # the contrib MHA example's widest point, fp32 (its dtype) and bf16:
+    # self-attention, and encdec with the key padding of MHA_LENS
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attn_inputs(*MHA_FLASH_SHAPE, dtype, gen)
+        for kpm in (None, mha_kpm()):
+            out["flash_fwd"].append(time_flash(
+                mha_flash_label(kpm is not None, dtype), q, k, v, False, kpm,
+                errors))
+        del q, k, v
     # BERT-345M's rows, bf16 and the LM head's fp32: pre-training's 4 x 512
     # tokens of 1024 and serving's 32 x 512
     out["layer_norm_fwd"] += [time_layer_norm(rows, 1024, dtype=dtype)
@@ -1756,6 +1818,9 @@ def kernel_timings(errors):
                               for dtype in (torch.bfloat16, torch.float32)]
     # GPT-2's rows under sequence parallelism at tp = 2
     out["layer_norm_fwd"].append(time_layer_norm(2048, 768))
+    # the contrib MHA's pre-LayerNorm at the example's widest point
+    out["layer_norm_fwd"] += [time_layer_norm(MHA_ROWS, 1024, dtype=dtype)
+                              for dtype in (torch.float32, torch.bfloat16)]
     # GPT-2 training's rows (eight warps a block), and GPT-2 XL's width
     # (four warps a block)
     out["layer_norm_bwd"] = [time_layer_norm_bwd(8192, 768),
@@ -1774,6 +1839,16 @@ def kernel_timings(errors):
                                kpm=cp_kpm())
     out["flash_bwd_dq"] = dq + ldq + wdq + bdq + pdq + tdq + udq
     out["flash_bwd_dkv"] = dkv + ldkv + wdkv + bdkv + pdkv + tdkv + udkv
+    # the contrib MHA example's widest point, with and without MHA_LENS
+    for dtype in (torch.float32, torch.bfloat16):
+        for kpm in (None, mha_kpm()):
+            mdq, mdkv = time_flash_bwd(gen, *MHA_FLASH_SHAPE[:3],
+                                       MHA_FLASH_SHAPE[3], errors,
+                                       causal=False, kpm=kpm, dtype=dtype)
+            out["flash_bwd_dq"] += mdq
+            out["flash_bwd_dkv"] += mdkv
+    out["layer_norm_bwd"] += [time_layer_norm_bwd(MHA_ROWS, 1024, dtype)
+                              for dtype in (torch.float32, torch.bfloat16)]
     out["adam_update"] = [time_adam(N_GPT2_SMALL)]
     out["rms_norm_fwd"] = [time_rms_norm(8192, 2048),
                            time_rms_norm(8, 2048, graph=True),
@@ -4055,6 +4130,19 @@ PIPELINE_WORKERS = "apex_tpu_torch.transformer.testing.pipeline_workers"
 #: against plain; the pipeline's interleaved schedule, card against plain,
 #: zero bubble and zero bubble against 1F1B, and remat True against False
 #: in fp32 and bf16; TinyLlama at cp = 4; MoE at ep = 4
+# the spatial bottleneck over cp = 4 (H split in 4), fp32 on the card:
+# a stride-1 block and a stride-2 one, in training mode; (N, H, W, C)
+SPATIAL_CASES = [dict(channels=(64, 16, 64), stride=1, train=True,
+                      shape=(4, 32, 32, 64), seed=SEED),
+                 dict(channels=(64, 32, 128), stride=2, train=True,
+                      shape=(4, 32, 32, 64), seed=SEED + 1)]
+# each rank's rows against the unsharded block: fp32 convolutions and the
+# BatchNorms' sums in another order over 4 ranks, relative to each
+# tensor's largest element (the gradients of sum(out ** 2) cancel more);
+# the running statistics absolute
+SPATIAL_TOL = dict(out=1e-4, dx=1e-3, params=1e-3, stats=1e-5)
+
+
 GLOO_JOBS = (
     ("parallel_card_vs_plain",
      "apex_tpu_torch.transformer.testing.parallel_workers:"
@@ -4077,6 +4165,9 @@ GLOO_JOBS = (
      "cp_card_worker", lambda: (cp_jobs(), "cuda")),
     ("moe_ep", "apex_tpu_torch.transformer.testing.recompute_workers:"
      "moe_gpt_ep_worker", lambda: (MOE_EP, 4, 1024, "cuda")),
+    ("spatial_bottleneck", "apex_tpu_torch.transformer.testing."
+     "contrib_workers:spatial_bottleneck_worker",
+     lambda: (SPATIAL_CASES, "cuda")),
 )
 
 
@@ -4676,6 +4767,363 @@ def amp_mlp_phase(smi):
         f"{c['inject']} left params, masters and Adam state bit-unchanged "
         f"and took the scale {before[5]} -> {after[5]} ({smi})")
     log("amp_mlp " + json.dumps(report))
+    return launches, report
+
+
+# -- contrib and the RNNs ------------------------------------------------------
+
+# the MHA example's sweep in the phase: its two ends, 10 and 120 sequences
+MHA_ARGV = ["--seq-length", "64", "--layers", "18", "--hidden-dim", "1024",
+            "--heads", "16", "--num-seqs-start", "10", "--num-seqs-stop",
+            "120", "--num-seqs-inc", "110"]
+MHA_CASES = (("self --norm-add --biases", ["--norm-add", "--biases"]),
+             ("encdec", ["--encdec-attn"]))
+# card against plain, relative in norm: fp32 the same products and sums
+# in another order (cuBLAS against the CPU's GEMMs through a 1024-wide
+# stack); bf16 against the fp32 plain path, activations rounded to bf16 at
+# each layer (unit roundoff 2^-8), the gradients through more roundings;
+# the bottleneck's input gradient passes three BatchNorm backwards, each
+# of which subtracts from the bf16 gradient its batch mean and its
+# projection on the normalised activation (differences of nearly equal
+# terms, 5e-2 of it at a toy width on the CPU)
+CONTRIB_TOL = {"fp32": 1e-5, "fp32 grad": 1e-4, "bf16": 2e-2,
+               "bf16 grad": 5e-2, "bf16 bn input grad": 1e-1}
+# the ResNet-50 bottleneck blocks at stage 1 (56 x 56): its repeated block
+# and the first block of stage 2 (stride 2); batch 32
+BOTTLENECKS = (("stage-1 256->64->256", (256, 64, 256, 1)),
+               ("stride-2 256->128->512", (256, 128, 512, 2)))
+BOTTLENECK_BATCH = 32
+# a diffusion UNet's GroupNorm + swish (the reference kernel's hot shape)
+GROUP_NORM_SHAPE, GROUP_NORM_GROUPS = (8, 320, 64, 64), 32
+# an ASR transducer's joint output: 8 utterances, 256 frames, 64 label
+# positions, 1024 word pieces (0.54 GB of fp32 logits)
+TRANSDUCER_SHAPE = (8, 256, 64, 1024)
+# a RetinaNet head at 800 x 800 (MLPerf's 120,087 anchors an image) over
+# COCO's 91 classes padded to 96, 4 images
+FOCAL_SHAPE, FOCAL_REAL = (4 * 120_087, 96), 91
+# OpenFold's indexed multiply: 262,144 rows gathering from 65,536
+INDEX_MUL = dict(m=65_536, n=262_144, h=128)
+RNN_SHAPE = dict(seq=32, batch=16, hidden=1024, layers=2)
+
+
+def _rel(got, ref):
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    return float((got - ref).norm() / max(float(ref.norm()), 1e-30))
+
+
+def _held(name, rel, tol, report):
+    report[name] = rel
+    log(f"contrib {name}: {rel:.3e} relative in norm (tol {tol})")
+    if not rel <= tol:
+        raise AssertionError(f"contrib {name}: {rel} relative in norm "
+                             f"(tol {tol})")
+
+
+def mha_card_vs_plain(report):
+    """A 2-layer stack of each MHA module at the example's width (4
+    sequences of 64; encdec over 48 encoder positions with key padding and
+    a fully padded row) on the card through the kernels, fp32 and bf16,
+    against the plain path on the CPU in fp32 from the same weights: the
+    output, the input gradients and every parameter gradient of
+    sum(out ** 2)."""
+    from apex_tpu_torch.contrib import EncdecMultiheadAttn, SelfMultiheadAttn
+
+    gen = torch.Generator().manual_seed(SEED + 40)
+    x = torch.randn(64, 4, 1024, generator=gen)
+    enc = torch.randn(48, 4, 1024, generator=gen)
+    kpm = torch.zeros(4, 48, dtype=torch.bool)
+    kpm[1], kpm[2, -11:] = True, True
+    for name, cls, kw in (
+            ("self", SelfMultiheadAttn, dict(bias=True,
+                                             include_norm_add=True)),
+            ("encdec", EncdecMultiheadAttn, dict(bias=True))):
+        def run(device, dtype):
+            mods = [cls(1024, 16, device=device, seed=SEED + i, **kw)
+                    for i in range(2)]
+            h = x.to(device, dtype).detach().requires_grad_(True)
+            e = enc.to(device, dtype).detach().requires_grad_(True)
+            y = h
+            for m in mods:
+                y = (m(y, e, key_padding_mask=kpm.to(device))
+                     if name == "encdec" else m(y))
+            y.float().square().sum().backward()
+            grads = [p.grad for m in mods for p in m.parameters()]
+            if name == "encdec":
+                # sequence 1's keys are all padded: its attention output is
+                # zeros, so the stack's output there is the last output
+                # projection's bias
+                bias = mods[-1].out_proj_bias.detach().to(dtype)
+                if not torch.equal(y[:, 1].detach(), bias.expand(64, -1)):
+                    raise AssertionError(f"mha encdec {device} {dtype}: the "
+                                         "fully padded row is not zeros")
+            return y, [h.grad] + ([e.grad] if name == "encdec" else []), \
+                grads
+
+        ref = run("cpu", torch.float32)
+        for dtype, key in ((torch.float32, "fp32"), (torch.bfloat16,
+                                                     "bf16")):
+            y, dx, grads = run("cuda", dtype)
+            _held(f"mha {name} {key} out", _rel(y, ref[0]), CONTRIB_TOL[key],
+                  report)
+            _held(f"mha {name} {key} input grads",
+                  max(_rel(a, b) for a, b in zip(dx, ref[1])),
+                  CONTRIB_TOL[key + " grad"], report)
+            _held(f"mha {name} {key} param grads (worst)",
+                  max(_rel(a, b) for a, b in zip(grads, ref[2])),
+                  CONTRIB_TOL[key + " grad"], report)
+            del y, dx, grads
+
+
+def mha_example_sweep(report):
+    """The example's loop at full width (hidden 1024, 16 heads, seq 64, 18
+    layers), forward and backward, at 10 and 120 sequences, each case in
+    fp32 and bf16; returns the launch counts of the sweep alone."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.examples.multihead_attn import (
+        perf_test_multihead_attn as ex,
+    )
+
+    _kernels.reset_launch_counts()
+    for name, extra in MHA_CASES:
+        for dtype in ("fp32", "bf16"):
+            args = ex.parse_args(MHA_ARGV + extra
+                                 + (["--bf16"] if dtype == "bf16" else []))
+            rows = ex.run(args, log=log, reps=1, target_signal=0.05,
+                          max_span=8)
+            report[f"mha {name} {dtype}"] = rows
+    torch.cuda.synchronize()
+    return _kernels.launch_counts()
+
+
+def bottleneck_card(report):
+    """Each block in bf16 on the card, forward and backward in training
+    mode (batch statistics), against the same block in fp32 from the same
+    weights: output, input gradient and every parameter gradient of
+    mean(out ** 2); the bf16 step's ms (CUDA events, 10 steps)."""
+    from apex_tpu_torch.contrib import Bottleneck
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    for name, (cin, mid, cout, stride) in BOTTLENECKS:
+        blocks = {dt: Bottleneck(cin, mid, cout, stride=stride,
+                                 compute_dtype=dt, device="cuda", seed=SEED)
+                  for dt in (torch.float32, torch.bfloat16)}
+        x = torch.randn(BOTTLENECK_BATCH, cin, 56, 56, generator=gen,
+                        device="cuda").contiguous(
+                            memory_format=torch.channels_last)
+
+        def step(block):
+            xi = x.detach().requires_grad_(True)
+            y = block(xi, train=True)
+            y.float().square().mean().backward()
+            return y, xi.grad
+
+        got = {}
+        for dt, block in blocks.items():
+            block.zero_grad()
+            y, dx = step(block)
+            got[dt] = (y, dx, [p.grad.clone() for p in block.parameters()])
+        (y32, dx32, g32), (y16, dx16, g16) = got.values()
+        _held(f"bottleneck {name} bf16 out", _rel(y16, y32),
+              CONTRIB_TOL["bf16"], report)
+        _held(f"bottleneck {name} bf16 input grad", _rel(dx16, dx32),
+              CONTRIB_TOL["bf16 bn input grad"], report)
+        # the parameter gradients as one vector: a BatchNorm's bias and
+        # scale gradients are sums over the batch that cancel, each alone
+        # far smaller than the convolutions'
+        _held(f"bottleneck {name} bf16 param grads",
+              _rel(torch.cat([g.flatten() for g in g16]),
+                   torch.cat([g.flatten() for g in g32])),
+              CONTRIB_TOL["bf16 grad"], report)
+        report[f"bottleneck {name} bf16 fwd+bwd ms"] = time_ms(
+            lambda: step(blocks[torch.bfloat16]), iters=10)
+        del got, x
+
+
+def group_norm_card(report):
+    """GroupNorm + swish in bf16 (channels-last) against the fp32 plain
+    version of the same input, 1.56e-2 elementwise (one bf16 rounding of
+    an fp32 result); its ms beside ``F.group_norm`` + ``F.silu``'s."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.contrib import group_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    n, c, h, w = GROUP_NORM_SHAPE
+    x = (torch.randn(n, c, h, w, generator=gen, device="cuda") * 3 + 1) \
+        .to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wt = torch.randn(c, generator=gen, device="cuda")
+    bs = torch.randn(c, generator=gen, device="cuda")
+    got = group_norm(x, GROUP_NORM_GROUPS, wt, bs, act="swish")
+    ref = group_norm(x.float(), GROUP_NORM_GROUPS, wt, bs, act="swish")
+    err = (got.float() - ref).abs()
+    if bool((err > 1.56e-2 + 1.56e-2 * ref.abs()).any()):
+        raise AssertionError(f"group_norm bf16: {float(err.max())}")
+    report["group_norm bf16 max_abs_err"] = float(err.max())
+    report["group_norm bf16 ms"] = time_ms(
+        lambda: group_norm(x, GROUP_NORM_GROUPS, wt, bs, act="swish"))
+    wl, bl = wt.to(x.dtype), bs.to(x.dtype)
+    report["group_norm bf16 library ms"] = time_ms(
+        lambda: F.silu(F.group_norm(x, GROUP_NORM_GROUPS, wl, bl)))
+
+
+def transducer_card(report):
+    """The loss and its gradient at an ASR size, fp32, card against CPU
+    (the same wavefront; the log-softmax summed in another order): loss
+    1e-5 and gradient 1e-5 relative in norm; the card's forward+backward
+    ms."""
+    from apex_tpu_torch.contrib import transducer_loss
+
+    b, t, u, v = TRANSDUCER_SHAPE
+    gen = torch.Generator().manual_seed(SEED + 43)
+    x = torch.randn(b, t, u, v, generator=gen)
+    label = torch.randint(1, v, (b, u - 1), generator=gen)
+    f_len = torch.randint(t // 2, t + 1, (b,), generator=gen)
+    y_len = torch.randint(u // 2, u, (b,), generator=gen)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xd = x.to(dev).detach().requires_grad_(True)
+        loss = transducer_loss(xd, label.to(dev), f_len.to(dev),
+                               y_len.to(dev), 0)
+        loss.sum().backward()
+        out[dev] = (loss.detach(), xd.grad)
+    _held("transducer loss", _rel(out["cuda"][0], out["cpu"][0]),
+          CONTRIB_TOL["fp32"], report)
+    _held("transducer grad", _rel(out["cuda"][1], out["cpu"][1]),
+          CONTRIB_TOL["fp32"], report)
+    xc = x.cuda().requires_grad_(True)
+    args = (label.cuda(), f_len.cuda(), y_len.cuda(), 0)
+    report["transducer fp32 fwd+bwd ms"] = time_ms(
+        lambda: torch.autograd.grad(transducer_loss(xc, *args).sum(), xc),
+        iters=3)
+    del out, xc
+
+
+def small_ops_card(report):
+    """Focal loss over a detection head's anchors and ``index_mul_2d`` at
+    OpenFold's rows, card against CPU: value and gradients 1e-5 relative
+    in norm (fp32 sums in another order; the gather exact)."""
+    from apex_tpu_torch.contrib import focal_loss, index_mul_2d
+
+    gen = torch.Generator().manual_seed(SEED + 44)
+    n, k = FOCAL_SHAPE
+    logits = torch.randn(n, k, generator=gen) * 2
+    targets = torch.randint(-2, FOCAL_REAL, (n,), generator=gen)
+    targets[torch.rand(n, generator=gen) < 0.9] = -1  # mostly negatives
+    npos = float(max(int((targets >= 0).sum()), 1))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xd = logits.to(dev).detach().requires_grad_(True)
+        loss = focal_loss(xd, targets.to(dev), npos, FOCAL_REAL, 0.25, 2.0,
+                          0.1)
+        loss.backward()
+        out[dev] = (loss.detach(), xd.grad)
+    _held("focal_loss", _rel(out["cuda"][0], out["cpu"][0]),
+          CONTRIB_TOL["fp32"], report)
+    _held("focal_loss grad", _rel(out["cuda"][1], out["cpu"][1]),
+          CONTRIB_TOL["fp32"], report)
+    m, rows, h = INDEX_MUL["m"], INDEX_MUL["n"], INDEX_MUL["h"]
+    in1 = torch.randn(m, h, generator=gen)
+    in2 = torch.randn(rows, h, generator=gen)
+    idx = torch.randint(0, m, (rows,), generator=gen)
+    ct = torch.randn(rows, h, generator=gen)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        a = in1.to(dev).detach().requires_grad_(True)
+        b = in2.to(dev).detach().requires_grad_(True)
+        y = index_mul_2d(a, b, idx.to(dev))
+        y.backward(ct.to(dev))
+        out[dev] = (y.detach(), a.grad, b.grad)
+    if not torch.equal(out["cuda"][0].cpu(), out["cpu"][0]):
+        raise AssertionError("index_mul_2d: card output differs")
+    _held("index_mul_2d in1 grad", _rel(out["cuda"][1], out["cpu"][1]),
+          CONTRIB_TOL["fp32"], report)
+    _held("index_mul_2d in2 grad", _rel(out["cuda"][2], out["cpu"][2]),
+          CONTRIB_TOL["fp32"], report)
+
+
+def asp_gpt2_card(report):
+    """ASP's 2:4 masks over GPT-2 small's GEMM kernels on the card:
+    every eligible kernel's mask exactly 2:4 along its pruned (input)
+    axis, the first block's QKV mask equal to the CPU's, and the ms."""
+    from apex_tpu_torch.contrib.sparsity import (
+        compute_sparse_masks,
+        default_eligibility,
+    )
+    from apex_tpu_torch.models import GPTModel, gpt2_small_config
+
+    model = GPTModel(gpt2_small_config(), device="cuda", seed=SEED)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masks = compute_sparse_masks(params)
+    torch.cuda.synchronize()
+    report["asp gpt2 masks ms"] = (time.perf_counter() - t0) * 1e3
+    eligible = [n for n, p in params.items() if default_eligibility(n, p)]
+    for name in eligible:
+        groups = masks[name].movedim(-2, -1).reshape(-1, 4)
+        if not bool((groups.sum(dim=1) == 2).all()):
+            raise AssertionError(f"asp {name}: not exactly 2:4")
+    first = next(n for n in eligible if "query_key_value" in n)
+    cpu = compute_sparse_masks({first: params[first].cpu()})[first]
+    if not torch.equal(masks[first].cpu(), cpu):
+        raise AssertionError(f"asp {first}: card mask differs from the CPU")
+    report["asp gpt2 eligible kernels"] = len(eligible)
+    report["asp gpt2 pruned weights"] = sum(
+        int((masks[n] == 0).sum()) for n in eligible)
+    del model, params, masks
+
+
+def rnn_card(report):
+    """A 2-layer LSTM and an mLSTM at hidden 1024, fp32, card against CPU
+    from the same weights: output and input gradient 1e-5 and 1e-4
+    relative in norm (fp32 GEMMs summed in another order through 32
+    steps); the card's forward+backward ms."""
+    from apex_tpu_torch.rnn import LSTM, mLSTM
+
+    c = RNN_SHAPE
+    gen = torch.Generator().manual_seed(SEED + 45)
+    xs = torch.randn(c["seq"], c["batch"], c["hidden"], generator=gen)
+    for name, factory in (("LSTM", LSTM), ("mLSTM", mLSTM)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model = factory(c["hidden"], c["hidden"], num_layers=c["layers"],
+                            device=dev, seed=SEED)
+            x = xs.to(dev).detach().requires_grad_(True)
+            h, _ = model(x)
+            h.square().sum().backward()
+            out[dev] = (h.detach(), x.grad)
+            if dev == "cuda":
+                report[f"{name} fwd+bwd ms"] = time_ms(
+                    lambda: torch.autograd.grad(model(x)[0].sum(), x),
+                    iters=3)
+        _held(f"{name} out", _rel(out["cuda"][0], out["cpu"][0]),
+              CONTRIB_TOL["fp32"], report)
+        _held(f"{name} input grad", _rel(out["cuda"][1], out["cpu"][1]),
+              CONTRIB_TOL["fp32 grad"], report)
+
+
+def contrib_phase(smi):
+    """The contrib zoo and the RNNs on the card: the MHA modules card
+    against plain, the MHA example's loop (the counted ``contrib`` path:
+    #1, #2, #5, #6, #7), the ResNet-50 bottleneck blocks, GroupNorm +
+    swish, the transducer, focal loss, ``index_mul_2d``, ASP over GPT-2
+    small and the LSTMs; every check's error and every time in one
+    ``contrib`` line."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report = {"gpu": smi, "seconds": {}}
+    launches = None
+    for fn in (mha_card_vs_plain, mha_example_sweep, bottleneck_card,
+               group_norm_card, transducer_card, small_ops_card,
+               asp_gpt2_card, rnn_card):
+        t1 = time.perf_counter()
+        counts = fn(report)
+        launches = launches or counts
+        torch.cuda.empty_cache()
+        report["seconds"][fn.__name__] = time.perf_counter() - t1
+    report["phase_s"] = time.perf_counter() - t0
+    log("contrib " + json.dumps(report))
+    log(f"contrib phase {report['phase_s']:.1f} s ({smi})")
     return launches, report
 
 
@@ -5399,6 +5847,29 @@ def gpt_moe_ep_phase(smi, ranks):
         "rank; ep 4 against ep 1 on each rank's tokens): "
         + json.dumps(report))
     return ranks[0]["launches_ep"], report
+
+
+def spatial_bottleneck_phase(smi, ranks):
+    """``contrib.SpatialBottleneck`` with H split over cp = 4 ranks of this
+    card over gloo (``SPATIAL_CASES``): every rank's rows, forward and
+    backward, against the unsharded ``Bottleneck`` on the whole input
+    (``SPATIAL_TOL``), and the halo messages each rank staged."""
+    for r, cases in enumerate(ranks):
+        for case, out in zip(SPATIAL_CASES, cases):
+            errs = dict(out=out["err_out"] / out["scale_out"],
+                        dx=out["err_dx"] / out["scale_dx"],
+                        params=out["err_params"], stats=out["err_stats"])
+            bad = [k for k, v in errs.items() if not v <= SPATIAL_TOL[k]]
+            if bad or out["staged"]["p2p"] == 0:
+                raise AssertionError(f"spatial_bottleneck rank {r} {case}: "
+                                     f"{errs}, staged {out['staged']}")
+    report = {"gpu": smi, "transport": GLOO_TRANSPORT, "ranks": [
+        [{k: out[k] for k in ("err_out", "scale_out", "err_dx", "scale_dx",
+                              "err_params", "err_stats", "staged")}
+         for out in cases] for cases in ranks]}
+    log("spatial_bottleneck (cp = 4, fp32, against the unsharded block): "
+        + json.dumps(report))
+    return report
 
 
 FP8_SHAPES = dict(x=(8192, 768), w=(768, 3072))
@@ -6494,6 +6965,12 @@ def main():
         log(f"gpt_elastic phase done in "
             f"{time.perf_counter() - START:.1f} s")
         return
+    if sys.argv[1:2] == ["--contrib"]:
+        # development: the contrib phase alone, no kernels line and no
+        # result line
+        check_paths({"contrib": contrib_phase(smi)[0]})
+        log(f"contrib phase done in {time.perf_counter() - START:.1f} s")
+        return
     if sys.argv[1:2] == ["--tail"]:
         # development: the multi-GPU tail's phases alone, no kernels line
         # and no result line
@@ -6558,6 +7035,8 @@ def main():
     log_memory("amp_dcgan")
     paths["amp_mlp"], _ = amp_mlp_phase(smi)
     log_memory("amp_mlp")
+    paths["contrib"], _ = contrib_phase(smi)
+    log_memory("contrib")
     amp_parity()
     log_memory("amp_parity")
     amp_optimizer_timings(smi)
@@ -6569,6 +7048,7 @@ def main():
     log_memory("gpt_moe")
     paths["gpt_moe_ep"], _ = gpt_moe_ep_phase(smi, world["moe_ep"])
     log_memory("gpt_moe_ep")
+    spatial_bottleneck_phase(smi, world["spatial_bottleneck"])
     paths["fp8"], _ = fp8_phase(smi)
     log_memory("fp8")
     paths["gpt_pipeline_no_remat"], _ = gpt_pipeline_remat_phase(

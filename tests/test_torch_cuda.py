@@ -39,7 +39,11 @@ resharder with every leaf's crc32 its manifest's, and
 native host library builds and loads on the card's host, and a token
 file's batches equal numpy's rows; the Llama example at TinyLlama's
 width (2 layers) saved and resumed gives the uninterrupted run's losses
-and every leaf's crc32.
+and every leaf's crc32. The contrib MHA modules through the LayerNorm and
+flash kernels agree with their plain path on the CPU to 1e-4 (fp32, a
+fully padded key row included), the transducer's loss and gradient on
+the card with the CPU's to 1e-5, and ASP's masks on the card equal the
+CPU's.
 """
 
 import math
@@ -1160,3 +1164,94 @@ def test_llama_example_resume_on_the_card_is_bit_equal(gen, tmp_path):
     rest, got = run(["--steps", "2", "--save", str(tmp_path)])
     assert {**first, **rest} == whole
     assert got == want
+
+
+def _grads_close(card, cpu, rtol, atol):
+    """Every parameter gradient of ``card`` against ``cpu``'s."""
+    named = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        torch.testing.assert_close(p.grad.cpu(), named[name].grad,
+                                   rtol=rtol, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("encdec", [False, True])
+def test_multihead_attn_through_the_kernels_matches_the_plain_path(
+        gen, encdec):
+    """The contrib MHA (norm-add, biases, key padding with a fully padded
+    row) in fp32 on the card, through LayerNorm #1/#2 and flash #5/#6/#7,
+    against the same module's plain path on the CPU from the same
+    weights: output, input and parameter gradients to 1e-4 (fp32 sums
+    through a LayerNorm and attention in another order)."""
+    from apex_tpu_torch.contrib import EncdecMultiheadAttn, SelfMultiheadAttn
+
+    cls = EncdecMultiheadAttn if encdec else SelfMultiheadAttn
+    card = cls(256, 4, bias=True, include_norm_add=True, device="cuda")
+    cpu = cls(256, 4, bias=True, include_norm_add=True, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    sq, sk, b = 64, 48 if encdec else 64, 3
+    q = torch.randn(sq, b, 256, generator=gen, device="cuda")
+    kv = torch.randn(sk, b, 256, generator=gen, device="cuda")
+    kpm = torch.zeros(b, sk, dtype=torch.bool, device="cuda")
+    kpm[1] = True
+    kpm[2, -7:] = True
+    ct = torch.randn(sq, b, 256, generator=gen, device="cuda")
+    names = ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+             "flash_bwd_dq", "flash_bwd_dkv")
+    before = _kernels.launch_counts()
+    outs = []
+    for mod, dev in ((card, "cuda"), (cpu, "cpu")):
+        xs = [t.to(dev).detach().requires_grad_(True)
+              for t in ((q, kv) if encdec else (q,))]
+        y = mod(*xs, key_padding_mask=kpm.to(dev))
+        y.backward(ct.to(dev))
+        outs.append((y, [x.grad for x in xs]))
+    after = _kernels.launch_counts()
+    assert all(after[n] > before[n] for n in names)
+    (yg, gg), (yc, gc) = outs
+    torch.testing.assert_close(yg.cpu(), yc.detach(), rtol=1e-4, atol=1e-4)
+    for a, c in zip(gg, gc):
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-4, atol=1e-4)
+    _grads_close(card, cpu, 1e-4, 1e-4)
+
+
+def test_transducer_loss_on_the_card_matches_the_cpu(gen):
+    """Loss and gradient of the wavefront at unequal lengths, card against
+    CPU, 1e-5 relative (the same fp32 recursion; the log-softmax summed
+    in another order)."""
+    from apex_tpu_torch.contrib import transducer_loss
+
+    b, t, u, v = 4, 64, 16, 128
+    x = torch.randn(b, t, u, v, generator=gen, device="cuda")
+    label = torch.randint(1, v, (b, u - 1), generator=gen, device="cuda")
+    f_len = torch.tensor([64, 40, 7, 1], device="cuda")
+    y_len = torch.tensor([15, 9, 0, 4], device="cuda")
+    grads = []
+    for dev in ("cuda", "cpu"):
+        xd = x.to(dev).detach().requires_grad_(True)
+        loss = transducer_loss(xd, label.to(dev), f_len.to(dev),
+                               y_len.to(dev), 0)
+        loss.sum().backward()
+        grads.append((loss.detach(), xd.grad))
+    (lg, gg), (lc, gc) = grads
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gg.cpu(), gc, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("pattern", ["m4n2_1d", "m4n2_2d_best"])
+def test_asp_masks_on_the_card_equal_the_cpu(gen, pattern):
+    """ASP's masks of torch-layout and flax-layout weights, on the card
+    and on the CPU: equal, and exactly 2:4."""
+    from apex_tpu_torch.contrib.sparsity import compute_sparse_masks
+
+    params = {"fc.weight": torch.randn(96, 128, generator=gen,
+                                       device="cuda"),
+              "conv.weight": torch.randn(32, 64, 3, 3, generator=gen,
+                                         device="cuda"),
+              "mlp.kernel": torch.randn(128, 64, generator=gen,
+                                        device="cuda")}
+    card = compute_sparse_masks(params, pattern)
+    cpu = compute_sparse_masks({k: v.cpu() for k, v in params.items()},
+                               pattern)
+    for name, m in card.items():
+        assert m.is_cuda and torch.equal(m.cpu(), cpu[name]), name
+    assert bool((card["fc.weight"].reshape(-1, 4).sum(1) == 2).all())
