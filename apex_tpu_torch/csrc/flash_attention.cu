@@ -225,7 +225,8 @@ template <int DMAX, int KD>
 __global__ void __launch_bounds__(Prefill<DMAX>::THREADS, Prefill<DMAX>::BLOCKS)
 flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
               const int* __restrict__ kpm, bf16* __restrict__ o, float* __restrict__ lse, int sq,
-              int sk, int d, int heads, int group, float scale, int causal, int window, int vec) {
+              int sk, int d, int heads, int group, float scale, int causal, int window, int vec,
+              int tile0) {
   using Sm = FwdSmem<DMAX>;
   constexpr int LD = Sm::LD, KS = DMAX / 16;  // 16-wide steps over head_dim
   constexpr int BQ = Prefill<DMAX>::BQ, NS = Prefill<DMAX>::NS, TH = Prefill<DMAX>::THREADS;
@@ -237,7 +238,8 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
   bf16* sQ = sKV + (QREG ? NS - 1 : NS) * 2 * Sm::TILE;
 
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the longest causal tiles first
+  // tile tile0 + blockIdx.y of the launches, the longest causal tiles first
+  const int q0 = ((sq + BQ - 1) / BQ - 1 - tile0 - (int)blockIdx.y) * BQ;
   const long long bh = blockIdx.x, kvh = bh / group;
   const int offs = sk - sq;
   const int* kpm_row = kpm ? kpm + (bh / heads) * sk : nullptr;
@@ -657,7 +659,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ kpm, T* __restrict__ o, float* __restrict__ lse,
                  int sq, int sk, int d, int heads, int group, float scale, int causal,
-                 int window) {
+                 int window, int tile0) {
   constexpr int RP = BQ / 16;    // rows per thread
   constexpr int CP = kBK / 8;    // score columns per thread
   constexpr int DP = DMAX / 8;   // output columns per thread
@@ -669,7 +671,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* sP = sV + kBK * DMAX;
 
   const int t = threadIdx.x, tr = t >> 3, tc = t & 7;
-  const int q0 = blockIdx.y * BQ;
+  const int q0 = (tile0 + (int)blockIdx.y) * BQ;
   const long long bh = blockIdx.x;  // on x, which holds 2^31 - 1 blocks
   const long long kvh = bh / group;
   const long long offs = (long long)sk - sq;
@@ -813,6 +815,21 @@ struct Args {
 
 template <typename T> const T* ptr(const void* p) { return static_cast<const T*>(p); }
 
+// The grid holds at most 65535 blocks on y: query tiles past that run in
+// further launches of the same kernel, each from tile `tile0` on (one
+// launch up to 2,097,120 queries). A loop over tiles inside the kernel
+// instead cost the bf16 kernel 48 bytes of register spills and 4-6% of
+// its time at GPT-2's training shape (PERF.md).
+template <typename Launch>
+int launch_tiles(int n_tiles, Launch launch) {
+  for (int tile0 = 0; tile0 < n_tiles; tile0 += 65535) {
+    launch(tile0, n_tiles - tile0 < 65535 ? n_tiles - tile0 : 65535);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
 template <int BQ, int DMAX>
 int launch_scalar(const Args& a, cudaStream_t stream) {
   static bool done = false;
@@ -820,12 +837,11 @@ int launch_scalar(const Args& a, cudaStream_t stream) {
   const size_t smem = Smem<BQ, DMAX>::bytes;
   cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.bh, (a.sq + BQ - 1) / BQ);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  kernel<<<grid, kThreads, smem, stream>>>(ptr<float>(a.q), ptr<float>(a.k), ptr<float>(a.v),
-                                           a.kpm, static_cast<float*>(a.o), a.lse, a.sq, a.sk,
-                                           a.d, a.heads, a.group, a.scale, a.causal, a.window);
-  return (int)cudaGetLastError();
+  return launch_tiles((a.sq + BQ - 1) / BQ, [&](int tile0, int tiles) {
+    kernel<<<dim3(a.bh, tiles), kThreads, smem, stream>>>(
+        ptr<float>(a.q), ptr<float>(a.k), ptr<float>(a.v), a.kpm, static_cast<float*>(a.o),
+        a.lse, a.sq, a.sk, a.d, a.heads, a.group, a.scale, a.causal, a.window, tile0);
+  });
 }
 
 template <int BQ>
@@ -850,12 +866,11 @@ int launch_prefill(const Args& a, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
   constexpr int BQ = Prefill<DMAX>::BQ;
-  const dim3 grid(a.bh, (a.sq + BQ - 1) / BQ);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  kernel<<<grid, Prefill<DMAX>::THREADS, smem, stream>>>(
-      ptr<bf16>(a.q), ptr<bf16>(a.k), ptr<bf16>(a.v), a.kpm, static_cast<bf16*>(a.o), a.lse,
-      a.sq, a.sk, a.d, a.heads, a.group, a.scale, a.causal, a.window, vectorised(a));
-  return (int)cudaGetLastError();
+  return launch_tiles((a.sq + BQ - 1) / BQ, [&](int tile0, int tiles) {
+    kernel<<<dim3(a.bh, tiles), Prefill<DMAX>::THREADS, smem, stream>>>(
+        ptr<bf16>(a.q), ptr<bf16>(a.k), ptr<bf16>(a.v), a.kpm, static_cast<bf16*>(a.o), a.lse,
+        a.sq, a.sk, a.d, a.heads, a.group, a.scale, a.causal, a.window, vectorised(a), tile0);
+  });
 }
 
 // The splits of a (batch, kv head) pair run as one cluster along y.
@@ -892,7 +907,7 @@ int launch_decode(const Args& a, int splits, cudaStream_t stream) {
 // q: (bh, sq, d); k, v: (bh / group, sk, d); kpm: int32 (bh / heads, sk) or
 // null; o: (bh, sq, d) in q's dtype; lse: fp32 (bh, sq). All contiguous.
 // 1 <= d <= 256; bh rides the grid's x dimension (any int), the query
-// tiles its y (at most 65535 of them).
+// tiles its y (65535 a launch, further launches past that).
 // dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor cores; sq = 1
 // takes the decode kernel). window <= 0 means no window (the window applies
 // only with causal). `splits` > 1 only for bf16 at sq = 1: the 64-key tiles

@@ -142,15 +142,14 @@ template <int DMAX> struct Dkv {
   static constexpr int NC = DMAX / DC;
 };
 
-// at least 4 blocks an SM at d <= 64 (128 registers a thread), 2 at d <= 128
 template <int DMAX>
-__global__ void __launch_bounds__(kThreads, DMAX <= 64 ? 4 : 2)
-flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  const int* __restrict__ kpm, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                  float* __restrict__ part, int sq, int sk, int d, int heads, int group,
-                  float scale, int causal, int window, int vec) {
+__device__ __forceinline__ void
+flash_bwd_dkv_mma_tile(int k0, const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       const int* __restrict__ kpm, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                       float* __restrict__ part, int sq, int sk, int d, int heads, int group,
+                       float scale, int causal, int window, int vec) {
   using Sm = MmaSmem<DMAX>;
   constexpr int LD = Sm::LD, KS = DMAX / 16;  // 16-wide steps over head_dim
   constexpr int NC = Dkv<DMAX>::NC, KC = Dkv<DMAX>::DC / 16;  // KC: the outputs' steps
@@ -163,7 +162,6 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int kw = (threadIdx.x >> 5) * 16;  // the warp's first key in the tile
-  const int k0 = blockIdx.z * kB;
   const long long kvr = blockIdx.x / NC;  // (batch, kv head) row of k and v
   const int c0 = (int)(blockIdx.x % NC) * KC;  // the block's first output step
   const int offs = sk - sq;
@@ -307,14 +305,32 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
-// at least 4 blocks an SM at d <= 64 (128 registers a thread), 2 at d <= 128
+// Each block walks key tiles blockIdx.z, + gridDim.z, ... (the grid holds at
+// most 65535 on z); at least 4 blocks an SM at d <= 64 (128 registers a
+// thread), 2 at d <= 128.
 template <int DMAX>
 __global__ void __launch_bounds__(kThreads, DMAX <= 64 ? 4 : 2)
-flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 const int* __restrict__ kpm, bf16* __restrict__ dq, int sq, int sk, int d,
-                 int heads, int group, float scale, int causal, int window, int vec) {
+flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  const int* __restrict__ kpm, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                  float* __restrict__ part, int sq, int sk, int d, int heads, int group,
+                  float scale, int causal, int window, int vec) {
+  const int n_tiles = (sk + kB - 1) / kB;
+  for (int tile = blockIdx.z; tile < n_tiles; tile += gridDim.z) {
+    if (tile != (int)blockIdx.z) __syncthreads();  // the last tile's smem is free
+    flash_bwd_dkv_mma_tile<DMAX>(tile * kB, q, k, v, dO, lse, delta, kpm, dk, dv, part, sq, sk, d,
+                                 heads, group, scale, causal, window, vec);
+  }
+}
+
+template <int DMAX>
+__device__ __forceinline__ void
+flash_bwd_dq_mma_tile(int q0, const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      const int* __restrict__ kpm, bf16* __restrict__ dq, int sq, int sk, int d,
+                      int heads, int group, float scale, int causal, int window, int vec) {
   using Sm = MmaSmem<DMAX>;
   constexpr int LD = Sm::LD, KS = DMAX / 16;
   constexpr bool QREG = DMAX <= 128;  // Q and dO fragments in registers
@@ -325,7 +341,6 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* sV = sK + 2 * Sm::TILE;   // 2 stages
 
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kB;  // the longest tiles first
   const long long bh = blockIdx.x, kvh = bh / group;
   const int offs = sk - sq;
   const int* kpm_row = kpm ? kpm + (bh / heads) * sk : nullptr;
@@ -461,6 +476,24 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
+// Each block walks query tiles blockIdx.y, + gridDim.y, ... (the grid holds
+// at most 65535 on y), the longest causal tiles first; at least 4 blocks an
+// SM at d <= 64 (128 registers a thread), 2 at d <= 128.
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads, DMAX <= 64 ? 4 : 2)
+flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 const int* __restrict__ kpm, bf16* __restrict__ dq, int sq, int sk, int d,
+                 int heads, int group, float scale, int causal, int window, int vec) {
+  const int n_tiles = (sq + kB - 1) / kB;
+  for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
+    if (tile != (int)blockIdx.y) __syncthreads();  // the last tile's smem is free
+    flash_bwd_dq_mma_tile<DMAX>((n_tiles - 1 - tile) * kB, q, k, v, dO, lse, delta, kpm, dq, sq, sk,
+                                d, heads, group, scale, causal, window, vec);
+  }
+}
+
 // dk and dv = the sum of the splits' fp32 partials, in split order
 __global__ void sum_splits(const float* __restrict__ part, bf16* __restrict__ dk,
                            bf16* __restrict__ dv, long long n, int splits) {
@@ -527,12 +560,12 @@ __device__ __forceinline__ void tile_dot(const float* A, const float* B, int d, 
 }
 
 template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dO,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    const int* __restrict__ kpm, float* __restrict__ dq, int sq, int sk, int d,
-                    int heads, int group, float scale, int causal, int window) {
+__device__ __forceinline__ void
+flash_bwd_dq_kernel_tile(int q0, const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dO,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const int* __restrict__ kpm, float* __restrict__ dq, int sq, int sk, int d,
+                         int heads, int group, float scale, int causal, int window) {
   using Sc = Scalar<DMAX>;
   constexpr int BR = Sc::BR, RP = Sc::RP, CP = Sc::CP, S = Sc::S, PS = Sc::PS, DP = DMAX / 8;
   extern __shared__ float smem[];
@@ -545,7 +578,6 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sD = sL + BR;
 
   const int t = threadIdx.x, tr = t >> 3, tc = t & 7;
-  const int q0 = blockIdx.y * BR;
   const long long bh = blockIdx.x, kvh = bh / group;  // x holds 2^31 - 1 blocks
   const long long offs = (long long)sk - sq;
   const int* kpm_row = kpm ? kpm + (bh / heads) * sk : nullptr;
@@ -626,14 +658,31 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// Each block walks query tiles blockIdx.y, + gridDim.y, ... (at most 65535
+// on y).
 template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dO,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     const int* __restrict__ kpm, float* __restrict__ dk, float* __restrict__ dv,
-                     int sq, int sk, int d, int heads, int group, float scale, int causal,
-                     int window) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dO,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    const int* __restrict__ kpm, float* __restrict__ dq, int sq, int sk, int d,
+                    int heads, int group, float scale, int causal, int window) {
+  const int n_tiles = (sq + Scalar<DMAX>::BR - 1) / Scalar<DMAX>::BR;
+  for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
+    if (tile != (int)blockIdx.y) __syncthreads();  // the last tile's smem is free
+    flash_bwd_dq_kernel_tile<DMAX>(tile * Scalar<DMAX>::BR, q, k, v, dO, lse, delta, kpm, dq, sq,
+                                   sk, d, heads, group, scale, causal, window);
+  }
+}
+
+template <int DMAX>
+__device__ __forceinline__ void
+flash_bwd_dkv_kernel_tile(int k0, const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dO,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const int* __restrict__ kpm, float* __restrict__ dk,
+                          float* __restrict__ dv, int sq, int sk, int d, int heads, int group,
+                          float scale, int causal, int window) {
   using Sc = Scalar<DMAX>;
   constexpr int BR = Sc::BR, RP = Sc::RP, CP = Sc::CP, S = Sc::S, PS = Sc::PS, DP = DMAX / 8;
   extern __shared__ float smem[];
@@ -647,7 +696,6 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sD = sL + BR;
 
   const int t = threadIdx.x, tr = t >> 3, tc = t & 7;
-  const int k0 = blockIdx.y * BR;
   const long long kvr = blockIdx.x;  // (batch, kv head) row of k and v
   const long long offs = (long long)sk - sq;
   const int* kpm_row = kpm ? kpm + (kvr * group / heads) * sk : nullptr;
@@ -746,6 +794,24 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// Each block walks key tiles blockIdx.y, + gridDim.y, ... (at most 65535
+// on y).
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dO,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const int* __restrict__ kpm, float* __restrict__ dk, float* __restrict__ dv,
+                     int sq, int sk, int d, int heads, int group, float scale, int causal,
+                     int window) {
+  const int n_tiles = (sk + Scalar<DMAX>::BR - 1) / Scalar<DMAX>::BR;
+  for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
+    if (tile != (int)blockIdx.y) __syncthreads();  // the last tile's smem is free
+    flash_bwd_dkv_kernel_tile<DMAX>(tile * Scalar<DMAX>::BR, q, k, v, dO, lse, delta, kpm, dk, dv,
+                                    sq, sk, d, heads, group, scale, causal, window);
+  }
+}
+
 // ---- launch -----------------------------------------------------------------
 
 struct Args {
@@ -765,6 +831,13 @@ int vectorised(const Args& a) {
 
 template <typename T> const T* ptr(const void* p) { return static_cast<const T*>(p); }
 
+// blocks along y or z for n rows in tiles of `tile`: one a tile up to the
+// grid's 65535, past which each block walks several
+unsigned tile_blocks(int n, int tile) {
+  const int tiles = (n + tile - 1) / tile;
+  return (unsigned)(tiles < 65535 ? tiles : 65535);
+}
+
 template <int DMAX>
 int launch_dq_mma(const Args& a, void* dq, cudaStream_t stream) {
   static bool done = false;
@@ -772,8 +845,7 @@ int launch_dq_mma(const Args& a, void* dq, cudaStream_t stream) {
   const size_t smem = MmaSmem<DMAX>::bytes;
   cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.bh, (a.sq + kB - 1) / kB);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(a.bh, tile_blocks(a.sq, kB));
   kernel<<<grid, kThreads, smem, stream>>>(
       ptr<bf16>(a.q), ptr<bf16>(a.k), ptr<bf16>(a.v), ptr<bf16>(a.dO), a.lse, a.delta, a.kpm,
       static_cast<bf16*>(dq), a.sq, a.sk, a.d, a.heads, a.group, a.scale, a.causal, a.window,
@@ -794,8 +866,8 @@ int launch_dkv_mma(const Args& a, void* dk, void* dv, float* work, int splits,
   cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)(a.bh / a.group) * Dkv<DMAX>::NC;
-  const dim3 grid((unsigned)rows, splits, (a.sk + kB - 1) / kB);
-  if (rows > 0x7fffffffLL || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)rows, splits, tile_blocks(a.sk, kB));
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<grid, kThreads, smem, stream>>>(
       ptr<bf16>(a.q), ptr<bf16>(a.k), ptr<bf16>(a.v), ptr<bf16>(a.dO), a.lse, a.delta, a.kpm,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), splits > 1 ? work : nullptr, a.sq, a.sk,
@@ -818,8 +890,7 @@ int launch_dq(const Args& a, void* dq, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
   constexpr int BR = Scalar<DMAX>::BR;
-  const dim3 grid(a.bh, (a.sq + BR - 1) / BR);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(a.bh, tile_blocks(a.sq, BR));
   kernel<<<grid, kThreads, smem, stream>>>(
       ptr<float>(a.q), ptr<float>(a.k), ptr<float>(a.v), ptr<float>(a.dO), a.lse, a.delta, a.kpm,
       static_cast<float*>(dq), a.sq, a.sk, a.d, a.heads, a.group, a.scale, a.causal, a.window);
@@ -834,8 +905,7 @@ int launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
   constexpr int BR = Scalar<DMAX>::BR;
-  const dim3 grid(a.bh / a.group, (a.sk + BR - 1) / BR);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(a.bh / a.group, tile_blocks(a.sk, BR));
   kernel<<<grid, kThreads, smem, stream>>>(
       ptr<float>(a.q), ptr<float>(a.k), ptr<float>(a.v), ptr<float>(a.dO), a.lse, a.delta, a.kpm,
       static_cast<float*>(dk), static_cast<float*>(dv), a.sq, a.sk, a.d, a.heads, a.group,
@@ -860,7 +930,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dO, cons
 // q, dO, dq: (bh, sq, d); k, v: (bh / group, sk, d), all in the dtype's type;
 // lse, delta: fp32 (bh, sq); kpm: int32 (bh / heads, sk) or null. All
 // contiguous. 1 <= d <= 256; bh rides the grids' x dimension (any int),
-// the query and key tiles y and z (at most 65535 of them). dtype: 0 =
+// the query and key tiles y and z (any number: past 65535 a block walks
+// several). dtype: 0 =
 // float32 (scalar kernels), 1 = bfloat16 (tensor cores). window <= 0 means
 // none (it applies only with causal). Returns the cudaError_t of the
 // launch.

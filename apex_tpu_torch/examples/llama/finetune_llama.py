@@ -383,10 +383,11 @@ def _train(args, model, router, goodput_mem, run_id) -> RunRecords:
     records.finetune, records.step0 = run, step0
     sync = torch.cuda.synchronize if cuda else (lambda: None)
 
-    def train_step(i, phase):
+    def train_step(i):
         step = step0 + i
         t0 = time.perf_counter()
-        with goodput.span(phase, step=step):
+        # step 0 builds and loads the kernels (below)
+        with goodput.span("compile" if i == 0 else "step", step=step):
             loss, _ = run.step()
             sync()
         ms = (time.perf_counter() - t0) * 1e3
@@ -402,8 +403,7 @@ def _train(args, model, router, goodput_mem, run_id) -> RunRecords:
     hbm_mon = None
     if args.steps > 0:
         if hbm_predicted is not None and cuda:
-            report = xhbm.memory_report(train_step, 0, "compile",
-                                        device=model.device)
+            report = xhbm.memory_report(train_step, 0, device=model.device)
             ratio = report.total_bytes / max(1, hbm_predicted.peak_bytes)
             print(f"hbm x-ray: predicted peak "
                   f"{hbm_predicted.peak_bytes / 2**20:.1f} MiB vs allocator "
@@ -418,7 +418,7 @@ def _train(args, model, router, goodput_mem, run_id) -> RunRecords:
                       f"{hbm_predicted.peak_bytes / 2**20:.1f} MiB vs "
                       f"allocator peak n/a (no allocator on the "
                       f"{model.device.type})", flush=True)
-            train_step(0, "compile")
+            train_step(0)
     if hbm_predicted is not None:
         hbm_mon = xhbm.HbmWatermarkMonitor(router, predicted=hbm_predicted,
                                            device=model.device)
@@ -455,7 +455,7 @@ def _train(args, model, router, goodput_mem, run_id) -> RunRecords:
              if hbm_mon is not None else contextlib.nullcontext())
     with guard:
         for i in range(1, args.steps):
-            train_step(i, "step")
+            train_step(i)
     if responder is not None:
         responder.beat(step0 + args.steps)  # the run landed
         responder.stop()

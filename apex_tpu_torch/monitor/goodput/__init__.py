@@ -11,9 +11,11 @@ span ledger and the accountant.
   silent-corruption suspects (cross-host replicated-value mismatch).
 - ``live``       — the same fleet checks run IN the job over a rolling
   MemorySink window (``LiveFleetMonitor``).
+- ``sentinel``   — the perf-regression gate over ``kind="bench"`` /
+  ``"metrics"`` / ``"goodput"`` records (same-platform baselines only).
 
-Not ported yet: the perf-regression sentinel and the command line, which
-read the analysis findings and the bench history.
+``python -m apex_tpu_torch.monitor.goodput`` accounts streams, checks a
+fleet (``--fleet``) or gates a run against its baseline (``--check``).
 """
 
 from apex_tpu_torch.monitor.goodput.accountant import (

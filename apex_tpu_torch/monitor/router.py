@@ -93,7 +93,7 @@ def _default_host() -> int:
         if dist is not None and dist.is_available() and dist.is_initialized():
             return int(dist.get_rank())
     except Exception:  # a group mid-teardown: say host 0
-        pass
+        return 0
     return 0
 
 

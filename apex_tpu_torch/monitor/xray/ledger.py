@@ -24,8 +24,13 @@ ledger's conventions:
   psum_scatter and all_to_all ``(n-1)/n * bytes``, ppermute ``bytes``.
 - ``count``     — 1, multiplied by every enclosing :func:`scaled` region.
 
-A collective over a group of one rank moves nothing and is not recorded,
-as in JAX.
+A collective over a group of one rank moves nothing and is not recorded
+among the entries, as in JAX; it goes to the ledger's ``dead`` list,
+which no byte total reads (the collective pass's ``dead-traffic`` check
+reads it). A point-to-point send records its edge: ``src`` and ``dst``
+(ranks in the group) and its ``tag``. A ledger made with ``site_fn``
+stamps each entry with ``site_fn()``, the call site in the caller's
+terms (``analysis.passes``).
 
 WHAT IS CAPTURED: the JAX ledger records while jax TRACES, so it sees a
 step's forward collectives and every ``custom_vjp`` backward rule, but
@@ -77,6 +82,11 @@ class CollectiveEntry:
     bytes: int
     ici_bytes: int
     count: int = 1
+    # a point-to-point send's ranks in the group, and its tag
+    src: Optional[int] = None
+    dst: Optional[int] = None
+    tag: Optional[int] = None
+    site: str = ""
 
     @property
     def total_bytes(self) -> int:
@@ -90,8 +100,17 @@ class CollectiveEntry:
 class CommsLedger:
     """Collectives recorded under one :func:`comms_ledger` context."""
 
-    def __init__(self):
+    def __init__(self, site_fn=None):
         self.entries: List[CollectiveEntry] = []
+        #: collectives over one-rank groups: moved nothing, counted
+        #: nowhere else
+        self.dead: List[CollectiveEntry] = []
+        self.site_fn = site_fn
+
+    def _add(self, entry: CollectiveEntry, dead: bool) -> None:
+        if self.site_fn is not None:
+            entry = dataclasses.replace(entry, site=self.site_fn())
+        (self.dead if dead else self.entries).append(entry)
 
     def __len__(self) -> int:
         return len(self.entries)
@@ -172,10 +191,11 @@ _STATE = _State()
 
 
 @contextlib.contextmanager
-def comms_ledger():
+def comms_ledger(site_fn=None):
     """Activate a :class:`CommsLedger` for the collectives that run
-    within. Nesting is supported (each active ledger records)."""
-    led = CommsLedger()
+    within. Nesting is supported (each active ledger records).
+    ``site_fn()`` names each entry's call site (module docstring)."""
+    led = CommsLedger(site_fn)
     _STATE.ledgers.append(led)
     try:
         yield led
@@ -251,24 +271,27 @@ def _ici_bytes(op: str, nbytes: int, n: int, nonempty: bool = True) -> int:
     return nbytes  # ppermute: the busiest rank ships its payload once
 
 
-def record(op: str, x, group, *, nonempty: bool = True) -> None:
+def record(op: str, x, group, *, nonempty: bool = True,
+           edge: Optional[Tuple[int, int]] = None,
+           tag: Optional[int] = None) -> None:
     """Record ``x`` (a tensor, or a list or tuple of them) as one ``op``
-    occurrence over ``group``. No-op when no ledger is active or the
-    group has one rank or none."""
-    if not _STATE.ledgers or _STATE.multiplier == 0:
+    occurrence over ``group``; ``edge`` is a send's ``(src, dst)`` ranks
+    in the group. No-op when no ledger is active or there is no group; a
+    group of one rank goes to the ``dead`` lists."""
+    if not _STATE.ledgers or _STATE.multiplier == 0 or group is None:
         return
     from apex_tpu_torch.parallel import parallel_state as ps
 
     n = ps.group_size(group)
-    if n <= 1:
-        return
     axis = axis_of(group)
     mult = _STATE.multiplier
+    src, dst = edge if edge is not None else (None, None)
     for t in (x if isinstance(x, (list, tuple)) else (x,)):
         nbytes = t.numel() * t.element_size()
         entry = CollectiveEntry(
             op=op, axis=axis, axis_size=n, shape=tuple(t.shape),
             dtype=str(t.dtype).replace("torch.", ""), bytes=nbytes,
-            ici_bytes=_ici_bytes(op, nbytes, n, nonempty), count=mult)
+            ici_bytes=_ici_bytes(op, nbytes, n, nonempty), count=mult,
+            src=src, dst=dst, tag=tag)
         for led in _STATE.ledgers:
-            led.entries.append(entry)
+            led._add(entry, dead=n <= 1)

@@ -130,10 +130,10 @@ def _flash_bwd_ref(q, k, v, do, lse, delta, scale, causal,
 
 # What the CUDA kernels take: head_dim up to 256 (GPT-2 and BERT use 64,
 # Llama and Mistral 128, and no family that models/hf_import.py reads goes
-# beyond 256), and up to 65535 tiles of 32 queries or keys on the grid's y
-# and z dimensions; batch * heads rides x, which holds 2^31 - 1 blocks.
+# beyond 256), and any number of query or key tiles: the grids hold at most
+# 65535 on y and z, past which each block walks several. batch * heads
+# rides x, which holds 2^31 - 1 blocks.
 _MAX_HEAD_DIM = 256
-_MAX_SEQ = 65535 * 32
 
 
 def _check_kernel_args(q, k, v, key_padding_mask):
@@ -150,9 +150,6 @@ def _check_kernel_args(q, k, v, key_padding_mask):
     if d > _MAX_HEAD_DIM:
         raise ValueError(f"the flash kernel takes head_dim <= "
                          f"{_MAX_HEAD_DIM}, got {d}")
-    if max(sq, sk) > _MAX_SEQ:
-        raise ValueError(f"the flash kernel takes at most {_MAX_SEQ} queries "
-                         f"and keys, got sq={sq}, sk={sk}")
     if key_padding_mask is None:
         return None
     if tuple(key_padding_mask.shape) != (b, sk):

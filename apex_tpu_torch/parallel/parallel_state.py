@@ -15,9 +15,12 @@ Pipeline stages talk point to point (:func:`p2p`, which the schedules of
 receives block, and each message carries a tag, so two streams between
 the same pair of ranks (activations one way, gradients the other, and
 both on the ring of the interleaved schedule) never cross. Gloo honours
-tags; NCCL matches a pair's messages in the order they were posted, so
-the interleaved schedule refuses it where both streams share a pair (P
-= 2).
+tags; NCCL ignores them and matches a pair's messages in the order they
+were posted. So at pp = 2, where both streams of the interleaved
+schedule share one pair of ranks, each pp group has a twin over the same
+ranks, and a message under a tag above 0 (the gradients) takes the
+twin: the two streams then run on two groups, whose messages no backend
+mixes.
 
 The backend is the caller's (``transformer.testing.commons
 .initialize_distributed``): NCCL moves CUDA tensors as they are; gloo
@@ -54,7 +57,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
-    "AXIS_ORDER", "all_gather", "all_reduce", "all_to_all",
+    "AXIS_ORDER", "all_gather", "all_gather_object", "all_reduce",
+    "all_to_all",
     "amax_reduction", "broadcast", "broadcast_object",
     "get_amax_reduction_axes",
     "destroy_model_parallel", "get_context_parallel_group",
@@ -98,6 +102,8 @@ class _Axes:
     pp: int = 1
     pp_rank: int = 0
     pp_group: object = None  # None at pp = 1: no collective
+    # at pp = 2: the groups that messages under tags 1, 2, ... take
+    pp_streams: tuple = ()
     cp: int = 1
     cp_rank: int = 0
     cp_group: object = None  # None at cp = 1: no collective
@@ -179,14 +185,21 @@ def initialize_model_parallel(
                                f"({tp}) x pp ({pp}) x cp ({cp})")
         dp = world // (tp * pp * cp)
         mine = {}
+        streams = ()
         for axis, groups in zip(("tp", "dp", "pp", "cp"),
                                 _layout(dp, pp, cp, tp)):
             if (axis == "pp" and pp == 1) or (axis == "cp" and cp == 1):
                 continue
             for ranks in groups:
                 g = _group(ranks)
+                # the gradient stream's twin, where both streams of the
+                # interleaved schedule share one pair (module docstring)
+                twin = (_group(ranks, stream=1),) if axis == "pp" and \
+                    pp == 2 else ()
                 if rank in ranks:
                     mine[axis] = g
+                    if twin:
+                        streams = twin
         world_group = _group(list(range(world))) if world < full else None
         _SITTING_OUT = rank >= world
         if not _SITTING_OUT:
@@ -194,7 +207,8 @@ def initialize_model_parallel(
                           dp_rank=rank // (tp * pp * cp),
                           tp_group=mine["tp"], dp_group=mine["dp"], pp=pp,
                           pp_rank=rank // (tp * cp) % pp,
-                          pp_group=mine.get("pp"), cp=cp,
+                          pp_group=mine.get("pp"), pp_streams=streams,
+                          cp=cp,
                           cp_rank=rank // tp % cp, cp_group=mine.get("cp"),
                           devices=world, world_group=world_group)
     _VIRTUAL_PIPELINE_WORLD_SIZE = virtual_pipeline_model_parallel_size
@@ -203,16 +217,18 @@ def initialize_model_parallel(
     _PIPELINE_SPLIT_RANK = pipeline_model_parallel_split_rank
 
 
-def _group(ranks):
+def _group(ranks, stream: int = 0):
     """The world's process group of ``ranks``, made on first use (every
     rank of the world calls this for every group, in the same order, as
-    ``torch.distributed.new_group`` requires of the making call)."""
+    ``torch.distributed.new_group`` requires of the making call).
+    ``stream`` > 0 gives another group over the same ranks (the pp
+    group's twins, :func:`p2p`)."""
     global _GROUPS_MADE
     world = dist.group.WORLD
     if _GROUPS.get("world") is not world:
         _GROUPS.clear()
         _GROUPS["world"] = world
-    key = tuple(ranks)
+    key = tuple(ranks) if stream == 0 else ("stream", stream) + tuple(ranks)
     if key not in _GROUPS:
         _GROUPS[key] = dist.new_group(list(ranks))
         _GROUPS_MADE += 1
@@ -441,12 +457,12 @@ def staged_through_host(group, collective: Callable, out: torch.Tensor,
     return out
 
 
-def _record(op: str, x, group) -> None:
+def _record(op: str, x, group, **kw) -> None:
     """The collective-traffic ledger's record of this call (a no-op
     unless a ``monitor.xray.ledger.comms_ledger`` is active)."""
     from apex_tpu_torch.monitor.xray import ledger
 
-    ledger.record(op, x, group)
+    ledger.record(op, x, group, **kw)
 
 
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
@@ -524,6 +540,19 @@ def broadcast_object(obj, group="layout"):
     return box[0]
 
 
+def all_gather_object(obj, group="layout") -> list:
+    """Every rank's ``obj`` (any picklable value) in group rank order, on
+    every rank of ``group`` (by default the layout's); ``[obj]`` without
+    a group of more than one rank."""
+    if group == "layout":
+        group = get_model_world_group()
+    if group is None or group_size(group) == 1:
+        return [obj]
+    out = [None] * group_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
 def broadcast(x: torch.Tensor, group, src_index: int = 0) -> torch.Tensor:
     """``x`` of the group's ``src_index``-th rank on every rank, written
     into ``x`` (which is returned)."""
@@ -544,6 +573,16 @@ def _staged(group) -> bool:
     return dist.get_backend(group) == "gloo"
 
 
+def _stream(group, tag: int):
+    """The group that a message under ``tag`` between ranks of ``group``
+    takes: the pp group's twin for its tag where it has one, else
+    ``group``."""
+    if _AXES is not None and group is _AXES.pp_group and \
+            0 < tag <= len(_AXES.pp_streams):
+        return _AXES.pp_streams[tag - 1]
+    return group
+
+
 def p2p(group, sends=(), recvs=()) -> list:
     """Posts every send, then every receive, of one step between ranks of
     ``group`` and returns the received tensors in ``recvs``' order.
@@ -557,26 +596,29 @@ def p2p(group, sends=(), recvs=()) -> list:
     blocks only on the data it receives; the receives are waited for
     here. Gloo takes host tensors only: a CUDA tensor is copied into
     a pinned host buffer before its send, and a CUDA receive lands in one
-    and is copied to the card; each counts in ``STAGED``."""
+    and is copied to the card; each counts in ``STAGED``. On the pp
+    group at pp = 2, a message under tag t > 0 takes the group's t-th
+    twin (module docstring)."""
     staged = _staged(group)
     for t, dst, tag in sends:
-        _record("ppermute", t, group)
+        _record("ppermute", t, group, edge=(dist.get_rank(group), dst),
+                tag=tag)
         t = t.detach().contiguous()
         if staged and t.is_cuda:
             t = torch.empty(t.shape, dtype=t.dtype,
                             pin_memory=True).copy_(t)
             STAGED["p2p"] += 1
             STAGED["p2p_bytes"] += t.nbytes
-        work = dist.isend(t, dist.get_global_rank(group, dst), group=group,
-                          tag=tag)
+        work = dist.isend(t, dist.get_global_rank(group, dst),
+                          group=_stream(group, tag), tag=tag)
         _PENDING_SENDS.append((work, t))
     posted = []
     for like, src, tag in recvs:
         buf = (torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
                if staged and like.is_cuda
                else torch.empty_like(like, memory_format=torch.contiguous_format))
-        work = dist.irecv(buf, dist.get_global_rank(group, src), group=group,
-                          tag=tag)
+        work = dist.irecv(buf, dist.get_global_rank(group, src),
+                          group=_stream(group, tag), tag=tag)
         posted.append((work, buf, like))
     out = []
     for work, buf, like in posted:

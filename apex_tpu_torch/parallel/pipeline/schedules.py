@@ -23,8 +23,9 @@ their own tags):
   reverse), with ``2 (P - r - 1) + (V - 1) P`` warm-up forwards (all of
   them when M = P). It requires ``M % P == 0``, as JAX does. At P = 2
   with V > 1 both streams run between one ordered pair of ranks, in
-  messages of one shape: only gloo, which honours their tags, keeps
-  them apart, so any other backend raises there;
+  messages of one shape: the gradients then take the pp group's twin
+  (``parallel_state.p2p``), so no backend mixes the two streams, tags or
+  none;
 - **zero bubble** (``forward_backward_zero_bubble``, JAX's B/W split):
   the forward runs JAX's T = M + P - 1 clock ticks (stage r runs
   micro-batch t - r at tick t, nothing on a bubble tick) and keeps every
@@ -360,12 +361,6 @@ def _check_interleaved(num_micro: int, num_model_chunks: int,
         raise ValueError(
             f"interleaved schedule requires num_microbatches ({num_micro}) "
             f"% pipeline size ({P}) == 0")
-    if P == 2 and num_model_chunks > 1 and dist.get_backend(group) != "gloo":
-        raise NotImplementedError(
-            "the interleaved schedule at pipeline size 2 sends activations "
-            "and gradients between one pair of ranks, which only gloo's "
-            f"tags keep apart; the {dist.get_backend(group)} backend is not "
-            "supported there")
 
 
 def pipeline_forward_interleaved(
@@ -375,9 +370,8 @@ def pipeline_forward_interleaved(
 ) -> Optional[torch.Tensor]:
     """:func:`pipeline_forward` over this rank's ``num_model_chunks``
     chunks (a tree stacked on a leading V dim; chunk v is global stage
-    ``v P + rank``) in the interleaved order. Requires ``M % P == 0``
-    (and gloo at P = 2). The last stage's outputs on rank P-1, None
-    elsewhere."""
+    ``v P + rank``) in the interleaved order. Requires ``M % P == 0``.
+    The last stage's outputs on rank P-1, None elsewhere."""
     num_micro = _leading_dim(microbatches)
     _check_interleaved(num_micro, num_model_chunks, axis_name)
     outputs, _, _ = _run(stage_fn, params_chunks, lambda m: microbatches[m],
@@ -419,8 +413,8 @@ def forward_backward_pipelining_with_interleaving(
         grad_sync_fn: Optional[Callable[[Any], Any]] = None):
     """The interleaved schedule (module docstring) over this rank's
     ``num_model_chunks`` chunks (a tree stacked on a leading V dim: chunk
-    v is global stage ``v P + rank``). Requires ``M % P == 0`` (and gloo
-    at P = 2). Returns as 1F1B does, the gradients in ``params_chunks``'
+    v is global stage ``v P + rank``). Requires ``M % P == 0``. Returns as
+    1F1B does, the gradients in ``params_chunks``'
     structure."""
     num_micro = _leading_dim(microbatches)
     _check_interleaved(num_micro, num_model_chunks, axis_name)

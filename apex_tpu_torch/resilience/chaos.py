@@ -82,9 +82,13 @@ def poison_loss(loss, armed):
     Multiplicative (``loss + NaN`` would leave the gradients finite), so
     the loss and every gradient through it go non-finite, like a real
     blowup. ``armed`` may be a number or a 0-d tensor on any device; it
-    is not read on the host.
+    is not read on the host, and a number is filled in on the loss's
+    device (no blocking copy from the host).
     """
-    armed = torch.as_tensor(armed, device=loss.device).bool()
+    if isinstance(armed, torch.Tensor):
+        armed = armed.to(loss.device).bool()
+    else:
+        armed = torch.full((), bool(armed), device=loss.device)
     return loss * torch.where(armed, float("nan"), 1.0)
 
 

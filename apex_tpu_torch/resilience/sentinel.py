@@ -123,8 +123,8 @@ class AnomalySentinel:
             anomalies=state.anomalies + anomaly.to(torch.int32),
         )
 
-        def code(v):
-            return torch.tensor(v, dtype=torch.int32, device=dev)
+        def code(v):  # filled on the device: no blocking host copy
+            return torch.full((), v, dtype=torch.int32, device=dev)
 
         escalated = torch.where(
             consecutive <= self.skip_budget, code(VERDICT_SKIP),

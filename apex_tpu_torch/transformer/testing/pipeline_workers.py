@@ -20,7 +20,7 @@ from apex_tpu_torch.parallel import parallel_state as ps
 __all__ = ["P2P_FUNCTIONS", "card_vs_plain_worker", "gpt_pre_post_worker",
            "groups_worker", "interleaved_worker", "jobs_worker",
            "p2p_worker", "run_gpt_worker", "staged_p2p_worker", "toy_loss",
-           "toy_schedules_worker", "toy_stage"]
+           "toy_schedules_worker", "toy_stage", "untagged_schedules_worker"]
 
 # the JAX functions of p2p.py, by name
 P2P_FUNCTIONS = ("send_forward_recv_forward", "send_backward_recv_backward",
@@ -151,6 +151,19 @@ def toy_schedules_worker(rank: int, world_size: int, cases: Sequence):
             out[name] = {"error": str(e)}
     ps.destroy_model_parallel()
     return out
+
+
+def untagged_schedules_worker(rank: int, world_size: int, cases: Sequence):
+    """:func:`toy_schedules_worker` with every message of ``p2p`` sent and
+    received under tag 0, so gloo matches a pair's messages in posting
+    order, as NCCL does."""
+    isend, irecv = dist.isend, dist.irecv
+    dist.isend = lambda *a, **kw: isend(*a, **{**kw, "tag": 0})
+    dist.irecv = lambda *a, **kw: irecv(*a, **{**kw, "tag": 0})
+    try:
+        return toy_schedules_worker(rank, world_size, cases)
+    finally:
+        dist.isend, dist.irecv = isend, irecv
 
 
 def gpt_pre_post_worker(rank: int, world_size: int, cases: Sequence):

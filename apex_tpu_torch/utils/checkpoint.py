@@ -299,6 +299,11 @@ class AsyncCheckpointWriter:
     """
 
     def __init__(self):
+        # _thread and _error are touched by the caller, the write thread
+        # and finalize_async's thread: every access holds _lock, and a
+        # waiter clears _thread only if it is still the thread it joined
+        # (a save may have started the next one meanwhile)
+        self._lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._pinned: list = []
@@ -316,19 +321,26 @@ class AsyncCheckpointWriter:
             try:
                 write_host_tree(directory, step, host, overwrite)
             except BaseException as e:  # noqa: BLE001 - re-raised by wait
-                self._error = e
+                with self._lock:
+                    self._error = e
 
-        self._thread = threading.Thread(
+        thread = threading.Thread(
             target=run, name="apex-torch-ckpt-write", daemon=True)
-        self._thread.start()
+        with self._lock:
+            self._thread = thread
+        thread.start()
         return path
 
     def wait(self) -> None:
-        if self._thread is not None:
-            self._thread.join()
-            self._thread = None
-        if self._error is not None:
+        with self._lock:
+            thread = self._thread
+        if thread is not None:
+            thread.join()
+        with self._lock:
+            if self._thread is thread:
+                self._thread = None
             error, self._error = self._error, None
+        if error is not None:
             raise error
 
     def finalize_async(

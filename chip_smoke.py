@@ -31,7 +31,10 @@ swallowed:
    flash forward and backward at GPT-2's heads at tp = 2, causal
    (4,6,1024,64), in both dtypes, and at TinyLlama's under Ulysses at cp
    = 4, causal GQA (4,8,2048,64) over (4,1,2048,64) with the CP batch's
-   key padding, in both dtypes;
+   key padding, in both dtypes; flash forward and dq at 8,400,000
+   queries over 128 keys and dk/dv at 128 queries over 8,400,000 keys
+   (non-causal, d = 64, in both dtypes: past the grids' 65535 tiles),
+   also by their relative error;
    LayerNorm forward at GPT-2's (8192, 768), (768, 768) and (8, 768), at
    BERT's (2048, 1024) and serving's (16384, 1024), GPT-2's rows at tp
    = 2 under sequence parallelism (2048, 768), at hidden 770 and on an
@@ -140,6 +143,11 @@ swallowed:
    the card agree with the CPU, 3 bf16 training steps give the CPU's
    verdicts, loss scales and losses, and an ``inject_nan`` step is
    skipped with params and Adam state bit-unchanged and the scale halved;
+5b. analysis: the same GPT-2 small step audited by ``analysis``'s
+   precision and host-sync passes (one step recorded under the recorder,
+   one under ``set_sync_debug_mode("warn")``): every finding by rule and
+   site, none unallowlisted, and the recorder's host waits at the same
+   sites as the sync debug mode's;
 6. Llama serving: TinyLlama-1.1B at full width and depth (22 x 2048, 32
    heads over 4 KV heads, SwiGLU 5632, vocab 32000, RoPE, RMSNorm, untied
    fp32 head; seeded random weights, params fp32, compute bf16) behind an
@@ -270,7 +278,10 @@ swallowed:
    timed steps each: images/s, step ms, peak memory, finite falling
    losses, the scale, O1's casts a forward beside the 53 convolutions
    and one linear, bf16 O2 against the bench's O2 of phase 8, and a
-   profile of two O2 steps;
+   profile of two O2 steps; then the perf sentinel's ``--check``
+   (``monitor.goodput``) over phase 8's ResNet-50 O2 images/s written as
+   a ``kind="bench"`` record: against a copy of itself exit 0, 20% slower
+   exit 1;
 17. amp, DCGAN: the ported ``examples/dcgan/main_amp.py`` at the JAX
    example's defaults (batch 64, 32^2, nz 100), 50 steps of fp16 O2:
    three scalers, an overflow injected into D's fake loss at step 10
@@ -377,15 +388,21 @@ swallowed:
    and completed. It logs the bytes of a checkpoint, the save, sha256,
    crc32, restore and replay times and the free disk space, and removes
    its directories;
-26. prints the ``kernels`` line (all nine kernels; ``launches`` is the
-   count of the kernel's first path below that runs it, and
-   ``launches_by_path`` has every path's), then as the last line
+26. prints the total seconds, the ``kernels`` line (all nine kernels;
+   ``launches`` is the count of the kernel's first path below that runs
+   it, and ``launches_by_path`` has every path's), then as the last line
    ``{"ok": true, "device": {...}}``.
+
+The analysis CLI's gate (``python -m apex_tpu_torch.analysis``) runs over
+its four tiny targets: their trace passes as the ``analysis`` job of the
+shared world of 4 (4 gloo ranks on the card), its lint and concurrency
+passes in a thread while the multi-rank lanes run; exit status 0.
 
 The paths, each driven with the counts set to 0 just before it and read
 just after: ``serving``, ``serving_fleet`` (its three parts; the fp32
 ``generate`` references run before the counts are set to 0) and
-``training`` (GPT-2 small), ``llama_serving``
+``training`` (GPT-2 small), ``analysis`` (the audited GPT-2 small step
+and its run under the sync debug mode), ``llama_serving``
 and ``llama_finetune`` (TinyLlama-1.1B), ``llama_runtime`` (its three
 in-process runs), ``resnet`` (ResNet-50, which
 runs none of the nine kernels), ``bert_serving``, ``bert_pretrain`` and
@@ -523,6 +540,10 @@ PATH_KERNELS = {
     "gpt_monitor": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
                     "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
     "training": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                 "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
+    # the GPT-2 small step the analysis phase audits: recorded once, then
+    # run under set_sync_debug_mode (two steps' launches)
+    "analysis": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
                  "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
     "llama_serving": ("rms_norm_fwd", "flash_fwd"),
     "llama_finetune": ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd",
@@ -1098,6 +1119,78 @@ def flash_bwd_parity(errors):
                                      "nonzero dq")
             same_twice("flash backward", label, got, at._flash_bwd_kernel(
                 q, k, v, do, lse, delta, *args))
+
+
+# past the grids' 65535 blocks on y and z, so that each launch loop and
+# grid-stride loop of #5-#7 takes more than one pass at d = 64: 8,400,000
+# rows are 65,625 forward tiles of 128 queries in bf16 (two launches),
+# 131,250 of 64 in fp32 (three), and 131,250 dq or dk/dv tiles of 64
+LONG_SEQ = 8_400_000
+# ||got - ref|| / ||ref|| of the long cases: a few bf16 ulps (2^-8), the
+# fp32 flash rtol. A kernel that skips the tiles past the first 65535
+# leaves 0.14% (the bf16 forward) to half (dq, dk/dv) of the rows wrong
+# and reads 0.03 or more
+LONG_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+def long_check(name, dtype, case, out, ref, tol_key=None):
+    """:func:`check` element by element, then the relative error of the
+    whole tensor against ``LONG_REL``. The errors are logged and left out
+    of the kernels line's max_abs_err, as the cases' inputs are not the
+    other checks'."""
+    check(name, dtype, case, out, ref, {}, tol_key)
+    out, ref = out.float(), ref.float()
+    rel = float(torch.linalg.vector_norm(out - ref)
+                / torch.linalg.vector_norm(ref))
+    log(f"parity {name} {case} {str(dtype)[6:]}: rel_err={rel:.3e} "
+        f"(at most {LONG_REL[dtype]})")
+    if not rel <= LONG_REL[dtype]:
+        raise AssertionError(f"{name} {case}: relative error {rel}")
+
+
+def long_flash_parity(errors):
+    """#5 and #6 at 8,400,000 queries over 128 keys, #7 at 128 queries
+    over 8,400,000 keys (non-causal, d = 64, one head; bf16 and fp32),
+    each against its plain version at the flash tolerances and by its
+    relative error. dO is drawn times sk / 128: p is about 1/sk, so dk
+    and dv are as large as over 128 keys and not far under the atol."""
+    from apex_tpu_torch.ops import attention as at
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    t0 = time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float32):
+        for sq, sk, kernels in ((LONG_SEQ, 128, ("flash_fwd",
+                                                 "flash_bwd_dq")),
+                                (128, LONG_SEQ, ("flash_bwd_dkv",))):
+            q, k, v = (torch.randn((1, 1, n, 64), generator=gen,
+                                   device="cuda").to(dtype)
+                       for n in (sq, sk, sk))
+            label = f"long sq={sq} sk={sk} non-causal"
+            scale = 1.0 / 8.0
+            o, lse = at._flash_kernel(q, k, v, scale, False, None, None)
+            if "flash_fwd" in kernels:
+                ref, rl = at._flash_fwd_ref(q, k, v, scale, False)
+                long_check("flash_fwd", dtype, label, o, ref)
+                long_check("flash_fwd", dtype, label + " lse", lse, rl,
+                           tol_key="flash_fwd lse")
+                del ref, rl
+            do = (torch.randn(q.shape, generator=gen, device="cuda")
+                  * (sk / 128)).to(dtype)
+            delta = (do.float() * o.float()).sum(-1)
+            got = at._flash_bwd_kernel(q, k, v, do, lse, delta, scale, False,
+                                       None, None)
+            ref = at._flash_bwd_ref(q, k, v, do, lse, delta, scale, False)
+            if "flash_bwd_dq" in kernels:
+                long_check("flash_bwd_dq", dtype, label + " dq", got[0],
+                           ref[0])
+            if "flash_bwd_dkv" in kernels:
+                long_check("flash_bwd_dkv", dtype, label + " dk", got[1],
+                           ref[1])
+                long_check("flash_bwd_dkv", dtype, label + " dv", got[2],
+                           ref[2])
+            del q, k, v, o, lse, do, delta, got, ref
+            torch.cuda.empty_cache()
+    log(f"long flash parity: {time.perf_counter() - t0:.1f} s")
 
 
 def adam_inputs(n, gen):
@@ -2833,6 +2926,120 @@ def training_phase(smi):
     return launches, training
 
 
+def analysis_phase(smi):
+    """GPT-2 small's training step at full width (``build_gpt_training``,
+    as :func:`training_phase`: bf16, GradScaler, the sentinel gate,
+    fused Adam) audited on the card by ``analysis``'s precision and
+    host-sync passes: one step recorded, then one run under
+    ``set_sync_debug_mode("warn")``. The findings by rule and site; no
+    unallowlisted finding, and the recorder's host waits and the sync
+    debug mode's at the same sites."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.analysis import allowlist, passes
+    from apex_tpu_torch.analysis.findings import merge_findings
+    from apex_tpu_torch.resilience.replay import (
+        GPTTargetConfig,
+        build_gpt_training,
+    )
+
+    t0 = time.perf_counter()
+    cfg = GPTTargetConfig(vocab=50257, seq_len=1024, layers=12, hidden=768,
+                          heads=12, micro_batch=8, global_batch=16, lr=3e-4,
+                          weight_decay=0.01, seed=SEED)
+    tr = build_gpt_training(cfg, device="cuda")
+    state = tr.init_state()
+    gen = torch.Generator().manual_seed(SEED + 9)
+    tokens = torch.randint(0, cfg.vocab, (tr.num_micro, cfg.micro_batch,
+                                          cfg.seq_len), generator=gen)
+    axes = {"dp": 1, "pp": 1, "cp": 1, "tp": 1}
+    target = passes.StepTarget("gpt2-small", tr.train_step,
+                               (state, tokens, tokens), axes=axes,
+                               device="cuda")
+    _kernels.reset_launch_counts()
+    ctx = passes.StepContext(target)
+    t1 = time.perf_counter()
+    rec = ctx.recording
+    audit_s = time.perf_counter() - t1
+    launches = _kernels.launch_counts()
+    findings = merge_findings(
+        f for name in ("precision", "host-sync")
+        for f in passes.TRACE_PASSES[name](ctx))
+    result = allowlist.repo_allowlist().apply(findings, check_stale=False)
+    for f in sorted(findings, key=lambda f: (f.rule, f.site)):
+        log(f"analysis {f.rule} {f.site} x{f.count} {f.data}")
+    reads = sorted({site for _, site in rec.reads})
+    syncs = sorted({site for _, site in rec.syncs})
+    log(f"analysis host waits: recorder {dict(rec.reads)}; "
+        f"set_sync_debug_mode {dict(rec.syncs)}")
+    if result.findings:
+        raise AssertionError("analysis: unallowlisted findings:\n"
+                             + result.format())
+    if reads != syncs:
+        raise AssertionError(f"analysis: the recorder's host waits {reads} "
+                             f"and set_sync_debug_mode's {syncs} differ")
+    out = {"findings": len(findings), "allowlisted": len(result.suppressed),
+           "aten_ops": sum(rec.ops.values()), "host_wait_sites": reads,
+           "audit_s": audit_s, "phase_s": time.perf_counter() - t0,
+           "gpu": smi}
+    log("analysis " + json.dumps(out))
+    del tr, state, target, ctx, rec
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def sentinel_check(smi, resnet_rec):
+    """The perf sentinel's CLI (``python -m apex_tpu_torch.monitor.goodput
+    --check``) over this run's ResNet-50 O2 images/s, written as a
+    ``kind="bench"`` record under the recorded rounds' metric name
+    (``BENCH_r*.json``: the JAX package's ResNet-50 O2 images/s) with
+    platform ``gpu``, which no recorded round carries, so the baseline
+    file alone is its history: against a copy of itself it passes (exit
+    0), and a copy 20% slower fails against the measurement (exit 1)."""
+    import tempfile
+
+    from apex_tpu_torch.monitor.goodput.__main__ import main as goodput_main
+    from apex_tpu_torch.monitor.router import make_record
+
+    t0 = time.perf_counter()
+    metric = "rn50_train_imgs_per_sec_per_chip_ampO2"
+    value = resnet_rec["O2"]["imgs_per_s"]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, v in (("run", value), ("slow", 0.8 * value)):
+            paths[name] = os.path.join(tmp, f"{name}.jsonl")
+            with open(paths[name], "w") as f:
+                f.write(json.dumps(make_record(
+                    "bench", 0, metric=metric, value=v,
+                    unit="imgs/sec/chip", platform="gpu")) + "\n")
+        same = goodput_main(["--check", paths["run"], "--baseline",
+                             paths["run"]])
+        slow = goodput_main(["--check", paths["slow"], "--baseline",
+                             paths["run"]])
+    log(f"sentinel --check: the run against itself exit {same}, 20% slower "
+        f"exit {slow} ({value:.1f} images/s, "
+        f"{time.perf_counter() - t0:.2f} s; {smi})")
+    if (same, slow) != (0, 1):
+        raise AssertionError(f"sentinel --check exits {same}, {slow}; "
+                             f"wanted 0, 1")
+
+
+def analysis_cli_phase(smi, ranks, ast):
+    """``python -m apex_tpu_torch.analysis``'s gate over the four tiny
+    targets, whose trace half ran as the ``analysis`` job of the shared
+    world of 4 (gloo on the card: :data:`GLOO_JOBS`), and ``ast``, the
+    lint's and the concurrency passes' findings (made while the lanes
+    ran): exit status 0."""
+    from apex_tpu_torch.analysis.__main__ import gate, merge_ranks
+
+    t0 = time.perf_counter()
+    rc, report = gate(merge_ranks(ranks), ast=ast)
+    log(report)
+    log(f"analysis CLI over the four tiny targets on 4 gloo ranks: exit "
+        f"{rc} (gate {time.perf_counter() - t0:.1f} s; {smi})")
+    if rc != 0:
+        raise AssertionError(f"analysis CLI exit {rc}")
+
+
 SMALL_TARGET = dict(vocab=512, seq_len=64, layers=2, hidden=128, heads=2,
                     micro_batch=2, global_batch=4)
 
@@ -4129,7 +4336,8 @@ PIPELINE_WORKERS = "apex_tpu_torch.transformer.testing.pipeline_workers"
 #: world of 4 (name, rank function, its arguments): the tp x dp card
 #: against plain; the pipeline's interleaved schedule, card against plain,
 #: zero bubble and zero bubble against 1F1B, and remat True against False
-#: in fp32 and bf16; TinyLlama at cp = 4; MoE at ep = 4
+#: in fp32 and bf16; TinyLlama at cp = 4; MoE at ep = 4; the analysis
+#: CLI's trace passes over its four tiny targets
 # the spatial bottleneck over cp = 4 (H split in 4), fp32 on the card:
 # a stride-1 block and a stride-2 one, in training mode; (N, H, W, C)
 SPATIAL_CASES = [dict(channels=(64, 16, 64), stride=1, train=True,
@@ -4168,6 +4376,9 @@ GLOO_JOBS = (
     ("spatial_bottleneck", "apex_tpu_torch.transformer.testing."
      "contrib_workers:spatial_bottleneck_worker",
      lambda: (SPATIAL_CASES, "cuda")),
+    # the analysis CLI's trace half over its four tiny targets
+    ("analysis", "apex_tpu_torch.analysis.__main__:audit_worker",
+     lambda: (["gpt", "gpt-compressed", "bert", "gpt-pp"], "cuda")),
 )
 
 
@@ -6980,7 +7191,7 @@ def main():
 
     errors = {}
     for check_fn in (ln_parity, flash_parity, ln_bwd_parity, flash_bwd_parity,
-                     adam_parity, rms_parity):
+                     long_flash_parity, adam_parity, rms_parity):
         check_fn(errors)
         log_memory(check_fn.__name__)
     norm_routes()
@@ -7000,6 +7211,8 @@ def main():
     paths["training"], _ = training_phase(smi)
     training_card_vs_plain()
     log_memory("training")
+    paths["analysis"], _ = analysis_phase(smi)
+    log_memory("analysis")
     paths["llama_serving"], _ = llama_serving_phase(smi)
     log_memory("llama_serving")
     paths["llama_finetune"], _ = llama_finetune_phase(smi)
@@ -7014,8 +7227,15 @@ def main():
     log_memory("bert_pretrain")
     paths["bert_dropout"], _ = bert_dropout_phase(smi)
     log_memory("bert_dropout")
-    runs = multi_rank_runs()
-    world = runs["world"]
+    from concurrent.futures import ThreadPoolExecutor
+
+    from apex_tpu_torch.analysis.__main__ import ast_findings
+
+    with ThreadPoolExecutor(1) as pool:
+        ast = pool.submit(ast_findings)  # the gate's AST half, meanwhile
+        runs = multi_rank_runs()
+        world = runs["world"]
+        analysis_cli_phase(smi, world["analysis"], ast.result())
     parallel, _ = gpt_parallel_phase(smi, world, runs["launches"])
     paths.update(parallel)
     log_memory("gpt_parallel")
@@ -7031,6 +7251,7 @@ def main():
     log_memory("llama_cp")
     paths["amp_imagenet"], _ = amp_imagenet_phase(smi, resnet_rec)
     log_memory("amp_imagenet")
+    sentinel_check(smi, resnet_rec)
     paths["amp_dcgan"], _ = amp_dcgan_phase(smi)
     log_memory("amp_dcgan")
     paths["amp_mlp"], _ = amp_mlp_phase(smi)
@@ -7077,6 +7298,7 @@ def main():
                                    for d, e in errors[name].items()},
             "other_shapes": others,
         })
+    log(f"chip_smoke: {time.perf_counter() - START:.1f} s in all")
     log(json.dumps({"kernels": kernels, "gpu": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,7 +43,11 @@ and every leaf's crc32. The contrib MHA modules through the LayerNorm and
 flash kernels agree with their plain path on the CPU to 1e-4 (fp32, a
 fully padded key row included), the transducer's loss and gradient on
 the card with the CPU's to 1e-5, and ASP's masks on the card equal the
-CPU's.
+CPU's. The flash forward and dq kernels at 8,400,000 queries and dk/dv
+at 8,400,000 keys (past the grids' 65535 tiles), in both dtypes, against
+their plain versions at the tolerances above and by relative error; the
+analysis host-sync pass's recorder against
+``set_sync_debug_mode`` on the GPT step, site for site.
 """
 
 import math
@@ -1255,3 +1259,70 @@ def test_asp_masks_on_the_card_equal_the_cpu(gen, pattern):
     for name, m in card.items():
         assert m.is_cuda and torch.equal(m.cpu(), cpu[name]), name
     assert bool((card["fc.weight"].reshape(-1, 4).sum(1) == 2).all())
+
+
+# past the grids' 65535 blocks on y and z, so that each launch loop and
+# grid-stride loop takes more than one pass at d = 64: 8,400,000 rows are
+# 65,625 forward tiles of 128 queries in bf16, 131,250 of 64 in fp32, and
+# 131,250 dq or dk/dv tiles of 64
+LONG_SEQ = 8_400_000
+# ||got - ref|| / ||ref||: a few bf16 ulps (2^-8), the fp32 flash rtol; a
+# kernel that skips the tiles past the first 65535 reads 0.03 or more
+LONG_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _long_close(got, ref, tol, dtype):
+    got, ref = got.float(), ref.float()
+    torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
+    rel = torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)
+    assert float(rel) <= LONG_REL[dtype], float(rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(LONG_SEQ, 128), (128, LONG_SEQ)])
+def test_flash_kernels_past_65535_tiles(gen, sq, sk, dtype):
+    """The forward and dq at 8,400,000 queries, dk/dv at 8,400,000 keys
+    (non-causal, one head), element by element and by relative error. dO
+    is drawn times sk / 128: p is about 1/sk, so dk and dv are as large
+    as over 128 keys and not far under the atol."""
+    q, k, v = (torch.randn(1, 1, n, 64, generator=gen, device="cuda")
+               .to(dtype) for n in (sq, sk, sk))
+    o, lse = at._flash_kernel(q, k, v, 0.125, False, None, None)
+    if sq == LONG_SEQ:
+        ref, rl = at._flash_fwd_ref(q, k, v, 0.125, False)
+        _long_close(o, ref, TOL[dtype], dtype)
+        _long_close(lse, rl, 1e-4, dtype)
+        del ref, rl
+    do = (torch.randn(q.shape, generator=gen, device="cuda")
+          * (sk / 128)).to(dtype)
+    delta = (do.float() * o.float()).sum(-1)
+    got = at._flash_bwd_kernel(q, k, v, do, lse, delta, 0.125, False, None,
+                               None)
+    ref = at._flash_bwd_ref(q, k, v, do, lse, delta, 0.125, False)
+    # the long side's gradient: dq over the queries, dk/dv over the keys
+    held = (0,) if sq == LONG_SEQ else (1, 2)
+    for i in held:
+        _long_close(got[i], ref[i], BWD_TOL[dtype], dtype)
+
+
+def test_host_sync_pass_agrees_with_sync_debug_mode(gen):
+    """The analysis host-sync pass on the GPT step (GPT-2 small's widths at
+    2 layers): the recorder's host waits and set_sync_debug_mode's
+    synchronizing calls at the same sites, and both the anomaly gate's
+    read and the step's scalar fetch among them."""
+    from apex_tpu_torch.analysis import passes
+    from apex_tpu_torch.analysis.allowlist import repo_allowlist
+
+    tr, state, (x, y) = _gpt_training_on_the_card()
+    ctx = passes.StepContext(passes.StepTarget(
+        "gpt", tr.train_step, (state, x, y), device="cuda"))
+    rec = ctx.recording
+    reads = {site for _, site in rec.reads}
+    assert reads == {site for _, site in rec.syncs}
+    methods = {m for m, _ in rec.reads}
+    assert {"__bool__", "tolist"} <= methods
+    findings = list(passes.TRACE_PASSES["host-sync"](ctx))
+    assert findings and all(f.rule == "host-sync.transfer" for f in findings)
+    # each wait has its own allowlist entry (its line and method)
+    result = repo_allowlist().apply(findings, check_stale=False)
+    assert result.findings == [], result.format()

@@ -27,8 +27,11 @@ Inputs are made from a seeded numpy RNG. Checked:
   ``.grad`` stay None; the dispatcher returns the schedules JAX's does,
   the zero-bubble one included (``tests/test_torch_zero_bubble.py``
   holds it to JAX);
-- the interleaved schedules at P = 2 refuse a backend other than gloo,
-  whose tags alone keep the two streams between one pair of ranks apart.
+- the interleaved schedules take any backend at P = 2, where both
+  streams run between one pair of ranks: with every message forced to
+  one tag (gloo then matches a pair's messages in posting order, as
+  NCCL does), the gradients take the pp group's twin and the schedule
+  agrees with JAX as above.
 """
 
 import jax
@@ -145,6 +148,14 @@ def _toy_cases(rs):
     return cases, refs
 
 
+UNTAGGED = ("interleaved P2 V2 M2", "interleaved P2 V2 M4")
+
+
+def _untagged(cases):
+    """The interleaved cases where both streams share one pair of ranks."""
+    return [c for c in cases if c[0] in UNTAGGED]
+
+
 @pytest.fixture(scope="module")
 def both():
     """(JAX references, the port's results by rank) for the whole module:
@@ -155,7 +166,9 @@ def both():
     ports = spawn(jobs_worker, WORLD, args=([
         ("groups_worker", (LAYOUTS + CP_LAYOUTS,)),
         ("p2p_worker", (p2p_cases,)),
-        ("toy_schedules_worker", (toy_cases,))],), timeout=240.0)
+        ("toy_schedules_worker", (toy_cases,)),
+        ("untagged_schedules_worker", (_untagged(toy_cases),))],),
+        timeout=240.0)
     return (p2p_cases, p2p_refs, toy_refs), ports
 
 
@@ -405,46 +418,40 @@ def test_schedule_order_is_one_forward_and_one_backward_per_microbatch():
                 assert peak == min(P - r, M)
 
 
-@pytest.mark.parametrize("P,V,backend,refused", (
-    (2, 2, "nccl", True), (2, 3, "nccl", True), (2, 2, "gloo", False),
-    (2, 1, "nccl", False), (4, 2, "nccl", False)))
-def test_interleaved_refuses_a_backend_without_tags_at_pp_two(
-        monkeypatch, P, V, backend, refused):
-    """At P = 2 with V > 1 activations and gradients run between one
-    ordered pair of ranks in messages of one shape; only gloo's tags keep
-    them apart, so the interleaved schedules refuse any other backend
-    there (the group and its backend are stood in for)."""
-    import torch
-
-    from apex_tpu_torch.transformer.testing.pipeline_workers import (
-        toy_loss,
-        toy_stage,
-    )
-
+@pytest.mark.parametrize("P,V,backend", (
+    (2, 2, "nccl"), (2, 3, "nccl"), (2, 2, "gloo"), (2, 1, "nccl"),
+    (4, 2, "nccl")))
+def test_interleaved_check_takes_any_backend_and_whole_rounds(
+        monkeypatch, P, V, backend):
+    """The interleaved schedules take every backend at every (P, V): at
+    P = 2 the gradients run on the pp group's twin
+    (``parallel_state.p2p``; ``test_untagged_interleaved_matches_jax``
+    runs it without tags). They still need whole rounds of P
+    micro-batches (the group and its backend are stood in for)."""
     group = object()
     monkeypatch.setattr(sched.ps, "get_group", lambda axis: group)
     monkeypatch.setattr(sched.ps, "group_size",
                         lambda g: P if g is group else 1)
     monkeypatch.setattr(sched.dist, "get_backend",
                         lambda g: backend if g is group else "gloo")
-    if not refused:
-        sched._check_interleaved(P, V, "pp")
-        return
-    params = {"w": torch.zeros(V, H, H, requires_grad=True),
-              "b": torch.zeros(V, H, requires_grad=True)}
-    x = torch.zeros(P, MB, H)
-    calls = (
-        lambda: sched.pipeline_forward_interleaved(
-            toy_stage, params, x, num_model_chunks=V),
-        lambda: sched.forward_backward_pipelining_with_interleaving(
-            toy_stage, toy_loss, params, x, x, num_model_chunks=V),
-        lambda: sched.forward_backward_with_pre_post(
-            lambda pre, mb: mb, toy_stage, lambda post, y, t: toy_loss(y, t),
-            {"pre": {}, "stages": params, "post": {}}, x, x,
-            num_model_chunks=V, tensor_shape=(MB, H), dtype=torch.float32))
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=backend):
-            call()
+    assert sched._check_interleaved(P * 2, V, "pp") is None
+    with pytest.raises(ValueError, match="% pipeline size"):
+        sched._check_interleaved(P * 2 + 1, V, "pp")
+
+
+@pytest.mark.parametrize("name", UNTAGGED)
+def test_untagged_interleaved_matches_jax(both, name):
+    """Every p2p message under one tag, as NCCL matches them: the
+    interleaved schedule at P = 2, V = 2 agrees with JAX's as the tagged
+    run does (the same tolerances)."""
+    (_, _, refs), ports = both
+    loss, losses, grads = refs[name]
+    for r in range(WORLD):
+        got = ports[r][3][name]
+        np.testing.assert_allclose(got["loss"], loss[r], rtol=1e-5)
+        np.testing.assert_allclose(got["losses"], losses[r], rtol=1e-5)
+        for k in ("w", "b"):
+            assert _rel(got["grads"][k], grads[k][r]) < 1e-4, (r, k)
 
 
 def test_dispatcher_matches_jax():
