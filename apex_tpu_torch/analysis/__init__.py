@@ -19,18 +19,26 @@ schema (``kind="analysis"`` via ``monitor.MetricRouter``):
 - ``lint``        — the source rules (lint.py)
 - ``concurrency`` — the static race/deadlock analyzer over the threaded
   host runtime (concurrency/), pure AST
+- ``donation``    — declared in-place state against the storage the step
+  really reused (donation.py)
+- ``hlo-comms``, ``hlo-sharding``, ``hlo-memory`` — the recorded step's
+  dispatched collectives against the ledger, state whole on every rank
+  of a parallel axis, and the step's memory against the HBM ledger
+  (hlo/)
+- ``trace_smoke`` — a two-step profiler capture through the timeline
+  analyzer (``monitor.xray.timeline``): the trace schema's drift check
+- ``autofix``     — prescriptions derived from the findings, applied to
+  step builders whose specs are data, re-audited to a fixpoint
+  (autofix/, ``--fix``)
 
 The trace passes run ONE eager step of the target under a recorder
 (passes.py's docstring says why and what that costs). CLI:
 ``python -m apex_tpu_torch.analysis`` runs the AST rules over
-``apex_tpu_torch/`` and the trace passes over the GPT and BERT steps on a
+``apex_tpu_torch/``, the trace passes over the GPT and BERT steps on a
 gloo world of 4 ranks (``--device cpu`` on the CPU; the card by
-default), exiting non-zero on an unallowlisted finding or a stale entry.
-
-Not ported yet (ROADMAP item 9c): ``donation`` (XLA's buffer aliasing,
-``hlo.parser``), ``hlo`` (the compiled-HLO comms differ and the sharding
-auditor), ``autofix`` (``--fix``) and the timeline trace-schema smoke
-(``trace_smoke``, which reads ``monitor.xray.timeline``).
+default) and the trace smoke, exiting non-zero on an unallowlisted
+finding or a stale entry; ``--fix`` runs autofix over
+``targets.FIXABLE_TARGETS``.
 
 Attribute access is lazy (PEP 562): importing this package imports
 neither torch nor the passes, so the AST half and goodput's sentinel run
@@ -72,12 +80,17 @@ _EXPORTS = {
     "gpt_compressed_step_target": "targets",
     "bert_step_target": "targets",
     "gpt_pp_step_target": "targets",
+    "gpt_zero_naive_step_target": "targets",
+    "FIXABLE_TARGETS": "targets",
     "all_targets": "targets",
+    # the trace smoke
+    "timeline_smoke_findings": "trace_smoke",
 }
 
 __all__ = sorted(_EXPORTS) + [
     "findings", "passes", "precision", "collectives", "host_sync", "lint",
-    "allowlist", "targets", "concurrency",
+    "allowlist", "targets", "concurrency", "donation", "hlo", "autofix",
+    "trace_smoke",
 ]
 
 _SUBMODULES = frozenset(__all__) - frozenset(_EXPORTS)

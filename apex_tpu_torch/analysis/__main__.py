@@ -3,30 +3,46 @@
 
 Runs the AST lint rules over ``apex_tpu_torch/`` (its examples
 included), the concurrency passes (the static race/deadlock analyzer
-over the threaded host runtime; pure AST), and the trace passes
-(precision, host-sync, collective) over the four tiny step targets
-(``targets.py``: GPT at dp 2 x tp 2, its int8 twin, BERT at dp 2 x tp 2
-and GPT at dp 2 x pp 2 with the zero-bubble schedule), each run for one
-step on every rank of a spawned gloo world of 4 — on the card by
-default (4 ranks on ``cuda:0``), on the CPU with ``--device cpu``; the
-trace half raises without a card unless given ``--device cpu``, as the
-port's other entry points do. A finding's count is the largest any rank
-saw. Then it applies the documented allowlist (``allowlist.py``). Exit
-status:
+over the threaded host runtime; pure AST), the trace passes (precision,
+host-sync, collective, donation, and the recorded-step audits
+``hlo-comms``, ``hlo-sharding`` and ``hlo-memory``) over the four tiny
+step targets (``targets.py``: GPT at dp 2 x tp 2, its int8 twin, BERT at
+dp 2 x tp 2 and GPT at dp 2 x pp 2 with the zero-bubble schedule), each
+run for one step on every rank of a spawned gloo world of 4 — on the
+card by default (4 ranks on ``cuda:0``), on the CPU with ``--device
+cpu``; the trace half raises without a card unless given ``--device
+cpu``, as the port's other entry points do — and the profiler
+trace-schema smoke (``trace_smoke.py``: a two-step capture through the
+timeline analyzer, on the same device). A finding's count is the largest
+any rank saw. Then it applies the documented allowlist
+(``allowlist.py``). Exit status:
 
 - 0 — clean: every finding suppressed by a reason-carrying entry and no
   entry gone stale;
 - 1 — unallowlisted findings or stale allowlist entries, each listed
-  with rule, site and message;
-- 2 — ``--fix``, which waits for autofix (ROADMAP item 9c).
+  with rule, site and message.
+
+``--fix`` runs the autofix mode instead (``analysis/autofix``): for every
+builder in ``targets.FIXABLE_TARGETS`` (library steps whose specs are
+data; not part of the default gate, which the seeded one would fail) it
+derives prescriptions from the pass findings, applies the applicable
+ones by rebuilding the target with an injected shard spec and in-place
+declaration, and re-audits to a bounded fixpoint, on every rank of a
+spawned world of 4. User-code prescriptions print as unified diffs,
+never edits. Exit 0 only when every fixed target audits clean, nothing
+remains unapplied, and the apply is proven idempotent (the last round
+derives no patch). With ``--json`` each prescription is appended as a
+``kind="analysis"`` record carrying the ``fix=`` payload, plus a
+``kind="bench"`` twin of the fixed target's predicted dp-axis wire bytes
+(``_bytes``: lower is better for ``python -m
+apex_tpu_torch.monitor.goodput --check``), to the file the caller names.
 
 Flags, as JAX's: ``--verbose`` also prints suppressed findings with their
 reasons; ``--json PATH`` appends every finding as a ``kind="analysis"``
 record to a jsonl; ``--skip-lint`` / ``--skip-concurrency`` /
-``--skip-jaxpr`` (the trace half, under JAX's name) run part of the
-gate; ``--skip-timeline`` is accepted and does nothing until the
-timeline smoke is ported (item 9c); ``--target gpt|gpt-compressed|bert|
-gpt-pp`` restricts the trace half; ``--device`` picks its device.
+``--skip-jaxpr`` (the trace half, under JAX's name) / ``--skip-timeline``
+run part of the gate; ``--target gpt|gpt-compressed|bert|gpt-pp``
+restricts the trace half; ``--device`` picks its device.
 """
 
 import argparse
@@ -52,6 +68,104 @@ def audit_worker(rank: int, world_size: int, names, device: str):
         findings.extend(passes_mod.run_passes(target))
         ps.destroy_model_parallel()
     return findings
+
+
+def fix_worker(rank: int, world_size: int, device: str):
+    """One rank's autofix of every ``FIXABLE_TARGETS`` builder (every rank
+    runs the same rounds, whose steps' collectives pair up): each
+    target's report as plain data."""
+    from apex_tpu_torch.analysis import allowlist as allowlist_mod
+    from apex_tpu_torch.analysis import targets as targets_mod
+    from apex_tpu_torch.analysis.autofix import apply_fixes, render_user_diff
+    from apex_tpu_torch.parallel import parallel_state as ps
+
+    allow = allowlist_mod.repo_allowlist()
+    out = []
+    for name, builder in targets_mod.FIXABLE_TARGETS.items():
+        target = builder(device)
+        if rank == 0:
+            print(f"autofixing step target {target.name!r} (axes "
+                  f"{target.axes}, {target.device})", flush=True)
+        report = apply_fixes(target, allowlist=allow)
+        out.append({
+            "name": name, "target": target.name, "ok": report.ok,
+            "lines": report.describe(),
+            "diff": render_user_diff(report.manual),
+            "manual": len(report.manual), "idempotent": report.idempotent,
+            "reason": report.reason, "axis": report.axis,
+            "ledger_before": report.ledger_before,
+            "ledger_after": report.ledger_after,
+            "prescriptions": [p.to_finding()
+                              for p in report.applied + report.manual],
+        })
+        ps.destroy_model_parallel()
+    return out
+
+
+def fix_reports(device: str, timeout: float = 600.0):
+    """:func:`fix_worker` on a spawned gloo world of :data:`WORLD` ranks:
+    rank 0's reports, each ``ok`` only when every rank's is."""
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        spawn,
+    )
+
+    me = importlib.import_module("apex_tpu_torch.analysis.__main__")
+    ranks = spawn(me.fix_worker, WORLD, args=(device,), timeout=timeout)
+    return merge_fix_ranks(ranks)
+
+
+def merge_fix_ranks(ranks):
+    """Rank 0's reports, each ``ok`` only when every rank's is, and
+    ``manual`` the most any rank left."""
+    out = []
+    for i, rep in enumerate(ranks[0]):
+        out.append(dict(rep, ok=all(r[i]["ok"] for r in ranks),
+                        manual=max(r[i]["manual"] for r in ranks)))
+    return out
+
+
+def run_fix(device: str, json_path=None) -> int:
+    """The ``--fix`` leg: exit 0 iff every fixed target ends clean, with no
+    prescription unapplied, and idempotent."""
+    from apex_tpu_torch.analysis import allowlist as allowlist_mod
+
+    allow = allowlist_mod.repo_allowlist()
+    ok = True
+    records = []
+    for rep in fix_reports(device):
+        for line in rep["lines"]:
+            print(line, flush=True)
+        if rep["diff"]:
+            print(rep["diff"], flush=True)
+        if not rep["ok"] or rep["manual"]:
+            ok = False
+            why = rep["reason"] or (
+                f"{rep['manual']} prescription(s) remain unapplied"
+                if rep["manual"] else
+                ("apply did not reach a clean fixpoint"
+                 if not rep["idempotent"] else "residual findings"))
+            print(f"[autofix] {rep['name']}: FAILED — {why}", flush=True)
+        if json_path:
+            records.extend(allow.apply(rep["prescriptions"],
+                                       check_stale=False).to_records())
+            if rep["axis"] and rep["ledger_after"]:
+                from apex_tpu_torch.monitor.router import make_record
+
+                records.append(make_record(
+                    "bench", 0,
+                    metric=(f"autofix_{rep['target'].replace('-', '_')}_"
+                            f"{rep['axis']}_ici_bytes"),
+                    value=float(rep["ledger_after"].get("ici_bytes", 0)),
+                    unit="B",
+                    platform="gpu" if device.startswith("cuda") else "cpu"))
+    if json_path and records:
+        from apex_tpu_torch.monitor.router import JsonlSink
+
+        sink = JsonlSink(json_path)
+        for rec in records:
+            sink.emit(rec)
+        sink.close()
+    return 0 if ok else 1
 
 
 def merge_ranks(by_rank):
@@ -133,8 +247,7 @@ def main(argv=None) -> int:
     parser.add_argument("--skip-jaxpr", action="store_true",
                         help="skip the trace passes over the step targets")
     parser.add_argument("--skip-timeline", action="store_true",
-                        help="accepted; the timeline smoke waits for "
-                             "ROADMAP item 9c")
+                        help="skip the profiler trace-schema smoke check")
     parser.add_argument("--skip-concurrency", action="store_true",
                         help="skip the static race/deadlock passes over "
                              "the threaded host runtime")
@@ -143,22 +256,29 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="the trace half's device (default cuda)")
     parser.add_argument("--fix", action="store_true",
-                        help="autofix mode (not ported: ROADMAP item 9c)")
+                        help="autofix mode: derive and apply prescriptions "
+                             "for the fixable step builders to a bounded "
+                             "fixpoint (see module docstring)")
     args = parser.parse_args(argv)
 
+    from apex_tpu_torch._kernels import resolve_device
+
     if args.fix:
-        print("--fix: autofix is not ported yet (ROADMAP.md Queue 1, "
-              "item 9c: analysis/autofix waits for analysis/hlo)",
-              file=sys.stderr)
-        return 2
+        return run_fix(str(resolve_device(args.device)), args.json)
 
     trace = []
     if not args.skip_jaxpr:
-        from apex_tpu_torch._kernels import resolve_device
-
         device = str(resolve_device(args.device))
         names = [args.target] if args.target else list(TARGETS)
         trace = trace_findings(names, device)
+    if not args.skip_timeline:
+        from apex_tpu_torch.analysis.trace_smoke import (
+            timeline_smoke_findings,
+        )
+
+        print("timeline trace-schema smoke (2-step capture)", flush=True)
+        trace = list(trace) + timeline_smoke_findings(
+            str(resolve_device(args.device)))
     rc, report = gate(trace, lint=not args.skip_lint,
                       concurrency=not args.skip_concurrency,
                       verbose=args.verbose, json_path=args.json)

@@ -136,6 +136,18 @@ _HOST_SYNC = [
 _LINT = [
     AllowlistEntry(
         rule="lint.raw-collective",
+        match="apex_tpu_torch/transformer/testing/analysis_workers.py:81",
+        reason=(
+            "the hlo-comms audit's seeded fixture (_bare_all_reduce): a "
+            "collective issued outside parallel_state on purpose, which "
+            "the differ must report as comms.unpredicted at this line "
+            "(tests/test_torch_hlo_audits.py); JAX: its analysis tests "
+            "seed theirs in the test file"
+        ),
+        require_hit=True,
+    ),
+    AllowlistEntry(
+        rule="lint.raw-collective",
         match="apex_tpu_torch/parallel/parallel_state.py",
         reason=(
             "parallel_state's helpers ARE the instrumented call sites "
@@ -529,8 +541,139 @@ _CONCURRENCY = [
     ),
 ]
 
+# The recorded-step audits (analysis/hlo, donation.py): one entry a
+# finding and a target, each matched to the target's step site. The info
+# records are confirmations or honest "not verified" notes, kept so that
+# the gate's jsonl is explained; the one error kept is GPT-2 small's
+# rebound optimizer state. NO comms.unpredicted, comms.vanished,
+# sharding.* or memory.unpredicted entry: the repo's targets raise none
+# (the pipeline's loss broadcast, once unpredicted, now records itself in
+# the ledger), and any would be the regression the audits exist for.
+_RECORDED = [
+    AllowlistEntry(
+        rule="comms.quantized",
+        match="<step:gpt-dp2tp2-int8>",
+        reason=(
+            "POSITIVE confirmation, not a defect: the int8 dp all-reduce's "
+            "8-bit payloads (parallel/compress.py) were dispatched as the "
+            "ledger recorded them — JAX: the same entry"
+        ),
+    ),
+    AllowlistEntry(
+        rule="memory.unverifiable",
+        match="<step:gpt-dp2tp2>",
+        reason=(
+            "on the CPU no caching allocator reports a peak: the resident "
+            "components are reconciled exactly (the finding says so, with "
+            "the table), the temporaries are not; on the card the same "
+            "target reconciles (memory.reconciled) or reports"
+        ),
+    ),
+    AllowlistEntry(
+        rule="memory.reconciled",
+        match="<step:gpt-dp2tp2>",
+        reason=(
+            "POSITIVE confirmation on the card: weights, fused-Adam state, "
+            "scaler, sentinel and batch reconciled exactly with the "
+            "allocator's temporaries inside the band — JAX: the same entry"
+        ),
+    ),
+    AllowlistEntry(
+        rule="memory.reconciled",
+        match="<step:gpt2-small>",
+        reason=(
+            "POSITIVE confirmation on the card (chip_smoke.py's analysis "
+            "phase): GPT-2 small's state reconciled exactly with the HBM "
+            "ledger and the allocator's temporaries inside the band"
+        ),
+    ),
+    AllowlistEntry(
+        rule="memory.unverifiable",
+        match="<step:gpt-dp2tp2-int8>",
+        reason=(
+            "no closed form yet: the int8 DDP path keeps its fp32 error-"
+            "feedback residual in the optimizer-state slot, which "
+            "hbm.model's fused_adam prediction does not book"
+        ),
+    ),
+    AllowlistEntry(
+        rule="memory.unverifiable",
+        match="<step:bert-dp2tp2>",
+        reason=(
+            "no closed form yet: hbm.model predicts GPT-family training "
+            "only (JAX: the bert target carries no ledger either)"
+        ),
+    ),
+    AllowlistEntry(
+        rule="memory.unverifiable",
+        match="<step:gpt-dp2pp2>",
+        reason=(
+            "no closed form yet for the zero-bubble pipeline with "
+            "distributed_fused_adam at dp 2 x pp 2 (JAX: the pipeline "
+            "target carries no ledger either)"
+        ),
+    ),
+    AllowlistEntry(
+        rule="memory.unverifiable",
+        match="<step:gpt-zero-naive>",
+        reason=(
+            "autofix's proof target carries no analytic ledger (JAX: the "
+            "same); its defects are the sharding and donation findings"
+        ),
+    ),
+    AllowlistEntry(
+        rule="autofix.prescription",
+        match="<builder:*>",
+        reason=(
+            "a prescription is the FIX, not a defect: the defect it fixes "
+            "(sharding.replicated-*, donation.missed) is on the stream "
+            "under its own rule, and --fix exits nonzero itself when "
+            "prescriptions remain unapplied or the apply is not "
+            "idempotent — JAX: the same entry"
+        ),
+    ),
+    AllowlistEntry(
+        rule="donation.rejected",
+        match="<step:llama-finetune>",
+        data={"stage": "fresh-output"},
+        reason=(
+            "the Llama example's --audit-donation (parameters and ZeRO "
+            "state declared in place): the parameters are updated in place "
+            "(p.add_), but distributed_fused_adam is functional (as optax) "
+            "and returns a new master shard and new moments, which the "
+            "loop rebinds: a second copy of the ZeRO state at the "
+            "update's peak. Kept, as GPT-2's below"
+        ),
+    ),
+    AllowlistEntry(
+        rule="donation.rejected",
+        match="<step:gpt-pretrain>",
+        data={"stage": "rebound"},
+        reason=(
+            "the GPT example's --audit-donation: the same step as GPT-2 "
+            "small's below (build_gpt_training), the same rebound "
+            "optimizer, scaler and sentinel state"
+        ),
+    ),
+    AllowlistEntry(
+        rule="donation.rejected",
+        match="<step:gpt2-small>",
+        data={"stage": "rebound"},
+        reason=(
+            "GPT-2 small's step (chip_smoke.py's analysis phase) declares "
+            "its state updated in place: the parameters are (p.add_), but "
+            "fused_adam is functional (as optax) and returns new moments, "
+            "and the step rebinds state.opt, state.scaler and "
+            "state.sentinel. The old moments are freed after the update: "
+            "a second copy of the fp32 optimizer state at the update's "
+            "peak. Kept, not repaired, in this slice: an in-place Adam "
+            "changes the optimizer API every caller shares (ROADMAP)"
+        ),
+    ),
+]
+
 REPO_ALLOWLIST = Allowlist(
-    _PRECISION + _HOST_SYNC + _LINT + _CONCURRENCY
+    _PRECISION + _HOST_SYNC + _LINT + _CONCURRENCY + _RECORDED
 )
 
 

@@ -23,7 +23,12 @@ target under a recorder (:class:`Recorder`):
 - the collective-traffic ledger (``monitor.xray.ledger``) is active for
   the step with a site function, so it sees every collective and every
   point-to-point edge (with ``src``/``dst``), and its ``dead`` list the
-  collectives over one-rank groups.
+  collectives over one-rank groups;
+- for the recorded-step audits (``analysis/hlo``, ``donation.py``), the
+  dispatch mode also keeps every ``c10d`` op the step dispatched and
+  gloo's host-card staging copies apart, and the context keeps each
+  argument leaf's storage and value digest before and after the step and
+  the step's outputs (``Recording.module``, ``hlo.parser.HloModule``).
 
 What that changes against JAX: the step executes (the target's state
 advances one step; the audit costs a step plus the recorder's Python
@@ -44,7 +49,8 @@ the step runs under anomaly mode (``detect_anomaly(check_nan=False)``),
 which keeps each autograd node's forward traceback, and a backward op
 resolves through its node's — as JAX's transposed equations inherit the
 forward equation's source info. On the card the step runs a second time under
-``torch.cuda.set_sync_debug_mode("warn")``; each synchronizing call's
+``torch.cuda.set_sync_debug_mode("warn")`` (the allocator's watermarks
+are taken over that warm run); each synchronizing call's
 warning is resolved to a site the same way (:attr:`Recording.syncs`),
 which the host-sync pass holds to the recorder's reads. Neither counts
 the host copies of ``parallel_state``'s helpers themselves: over gloo a
@@ -70,6 +76,7 @@ from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from apex_tpu_torch.analysis.findings import Allowlist, Finding, merge_findings
+from apex_tpu_torch.analysis.hlo import parser as hlo_parser
 
 __all__ = [
     "HOST_READS",
@@ -78,6 +85,7 @@ __all__ = [
     "Recording",
     "StepContext",
     "StepTarget",
+    "audit_or_exit",
     "op_site",
     "run_passes",
     "trace_pass",
@@ -213,6 +221,9 @@ class Recording:
     #: (site, axis, tag, group size) -> the point-to-point edges sent
     #: there, over every rank of the world (collectives.py)
     edges: Dict[Tuple, set] = dataclasses.field(default_factory=dict)
+    #: the step's dispatched c10d ops, state tensors, outputs and
+    #: allocator watermarks (``hlo.parser.HloModule``)
+    module: Any = None
 
 
 def _float_dtypes(tensors) -> Tuple[str, ...]:
@@ -266,6 +277,18 @@ def _uploads(name, ins, out, kwargs) -> bool:
             and src.device.type == "cpu" and src.numel() > 0)
 
 
+def _crosses_devices(name, ins, out) -> bool:
+    """Is the op a copy between the host and the card (``copy_`` into a
+    tensor on another device than its source, or ``_to_copy`` to
+    another device)?"""
+    if name not in ("copy_", "_to_copy"):
+        return False
+    tensors = [t for t in ins if isinstance(t, torch.Tensor)]
+    dst = tensors[0] if name == "copy_" else out
+    src = tensors[1] if name == "copy_" and len(tensors) > 1 else tensors[0]
+    return isinstance(dst, torch.Tensor) and dst.device != src.device
+
+
 class _OpMode(TorchDispatchMode):
     def __init__(self, rec: "Recorder"):
         super().__init__()
@@ -279,9 +302,20 @@ class _OpMode(TorchDispatchMode):
         site = op_site(2)
         self.rec.ops[(name, _float_dtypes(ins), _float_dtypes(_flatten(out)),
                       site)] += 1
+        transport = in_transport(2)
         if (name in _HOST_WAITING or _uploads(name, ins, out, kwargs)) \
-                and not in_transport(2):
+                and not transport:
             self.rec.reads[(name, site)] += 1
+        if func.namespace == "c10d":
+            c = hlo_parser.collective_from_dispatch(
+                func, args, site, len(self.rec.collectives), transport)
+            if c is not None:
+                self.rec.collectives.append(c)
+        elif transport and _crosses_devices(name, ins, out):
+            # gloo's staging of a collective through host memory
+            self.rec.staged.append((name, sum(
+                t.numel() * t.element_size() for t in _flatten(out)
+                if isinstance(t, torch.Tensor))))
         return out
 
 
@@ -314,6 +348,8 @@ class Recorder:
         self.device = torch.device(device)
         self.ops: collections.Counter = collections.Counter()
         self.reads: collections.Counter = collections.Counter()
+        self.collectives: list = []
+        self.staged: list = []
         self._stack = None
         self._ledger = None
 
@@ -410,6 +446,104 @@ class StepTarget:
     axes: Optional[Dict[str, int]] = None
     device: Any = "cpu"
     low_dtypes: Tuple = (torch.bfloat16, torch.float16)
+    #: the arguments the step updates in place (JAX's ``donate_argnums``;
+    #: None: nothing declared, the donation pass skips the target)
+    donate_argnums: Optional[Tuple[int, ...]] = None
+    #: the analytic HBM prediction (``monitor.xray.hbm.model.HbmBreakdown``)
+    #: the hlo-memory pass holds the step to
+    hbm: Optional[Any] = None
+    #: the sharding and donation auditors' size floors for this target
+    #: (None: their 1 MiB defaults)
+    sharding_min_bytes: Optional[int] = None
+    donation_min_bytes: Optional[int] = None
+    #: autofix's hooks (``analysis/autofix``): ``builder(device,
+    #: **build_overrides)`` rebuilds the target; ``spec_slots`` names the
+    #: builder keyword that shards an argument, ``donate_slot`` the one
+    #: that declares in-place updates
+    builder: Optional[Callable] = None
+    build_overrides: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    spec_slots: Dict[int, str] = dataclasses.field(default_factory=dict)
+    donate_slot: Optional[str] = None
+
+    @property
+    def mesh(self):
+        """The layout as ``hlo.attribution`` reads it (JAX: ``mesh``)."""
+        if self.axes is None:
+            return None
+        from apex_tpu_torch.analysis.hlo.attribution import layout_mesh
+
+        return layout_mesh(self.axes)
+
+    def names(self) -> List[str]:
+        """The arguments' names (labels' roots): ``fn``'s parameters."""
+        import inspect
+
+        try:
+            return list(inspect.signature(self.fn).parameters)
+        except (TypeError, ValueError):
+            return [f"arg{i}" for i in range(len(self.args))]
+
+
+def _watermarks(device, reset: bool = False):
+    """The allocator's watermarks on a card (``hbm.live``), else None;
+    ``reset`` starts a new peak first."""
+    from apex_tpu_torch.monitor.xray.hbm import live
+
+    if device.type != "cuda":
+        return None
+    torch.cuda.synchronize(device)
+    if reset:
+        torch.cuda.reset_peak_memory_stats(device)
+    return live.device_watermarks(device)
+
+
+def _state_before(target: StepTarget, floor: int):
+    """Each argument leaf with its storage, and a digest at or above
+    ``floor`` bytes, before the step."""
+    from apex_tpu_torch.analysis.hlo import parser as hp
+
+    return [(argnum, label, root, t, hp.storage_ptr(t),
+             hp.tensor_digest(t) if t.numel() * t.element_size() >= floor
+             else None)
+            for argnum, label, root, t in hp.state_leaves(target.args,
+                                                          target.names())]
+
+
+def _module(target: StepTarget, before, out, rec: "Recorder", floor: int):
+    """The step's ``hlo.parser.HloModule`` from what was recorded: the
+    leaves before, the same paths after (a step may rebind them), the
+    outputs and the dispatched collectives."""
+    from apex_tpu_torch.analysis.hlo import parser as hp
+
+    def digest(t):
+        return (hp.tensor_digest(t)
+                if t.numel() * t.element_size() >= floor else None)
+
+    after = {label: t for _, label, _, t in hp.state_leaves(
+        target.args, target.names())}
+    params = []
+    for i, (argnum, label, root, t, ptr, dig) in enumerate(before):
+        now = after.get(label)
+        params.append(hp.HloParam(
+            index=i, name=f"%param.{i}", shape=hp._shape(t), label=label,
+            argnum=argnum, root=root, ptr_before=ptr,
+            ptr_after=None if now is None else hp.storage_ptr(now),
+            digest_before=dig,
+            digest_after=None if now is None else digest(now)))
+    outputs = [hp.HloParam(
+        index=j, name=f"%output.{j}", shape=hp._shape(t), label=label,
+        ptr_before=None,
+        ptr_after=hp.storage_ptr(t), digest_after=digest(t))
+        for j, (_, label, _, t) in enumerate(hp.state_leaves((out,),
+                                                             ("out",)))]
+    by_ptr = {p.ptr_before: p.index for p in params}
+    alias = {by_ptr[o.ptr_after]: o.index for o in outputs
+             if o.ptr_after in by_ptr}
+    return hp.HloModule(
+        name=target.name, collectives=list(rec.collectives),
+        entry_params=params, entry_root_shapes=[o.shape for o in outputs],
+        input_output_alias=alias,
+        entry_outputs=outputs, staged=list(rec.staged))
 
 
 class StepContext:
@@ -428,6 +562,10 @@ class StepContext:
         return self.target.axes
 
     @property
+    def mesh(self):
+        return self.target.mesh
+
+    @property
     def low_dtypes(self) -> Tuple[str, ...]:
         return tuple(str(d).replace("torch.", "")
                      for d in self.target.low_dtypes)
@@ -437,21 +575,69 @@ class StepContext:
         """The step's :class:`Recording`, run once and cached."""
         if self._recording is None:
             device = torch.device(self.target.device)
+            before = _state_before(self.target, self._digest_floor)
             with Recorder(device) as rec:
-                self.target.fn(*self.target.args)
+                out = self.target.fn(*self.target.args)
             self._recording = rec.recording()
+            self._recording.module = _module(
+                self.target, before, out, rec, self._digest_floor)
+            del before, out
             self._recording.edges = world_edges(self._recording.ledger)
             if device.type == "cuda":
-                torch.cuda.synchronize(device)
+                # the allocator's watermarks over this second, warm run
+                # (memory_diff.py says why)
+                memory = _watermarks(device, reset=True)
                 with sync_warnings() as calls:
                     self.target.fn(*self.target.args)
                     torch.cuda.synchronize(device)
                 self._recording.syncs = calls
+                self._recording.module.memory = {
+                    "before": memory, "after": _watermarks(device)}
         return self._recording
+
+    @property
+    def _digest_floor(self) -> int:
+        """The smallest tensor the auditors look at (their floors)."""
+        t = self.target
+        return min(t.sharding_min_bytes or 1 << 20,
+                   t.donation_min_bytes or 1 << 20)
 
     def finding(self, rule: str, message: str, **kw) -> Finding:
         kw.setdefault("target", self.name)
         return Finding(rule=rule, message=message, **kw)
+
+
+#: what an example's ``--audit-*`` flag prints when its pass is clean, and
+#: the rule that says the pass could not verify
+_AUDIT_OK = {
+    "donation": ("donation audit: ok", "donation.unverifiable"),
+    "hlo-comms": ("comms audit: ok (dispatched collectives match the "
+                  "ledger)", "comms.unverifiable"),
+}
+
+
+def audit_or_exit(ctx: "StepContext", names: Sequence[str], router=None,
+                  step: int = 0, say: Callable = print) -> None:
+    """The examples' ``--audit-donation`` / ``--audit-comms``: each pass
+    of ``names`` over the recorded step, through the repo allowlist, its
+    records to ``router``; ok (with its count of allowlisted findings)
+    only when nothing is left and the pass verified, else the report and
+    ``SystemExit`` (the JAX examples' hardening: never a vacuous ok)."""
+    from apex_tpu_torch.analysis.allowlist import repo_allowlist
+
+    for name in names:
+        ok_line, unverifiable = _AUDIT_OK[name]
+        found = list(TRACE_PASSES[name](ctx))
+        result = repo_allowlist().apply(found, check_stale=False)
+        if router is not None:
+            for rec in result.to_records(step=step):
+                router.emit(rec)
+        if result.ok and not any(f.rule == unverifiable for f in found):
+            say(f"{ok_line}; {len(result.suppressed)} allowlisted "
+                f"finding(s)", flush=True)
+        else:
+            say(result.format(verbose=True), flush=True)
+            raise SystemExit(f"{name} audit failed")
 
 
 def run_passes(
@@ -487,3 +673,9 @@ from apex_tpu_torch.analysis import (  # noqa: E402,F401
     collectives as _collectives,
 )
 from apex_tpu_torch.analysis import host_sync as _host_sync  # noqa: E402,F401
+from apex_tpu_torch.analysis import donation as _donation  # noqa: E402,F401
+from apex_tpu_torch.analysis.hlo import (  # noqa: E402,F401
+    comms_diff as _comms_diff,
+    memory_diff as _memory_diff,
+    sharding_audit as _sharding_audit,
+)

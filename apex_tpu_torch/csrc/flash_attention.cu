@@ -77,6 +77,12 @@
 // fp32, the parity dtype (the card-against-CPU checks and fp32 serving):
 // the first version's scalar FMA kernel, flash_fwd_kernel. TF32 tensor
 // cores would keep about 3 decimal digits and break its 1e-4 checks.
+//
+// head_dim > 256, both dtypes, prefill and decode: flash_fwd_wide, scalar
+// FMAs over 64-wide chunks of head_dim, each block owning 128 of the
+// output's columns (flash_wide.cuh); bf16 decode keeps its splits, merged
+// in a cluster as above. No model the port reads goes past 256, so this
+// route is written to be right, not fast (its times are in PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,6 +91,7 @@
 #include <stdint.h>
 
 #include "flash_mma.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
@@ -801,6 +808,188 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// ---- head_dim > 256, both dtypes: scalar FMAs over head_dim chunks ----------
+//
+// flash_wide.cuh sets out the route. Block (blockIdx.x, tile, blockIdx.z)
+// owns BQ query rows of one head and the output columns [c_out, c_out + OC)
+// of its group, c_out = (blockIdx.z / splits) * OC; per 64-key tile the
+// scores come from wide_dot over the whole head_dim, the online softmax is
+// the scalar kernel's, P (rounded to T) goes to shared memory, and V's OC
+// columns of the tile follow it. Query tiles are walked from blockIdx.y in
+// steps of gridDim.y. With splits > 1 (bf16 decode, sq = 1) the splits of
+// one column block are neighbours along z and run as one cluster: split s
+// takes 64-key tiles [s * per, (s + 1) * per), and the cluster merges the
+// partials over distributed shared memory in split order, as
+// flash_decode_mma does. The block with c_out = 0 (its rank 0) writes lse.
+
+template <int BQ, int OC> struct WideFwd {
+  // Q and K chunks, V's OC columns of a tile, P
+  static constexpr int floats =
+      BQ * flash_wide::HS + kBK * flash_wide::HS + kBK * OC + BQ * (kBK + 1);
+  static constexpr size_t bytes = floats * sizeof(float);
+};
+
+template <typename T, int BQ, int OC>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const int* __restrict__ kpm, T* __restrict__ o, float* __restrict__ lse, int sq,
+               int sk, int d, int heads, int group, float scale, int causal, int window,
+               int splits, int tiles_per_split) {
+  using namespace flash_wide;
+  constexpr int RP = BQ / 16, CP = kBK / 8, DP = OC / 8, PS = kBK + 1;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + BQ * HS;
+  float* sV = sK + kBK * HS;
+  float* sP = sV + kBK * OC;
+
+  const int t = threadIdx.x, tr = t >> 3, tc = t & 7;
+  const long long bh = blockIdx.x, kvh = bh / group;
+  const int split = blockIdx.z % splits;
+  const int c_out = (int)(blockIdx.z / splits) * OC;
+  const long long offs = (long long)sk - sq;
+  const T* qb = q + bh * sq * d;
+  const T* kb = k + kvh * sk * d;
+  const T* vb = v + kvh * sk * d;
+  const int* kpm_row = kpm ? kpm + (bh / heads) * sk : nullptr;
+  const int n_tiles = (sq + BQ - 1) / BQ;
+
+  for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
+    const int q0 = tile * BQ;
+    int t_lo, t_hi;
+    key_band(q0, sq, sk, offs, causal, window, t_lo, t_hi, BQ);
+    if (splits > 1) {
+      t_lo = max(t_lo, split * tiles_per_split);
+      t_hi = min(t_hi, (split + 1) * tiles_per_split);
+    }
+
+    float m[RP], l[RP], acc[RP][DP];
+#pragma unroll
+    for (int i = 0; i < RP; ++i) {
+      m[i] = kNegInf;
+      l[i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < DP; ++c) acc[i][c] = 0.f;
+    }
+
+    for (int kt = t_lo; kt < t_hi; ++kt) {
+      const int k0 = kt * kBK;
+      float s[RP][CP];
+      wide_dot<T, BQ, kBK>(qb, q0, sq, kb, k0, sk, d, sQ, sK, tr, tc, s);
+      bool key_ok[CP];
+#pragma unroll
+      for (int j = 0; j < CP; ++j) {
+        const int col = k0 + tc + 8 * j;
+        key_ok[j] = col < sk && (kpm_row == nullptr || kpm_row[col] == 0);
+      }
+#pragma unroll
+      for (int i = 0; i < RP; ++i) {
+        const int r = tr * RP + i;
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < CP; ++j) {
+          const bool keep = attends(q0 + r, k0 + tc + 8 * j, key_ok[j], sq, (int)offs, causal,
+                                    window);
+          s[i][j] = keep ? s[i][j] * scale : kNegInf;
+          mx = fmaxf(mx, s[i][j]);
+        }
+        const float m_new = fmaxf(m[i], row_max(mx));
+        const float alpha = expf(m[i] - m_new);
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < CP; ++j) {
+          const float p = expf(s[i][j] - m_new);
+          ps += p;
+          sP[r * PS + tc + 8 * j] = round_to<T>(p);  // P in V's dtype
+        }
+        l[i] = l[i] * alpha + row_sum(ps);
+        m[i] = m_new;
+#pragma unroll
+        for (int c = 0; c < DP; ++c) acc[i][c] *= alpha;
+      }
+      load_cols<T, kBK, OC, OC>(sV, vb, k0, sk, c_out, d);
+      __syncthreads();
+
+      const int kmax = min(kBK, sk - k0);
+      for (int kk = 0; kk < kmax; ++kk) {
+        float p[RP], vv[DP];
+#pragma unroll
+        for (int i = 0; i < RP; ++i) p[i] = sP[(tr * RP + i) * PS + kk];
+#pragma unroll
+        for (int c = 0; c < DP; ++c) vv[c] = sV[kk * OC + tc + 8 * c];
+#pragma unroll
+        for (int i = 0; i < RP; ++i)
+#pragma unroll
+          for (int c = 0; c < DP; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
+      }
+    }
+
+    if (splits == 1) {
+#pragma unroll
+      for (int i = 0; i < RP; ++i) {
+        const int row = q0 + tr * RP + i;
+        if (row >= sq) continue;
+        // every key masked: zeros and the +1e30 lse sentinel
+        const bool dead = m[i] <= kNegInf * 0.5f;
+        const float li = fmaxf(l[i], 1e-30f);
+        T* orow = o + (bh * sq + row) * d;
+#pragma unroll
+        for (int c = 0; c < DP; ++c) {
+          const int col = c_out + tc + 8 * c;
+          if (col < d) orow[col] = narrow<T>(dead ? 0.f : acc[i][c] / li);
+        }
+        if (tc == 0 && c_out == 0) lse[bh * sq + row] = dead ? -kNegInf : m[i] + logf(li);
+      }
+      continue;
+    }
+
+    // splits: this block's partial (m, l, unnormalised acc) into shared
+    // memory, then each block of the cluster merges a share of the elements
+    __syncthreads();  // sV and sP are read no more
+    float* bm = sP;       // [BQ]
+    float* bl = bm + BQ;  // [BQ]
+    float* bacc = sV;     // [BQ][OC]
+#pragma unroll
+    for (int i = 0; i < RP; ++i) {
+      const int r = tr * RP + i;
+      if (tc == 0) {
+        bm[r] = m[i];
+        bl[r] = l[i];
+      }
+#pragma unroll
+      for (int c = 0; c < DP; ++c) bacc[r * OC + tc + 8 * c] = acc[i][c];
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int rank = (int)cluster.block_rank();
+    for (int e = t + rank * kThreads; e < BQ * OC; e += kThreads * splits) {
+      const int r = e / OC, c = e % OC;
+      const int row = q0 + r, col = c_out + c;
+      if (row >= sq) continue;
+      float ms[kMaxSplits], mx = kNegInf;
+#pragma unroll
+      for (int z = 0; z < kMaxSplits; ++z) {
+        ms[z] = z < splits ? *cluster.map_shared_rank(bm + r, z) : kNegInf;
+        mx = fmaxf(mx, ms[z]);
+      }
+      const bool dead = mx <= kNegInf * 0.5f;
+      float sum = 0.f, a = 0.f;
+#pragma unroll
+      for (int z = 0; z < kMaxSplits; ++z) {
+        // a split whose keys were all masked adds nothing
+        if (dead || ms[z] <= kNegInf * 0.5f) continue;
+        const float w = expf(ms[z] - mx);
+        sum += w * *cluster.map_shared_rank(bl + r, z);
+        a += w * *cluster.map_shared_rank(bacc + r * OC + c, z);
+      }
+      const float li = fmaxf(sum, 1e-30f);
+      if (col < d) o[(bh * sq + row) * d + col] = narrow<T>(dead ? 0.f : a / li);
+      if (c == 0 && c_out == 0) lse[bh * sq + row] = dead ? -kNegInf : mx + logf(li);
+    }
+    cluster.sync();  // each block's shared memory outlives the others' reads
+  }
+}
+
 // ---- launch -----------------------------------------------------------------
 
 struct Args {
@@ -848,6 +1037,39 @@ template <int BQ>
 int launch_fp32(const Args& a, cudaStream_t s) {
   if (a.d <= 64) return launch_scalar<BQ, 64>(a, s);
   return a.d <= 128 ? launch_scalar<BQ, 128>(a, s) : launch_scalar<BQ, 256>(a, s);
+}
+
+// head_dim > 256 (flash_fwd_wide), either dtype: ceil(d / OC) column
+// blocks, each `splits` neighbours along z that form one cluster.
+template <typename T, int BQ>
+int launch_wide(const Args& a, int splits, cudaStream_t stream) {
+  constexpr int OC = 128;
+  static bool done = false;
+  auto kernel = flash_fwd_wide<T, BQ, OC>;
+  const size_t smem = WideFwd<BQ, OC>::bytes;
+  cudaError_t err = allow_smem(kernel, smem, done);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (a.sq + BQ - 1) / BQ, key_tiles = (a.sk + kBK - 1) / kBK;
+  const long long z = (long long)((a.d + OC - 1) / OC) * splits;
+  if (z > 65535) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.bh, tiles < 65535 ? tiles : 65535, (unsigned)z);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = splits;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, ptr<T>(a.q), ptr<T>(a.k), ptr<T>(a.v), a.kpm,
+                           static_cast<T*>(a.o), a.lse, a.sq, a.sk, a.d, a.heads, a.group,
+                           a.scale, a.causal, a.window, splits,
+                           (key_tiles + splits - 1) / splits);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // may the bf16 kernels load q, k and v by 16-byte cp.async?
@@ -906,8 +1128,9 @@ int launch_decode(const Args& a, int splits, cudaStream_t stream) {
 
 // q: (bh, sq, d); k, v: (bh / group, sk, d); kpm: int32 (bh / heads, sk) or
 // null; o: (bh, sq, d) in q's dtype; lse: fp32 (bh, sq). All contiguous.
-// 1 <= d <= 256; bh rides the grid's x dimension (any int), the query
-// tiles its y (65535 a launch, further launches past that).
+// d >= 1; bh rides the grid's x dimension (any int), the query tiles its y
+// (65535 a launch, further launches past that; past head_dim 256 a block
+// walks several instead).
 // dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor cores; sq = 1
 // takes the decode kernel). window <= 0 means no window (the window applies
 // only with causal). `splits` > 1 only for bf16 at sq = 1: the 64-key tiles
@@ -918,7 +1141,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
                          void* lse, int bh, int sq, int sk, int d, int heads, int group,
                          int splits, float scale, int causal, int window, int dtype,
                          void* stream) {
-  if (d < 1 || d > 256 || bh < 0 || group < 1 || heads < 1 || bh % group != 0 ||
+  if (d < 1 || bh < 0 || group < 1 || heads < 1 || bh % group != 0 ||
       sq < 0 || sk < 0 || splits < 1 || splits > kMaxSplits ||
       (splits > 1 && (dtype != 1 || sq != 1)))
     return (int)cudaErrorInvalidValue;
@@ -926,8 +1149,12 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
   const Args a{q, k, v, static_cast<const int*>(kpm), o, static_cast<float*>(lse), bh, sq, sk, d,
                heads, group, scale, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (d > 256) {
+    if (dtype == 0) return sq <= 16 ? launch_wide<float, 16>(a, 1, s) : launch_wide<float, 64>(a, 1, s);
+    return sq <= 16 ? launch_wide<bf16, 16>(a, splits, s) : launch_wide<bf16, 64>(a, splits, s);
+  }
   if (dtype == 0) return sq <= 16 ? launch_fp32<16>(a, s) : launch_fp32<64>(a, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
   // head_dim 64, 128 and 256 fill their instantiation; others are
   // zero-padded to the next one
   if (sq == 1) {

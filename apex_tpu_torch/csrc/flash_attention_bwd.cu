@@ -77,6 +77,11 @@
 // columns tc + 8j, over tiles of BR = 64 rows (32 at d = 256, whose four
 // 64-row fp32 tiles would not fit 227 KB). TF32 tensor cores would keep
 // about 3 decimal digits and break the 1e-4 tolerance those checks hold.
+//
+// head_dim > 256, both dtypes: flash_bwd_dq_wide and flash_bwd_dkv_wide,
+// scalar FMAs over 64-wide chunks of head_dim, each block owning 128 of
+// dq's or 64 of dk's and dv's columns (flash_wide.cuh). No model the port
+// reads goes past 256: this route is written to be right, not fast.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,6 +90,7 @@
 #include <type_traits>
 
 #include "flash_mma.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
@@ -812,6 +818,247 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- head_dim > 256, both dtypes: scalar FMAs over head_dim chunks ----------
+//
+// flash_wide.cuh sets out the route. dq: block (blockIdx.x, tile, blockIdx.z)
+// owns 64 query rows of one head and the dq columns [c_out, c_out + OC),
+// c_out = blockIdx.z * OC; per 64-key tile in the band it forms s = q.k and
+// dp = dO.v over the whole head_dim (wide_dot), ds (rounded to T) into
+// shared memory, then dq += ds.k over k's OC columns of the tile. dk/dv:
+// block x = (kv row, column block), y = split, z = key tile; for each query
+// head of its split of the group and each 64-query tile in the band, s and
+// dp as above, p and ds (rounded to T) into shared memory, then dv += p^T.dO
+// and dk += ds^T.q over the OC columns of dO and q. With splits > 1 each
+// split writes fp32 partials that sum_splits adds, as in the bf16 kernel.
+
+constexpr int kWidePS = kB + 1;  // row stride of a (64, 64) tile
+
+// dq: two staged chunks, ds, k's OC columns, lse and delta
+constexpr size_t wide_dq_bytes(int oc) {
+  return (2 * kB * flash_wide::HS + kB * kWidePS + kB * oc + 2 * kB) * sizeof(float);
+}
+// dk/dv: two staged chunks, p, ds, q's and dO's OC columns, lse and delta
+constexpr size_t wide_dkv_bytes(int oc) {
+  return (2 * kB * flash_wide::HS + 2 * kB * kWidePS + 2 * kB * oc + 2 * kB) * sizeof(float);
+}
+
+template <typename T, int OC>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const T* __restrict__ dO, const float* __restrict__ lse,
+                  const float* __restrict__ delta, const int* __restrict__ kpm,
+                  T* __restrict__ dq, int sq, int sk, int d, int heads, int group, float scale,
+                  int causal, int window) {
+  using namespace flash_wide;
+  constexpr int RP = kB / 16, CP = kB / 8, DP = OC / 8, PS = kWidePS;
+  extern __shared__ float smem[];
+  float* sA = smem;
+  float* sB = sA + kB * HS;
+  float* sDS = sB + kB * HS;
+  float* sKo = sDS + kB * PS;
+  float* sL = sKo + kB * OC;
+  float* sD = sL + kB;
+
+  const int t = threadIdx.x, tr = t >> 3, tc = t & 7;
+  const long long bh = blockIdx.x, kvh = bh / group;
+  const int c_out = (int)blockIdx.z * OC;
+  const long long offs = (long long)sk - sq;
+  const int* kpm_row = kpm ? kpm + (bh / heads) * sk : nullptr;
+  const T* qb = q + bh * sq * d;
+  const T* dob = dO + bh * sq * d;
+  const T* kb = k + kvh * sk * d;
+  const T* vb = v + kvh * sk * d;
+  const int n_tiles = (sq + kB - 1) / kB;
+
+  for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
+    const int q0 = tile * kB;
+    __syncthreads();  // the last tile's sL and sD are read no more
+    for (int r = t; r < kB; r += kThreads) {
+      const bool in = q0 + r < sq;
+      sL[r] = in ? lse[bh * sq + q0 + r] : -kNegInf;
+      sD[r] = in ? delta[bh * sq + q0 + r] : 0.f;
+    }
+    int t_lo, t_hi;
+    key_band(q0, sq, sk, offs, causal, window, t_lo, t_hi);
+
+    float acc[RP][DP];
+#pragma unroll
+    for (int i = 0; i < RP; ++i)
+#pragma unroll
+      for (int c = 0; c < DP; ++c) acc[i][c] = 0.f;
+
+    for (int k0 = t_lo * kB; k0 < t_hi * kB && k0 < sk; k0 += kB) {
+      float s[RP][CP], dp[RP][CP];
+      wide_dot<T, kB, kB>(qb, q0, sq, kb, k0, sk, d, sA, sB, tr, tc, s);
+      wide_dot<T, kB, kB>(dob, q0, sq, vb, k0, sk, d, sA, sB, tr, tc, dp);
+#pragma unroll
+      for (int i = 0; i < RP; ++i) {
+        const int r = tr * RP + i;
+#pragma unroll
+        for (int j = 0; j < CP; ++j) {
+          const int col = k0 + tc + 8 * j;
+          const bool key_ok = col < sk && (kpm_row == nullptr || kpm_row[col] == 0);
+          float ds = 0.f;
+          if (attends(q0 + r, col, key_ok, sq, (int)offs, causal, window)) {
+            const float p = expf(s[i][j] * scale - sL[r]);
+            ds = p * (dp[i][j] - sD[r]) * scale;
+          }
+          sDS[r * PS + tc + 8 * j] = round_to<T>(ds);
+        }
+      }
+      load_cols<T, kB, OC, OC>(sKo, kb, k0, sk, c_out, d);
+      __syncthreads();
+
+      const int kmax = min(kB, sk - k0);
+      for (int kk = 0; kk < kmax; ++kk) {
+        float a[RP], b[DP];
+#pragma unroll
+        for (int i = 0; i < RP; ++i) a[i] = sDS[(tr * RP + i) * PS + kk];
+#pragma unroll
+        for (int c = 0; c < DP; ++c) b[c] = sKo[kk * OC + tc + 8 * c];
+#pragma unroll
+        for (int i = 0; i < RP; ++i)
+#pragma unroll
+          for (int c = 0; c < DP; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < RP; ++i) {
+      const int row = q0 + tr * RP + i;
+      if (row >= sq) continue;
+      T* out = dq + (bh * sq + row) * d;
+#pragma unroll
+      for (int c = 0; c < DP; ++c) {
+        const int col = c_out + tc + 8 * c;
+        if (col < d) out[col] = narrow<T>(acc[i][c]);
+      }
+    }
+  }
+}
+
+template <typename T, int OC>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const T* __restrict__ dO, const float* __restrict__ lse,
+                   const float* __restrict__ delta, const int* __restrict__ kpm,
+                   T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ part, int sq,
+                   int sk, int d, int heads, int group, float scale, int causal, int window) {
+  using namespace flash_wide;
+  constexpr int RP = kB / 16, CP = kB / 8, DP = OC / 8, PS = kWidePS;
+  extern __shared__ float smem[];
+  float* sA = smem;
+  float* sB = sA + kB * HS;
+  float* sP = sB + kB * HS;
+  float* sDS = sP + kB * PS;
+  float* sQo = sDS + kB * PS;
+  float* sdOo = sQo + kB * OC;
+  float* sL = sdOo + kB * OC;
+  float* sD = sL + kB;
+
+  const int t = threadIdx.x, tr = t >> 3, tc = t & 7;
+  const int nc = (d + OC - 1) / OC;
+  const long long kvr = blockIdx.x / nc;  // (batch, kv head) row of k and v
+  const int c_out = (int)(blockIdx.x % nc) * OC;
+  const long long offs = (long long)sk - sq;
+  const int* kpm_row = kpm ? kpm + (kvr * group / heads) * sk : nullptr;
+  const T* kb = k + kvr * sk * d;
+  const T* vb = v + kvr * sk * d;
+  const int gs = group / gridDim.y, g0 = blockIdx.y * gs;  // the block's split of the group
+  const int n_tiles = (sk + kB - 1) / kB;
+
+  for (int tile = blockIdx.z; tile < n_tiles; tile += gridDim.z) {
+    const int k0 = tile * kB;
+    int t_lo, t_hi;
+    query_band(k0, sq, offs, causal, window, t_lo, t_hi);
+    float acc_k[RP][DP], acc_v[RP][DP];  // rows: keys tr * RP + i
+#pragma unroll
+    for (int i = 0; i < RP; ++i)
+#pragma unroll
+      for (int c = 0; c < DP; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+    for (int gi = g0; gi < g0 + gs; ++gi) {
+      const long long bh = kvr * group + gi;
+      const T* qb = q + bh * sq * d;
+      const T* dob = dO + bh * sq * d;
+      for (int q0 = t_lo * kB; q0 < t_hi * kB && q0 < sq; q0 += kB) {
+        // rows: queries tr * RP + i; columns: keys tc + 8j
+        float s[RP][CP], dp[RP][CP];
+        wide_dot<T, kB, kB>(qb, q0, sq, kb, k0, sk, d, sA, sB, tr, tc, s);
+        wide_dot<T, kB, kB>(dob, q0, sq, vb, k0, sk, d, sA, sB, tr, tc, dp);
+        for (int r = t; r < kB; r += kThreads) {
+          const bool in = q0 + r < sq;
+          sL[r] = in ? lse[bh * sq + q0 + r] : -kNegInf;
+          sD[r] = in ? delta[bh * sq + q0 + r] : 0.f;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < RP; ++i) {
+          const int r = tr * RP + i;
+#pragma unroll
+          for (int j = 0; j < CP; ++j) {
+            const int col = k0 + tc + 8 * j;
+            const bool key_ok = col < sk && (kpm_row == nullptr || kpm_row[col] == 0);
+            float p = 0.f, ds = 0.f;
+            if (attends(q0 + r, col, key_ok, sq, (int)offs, causal, window)) {
+              p = expf(s[i][j] * scale - sL[r]);
+              ds = p * (dp[i][j] - sD[r]) * scale;
+            }
+            sP[r * PS + tc + 8 * j] = round_to<T>(p);
+            sDS[r * PS + tc + 8 * j] = round_to<T>(ds);
+          }
+        }
+        load_cols<T, kB, OC, OC>(sQo, qb, q0, sq, c_out, d);
+        load_cols<T, kB, OC, OC>(sdOo, dob, q0, sq, c_out, d);
+        __syncthreads();
+
+        const int qmax = min(kB, sq - q0);
+        for (int qq = 0; qq < qmax; ++qq) {
+          float pk[RP], dsk[RP], o[DP], qv[DP];
+#pragma unroll
+          for (int i = 0; i < RP; ++i) {
+            pk[i] = sP[qq * PS + tr * RP + i];
+            dsk[i] = sDS[qq * PS + tr * RP + i];
+          }
+#pragma unroll
+          for (int c = 0; c < DP; ++c) {
+            o[c] = sdOo[qq * OC + tc + 8 * c];
+            qv[c] = sQo[qq * OC + tc + 8 * c];
+          }
+#pragma unroll
+          for (int i = 0; i < RP; ++i)
+#pragma unroll
+            for (int c = 0; c < DP; ++c) {
+              acc_v[i][c] = fmaf(pk[i], o[c], acc_v[i][c]);
+              acc_k[i][c] = fmaf(dsk[i], qv[c], acc_k[i][c]);
+            }
+        }
+        __syncthreads();  // sL, sD, sP and sDS are read no more
+      }
+    }
+
+    const long long n_out = (long long)(gridDim.x / nc) * sk * d;
+#pragma unroll
+    for (int i = 0; i < RP; ++i) {
+      const int key = k0 + tr * RP + i;
+      if (key >= sk) continue;
+#pragma unroll
+      for (int c = 0; c < DP; ++c) {
+        const int col = c_out + tc + 8 * c;
+        if (col >= d) continue;
+        const long long at = (kvr * sk + key) * d + col;
+        if (part != nullptr) {
+          part[2 * blockIdx.y * n_out + at] = acc_k[i][c];
+          part[(2 * blockIdx.y + 1) * n_out + at] = acc_v[i][c];
+        } else {
+          dk[at] = narrow<T>(acc_k[i][c]);
+          dv[at] = narrow<T>(acc_v[i][c]);
+        }
+      }
+    }
+  }
+}
+
 // ---- launch -----------------------------------------------------------------
 
 struct Args {
@@ -913,8 +1160,56 @@ int launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// head_dim > 256 (flash_bwd_dq_wide), either dtype: ceil(d / OC) column
+// blocks along z.
+template <typename T>
+int launch_dq_wide(const Args& a, void* dq, cudaStream_t stream) {
+  constexpr int OC = 128;
+  static bool done = false;
+  auto kernel = flash_bwd_dq_wide<T, OC>;
+  const size_t smem = wide_dq_bytes(OC);
+  cudaError_t err = allow_smem(kernel, smem, done);
+  if (err != cudaSuccess) return (int)err;
+  const int nc = (a.d + OC - 1) / OC;
+  if (nc > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(a.bh, tile_blocks(a.sq, kB), nc);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      ptr<T>(a.q), ptr<T>(a.k), ptr<T>(a.v), ptr<T>(a.dO), a.lse, a.delta, a.kpm,
+      static_cast<T*>(dq), a.sq, a.sk, a.d, a.heads, a.group, a.scale, a.causal, a.window);
+  return (int)cudaGetLastError();
+}
+
+// head_dim > 256 (flash_bwd_dkv_wide): a (batch, kv head) row's column
+// blocks are neighbours along x, the splits along y, the key tiles along z;
+// with splits > 1, sum_splits adds the partials (bf16 only).
+template <typename T>
+int launch_dkv_wide(const Args& a, void* dk, void* dv, float* work, int splits,
+                    cudaStream_t stream) {
+  constexpr int OC = 64;
+  static bool done = false;
+  auto kernel = flash_bwd_dkv_wide<T, OC>;
+  const size_t smem = wide_dkv_bytes(OC);
+  cudaError_t err = allow_smem(kernel, smem, done);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)(a.bh / a.group) * ((a.d + OC - 1) / OC);
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)rows, splits, tile_blocks(a.sk, kB));
+  kernel<<<grid, kThreads, smem, stream>>>(
+      ptr<T>(a.q), ptr<T>(a.k), ptr<T>(a.v), ptr<T>(a.dO), a.lse, a.delta, a.kpm,
+      static_cast<T*>(dk), static_cast<T*>(dv), splits > 1 ? work : nullptr, a.sq, a.sk, a.d,
+      a.heads, a.group, a.scale, a.causal, a.window);
+  if (splits > 1) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const long long n = (long long)(a.bh / a.group) * a.sk * a.d;
+    sum_splits<<<1024, 256, 0, stream>>>(work, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                         n, splits);
+  }
+  return (int)cudaGetLastError();
+}
+
 bool bad_args(const Args& a) {
-  return a.d < 1 || a.d > 256 || a.bh < 0 || a.group < 1 || a.heads < 1 ||
+  return a.d < 1 || a.bh < 0 || a.group < 1 || a.heads < 1 ||
          a.bh % a.group != 0 || a.sq < 0 || a.sk < 0;
 }
 
@@ -929,7 +1224,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dO, cons
 
 // q, dO, dq: (bh, sq, d); k, v: (bh / group, sk, d), all in the dtype's type;
 // lse, delta: fp32 (bh, sq); kpm: int32 (bh / heads, sk) or null. All
-// contiguous. 1 <= d <= 256; bh rides the grids' x dimension (any int),
+// contiguous. d >= 1; bh rides the grids' x dimension (any int),
 // the query and key tiles y and z (any number: past 65535 a block walks
 // several). dtype: 0 =
 // float32 (scalar kernels), 1 = bfloat16 (tensor cores). window <= 0 means
@@ -944,6 +1239,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   if (bad_args(a)) return (int)cudaErrorInvalidValue;
   if (bh == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > 256 && dtype == 0) return launch_dq_wide<float>(a, dq, s);
+  if (d > 256 && dtype == 1) return launch_dq_wide<bf16>(a, dq, s);
   if (dtype == 0) {
     if (d <= 64) return launch_dq<64>(a, dq, s);
     return d <= 128 ? launch_dq<128>(a, dq, s) : launch_dq<256>(a, dq, s);
@@ -973,6 +1270,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   if (bh == 0 || sk == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(work);
+  if (d > 256 && dtype == 0) return launch_dkv_wide<float>(a, dk, dv, w, 1, s);
+  if (d > 256 && dtype == 1) return launch_dkv_wide<bf16>(a, dk, dv, w, splits, s);
   if (dtype == 0) {
     if (d <= 64) return launch_dkv<64>(a, dk, dv, s);
     return d <= 128 ? launch_dkv<128>(a, dk, dv, s) : launch_dkv<256>(a, dk, dv, s);

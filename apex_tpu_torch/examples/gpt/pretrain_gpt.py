@@ -115,7 +115,17 @@ device count:
         apex_tpu_torch.examples.gpt.pretrain_gpt --dist-backend gloo \
         --device cpu --zero --save /tmp/heal --save-interval 2 --remediate
 
-Not ported yet: the comms and compiled-memory x-rays.
+The analysis flags (the JAX example's): ``--xray-report`` prints the
+allocator's breakdown of one step against the card's memory (it needs
+the card), ``--xray-comms`` the ledger's per-axis bytes a step,
+``--audit-donation`` and ``--audit-comms`` hold one recorded step to the
+donation auditor (its state, argument 0, declared updated in place) and
+the ghost-collective differ; each of these runs one step before
+training whose state is put back after it, and an audit that finds a
+defect or cannot verify exits instead of printing ok.
+``--profile-analyze`` (``--profile-step 1`` unless one is given) prints
+the timeline of each capture after the run, joined to a recorded step's
+collectives and ledger.
 """
 
 import argparse
@@ -253,6 +263,30 @@ def parse_args(argv=None):
                    help="incident ladder: self-terminate (exit code 43, "
                         "spans flushed) at this multiple of "
                         "--stall-deadline (default: off)")
+    p.add_argument("--profile-analyze", action="store_true",
+                   help="after the run, analyze the profiler capture(s) "
+                        "taken: per-step compute/collective/memcpy/idle "
+                        "breakdown and per-axis collective bytes/s against "
+                        "the ledger (monitor.xray.timeline; kind='profile' "
+                        "records). Implies --profile-step 1 when no "
+                        "capture was otherwise requested")
+    p.add_argument("--xray-report", action="store_true",
+                   help="startup banner: the allocator's breakdown of one "
+                        "step against the card's memory (kind='memory' "
+                        "record; needs the card)")
+    p.add_argument("--xray-comms", action="store_true",
+                   help="startup banner and kind='comms' records: per-axis "
+                        "collective bytes a step from the ledger of one "
+                        "recorded step (utilization None: no link roofline)")
+    p.add_argument("--audit-donation", action="store_true",
+                   help="check that the step keeps its state (argument 0) "
+                        "in its storage, and find state it double-buffers "
+                        "(apex_tpu_torch.analysis.donation) before "
+                        "training; kind='analysis' records")
+    p.add_argument("--audit-comms", action="store_true",
+                   help="diff the step's dispatched collectives against "
+                        "the ledger (apex_tpu_torch.analysis.hlo) before "
+                        "training; kind='analysis' records")
     p.add_argument("--xray-hbm", action="store_true",
                    help="HBM x-ray: the analytic ledger at startup, live "
                         "kind='memory' watermark records each interval and "
@@ -521,6 +555,8 @@ def _run(args, device, distributed):
         args.profile_dir or os.path.join(
             args.save or tempfile.gettempdir(), "profiles"),
         window_steps=2, router=router)
+    if args.profile_analyze and args.profile_step is None:
+        args.profile_step = 1
     if args.profile_step is not None:
         trigger.request(step=args.profile_step)
     responder = None
@@ -538,6 +574,9 @@ def _run(args, device, distributed):
         hbm_mon = xhbm.HbmWatermarkMonitor(
             router, interval_steps=args.log_interval, predicted=predicted,
             device=training.device)
+
+    audit = _pre_training_audits(args, training, state, lm, router, say,
+                                 step0)
 
     def guard(step):
         if hbm_mon is None:
@@ -784,6 +823,9 @@ def _run(args, device, distributed):
     if responder is not None:
         responder.stop()
     trigger.close()  # abort a capture still open (end of run)
+    if args.profile_analyze:
+        _profile_analyze(args, training, state, lm, trigger, audit, router,
+                         say)
     if ar is not None:
         ar.close()  # commit an interval save still in flight
     if recorder is not None:
@@ -850,6 +892,90 @@ def _run(args, device, distributed):
     records = RunRecords(records)
     records.exit_code = exit_code
     return records
+
+
+def _audit_target(training, state, lm):
+    """The step as an ``analysis.StepTarget`` on the stream's first batch:
+    its state (argument 0) declared updated in place."""
+    from apex_tpu_torch.analysis.passes import StepTarget
+    from apex_tpu_torch.analysis.targets import layout_axes
+
+    x, y = training.reshape_batch(*lm.batch(range(training.cfg.global_batch)))
+    return StepTarget(
+        "gpt-pretrain", training.train_step, (state, x, y),
+        axes=layout_axes(), device=training.device, donate_argnums=(0,))
+
+
+def _recorded(training, state, lm):
+    """One recorded step (``analysis.passes.StepContext``) with the state
+    put back after it: the audits must not train. Returns the context."""
+    from apex_tpu_torch.analysis.passes import StepContext
+
+    keep = RollbackBuffer(capacity=1)
+    keep.snapshot(0, state.as_tuple())
+    ctx = StepContext(_audit_target(training, state, lm))
+    ctx.recording  # runs the step
+    keep.rollback(into=state.as_tuple())
+    return ctx
+
+
+def _pre_training_audits(args, training, state, lm, router, say, step0):
+    """``--xray-report``, ``--xray-comms``, ``--audit-donation`` and
+    ``--audit-comms``: each on one step whose state is put back. An
+    audit that finds a defect, or cannot verify, exits (the JAX
+    example's hardening: it never prints ok vacuously). Returns the
+    recorded context (for ``--profile-analyze``'s join) or None."""
+    from apex_tpu_torch.analysis.passes import audit_or_exit
+
+    if args.xray_report:
+        keep = RollbackBuffer(capacity=1)
+        keep.snapshot(0, state.as_tuple())
+        x, y = training.reshape_batch(
+            *lm.batch(range(training.cfg.global_batch)))
+        try:
+            report = monitor.xray.memory_report(training.train_step, state,
+                                                x, y, device=training.device)
+        except RuntimeError as e:
+            raise SystemExit(f"xray report failed: {e}")
+        keep.rollback(into=state.as_tuple())
+        say(report.format(), flush=True)
+        router.event("memory", step0, **report.fields())
+    if not (args.xray_comms or args.audit_donation or args.audit_comms):
+        return None
+    ctx = _recorded(training, state, lm)
+    led = ctx.recording.ledger
+    if args.xray_comms:
+        say(led.summary(), flush=True)
+        for rec in led.to_records(step=step0):
+            router.emit(rec)
+    audit_or_exit(ctx, [name for flag, name in (
+        (args.audit_donation, "donation"), (args.audit_comms, "hlo-comms"))
+        if flag], router, step0, say)
+    return ctx
+
+
+def _profile_analyze(args, training, state, lm, trigger, audit, router, say):
+    """The timeline of each capture taken (``monitor.xray.timeline``),
+    joined to the recorded step's collectives and ledger; a capture with
+    no trace file, or one the parser cannot read, is reported."""
+    from apex_tpu_torch.monitor.xray import timeline
+
+    ctx = audit if audit is not None else _recorded(training, state, lm)
+    if not trigger.captures:
+        say("profile analyze: no completed capture to analyze (the run "
+            "must continue two steps past the capture's start)")
+    for cap in trigger.captures:
+        try:
+            report = timeline.analyze_logdir(
+                cap["path"], module=ctx.recording.module, mesh=ctx.mesh,
+                ledger=ctx.recording.ledger)
+        except (FileNotFoundError, ValueError) as e:
+            say(f"profile analyze: {cap['path']}: {e}")
+            continue
+        say(f"profile timeline ({cap['path']}):")
+        say(report.summary(top=10), flush=True)
+        for rec in report.to_records():
+            router.emit(rec)
 
 
 def _controller(args, training, lm, router, run_id, step0, world,

@@ -62,9 +62,16 @@ scan and runs every step in it), so the deadline's clock starts after
 that step and guards the rest of the run as a unit; the journal writes
 each step's record as the step ends (the JAX script writes them all
 after the scan), so a run killed midway keeps the steps it finished.
-The JAX script's ``--audit-donation``, ``--audit-comms`` and
-``--profile-analyze`` wait for the analysis package (ROADMAP Queue 1,
-item 9).
+
+The analysis flags, as the JAX script's: ``--audit-donation`` and
+``--audit-comms`` record one step before training (its parameters and
+ZeRO state put back after it) and hold it to the donation auditor (the
+parameters and the optimizer state, arguments 0 and 1, declared updated
+in place) and the ghost-collective differ; a finding, or an audit that
+cannot verify, exits instead of printing ok. ``--profile-analyze``
+captures three more steps after training (and after ``--save``) under
+``utils.timers.trace`` into ``--profile-dir`` (a temp dir by default),
+one ``step_annotation`` each, and prints the timeline's breakdown.
 
 :class:`LlamaFinetune` is the loop's state and step, and ``main(argv,
 model=)`` runs the example on a model that no flag builds (TinyLlama's
@@ -116,6 +123,22 @@ def parse_args(argv=None):
     p.add_argument("--metrics-jsonl", default=None,
                    help="write run/span/goodput (and any other) records "
                         "to this jsonl (apex_tpu_torch.monitor schema)")
+    p.add_argument("--audit-donation", action="store_true",
+                   help="check that the step keeps its parameters and "
+                        "optimizer state in their storage "
+                        "(apex_tpu_torch.analysis.donation) before "
+                        "training")
+    p.add_argument("--audit-comms", action="store_true",
+                   help="diff the step's dispatched collectives against "
+                        "the ledger (apex_tpu_torch.analysis.hlo) before "
+                        "training")
+    p.add_argument("--profile-analyze", action="store_true",
+                   help="after training, capture annotated steps with "
+                        "torch.profiler and print the device-time "
+                        "breakdown (apex_tpu_torch.monitor.xray.timeline)")
+    p.add_argument("--profile-dir", default=None,
+                   help="profiler capture dir for --profile-analyze "
+                        "(default: a temp dir)")
     p.add_argument("--xray-hbm", action="store_true",
                    help="HBM x-ray (monitor.xray.hbm): the composed "
                         "per-device breakdown (weights off the real "
@@ -220,6 +243,77 @@ class LlamaFinetune:
                 p.add_(updates[n])
                 p.grad = None
         return float(loss.detach()), bad
+
+
+#: the annotated steps --profile-analyze captures (the JAX script's)
+PROFILE_ANALYZE_STEPS = 3
+
+
+def _audit_target(run: "LlamaFinetune"):
+    """The fine-tuning step as an ``analysis.StepTarget`` over its
+    parameters and ZeRO state (arguments 0 and 1, declared updated in
+    place) and its batch, at dp = 1."""
+    from apex_tpu_torch.analysis.passes import StepTarget
+
+    def llama_train_step(params, opt_state, tokens, labels):
+        run.state = opt_state
+        loss, _ = run.step()
+        return run.params, run.state, loss
+
+    return StepTarget(
+        "llama-finetune", llama_train_step,
+        (run.params, run.state, run.tokens, run.labels),
+        axes={"dp": 1, "pp": 1, "cp": 1, "tp": 1}, device=run.model.device,
+        donate_argnums=(0, 1))
+
+
+def _audits(args, run: "LlamaFinetune", router, step0):
+    """``--audit-donation`` and ``--audit-comms`` on one recorded step,
+    whose parameters and ZeRO state are put back after it; returns the
+    recorded context, or None."""
+    if not (args.audit_donation or args.audit_comms):
+        return None
+    from apex_tpu_torch.analysis import passes
+    from apex_tpu_torch.resilience.rollback import RollbackBuffer
+
+    keep = RollbackBuffer(capacity=1)
+    keep.snapshot(0, run.checkpoint_state())
+    state = run.state
+    ctx = passes.StepContext(_audit_target(run))
+    ctx.recording  # runs the step
+    run.state = state
+    keep.rollback(into=run.checkpoint_state())
+    passes.audit_or_exit(ctx, [name for flag, name in (
+        (args.audit_donation, "donation"), (args.audit_comms, "hlo-comms"))
+        if flag], router, step0)
+    return ctx
+
+
+def _profile_analyze(args, run: "LlamaFinetune", audit, router):
+    """Three annotated steps under ``utils.timers.trace``, then the
+    timeline (joined to the audit's recorded step when one was made)."""
+    import tempfile
+
+    from apex_tpu_torch.monitor.xray import timeline
+    from apex_tpu_torch.utils.timers import step_annotation, trace
+
+    prof_dir = args.profile_dir or tempfile.mkdtemp(
+        prefix="apex_tpu_torch_llama_prof_")
+    sync = (torch.cuda.synchronize if run.model.device.type == "cuda"
+            else (lambda: None))
+    with trace(prof_dir):
+        for s in range(PROFILE_ANALYZE_STEPS):
+            with step_annotation(s):
+                run.step()
+                sync()
+    report = timeline.analyze_logdir(
+        prof_dir, module=audit.recording.module if audit else None,
+        mesh=audit.mesh if audit else None,
+        ledger=audit.recording.ledger if audit else None)
+    print(f"profile timeline ({prof_dir}):")
+    print(report.summary(top=10), flush=True)
+    for rec in report.to_records():
+        router.emit(rec)
 
 
 class RunRecords(list):
@@ -378,6 +472,7 @@ def _train(args, model, router, goodput_mem, run_id) -> RunRecords:
             run_id, "llama", config=_journal_config(args, cfg, given),
             corpus={"fixed_batch_crc": crc},
             devices=1, steps=args.steps, **guard_flags)
+    audit = _audits(args, run, router, step0)
     watcher = CompileWatcher(router=router)
     records = RunRecords()
     records.finetune, records.step0 = run, step0
@@ -501,6 +596,8 @@ def _train(args, model, router, goodput_mem, run_id) -> RunRecords:
               flush=True)
     if recorder is not None:
         recorder.close()
+    if args.profile_analyze:
+        _profile_analyze(args, run, audit, router)
     if args.profile_steps > 0:
         from apex_tpu_torch.utils.profiling import profile_device
 

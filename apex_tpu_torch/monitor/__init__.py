@@ -18,11 +18,10 @@ router -> sinks, and the instruments around them.
 - ``goodput``  — phase spans, run headers, the goodput/badput accountant
   and the fleet-health checks.
 - ``xray``     — the HBM x-ray (analytic ledger, allocator report, live
-  watermarks, OOM forensics).
-
-Not ported yet: the collective-traffic ledger, the profiler timeline
-analyzer, the recompile sentinel, and goodput's perf-regression sentinel
-and command line.
+  watermarks, OOM forensics), the collective-traffic ledger, the
+  recompile sentinel and the profiler timeline analyzer (``timeline``);
+- ``goodput``'s perf-regression sentinel and its command line
+  (``python -m apex_tpu_torch.monitor.goodput --check``).
 """
 
 from apex_tpu_torch.monitor.flops import (

@@ -1,10 +1,9 @@
 """Execution introspection (counterpart of apex_tpu/monitor/xray/): the
 HBM x-ray (``hbm``: the analytic ledger, one call's allocator report,
 live watermarks and OOM forensics) and its compat re-export
-(``memory``), the collective-traffic ledger (``ledger``) and the
-recompile sentinel (``compile_watch``).
-
-Not ported yet: the profiler timeline analyzer (``timeline``).
+(``memory``), the collective-traffic ledger (``ledger``), the recompile
+sentinel (``compile_watch``) and the profiler timeline analyzer
+(``timeline``: ``python -m apex_tpu_torch.monitor.xray.timeline``).
 """
 
 from apex_tpu_torch.monitor.xray import hbm, ledger

@@ -42,10 +42,12 @@ def _cuda(device) -> Optional[torch.device]:
 
 def device_watermarks(device) -> Optional[dict]:
     """Allocator watermarks for one card: ``{"bytes_in_use",
-    "peak_bytes_in_use", "bytes_limit"}`` (the caching allocator's
-    allocated bytes, their peak since the last
-    ``torch.cuda.reset_peak_memory_stats``, and the card's total memory),
-    or None for a device that is not a CUDA card."""
+    "peak_bytes_in_use", "bytes_limit", "requested_bytes_in_use",
+    "peak_requested_bytes"}`` (the caching allocator's allocated bytes,
+    their peak since the last ``torch.cuda.reset_peak_memory_stats``, the
+    card's total memory, and the bytes the tensors asked for before the
+    allocator's block rounding, now and at their peak), or None for a
+    device that is not a CUDA card."""
     device = _cuda(device)
     if device is None:
         return None
@@ -54,6 +56,8 @@ def device_watermarks(device) -> Optional[dict]:
         "bytes_in_use": stats.get("allocated_bytes.all.current"),
         "peak_bytes_in_use": stats.get("allocated_bytes.all.peak"),
         "bytes_limit": torch.cuda.mem_get_info(device)[1],
+        "requested_bytes_in_use": stats.get("requested_bytes.all.current"),
+        "peak_requested_bytes": stats.get("requested_bytes.all.peak"),
     }
 
 

@@ -5,13 +5,16 @@ Every collective of the port goes through ``parallel.parallel_state``'s
 helpers (``all_reduce``, ``all_gather``, ``reduce_scatter``,
 ``all_to_all`` and the pipeline's ``p2p``), and each of them records
 itself here. Recording is free when no ledger is active (one check of a
-thread-local list a call).
+process-wide list a call; process-wide, so that the collectives of a
+backward, which autograd runs on its device thread on the card, record
+too).
 
 Under an active :func:`comms_ledger` context each helper records, per
 tensor: op kind under the JAX package's names (``psum``/``pmax`` for an
 all-reduce of that op, ``all_gather``, ``psum_scatter`` for a
 reduce-scatter, ``all_to_all``, ``ppermute`` for each point-to-point
-send), the mesh axis its process group lays out (``tp``, ``dp``, ``pp``
+send; ``broadcast``, the port's own, for ``parallel_state.broadcast``,
+where JAX's pipeline publishes its losses with a psum), the mesh axis its process group lays out (``tp``, ``dp``, ``pp``
 or ``cp``; ``world`` for a sub-world's group), the axis size, shape,
 dtype, payload bytes and the ring-algorithm wire bytes, by the JAX
 ledger's conventions:
@@ -21,7 +24,8 @@ ledger's conventions:
   full pre-scatter tensor).
 - ``ici_bytes`` — per-rank wire traffic of the bandwidth-optimal ring:
   psum/pmax ``2(n-1)/n * bytes``, all_gather ``(n-1) * bytes``,
-  psum_scatter and all_to_all ``(n-1)/n * bytes``, ppermute ``bytes``.
+  psum_scatter and all_to_all ``(n-1)/n * bytes``, ppermute (and
+  broadcast) ``bytes``.
 - ``count``     — 1, multiplied by every enclosing :func:`scaled` region.
 
 A collective over a group of one rank moves nothing and is not recorded
@@ -53,7 +57,6 @@ once under a fresh ledger.
 import contextlib
 import dataclasses
 import math
-import threading
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -181,7 +184,13 @@ class CommsLedger:
         return "\n".join(lines)
 
 
-class _State(threading.local):
+class _State:
+    """The active ledgers and the ``scaled`` multiplier, process-wide: on
+    the card autograd runs a backward's collectives on its own device
+    thread, and a thread-local state would miss every one of them (the
+    recorder's ``hlo-comms`` audit found it: the tp mappings' backward
+    all-reduces, reduce-scatters and all-gathers were unrecorded)."""
+
     def __init__(self):
         self.ledgers: List[CommsLedger] = []
         self.multiplier = 1

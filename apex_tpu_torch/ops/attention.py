@@ -128,12 +128,11 @@ def _flash_bwd_ref(q, k, v, do, lse, delta, scale, causal,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# What the CUDA kernels take: head_dim up to 256 (GPT-2 and BERT use 64,
-# Llama and Mistral 128, and no family that models/hf_import.py reads goes
-# beyond 256), and any number of query or key tiles: the grids hold at most
-# 65535 on y and z, past which each block walks several. batch * heads
-# rides x, which holds 2^31 - 1 blocks.
-_MAX_HEAD_DIM = 256
+# What the CUDA kernels take: any head_dim (64, 128 and 256 have kernels of
+# their own, a smaller one is zero-padded to the next, and one past 256
+# takes the wide route of csrc/flash_wide.cuh), and any number of query or
+# key tiles: the grids hold at most 65535 on y and z, past which each block
+# walks several. batch * heads rides x, which holds 2^31 - 1 blocks.
 
 
 def _check_kernel_args(q, k, v, key_padding_mask):
@@ -147,9 +146,6 @@ def _check_kernel_args(q, k, v, key_padding_mask):
                         f"{v.dtype}")
     if not (k.is_cuda and v.is_cuda):
         raise ValueError("q, k and v must all be CUDA tensors")
-    if d > _MAX_HEAD_DIM:
-        raise ValueError(f"the flash kernel takes head_dim <= "
-                         f"{_MAX_HEAD_DIM}, got {d}")
     if key_padding_mask is None:
         return None
     if tuple(key_padding_mask.shape) != (b, sk):

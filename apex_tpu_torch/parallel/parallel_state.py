@@ -558,6 +558,7 @@ def broadcast(x: torch.Tensor, group, src_index: int = 0) -> torch.Tensor:
     into ``x`` (which is returned)."""
     if group is None:
         return x
+    _record("broadcast", x, group)
     src = dist.get_global_rank(group, src_index)
     return staged_through_host(
         group, lambda o: dist.broadcast(o, src=src, group=group), x)

@@ -34,7 +34,12 @@ swallowed:
    key padding, in both dtypes; flash forward and dq at 8,400,000
    queries over 128 keys and dk/dv at 128 queries over 8,400,000 keys
    (non-causal, d = 64, in both dtypes: past the grids' 65535 tiles),
-   also by their relative error;
+   also by their relative error; flash forward (prefill, fp32 and the
+   bf16 split decode) and backward past head_dim 256 (d = 300, 320, 512:
+   the wide route) at (2,4,384,d), causal, non-causal with key padding,
+   GQA 4/1 and a window, element-wise and by relative error, and a mutant
+   of the wide route built on the card (its second head_dim chunk
+   skipped) failing the same check;
    LayerNorm forward at GPT-2's (8192, 768), (768, 768) and (8, 768), at
    BERT's (2048, 1024) and serving's (16384, 1024), GPT-2's rows at tp
    = 2 under sequence parallelism (2048, 768), at hidden 770 and on an
@@ -144,10 +149,17 @@ swallowed:
    verdicts, loss scales and losses, and an ``inject_nan`` step is
    skipped with params and Adam state bit-unchanged and the scale halved;
 5b. analysis: the same GPT-2 small step audited by ``analysis``'s
-   precision and host-sync passes (one step recorded under the recorder,
-   one under ``set_sync_debug_mode("warn")``): every finding by rule and
+   precision, host-sync, donation and hlo-memory passes (one step
+   recorded under the recorder, one under ``set_sync_debug_mode("warn")``;
+   the state declared updated in place, the analytic HBM prediction held
+   to the recorded state and the allocator): every finding by rule and
    site, none unallowlisted, and the recorder's host waits at the same
-   sites as the sync debug mode's;
+   sites as the sync debug mode's; then 3 steps profiled under
+   ``utils.timers.trace`` with ``step_annotation`` and read by the
+   timeline (each step's span, compute, memcpy, collective and idle, the
+   ten device ops that took the most time, and #1, #2, #5-#8 in the
+   trace under their CUDA names), and the trace-schema smoke on the
+   card's kernel lane;
 6. Llama serving: TinyLlama-1.1B at full width and depth (22 x 2048, 32
    heads over 4 KV heads, SwiGLU 5632, vocab 32000, RoPE, RMSNorm, untied
    fp32 head; seeded random weights, params fp32, compute bf16) behind an
@@ -394,9 +406,13 @@ swallowed:
    ``{"ok": true, "device": {...}}``.
 
 The analysis CLI's gate (``python -m apex_tpu_torch.analysis``) runs over
-its four tiny targets: their trace passes as the ``analysis`` job of the
+its four tiny targets: their trace passes (hlo-comms, hlo-sharding,
+hlo-memory and donation among them) as the ``analysis`` job of the
 shared world of 4 (4 gloo ranks on the card), its lint and concurrency
-passes in a thread while the multi-rank lanes run; exit status 0.
+passes in a thread while the multi-rank lanes run; exit status 0. Its
+``--fix`` runs as the ``analysis_fix`` job over the naive ZeRO target:
+clean, idempotent, nothing unapplied, with the dp-axis wire bytes a step
+before and after.
 
 The paths, each driven with the counts set to 0 just before it and read
 just after: ``serving``, ``serving_fleet`` (its three parts; the fp32
@@ -439,6 +455,7 @@ none prints a result. Every temp file of a run goes into one directory that
 the script removes when it ends.
 """
 
+import atexit
 import gc
 import hashlib
 import json
@@ -448,6 +465,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1193,6 +1211,146 @@ def long_flash_parity(errors):
     log(f"long flash parity: {time.perf_counter() - t0:.1f} s")
 
 
+# head_dim past 256 (the wide route, csrc/flash_wide.cuh): 300 (not a
+# multiple of 8), 320 and 512, at (2, 4, 384, d)
+WIDE_HEAD_DIMS = (300, 320, 512)
+
+
+def headdim_cases(d, dtype, gen):
+    """(label, q, k, v, causal, kpm, window, backward) of the wide route at
+    head_dim ``d``: causal, non-causal with key padding (a dead and a full
+    row), GQA 4q/1kv, a window, and a split decode step (sq = 1, GQA 4q/1kv,
+    key padding; forward only)."""
+    q, k, v = attn_inputs(2, 4, 4, 384, 384, d, dtype, gen)
+    yield f"d={d} causal (2,4,384,{d})", q, k, v, True, None, None, True
+    yield (f"d={d} non-causal key-padding (2,4,384,{d})", q, k, v, False,
+           decode_kpm(2, 384, gen), None, True)
+    q, k, v = attn_inputs(2, 4, 1, 384, 384, d, dtype, gen)
+    yield (f"d={d} GQA 4q/1kv causal (2,4,384,{d})", q, k, v, True, None,
+           None, True)
+    yield (f"d={d} window=100 causal GQA 4q/1kv (2,4,384,{d})", q, k, v, True,
+           None, 100, True)
+    q, k, v = attn_inputs(2, 4, 1, 1, 384, d, dtype, gen)
+    yield (f"d={d} decode GQA 4q/1kv (2,4,1,{d}) sk=384 key-padding", q, k, v,
+           False, decode_kpm(2, 384, gen), None, False)
+
+
+def headdim_flash_parity(errors):
+    """#5 (prefill, split decode and fp32), #6 and #7 past head_dim 256,
+    each against its plain version element by element at the flash
+    tolerances and by its relative error (LONG_REL); every split decode
+    here runs more than one split in bf16."""
+    from apex_tpu_torch.ops import attention as at
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in WIDE_HEAD_DIMS:
+            for label, q, k, v, causal, kpm, window, bwd in headdim_cases(
+                    d, dtype, gen):
+                scale = 1.0 / math.sqrt(d)
+                args = (scale, causal, kpm, window)
+                splits = at._decode_splits(q, k)
+                if splits > 1:
+                    label += f", {splits} splits"
+                elif dtype == torch.bfloat16 and q.shape[2] == 1:
+                    raise AssertionError(f"{label}: the decode is not split")
+                o, lse = at._flash_kernel(q, k, v, *args)
+                ref, rl = at._flash_fwd_ref(q, k, v, *args)
+                long_check("flash_fwd", dtype, label, o, ref)
+                check("flash_fwd", dtype, label + " lse", lse, rl, errors,
+                      tol_key="flash_fwd lse")
+                check("flash_fwd", dtype, label, o, ref, errors)
+                same_twice("flash_fwd", label, (o, lse),
+                           at._flash_kernel(q, k, v, *args))
+                if not bwd:
+                    continue
+                do = torch.randn(q.shape, generator=gen,
+                                 device="cuda").to(dtype)
+                delta = (do.float() * o.float()).sum(-1)
+                got = at._flash_bwd_kernel(q, k, v, do, lse, delta, *args)
+                ref = at._flash_bwd_ref(q, k, v, do, lse, delta, *args)
+                for name, i, part in (("flash_bwd_dq", 0, "dq"),
+                                      ("flash_bwd_dkv", 1, "dk"),
+                                      ("flash_bwd_dkv", 2, "dv")):
+                    long_check(name, dtype, f"{label} {part}", got[i], ref[i])
+                    check(name, dtype, f"{label} {part}", got[i], ref[i],
+                          errors)
+                same_twice("flash backward", label, got, at._flash_bwd_kernel(
+                    q, k, v, do, lse, delta, *args))
+    log(f"head_dim > 256 flash parity: {time.perf_counter() - t0:.1f} s")
+
+
+# The mutant of the wide route's head_dim loop (csrc/flash_wide.cuh): it
+# skips the second 64-wide chunk of every score product
+WIDE_LOOP = "for (int c0 = 0; c0 < d; c0 += HC) {"
+WIDE_MUTANT = WIDE_LOOP + " if (c0 == HC) continue;"
+
+
+def start_wide_mutant_build(tmp):
+    """Starts nvcc on a copy of csrc/ whose flash_wide.cuh skips the second
+    head_dim chunk, building the forward's library under ``tmp``."""
+    import shutil
+
+    from apex_tpu_torch import _kernels
+
+    src = Path(tmp) / "csrc"
+    shutil.copytree(_kernels._CSRC, src)
+    header = src / "flash_wide.cuh"
+    text = header.read_text()
+    if text.count(WIDE_LOOP) != 1:
+        raise AssertionError("flash_wide.cuh: the head_dim loop to mutate "
+                             "is not there once")
+    header.write_text(text.replace(WIDE_LOOP, WIDE_MUTANT))
+    out = Path(tmp) / "libflash_attention_mutant.so"
+    proc = subprocess.Popen(
+        [_kernels._nvcc(), *_kernels._FLAGS, "-I", str(src), "-o", str(out),
+         str(src / "flash_attention.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # a phase that fails first leaves no nvcc behind
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out
+
+
+def wide_mutant_check(proc, out):
+    """The mutant's forward at d = 320 must fail the checks that the kernel
+    passes: its element-wise tolerance or its relative error."""
+    import ctypes
+
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.ops import attention as at
+
+    log_text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the mutant:\n{log_text}")
+    fn = ctypes.CDLL(str(out)).flash_fwd
+    fn.argtypes, fn.restype = _kernels.FLASH_FWD.argtypes, ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attn_inputs(2, 4, 4, 384, 384, 320, dtype, gen)
+        b, h, sq, d = q.shape
+        o = torch.empty_like(q)
+        lse = torch.empty((b, h, sq), device="cuda")
+        scale = 1.0 / math.sqrt(d)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(),
+                 lse.data_ptr(), b * h, sq, sq, d, h, 1, 1, scale, 1, 0,
+                 _kernels.dtype_code(q),
+                 torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if err != 0:
+            raise RuntimeError(f"the mutant's launch failed ({err})")
+        ref, _ = at._flash_fwd_ref(q, k, v, scale, True)
+        try:
+            long_check("flash_fwd", dtype, "mutant d=320 causal (2,4,384,320) "
+                       "skipping head_dim chunk 2", o, ref)
+        except AssertionError as e:
+            log(f"wide mutant {str(dtype)[6:]}: fails the check, as it "
+                f"must ({e})")
+            continue
+        raise AssertionError("a flash forward that skips the second head_dim "
+                             "chunk passes the d > 256 check")
+
+
 def adam_inputs(n, gen):
     g, p, m = (torch.randn(n, generator=gen, device="cuda") for _ in range(3))
     v = torch.rand(n, generator=gen, device="cuda") * 1e-2
@@ -1469,7 +1627,7 @@ def flash_fwd_launcher(q, k, v, kpm, scale, causal, window=None):
 FLASH_FWD_ROUNDS = 3
 
 
-def time_flash(label, q, k, v, causal, kpm, errors, graph=False):
+def time_flash(label, q, k, v, causal, kpm, errors, graph=False, iters=50):
     """The forward at one shape: the kernel (through ``flash_attention``)
     and the library call timed in turns, FLASH_FWD_ROUNDS rounds, medians;
     with ``graph``, both a second way, as CUDA graphs of the kernel alone
@@ -1507,11 +1665,11 @@ def time_flash(label, q, k, v, causal, kpm, errors, graph=False):
     med, rounds = in_turns({
         "kernel": lambda: at.flash_attention(q, k, v, causal=causal,
                                              key_padding_mask=kpm),
-        "library": library}, FLASH_FWD_ROUNDS)
+        "library": library}, FLASH_FWD_ROUNDS, iters)
     row = {
         "shape": label, "max_abs_err": err, "ms": med["kernel"],
         "plain_ms": time_ms(lambda: at._flash_ref(
-            q, k, v, scale, causal, None, kpm), iters=10),
+            q, k, v, scale, causal, None, kpm), iters=min(iters, 10)),
         "bound_ms": b_ms, "bound_by": by, "bound_share": b_ms / med["kernel"],
         "library_ms": med["library"], "rounds": rounds,
     }
@@ -1589,7 +1747,7 @@ FLASH_BWD_ROUNDS = 3
 
 
 def time_flash_bwd(gen, b, h, h_kv, s, errors, d=64, causal=True, kpm=None,
-                   dtype=torch.bfloat16):
+                   dtype=torch.bfloat16, iters=50):
     """dq and dk/dv at a training shape, (b, h, s, d) queries over h_kv
     key/value heads, in ``dtype``, causal or not, with or without a
     key-padding row. The plain version and the library call
@@ -1612,7 +1770,7 @@ def time_flash_bwd(gen, b, h, h_kv, s, errors, d=64, causal=True, kpm=None,
     pairs = int(keep.sum()) * h
     got = at._flash_bwd_kernel(*args)
     ref = at._flash_bwd_ref(*args)
-    plain_ms = time_ms(lambda: at._flash_bwd_ref(*args), iters=10)
+    plain_ms = time_ms(lambda: at._flash_bwd_ref(*args), iters=min(iters, 10))
     qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
     attn_mask = None if kpm is None else ~kpm[:, None, None, :]
 
@@ -1631,10 +1789,10 @@ def time_flash_bwd(gen, b, h, h_kv, s, errors, d=64, causal=True, kpm=None,
     dq_fn, dkv_fn = flash_bwd_launchers(*args)
     rounds = {"dq": [], "dkv": [], "library": []}
     for _ in range(FLASH_BWD_ROUNDS):
-        rounds["dq"].append(time_ms(dq_fn))
-        rounds["dkv"].append(time_ms(dkv_fn))
-        fwd_ms = time_ms(sdpa_fwd)
-        rounds["library"].append(time_ms(sdpa_fwd_bwd) - fwd_ms)
+        rounds["dq"].append(time_ms(dq_fn, iters))
+        rounds["dkv"].append(time_ms(dkv_fn, iters))
+        fwd_ms = time_ms(sdpa_fwd, iters)
+        rounds["library"].append(time_ms(sdpa_fwd_bwd, iters) - fwd_ms)
     log(f"time flash backward rounds (b={b} h={h} h_kv={h_kv} s={s} d={d}): "
         + json.dumps(rounds))
     med = {name: statistics.median(ms) for name, ms in rounds.items()}
@@ -1927,6 +2085,16 @@ def kernel_timings(errors):
     bdq, bdkv = time_flash_bwd(gen, 4, 16, 16, 512, errors, causal=False)
     pdq, pdkv = time_flash_bwd(gen, 4, 16, 16, 512, errors, causal=False,
                                kpm=bert_kpm)
+    # past head_dim 256 (the wide route), beside d = 256's rows: few
+    # calls a round, each tens of milliseconds
+    for d in WIDE_HEAD_DIMS:
+        q, k, v = attn_inputs(4, 8, 1, 2048, 2048, d, torch.bfloat16, gen)
+        out["flash_fwd"].append(time_flash(
+            f"d={d} training causal q (4,8,2048,{d}) k,v (4,1,2048,{d}) bf16",
+            q, k, v, True, None, errors, iters=5))
+        del q, k, v
+        xdq, xdkv = time_flash_bwd(gen, 4, 8, 1, 2048, errors, d=d, iters=5)
+        wdq, wdkv = wdq + xdq, wdkv + xdkv
     tdq, tdkv = time_flash_bwd(gen, 4, 6, 6, 1024, errors)  # GPT-2, tp = 2
     udq, udkv = time_flash_bwd(gen, 4, 8, 1, 2048, errors,  # Ulysses cp = 4
                                kpm=cp_kpm())
@@ -2952,9 +3120,12 @@ def analysis_phase(smi):
     tokens = torch.randint(0, cfg.vocab, (tr.num_micro, cfg.micro_batch,
                                           cfg.seq_len), generator=gen)
     axes = {"dp": 1, "pp": 1, "cp": 1, "tp": 1}
-    target = passes.StepTarget("gpt2-small", tr.train_step,
-                               (state, tokens, tokens), axes=axes,
-                               device="cuda")
+    # the step declares its state (argument 0) updated in place, and
+    # carries GPT-2 small's analytic HBM prediction
+    target = passes.StepTarget(
+        "gpt2-small", tr.train_step, (state, tokens, tokens), axes=axes,
+        device="cuda", donate_argnums=(0,),
+        hbm=gpt2_small_hbm(tr, tokens))
     _kernels.reset_launch_counts()
     ctx = passes.StepContext(target)
     t1 = time.perf_counter()
@@ -2962,7 +3133,7 @@ def analysis_phase(smi):
     audit_s = time.perf_counter() - t1
     launches = _kernels.launch_counts()
     findings = merge_findings(
-        f for name in ("precision", "host-sync")
+        f for name in ("precision", "host-sync", "donation", "hlo-memory")
         for f in passes.TRACE_PASSES[name](ctx))
     result = allowlist.repo_allowlist().apply(findings, check_stale=False)
     for f in sorted(findings, key=lambda f: (f.rule, f.site)):
@@ -2977,14 +3148,110 @@ def analysis_phase(smi):
     if reads != syncs:
         raise AssertionError(f"analysis: the recorder's host waits {reads} "
                              f"and set_sync_debug_mode's {syncs} differ")
+    aten_ops = sum(rec.ops.values())
+    del ctx, rec
+    profile = gpt2_small_timeline(tr, state, tokens)
+    smoke = timeline_smoke_on_card()
     out = {"findings": len(findings), "allowlisted": len(result.suppressed),
-           "aten_ops": sum(rec.ops.values()), "host_wait_sites": reads,
-           "audit_s": audit_s, "phase_s": time.perf_counter() - t0,
-           "gpu": smi}
+           "aten_ops": aten_ops,
+           "host_wait_sites": reads, "audit_s": audit_s,
+           "timeline": profile, "trace_smoke": smoke,
+           "phase_s": time.perf_counter() - t0, "gpu": smi}
     log("analysis " + json.dumps(out))
-    del tr, state, target, ctx, rec
+    del tr, state, target
     torch.cuda.empty_cache()
     return launches, out
+
+
+def gpt2_small_hbm(tr, tokens):
+    """GPT-2 small's analytic HBM prediction at the analysis phase's step:
+    fp32 weights and fused-Adam state, the GradScaler's and the
+    sentinel's scalars, the step's int64 tokens and labels."""
+    from apex_tpu_torch.monitor.xray.hbm import model as hbm_model
+
+    return hbm_model.predict_train_memory(
+        hbm_model.TransformerDims.from_config(tr.transformer_config), tp=1,
+        params_dtype="float32", compute_dtype="bfloat16",
+        microbatch_size=tokens.shape[0] * tokens.shape[1],
+        seq_len=tokens.shape[2], token_dtype="int64", optimizer="fused_adam",
+        grad_scaler=True, remat="none", label="gpt2-small",
+    ).with_components(hbm_model.Component("sentinel_state", 2 * 4 + 3 * 4))
+
+
+#: GPT-2 small's steps profiled by the analysis phase
+TIMELINE_STEPS = 3
+
+
+def gpt2_small_timeline(tr, state, tokens):
+    """GPT-2 small's training step under ``utils.timers.trace``, one
+    ``step_annotation`` a step, read back by the timeline analyzer: each
+    step's span, compute, memcpy, collective and idle, the ten device ops
+    that took the most time, and each path kernel's launches in the trace
+    (#1, #2, #5-#8 by their CUDA names) against the wrappers' counts."""
+    import tempfile
+
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.monitor.xray import timeline
+    from apex_tpu_torch.utils.timers import step_annotation, trace
+
+    tr.train_step(state, tokens, tokens)  # warm, outside the capture
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d):
+            for i in range(TIMELINE_STEPS):
+                with step_annotation(i):
+                    tr.train_step(state, tokens, tokens)  # ends in a read
+        capture_s = time.perf_counter() - t0
+        report = timeline.analyze_logdir(d)
+    counts = _kernels.launch_counts()
+    log(report.summary(top=10))
+    if len(report.steps) != TIMELINE_STEPS:
+        raise AssertionError(f"timeline: {len(report.steps)} steps of "
+                             f"{TIMELINE_STEPS}")
+    for st in report.steps:
+        resid = abs(st.compute_us + st.exposed_collective_us
+                    + st.exposed_memcpy_us + st.idle_us - st.span_us)
+        if resid > 1e-6 * st.span_us:
+            raise AssertionError(f"timeline step {st.step}: the partition "
+                                 f"misses its span by {resid} us")
+    in_trace = {}
+    for name, subs in TRACE_KERNELS.items():
+        hits = [(n, c) for n, _, c in report.top_ops
+                if any(sub in n for sub in subs)]
+        in_trace[name] = sum(c for _, c in hits)
+        if not hits or counts[name] == 0:
+            raise AssertionError(f"timeline: {name} ({subs}) not in the "
+                                 f"profiled steps' device ops")
+    top = [{"op": n[:100], "ms_per_step": us / 1e3 / TIMELINE_STEPS,
+            "launches": c} for n, us, c in report.top_ops[:10]]
+    steps = [{"step": st.step, "span_ms": st.span_us / 1e3,
+              "compute_ms": st.compute_us / 1e3,
+              "memcpy_ms": st.memcpy_us / 1e3,
+              "collective_ms": st.collective_us / 1e3,
+              "idle_ms": st.idle_us / 1e3,
+              "idle_share": st.bubble_fraction} for st in report.steps]
+    out = {"steps": steps, "top_ops": top,
+           "trace_launches": in_trace,
+           "wrapper_launches": {k: counts[k] for k in TRACE_KERNELS},
+           "capture_s": capture_s,
+           "analyze_s": time.perf_counter() - t0 - capture_s}
+    log("timeline " + json.dumps(out))
+    return out
+
+
+def timeline_smoke_on_card():
+    """``analysis.trace_smoke`` on the card: the kernel lane too."""
+    from apex_tpu_torch.analysis.trace_smoke import timeline_smoke_findings
+
+    t0 = time.perf_counter()
+    found = timeline_smoke_findings("cuda")
+    for f in found:
+        log(f.format())
+    if found:
+        raise AssertionError("trace smoke: the profiler's trace schema "
+                             "drifted on the card")
+    return {"findings": 0, "s": time.perf_counter() - t0}
 
 
 def sentinel_check(smi, resnet_rec):
@@ -3023,13 +3290,20 @@ def sentinel_check(smi, resnet_rec):
                              f"wanted 0, 1")
 
 
-def analysis_cli_phase(smi, ranks, ast):
+def analysis_cli_phase(smi, ranks, ast, fix_ranks):
     """``python -m apex_tpu_torch.analysis``'s gate over the four tiny
-    targets, whose trace half ran as the ``analysis`` job of the shared
-    world of 4 (gloo on the card: :data:`GLOO_JOBS`), and ``ast``, the
-    lint's and the concurrency passes' findings (made while the lanes
-    ran): exit status 0."""
-    from apex_tpu_torch.analysis.__main__ import gate, merge_ranks
+    targets, whose trace half (the hlo-comms, hlo-sharding, hlo-memory
+    and donation passes among the others) ran as the ``analysis`` job of
+    the shared world of 4 (gloo on the card: :data:`GLOO_JOBS`), and
+    ``ast``, the lint's and the concurrency passes' findings (made while
+    the lanes ran): exit status 0. Then ``--fix``'s reports over the
+    naive ZeRO target (the ``analysis_fix`` job): clean, idempotent,
+    nothing left unapplied, its dp-axis wire bytes before and after."""
+    from apex_tpu_torch.analysis.__main__ import (
+        gate,
+        merge_fix_ranks,
+        merge_ranks,
+    )
 
     t0 = time.perf_counter()
     rc, report = gate(merge_ranks(ranks), ast=ast)
@@ -3038,6 +3312,17 @@ def analysis_cli_phase(smi, ranks, ast):
         f"{rc} (gate {time.perf_counter() - t0:.1f} s; {smi})")
     if rc != 0:
         raise AssertionError(f"analysis CLI exit {rc}")
+    for rep in merge_fix_ranks(fix_ranks):
+        for line in rep["lines"]:
+            log(line)
+        log(f"analysis --fix {rep['target']}: {rep['axis']}-axis wire bytes "
+            f"a step {rep['ledger_before'].get('ici_bytes')} -> "
+            f"{rep['ledger_after'].get('ici_bytes')} (payload "
+            f"{rep['ledger_before'].get('bytes')} -> "
+            f"{rep['ledger_after'].get('bytes')}; {smi})")
+        if not rep["ok"] or rep["manual"]:
+            raise AssertionError(f"analysis --fix {rep['name']}: "
+                                 f"{rep['reason'] or 'not clean'}")
 
 
 SMALL_TARGET = dict(vocab=512, seq_len=64, layers=2, hidden=128, heads=2,
@@ -4376,9 +4661,12 @@ GLOO_JOBS = (
     ("spatial_bottleneck", "apex_tpu_torch.transformer.testing."
      "contrib_workers:spatial_bottleneck_worker",
      lambda: (SPATIAL_CASES, "cuda")),
-    # the analysis CLI's trace half over its four tiny targets
+    # the analysis CLI's trace half over its four tiny targets, then its
+    # --fix over the naive ZeRO target
     ("analysis", "apex_tpu_torch.analysis.__main__:audit_worker",
      lambda: (["gpt", "gpt-compressed", "bert", "gpt-pp"], "cuda")),
+    ("analysis_fix", "apex_tpu_torch.analysis.__main__:fix_worker",
+     lambda: ("cuda",)),
 )
 
 
@@ -7147,6 +7435,8 @@ def check_paths(paths):
 def main():
     smi = device_phase()
 
+    import tempfile
+
     from apex_tpu_torch import _kernels
 
     log(f"build: {_kernels.build_all():.1f} s")
@@ -7189,11 +7479,15 @@ def main():
         log(f"tail phases done in {time.perf_counter() - START:.1f} s")
         return
 
+    # the wide route's mutant builds while the first checks run
+    mutant = start_wide_mutant_build(tempfile.mkdtemp())
     errors = {}
     for check_fn in (ln_parity, flash_parity, ln_bwd_parity, flash_bwd_parity,
-                     long_flash_parity, adam_parity, rms_parity):
+                     long_flash_parity, headdim_flash_parity, adam_parity,
+                     rms_parity):
         check_fn(errors)
         log_memory(check_fn.__name__)
+    wide_mutant_check(*mutant)
     norm_routes()
     sumsq_parity(errors)
     log_memory("sumsq_parity")
@@ -7235,7 +7529,8 @@ def main():
         ast = pool.submit(ast_findings)  # the gate's AST half, meanwhile
         runs = multi_rank_runs()
         world = runs["world"]
-        analysis_cli_phase(smi, world["analysis"], ast.result())
+        analysis_cli_phase(smi, world["analysis"], ast.result(),
+                           world["analysis_fix"])
     parallel, _ = gpt_parallel_phase(smi, world, runs["launches"])
     paths.update(parallel)
     log_memory("gpt_parallel")

@@ -12,8 +12,8 @@ once under the recorder, the collective cases on one module-scoped gloo
 world of 4 ranks (``transformer/testing/analysis_workers.py``), which
 also audits the CLI's four tiny targets once. Then: a backward op's site
 is its forward op's line, the CLI's gate over those findings exits 0,
-``--fix`` exits 2, and the trace half asks for a card unless given
-``--device cpu``.
+and the trace half and ``--fix`` ask for a card unless given ``--device
+cpu``.
 """
 
 import collections
@@ -195,8 +195,12 @@ def test_cli_gate_exits_zero(world):
 
 
 def test_cli_fix_waits_for_autofix(capsys):
-    assert main(["--fix"]) == 2
-    assert "9c" in capsys.readouterr().err
+    """``--fix`` is ported (tests/test_torch_autofix.py runs it): like the
+    trace half, it asks for a card unless given ``--device cpu``."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--fix"])
 
 
 def test_cli_trace_half_asks_for_a_card():

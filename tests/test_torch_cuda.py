@@ -45,9 +45,11 @@ fully padded key row included), the transducer's loss and gradient on
 the card with the CPU's to 1e-5, and ASP's masks on the card equal the
 CPU's. The flash forward and dq kernels at 8,400,000 queries and dk/dv
 at 8,400,000 keys (past the grids' 65535 tiles), in both dtypes, against
-their plain versions at the tolerances above and by relative error; the
+their plain versions at the tolerances above and by relative error, and
+all three past head_dim 256 (300, 320, 512: the wide route); the
 analysis host-sync pass's recorder against
-``set_sync_debug_mode`` on the GPT step, site for site.
+``set_sync_debug_mode`` on the GPT step, site for site; the timeline of
+a captured GPT step reads the card's kernel lane.
 """
 
 import math
@@ -173,6 +175,17 @@ CASES = {
                                causal=False, kpm=True, splits=8, d=256),
     "decode_hd160": dict(b=400, h=2, h_kv=2, sq=1, sk=300, causal=False,
                          kpm=True, splits=1, d=160),
+    # past head_dim 256, the wide route (csrc/flash_wide.cuh): d = 300
+    # (not a multiple of 8), 320 and 512; GQA 4/1, causal, a window, key
+    # padding, and the split decode (6 splits in bf16)
+    "prefill_hd300": dict(b=2, h=4, h_kv=1, sq=200, sk=200, causal=True,
+                          d=300),
+    "prefill_hd320_window": dict(b=2, h=4, h_kv=1, sq=200, sk=200,
+                                 causal=True, window=70, d=320),
+    "prefill_hd512_kpm": dict(b=2, h=4, h_kv=4, sq=150, sk=150,
+                              causal=False, kpm=True, d=512),
+    "decode_hd512_split": dict(b=2, h=4, h_kv=1, sq=1, sk=384,
+                               causal=False, kpm=True, splits=6, d=512),
     # batch * heads past the grid's y limit of 65535
     "bh65600": dict(b=4100, h=16, h_kv=16, sq=20, sk=20, causal=True),
     "bh65600_hd256": dict(b=4100, h=16, h_kv=4, sq=9, sk=9, causal=False,
@@ -388,7 +401,10 @@ BWD_CASES = dict(
     # d = 256 with a window over sq != sk, and d = 160 (zero-padded to 256)
     hd256_rect=dict(b=1, h=4, h_kv=2, sq=77, sk=200, causal=True, d=256,
                     window=60),
-    hd160=dict(b=2, h=2, h_kv=1, sq=100, sk=100, causal=False, d=160))
+    hd160=dict(b=2, h=2, h_kv=1, sq=100, sk=100, causal=False, d=160),
+    # the wide route's dq and dk/dv: a window over sq != sk at d = 300
+    hd300_rect=dict(b=1, h=4, h_kv=1, sq=77, sk=200, causal=True, d=300,
+                    window=60))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1303,6 +1319,38 @@ def test_flash_kernels_past_65535_tiles(gen, sq, sk, dtype):
     held = (0,) if sq == LONG_SEQ else (1, 2)
     for i in held:
         _long_close(got[i], ref[i], BWD_TOL[dtype], dtype)
+
+
+def test_timeline_reads_the_kernel_lane(gen, tmp_path):
+    """A capture of two GPT steps (GPT-2 small's widths at 2 layers) under
+    utils.timers.trace, read by the timeline: two steps, each partition
+    summing to its span, and the path kernels among the device ops under
+    their CUDA names, one trace event a wrapper launch or more."""
+    from apex_tpu_torch.monitor.xray import timeline
+    from apex_tpu_torch.utils.timers import step_annotation, trace
+
+    tr, state, (x, y) = _gpt_training_on_the_card()
+    tr.train_step(state, x, y)  # warm, outside the capture
+    _kernels.reset_launch_counts()
+    with trace(str(tmp_path)):
+        for i in range(2):
+            with step_annotation(i):
+                tr.train_step(state, x, y)
+    counts = _kernels.launch_counts()
+    rep = timeline.analyze_logdir(str(tmp_path))
+    assert len(rep.steps) == 2
+    for st in rep.steps:
+        assert st.compute_us > 0
+        assert math.isclose(st.compute_us + st.exposed_collective_us
+                            + st.exposed_memcpy_us + st.idle_us,
+                            st.span_us, abs_tol=1e-6)
+    names = {n: c for n, _, c in rep.top_ops}
+    for kernel, sub in (("flash_fwd", "flash_fwd_mma"),
+                        ("flash_bwd_dq", "flash_bwd_dq_mma"),
+                        ("flash_bwd_dkv", "flash_bwd_dkv_mma"),
+                        ("adam_update", "adam_kernel")):
+        seen = sum(c for n, c in names.items() if sub in n)
+        assert seen >= counts[kernel] > 0, kernel
 
 
 def test_host_sync_pass_agrees_with_sync_debug_mode(gen):
