@@ -38,6 +38,52 @@ Device rule (replacing the JAX package's ``impl=`` switch): a CUDA
 tensor goes to the hand-written kernel or raises; a CPU tensor takes the
 plain PyTorch version. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``.
+
+The package's logging (``get_logger``, ``set_logging_level``,
+``RankInfoFormatter``, ``deprecated_warning``) is the JAX package's; no
+handler is installed at import, so records reach whatever the caller
+configured.
 """
 
+import logging
+
 __version__ = "0.1.0"
+
+__all__ = ["RankInfoFormatter", "deprecated_warning", "get_logger",
+           "set_logging_level"]
+
+
+class RankInfoFormatter(logging.Formatter):
+    """A formatter that gives each record a ``rank_info`` field,
+    ``[process r/w]`` from ``torch.distributed`` (``[process 0/1]``
+    without a process group), for a format string to print (ref:
+    apex/__init__.py:31-43; JAX: the multi-controller process index)."""
+
+    def format(self, record):
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            rank, world = dist.get_rank(), dist.get_world_size()
+        else:
+            rank, world = 0, 1
+        record.rank_info = f"[process {rank}/{world}]"
+        return super().format(record)
+
+
+def get_logger(name: str = "apex_tpu_torch") -> logging.Logger:
+    """The package's logger (or the one of ``name``)."""
+    return logging.getLogger(name)
+
+
+def set_logging_level(level) -> None:
+    """Sets the package-wide logging level (ref: transformer/log_util.py:
+    10)."""
+    logging.getLogger("apex_tpu_torch").setLevel(level)
+
+
+def deprecated_warning(msg: str) -> None:
+    """Emits ``msg`` as a ``FutureWarning`` at the caller's line (ref:
+    apex/__init__.py:62)."""
+    import warnings
+
+    warnings.warn(msg, FutureWarning, stacklevel=2)

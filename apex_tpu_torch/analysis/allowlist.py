@@ -136,7 +136,7 @@ _HOST_SYNC = [
 _LINT = [
     AllowlistEntry(
         rule="lint.raw-collective",
-        match="apex_tpu_torch/transformer/testing/analysis_workers.py:81",
+        match="apex_tpu_torch/transformer/testing/analysis_workers.py:83",
         reason=(
             "the hlo-comms audit's seeded fixture (_bare_all_reduce): a "
             "collective issued outside parallel_state on purpose, which "
@@ -209,6 +209,18 @@ _LINT = [
             "the true wire payloads (int8 codes + f32 scales), owns the "
             "error-feedback residual and the poisoned-scale found_inf "
             "contract — JAX: apex_tpu/parallel/compress.py"
+        ),
+        require_hit=True,
+    ),
+    AllowlistEntry(
+        rule="lint.prefetch-gather",
+        match="apex_tpu_torch/optimizers/distributed_fused_adam.py",
+        reason=(
+            "the blessed home: zero_prefetch_gather IS the bucketed "
+            "param-gather pipeline — its loop starts one ledgered "
+            "all_gather a bucket (async_op=True) by design, with the depth "
+            "from choose_overlap_buckets (the link roofline) and an exact "
+            "reconstruction transpose — JAX: the same entry"
         ),
         require_hit=True,
     ),
@@ -491,6 +503,19 @@ _CONCURRENCY = [
             "30 min by default), which the AST cannot see. The JAX twin "
             "has no host wait (its p2p is an in-graph ppermute); ROADMAP "
             "Queue 3 records it"
+        ),
+        require_hit=True,
+    ),
+    AllowlistEntry(
+        rule="concurrency.unbounded-wait",
+        match="apex_tpu_torch/optimizers/distributed_fused_adam.py",
+        reason=(
+            "zero_prefetch_gather waits on its buckets' all_gathers in "
+            "order: each PendingCollective.wait is a c10d work handle's "
+            "wait, bounded by the process group's own timeout "
+            "(init_process_group's timeout=), which the AST cannot see. "
+            "JAX's bucketed gather is dataflow inside one program and "
+            "waits on nothing"
         ),
         require_hit=True,
     ),

@@ -920,7 +920,8 @@ def compressed_collective(ctx: LintContext) -> Iterable[Finding]:
 
 #: the gather collectives lint.prefetch-gather polices inside for-loops
 #: (all_reduce/p2p in a loop are schedule edges, not bucket pipelines)
-_PREFETCH_GATHER_OPS = frozenset({"all_gather", "reduce_scatter"})
+_PREFETCH_GATHER_OPS = frozenset({"all_gather", "all_gather_async",
+                                  "reduce_scatter"})
 
 
 @lint_rule("lint.prefetch-gather", scopes=(LIBRARY, EXAMPLES))

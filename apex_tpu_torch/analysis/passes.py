@@ -65,6 +65,7 @@ Passes register into :data:`TRACE_PASSES` with :func:`trace_pass` (JAX's
 import collections
 import contextlib
 import dataclasses
+import functools
 import os
 import re
 import sys
@@ -135,9 +136,20 @@ def trace_pass(name: str):
     return register
 
 
+@functools.lru_cache(maxsize=4096)
+def _norm(path: str) -> str:
+    """``path`` normalized, with ``/`` separators. A frame's file is the
+    path its module was imported by: a sys.path entry such as
+    ``examples/long_context/../..`` (the JAX examples insert one, and a
+    spawned rank inherits its parent's sys.path) leaves ``..`` components
+    in every frame of the package, which would match neither the repo
+    root nor the anchors."""
+    return os.path.normpath(path).replace(os.sep, "/")
+
+
 def _relsite(path: str, line: int) -> str:
     """A repo-relative ``file.py:line`` for an absolute source path."""
-    path = path.replace(os.sep, "/")
+    path = _norm(path)
     if path.startswith(_REPO_ROOT + "/"):
         return f"{path[len(_REPO_ROOT) + 1:]}:{line}"
     for anchor in _ANCHORS:
@@ -147,11 +159,12 @@ def _relsite(path: str, line: int) -> str:
     return f"{path}:{line}"
 
 
+@functools.lru_cache(maxsize=4096)
 def _user(path: str) -> bool:
     """Is a frame's file user code: under the repository's
     ``apex_tpu_torch/`` or ``tests/`` (any such component when the
     package runs from elsewhere), and no wrapper?"""
-    path = path.replace(os.sep, "/")
+    path = _norm(path)
     if any(w in path for w in _WRAPPER_FRAGMENTS):
         return False
     if path.startswith(_REPO_ROOT + "/"):

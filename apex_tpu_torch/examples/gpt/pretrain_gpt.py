@@ -246,6 +246,9 @@ def parse_args(argv=None):
                    help="steps between metric records (and bag fetches)")
     p.add_argument("--metrics-jsonl", default=None,
                    help="write metric/span/memory records to this jsonl")
+    p.add_argument("--tensorboard-dir", default=None,
+                   help="also write scalars to TensorBoard (if the "
+                        "tensorboard package is importable)")
     p.add_argument("--metrics-csv", default=None,
                    help="also write metric records to this CSV")
     p.add_argument("--profile-step", type=int, default=None,
@@ -263,6 +266,11 @@ def parse_args(argv=None):
                    help="incident ladder: self-terminate (exit code 43, "
                         "spans flushed) at this multiple of "
                         "--stall-deadline (default: off)")
+    p.add_argument("--fleet-interval", type=int, default=None,
+                   help="run the live fleet-health check (straggler "
+                        "robust-z and replicated-value divergence) every N "
+                        "steps over the in-process record window, emitting "
+                        "kind='fleet' records (default: off)")
     p.add_argument("--profile-analyze", action="store_true",
                    help="after the run, analyze the profiler capture(s) "
                         "taken: per-step compute/collective/memcpy/idle "
@@ -343,6 +351,15 @@ def parse_args(argv=None):
                         "NaN-poisoned")
     p.add_argument("--chaos-sigterm-step", type=int, default=None,
                    help="deliver a real SIGTERM after this step")
+    p.add_argument("--chaos-hang-step", type=int, default=None,
+                   help="wedge the host loop at this step (a hung-"
+                        "collective stand-in that never returns; only the "
+                        "--stall-deadline incident ladder can end the job)")
+    p.add_argument("--chaos-slow-steps", default="",
+                   help="comma/range list of steps delayed by "
+                        "--chaos-slow-s (straggler injection)")
+    p.add_argument("--chaos-slow-s", type=float, default=1.0,
+                   help="artificial delay a --chaos-slow-steps step")
     p.add_argument("--chaos-corrupt-latest", default="none",
                    choices=["none", "bitflip", "truncate"],
                    help="corrupt the newest checkpoint BEFORE restoring")
@@ -422,6 +439,13 @@ def _telemetry_router(args, main_rank):
         sinks.append(monitor.JsonlSink(args.metrics_jsonl))
     if main_rank and args.metrics_csv:
         sinks.append(monitor.CsvSink(args.metrics_csv))
+    if main_rank and args.tensorboard_dir:
+        tb = monitor.try_tensorboard_sink(args.tensorboard_dir)
+        if tb is None:
+            print("no TensorBoard writer importable; --tensorboard-dir "
+                  "ignored")
+        else:
+            sinks.append(tb)
     router = monitor.MetricRouter(sinks)
     goodput.set_router(router)
     run_id = goodput.derive_run_id(args.save or args.metrics_jsonl)
@@ -567,6 +591,15 @@ def _run(args, device, distributed):
             trigger=trigger, autoresume=ar,
             dump_after=args.stall_dump_after,
             terminate_after=args.stall_terminate_after)
+    # live fleet health: the straggler and replicated-value divergence
+    # checks over a rolling window of the run's own records (kind="fleet")
+    fleet_mon = None
+    if args.fleet_interval:
+        fleet_win = monitor.MemorySink(max_records=4096,
+                                       kinds=("span", "metrics"))
+        router.add_sink(fleet_win)
+        fleet_mon = goodput.LiveFleetMonitor(
+            router, fleet_win, interval_steps=args.fleet_interval)
     hbm_mon = predicted = None
     if args.xray_hbm:
         predicted = _hbm_prediction(cfg, training)
@@ -599,6 +632,9 @@ def _run(args, device, distributed):
         sigterm_steps=({args.chaos_sigterm_step}
                        if args.chaos_sigterm_step is not None
                        else frozenset()),
+        hang_steps=({args.chaos_hang_step}
+                    if args.chaos_hang_step is not None else frozenset()),
+        slow_steps=args.chaos_slow_steps, slow_s=args.chaos_slow_s,
         bitflip_steps=({args.chaos_bitflip_step}
                        if args.chaos_bitflip_step is not None
                        else frozenset()),
@@ -662,9 +698,14 @@ def _run(args, device, distributed):
             timers("step").stop()
         secs = time.perf_counter() - t0
         steps_run += 1
+        if responder is not None and steps_run == 1:
+            responder.start()  # armed once the first step is behind
+        # chaos: a straggler's delay or a host-loop wedge, after the
+        # ladder is armed and before the step's beat, so the stall
+        # watchdog flags this step (and only the ladder ends a wedge)
+        plan.maybe_slow(step_i)
+        plan.maybe_hang(step_i)
         if responder is not None:
-            if steps_run == 1:
-                responder.start()  # armed once the first step is behind
             responder.beat(step_i)
         trigger.on_verdict(step_i, verdict)
         trigger.maybe_stop(step_i)
@@ -773,6 +814,8 @@ def _run(args, device, distributed):
             monitor.reset_bag(bag)
             intervals += 1
             last_emit_t, since_emit = time.perf_counter(), 0
+        if fleet_mon is not None:
+            fleet_mon.maybe_check(step_i)
         plan.maybe_sigterm(step_i)
         if (responder is not None and ar is not None
                 and ar.termination_signaled):

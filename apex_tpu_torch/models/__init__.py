@@ -36,10 +36,14 @@ from apex_tpu_torch.models.gpt import (
     tinyllama_1_1b_config,
 )
 from apex_tpu_torch.models.hf_import import (
+    config_from_hf_gpt2,
     config_from_hf_llama,
+    gpt2_from_hf,
     llama_from_hf,
     mistral_from_hf,
+    params_from_hf_gpt2,
     params_from_hf_llama,
+    params_to_hf_gpt2,
     params_to_hf_llama,
 )
 from apex_tpu_torch.models.resnet import (
@@ -59,11 +63,13 @@ __all__ = [
     "bert_params_from_jax", "bert_tp_params_from_jax",
     "bottleneck_params_from_jax", "group_norm_params_from_jax",
     "multihead_attn_params_from_jax", "rnn_params_from_jax",
-    "config_from_hf_llama", "cross_entropy_loss",
+    "config_from_hf_gpt2", "config_from_hf_llama", "cross_entropy_loss",
     "fused_adam_state_from_jax", "generate", "gpt2_small_config",
-    "gpt_loss_fn", "gpt_params_from_jax", "gpt_pipeline_params_from_jax",
+    "gpt2_from_hf", "gpt_loss_fn", "gpt_params_from_jax",
+    "gpt_pipeline_params_from_jax",
     "gpt_tp_params_from_jax", "llama_from_hf", "moe_params_from_jax",
     "megatron_bert_345m_config", "mistral_from_hf",
-    "params_from_hf_llama", "params_to_hf_llama", "resnet_params_from_jax",
+    "params_from_hf_gpt2", "params_from_hf_llama", "params_to_hf_gpt2",
+    "params_to_hf_llama", "resnet_params_from_jax",
     "sample_next_token", "scaler_state_from_jax", "tinyllama_1_1b_config",
 ]

@@ -56,8 +56,8 @@ def suggest_knobs(breakdown=None) -> List[dict]:
     The list is the JAX package's, so the two packages' records agree:
     the examples' ``--micro-batch`` flag, the remat policy of the
     analytic stash model, ``distributed_fused_adam(param_gather_buckets=
-    ...)`` (which the port's ZeRO accepts and ignores: its gather is not
-    bucketed), ``ServingConfig.num_blocks``, and tensor parallelism. With a
+    ...)`` (the bucketed gather of the port's ZeRO Adam and LAMB),
+    ``ServingConfig.num_blocks``, and tensor parallelism. With a
     breakdown the list is ranked by the component actually dominating
     the predicted peak; without one it falls back to the generic
     ordering (microbatch first — the cheapest knob).

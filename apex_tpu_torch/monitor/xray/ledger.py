@@ -46,10 +46,15 @@ the step did not take records nothing (JAX traces both sides of a
 ``lax.cond``). ``parallel_state.STAGED`` is a different count: the gloo
 transport's host copies (both directions, every staged collective,
 broadcasts included), where this ledger counts the logical payload.
-The JAX ledger's wire roofline (``ici_bandwidth_per_device``,
-``roofline_seconds``, ``ici_seconds``) has no counterpart yet: the
-port's ranks share one card and talk over gloo through the host, so no
-link speed bounds the traffic counted here.
+The wire roofline is the JAX ledger's: :func:`ici_bandwidth_per_device`
+gives a card's link bandwidth from a table keyed by the CUDA device name
+(``APEX_TPU_TORCH_LINK_BANDWIDTH``, bytes/s, overrides it), and
+:meth:`CommsLedger.roofline_seconds` and the records' ``ici_seconds``
+divide each axis's wire bytes by it. Both are None where the link is
+unknown (the CPU, a card missing from the table) and for an axis whose
+collectives gloo staged through the host (``parallel_state
+.staged_through_host``): that traffic never crosses the link, so a
+roofline against it would be a made-up number.
 :func:`predict_comms` (JAX: an ``eval_shape`` trace) runs the function
 once under a fresh ledger.
 """
@@ -57,6 +62,7 @@ once under a fresh ledger.
 import contextlib
 import dataclasses
 import math
+import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -66,11 +72,65 @@ __all__ = [
     "CommsLedger",
     "axis_of",
     "comms_ledger",
+    "ici_bandwidth_per_device",
     "muted",
     "predict_comms",
     "record",
     "scaled",
 ]
+
+#: the environment variable that pins the link bandwidth (bytes/s)
+LINK_BANDWIDTH_ENV = "APEX_TPU_TORCH_LINK_BANDWIDTH"
+
+#: per-card link bandwidth (bytes/s, one direction, all links), by a
+#: substring of the lower-cased CUDA device name. H100 SXM5: NVLink 4,
+#: 18 links of 25 GB/s a direction, 450 GB/s (NVIDIA's H100 datasheet
+#: gives "NVLink: 900GB/s", both directions together). The SXM part
+#: reports itself as "NVIDIA H100 80GB HBM3". Any other card returns
+#: None: a roofline against a made-up link speed is worse than none
+#: (the contract of ``monitor.flops.peak_flops_per_device``).
+_LINK_BW = (
+    ("h100 80gb hbm3", 450e9),
+    ("h100 sxm", 450e9),
+)
+
+
+def ici_bandwidth_per_device(device=None, group=None) -> Optional[float]:
+    """A card's link bandwidth in bytes/s (JAX's per-chip ICI figure), or
+    None when unknown: on the CPU, for a card missing from the table, and
+    whenever ``group``'s collectives are staged through the host (gloo),
+    whose traffic never crosses the link. ``LINK_BANDWIDTH_ENV`` (bytes/s)
+    overrides the table. ``device`` is a CUDA device (index or
+    ``torch.device``) or a device name; default: the current card."""
+    if group is not None and _staged(group):
+        return None
+    env = os.environ.get(LINK_BANDWIDTH_ENV)
+    if env:
+        return float(env)
+    if isinstance(device, str) and not device.startswith(("cuda", "cpu")):
+        name = device
+    else:
+        if device is None and not torch.cuda.is_available():
+            return None
+        if device is not None and torch.device(device).type != "cuda":
+            return None
+        name = torch.cuda.get_device_name(device)
+    name = name.lower()
+    for sub, bw in _LINK_BW:
+        if sub in name:
+            return bw
+    return None
+
+
+def _staged(group) -> bool:
+    """Does ``group`` (a process group) stage its collectives through the
+    host (gloo)?"""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import parallel_state as ps
+
+    return isinstance(group, dist.ProcessGroup) and ps._staged(group)
+
 
 @dataclasses.dataclass(frozen=True)
 class CollectiveEntry:
@@ -109,6 +169,9 @@ class CommsLedger:
         #: nowhere else
         self.dead: List[CollectiveEntry] = []
         self.site_fn = site_fn
+        #: axes some of whose collectives gloo staged through the host:
+        #: no link bounds them (:meth:`roofline_seconds`)
+        self.staged_axes = set()
 
     def _add(self, entry: CollectiveEntry, dead: bool) -> None:
         if self.site_fn is not None:
@@ -154,14 +217,30 @@ class CommsLedger:
             d["calls"] += e.count
         return out
 
+    def roofline_seconds(self, bandwidth: Optional[float] = None
+                         ) -> Dict[str, Optional[float]]:
+        """Per-axis lower-bound seconds: wire bytes over the link's
+        bandwidth (default: :func:`ici_bandwidth_per_device`). None for
+        an axis staged through the host and wherever the link is unknown,
+        never a made-up number."""
+        if bandwidth is None:
+            bandwidth = ici_bandwidth_per_device()
+        return {axis: (d["ici_bytes"] / bandwidth
+                       if bandwidth and axis not in self.staged_axes
+                       else None)
+                for axis, d in self.per_axis().items()}
+
     def to_records(self, step: int = 0) -> List[dict]:
         """One ``kind="comms"`` record per mesh axis (the MetricRouter
-        schema; route with ``router.emit``)."""
+        schema; route with ``router.emit``), ``ici_seconds`` its
+        :meth:`roofline_seconds`."""
         from apex_tpu_torch.monitor.router import make_record
 
+        roof = self.roofline_seconds()
         return [make_record(
             "comms", step, axis=axis, axis_size=d["axis_size"],
-            bytes=d["bytes"], ici_bytes=d["ici_bytes"], calls=d["calls"])
+            bytes=d["bytes"], ici_bytes=d["ici_bytes"], calls=d["calls"],
+            ici_seconds=roof[axis])
             for axis, d in sorted(self.per_axis().items())]
 
     def summary(self) -> str:
@@ -295,6 +374,7 @@ def record(op: str, x, group, *, nonempty: bool = True,
     axis = axis_of(group)
     mult = _STATE.multiplier
     src, dst = edge if edge is not None else (None, None)
+    staged = n > 1 and _staged(group)
     for t in (x if isinstance(x, (list, tuple)) else (x,)):
         nbytes = t.numel() * t.element_size()
         entry = CollectiveEntry(
@@ -304,3 +384,5 @@ def record(op: str, x, group, *, nonempty: bool = True,
             src=src, dst=dst, tag=tag)
         for led in _STATE.ledgers:
             led._add(entry, dead=n <= 1)
+            if staged:
+                led.staged_axes.add(axis)

@@ -26,9 +26,11 @@ collectives, in start order, take the module's collectives of their
 kind in dispatch order. The op's group is attributed to a layout axis
 (``analysis/hlo/attribution.py``) and the per-axis measured seconds are
 divided into the ledger's predicted per-axis wire bytes. ``utilization``
-stays None: the port has no link roofline yet (its ranks share one card
-and talk through the host, so no link speed bounds the traffic), and a
-number is never faked.
+is the achieved rate over the axis's link roofline: the ledger's
+(``ledger.ici_bandwidth_per_device``, None for an axis gloo staged
+through the host and for a card missing from the table) unless the
+caller pins ``ici_bandwidth``; where no link is known it stays None, and
+a number is never faked.
 
 Everything emits ``kind="profile"`` records through the MetricRouter
 schema; ``python -m apex_tpu_torch.monitor.xray.timeline`` is the
@@ -297,6 +299,10 @@ class StepBreakdown:
         return 1.0 - self.exposed_collective_us / self.collective_us
 
 
+def _fmt_util(u: Optional[float]) -> str:
+    return "None: no link roofline" if u is None else f"{100 * u:.1f}%"
+
+
 @dataclasses.dataclass
 class AxisBandwidth:
     """Measured seconds joined to predicted bytes for one layout axis."""
@@ -320,8 +326,8 @@ class AxisBandwidth:
 
     @property
     def utilization(self) -> Optional[float]:
-        """Achieved / roofline, or None when either is unknown: the port
-        has no link roofline, so this is None (never a fake number)."""
+        """Achieved / roofline, or None when either is unknown (never a
+        fake number)."""
         a = self.achieved_bytes_per_s
         if a is None or not self.roofline_bytes_per_s:
             return None
@@ -420,8 +426,8 @@ class TimelineReport:
                 f"  axis {ax.axis!r}: {ax.n_events} collective events, "
                 f"{ax.measured_us_per_step / 1e3:.3f} ms/step measured, "
                 f"{ax.predicted_ici_bytes_per_step / 2**20:.2f} MiB/step "
-                f"predicted wire -> {ach} (utilization None: no link "
-                f"roofline for the port)")
+                f"predicted wire -> {ach} (utilization "
+                f"{_fmt_util(ax.utilization)})")
         if self.n_unattributed_collectives:
             lines.append(
                 f"  ({self.n_unattributed_collectives} collective event(s) "
@@ -502,8 +508,9 @@ def analyze(
     """The report of one parsed capture. ``module`` (the step's recorded
     ``analysis.hlo.parser.HloModule``), ``mesh`` (the layout,
     ``attribution.layout_mesh``) and ``ledger`` (a ``CommsLedger``)
-    enable the bandwidth join; ``ici_bandwidth`` the utilization column,
-    which the port leaves None (module docstring)."""
+    enable the bandwidth join; ``ici_bandwidth`` pins the utilization
+    column's link speed, which is otherwise the ledger's per axis (module
+    docstring)."""
     ops = timeline.device_op_events()
     intervals = pair_async_collectives(ops)
     spans = timeline.step_spans()
@@ -561,19 +568,31 @@ def analyze(
             intervals, spans, module, mesh)
         predicted = (_predicted_per_axis(ledger, mesh)
                      if ledger is not None else {})
+        from apex_tpu_torch.analysis.hlo import attribution
+
+        staged = ({attribution.canon_axis_key(mesh, a)
+                   for a in getattr(ledger, "staged_axes", ())}
+                  if ledger is not None else set())
         for axis in sorted(set(axis_intervals) | set(predicted)):
             measured = 0.0
             for span in spans:
                 measured += total_us(merge_intervals(clip_intervals(
                     axis_intervals.get(axis, []), span.ts, span.end)))
             pred = predicted.get(axis, {"bytes": 0, "ici_bytes": 0})
+            roof = ici_bandwidth
+            if roof is None and ledger is not None and axis not in staged:
+                from apex_tpu_torch.monitor.xray.ledger import (
+                    ici_bandwidth_per_device,
+                )
+
+                roof = ici_bandwidth_per_device()
             axes.append(AxisBandwidth(
                 axis=axis, n_events=axis_events.get(axis, 0),
                 n_steps=len(steps),
                 measured_us_per_step=measured / len(steps),
                 predicted_bytes_per_step=pred["bytes"],
                 predicted_ici_bytes_per_step=pred["ici_bytes"],
-                roofline_bytes_per_s=ici_bandwidth,
+                roofline_bytes_per_s=roof,
             ))
 
     return TimelineReport(

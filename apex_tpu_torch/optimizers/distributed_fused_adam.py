@@ -45,12 +45,23 @@ on unsigned types is needed. The master shard's state takes half the
 bytes. The updates are fp32, so ``p += update`` lands each bf16
 parameter exactly on the new master's high half.
 
-``param_gather_buckets`` is accepted and ignored: the bucketed gather is
-bit-identical to the whole-shard one (a performance item).
+``param_gather_buckets`` splits the gather of the new master shards into
+that many equal buckets (:func:`bucket_grid`): each bucket's Adam math
+runs, then its ``all_gather`` is started (``async_op=True``) before the
+next bucket's math, and the gathers are waited on in order
+(:func:`zero_prefetch_gather`, the one home of that pipeline). None
+takes :func:`choose_overlap_buckets`' depth, the JAX rule over the
+ledger's link roofline (``monitor.xray.ledger.ici_bandwidth_per_device``
+of the group): 2 where no link is known (gloo, which stages through the
+host, or a card missing from the table); over gloo two staged buckets
+take less time than one (``scripts/zero_gather_depth.py`` times both).
+The result is bit for bit the whole-shard gather's, and the ledger's bytes are the same
+(``nb`` gathers of ``bs`` elements, the shard when ``nb`` divides it).
 """
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+import math
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -65,9 +76,10 @@ from apex_tpu_torch.parallel import compress
 from apex_tpu_torch.parallel import parallel_state as ps
 
 __all__ = ["DistributedFusedAdam", "DistributedFusedAdamState",
-           "ZeroStateSpecs", "distributed_fused_adam", "master_from_remainder",
-           "split_master", "zero_regroup_flat", "zero_scatter_with_ef",
-           "zero_state_specs"]
+           "ZeroStateSpecs", "bucket_grid", "choose_overlap_buckets",
+           "distributed_fused_adam", "master_from_remainder",
+           "split_master", "zero_prefetch_gather", "zero_regroup_flat",
+           "zero_scatter_with_ef", "zero_state_specs"]
 
 
 class DistributedFusedAdamState(NamedTuple):
@@ -261,6 +273,73 @@ def zero_updates_from_flat(new_flat, params: Tensors, spec) -> Tensors:
             for n in spec.names}
 
 
+# -- the bucketed param all-gather ------------------------------------------
+
+
+def choose_overlap_buckets(shard_bytes: int, axis_size: int,
+                           bandwidth: Optional[float] = None,
+                           target_bucket_s: float = 5e-4,
+                           max_buckets: int = 8, group=None) -> int:
+    """The gather's overlap depth, the JAX function's rule: the
+    whole-shard gather's ring wire time ``(n - 1) * shard_bytes /
+    bandwidth`` in buckets of about ``target_bucket_s`` each, clamped to
+    ``[1, max_buckets]``; 1 at one rank, and 2 (plain double-buffering)
+    where the bandwidth is unknown. ``bandwidth`` defaults to the link
+    roofline of ``group`` (``ledger.ici_bandwidth_per_device``, None for
+    a group staged through the host)."""
+    if axis_size <= 1:
+        return 1
+    if bandwidth is None:
+        from apex_tpu_torch.monitor.xray.ledger import (
+            ici_bandwidth_per_device,
+        )
+
+        bandwidth = ici_bandwidth_per_device(group=group)
+    if not bandwidth:
+        return 2
+    gather_s = (axis_size - 1) * shard_bytes / bandwidth
+    return max(1, min(max_buckets, math.ceil(gather_s / target_bucket_s)))
+
+
+def bucket_grid(shard_len: int, num_buckets: int) -> Tuple[int, int]:
+    """``(bucket_size, pad)`` of a shard split into ``num_buckets`` equal
+    buckets: the one rule the callers pad by and
+    :func:`zero_prefetch_gather` slices by."""
+    bs = -(-shard_len // num_buckets)
+    return bs, bs * num_buckets - shard_len
+
+
+def _interleave_gathered(gathered, shard_len: int, axis_size: int):
+    """The rank-major flat buffer from bucket-major gathers:
+    ``gathered[b]`` is the ranks' bucket b in rank order; each rank's
+    bucket padding is cut from its tail."""
+    nb = len(gathered)
+    bs = gathered[0].shape[0] // axis_size
+    stacked = torch.stack(gathered)  # (nb, n * bs)
+    return (stacked.reshape(nb, axis_size, bs).transpose(0, 1)
+            .reshape(axis_size, nb * bs)[:, :shard_len].reshape(-1))
+
+
+def zero_prefetch_gather(bucket_fn: Callable, num_buckets: int,
+                         shard_len: int, group):
+    """The bucketed ZeRO param gather. ``bucket_fn(b, bs)`` computes
+    bucket ``b``'s values (a ``(bs,)`` slice of this rank's padded
+    shard); its ``all_gather`` starts at once (``async_op=True``), before
+    bucket ``b + 1``'s math, and the gathers are waited on in order.
+    Returns ``(buckets, new_flat)``: the buckets this rank computed and
+    the full rank-major flat buffer (the whole-shard gather's, bit for
+    bit)."""
+    bs, _ = bucket_grid(shard_len, num_buckets)
+    buckets, pending = [], []
+    for b in range(num_buckets):
+        v = bucket_fn(b, bs)
+        pending.append(ps.all_gather_async(v, group))
+        buckets.append(v)
+    gathered = [p.wait() for p in pending]
+    return buckets, _interleave_gathered(gathered, shard_len,
+                                         ps.group_size(group))
+
+
 def distributed_fused_adam(
     lr: float = 1e-3,
     bias_correction: bool = True,
@@ -288,9 +367,8 @@ def distributed_fused_adam(
     math, ``min(1, max_grad_norm / (norm + 1e-6))`` (the torch
     convention), the norm from ``sumsq_flat`` on this rank's shard and an
     all-reduce of the sum. ``compression`` and ``store_param_remainders``:
-    see the module docstring.
+    ``param_gather_buckets``: see the module docstring.
     """
-    del param_gather_buckets
     beta1, beta2 = betas
     grp = group if group is not None else ps.get_group(axis_name)
     if axis_size is not None and axis_size != ps.group_size(grp):
@@ -356,38 +434,86 @@ def distributed_fused_adam(
         else:
             p = state.master_shard
 
-        # adam_math of the JAX module, one rounded operation at a time in
-        # its order, with each intermediate freed when it is consumed
-        if not adam_w_mode and weight_decay != 0.0:
-            g = g + weight_decay * p
-        m = state.exp_avg * beta1
-        m += g * (1.0 - beta1)
-        v = state.exp_avg_sq * beta2
-        t = g * (1.0 - beta2)
-        t *= g
-        v += t
-        del g, t
-        upd = m / bc1
-        den = v / bc2
-        den.sqrt_()
-        den += eps
-        upd /= den
-        del den
-        if adam_w_mode and weight_decay != 0.0:
-            upd += weight_decay * p
-        upd *= lr
-        new_master = p - upd
-        del upd
+        def adam_math(p, m0, v0, box):
+            # adam_math of the JAX module, one rounded operation at a time
+            # in its order, with each intermediate freed when it is
+            # consumed (the gradient comes in a one-item list, so the
+            # caller holds no reference to it)
+            g = box.pop()
+            if not adam_w_mode and weight_decay != 0.0:
+                g = g + weight_decay * p
+            m = m0 * beta1
+            m += g * (1.0 - beta1)
+            v = v0 * beta2
+            t = g * (1.0 - beta2)
+            t *= g
+            v += t
+            del g, t
+            upd = m / bc1
+            den = v / bc2
+            den.sqrt_()
+            den += eps
+            upd /= den
+            del den
+            if adam_w_mode and weight_decay != 0.0:
+                upd += weight_decay * p
+            upd *= lr
+            new = p - upd
+            return new, m, v
+
+        box = [g]  # the gradient, freed inside the math
+        del g
+        shard = p.shape[0]
+        n = ps.group_size(grp)
+        nb = param_gather_buckets if param_gather_buckets is not None \
+            else choose_overlap_buckets(
+                shard * (2 if store_param_remainders else 4), n, group=grp)
+        if nb > 1:
+            # every working buffer padded to the bucket grid (zeros are
+            # inert for Adam: eps keeps the pad finite, and the tails are
+            # cut before anything is kept)
+            _, pad = bucket_grid(shard, nb)
+
+            def padto(a):
+                return torch.cat([a, a.new_zeros(pad)]) if pad else a
+
+            pw, mw, vw = (padto(a) for a in
+                          (p, state.exp_avg, state.exp_avg_sq))
+            gw = padto(box.pop())
+            kept = []
+
+            def bucket(b, bsz):
+                sl = slice(b * bsz, (b + 1) * bsz)
+                nm_b, m_b, v_b = adam_math(pw[sl], mw[sl], vw[sl], [gw[sl]])
+                if store_param_remainders:
+                    hi_b, lo_b = split_master(nm_b)
+                    kept.append((m_b, v_b, lo_b))
+                    return hi_b
+                kept.append((m_b, v_b, nm_b))
+                return nm_b
+
+            _, new_flat = zero_prefetch_gather(bucket, nb, shard, grp)
+            del pw, mw, vw, gw
+            m, v, new_master = (torch.cat([k[i] for k in kept])[:shard]
+                                for i in range(3))
+            del kept
+        else:
+            new_master, m, v = adam_math(p, state.exp_avg, state.exp_avg_sq,
+                                         box)
+            if store_param_remainders:
+                hi, new_master = split_master(new_master)
+                new_flat = ps.all_gather(hi, grp)
+            else:
+                new_flat = ps.all_gather(new_master, grp)
 
         if store_param_remainders:
-            hi, new_master = split_master(new_master)
-            new = unflatten_pytree(ps.all_gather(hi, grp), dataclasses.replace(
+            new = unflatten_pytree(new_flat, dataclasses.replace(
                 spec, dtypes=tuple(params[n].dtype for n in spec.names)))
             # fp32 updates: p + u in fp32 is exactly the new high half
             updates = {n: new[n].float() - params[n].float()
                        for n in spec.names}
         else:
-            updates = zero_gather_updates(new_master, params, spec, grp)
+            updates = zero_updates_from_flat(new_flat, params, spec)
         return updates, DistributedFusedAdamState(
             step=step, master_shard=new_master, exp_avg=m, exp_avg_sq=v,
             ef_residual=new_ef)
@@ -397,8 +523,8 @@ def distributed_fused_adam(
 
 class DistributedFusedAdam:
     """Class-style constructor with the reference's signature; returns
-    :func:`distributed_fused_adam`'s transform (the bucket and pipeline
-    tuning knobs are accepted and ignored, as in JAX)."""
+    :func:`distributed_fused_adam`'s transform (the pipeline tuning
+    knobs are accepted and ignored, as in JAX)."""
 
     def __new__(cls, lr: float = 1e-3, bias_correction: bool = True,
                 betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,

@@ -18,6 +18,13 @@ of slices (:func:`local_segments`), in a fixed order, never an atomic
 scatter; the per-tensor vectors, with one more entry for the padding,
 are all-reduced over the group. The ratio multiplies each element by
 ``repeat_interleave`` of the ratios over the slices' lengths.
+
+``param_gather_buckets``: as ``distributed_fused_adam``'s (None takes
+``choose_overlap_buckets``' depth). The moments, norms and trust ratios
+need the whole shard, so only the last step, the ratio-scaled master
+write, runs bucket by bucket through ``zero_prefetch_gather``, each
+bucket's gather started before the next bucket's write; bit for bit the
+whole-shard gather's at every depth, as in JAX.
 """
 
 from typing import List, NamedTuple, Optional, Tuple
@@ -28,10 +35,14 @@ from apex_tpu_torch.ops.multi_tensor import FlatSpec
 from apex_tpu_torch.optimizers._fused_kernels import sumsq_flat
 from apex_tpu_torch.optimizers.distributed_fused_adam import (
     _rank,
+    bucket_grid,
+    choose_overlap_buckets,
     zero_gather_updates,
     zero_init_ef,
     zero_init_master_shard,
+    zero_prefetch_gather,
     zero_scatter_with_ef,
+    zero_updates_from_flat,
 )
 from apex_tpu_torch.optimizers.fused_adam import AdamTransform, Tensors
 from apex_tpu_torch.parallel import parallel_state as ps
@@ -97,9 +108,7 @@ def distributed_fused_lamb(
     (``parallel_state``'s group of ``axis_name`` when None), the JAX
     arguments and defaults. ``compression``: as ``distributed_fused_adam``
     (the gradient reduce-scatter quantized, the LAMB math fp32).
-    ``param_gather_buckets`` is accepted and ignored (the bucketed gather
-    is bit-identical to the whole-shard one)."""
-    del param_gather_buckets
+    ``param_gather_buckets``: see the module docstring."""
     beta1, beta2 = betas
     grp = group if group is not None else ps.get_group(axis_name)
     if axis_size is not None and axis_size != ps.group_size(grp):
@@ -167,9 +176,32 @@ def distributed_fused_lamb(
         per_elem = torch.repeat_interleave(
             ratios[[seg for seg, _, _ in segments]],
             torch.tensor([b - a for _, a, b in segments], device=dev))
-        new_master = p - lr * per_elem * u
-        del u, per_elem
-        updates = zero_gather_updates(new_master, params, spec, grp)
+        nb = param_gather_buckets if param_gather_buckets is not None \
+            else choose_overlap_buckets(shard * 4, ps.group_size(grp),
+                                        group=grp)
+        if nb > 1:
+            # padded to the bucket grid: a pad element writes 0 - lr 0 0
+            # and is cut before anything is kept
+            _, pad = bucket_grid(shard, nb)
+
+            def padto(a):
+                return torch.cat([a, a.new_zeros(pad)]) if pad else a
+
+            pw, rw, uw = padto(p), padto(per_elem), padto(u)
+            del u, per_elem
+
+            def bucket(b, bsz):
+                sl = slice(b * bsz, (b + 1) * bsz)
+                return pw[sl] - lr * rw[sl] * uw[sl]
+
+            buckets, new_flat = zero_prefetch_gather(bucket, nb, shard, grp)
+            del pw, rw, uw
+            new_master = torch.cat(buckets)[:shard]
+            updates = zero_updates_from_flat(new_flat, params, spec)
+        else:
+            new_master = p - lr * per_elem * u
+            del u, per_elem
+            updates = zero_gather_updates(new_master, params, spec, grp)
         return updates, DistributedFusedLAMBState(
             step=step, master_shard=new_master, exp_avg=m, exp_avg_sq=v,
             ef_residual=new_ef)

@@ -57,7 +57,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
-    "AXIS_ORDER", "all_gather", "all_gather_object", "all_reduce",
+    "AXIS_ORDER", "PendingCollective", "all_gather", "all_gather_async",
+    "all_gather_object", "all_reduce",
     "all_to_all",
     "amax_reduction", "broadcast", "broadcast_object",
     "get_amax_reduction_axes",
@@ -430,8 +431,29 @@ def group_size(group) -> int:
 STAGED = {"collectives": 0, "bytes": 0, "p2p": 0, "p2p_bytes": 0}
 
 
+class PendingCollective:
+    """A collective in flight (:func:`staged_through_host` with
+    ``async_op``): :meth:`wait` waits on its c10d work, copies a staged
+    result back to the card, and returns ``out``."""
+
+    def __init__(self, work, out: torch.Tensor, host_out=None,
+                 host_in=()):
+        # the staged buffers live until the collective has ended
+        self._work, self._out = work, out
+        self._host_out, self._host_in = host_out, host_in
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        if self._host_out is not None:
+            self._out.copy_(self._host_out)
+            self._host_out, self._host_in = None, ()
+        return self._out
+
+
 def staged_through_host(group, collective: Callable, out: torch.Tensor,
-                        *inputs: torch.Tensor) -> torch.Tensor:
+                        *inputs: torch.Tensor, async_op: bool = False):
     """Runs ``collective(out, *inputs)`` on the group's transport and
     returns ``out``; a collective given no ``inputs`` works in place on
     ``out``. NCCL and gloo on host tensors run it as it is. Gloo with CUDA
@@ -441,20 +463,27 @@ def staged_through_host(group, collective: Callable, out: torch.Tensor,
     a pinned host buffer, the collective runs on the host buffers, and the
     result is copied back into ``out`` on the card. The collective is the
     same one, only its buffers live on the host; no collective becomes a
-    computation on one rank."""
+    computation on one rank.
+
+    With ``async_op`` the collective is started with ``async_op=True``
+    (``collective`` returns its c10d work) and a
+    :class:`PendingCollective` is returned instead, whose ``wait`` does
+    the copy back."""
     if out.is_cuda and dist.get_backend(group) == "gloo":
         def host(t, read):
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             return h.copy_(t) if read else h
 
         host_out = host(out, read=not inputs)
-        collective(host_out, *(host(t, True) for t in inputs))
+        host_in = tuple(host(t, True) for t in inputs)
+        pending = PendingCollective(collective(host_out, *host_in), out,
+                                    host_out, host_in)
         STAGED["collectives"] += 1
         STAGED["bytes"] += (out.nbytes * (1 if inputs else 2)
                             + sum(t.nbytes for t in inputs))
-        return out.copy_(host_out)
-    collective(out, *inputs)
-    return out
+    else:
+        pending = PendingCollective(collective(out, *inputs), out)
+    return pending if async_op else pending.wait()
 
 
 def _record(op: str, x, group, **kw) -> None:
@@ -488,6 +517,22 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     staged_through_host(group, lambda o, i: _ALL_GATHER(o, i, group=group),
                         out, xt)
     return out.movedim(0, dim)
+
+
+def all_gather_async(x: torch.Tensor, group) -> PendingCollective:
+    """Starts the all-gather of the ranks' 1-D ``x`` in rank order and
+    returns its :class:`PendingCollective`, whose ``wait`` gives what
+    :func:`all_gather` would. Recorded in the ledger as one
+    ``all_gather``."""
+    if group is None:
+        return PendingCollective(None, x)
+    _record("all_gather", x, group)
+    src = x.contiguous()
+    out = src.new_empty((group_size(group) * src.shape[0],)
+                        + tuple(src.shape[1:]))
+    return staged_through_host(
+        group, lambda o, i: _ALL_GATHER(o, i, group=group, async_op=True),
+        out, src, async_op=True)
 
 
 def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

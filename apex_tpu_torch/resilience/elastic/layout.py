@@ -7,18 +7,28 @@ holds only its part. A checkpoint at world > 1 records every leaf as its
 GLOBAL array, so that a step saved at dp 4 restores at dp 2 and its
 per-leaf crc32 is the one the JAX package takes over the same array
 (``apex_tpu/resilience/elastic/reshard.py`` checks it over the global
-array's C-order bytes). Each leaf has one of four splits:
+array's C-order bytes). The layout's ranks are ``parallel_state``'s, ``r
+= ((d * pp + p) * cp + c) * tp + t`` (JAX's ``reshape(dp, pp, cp,
+tp)``). Each leaf has one of five splits:
 
 - ``None`` (replicated): every rank holds the whole leaf (the scaler,
-  the sentinel, the optimizer's step, the parameters at tp = 1);
+  the sentinel, the optimizer's step, the parameters at tp = 1, and
+  every parameter over cp, as JAX replicates them there);
 - ``("tp", dim)``: a tp-sharded parameter (``partition_dim``, set by
   ``parallel.layers``), or a fused Adam moment of one, is the tp ranks'
-  shards concatenated along ``dim``;
+  shards concatenated along ``dim`` (replicated over pp: the pipelined
+  GPT's embedding and head live on every stage, as in JAX);
+- ``("pp", inner)``: a pipeline stage's leaf (marked by
+  :func:`mark_pipeline_stage`, or the moment of one) is the pp ranks'
+  leaves stacked on a new leading axis, JAX's ``pp``-sharded stacked
+  ``stages`` tree; ``inner`` is the leaf's own split within a stage,
+  None or ``("tp", dim)``;
 - ``("zero",)``: a ZeRO flat buffer (``DistributedFusedAdamState``'s
   master, moments, or the int16 remainders), the dp ranks' shards
-  concatenated in dp order, one row per tp rank at tp > 1 (shape ``(tp,
-  padded_total)``); only these may change length across a change of dp
-  (``reshard``);
+  concatenated in dp order (JAX's ``P("dp")``: replicated over cp), one
+  row per tp rank at tp > 1 and one block of rows per pp rank at pp >
+  1 (shape ``([pp,] [tp,] padded_total)``); only these may change length
+  across a change of dp (``reshard``);
 - ``("ef",)``: an error-feedback residual, each rank's own: the ranks'
   residuals in rank order, a 1-D one concatenated (``(devices * n,)``,
   the JAX state's dp-sharded global) and any other stacked
@@ -27,13 +37,13 @@ array's C-order bytes). Each leaf has one of four splits:
   cannot re-pad it.
 
 :class:`StateLayout` derives the splits from a live state tree and this
-process's ``parallel_state`` (dp x tp over the layout's ranks; pp and
-cp > 1 are refused), and moves between the two forms:
-:meth:`~StateLayout.gather` assembles the global tree on the layout's
-first rank (one ``gather`` a split leaf; a replicated leaf is that
-rank's own copy), and :meth:`~StateLayout.local_part` cuts this rank's
-part out of a global leaf. At a world of one both are the identity on a
-host copy, and the checkpoint is the one a world of one always wrote.
+process's ``parallel_state`` (dp x pp x cp x tp over the layout's ranks)
+and moves between the two forms: :meth:`~StateLayout.gather` assembles
+the global tree on the layout's first rank (one ``gather`` a split leaf;
+a replicated leaf is that rank's own copy), and
+:meth:`~StateLayout.local_part` cuts this rank's part out of a global
+leaf. At a world of one both are the identity on a host copy, and the
+checkpoint is the one a world of one always wrote.
 """
 
 from typing import Any, List, Optional
@@ -48,13 +58,24 @@ from apex_tpu_torch.utils.pytree import (
     tree_leaves_with_path,
 )
 
-__all__ = ["EF", "StateLayout", "ZERO"]
+__all__ = ["EF", "StateLayout", "ZERO", "mark_pipeline_stage"]
 
 ZERO = ("zero",)
 EF = ("ef",)
 
+#: the attribute that marks a pipeline stage's tensor
+PIPELINE_STAGE = "pipeline_stage"
 
-def _leaf_splits(tree: Any, tp: int) -> List[Any]:
+
+def mark_pipeline_stage(tensors) -> None:
+    """Marks ``tensors`` (an iterable) as a pipeline stage's own: at pp >
+    1 a checkpoint stacks the pp ranks' copies of each on a new leading
+    axis (module docstring)."""
+    for t in tensors:
+        setattr(t, PIPELINE_STAGE, True)
+
+
+def _leaf_splits(tree: Any, tp: int, pp: int = 1) -> List[Any]:
     """One split a leaf of ``tree``, in ``tree_leaves_with_path`` order
     (module docstring), from the state classes and the parameters'
     ``tensor_model_parallel`` marks."""
@@ -63,9 +84,12 @@ def _leaf_splits(tree: Any, tp: int) -> List[Any]:
     )
 
     def tp_split(t):
+        inner = None
         if tp > 1 and getattr(t, "tensor_model_parallel", False):
-            return ("tp", int(getattr(t, "partition_dim", 0)))
-        return None
+            inner = ("tp", int(getattr(t, "partition_dim", 0)))
+        if pp > 1 and getattr(t, PIPELINE_STAGE, False):
+            return ("pp", inner)
+        return inner
 
     by_name = {}  # parameter name -> its split, for the moments' dicts
 
@@ -127,22 +151,26 @@ class StateLayout:
     ``parallel_state`` (module docstring)."""
 
     def __init__(self, tree: Any):
-        if ps.get_pipeline_model_parallel_world_size() > 1 or \
-                ps.get_context_parallel_world_size() > 1:
-            raise ValueError(
-                "a checkpoint's global layout covers dp x tp: pp and cp "
-                "above 1 are not laid out (save at pp = cp = 1)")
         self.tp = ps.get_tensor_model_parallel_world_size()
+        self.pp = ps.get_pipeline_model_parallel_world_size()
+        self.cp = ps.get_context_parallel_world_size()
         self.dp = ps.get_data_parallel_world_size()
         self.devices = ps.get_model_world_size()
         self.group = ps.get_model_world_group()
-        # this rank's place: r = d * tp + t (parallel_state's order)
-        self.rank = (ps.get_data_parallel_rank() * self.tp
-                     + ps.get_tensor_model_parallel_rank())
+        # this rank's place: r = ((d * pp + p) * cp + c) * tp + t
+        # (parallel_state's order)
+        self.coords = (ps.get_data_parallel_rank(),
+                       ps.get_pipeline_model_parallel_rank(),
+                       ps.get_context_parallel_rank(),
+                       ps.get_tensor_model_parallel_rank())
+        self.rank = self._rank(*self.coords)
         flat = list(tree_leaves_with_path(tree))
         self.paths = [p for p, _ in flat]
-        self.splits = _leaf_splits(tree, self.tp)
+        self.splits = _leaf_splits(tree, self.tp, self.pp)
         self.local_shapes = [tuple(t.shape) for _, t in flat]
+
+    def _rank(self, d: int, p: int, c: int, t: int) -> int:
+        return ((d * self.pp + p) * self.cp + c) * self.tp + t
 
     @property
     def multi_rank(self) -> bool:
@@ -159,17 +187,27 @@ class StateLayout:
         shape, split = list(self.local_shapes[i]), self.splits[i]
         if split is None:
             return tuple(shape)
+        if split[0] == "pp":
+            inner = list(shape)
+            if split[1] is not None:
+                inner[split[1][1]] *= self.tp
+            return (self.pp,) + tuple(inner)
         if split[0] == "tp":
             shape[split[1]] *= self.tp
             return tuple(shape)
         if split == ZERO:
-            n = shape[0] * self.dp
-            return (self.tp, n) if self.tp > 1 else (n,)
+            return self._zero_rows() + (shape[0] * self.dp,)
         if not self.multi_rank:
             return tuple(shape)
         if len(shape) == 1:
             return (self.devices * shape[0],)
         return (self.devices,) + tuple(shape)
+
+    def _zero_rows(self) -> tuple:
+        """The leading dims of a ZeRO buffer's global shape: one block a
+        pp rank, one row a tp rank."""
+        return ((self.pp,) if self.pp > 1 else ()) + \
+            ((self.tp,) if self.tp > 1 else ())
 
     def spec(self, i: int) -> Optional[list]:
         """Leaf ``i``'s partition in the JAX manifest's form: one entry a
@@ -179,15 +217,24 @@ class StateLayout:
         split = self.splits[i]
         if split is None:
             return None
+        if split[0] == "pp":
+            out = [None] * len(self.local_shapes[i])
+            if split[1] is not None:
+                out[split[1][1]] = "tp"
+            return ["pp"] + out
         if split[0] == "tp":
             out = [None] * len(self.local_shapes[i])
             out[split[1]] = "tp"
             return out
         if split == ZERO:
-            return ["tp", "dp"] if self.tp > 1 else ["dp"]
+            return (["pp"] if self.pp > 1 else []) + \
+                (["tp"] if self.tp > 1 else []) + ["dp"]
         if not self.multi_rank:
             return None
-        ranks = ["dp", "tp"] if self.tp > 1 else "dp"
+        ranks = ["dp"] + [a for a, n in (("pp", self.pp), ("cp", self.cp),
+                                         ("tp", self.tp)) if n > 1]
+        if len(ranks) == 1:
+            ranks = "dp"
         if len(self.local_shapes[i]) == 1:
             return [ranks]
         return [ranks] + [None] * len(self.local_shapes[i])
@@ -209,13 +256,23 @@ class StateLayout:
         return None if parts is None else [p.cpu() for p in parts]
 
     def _assemble(self, split, parts: List[torch.Tensor]) -> torch.Tensor:
+        if split[0] == "pp":
+            stages = []
+            for p in range(self.pp):
+                own = [parts[self._rank(0, p, 0, t)] for t in range(self.tp)]
+                stages.append(own[0] if split[1] is None
+                              else torch.cat(own, dim=split[1][1]))
+            return torch.stack(stages)
         if split[0] == "tp":
             return torch.cat(parts[:self.tp], dim=split[1])
         if split == ZERO:
-            rows = [torch.cat([parts[d * self.tp + t]
-                               for d in range(self.dp)])
-                    for t in range(self.tp)]
-            return torch.stack(rows) if self.tp > 1 else rows[0]
+            blocks = []
+            for p in range(self.pp):
+                rows = [torch.cat([parts[self._rank(d, p, 0, t)]
+                                   for d in range(self.dp)])
+                        for t in range(self.tp)]
+                blocks.append(torch.stack(rows) if self.tp > 1 else rows[0])
+            return torch.stack(blocks) if self.pp > 1 else blocks[0]
         if not self.multi_rank:
             return parts[0]
         return torch.cat(parts) if parts[0].dim() == 1 else \
@@ -248,11 +305,16 @@ class StateLayout:
         split = self.splits[i]
         if split is None or not self.multi_rank:
             return full
-        t, d = self.rank % self.tp, self.rank // self.tp
+        d, p, _, t = self.coords
+        if split[0] == "pp":
+            full, split = full[p], split[1]
+            if split is None:
+                return full
         if split[0] == "tp":
             return full.chunk(self.tp, dim=split[1])[t]
         if split == ZERO:
-            row = full[t] if self.tp > 1 else full
+            row = full[p] if self.pp > 1 else full
+            row = row[t] if self.tp > 1 else row
             return row.chunk(self.dp)[d]
         if len(self.local_shapes[i]) == 1:
             return full.chunk(self.devices)[self.rank]

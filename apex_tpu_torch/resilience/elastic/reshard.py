@@ -11,6 +11,12 @@ array (``elastic.layout``), so two problems remain:
   block is checked leaf by leaf first, and any mismatch the restore
   cannot prove safe is refused with a reason
   (:class:`ElasticRestoreError`) instead of guessed at.
+- **Pipeline and context parallelism.** A restore at the saved pp
+  reshards over dp (and cp: every leaf but the per-rank residuals is
+  replicated over cp, so a change of cp is a change of dp for the ZeRO
+  buffers, as in JAX); a change of pp is refused with an error that
+  names the axis, as JAX's restore refuses it (the stacked stage leaves
+  change shape and the stages' trees their leaves).
 - **ZeRO regrouping.** The ZeRO flat buffers bake the dp size into
   their global length (zero padding to a multiple of dp), so a change
   of dp regroups them: strip or extend the padding to the new dp's
@@ -51,6 +57,7 @@ from apex_tpu_torch.resilience.elastic.topology import (
     ElasticRestoreError,
     is_ef_path,
     live_mesh,
+    same_mesh,
 )
 from apex_tpu_torch.utils.pytree import (
     keystr,
@@ -87,7 +94,7 @@ def needs_reshard(directory: str, mesh: Optional[dict] = None,
         topo = (integrity.read_manifest(sd) or {}).get("topology")
         if not topo or not topo.get("mesh"):
             return None
-        return topo["mesh"] != mesh
+        return not same_mesh(topo["mesh"], mesh)
     return None
 
 
@@ -181,7 +188,9 @@ def _regroup(path: str, arr: torch.Tensor, saved_shape: tuple,
     try:
         if arr.dim() == 1:
             return zero_regroup_flat(arr, tgt_len)
-        return torch.stack([zero_regroup_flat(row, tgt_len) for row in arr])
+        rows = arr.reshape(-1, saved_len)
+        return torch.stack([zero_regroup_flat(row, tgt_len) for row in rows]
+                           ).reshape(tgt_shape)
     except ValueError as e:
         raise ElasticRestoreError(f"leaf {path}: {e}") from e
 
@@ -192,6 +201,16 @@ def _reshard_step(directory: str, step: int, target: Any, layout,
     from apex_tpu_torch.utils.checkpoint import read_plain
 
     axes = mesh["axes"]
+    saved_axes = (topology.get("mesh") or {}).get("axes") or {}
+    if saved_axes.get("pp", 1) != axes.get("pp", 1):
+        # a stage's layers are its slice of the stacked pp axis: another
+        # pp regroups layers between stages (JAX refuses it too: the
+        # stacked leaves change shape and the stage trees their leaves)
+        raise ElasticRestoreError(
+            f"step_{step}: the checkpoint was saved at pp "
+            f"{saved_axes.get('pp', 1)} and the target runs at pp "
+            f"{axes.get('pp', 1)} — a change of the pipeline axis 'pp' "
+            f"moves layers between stages: a migration, not a reshard")
     target_flat = list(tree_leaves_with_path(target))
     got = [p for p, _ in target_flat]
     topo_leaves = topology.get("leaves", [])

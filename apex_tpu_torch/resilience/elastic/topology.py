@@ -13,7 +13,7 @@ this process's ``parallel_state`` (``elastic.layout``), and
 ``"topology"`` (manifest version 2, as the JAX package's):
 
     {"version": 1,
-     "mesh": {"axes": {"dp": 4, "tp": 1, "pp": 1}, "devices": 4},
+     "mesh": {"axes": {"dp": 4, "pp": 1, "cp": 1, "tp": 1}, "devices": 4},
      "leaves": [{"path": "[0]['transformer']['layer_0']...",
                  "shape": [768, 2304], "dtype": "float32", "spec": null,
                  "zero_shard_axis": null, "ef": false}, ...]}
@@ -34,7 +34,7 @@ back to the newest checkpoint that carries one.
 from typing import Any, Dict, Optional
 
 __all__ = ["TOPOLOGY_VERSION", "ElasticRestoreError", "is_ef_path",
-           "live_mesh", "topology_block"]
+           "live_mesh", "same_mesh", "topology_block"]
 
 TOPOLOGY_VERSION = 1
 
@@ -53,22 +53,33 @@ def is_ef_path(path_str: str) -> bool:
 
 
 def live_mesh() -> Dict[str, Any]:
-    """``{"axes": {"dp", "tp", "pp"[, "cp"]}, "devices"}`` of this
-    process's ``parallel_state`` layout (a world of one when it is not
+    """``{"axes": {"dp", "pp", "cp", "tp"}, "devices"}`` of this process's
+    ``parallel_state`` layout, every axis recorded as JAX's
+    ``mesh_axes`` records its mesh's (a world of one when it is not
     initialized; ``devices`` counts the layout's ranks, which may be a
     leading subset of the world)."""
     from apex_tpu_torch.parallel import parallel_state as ps
 
     if not ps.model_parallel_is_initialized():
-        return {"axes": {"dp": 1, "tp": 1, "pp": 1}, "devices": 1}
+        return {"axes": {"dp": 1, "pp": 1, "cp": 1, "tp": 1}, "devices": 1}
     tp = ps.get_tensor_model_parallel_world_size()
     pp = ps.get_pipeline_model_parallel_world_size()
     dp = ps.get_data_parallel_world_size()
     cp = ps.get_context_parallel_world_size()
-    axes = {"dp": dp, "tp": tp, "pp": pp}
-    if cp > 1:
-        axes["cp"] = cp
-    return {"axes": axes, "devices": dp * tp * pp * cp}
+    return {"axes": {"dp": dp, "pp": pp, "cp": cp, "tp": tp},
+            "devices": dp * tp * pp * cp}
+
+
+def same_mesh(a: Optional[dict], b: Optional[dict]) -> bool:
+    """Do two topology meshes describe one layout? An axis a mesh leaves
+    out has size 1 (manifests written before every axis was recorded
+    lack ``cp``)."""
+    if a is None or b is None:
+        return a is b
+
+    def axes(m):
+        return {k: v for k, v in (m.get("axes") or {}).items() if v != 1}
+    return axes(a) == axes(b) and a.get("devices") == b.get("devices")
 
 
 def topology_block(tree: Any, mesh: Optional[dict] = None,

@@ -431,6 +431,7 @@ def load_checkpoint_verified(
         live_mesh,
         restore_resharded,
     )
+    from apex_tpu_torch.resilience.elastic.topology import same_mesh
     from apex_tpu_torch.utils.checkpoint import multi_rank_layout
 
     if target is not None and multi_rank_layout(target) is not None:
@@ -451,8 +452,8 @@ def load_checkpoint_verified(
             continue
         topo = (read_manifest(sd) or {}).get("topology") if ok else None
         if (target is not None and topo and topo.get("mesh") is not None
-                and topo["mesh"] != (live_mesh() if mesh is None
-                                     else mesh)):
+                and not same_mesh(topo["mesh"], live_mesh() if mesh is None
+                                  else mesh)):
             # saved on another layout: resharded, never loaded as it is
             # (its refusals are ElasticRestoreError, outside the
             # fallback below)

@@ -8,7 +8,8 @@ the test traces: a reduce over a one-rank group, a point-to-point
 pattern whose edges have a duplicate source, and a pipeline chain with a
 missing link. Then the analysis CLI's trace half over its four tiny
 targets (``analysis.__main__.audit_worker``). Returns this rank's
-findings by case. :func:`hlo_audits_worker` and :func:`autofix_worker`
+findings by case. :func:`site_probe_worker` audits one promotion.
+:func:`hlo_audits_worker` and :func:`autofix_worker`
 run the recorded-step audits and autofix over the tiny targets
 (``tests/test_torch_hlo_audits.py``, ``tests/test_torch_autofix.py``).
 """
@@ -19,7 +20,8 @@ import torch
 
 from apex_tpu_torch.parallel import parallel_state as ps
 
-__all__ = ["autofix_worker", "collective_fixtures_worker", "hlo_audits_worker"]
+__all__ = ["autofix_worker", "collective_fixtures_worker", "hlo_audits_worker",
+           "site_probe_worker"]
 
 
 def _dead_reduce(x):
@@ -182,3 +184,18 @@ def autofix_worker(rank: int, world_size: int) -> Dict[str, object]:
                     is rep.final_target}
     ps.destroy_model_parallel()
     return out
+
+
+def _promote(x):
+    return (x.float() * 2).to(torch.bfloat16)
+
+
+def site_probe_worker(rank: int, world_size: int) -> list:
+    """The precision pass over a one-promotion step defined in this file
+    (``_promote``): this rank's findings, whose site names this file
+    whatever sys.path entry the rank imported the package through."""
+    from apex_tpu_torch.analysis.passes import StepTarget, run_passes
+
+    return run_passes(StepTarget("probe", _promote,
+                                 (torch.ones(4, dtype=torch.bfloat16),)),
+                      passes=["precision"])

@@ -56,6 +56,8 @@ def parse_args(extra_args_provider=None, defaults={}, override_args={},
     add("--micro-batch-size", type=int, default=None)
     add("--global-batch-size", type=int, default=None)
     add("--train-iters", type=int, default=None)
+    add("--train-samples", type=int, default=None)
+    add("--rampup-batch-size", nargs="*", default=None)
     add("--seq-length", type=int, default=None)
     add("--seed", type=int, default=1234)
     # mixed precision
@@ -66,6 +68,9 @@ def parse_args(extra_args_provider=None, defaults={}, override_args={},
     add("--pipeline-model-parallel-size", type=int, default=1)
     add("--num-layers-per-virtual-pipeline-stage", type=int, default=None)
     add("--sequence-parallel", action="store_true")
+    # logging (global_vars' tensorboard writer)
+    add("--tensorboard-dir", type=str, default=None)
+    add("--tensorboard-queue-size", type=int, default=1000)
 
     if extra_args_provider is not None:
         parser = extra_args_provider(parser)
@@ -86,15 +91,16 @@ def parse_args(extra_args_provider=None, defaults={}, override_args={},
 def validate_args(args, override_args={}):
     """The reference's post-parse derivations (arguments.py:60-320) of
     the flags above."""
-    for key in override_args:
-        setattr(args, key, override_args[key])
-
+    args.rank = int(os.getenv("RANK", "0"))
     world = os.getenv("WORLD_SIZE")
     args.world_size = (
         int(world) if world is not None
         else args.tensor_model_parallel_size
         * args.pipeline_model_parallel_size
     )
+    # the caller's overrides win over the environment, as in JAX
+    for key in override_args:
+        setattr(args, key, override_args[key])
 
     # tensor/pipeline sizes clamp to the world like the reference
     args.tensor_model_parallel_size = min(

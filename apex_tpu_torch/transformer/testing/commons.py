@@ -18,8 +18,9 @@ import torch.distributed as dist
 from apex_tpu_torch.parallel import parallel_state
 from apex_tpu_torch.transformer.testing import global_vars
 
-__all__ = ["TEST_SUCCESS_MESSAGE", "initialize_distributed",
-           "print_separator", "set_random_seed"]
+__all__ = ["IdentityLayer", "TEST_SUCCESS_MESSAGE", "initialize_distributed",
+           "mlp_provider_func", "model_provider_func", "print_separator",
+           "set_random_seed"]
 
 TEST_SUCCESS_MESSAGE = ">> passed the test :-)"
 
@@ -77,3 +78,47 @@ def initialize_distributed(backend: str = "nccl",
 def print_separator(message: str) -> None:
     filler = "-" * ((78 - len(message)) // 2)
     print("\n" + filler + f" {message} " + filler, flush=True)
+
+
+def mlp_provider_func(hidden_size: int = 16):
+    """The toy per-stage MLP of the pipeline tests (ref MyLayer/MyModel
+    :45-82): ``(init_fn, stage_fn)``, ``init_fn(seed)`` drawing ``w`` at
+    std 0.1 (JAX's draw rule; a ``torch.Generator`` of ``seed``, not
+    ``jax.random``) and zero ``b``, ``stage_fn(params, x) = tanh(x @ w +
+    b)``."""
+
+    def init_fn(seed: int = 0):
+        gen = torch.Generator().manual_seed(seed)
+        return {"w": torch.randn(hidden_size, hidden_size,
+                                 generator=gen) * 0.1,
+                "b": torch.zeros(hidden_size)}
+
+    def stage_fn(params, x):
+        return torch.tanh(x @ params["w"] + params["b"])
+
+    return init_fn, stage_fn
+
+
+def model_provider_func(hidden_size: int, pre_process: bool,
+                        post_process: bool):
+    """Ref commons.py:155-163's signature: one pipeline chunk with its
+    pre/post flags, for ``schedules.build_model``."""
+    init_fn, stage_fn = mlp_provider_func(hidden_size)
+    return {"init_fn": init_fn, "stage_fn": stage_fn,
+            "pre_process": pre_process, "post_process": post_process}
+
+
+class IdentityLayer(torch.nn.Module):
+    """Ref commons.py:234-239: a trainable scaled identity, ``scale N(0,
+    1)`` of ``size`` from a CPU generator of ``seed``, used by the
+    cross-entropy and gradient tests."""
+
+    def __init__(self, size, scale: float = 1.0, seed: int = 0):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.weight = torch.nn.Parameter(
+            scale * torch.randn(tuple(size) if not isinstance(size, int)
+                                else (size,), generator=gen))
+
+    def forward(self):
+        return self.weight

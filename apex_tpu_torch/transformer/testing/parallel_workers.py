@@ -24,7 +24,8 @@ __all__ = ["REGIONS", "card_vs_plain_worker",
            "compress_runs_worker", "data_parallel_worker",
            "gpt_worker", "layers_worker", "mappings_worker",
            "sequence_worker", "staged_collectives_worker",
-           "training_worker"]
+           "average_losses_worker", "training_worker",
+           "zero_buckets_worker"]
 
 # the seven regions, by the JAX package's function names
 REGIONS = (
@@ -515,3 +516,92 @@ def sp_dropout_worker(rank: int, world_size: int, seed: int = 7):
     out["attention_direct"] = _np(direct.float() * 2.0)
     out["tp_rank"] = ps.get_tensor_model_parallel_rank()
     return out
+
+
+def zero_buckets_worker(rank: int, world_size: int, params: Dict,
+                        grads: Sequence[Dict], buckets: Sequence,
+                        device: str = "cpu", remainders: bool = False,
+                        lamb: bool = False) -> Dict:
+    """``distributed_fused_adam`` (``distributed_fused_lamb`` with
+    ``lamb``) over the world's dp group, once a ``param_gather_buckets``
+    value of ``buckets`` (None: the roofline rule's depth), from
+    ``params`` through one step a dict of ``grads`` (rank ``r`` takes
+    ``g[name][r]``; bf16 parameters and the master's remainders with
+    ``remainders``): each value's final parameters and ZeRO state
+    (numpy), and the first update's ledgered ``all_gather`` entries as
+    ``(shape, bytes, ici_bytes)``; under ``"staged"``, the link roofline
+    and the bucket depth of the dp group (gloo) with the link pinned by
+    its environment variable, and the pinned value."""
+    from apex_tpu_torch.monitor.xray import ledger
+    from apex_tpu_torch.optimizers import (
+        distributed_fused_adam,
+        distributed_fused_lamb,
+    )
+
+    import os
+
+    from apex_tpu_torch.optimizers.distributed_fused_adam import (
+        choose_overlap_buckets,
+    )
+
+    ps.initialize_model_parallel()
+    dtype = torch.bfloat16 if remainders else torch.float32
+    # gloo stages through the host: no link, even where one is pinned
+    group = ps.get_data_parallel_group()
+    saved = os.environ.get(ledger.LINK_BANDWIDTH_ENV)
+    os.environ[ledger.LINK_BANDWIDTH_ENV] = "1e9"
+    try:
+        staged = {"link": ledger.ici_bandwidth_per_device(group=group),
+                  "depth": choose_overlap_buckets(2 ** 30, world_size,
+                                                  group=group),
+                  "unstaged_link": ledger.ici_bandwidth_per_device()}
+    finally:
+        if saved is None:
+            os.environ.pop(ledger.LINK_BANDWIDTH_ENV)
+        else:
+            os.environ[ledger.LINK_BANDWIDTH_ENV] = saved
+
+    def arr(t):
+        return t.detach().float().cpu().numpy()
+
+    out = {}
+    for nb in buckets:
+        p = {n: torch.tensor(v, dtype=dtype, device=device)
+             for n, v in params.items()}
+        if lamb:
+            opt = distributed_fused_lamb(lr=1e-2, param_gather_buckets=nb)
+        else:
+            opt = distributed_fused_adam(lr=1e-2, param_gather_buckets=nb,
+                                         store_param_remainders=remainders)
+        state = opt.init(p)
+        gathers = None
+        for g in grads:
+            gt = {n: torch.tensor(v[rank], dtype=dtype, device=device)
+                  for n, v in g.items()}
+            with ledger.comms_ledger() as led:
+                upd, state = opt.update(gt, state, p)
+            if gathers is None:
+                gathers = [(e.shape, e.bytes, e.ici_bytes)
+                           for e in led.filter(op="all_gather", axis="dp")]
+            with torch.no_grad():
+                for n in p:
+                    p[n] += upd[n]
+        out[nb] = {"params": {n: arr(t) for n, t in p.items()},
+                   "master": state.master_shard.cpu().numpy(),
+                   "exp_avg": arr(state.exp_avg),
+                   "exp_avg_sq": arr(state.exp_avg_sq),
+                   "gathers": gathers}
+    out["staged"] = staged
+    return out
+
+
+def average_losses_worker(rank: int, world_size: int, losses) -> np.ndarray:
+    """``transformer.utils.average_losses_across_data_parallel_group`` of
+    this rank's ``losses[rank]`` over the world's dp group."""
+    from apex_tpu_torch.transformer.utils import (
+        average_losses_across_data_parallel_group,
+    )
+
+    ps.initialize_model_parallel()
+    return average_losses_across_data_parallel_group(
+        [torch.tensor(v) for v in losses[rank]]).numpy()

@@ -57,6 +57,7 @@ from apex_tpu_torch.parallel.pipeline import (
     forward_backward_with_pre_post,
     forward_backward_zero_bubble_with_pre_post,
 )
+from apex_tpu_torch.resilience.elastic.layout import mark_pipeline_stage
 from apex_tpu_torch.transformer.config import TransformerConfig
 from apex_tpu_torch.transformer.layer import sequence_parallel
 from apex_tpu_torch.transformer.testing import global_vars
@@ -138,6 +139,8 @@ class GPTPipelineTraining:
         stages = dict(parts.chunk.named_parameters()) if V == 1 else {
             n: torch.stack([c[n] for c in chunks]).requires_grad_()
             for n in chunks[0]}
+        # a checkpoint stacks the pp ranks' stages on a leading axis
+        mark_pipeline_stage(stages.values())
         post = parts.init_post(args.seed + 9)
         for t in post.values():
             t.requires_grad_(True)
@@ -156,6 +159,15 @@ class GPTPipelineTraining:
         self.opt_state = self.opt.init(_flat(self.params))
         s_local = seq // tp if sequence_parallel(cfg) else seq
         self.tensor_shape = (s_local, mb, cfg.hidden_size)
+
+    def state(self):
+        """``(params, opt_state)``: the state a checkpoint, a snapshot or a
+        fingerprint takes, the live tensors (``params`` by flat name, so a
+        leaf's path reads ``[0]['stages']['layer_0']...``, the JAX
+        package's global tree with its ``pp``-stacked ``stages``;
+        ``elastic.layout``). Take it anew after each step: the optimizer
+        returns new moments."""
+        return (_flat(self.params), self.opt_state)
 
     def set_data(self, tokens) -> None:
         """Trains on ``tokens`` (steps, M, micro_batch, seq), labels the

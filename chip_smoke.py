@@ -464,6 +464,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -665,6 +666,13 @@ PATH_KERNELS = {
                       "flash_bwd_dq", "flash_bwd_dkv", "sumsq_flat"),
     "contrib": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
                 "flash_bwd_dq", "flash_bwd_dkv"),
+    # the pipelined GPT's checkpoint trip at pp = 2 x tp = 2 (GPT-2 small
+    # width, depth 4; rank 0, first stage: its 6 steps; fused_adam on #8)
+    "gpt_checkpoint_pp": ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                          "flash_bwd_dq", "flash_bwd_dkv", "adam_update"),
+    # GPT-2 small exported to transformers' keys, imported back and
+    # served (8 greedy requests)
+    "gpt2_import": ("layer_norm_fwd", "flash_fwd"),
 }
 FORWARD_KERNELS = PATH_KERNELS["serving"]
 KERNEL_META = {  # name: (source, TPU kernel it replaces)
@@ -4617,6 +4625,21 @@ def check_pipeline_run(name, summary, layout, kernels):
 
 
 PIPELINE_WORKERS = "apex_tpu_torch.transformer.testing.pipeline_workers"
+# the checkpoint trip: GPT-2 small's width at depth 4, pp 2 x tp 2 with
+# SP, micro batch 4, seq 1024, bf16 (the 1F1B run's shapes); 4 batches
+CHECKPOINT_PP_ARGV = GPT_PIPELINE_ARGV + (
+    "--pipeline-model-parallel-size", "2", "--tensor-model-parallel-size",
+    "2", "--sequence-parallel", "--num-layers", str(PIPELINE_LAYERS),
+    "--train-iters", "4")
+
+
+def checkpoint_pp_dir() -> str:
+    """The checkpoint trip's directory, under the run's own temp dir
+    (:func:`run_in_own_tmpdir`); :func:`gpt_checkpoint_pp_phase` removes
+    it once it has read the trip's results."""
+    return os.path.join(tempfile.gettempdir(), "ckpt_pp")
+
+
 #: the spawned runs of the 4-rank phases before the tail, as jobs of one
 #: world of 4 (name, rank function, its arguments): the tp x dp card
 #: against plain; the pipeline's interleaved schedule, card against plain,
@@ -4667,6 +4690,12 @@ GLOO_JOBS = (
      lambda: (["gpt", "gpt-compressed", "bert", "gpt-pp"], "cuda")),
     ("analysis_fix", "apex_tpu_torch.analysis.__main__:fix_worker",
      lambda: ("cuda",)),
+    # the pipelined GPT's checkpoint trip at pp 2 x tp 2: 2 steps, a save,
+    # 2 more, the restore and 2 again, then the refused restore at pp 1
+    ("checkpoint_pp", "apex_tpu_torch.transformer.testing."
+     "checkpoint_workers:pipeline_checkpoint_worker",
+     lambda: (CHECKPOINT_PP_ARGV, checkpoint_pp_dir(), None, "cuda", 2,
+              2)),
 )
 
 
@@ -4830,6 +4859,143 @@ def gpt_pipeline_card_vs_plain(ranks):
         "tensors to 1e-4 relative in norm, those zero at init to 1e-2): "
         + json.dumps(result))
     return result
+
+
+# -- checkpoints at pp x tp --------------------------------------------------
+
+
+def gpt_checkpoint_pp_phase(smi, ranks):
+    """The pipelined GPT's checkpoint trip at pp = 2 x tp = 2 (``ranks``:
+    :func:`gloo_world`'s ``checkpoint_pp`` results): GPT-2 small's width
+    at depth 4, 2 steps, an ``AutoResume`` save (async; the global tree
+    gathered to rank 0, its stages stacked on ``pp``), 2 more, a rollback
+    held to the save, a restore and 2 again. Held as ``gpt_elastic``
+    holds its trip: the restore and the rollback equal the save bit for
+    bit (the gathered tree, and every rank's own leaves), the losses
+    after the restore the uninterrupted run's to 1e-4 relative and every
+    leaf to 1e-2 of its norm (whether they are bit for bit is logged);
+    the restore at pp 1 is refused, naming ``pp``. The checkpoint's
+    directory is removed first."""
+    import shutil
+
+    shutil.rmtree(checkpoint_pp_dir(), ignore_errors=True)
+    out = ranks[0]
+    if not (out["restore_equals_save"] and out["rollback_equals_save"]
+            and out["every_rank_restores_its_save"]):
+        raise AssertionError("checkpoint_pp: the restore or the rollback "
+                             "differs from the save")
+    for a, b in zip(out["restored_losses"], out["losses"]):
+        if not math.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError(f"checkpoint_pp losses "
+                                 f"{out['restored_losses']} vs "
+                                 f"{out['losses']}")
+    if out["state_max_rel"] > 1e-2:
+        raise AssertionError(f"checkpoint_pp state: {out['state_max_rel']}")
+    if "'pp'" not in (out["pp_refusal"] or ""):
+        raise AssertionError(f"checkpoint_pp: the pp 1 restore was not "
+                             f"refused by axis: {out['pp_refusal']}")
+    per_rank = out["ranks"]
+    report = {
+        "model": f"gpt2-small {PIPELINE_LAYERS}x768 vocab "
+                 f"{GPT_PARALLEL_VOCAB} (random weights, bf16 compute, "
+                 "fp32 params), pp=2 tp=2 sp, micro batch 4, seq 1024",
+        "transport": GLOO_TRANSPORT, "gpu": smi,
+        "losses": out["warmup_losses"] + out["losses"],
+        "restored_losses": out["restored_losses"],
+        "bitwise": out["losses_equal"] and out["state_equal"],
+        "state_max_rel": out["state_max_rel"],
+        "save_blocking_ms_by_rank": [r["save_blocking_ms"]
+                                     for r in per_rank],
+        "finalize_ms_by_rank": [r["finalize_ms"] for r in per_rank],
+        "restore_ms_by_rank": [r["restore_ms"] for r in per_rank],
+        "state_bytes_by_rank": [r["local_bytes"] for r in per_rank],
+        "checkpoint_bytes": out["checkpoint_bytes"],
+        "mesh": out["mesh"], "pp_refusal": out["pp_refusal"]}
+    log("gpt_checkpoint_pp " + json.dumps(report))
+    return out["launches"], report
+
+
+# -- GPT-2's transformers import and export ----------------------------------
+
+
+class HFStandIn:
+    """A transformers-model stand-in (the card's machine has no
+    transformers): a config with GPT2Config's attribute names, and a
+    state_dict under transformers' keys."""
+
+    def __init__(self, config):
+        self.config, self.sd = config, {}
+
+    def state_dict(self):
+        return dict(self.sd)
+
+    def load_state_dict(self, sd, strict=False):
+        self.sd.update(sd)
+        return [], []
+
+
+def gpt2_import_phase(smi):
+    """GPT-2 small at full width (random weights, fp32) exported to
+    transformers' keys (``params_to_hf_gpt2``) and imported back
+    (``gpt2_from_hf``): every tensor bit for bit; 8 greedy requests
+    through the engine from the imported model give the original's
+    tokens; and the imported model's logits (kernels #1 and #5) within
+    2e-3 of its plain path on the CPU (the serving phase's bound)."""
+    import types
+
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.models import GPTModel, gpt2_small_config, hf_import
+    from apex_tpu_torch.serving.profile import (
+        make_requests,
+        serve,
+        serving_config,
+    )
+
+    t0 = time.perf_counter()
+    mcfg = gpt2_small_config(compute_dtype=torch.float32)
+    hf_cfg = types.SimpleNamespace(
+        n_layer=mcfg.num_layers, n_embd=mcfg.hidden_size,
+        n_head=mcfg.num_attention_heads, vocab_size=mcfg.vocab_size,
+        n_positions=mcfg.max_position_embeddings,
+        layer_norm_epsilon=mcfg.layernorm_epsilon,
+        activation_function="gelu_new")
+    model = GPTModel(mcfg, device="cuda", seed=SEED + 23)
+    stand_in = HFStandIn(hf_cfg)
+    hf_import.params_to_hf_gpt2(model, stand_in)
+    back = hf_import.gpt2_from_hf(stand_in, device="cuda")
+    for name, t in model.state_dict().items():
+        if not torch.equal(back.state_dict()[name], t):
+            raise AssertionError(f"gpt2_import: {name} changed on the trip")
+    cfg = serving_config(SEED)
+    rs = np.random.RandomState(SEED + 23)
+    requests = [(p[:64], 16) for p, _ in
+                make_requests(8, mcfg.vocab_size, rs)]
+    _, want, _ = serve(model, requests, cfg)
+    _kernels.reset_launch_counts()
+    eng, got, wall = serve(back, requests, cfg)
+    launches = _kernels.launch_counts()
+    for a, b in zip(got, want):
+        if a.tokens_out != b.tokens_out or len(a.tokens_out) != 16:
+            raise AssertionError(f"gpt2_import request {a.rid}: "
+                                 f"{a.tokens_out} != {b.tokens_out}")
+    tokens = torch.as_tensor(rs.randint(0, mcfg.vocab_size, (1, 64)))
+    plain = hf_import.gpt2_from_hf(stand_in, device="cpu")
+    with torch.no_grad():
+        lg = back(tokens.cuda()).cpu()
+        lc = plain(tokens)
+    err = float((lg - lc).abs().max())
+    if not torch.isfinite(lg).all() or err > 2e-3:
+        raise AssertionError(f"gpt2_import logits vs plain: {err}")
+    report = {"model": "gpt2-small 12x768 vocab 50257 (random weights, "
+                       "fp32)", "tensors": len(model.state_dict()),
+              "requests": len(got), "tokens_equal": True,
+              "logits_max_abs_err_vs_plain": err, "serve_wall_s": wall,
+              "phase_s": time.perf_counter() - t0, "launches": launches,
+              "gpu": smi}
+    log("gpt2_import " + json.dumps(report))
+    del model, back, plain, stand_in
+    torch.cuda.empty_cache()
+    return launches, report
 
 
 # -- the zero-bubble schedule ------------------------------------------------
@@ -7499,6 +7665,8 @@ def main():
     log_memory("serving")
     paths["serving_fleet"], _ = serving_fleet_phase(smi)
     log_memory("serving_fleet")
+    paths["gpt2_import"], _ = gpt2_import_phase(smi)
+    log_memory("gpt2_import")
     serve_gpt, _ = serve_gpt_phase(smi)
     paths.update(serve_gpt)
     log_memory("serve_gpt")
@@ -7541,6 +7709,8 @@ def main():
     zero_bubble, _ = gpt_pipeline_zero_bubble_phase(smi, world)
     paths.update(zero_bubble)
     log_memory("gpt_pipeline_zero_bubble")
+    paths["gpt_checkpoint_pp"], _ = gpt_checkpoint_pp_phase(
+        smi, world["checkpoint_pp"])
     cp, _ = llama_cp_phase(smi, world["llama_cp"])
     paths.update(cp)
     log_memory("llama_cp")

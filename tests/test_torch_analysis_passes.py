@@ -18,6 +18,8 @@ cpu``.
 
 import collections
 import functools
+import inspect
+import os
 
 import jax
 import jax.numpy as jnp
@@ -35,8 +37,10 @@ from apex_tpu_torch.analysis import passes
 from apex_tpu_torch.analysis.__main__ import gate, main, merge_ranks
 from apex_tpu_torch.analysis.allowlist import repo_allowlist
 from apex_tpu_torch.analysis.findings import Finding
+from apex_tpu_torch.transformer.testing import analysis_workers
 from apex_tpu_torch.transformer.testing.analysis_workers import (
     collective_fixtures_worker,
+    site_probe_worker,
 )
 from apex_tpu_torch.transformer.testing.distributed_test_base import spawn
 
@@ -192,6 +196,29 @@ def test_cli_gate_exits_zero(world):
     rc, report = gate(merge_ranks(r["targets"] for r in world))
     assert rc == 0, report
     assert report.splitlines()[-1].endswith("0 stale entries")
+
+
+def test_sites_survive_a_sys_path_entry_with_dot_dots(monkeypatch):
+    """The JAX examples insert ``<repo>/examples/long_context/../..`` at
+    the head of sys.path when a test loads one; a rank spawned later in
+    that process imports the package through it, and every frame's file
+    keeps the ``..``. The sites must still name the repo's files. Before
+    the repair they were all ``<unknown>``, which no allowlist entry
+    matches: the tiny targets' audit and the CLI gate failed whenever a
+    test loading a JAX example (the context-parallel and MHA files) ran
+    earlier in the same pytest worker."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.syspath_prepend(
+        os.path.join(repo, "examples", "long_context", "..", ".."))
+    (found,) = spawn(site_probe_worker, 1, timeout=120.0)
+    line = inspect.getsourcelines(analysis_workers._promote)[1] + 1
+    assert [f.site for f in found] == [
+        f"apex_tpu_torch/transformer/testing/analysis_workers.py:{line}"]
+    path = os.path.join(passes._REPO_ROOT, "examples", "long_context", "..",
+                        "..", "apex_tpu_torch", "resilience", "replay",
+                        "targets.py")
+    assert passes._frames_site([(path, 280)]) == \
+        "apex_tpu_torch/resilience/replay/targets.py:280"
 
 
 def test_cli_fix_waits_for_autofix(capsys):

@@ -107,7 +107,7 @@ def test_state_classes_are_paths_as_jax_names_fields():
     block = topology_block(state)
     assert [leaf["path"] for leaf in block["leaves"]] == paths
     assert block["mesh"] == live_mesh() == {
-        "axes": {"dp": 1, "tp": 1, "pp": 1}, "devices": 1}
+        "axes": {"dp": 1, "pp": 1, "cp": 1, "tp": 1}, "devices": 1}
 
 
 # -- saves, tears, corruption and retention ----------------------------------

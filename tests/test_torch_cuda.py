@@ -1374,3 +1374,79 @@ def test_host_sync_pass_agrees_with_sync_debug_mode(gen):
     # each wait has its own allowlist entry (its line and method)
     result = repo_allowlist().apply(findings, check_stale=False)
     assert result.findings == [], result.format()
+
+
+def test_zero_bucketed_gather_on_the_card_is_the_whole_shard(gen):
+    """Two ranks on this card over gloo (each bucket's gather staged
+    through host memory and waited on in order): distributed_fused_adam
+    at param_gather_buckets 1, 3 (a padded grid) and None (the rule's
+    depth: 2, gloo crosses no link) gives the same parameters and ZeRO
+    state bit for bit, in fp32 and with bf16 parameters and remainders,
+    and so does distributed_fused_lamb; the first update's ledger holds
+    one all_gather a bucket."""
+    from apex_tpu_torch.transformer.testing.distributed_test_base import (
+        spawn,
+    )
+    from apex_tpu_torch.transformer.testing.parallel_workers import (
+        zero_buckets_worker,
+    )
+
+    rs = np.random.RandomState(11)
+    params = {"w": rs.randn(37, 11).astype(np.float32),
+              "b": rs.randn(5).astype(np.float32)}
+    grads = [{n: rs.randn(2, *v.shape).astype(np.float32)
+              for n, v in params.items()} for _ in range(2)]
+    for remainders, lamb in ((False, False), (True, False), (False, True)):
+        for out in spawn(zero_buckets_worker, 2, args=(
+                params, grads, [1, 3, None], "cuda", remainders, lamb),
+                timeout=180.0):
+            for nb, depth in ((3, 3), (None, 2)):
+                assert len(out[nb]["gathers"]) == depth
+                for key in ("master", "exp_avg", "exp_avg_sq"):
+                    np.testing.assert_array_equal(out[nb][key], out[1][key])
+                for n, v in out[1]["params"].items():
+                    np.testing.assert_array_equal(out[nb]["params"][n], v)
+
+
+class _HFStandIn:
+    """A transformers-model stand-in: a config with GPT2Config's
+    attribute names and a state_dict under transformers' keys (the card's
+    machine has no transformers)."""
+
+    def __init__(self, config):
+        self.config, self.sd = config, {}
+
+    def state_dict(self):
+        return dict(self.sd)
+
+    def load_state_dict(self, sd, strict=False):
+        self.sd.update(sd)
+        return [], []
+
+
+def test_gpt2_export_import_on_the_card_keeps_logits_bit_for_bit(gen):
+    """A GPT-2-shaped model on the card (2 layers, width 64, fp32)
+    exported to transformers' keys and imported back: every tensor and the
+    logits bit for bit, and the imported model's logits (LayerNorm and
+    flash kernels) within 2e-5 of its plain path on the CPU."""
+    import types
+
+    from apex_tpu_torch.models import hf_import as hf
+
+    cfg = types.SimpleNamespace(n_layer=2, n_embd=64, n_head=4,
+                                vocab_size=96, n_positions=64,
+                                layer_norm_epsilon=1e-5,
+                                activation_function="gelu_new")
+    model = GPTModel(hf.config_from_hf_gpt2(cfg), device="cuda", seed=3)
+    stand_in = _HFStandIn(cfg)
+    hf.params_to_hf_gpt2(model, stand_in)
+    back = hf.gpt2_from_hf(stand_in, device="cuda")
+    for name, t in model.state_dict().items():
+        assert torch.equal(back.state_dict()[name], t), name
+    tokens = torch.randint(0, 96, (2, 48), generator=gen, device="cuda")
+    plain = hf.gpt2_from_hf(stand_in, device="cpu")
+    with torch.no_grad():
+        a, b = model(tokens), back(tokens)
+        c = plain(tokens.cpu())
+    assert torch.equal(a, b)
+    torch.testing.assert_close(b.cpu(), c, atol=2e-5, rtol=0)

@@ -254,10 +254,11 @@ def _entries(mod, torch_dtypes):
 
 
 def test_ledger_aggregates_equal_jax(monkeypatch):
-    """Aggregates, records and the banner equal JAX's. JAX's records
-    carry ``ici_seconds`` against a link speed; the port's ranks share a
-    card and talk through the host, so its records leave that field out."""
+    """Aggregates, records and the banner equal JAX's, ``ici_seconds``
+    included: with no link known on either side (the CPU, no override)
+    both records carry None."""
     monkeypatch.delenv("APEX_TPU_ICI_BANDWIDTH", raising=False)
+    monkeypatch.delenv(ledger.LINK_BANDWIDTH_ENV, raising=False)
     ours, theirs = ledger.CommsLedger(), jax_ledger.CommsLedger()
     ours.entries, theirs.entries = _entries(ledger, True), _entries(
         jax_ledger, False)
@@ -273,8 +274,7 @@ def test_ledger_aggregates_equal_jax(monkeypatch):
         return [{k: v for k, v in r.items()
                  if k not in ("t", "host") + drop} for r in recs]
 
-    assert strip(ours.to_records(7)) == strip(
-        theirs.to_records(7), ("ici_seconds",))
+    assert strip(ours.to_records(7)) == strip(theirs.to_records(7))
     ours_lines = ours.summary().splitlines()
     theirs_lines = theirs.summary().splitlines()
     assert len(ours_lines) == len(theirs_lines)
